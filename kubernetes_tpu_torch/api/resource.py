@@ -1,0 +1,84 @@
+"""Resource quantity parsing and arithmetic.
+
+Reference semantics: ``staging/src/k8s.io/apimachinery/pkg/api/resource/quantity.go``
+(type ``Quantity``) — decimal SI suffixes (k, M, G, T, P, E), binary suffixes
+(Ki, Mi, Gi, Ti, Pi, Ei), the milli suffix (m), and scientific notation.
+
+We canonicalize eagerly to integers at parse time (the tensor path wants flat
+numerics, not lazy-formatted decimals): cpu-like resources are held in
+millivalue units, byte-like resources in bytes. ``parse_quantity`` returns a
+float of the *base* value; callers scale cpu by 1000 via ``to_milli``.
+"""
+
+from __future__ import annotations
+
+import re
+from decimal import Decimal
+
+_BINARY = {"Ki": 2**10, "Mi": 2**20, "Gi": 2**30, "Ti": 2**40, "Pi": 2**50, "Ei": 2**60}
+_DECIMAL = {
+    "n": Decimal("1e-9"), "u": Decimal("1e-6"), "m": Decimal("1e-3"), "": Decimal(1),
+    "k": Decimal(10) ** 3, "M": Decimal(10) ** 6, "G": Decimal(10) ** 9,
+    "T": Decimal(10) ** 12, "P": Decimal(10) ** 15, "E": Decimal(10) ** 18,
+}
+
+_QUANTITY_RE = re.compile(
+    r"^([+-]?[0-9]*\.?[0-9]+(?:[eE][+-]?[0-9]+)?)"
+    r"(Ki|Mi|Gi|Ti|Pi|Ei|n|u|m|k|M|G|T|P|E)?$"
+)
+
+
+def parse_decimal(value) -> Decimal:
+    """Parse a Kubernetes-style quantity string (or number) to an exact Decimal.
+
+    Exactness matters: the reference holds quantities int64-scaled; a float
+    round-trip loses precision above 2^53 (e.g. "8Ei"), which would make
+    distinct allocatable values compare equal.
+    """
+    if isinstance(value, bool):
+        raise ValueError(f"invalid quantity: {value!r}")
+    if isinstance(value, (int, float)):
+        return Decimal(str(value))
+    s = str(value).strip()
+    m = _QUANTITY_RE.match(s)
+    if not m:
+        raise ValueError(f"invalid quantity: {value!r}")
+    num, suffix = m.group(1), m.group(2) or ""
+    if suffix in _BINARY:
+        return Decimal(num) * _BINARY[suffix]
+    return Decimal(num) * _DECIMAL[suffix]
+
+
+def parse_quantity(value) -> float:
+    """Parse a Kubernetes-style quantity string (or number) to a float base value.
+
+    >>> parse_quantity("100m")
+    0.1
+    >>> parse_quantity("1Gi")
+    1073741824.0
+    >>> parse_quantity("2")
+    2.0
+    """
+    return float(parse_decimal(value))
+
+
+def to_milli(value) -> int:
+    """Quantity -> integer millivalue (cpu canonical unit). Exact for integers."""
+    return int((parse_decimal(value) * 1000).to_integral_value(rounding="ROUND_HALF_EVEN"))
+
+
+def to_bytes(value) -> int:
+    """Quantity -> integer bytes (memory/storage canonical unit). Exact for integers."""
+    return int(parse_decimal(value).to_integral_value(rounding="ROUND_HALF_EVEN"))
+
+
+# Resource names treated as cpu-like (milli-canonical); everything else is
+# taken at face value (bytes for memory/storage, counts for pods/extended).
+MILLI_RESOURCES = frozenset({"cpu"})
+
+
+def canonical(resource: str, value) -> int:
+    """Canonical integer amount for ``resource`` (milli for cpu, base otherwise)."""
+    if resource in MILLI_RESOURCES:
+        return to_milli(value)
+    return to_bytes(value)
