@@ -49,15 +49,19 @@ def evaluate(ct: ClusterTensors, pb: PodBatch, seed: int = 0,
         return enabled_filters is None or name in enabled_filters
 
     feasible = run_filters(ct, pb, enabled=enabled_filters)
+    # the spread mask and the spread score count the same selectors: once
+    spread_cnt = (topology.spread_count_pn(ct, pb)
+                  if pb.sc_valid.shape[1] > 0 else None)
     if _on("PodTopologySpread"):
-        feasible &= topology.spread_mask(ct, pb, topo_keys)
+        feasible &= topology.spread_mask(ct, pb, topo_keys, cnt_pn=spread_cnt)
     if _on("InterPodAffinity"):
         feasible &= topology.interpod_required_mask(ct, pb, topo_keys)
         feasible &= topology.interpod_symmetry_mask(ct, pb, topo_keys)
     extra = {}
     if pb.sc_valid.shape[1] > 0:
         extra["PodTopologySpread"] = (
-            topology.spread_score_raw(ct, pb, topo_keys), "default_reverse",
+            topology.spread_score_raw(ct, pb, topo_keys, cnt_pn=spread_cnt),
+            "default_reverse",
             torch.any(pb.sc_valid & ~pb.sc_hard, dim=1))
     if pb.paff_valid.shape[1] > 0:
         extra["InterPodAffinity"] = (

@@ -28,9 +28,12 @@ minimum is 0 (filtering.go minMatchNum).
 
 from __future__ import annotations
 
+import array
 import contextlib
 import ctypes
+import functools
 import os
+from dataclasses import dataclass
 
 import torch
 
@@ -120,69 +123,177 @@ def _count_pn_plain(ct: ClusterTensors, sel, pod_ns, ns_explicit=None,
     return _count_einsum("ept,en->ptn", match_ept, onehot)   # [P,T,N]
 
 
-def _checked(name, t, dtype, shape):
+# Launch geometry of csrc/count_pn.cu, computed here so that the CPU tests
+# can check it: a block owns ``pt_tile`` selectors and ``node_range`` nodes
+# and keeps their counters in shared memory.
+SMEM_PER_BLOCK = 232_448      # bytes of shared memory one Hopper block may use
+GRID_X_MAX = 2**31 - 1
+PT_TILES = (1, 2, 4, 8)       # the selector tiles count_pn.cu is built for
+_SMS = 132                    # streaming multiprocessors of an H100
+# The fastest geometry of ``chip_smoke.py --sweep`` at the path's shapes
+# (every count_pn row of its kernels phase); count_pn_geometry starts here.
+_PT_TILE, _NODE_RANGE, _THREADS = 2, 8192, 512
+
+
+def _align16(n: int) -> int:
+    return (n + 15) & ~15
+
+
+def _smem_layout(pt_tile, node_range, X, V, NSB) -> int:
+    """Dynamic shared-memory bytes of one block, region by region as
+    count_pn.cu ``smem_layout`` lays them out (the launcher refuses a
+    size that disagrees): counters, key, op, id sets, own namespace,
+    validity, explicit flag, ns_mask."""
+    regions = (pt_tile * node_range * 4,
+               pt_tile * X * 4, pt_tile * X * 4, pt_tile * X * V * 4,
+               pt_tile * 4, pt_tile, pt_tile, pt_tile * NSB)
+    total = 0
+    for size in regions:
+        total = _align16(total + size)
+    return total
+
+
+@dataclass(frozen=True)
+class CountPnGeometry:
+    PT: int
+    N: int
+    pt_tile: int          # selectors per block, one of PT_TILES
+    node_range: int       # nodes per block, a multiple of 4
+    threads: int          # threads per block, a multiple of 32 up to 512
+    smem_bytes: int       # dynamic shared memory per block
+
+    @property
+    def pt_tiles(self) -> int:
+        return -(-self.PT // self.pt_tile)
+
+    @property
+    def n_ranges(self) -> int:
+        return -(-self.N // self.node_range)
+
+    @property
+    def blocks(self) -> int:
+        return self.pt_tiles * self.n_ranges
+
+    def block_slice(self, b: int) -> tuple[int, int, int, int]:
+        """(pt0, pt1, n0, n1): the selectors and nodes block ``b`` writes,
+        derived from ``b`` as the kernel derives them."""
+        pt0 = (b // self.n_ranges) * self.pt_tile
+        n0 = (b % self.n_ranges) * self.node_range
+        return (pt0, min(pt0 + self.pt_tile, self.PT),
+                n0, min(n0 + self.node_range, self.N))
+
+
+@functools.lru_cache(maxsize=256)
+def count_pn_geometry(PT: int, N: int, X: int, V: int,
+                      NSB: int) -> CountPnGeometry:
+    """The launch geometry for cnt [PT, N]. From _PT_TILE, _NODE_RANGE and
+    _THREADS: ``pt_tile`` is cut to PT and ``node_range`` to N, then
+    ``node_range`` is halved (then ``pt_tile``) while a block's shared
+    memory would exceed SMEM_PER_BLOCK, and ``pt_tile`` is halved while
+    the grid would leave SMs idle. Raises ValueError when one selector's
+    staging alone does not fit or the grid exceeds its limit."""
+    pt_tile = next(p for p in PT_TILES if p >= min(_PT_TILE, PT))
+    node_range = min(_NODE_RANGE, -(-N // 4) * 4)
+    while _smem_layout(pt_tile, node_range, X, V, NSB) > SMEM_PER_BLOCK:
+        if node_range > 256:
+            node_range = max(4, -(-(node_range // 2) // 4) * 4)
+        elif pt_tile > 1:
+            pt_tile //= 2
+        else:
+            raise ValueError(
+                f"count_pn: one selector (X={X}, V={V}, NSB={NSB}) does not "
+                f"fit a block's {SMEM_PER_BLOCK} bytes of shared memory")
+
+    def geometry():
+        return CountPnGeometry(PT, N, pt_tile, node_range, _THREADS,
+                               _smem_layout(pt_tile, node_range, X, V, NSB))
+
+    while pt_tile > 1 and geometry().blocks < _SMS:
+        pt_tile //= 2
+    g = geometry()
+    if g.blocks > GRID_X_MAX:
+        raise ValueError(f"count_pn: {g.blocks} blocks exceed the grid")
+    return g
+
+
+_INPUTS = ("epod_labels", "epod_node", "epod_ns", "epod_valid", "key", "op",
+           "vals", "expr_valid", "valid", "pod_ns", "ns_explicit", "ns_mask")
+_DTYPES = (torch.int32, torch.int32, torch.int32, torch.bool, torch.int32,
+           torch.int32, torch.int32, torch.bool, torch.bool, torch.int32,
+           torch.bool, torch.bool)
+# count_pn.cu ``Args``: the input pointers in _INPUTS order, then these
+_N_ARGS = len(_INPUTS) + 16   # cnt, stream, E, K, PT, T, X, V, NSB, N,
+                              # pt_tile, node_range, n_ranges, blocks,
+                              # threads, smem_bytes
+
+
+def _refuse(name, t, dtype, shape, dev):
     if t.dtype != dtype or tuple(t.shape) != tuple(shape):
-        raise ValueError(f"count_pn: {name} is {t.dtype} {tuple(t.shape)}, "
-                         f"expected {dtype} {tuple(shape)}")
-    if not t.is_cuda:
-        raise ValueError(f"count_pn: {name} is on {t.device}, not on the card")
-    if not t.is_contiguous():
-        raise ValueError(f"count_pn: {name} is not contiguous")
-    return ctypes.c_void_p(t.data_ptr())
-
-
-_P = ctypes.c_void_p
-_I = ctypes.c_int
-_ARGTYPES = [_P, _P, _P, _P, _I, _I,          # epod labels/node/ns/valid, E, K
-             _P, _P, _P, _P, _P,              # key, op, vals, expr_valid, valid
-             _I, _I, _I, _I,                  # PT, T, X, V
-             _P, _P, _P, _I,                  # pod_ns, ns_explicit, ns_mask, NSB
-             _P, _I, _P]                      # cnt, N, stream
+        why = f"is {t.dtype} {tuple(t.shape)}, expected {dtype} {tuple(shape)}"
+    elif not t.is_cuda:
+        why = f"is on {t.device}, not on the card"
+    elif t.get_device() != dev:
+        why = f"is on {t.device}, the other inputs on cuda:{dev}"
+    else:
+        why = "is not contiguous"
+    raise ValueError(f"count_pn: {name} {why}")
 
 
 def _count_pn_fn():
     fn = kernels.library("count_pn").count_pn_launch
     if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_int]
         fn.restype = ctypes.c_int
     return fn
 
 
-def count_pn(ct: ClusterTensors, sel, pod_ns, ns_explicit=None, ns_mask=None):
+def count_pn(ct: ClusterTensors, sel, pod_ns, ns_explicit=None, ns_mask=None,
+             geometry: CountPnGeometry | None = None):
     """cnt_pn [P,T,N] f32 through the CUDA kernel ``csrc/count_pn.cu``.
-    Takes tensors on the card only; raises on anything the kernel does not
-    take, and when the launch fails."""
-    E, K = ct.epod_labels.shape
+    Takes tensors on one card only; raises on anything the kernel does not
+    take, and when the launch fails. ``geometry`` overrides the default
+    launch geometry (for tuning); its PT and N must be this call's."""
+    labels = ct.epod_labels
+    E, K = labels.shape
     P, T, X = sel.key.shape
     V = sel.vals.shape[3]
     N = ct.node_valid.shape[0]
-    i32, b8 = torch.int32, torch.bool
-    args = [_checked("epod_labels", ct.epod_labels, i32, (E, K)),
-            _checked("epod_node", ct.epod_node, i32, (E,)),
-            _checked("epod_ns", ct.epod_ns, i32, (E,)),
-            _checked("epod_valid", ct.epod_valid, b8, (E,)),
-            E, K,
-            _checked("key", sel.key, i32, (P, T, X)),
-            _checked("op", sel.op, i32, (P, T, X)),
-            _checked("vals", sel.vals, i32, (P, T, X, V)),
-            _checked("expr_valid", sel.expr_valid, b8, (P, T, X)),
-            _checked("valid", sel.valid, b8, (P, T)),
-            P * T, T, X, V,
-            _checked("pod_ns", pod_ns, i32, (P,))]
-    if ns_explicit is None:
-        args += [None, None, 0]
-    else:
+    tensors = (labels, ct.epod_node, ct.epod_ns, ct.epod_valid, sel.key,
+               sel.op, sel.vals, sel.expr_valid, sel.valid, pod_ns)
+    shapes = ((E, K), (E,), (E,), (E,), (P, T, X), (P, T, X), (P, T, X, V),
+              (P, T, X), (P, T), (P,))
+    NSB = 0
+    if ns_explicit is not None:
         NSB = ns_mask.shape[2]
-        args += [_checked("ns_explicit", ns_explicit, b8, (P, T)),
-                 _checked("ns_mask", ns_mask, b8, (P, T, NSB)), NSB]
-    cnt = torch.zeros((P, T, N), dtype=torch.float32, device=ct.epod_node.device)
-    if E * P * T * N == 0:
+        tensors += (ns_explicit, ns_mask)
+        shapes += ((P, T), (P, T, NSB))
+    dev = labels.get_device()
+    for name, t, dtype, shape in zip(_INPUTS, tensors, _DTYPES, shapes):
+        if (t.dtype != dtype or t.shape != shape or t.get_device() != dev
+                or not t.is_contiguous()):
+            _refuse(name, t, dtype, shape, dev)
+    if dev < 0:
+        _refuse("epod_labels", labels, torch.int32, (E, K), dev)
+    cnt = torch.empty((P, T, N), dtype=torch.float32, device=labels.device)
+    PT = P * T
+    if PT * N == 0:
         return cnt
-    fn = _count_pn_fn()
-    stream = torch.cuda.current_stream(cnt.device).cuda_stream
-    err = fn(*args, ctypes.c_void_p(cnt.data_ptr()), N, ctypes.c_void_p(stream))
+    g = geometry or count_pn_geometry(PT, N, X, V, NSB)
+    if (g.PT, g.N) != (PT, N):
+        raise ValueError(f"count_pn: geometry for {(g.PT, g.N)}, "
+                         f"called with {(PT, N)}")
+    args = array.array("q", [t.data_ptr() for t in tensors])
+    if ns_explicit is None:
+        args.extend((0, 0))
+    args.extend((cnt.data_ptr(), torch._C._cuda_getCurrentRawStream(dev),
+                 E, K, PT, T, X, V, NSB, N, g.pt_tile, g.node_range,
+                 g.n_ranges, g.blocks, g.threads, g.smem_bytes))
+    err = _count_pn_fn()(args.buffer_info()[0], _N_ARGS)
     if err != 0:
-        raise RuntimeError(f"count_pn launch failed: CUDA error {err}")
+        raise RuntimeError(
+            "count_pn launch failed: " + ("geometry disagrees with the "
+            "kernel's shared-memory layout" if err == -1
+            else f"CUDA error {err}"))
     kernels.LAUNCHES["count_pn"] += 1
     return cnt
 
@@ -291,14 +402,23 @@ def _diag_self_match(sel, pod_labels):
     return m[ar, ar, :]
 
 
-def spread_mask(ct: ClusterTensors, pb: PodBatch, topo_keys: tuple[int, ...] = ()):
+def spread_count_pn(ct: ClusterTensors, pb: PodBatch):
+    """cnt_pn [P,S,N] of the spread constraints' selectors, the count that
+    ``spread_mask`` and ``spread_score_raw`` both start from."""
+    return _count_pn(ct, pb.sc_sel, pb.pod_ns)
+
+
+def spread_mask(ct: ClusterTensors, pb: PodBatch, topo_keys: tuple[int, ...] = (),
+                cnt_pn=None):
     """DoNotSchedule constraints: count(domain) + self - min(domain counts)
-    must not exceed maxSkew; nodes lacking the topology key are infeasible."""
+    must not exceed maxSkew; nodes lacking the topology key are infeasible.
+    ``cnt_pn``: ``spread_count_pn(ct, pb)`` when the caller already has it."""
     if pb.sc_valid.shape[1] == 0:
         return torch.ones(tuple(pb.pod_valid.shape) + tuple(ct.node_valid.shape),
                           dtype=torch.bool, device=ct.node_valid.device)
     pol = _spread_policy_elig(ct, pb)                         # [P,S,N]
-    cnt_pn = _count_pn(ct, pb.sc_sel, pb.pod_ns)              # [P,S,N]
+    if cnt_pn is None:
+        cnt_pn = spread_count_pn(ct, pb)                      # [P,S,N]
     cnt, has_key, num_dom = _domain_counts(
         ct, cnt_pn, pb.sc_topo, topo_keys, elig=pol, want_domains=True)
     # does the pod match its own constraint selector? (it lands in the domain)
@@ -318,14 +438,17 @@ def spread_mask(ct: ClusterTensors, pb: PodBatch, topo_keys: tuple[int, ...] = (
     return torch.all(ok | ~active, dim=1)                     # [P,N]
 
 
-def spread_score_raw(ct: ClusterTensors, pb: PodBatch, topo_keys: tuple[int, ...] = ()):
+def spread_score_raw(ct: ClusterTensors, pb: PodBatch, topo_keys: tuple[int, ...] = (),
+                     cnt_pn=None):
     """ScheduleAnyway constraints: raw = sum of matching counts in the node's
-    domain (fewer is better; reverse-normalized by the caller)."""
+    domain (fewer is better; reverse-normalized by the caller). ``cnt_pn``:
+    ``spread_count_pn(ct, pb)`` when the caller already has it."""
     P, N = pb.pod_valid.shape[0], ct.node_valid.shape[0]
     if pb.sc_valid.shape[1] == 0:
         return torch.zeros((P, N), dtype=torch.float32, device=ct.node_valid.device)
     pol = _spread_policy_elig(ct, pb)
-    cnt_pn = _count_pn(ct, pb.sc_sel, pb.pod_ns)
+    if cnt_pn is None:
+        cnt_pn = spread_count_pn(ct, pb)
     cnt, has_key, _ = _domain_counts(ct, cnt_pn, pb.sc_topo, topo_keys,
                                      elig=pol)
     active = (pb.sc_valid & ~pb.sc_hard)[..., None]

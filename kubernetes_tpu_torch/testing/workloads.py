@@ -1,6 +1,7 @@
 """Workload generators for the port: MixedHeterogeneous, copied from
 ``benchmarks/workloads.py`` so the port builds it without the JAX package,
-and ``relational_mix``, the parity tests' small cluster.
+``relational_mix``, the parity tests' small cluster, and
+``required_terms_mix``, its cluster under wide required pod (anti-)affinity.
 
 Deterministic via seed: all randomness comes from its own
 ``random.Random(seed)``, so the same (params, seed) yields the same objects
@@ -11,7 +12,8 @@ from __future__ import annotations
 
 import random
 
-from kubernetes_tpu_torch.api.types import Requirement
+from kubernetes_tpu_torch.api.types import (LabelSelector, PodAffinityTerm,
+                                            Requirement)
 from kubernetes_tpu_torch.testing.wrappers import make_node, make_pod
 
 ZONES = [f"zone-{i}" for i in range(10)]
@@ -151,5 +153,55 @@ def relational_mix(pods: int = 48, nodes: int = 24, bound: int = 24,
             w.image(rng.choice(["registry/app:v1", "registry/db:v2"]))
         elif kind == 13:
             w.node(f"node-{rng.randrange(nodes)}")
+        out_pending.append(w.obj())
+    return out_nodes, out_bound, out_pending, ns_labels
+
+
+def required_terms_mix(pods: int = 256, nodes: int = 5000, bound: int = 2000,
+                       seed: int = 0):
+    """``relational_mix``'s nodes and bound pods, with pending pods whose
+    required pod affinity and anti-affinity have several terms, each with
+    several expressions (In / NotIn / Exists / DoesNotExist, id sets of
+    several values) and namespace sets (own, listed or selected), so
+    the relational count runs at T, X, V > 1. Every term shape appears
+    whatever the seed. -> (nodes, bound pods, pending pods, namespace
+    labels)."""
+    out_nodes, out_bound, _, ns_labels = relational_mix(
+        pods=0, nodes=nodes, bound=bound, seed=seed)
+    rng = random.Random(seed)
+    zone, host = "topology.kubernetes.io/zone", "kubernetes.io/hostname"
+
+    def term(topo, exprs, labels=None, namespaces=(), ns_selector=None):
+        return PodAffinityTerm(
+            topology_key=topo,
+            label_selector=LabelSelector(match_labels=dict(labels or {}),
+                                         match_expressions=list(exprs)),
+            namespaces=list(namespaces),
+            namespace_selector=(None if ns_selector is None
+                                else LabelSelector(match_labels=ns_selector)))
+
+    apps = ["a", "b", "c", "d"]
+    out_pending = []
+    for i in range(pods):
+        w = (make_pod(f"req-{i}", namespace="other" if i % 3 == 2
+                      else "default")
+             .label("app", apps[i % 4])
+             .req({"cpu": rng.choice(["100m", "500m"]), "memory": "128Mi"}))
+        aff = w._pod_affinity_target(anti=False).required
+        anti = w._pod_affinity_target(anti=True).required
+        aff.append(term(zone, [Requirement("app", "In", ["a", "b", "c"]),
+                               Requirement("app", "NotIn", ["d"])],
+                        namespaces=["default", "other"]))
+        if i % 2 == 0:
+            aff.append(term(host, [Requirement("app", "Exists")],
+                            labels={"app": apps[(i + 1) % 4]}))
+        anti.append(term(host, [Requirement("app", "In", ["c", "d", "x"]),
+                                Requirement("tier", "DoesNotExist"),
+                                Requirement("app", "NotIn", ["a"])],
+                         namespaces=["other"]))
+        if i % 4 < 2:
+            anti.append(term(zone, [Requirement("app", "In",
+                                                [apps[i % 4], "z"])],
+                             ns_selector={"team": "core"}))
         out_pending.append(w.obj())
     return out_nodes, out_bound, out_pending, ns_labels
