@@ -19,7 +19,10 @@ Phases, one JSON line each:
            replayed: the kernel without its Python wrapper), plain_ms,
            library_ms and the bound
   parity   a small cluster through the engine on the card and on the CPU
-           (the plain versions): the assignments must be equal
+           (the plain versions): the assignments must be equal; and the
+           resident drain with Recreate churn over a small relational_mix
+           cluster on both: assignments, new_fill and the folded
+           epod_valid/epod_node equal after every cycle
   path     the sidecar engine in process: PushSnapshot of a 5000-node
            MixedHeterogeneous cluster with 2000 bound pods, then 8 Schedule
            requests of 256 pending pods, each followed by the PushDelta that
@@ -27,12 +30,29 @@ Phases, one JSON line each:
   profile  one more Schedule request of 256 pods on the path's engine under
            torch.profiler (CPU and CUDA): the device operations with the
            most time, and the device's busy share of the request
+  drain    MixedHeterogeneous/10000Pods5000Nodes as scheduler_perf's
+           run_workload runs it: encode, batches of 1024, prepare_drain,
+           a warm-up gang_drain, the measured gang_drain (scheduled, rounds
+           per batch, encode/warm-up/measured seconds, pods/s, launches);
+           the placements are checked and 90% must be placed
+  kernels.drain  count_pn at the drain's shape (PT = 1024, E = 10240,
+           N = 8192: the last batch's spread terms) against its plain
+           version, with the same times as the kernels phase
+  resident the connected steady state (testing/resident.py): a
+           SchedulerCache of the path's cluster, a context armed with
+           8 x 256, then 8 cycles of Recreate churn + one fused drain_step
+           of 8 x 256 pending pods (ms, placed, patch compiled, rebuilds,
+           fill_host, top); after every cycle the folded requested and
+           valid epod slots equal a host recount; 0 rebuilds
+  profile.drain  one more resident cycle under torch.profiler: the
+           device's busy share of the drain_step and the top operations
 
-Then the kernel table line ({"kernels": [...]}, launches counted in the path
-phase only), the card's name and power limit, and last
-{"ok": true, "device": {...}}. Any failed phase exits non-zero before the
-last line. Without a CUDA card the script exits non-zero and prints no
-result.
+Each path (path, drain, resident) is driven with the launch counts set to
+0 just before it and read just after. Then the kernel table line
+({"kernels": [...]}, launches summed over the paths), the card's name and
+power limit, and last {"ok": true, "device": {...}}. Any failed phase
+exits non-zero before the last line. Without a CUDA card the script exits
+non-zero and prints no result.
 
 ``python3 chip_smoke.py --sweep`` instead times count_pn's launch geometries
 (selectors per block, nodes per block, threads) at the kernels phase's
@@ -501,6 +521,282 @@ def profile_phase(eng, batch, gen):
             **summary, "trace": os.path.relpath(trace_path)}
 
 
+# ------------------------------------------------------------------ drain
+
+DRAIN_PODS = 10000
+DRAIN_BATCH = 1024   # scheduler_perf.run_workload's batch
+
+
+def drain_workload(pods=DRAIN_PODS, nodes=N_NODES, seed=SEED):
+    """MixedHeterogeneous/10000Pods5000Nodes as ``run_workload`` builds
+    it: no bound pods, every pod measured. -> (nodes, pods)."""
+    from kubernetes_tpu_torch.testing.workloads import mixed_heterogeneous
+    return mixed_heterogeneous(pods=pods, nodes=nodes, seed=seed)
+
+
+def drain_phase(nodes, pods, batch=DRAIN_BATCH, device=None):
+    """The non-resident drain as ``benchmarks/scheduler_perf.py``'s
+    ``run_workload`` runs it: encode (pending slots off), batches of
+    ``batch``, ``prepare_drain`` (counted as encode time), one warm-up
+    ``gang_drain``, then the measured one, whose launches are counted.
+    The placements are checked like the path's."""
+    import numpy as np
+    from kubernetes_tpu_torch.encode.snapshot import SnapshotEncoder
+    from kubernetes_tpu_torch.models.gang import gang_drain, prepare_drain
+    from kubernetes_tpu_torch.ops import kernels
+    enc = SnapshotEncoder()
+    t0 = time.perf_counter()
+    ct, meta = enc.encode_cluster(nodes, [], pending_pods=pods,
+                                  pending_slots=False)
+    chunks = [pods[i:i + batch] for i in range(0, len(pods), batch)]
+    pbs = [enc.encode_pods(c, meta) for c in chunks]
+    plan = prepare_drain(ct, pbs, device=device)
+    encode_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    gang_drain(topo_keys=meta.topo_keys, prepared=plan)
+    warmup_s = time.perf_counter() - t0
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    assignments, rounds, requested = gang_drain(topo_keys=meta.topo_keys,
+                                                prepared=plan)
+    measured_s = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    check(np.isfinite(requested).all() and requested.shape == (
+        ct.allocatable.shape[0], len(meta.resources)),
+        "drain: requested is not [N,R]")
+    placed = []
+    for b, chunk in enumerate(chunks):
+        for pod, a in zip(chunk, assignments[b][:len(chunk)]):
+            if a >= 0:
+                d = pod.to_dict()
+                d["spec"]["nodeName"] = meta.node_names[int(a)]
+                placed.append(d)
+    check_placements([n.to_dict() for n in nodes], [], placed, len(pods))
+    return {"pods": len(pods), "nodes": len(nodes), "batches": len(chunks),
+            "batch": batch, "scheduled": len(placed),
+            "rounds": [int(r) for r in rounds], "encode_s": encode_s,
+            "warmup_s": warmup_s, "measured_s": measured_s,
+            "pods_per_s": len(placed) / measured_s, "launches": launches,
+            "plan": plan, "assignments": assignments, "meta": meta}
+
+
+def drain_count_case(drain):
+    """count_pn's inputs as the drain's last batch meets them in its first
+    round: the spread terms of that batch over the existing-pod tensors
+    with every earlier batch's committed pods valid (PT = 1024·T,
+    E = e0 + 10·1024, N = 8192)."""
+    import torch
+    ct_all, pb_stack, e0 = drain["plan"]
+    B, P = pb_stack.pod_valid.shape
+    a = torch.as_tensor(drain["assignments"], device=ct_all.epod_node.device)
+    node = ct_all.epod_node.clone()
+    valid = ct_all.epod_valid.clone()
+    node[e0:] = a.reshape(-1)
+    valid[e0:e0 + (B - 1) * P] = a[:B - 1].reshape(-1) >= 0
+    ct = ct_all.replace(epod_node=node, epod_valid=valid)
+    last = pb_stack.sc_sel.replace(**{
+        f: getattr(pb_stack.sc_sel, f)[B - 1]
+        for f in ("key", "op", "vals", "expr_valid", "valid")})
+    return {"drain_spread": (ct, (last, pb_stack.pod_ns[B - 1], None, None))}
+
+
+# ------------------------------------------------------------------ resident
+
+RESIDENT_B = 8       # SchedulerConfiguration.max_drain_batches default
+RESIDENT_P = BATCH   # SchedulerConfiguration.batch_size default
+RESIDENT_CYCLES = 8
+
+
+def resident_workload(n_nodes=N_NODES, n_bound=N_BOUND,
+                      cycles=RESIDENT_CYCLES, per_cycle=RESIDENT_B * RESIDENT_P,
+                      seed=SEED):
+    """-> (node dicts, bound pod dicts, [pending pods per cycle]): the path
+    phase's cluster, and one drain's worth of pending pods for the arming
+    sample, each cycle and the profiled cycle."""
+    node_dicts, bound, batches = workload(
+        n_nodes=n_nodes, n_bound=n_bound, n_requests=cycles + 2,
+        batch=per_cycle, seed=seed)
+    return node_dicts, bound, batches
+
+
+def _churn(cache, i, live_nodes, live_pods):
+    """scheduler_perf's Recreate churn (``benchmarks/connected.py``
+    ``_churn_loop``): a 2-cpu node and a foreign pod bound to it; past 3
+    live, the oldest node and the oldest pod go."""
+    from kubernetes_tpu_torch.testing.wrappers import make_node, make_pod
+    cache.add_node(make_node(f"churn-n{i}").capacity(
+        {"cpu": "2", "memory": "4Gi", "pods": "8"}).obj())
+    live_nodes.append(f"churn-n{i}")
+    cache.add_pod(make_pod(f"churn-p{i}", "churn").req({"cpu": "100m"})
+                  .node(f"churn-n{i}").obj())
+    live_pods.append(f"churn/churn-p{i}")
+    if len(live_nodes) > 3:
+        cache.remove_node(live_nodes.pop(0))
+    if len(live_pods) > 3:
+        cache.remove_pod(live_pods.pop(0))
+
+
+def recount(drv):
+    """The resident context against a host recount from the cache: on every
+    live node's row, ``requested`` equals the summed requests of the
+    cache's bound and assumed pods there and the valid epod slots equal
+    their number; every valid slot is one the patch state knows."""
+    import numpy as np
+    ctx, cache = drv.ctx, drv.cache
+    cs = ctx["cs"]
+    live = {n.metadata.name for n in cache.list_nodes()}
+    rows = {name: cs.node_index[name] for name in live}
+    want = np.zeros((ctx["ct"].requested.shape[0], len(cs.resources)),
+                    np.int64)
+    count = np.zeros(want.shape[0], np.int64)
+    for p in cache.bound_pods():
+        row = rows.get(p.spec.node_name)
+        if row is not None:
+            want[row] += cache.request_vector(p, cs.resources)
+            count[row] += 1
+    idx = np.array(sorted(rows.values()))
+    requested = ctx["ct"].requested.cpu().numpy()
+    valid = ctx["ct"].epod_valid.cpu().numpy()
+    node = ctx["ct"].epod_node.cpu().numpy()
+    got_count = np.bincount(node[valid], minlength=want.shape[0])
+    check(np.array_equal(requested[idx], want[idx]),
+          "resident: folded requested differs from the host recount")
+    check(np.array_equal(got_count[idx], count[idx]),
+          "resident: valid epod slots differ from the host recount")
+    check(int(valid.sum()) == len(cs.slot_of),
+          "resident: valid epod slots differ from the patch state's")
+    return int(count[idx].sum())
+
+
+def resident_phase(node_dicts, bound, pending, device=None, B=RESIDENT_B,
+                   P=RESIDENT_P, cycles=RESIDENT_CYCLES):
+    """The connected steady state through testing/resident.py: a
+    SchedulerCache of the path's cluster, a context armed with B x P, then
+    ``cycles`` cycles of Recreate churn + one fused drain_step of B x P
+    pending pods each, every one checked against a host recount. 0
+    rebuilds after the arming build, and a compiled patch in every
+    cycle. -> (summary, harness, churn state)."""
+    from kubernetes_tpu_torch.api.types import Node, Pod
+    from kubernetes_tpu_torch.ops import kernels
+    from kubernetes_tpu_torch.sched.cache import SchedulerCache
+    from kubernetes_tpu_torch.testing.resident import ResidentDrain
+    cache = SchedulerCache()
+    for d in node_dicts:
+        cache.add_node(Node.from_dict(d))
+    for d in bound:
+        cache.add_pod(Pod.from_dict(d))
+    drv = ResidentDrain(cache, batch_size=P, max_drain_batches=B,
+                        slot_headroom=(cycles + 1) * B * P + 64,
+                        device=device)
+    t0 = time.perf_counter()
+    drv.arm([Pod.from_dict(d) for d in pending[0]])
+    arm_s = time.perf_counter() - t0
+    churn = ([], [])
+    rows = []
+    kernels.reset_launches()
+    for i in range(cycles):
+        _churn(cache, i, *churn)
+        out = drv.cycle([Pod.from_dict(d) for d in pending[i + 1]])
+        cs = drv.ctx["cs"]
+        row = {"cycle": i, "ms": out.ms, "drain_ms": out.drain_ms,
+               "pods": len(pending[i + 1]), "placed": len(out.placed),
+               "rounds": out.rounds, "patch": out.patched,
+               "rebuilds": drv.stats["rebuilds"], "fill_host": cs.fill_host,
+               "top": cs.top, "recounted_pods": recount(drv)}
+        emit({"phase": "resident.cycle", **row})
+        rows.append(row)
+        check(out.patched, f"resident: cycle {i} compiled no patch")
+        check(drv.stats["rebuilds"] == 0,
+              f"resident: the context rebuilt at cycle {i}: "
+              f"{drv.stats['reasons']}")
+    launches = dict(kernels.LAUNCHES)
+    for name, n in launches.items():
+        check(n > 0, f"kernel {name} was never launched in the resident "
+                     f"cycles")
+    placed = sum(r["placed"] for r in rows)
+    pods = sum(r["pods"] for r in rows)
+    check(placed >= 0.9 * pods, f"resident: only {placed} of {pods} placed")
+    return ({"nodes": len(node_dicts), "bound": len(bound), "B": B, "P": P,
+             "cycles": cycles, "arm_s": arm_s, "placed": placed,
+             "pods": pods, "rebuilds": drv.stats["rebuilds"],
+             "folds": drv.stats["folds"], "launches": launches,
+             "e0": drv.ctx["e0"]}, drv, churn)
+
+
+def drain_parity_phase(seed=SEED):
+    """The resident drain with churn on a small relational_mix cluster, on
+    the card and on the CPU: each cycle's assignments, new_fill and the
+    folded epod_valid/epod_node must be equal."""
+    from kubernetes_tpu_torch.api.types import Node, Pod
+    from kubernetes_tpu_torch.sched.cache import SchedulerCache
+    from kubernetes_tpu_torch.testing.resident import ResidentDrain
+    from kubernetes_tpu_torch.testing.workloads import relational_mix
+    nodes, bound, pending, ns_labels = relational_mix(pods=4 * 32 + 16,
+                                                      nodes=32, seed=seed)
+    runs = []
+    for device in ("cuda", "cpu"):
+        cache = SchedulerCache()
+        for name, labels in ns_labels.items():
+            cache.update_namespace({"metadata": {"name": name,
+                                                 "labels": labels}})
+        for n in nodes:
+            cache.add_node(Node.from_dict(n.to_dict()))
+        for p in bound:
+            cache.add_pod(Pod.from_dict(p.to_dict()))
+        drv = ResidentDrain(cache, batch_size=16, max_drain_batches=2,
+                            slot_headroom=4 * 32 + 64, device=device)
+        pods = [Pod.from_dict(p.to_dict()) for p in pending]
+        drv.arm(pods[:32])
+        churn, log = ([], []), []
+        for i in range(4):
+            _churn(cache, i, *churn)
+            out = drv.cycle(pods[16 + 32 * i:16 + 32 * (i + 1)])
+            ct = drv.ctx["ct"]
+            log.append((out.placed, out.rounds, int(drv.ctx["fill_dev"]),
+                        out.patched, ct.epod_valid.cpu().tolist(),
+                        ct.epod_node.cpu().tolist()))
+        runs.append(log)
+    check(runs[0] == runs[1],
+          "drain parity: the card's resident drain differs from the CPU's")
+    return {"cycles": len(runs[0]), "placed": [len(c[0]) for c in runs[0]],
+            "fill": [c[2] for c in runs[0]],
+            "patched": [c[3] for c in runs[0]]}
+
+
+def profile_drain_phase(drv, churn, pods, i):
+    """One more resident cycle (churn, fused patch, drain_step of B x P)
+    under torch.profiler: the device's busy share of the drain and of the
+    cycle, and ``trace_summary`` of the trace (kept under build/profile/)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from kubernetes_tpu_torch.api.types import Pod
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build", "profile")
+    os.makedirs(out_dir, exist_ok=True)
+    trace_path = os.path.join(out_dir, "resident_drain.json")
+    pods = [Pod.from_dict(d) for d in pods]
+    _churn(drv.cache, i, *churn)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = drv.cycle(pods)
+        torch.cuda.synchronize()
+    check(out.patched and not out.rebuilt,
+          "profiled resident cycle: no fused patch, or a rebuild")
+    prof.export_chrome_trace(trace_path)
+    with open(trace_path) as f:
+        summary = trace_summary(json.load(f)["traceEvents"])
+    check(summary["device_ops"] > 0,
+          "profiled resident cycle: the trace holds no device time")
+    return {"pods": len(pods), "placed": len(out.placed),
+            "rounds": out.rounds, "cycle_ms": out.ms,
+            "drain_ms": out.drain_ms,
+            "device_busy_share_of_drain":
+                summary["device_busy_ms"] / out.drain_ms,
+            "device_busy_share_of_cycle": summary["device_busy_ms"] / out.ms,
+            **summary, "trace": os.path.relpath(trace_path)}
+
+
 # ------------------------------------------------------------------ main
 
 def main() -> int:
@@ -541,7 +837,10 @@ def main() -> int:
     emit({"phase": "kernels", "rows": rows,
           "launches_while_comparing": dict(kernels.LAUNCHES)})
 
-    emit({"phase": "parity", **parity_phase()})
+    emit({"phase": "parity", **parity_phase(),
+          "drain": drain_parity_phase()})
+
+    launches = {}   # kernel -> {path: launches}
 
     path = path_phase(node_dicts, bound, batches)
     rounds = sum(r["rounds"] for r in path["requests"])
@@ -551,16 +850,40 @@ def main() -> int:
           "launches_per_round": {k: n / rounds
                                  for k, n in path["launches"].items()},
           "wall_s": path["wall_s"]})
+    for name, n in path["launches"].items():
+        launches.setdefault(name, {})["path"] = n
 
     emit({"phase": "profile", **profile_phase(path["engine"], profiled_batch,
                                               path["generation"])})
+    del path
 
-    # one entry per kernel: count_pn at the spread terms' shape, the one
-    # the path launches most (the spread count every round)
+    drain = drain_phase(*drain_workload())
+    for name, n in drain["launches"].items():
+        check(n > 0, f"kernel {name} was never launched in the drain")
+        launches.setdefault(name, {})["drain"] = n
+    emit({"phase": "drain", **{k: v for k, v in drain.items()
+                               if k not in ("plan", "assignments", "meta")}})
+    drain_rows = kernels_phase(drain_count_case(drain))
+    del drain
+    emit({"phase": "kernels.drain", "rows": drain_rows})
+
+    r_nodes, r_bound, r_pending = resident_workload()
+    resident, drv, churn = resident_phase(r_nodes, r_bound, r_pending)
+    for name, n in resident["launches"].items():
+        launches.setdefault(name, {})["resident"] = n
+    emit({"phase": "resident", **resident})
+    emit({"phase": "profile.drain",
+          **profile_drain_phase(drv, churn, r_pending[-1],
+                                resident["cycles"])})
+    del drv
+
+    # one entry per kernel: count_pn at the spread terms' path shape (the
+    # one the sidecar path launches most), launches summed over every path
     table = []
-    for name, n in path["launches"].items():
+    for name, by_path in launches.items():
         row = dict(next(r for r in rows if r["name"].startswith(name + "[")))
-        row.update(name=name, launches=n, ms=row.pop("kernel_ms"))
+        row.update(name=name, launches=sum(by_path.values()),
+                   launches_by_path=by_path, ms=row.pop("kernel_ms"))
         table.append(row)
     emit({"kernels": table})
     print(smi, flush=True)

@@ -1,11 +1,15 @@
 """Carry an encoding of the JAX package across to the port.
 
-The port has no weights: its state is the encoded cluster and pod batch.
-``from_reference`` takes the reference package's ``ClusterTensors`` or
-``PodBatch`` flattened to a nested dict of numpy arrays (one entry per
-dataclass field, a nested dict for each selector or term set) and returns
-the port's container with every field on ``device``. The caller does the
-flattening, so this module never imports the reference package.
+The port has no weights: its state is the encoded cluster, the pod batches
+and the churn patches the drain applies. ``from_reference`` takes the
+reference package's ``ClusterTensors`` or ``PodBatch`` flattened to a
+nested dict of numpy arrays (one entry per dataclass field, a nested dict
+for each selector or term set) and returns the port's container with every
+field on ``device``; a stacked PodBatch (a leading B axis on every field)
+carries the same way. ``patch_to`` moves a compiled churn patch (numpy
+arrays by key, as ``encode/patch.py`` and the reference's ``compile_patch``
+emit it) to a device. The caller does the flattening, so this module never
+imports the reference package.
 """
 
 from __future__ import annotations
@@ -13,6 +17,7 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
 from kubernetes_tpu_torch.encode.snapshot import (
     ClusterTensors,
@@ -41,3 +46,25 @@ def _build(tree: dict):
 def from_reference(tree: dict, device):
     """Nested dict of numpy arrays -> ClusterTensors or PodBatch on ``device``."""
     return _build(tree).to(device)
+
+
+_ALIGN = 16
+
+
+def patch_to(patch: dict, device) -> dict:
+    """A compiled churn patch (numpy arrays by key) -> tensors on
+    ``device``, moved in ONE copy: the arrays are packed into one host
+    buffer, each at a 16-byte aligned offset, the buffer crosses to the
+    device at once, and each array becomes a typed view of it there."""
+    arrays = {k: np.ascontiguousarray(v) for k, v in patch.items()}
+    offsets, total = {}, 0
+    for k, a in arrays.items():
+        offsets[k] = total
+        total += -(-a.nbytes // _ALIGN) * _ALIGN
+    buf = np.zeros(total, np.uint8)
+    for k, a in arrays.items():
+        buf[offsets[k]:offsets[k] + a.nbytes] = a.reshape(-1).view(np.uint8)
+    dbuf = torch.from_numpy(buf).to(device)
+    return {k: dbuf[offsets[k]:offsets[k] + a.nbytes]
+            .view(torch.from_numpy(a[:0].reshape(-1)).dtype).reshape(a.shape)
+            for k, a in arrays.items()}

@@ -22,9 +22,10 @@ Design notes:
 - Topology domains need no dictionary: for a topology key k, two nodes are in
   the same domain iff ``node_labels[:, k]`` agree (see ops/topology.py).
 - Of the reference encoder this module keeps ``encode_cluster``,
-  ``encode_pods`` and the pod precompile cache they use. The overlay and
-  patch paths (``with_hypothetical``, ``without_pods``, ``with_nominated``,
-  ``apply_pod_deltas``) and DRA are not ported yet.
+  ``encode_pods`` and the pod precompile cache they use, the patch
+  bookkeeping (``_PatchState``) with ``apply_pod_deltas``, and
+  ``with_nominated``. The planners' overlays (``with_hypothetical``,
+  ``without_pods``) and DRA (``set_dra``) are not ported yet.
 """
 
 from __future__ import annotations
@@ -299,6 +300,46 @@ class PodBatch(_Tensors):
     attach_req: Any         # [P] int32 attachable volumes the pod adds
 
 
+@dataclass
+class _PatchState:
+    """Book-keeping from the last full encode enabling in-place pod deltas
+    (the analog of ``Cache.UpdateSnapshot``'s generation-counter incremental
+    path — pkg/scheduler/internal/cache/cache.go): which existing-pod slot
+    each bound pod occupies, free slots, and the bucket sizes that bound what
+    a patch may grow."""
+
+    generation: int
+    resources: list[str]
+    res_index: dict[str, int]
+    node_index: dict[str, int]
+    # bucket sizes bounding what a patch may add
+    K: int
+    ET: int
+    EAX: int
+    EAV: int
+    NSB: int
+    slot_of: dict[str, int] = dc_field(default_factory=dict)
+    free: list[int] = dc_field(default_factory=list)
+    slot_node: dict[str, int] = dc_field(default_factory=dict)
+    slot_req: dict[str, Any] = dc_field(default_factory=dict)
+    # pods whose encode contributed node port/volume state — removing or
+    # replacing one requires a full re-encode
+    unpatchable: set = dc_field(default_factory=set)
+    # ---- node-side patch bookkeeping (drain-context churn patches:
+    # encode/patch.py). Bucket widths of the node-axis arrays plus the free
+    # node rows the N bucket left (node_valid False), so node ADD/REMOVE can
+    # patch the encoding instead of forcing a full rebuild under churn.
+    N: int = 0
+    V: int = 0
+    T: int = 0
+    I: int = 0
+    IMG: int = 0  # filled prefix of image_sizes: a NEW image id needs its
+    #               size shipped, which patches don't do -> rebuild
+    PRT: int = 0
+    VN: int = 0
+    E: int = 0
+    node_free: list[int] = dc_field(default_factory=list)  # ascending rows
+    row_pods: dict[int, int] = dc_field(default_factory=dict)  # row -> #pods
 
 
 @dataclass
@@ -355,6 +396,7 @@ class SnapshotEncoder:
         # (only then does the cluster encoding depend on namespace labels)
         self._cluster_ns_selector_terms = False
         self._rwop_in_use: set = set()
+        self._patch: Optional[_PatchState] = None
         self.generation = 0
         # bucket headroom so CHURN patches fit without re-encoding: free
         # node rows for node ADDs, spare label-value ids for the new values
@@ -674,6 +716,25 @@ class SnapshotEncoder:
             topo_keys=tuple(sorted(self._cluster_topo_keys)),
             generation=self.generation,
         )
+        row_pods: dict[int, int] = {}
+        for p in epods:
+            ni = node_index[p.spec.node_name]
+            row_pods[ni] = row_pods.get(ni, 0) + 1
+        self._patch = _PatchState(
+            generation=self.generation, resources=resources,
+            res_index={r: i for i, r in enumerate(resources)},
+            node_index=node_index, K=K, ET=ET, EAX=EAX, EAV=EAV, NSB=NSB,
+            slot_of={p.key: e for e, p in enumerate(epods)},
+            free=list(range(len(epods), E))[::-1],
+            slot_node={p.key: node_index[p.spec.node_name] for p in epods},
+            slot_req={p.key: self._request_vector(p, resources) for p in epods},
+            unpatchable={p.key for p in epods
+                         if p.spec.volumes or p.host_ports()},
+            N=N, V=V, T=T, I=I, IMG=len(self._image_sizes),
+            PRT=PRT, VN=VN, E=E,
+            node_free=list(range(len(nodes), N)),
+            row_pods=row_pods,
+        )
         ct = ClusterTensors(
             allocatable=allocatable, requested=requested, node_valid=node_valid,
             unschedulable=unschedulable, node_labels=node_labels,
@@ -693,6 +754,33 @@ class SnapshotEncoder:
             nom_req=np.zeros((0, R), np.int32), nom_valid=np.zeros(0, bool),
         )
         return ct, meta
+
+    def with_nominated(self, ct: ClusterTensors, meta: "SnapshotMeta",
+                       nominated: list, min_m: int = 0) -> ClusterTensors:
+        """Overlay nominated-pod reservations onto an encoded snapshot.
+        ``nominated``: [(node_name, priority, Pod)]. Cheap (tiny M-bucketed
+        arrays), so it applies on every scheduling cycle without touching the
+        incremental-patch bookkeeping. ``min_m`` pins the bucket: a
+        preemption storm's nominee count varies per cycle, and a stable M
+        keeps the batch shapes stable."""
+        R = ct.nom_req.shape[1]
+        entries = [(meta.node_index[n], prio,
+                    self._request_vector(p, meta.resources))
+                   for (n, prio, p) in nominated if n in meta.node_index]
+        M = next_bucket(max(len(entries), min_m), minimum=1) \
+            if entries or min_m else 0
+        nom_node = np.full(M, -1, np.int32)
+        nom_prio = np.zeros(M, np.int32)
+        nom_req = np.zeros((M, R), np.int32)
+        nom_valid = np.zeros(M, bool)
+        for m, (ni, prio, vec) in enumerate(entries):
+            nom_node[m] = ni
+            nom_prio[m] = prio
+            nom_req[m] = vec
+            nom_valid[m] = True
+        return ct.replace(nom_node=nom_node, nom_prio=nom_prio,
+                          nom_req=nom_req, nom_valid=nom_valid)
+
     # -- incremental pod deltas --------------------------------------------
 
     def _effective_requests(self, p: Pod) -> dict:
@@ -706,6 +794,139 @@ class SnapshotEncoder:
             if r in reqs:
                 vec[r_idx] = scale_request(r, reqs[r])
         return vec
+
+    def apply_pod_deltas(self, ct: ClusterTensors, meta: SnapshotMeta,
+                         upserts: list[Pod], deletes: list[str],
+                         ) -> Optional[ClusterTensors]:
+        """Patch bound-pod deltas into an existing host encoding without a
+        full re-encode (the reference's incremental ``Cache.UpdateSnapshot``).
+
+        Returns the patched ClusterTensors (copy-on-write on touched arrays),
+        or None when a delta doesn't fit the encoded buckets (new label key,
+        more anti-affinity terms than reserved, pod with host ports/volumes,
+        unknown node, no free slot) — the caller then falls back to a full
+        encode_cluster.
+        """
+        st = self._patch
+        if st is None or st.generation != meta.generation:
+            return None
+        if any(k in st.unpatchable for k in deletes) or \
+                any(p.key in st.unpatchable for p in upserts):
+            return None
+
+        # ---- validate + compile everything before mutating anything ------
+        compiled = []
+        for p in upserts:
+            if p.spec.volumes or p.host_ports():
+                return None          # port/volume node state isn't patchable
+            ni = st.node_index.get(p.spec.node_name, -1)
+            if ni < 0:
+                return None
+            reqs = self._effective_requests(p)
+            if any(r not in st.res_index for r in reqs):
+                return None          # new resource kind widens R
+            label_ids = self._label_ids(p.metadata.labels)
+            if any(kid >= st.K for kid in label_ids):
+                return None          # label key beyond the K bucket
+            aff = p.spec.affinity
+            pan = aff.pod_anti_affinity if aff else None
+            terms = []
+            for t in (pan.required if pan else []):
+                eff = affinity_term_selector(t, p.metadata.labels)
+                valid, exprs = self._compile_selector(eff)
+                if t.namespace_selector is not None:
+                    self._cluster_ns_selector_terms = True
+                ns_set = resolve_term_namespaces(
+                    t, p.metadata.namespace, self._namespace_labels)
+                ns_ids = (None if ns_set is None else
+                          tuple(self.namespaces.intern(n) for n in sorted(ns_set)))
+                terms.append((self.keys.intern(t.topology_key), valid, exprs,
+                              ns_ids))
+            if (len(terms) > st.ET
+                    or any(len(ex) > st.EAX for (_, _, ex, _) in terms)
+                    or any(len(v) > st.EAV for (_, _, ex, _) in terms
+                           for (_, _, v, _) in ex)
+                    or any(nid >= st.NSB for (_, _, _, ns) in terms
+                           if ns is not None for nid in ns)):
+                return None  # ns beyond the NSB bucket widens the mask
+            compiled.append((p, ni, label_ids, terms,
+                             self._request_vector(p, st.resources)))
+
+        freed = sum(1 for k in set(deletes) if k in st.slot_of)
+        needed = sum(1 for (p, *_rest) in compiled if p.key not in st.slot_of)
+        if needed > len(st.free) + freed:
+            return None
+
+        # ---- copy-on-write the arrays a pod delta touches ----------------
+        requested = np.array(ct.requested)
+        epod_node = np.array(ct.epod_node)
+        epod_ns = np.array(ct.epod_ns)
+        epod_labels = np.array(ct.epod_labels)
+        epod_valid = np.array(ct.epod_valid)
+        ea = {f: np.array(getattr(ct.ea_sel, f))
+              for f in ("key", "op", "vals", "expr_valid", "valid")}
+        ea_topo = np.array(ct.ea_topo)
+        ea_valid = np.array(ct.ea_valid)
+        ea_ns_explicit = np.array(ct.ea_ns_explicit)
+        ea_ns_mask = np.array(ct.ea_ns_mask)
+
+        def _clear(slot: int):
+            epod_valid[slot] = False
+            epod_labels[slot, :] = -1
+            ea_topo[slot, :] = -1
+            ea_valid[slot, :] = False
+            ea["valid"][slot, :] = False
+            ea["expr_valid"][slot, :, :] = False
+            ea["key"][slot, :, :] = -1
+            ea["vals"][slot, :, :, :] = -1
+            ea_ns_explicit[slot, :] = False
+            ea_ns_mask[slot, :, :] = False
+
+        for k in set(deletes):
+            slot = st.slot_of.pop(k, None)
+            if slot is None:
+                continue
+            requested[st.slot_node.pop(k)] -= st.slot_req.pop(k)
+            _clear(slot)
+            st.free.append(slot)
+
+        new_topo: set[int] = set()
+        for p, ni, label_ids, terms, req_vec in compiled:
+            key = p.key
+            slot = st.slot_of.get(key)
+            if slot is not None:
+                requested[st.slot_node[key]] -= st.slot_req[key]
+                _clear(slot)
+            else:
+                slot = st.free.pop()
+                st.slot_of[key] = slot
+            epod_node[slot] = ni
+            epod_ns[slot] = self.namespaces.intern(p.metadata.namespace)
+            for kid, vid in label_ids.items():
+                epod_labels[slot, kid] = vid
+            epod_valid[slot] = True
+            for t_idx, (topo, valid, exprs, ns_ids) in enumerate(terms):
+                ea_topo[slot, t_idx] = topo
+                ea_valid[slot, t_idx] = True
+                _selset_fill(ea, (slot, t_idx), valid, exprs)
+                if ns_ids is not None:
+                    ea_ns_explicit[slot, t_idx] = True
+                    for nid in ns_ids:
+                        ea_ns_mask[slot, t_idx, nid] = True
+                new_topo.add(topo)
+            requested[ni] += req_vec
+            st.slot_node[key] = ni
+            st.slot_req[key] = req_vec
+
+        if new_topo - set(meta.topo_keys):
+            self._cluster_topo_keys |= new_topo
+            meta.topo_keys = tuple(sorted(set(meta.topo_keys) | new_topo))
+        return ct.replace(
+            requested=requested, epod_node=epod_node, epod_ns=epod_ns,
+            epod_labels=epod_labels, epod_valid=epod_valid,
+            ea_sel=SelectorSet(**ea), ea_topo=ea_topo, ea_valid=ea_valid,
+            ea_ns_explicit=ea_ns_explicit, ea_ns_mask=ea_ns_mask,
+        )
 
     # -- selector compilation ----------------------------------------------
 

@@ -1,6 +1,9 @@
 """Gang batcher — schedule P pods per step with conflict resolution.
 
-The PyTorch port of the single-batch path of ``kubernetes_tpu/models/gang.py``.
+The PyTorch port of ``kubernetes_tpu/models/gang.py``: the single-batch
+``gang_schedule``, the multi-batch ``gang_drain`` and the device-resident
+``drain_step`` with its fold and churn patch (without ``mesh``,
+``plugins`` and the extender masks).
 Batching P pods against one snapshot introduces intra-batch conflicts the
 serial loop never sees:
 
@@ -29,12 +32,16 @@ reproduces the reference's serial semantics exactly.
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
-from kubernetes_tpu_torch.encode.snapshot import ClusterTensors, PodBatch, SelectorSet
+from kubernetes_tpu_torch.device import resolve_device
+from kubernetes_tpu_torch.encode.convert import patch_to
+from kubernetes_tpu_torch.encode.snapshot import (ClusterTensors, PodBatch,
+                                                  SelectorSet, _Tensors)
 from kubernetes_tpu_torch.models.schedule_step import evaluate
 from kubernetes_tpu_torch.ops.exprs import eval_selector_set
 from kubernetes_tpu_torch.ops.sorting import lexsort
@@ -212,14 +219,16 @@ def _gang_round_impl(ct_ext: ClusterTensors, pb: PodBatch, state: GangState,
                      seed: int = 0, fit_strategy: str = "LeastAllocated",
                      topo_keys: tuple[int, ...] = (), serial: bool = False,
                      weights: tuple = (), enabled_filters: tuple = (),
-                     cap_scale=1):
+                     cap_scale=1, slot_start=None):
     """One propose/accept/fold round. Returns (new_state, progress) where
     progress (a 0-d tensor) counts acceptances plus serial-mode attempts.
-    The batch's extension slots are the trailing P epod slots."""
+    ``slot_start``: index of this batch's extension slots in the epod
+    tensors; defaults to the trailing P slots."""
     P = state.committed.shape[0]
     N = ct_ext.node_valid.shape[0]
     dev = state.committed.device
-    slot_start = ct_ext.epod_valid.shape[0] - P
+    if slot_start is None:
+        slot_start = ct_ext.epod_valid.shape[0] - P
     # wire committed members into this batch's extension slots
     epod_node = ct_ext.epod_node.clone()
     epod_node[slot_start:slot_start + P] = state.assignment
@@ -282,7 +291,7 @@ def _gang_round_impl(ct_ext: ClusterTensors, pb: PodBatch, state: GangState,
 
 def _converge(ct_ext, pb, state, *, seed, fit_strategy, topo_keys,
               weights, enabled_filters, max_rounds,
-              serial=False) -> GangState:
+              serial=False, slot_start=None) -> GangState:
     """Rounds until one makes no progress, at most ``max_rounds``.
 
     The reference runs a fixed-trip loop whose body goes dead after the
@@ -294,7 +303,8 @@ def _converge(ct_ext, pb, state, *, seed, fit_strategy, topo_keys,
         state, progress = _gang_round_impl(
             ct_ext, pb, state, seed=seed, fit_strategy=fit_strategy,
             topo_keys=topo_keys, serial=serial, weights=weights,
-            enabled_filters=enabled_filters, cap_scale=1 << min(i, 20))
+            enabled_filters=enabled_filters, cap_scale=1 << min(i, 20),
+            slot_start=slot_start)
         if int(progress) == 0:
             break
     return state
@@ -327,3 +337,439 @@ def gang_schedule(ct: ClusterTensors, pb: PodBatch, seed: int = 0,
                       serial=serial, weights=weights_t,
                       enabled_filters=filters_t, max_rounds=limit)
     return state.assignment.cpu().numpy().astype(np.int32), state.rounds
+
+
+# -- multi-batch drain: the whole queue in one call ---------------------------
+#
+# The containers are dataclasses, so the reference's pytree walks become
+# walks over fields by name, nested SelectorSet and TermSet included. A leaf
+# is a numpy array (as the encoder fills it) or a torch tensor.
+
+def _tree_map(fn, *trees):
+    """``fn`` over the leaves of equally built containers, field by field;
+    -> a container of the results (a non-container argument is a leaf)."""
+    first = trees[0]
+    if isinstance(first, _Tensors):
+        return first.replace(**{
+            f.name: _tree_map(fn, *(getattr(t, f.name) for t in trees))
+            for f in dataclasses.fields(first)})
+    return fn(*trees)
+
+
+def _tree_leaves(tree) -> list:
+    """The leaves of a container in field order (``_tree_map``'s order)."""
+    if isinstance(tree, _Tensors):
+        return [leaf for f in dataclasses.fields(tree)
+                for leaf in _tree_leaves(getattr(tree, f.name))]
+    return [tree]
+
+
+def _fill_value(a):
+    """Pad value by dtype: False for bool, 0.0 for float, -1 otherwise
+    (every padded region is guarded by its validity flag)."""
+    if isinstance(a, torch.Tensor):
+        if a.dtype == torch.bool:
+            return False
+        return 0.0 if a.dtype.is_floating_point else -1
+    if a.dtype == bool:
+        return False
+    return 0.0 if np.issubdtype(a.dtype, np.floating) else -1
+
+
+def _pad_to(a, shape: tuple[int, ...], fill):
+    """Pad ``a`` (numpy or torch) at the end of each axis up to ``shape``."""
+    shape = tuple(shape)
+    if tuple(a.shape) == shape:
+        return a
+    if isinstance(a, torch.Tensor):
+        out = torch.full(shape, fill, dtype=a.dtype, device=a.device)
+        out[tuple(slice(0, s) for s in a.shape)] = a
+        return out
+    return np.pad(a, [(0, t - s) for s, t in zip(a.shape, shape)],
+                  constant_values=fill)
+
+
+def unify_batches(pbs: list[PodBatch]) -> list[PodBatch]:
+    """Pad every leaf of each PodBatch to the max shape across batches.
+    Bucket dims (selector terms, toleration slots, ...) can differ batch to
+    batch; every padded region is guarded by its validity flag, so the
+    dtype-driven fills (-1 ids / False / 0.0) are inert."""
+    shapes = _tree_map(lambda *xs: tuple(max(x.shape[d] for x in xs)
+                                         for d in range(xs[0].ndim)), *pbs)
+    return [_tree_map(lambda a, shape: _pad_to(a, shape, _fill_value(a)),
+                      pb, shapes) for pb in pbs]
+
+
+def stack_batches(pbs: list[PodBatch]) -> PodBatch:
+    """Equally shaped PodBatches -> one PodBatch with a leading B axis."""
+    return _tree_map(lambda *xs: (torch.stack(xs)
+                                  if isinstance(xs[0], torch.Tensor)
+                                  else np.stack(xs)), *pbs)
+
+
+def _batch(pb_stack: PodBatch, b: int) -> PodBatch:
+    """Batch ``b`` of a stacked PodBatch (views)."""
+    return _tree_map(lambda x: x[b], pb_stack)
+
+
+def extend_cluster_drain(ct: ClusterTensors, pbs: list[PodBatch]
+                         ) -> tuple[ClusterTensors, int]:
+    """Chain P extension slots for EVERY batch onto the cluster: batch b's
+    pods live at epod slots [e0 + b*P, e0 + (b+1)*P). Committed members of
+    earlier batches therefore stay relationally visible (spread counts,
+    affinity, anti-affinity symmetry) to later batches — the sequential
+    semantics of the reference's one-pod-at-a-time loop. Takes torch
+    tensors, like ``extend_cluster``."""
+    e0 = int(ct.epod_valid.shape[0])
+    for pb in pbs:
+        ct = extend_cluster(ct, pb)
+    return ct, e0
+
+
+def _new_state(requested, P: int, dev) -> GangState:
+    return GangState(requested=requested,
+                     committed=torch.zeros(P, dtype=torch.bool, device=dev),
+                     assignment=torch.full((P,), -1, dtype=torch.int32,
+                                           device=dev),
+                     tried=torch.zeros(P, dtype=torch.bool, device=dev),
+                     rounds=0)
+
+
+def _drain_batches(ct: ClusterTensors, pb_stack: PodBatch, e0: int,
+                   kw: dict):
+    """The reference's ``lax.scan`` over batches as a loop: each batch is a
+    full convergence against the cluster plus every earlier batch's
+    committed pods, and its own committed slots are written into
+    ``ct.epod_node``/``ct.epod_valid`` IN PLACE for the batches after it.
+    -> (assignments [B,P] int32, rounds [B] np.int32, requested [N,R])."""
+    B, P = pb_stack.pod_valid.shape
+    dev = pb_stack.pod_valid.device
+    requested = ct.requested
+    assignments, rounds = [], []
+    for b in range(B):
+        start = e0 + b * P
+        st = _converge(ct, _batch(pb_stack, b), _new_state(requested, P, dev),
+                       slot_start=start, **kw)
+        ct.epod_node[start:start + P] = st.assignment
+        ct.epod_valid[start:start + P] = st.committed
+        requested = st.requested
+        assignments.append(st.assignment)
+        rounds.append(st.rounds)
+    return torch.stack(assignments), np.asarray(rounds, np.int32), requested
+
+
+def _drain_kw(seed, fit_strategy, topo_keys, weights, enabled_filters,
+              max_rounds) -> dict:
+    return dict(seed=seed, fit_strategy=fit_strategy,
+                topo_keys=tuple(topo_keys), weights=tuple(weights),
+                enabled_filters=tuple(enabled_filters),
+                max_rounds=max_rounds)
+
+
+def prepare_drain(ct: ClusterTensors, pbs: list[PodBatch], device=None):
+    """Drain prep: unify the batch buckets, stack the batches, move cluster
+    and batches to ``device`` (None: the CUDA card) and chain the extension
+    slots there. Returns an opaque (ct_all, pb_stack, e0) tuple for
+    gang_drain; repeated drains over it pay no transfer again."""
+    dev = resolve_device(device)
+    pbs_u = unify_batches(pbs)
+    pb_stack = stack_batches(pbs_u).to(dev)
+    ct_all, e0 = extend_cluster_drain(
+        ct.to(dev), [_batch(pb_stack, b) for b in range(len(pbs_u))])
+    return ct_all, pb_stack, e0
+
+
+def gang_drain(ct: ClusterTensors = None, pbs: list[PodBatch] = None,
+               seed: int = 0, fit_strategy: str = "LeastAllocated",
+               topo_keys: tuple[int, ...] = (), weights=None,
+               enabled_filters=None, max_rounds: int = 64, prepared=None,
+               device=None):
+    """Schedule a whole queue of batches in one call.
+
+    A loop over the batch axis, each step a full gang convergence,
+    carrying (requested[N,R], epod slot state) batch to batch — so capacity
+    AND relational effects of earlier batches are visible to later ones.
+    The carries stay on the device; the host reads the results once, at
+    the end.
+
+    Returns (assignments [B,P] np.int32 with -1 unschedulable,
+    rounds [B] np.int32, requested_final [N,R] np.int32).
+
+    ``prepared``: the result of prepare_drain() — pass it to amortize host
+    prep and staging across repeated drains of the same queue (it is not
+    modified). Otherwise ``ct`` and ``pbs`` are prepared on ``device``.
+    """
+    if prepared is None:
+        prepared = prepare_drain(ct, pbs, device=device)
+    ct_all, pb_stack, e0 = prepared
+    ct_run = ct_all.replace(epod_node=ct_all.epod_node.clone(),
+                            epod_valid=ct_all.epod_valid.clone())
+    kw = _drain_kw(seed, fit_strategy, topo_keys,
+                   sorted(weights.items()) if weights else (),
+                   sorted(enabled_filters) if enabled_filters else (),
+                   max_rounds)
+    assignments, rounds, requested = _drain_batches(ct_run, pb_stack, e0, kw)
+    return (assignments.cpu().numpy(), rounds,
+            requested.cpu().numpy())
+
+
+# -- device-resident drain: cluster tensors stay on the card across drains ----
+#
+# The connected scheduler's steady state is a loop of drains over an almost
+# unchanged cluster. The encoding stays on the device and each drain ships
+# only the new pod batches: refill the extension rows from the batch, run
+# the batches, then FOLD committed pods into free base existing-pod slots.
+# Where the reference donates its buffers, this port updates the resident
+# tensors in place.
+
+def _flat(x):
+    return x.reshape((x.shape[0] * x.shape[1],) + tuple(x.shape[2:]))
+
+
+def drain_widths_fit(ct_all: ClusterTensors, pb_stack: PodBatch) -> bool:
+    """The batch's bucket widths must fit the resident extension slots
+    (they only grow when pods carry new label keys / wider anti-affinity
+    terms — the caller rebuilds the context when they do)."""
+    return (pb_stack.pod_labels.shape[2] <= ct_all.epod_labels.shape[1]
+            and pb_stack.anti_valid.shape[2] <= ct_all.ea_valid.shape[1]
+            and pb_stack.anti_sel.key.shape[3] <= ct_all.ea_sel.key.shape[2]
+            and pb_stack.anti_sel.vals.shape[4] <= ct_all.ea_sel.vals.shape[3]
+            and pb_stack.anti_ns_mask.shape[3] <= ct_all.ea_ns_mask.shape[2]
+            and pb_stack.requests.shape[2] == ct_all.requested.shape[1])
+
+
+def batch_shapes(pb_stack: PodBatch) -> list[tuple]:
+    return [tuple(leaf.shape) for leaf in _tree_leaves(pb_stack)]
+
+
+def pad_batch_to(pb_stack: PodBatch, shapes: list[tuple]):
+    """Pad every leaf of a stacked PodBatch up to recorded target shapes
+    (``batch_shapes`` of the batch the context was built with), so the
+    resident context keeps one set of shapes whatever each pop's bucket
+    widths. Returns None when any leaf EXCEEDS its target — the caller must
+    rebuild the context at the wider shape."""
+    leaves = _tree_leaves(pb_stack)
+    if any(s > t for leaf, target in zip(leaves, shapes)
+           for s, t in zip(leaf.shape, target)):
+        return None
+    targets = iter(shapes)
+    return _tree_map(lambda a: _pad_to(a, next(targets), _fill_value(a)),
+                     pb_stack)
+
+
+def build_drain_context(ct: ClusterTensors, pbs: list[PodBatch],
+                        nom_bucket: int = 0, device=None):
+    """One-time prep for the device-resident drain: unify the batch
+    buckets, copy the cluster to ``device`` (None: the CUDA card), chain
+    the extension slots (content is placeholder — drain_step refills it).
+    Returns ``(ct_all, e0, fill0)`` or None when the base epod slots aren't
+    packed (fold targets assume [0,fill) occupied, [fill,e0) free — true
+    after any full encode; host-side patches with deletes can leave holes).
+
+    Every tensor of ``ct_all`` is a fresh copy, on the CPU too: drain_step
+    updates them in place and must never write into the host encoding.
+
+    ``nom_bucket``: size of the RESIDENT nominee-reservation tensors. The
+    base encode carries zero nominees; giving the context a fixed M lets
+    preemption storms patch reservations in place (apply_ctx_patch)."""
+    dev = resolve_device(device)
+    valid = np.asarray(ct.epod_valid.cpu() if isinstance(ct.epod_valid,
+                                                         torch.Tensor)
+                       else ct.epod_valid)
+    fill0 = int(valid.sum())
+    if fill0 and not valid[:fill0].all():
+        return None  # holes: the fold would overwrite occupied slots
+    pbs_u = unify_batches(pbs)
+    pb_stack = stack_batches(pbs_u).to(dev)
+    ct_dev = _tree_map(lambda x: torch.as_tensor(x).to(dev, copy=True), ct)
+    ct_all, e0 = extend_cluster_drain(
+        ct_dev, [_batch(pb_stack, b) for b in range(len(pbs_u))])
+    if nom_bucket:
+        R = int(ct_all.requested.shape[1])
+        ct_all = ct_all.replace(
+            nom_node=torch.full((nom_bucket,), -1, dtype=torch.int32,
+                                device=dev),
+            nom_prio=torch.zeros(nom_bucket, dtype=torch.int32, device=dev),
+            nom_req=torch.zeros((nom_bucket, R), dtype=torch.int32,
+                                device=dev),
+            nom_valid=torch.zeros(nom_bucket, dtype=torch.bool, device=dev))
+    return ct_all, e0, fill0
+
+
+def _refill(dst, e0: int, src, fill) -> None:
+    """dst[e0:] = src, padded at the end of its trailing axes with ``fill``."""
+    region = dst[e0:]
+    region.copy_(_pad_to(src, tuple(region.shape), fill))
+
+
+# fields the fold packs into base slots, by (container attribute, field)
+_FOLDED = (("epod_ns",), ("epod_labels",), ("ea_sel", "key"),
+           ("ea_sel", "op"), ("ea_sel", "vals"), ("ea_sel", "expr_valid"),
+           ("ea_sel", "valid"), ("ea_topo",), ("ea_valid",),
+           ("ea_ns_explicit",), ("ea_ns_mask",))
+
+
+def _field(ct, path):
+    for name in path:
+        ct = getattr(ct, name)
+    return ct
+
+
+def drain_step(ct_all: ClusterTensors, pb_stack: PodBatch, fill,
+               patch=None, *, e0: int, seed: int = 0,
+               fit_strategy: str = "LeastAllocated",
+               topo_keys: tuple[int, ...] = (), weights: tuple = (),
+               enabled_filters: tuple = (), max_rounds: int = 64):
+    """One fused drain over a DEVICE-RESIDENT cluster encoding.
+
+    ``ct_all``: rows [0,e0) are base existing-pod slots (``fill`` of them
+    occupied, packed), rows [e0,e0+B*P) are extension slots whose content
+    this call overwrites from ``pb_stack`` (numpy or tensors; moved to the
+    context's device in one call).
+    ``fill``: a 0-d int32 tensor on the device (the previous call's
+    ``new_fill``), or a Python int on the first call.
+
+    Where the reference donates ``ct_all`` and ``fill``, this call updates
+    ``ct_all``'s tensors IN PLACE and consumes the container: the
+    ``ct_out`` it returns is the same object, folded. ``fill`` itself is
+    not written.
+
+    Returns ``(assignments [B,P] int32, rounds [B] int32, ct_out,
+    new_fill)``, all on the device: every committed pod is folded into
+    base slots [fill, fill+n) in flattened batch order and the extension
+    region is invalidated — ready to be the next call's ``ct_all``.
+    Reading ``new_fill`` on the host is the caller's business.
+
+    ``patch``: optional compiled churn patch (encode/patch.py; numpy arrays
+    by key, or ``convert.patch_to``'s tensors), applied in front of the
+    batches as ``apply_ctx_patch`` would apply it.
+    """
+    B, P = pb_stack.pod_valid.shape
+    BP = B * P
+    E = int(ct_all.epod_valid.shape[0])
+    if E != e0 + BP:
+        raise ValueError(f"the context holds {E} epod slots, not e0 + B*P = "
+                         f"{e0} + {BP}: build it with this batch count")
+    dev = ct_all.epod_valid.device
+    pb_stack = pb_stack.to(dev)
+    if patch is not None:
+        _apply_patch(ct_all, patch_to(patch, dev))
+    ea = ct_all.ea_sel
+    _refill(ct_all.epod_node, e0, torch.full((BP,), -1, dtype=torch.int32,
+                                             device=dev), -1)
+    _refill(ct_all.epod_ns, e0, _flat(pb_stack.pod_ns), -1)
+    _refill(ct_all.epod_labels, e0, _flat(pb_stack.pod_labels), -1)
+    ct_all.epod_valid[e0:] = False
+    _refill(ea.key, e0, _flat(pb_stack.anti_sel.key), -1)
+    _refill(ea.op, e0, _flat(pb_stack.anti_sel.op), 0)
+    _refill(ea.vals, e0, _flat(pb_stack.anti_sel.vals), -1)
+    _refill(ea.expr_valid, e0, _flat(pb_stack.anti_sel.expr_valid), False)
+    _refill(ea.valid, e0, _flat(pb_stack.anti_sel.valid), False)
+    _refill(ct_all.ea_topo, e0, _flat(pb_stack.anti_topo), -1)
+    _refill(ct_all.ea_valid, e0, _flat(pb_stack.anti_valid), False)
+    _refill(ct_all.ea_ns_explicit, e0, _flat(pb_stack.anti_ns_explicit),
+            False)
+    _refill(ct_all.ea_ns_mask, e0, _flat(pb_stack.anti_ns_mask), False)
+
+    kw = _drain_kw(seed, fit_strategy, topo_keys, weights, enabled_filters,
+                   max_rounds)
+    assignments, rounds, requested = _drain_batches(ct_all, pb_stack, e0, kw)
+    ct_all.requested.copy_(requested)
+
+    # ---- fold committed pods into base slots [fill, fill+n) -------------
+    # the exclusive prefix count of the committed flags is fill + k for the
+    # k-th committed row; the reference's scatter drops a destination past
+    # the end, so such rows are filtered here (CUDA would assert instead)
+    flat = assignments.reshape(BP)
+    src = torch.nonzero(flat >= 0).squeeze(1)
+    fill_t = torch.as_tensor(fill, dtype=torch.int32, device=dev)
+    dest = fill_t + torch.arange(src.shape[0], dtype=torch.int32, device=dev)
+    new_fill = fill_t + src.shape[0]
+    keep = dest < E
+    src, dest = src[keep], dest[keep].long()
+    rows = e0 + src
+    for path in _FOLDED:
+        arr = _field(ct_all, path)
+        # the right side is a copy (advanced indexing), taken before any
+        # destination row is written
+        arr[dest] = arr[rows]
+    ct_all.epod_node[dest] = flat[src]
+    ct_all.epod_valid[dest] = True
+    # invalidate the extension region (labels/terms of dead rows are inert
+    # once the valid flags drop)
+    ct_all.epod_valid[e0:] = False
+    ct_all.ea_valid[e0:] = False
+    return (assignments, torch.as_tensor(rounds, device=dev), ct_all,
+            new_fill)
+
+
+# churn-patch scatters: (container field path, patch key) by row kind
+_POD_ROWS = ((("epod_node",), "pod_node"), (("epod_ns",), "pod_ns"),
+             (("epod_labels",), "pod_labels"), (("epod_valid",), "pod_valid"),
+             (("ea_sel", "key"), "ea_sel_key"), (("ea_sel", "op"), "ea_sel_op"),
+             (("ea_sel", "vals"), "ea_sel_vals"),
+             (("ea_sel", "expr_valid"), "ea_sel_expr_valid"),
+             (("ea_sel", "valid"), "ea_sel_valid"),
+             (("ea_topo",), "ea_topo"), (("ea_valid",), "ea_valid"),
+             (("ea_ns_explicit",), "ea_ns_explicit"),
+             (("ea_ns_mask",), "ea_ns_mask"))
+_NODE_ROWS = ((("allocatable",), "n_alloc"), (("node_valid",), "n_valid"),
+              (("unschedulable",), "n_unsched"),
+              (("node_labels",), "n_labels"),
+              (("taint_key",), "n_taint_key"), (("taint_val",), "n_taint_val"),
+              (("taint_effect",), "n_taint_effect"),
+              (("taint_valid",), "n_taint_valid"),
+              (("node_images",), "n_images"),
+              (("attach_limit",), "n_attach_limit"))
+_NOM_ROWS = ((("nom_node",), "nom_node"), (("nom_prio",), "nom_prio"),
+             (("nom_req",), "nom_req"), (("nom_valid",), "nom_valid"))
+
+
+def _patch_rows(idx, dim: int):
+    """(patch rows, target rows) of the entries of ``idx`` inside [0, dim):
+    the reference's drop-mode scatter ignores the others (-1 pads)."""
+    keep = (idx >= 0) & (idx < dim)
+    return torch.nonzero(keep).squeeze(1), idx[keep].long()
+
+
+def _scatter(ct, table, patch, src, dst) -> None:
+    for path, key in table:
+        _field(ct, path)[dst] = patch[key][src]
+
+
+def _apply_patch(ct_all: ClusterTensors, patch: dict) -> ClusterTensors:
+    """The churn-patch scatter, in place: pod slot rewrites/clears, node
+    row rewrites/retires, nominee reservation diffs, and the dense
+    requested[N,R] delta. Shared by ``apply_ctx_patch`` and the fused
+    ``drain_step``, so the two paths can never drift. ``patch`` holds
+    tensors on the context's device.
+
+    Reference shape: the incremental half of ``Cache.UpdateSnapshot``
+    (pkg/scheduler/internal/cache/cache.go) — churn moves only what changed."""
+    N = int(ct_all.node_valid.shape[0])
+    psrc, pdst = _patch_rows(patch["pod_slot"], int(ct_all.epod_valid.shape[0]))
+    nsrc, ndst = _patch_rows(patch["node_row"], N)
+    msrc, mdst = _patch_rows(patch["nom_slot"], int(ct_all.nom_valid.shape[0]))
+
+    # node rows being reset (fresh assignment of a freed/new row) clear the
+    # pod-contributed state patches cannot reconstruct (ports/volumes are
+    # guarded unpatchable, so a resettable row never has live entries);
+    # reset first, then the delta, as in the reference
+    reset = torch.zeros(N, dtype=torch.bool, device=ct_all.node_valid.device)
+    reset[ndst] = patch["n_reset"][nsrc]
+    ct_all.requested.masked_fill_(reset[:, None], 0).add_(patch["req_delta"])
+    ct_all.label_value_num.copy_(patch["label_value_num"])
+    _scatter(ct_all, _POD_ROWS, patch, psrc, pdst)
+    _scatter(ct_all, _NODE_ROWS, patch, nsrc, ndst)
+    ct_all.attach_used.masked_fill_(reset, 0)
+    ct_all.port_valid.masked_fill_(reset[:, None], False)
+    ct_all.used_rwo_valid.masked_fill_(reset[:, None], False)
+    _scatter(ct_all, _NOM_ROWS, patch, msrc, mdst)
+    return ct_all
+
+
+def apply_ctx_patch(ct_all: ClusterTensors, patch: dict) -> ClusterTensors:
+    """Standalone churn-patch apply (rebuild-time nominee staging): the
+    compiled patch (numpy arrays by key) moves to the context's device in
+    one copy and scatters into ``ct_all`` in place; -> ``ct_all``."""
+    return _apply_patch(ct_all, patch_to(patch, ct_all.node_valid.device))

@@ -27,22 +27,11 @@ from concurrent import futures
 from typing import Optional
 
 import numpy as np
-import torch
 
+from kubernetes_tpu_torch.device import resolve_device
 from kubernetes_tpu_torch.sidecar import proto
 
 _LOG = logging.getLogger(__name__)
-
-
-def resolve_device(device=None) -> torch.device:
-    """``None`` -> the CUDA card, raising where there is none."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device: the engine runs on the card; pass "
-                "device='cpu' to run it on the CPU")
-        return torch.device("cuda")
-    return torch.device(device)
 
 
 class StaleGeneration(Exception):
