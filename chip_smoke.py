@@ -21,8 +21,9 @@ Phases, one JSON line each:
   parity   a small cluster through the engine on the card and on the CPU
            (the plain versions): the assignments must be equal; and the
            resident drain with Recreate churn over a small relational_mix
-           cluster on both: assignments, new_fill and the folded
-           epod_valid/epod_node equal after every cycle
+           cluster on both, 9 cycles: placements, rounds, new_fill and the
+           folded requested/epod_valid/epod_node equal after every cycle,
+           and at least 5 cycles folding behind a fused patch
   path     the sidecar engine in process: PushSnapshot of a 5000-node
            MixedHeterogeneous cluster with 2000 bound pods, then 8 Schedule
            requests of 256 pending pods, each followed by the PushDelta that
@@ -35,21 +36,27 @@ Phases, one JSON line each:
            a warm-up gang_drain, the measured gang_drain (scheduled, rounds
            per batch, encode/warm-up/measured seconds, pods/s, launches);
            the placements are checked and 90% must be placed
-  kernels.drain  count_pn at the drain's shape (PT = 1024, E = 10240,
-           N = 8192: the last batch's spread terms) against its plain
-           version, with the same times as the kernels phase
+  kernels.drain  count_pn at the drain's shape (PT = 1024·T, E = 10240,
+           N = 8192: the last batch's spread and preferred affinity terms)
+           against its plain version, with the same times as the kernels
+           phase
   resident the connected steady state (testing/resident.py): a
            SchedulerCache of the path's cluster, a context armed with
            8 x 256, then 8 cycles of Recreate churn + one fused drain_step
            of 8 x 256 pending pods (ms, placed, patch compiled, rebuilds,
            fill_host, top); after every cycle the folded requested and
            valid epod slots equal a host recount; 0 rebuilds
+  kernels.resident  count_pn at the resident drain's shape (PT = 256·T,
+           E = 34816, N = 8192: the folded context and the spread and
+           preferred affinity terms of the last cycle's first batch), as
+           kernels.drain
   profile.drain  one more resident cycle under torch.profiler: the
            device's busy share of the drain_step and the top operations
 
 Each path (path, drain, resident) is driven with the launch counts set to
 0 just before it and read just after. Then the kernel table line
-({"kernels": [...]}, launches summed over the paths), the card's name and
+({"kernels": [...]}, one row per kernel at the shape of its most launches,
+launches summed over the paths, the shapes checked), the card's name and
 power limit, and last {"ok": true, "device": {...}}. Any failed phase
 exits non-zero before the last line. Without a CUDA card the script exits
 non-zero and prints no result.
@@ -580,12 +587,25 @@ def drain_phase(nodes, pods, batch=DRAIN_BATCH, device=None):
             "plan": plan, "assignments": assignments, "meta": meta}
 
 
-def drain_count_case(drain):
+def _term_cases(prefix, ct, pb):
+    """{term set: (ct, count_pn arguments)}: the spread and preferred
+    affinity terms of ``pb``, the two count_pn calls of a drain round on
+    the MixedHeterogeneous workloads."""
+    return {
+        f"{prefix}_spread": (ct, (pb.sc_sel, pb.pod_ns, None, None)),
+        f"{prefix}_preferred_affinity": (ct, (pb.paff_sel, pb.pod_ns,
+                                              pb.paff_ns_explicit,
+                                              pb.paff_ns_mask)),
+    }
+
+
+def drain_count_cases(drain):
     """count_pn's inputs as the drain's last batch meets them in its first
-    round: the spread terms of that batch over the existing-pod tensors
-    with every earlier batch's committed pods valid (PT = 1024·T,
-    E = e0 + 10·1024, N = 8192)."""
+    round: the spread and preferred affinity terms of that batch over the
+    existing-pod tensors with every earlier batch's committed pods valid
+    (PT = 1024·T, E = e0 + 10·1024, N = 8192)."""
     import torch
+    from kubernetes_tpu_torch.models.gang import _batch
     ct_all, pb_stack, e0 = drain["plan"]
     B, P = pb_stack.pod_valid.shape
     a = torch.as_tensor(drain["assignments"], device=ct_all.epod_node.device)
@@ -594,10 +614,19 @@ def drain_count_case(drain):
     node[e0:] = a.reshape(-1)
     valid[e0:e0 + (B - 1) * P] = a[:B - 1].reshape(-1) >= 0
     ct = ct_all.replace(epod_node=node, epod_valid=valid)
-    last = pb_stack.sc_sel.replace(**{
-        f: getattr(pb_stack.sc_sel, f)[B - 1]
-        for f in ("key", "op", "vals", "expr_valid", "valid")})
-    return {"drain_spread": (ct, (last, pb_stack.pod_ns[B - 1], None, None))}
+    return _term_cases("drain", ct, _batch(pb_stack, B - 1))
+
+
+def resident_count_cases(drv):
+    """count_pn's inputs as the resident drain's first batch meets them in
+    its first round: the folded context after the resident cycles (E = e0 +
+    B·P = 32768 + 8·256, every fold valid, the extension rows not; N =
+    8192) and the spread and preferred affinity terms of the last cycle's
+    first batch, padded to the context's shapes (PT = 256·T)."""
+    from kubernetes_tpu_torch.models.gang import _batch
+    ct = drv.ctx["ct"]
+    return _term_cases("resident", ct,
+                       _batch(drv.last_stack.to(ct.epod_valid.device), 0))
 
 
 # ------------------------------------------------------------------ resident
@@ -723,18 +752,35 @@ def resident_phase(node_dicts, bound, pending, device=None, B=RESIDENT_B,
              "e0": drv.ctx["e0"]}, drv, churn)
 
 
-def drain_parity_phase(seed=SEED):
+# cycles of drain_parity_phase that must fold behind a fused churn patch
+PARITY_PATCHED = 5
+
+
+def drain_parity_phase(seed=SEED, devices=("cuda", "cpu")):
     """The resident drain with churn on a small relational_mix cluster, on
-    the card and on the CPU: each cycle's assignments, new_fill and the
-    folded epod_valid/epod_node must be equal."""
+    the card and on the CPU: each cycle's placements, rounds, new_fill and
+    the folded requested/epod_valid/epod_node must be equal. Cycles 0-3
+    drain relational_mix's pending pods (the host-port pods among them
+    taint the fold, so the next cycle rebuilds); cycles 4-8 drain its
+    pods with no host port and no volume, so after one rebuild each of
+    them folds behind a fused patch. At least PARITY_PATCHED cycles must
+    place pods behind a compiled patch."""
     from kubernetes_tpu_torch.api.types import Node, Pod
     from kubernetes_tpu_torch.sched.cache import SchedulerCache
     from kubernetes_tpu_torch.testing.resident import ResidentDrain
     from kubernetes_tpu_torch.testing.workloads import relational_mix
-    nodes, bound, pending, ns_labels = relational_mix(pods=4 * 32 + 16,
+    # the generator draws pod by pod: the first 144 pending pods do not
+    # depend on the count
+    nodes, bound, pending, ns_labels = relational_mix(pods=4 * 32 + 16 + 200,
                                                       nodes=32, seed=seed)
+    pending = [Pod.from_dict(p.to_dict()) for p in pending]
+    clean = [p for p in pending[4 * 32 + 16:]
+             if not p.host_ports() and not p.spec.volumes]
+    cycles = ([pending[16 + 32 * i:16 + 32 * (i + 1)] for i in range(4)]
+              + [clean[32 * i:32 * (i + 1)] for i in range(5)])
+    check(all(len(c) == 32 for c in cycles), "drain parity: too few pods")
     runs = []
-    for device in ("cuda", "cpu"):
+    for device in devices:
         cache = SchedulerCache()
         for name, labels in ns_labels.items():
             cache.update_namespace({"metadata": {"name": name,
@@ -744,23 +790,29 @@ def drain_parity_phase(seed=SEED):
         for p in bound:
             cache.add_pod(Pod.from_dict(p.to_dict()))
         drv = ResidentDrain(cache, batch_size=16, max_drain_batches=2,
-                            slot_headroom=4 * 32 + 64, device=device)
-        pods = [Pod.from_dict(p.to_dict()) for p in pending]
-        drv.arm(pods[:32])
+                            slot_headroom=len(cycles) * 32 + 64,
+                            device=device)
+        drv.arm(pending[:32])
         churn, log = ([], []), []
-        for i in range(4):
+        for i, pods in enumerate(cycles):
             _churn(cache, i, *churn)
-            out = drv.cycle(pods[16 + 32 * i:16 + 32 * (i + 1)])
+            out = drv.cycle(pods)
             ct = drv.ctx["ct"]
             log.append((out.placed, out.rounds, int(drv.ctx["fill_dev"]),
-                        out.patched, ct.epod_valid.cpu().tolist(),
+                        out.patched, ct.requested.cpu().tolist(),
+                        ct.epod_valid.cpu().tolist(),
                         ct.epod_node.cpu().tolist()))
         runs.append(log)
-    check(runs[0] == runs[1],
+    check(all(run == runs[0] for run in runs),
           "drain parity: the card's resident drain differs from the CPU's")
+    folded = sum(1 for c in runs[0] if c[3] and c[0])
+    check(folded >= PARITY_PATCHED,
+          f"drain parity: {folded} cycles placed pods behind a fused patch, "
+          f"fewer than {PARITY_PATCHED}")
     return {"cycles": len(runs[0]), "placed": [len(c[0]) for c in runs[0]],
             "fill": [c[2] for c in runs[0]],
-            "patched": [c[3] for c in runs[0]]}
+            "patched": [c[3] for c in runs[0]],
+            "patched_folds_compared": folded}
 
 
 def profile_drain_phase(drv, churn, pods, i):
@@ -863,7 +915,7 @@ def main() -> int:
         launches.setdefault(name, {})["drain"] = n
     emit({"phase": "drain", **{k: v for k, v in drain.items()
                                if k not in ("plan", "assignments", "meta")}})
-    drain_rows = kernels_phase(drain_count_case(drain))
+    drain_rows = kernels_phase(drain_count_cases(drain))
     del drain
     emit({"phase": "kernels.drain", "rows": drain_rows})
 
@@ -872,18 +924,25 @@ def main() -> int:
     for name, n in resident["launches"].items():
         launches.setdefault(name, {})["resident"] = n
     emit({"phase": "resident", **resident})
+    resident_rows = kernels_phase(resident_count_cases(drv))
+    emit({"phase": "kernels.resident", "rows": resident_rows})
     emit({"phase": "profile.drain",
           **profile_drain_phase(drv, churn, r_pending[-1],
                                 resident["cycles"])})
     del drv
 
-    # one entry per kernel: count_pn at the spread terms' path shape (the
-    # one the sidecar path launches most), launches summed over every path
+    # one entry per kernel, at the shape of its most launches (count_pn:
+    # the resident drain's spread terms), launches summed over every path;
+    # every row of the kernels phases was held bit-equal to the plain version
     table = []
     for name, by_path in launches.items():
-        row = dict(next(r for r in rows if r["name"].startswith(name + "[")))
+        row = dict(next(r for r in resident_rows
+                        if r["name"].startswith(name + "[")))
         row.update(name=name, launches=sum(by_path.values()),
-                   launches_by_path=by_path, ms=row.pop("kernel_ms"))
+                   launches_by_path=by_path, ms=row.pop("kernel_ms"),
+                   shapes_checked=[r["name"] for r in
+                                   rows + drain_rows + resident_rows
+                                   if r["name"].startswith(name + "[")])
         table.append(row)
     emit({"kernels": table})
     print(smi, flush=True)

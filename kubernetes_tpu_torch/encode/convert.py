@@ -48,23 +48,8 @@ def from_reference(tree: dict, device):
     return _build(tree).to(device)
 
 
-_ALIGN = 16
-
-
 def patch_to(patch: dict, device) -> dict:
     """A compiled churn patch (numpy arrays by key) -> tensors on
-    ``device``, moved in ONE copy: the arrays are packed into one host
-    buffer, each at a 16-byte aligned offset, the buffer crosses to the
-    device at once, and each array becomes a typed view of it there."""
-    arrays = {k: np.ascontiguousarray(v) for k, v in patch.items()}
-    offsets, total = {}, 0
-    for k, a in arrays.items():
-        offsets[k] = total
-        total += -(-a.nbytes // _ALIGN) * _ALIGN
-    buf = np.zeros(total, np.uint8)
-    for k, a in arrays.items():
-        buf[offsets[k]:offsets[k] + a.nbytes] = a.reshape(-1).view(np.uint8)
-    dbuf = torch.from_numpy(buf).to(device)
-    return {k: dbuf[offsets[k]:offsets[k] + a.nbytes]
-            .view(torch.from_numpy(a[:0].reshape(-1)).dtype).reshape(a.shape)
-            for k, a in arrays.items()}
+    ``device``, one copy per key (a patch is a few KB)."""
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+            for k, v in patch.items()}

@@ -641,8 +641,8 @@ def drain_step(ct_all: ClusterTensors, pb_stack: PodBatch, fill,
     Reading ``new_fill`` on the host is the caller's business.
 
     ``patch``: optional compiled churn patch (encode/patch.py; numpy arrays
-    by key, or ``convert.patch_to``'s tensors), applied in front of the
-    batches as ``apply_ctx_patch`` would apply it.
+    by key), applied in front of the batches as ``apply_ctx_patch`` would
+    apply it.
     """
     B, P = pb_stack.pod_valid.shape
     BP = B * P
@@ -770,6 +770,7 @@ def _apply_patch(ct_all: ClusterTensors, patch: dict) -> ClusterTensors:
 
 def apply_ctx_patch(ct_all: ClusterTensors, patch: dict) -> ClusterTensors:
     """Standalone churn-patch apply (rebuild-time nominee staging): the
-    compiled patch (numpy arrays by key) moves to the context's device in
-    one copy and scatters into ``ct_all`` in place; -> ``ct_all``."""
+    compiled patch (numpy arrays by key) moves to the context's device
+    (``convert.patch_to``) and scatters into ``ct_all`` in place;
+    -> ``ct_all``."""
     return _apply_patch(ct_all, patch_to(patch, ct_all.node_valid.device))

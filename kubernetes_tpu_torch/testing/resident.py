@@ -80,6 +80,8 @@ class ResidentDrain:
         self.device = resolve_device(device)
         self.ctx = None
         self.stats = {"rebuilds": 0, "folds": 0, "unfit": 0, "reasons": {}}
+        # the padded batch stack of the last drain_step
+        self.last_stack = None
 
     def _reason(self, why: str) -> None:
         r = self.stats["reasons"]
@@ -211,6 +213,7 @@ class ResidentDrain:
                 return self.cycle(pods, nom_target)
             pb_stack = padded
 
+        self.last_stack = pb_stack
         t1 = time.perf_counter()
         assignments, rounds, ctx["ct"], ctx["fill_dev"] = drain_step(
             ctx["ct"], pb_stack, ctx["fill_dev"], fused,

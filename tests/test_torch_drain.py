@@ -135,6 +135,54 @@ def test_gang_drain_equals_reference(case):
     assert (np.asarray(ref[0]) >= 0).sum() > 0
 
 
+# a profile other than the default: the connected scheduler passes its
+# profile's seed, fit strategy, weights, filters and round limit
+PROFILE = dict(seed=4, fit_strategy="MostAllocated",
+               weights={"NodeResourcesFit": 3.0, "InterPodAffinity": 0.0},
+               enabled_filters={"NodeResourcesFit", "TaintToleration",
+                                "PodTopologySpread"})
+
+
+@pytest.mark.parametrize("max_rounds", [1, 64])
+def test_gang_drain_profile_equals_reference(max_rounds):
+    """A profile's seed, fit strategy, weights, filter subset and round
+    limit reach every batch of the drain."""
+    (rct, rpbs, rmeta, _), (ct, pbs, meta, _) = _encode_both(*_relational())
+    ref = ref_gang.gang_drain(rct, rpbs, topo_keys=rmeta.topo_keys,
+                              max_rounds=max_rounds, **PROFILE)
+    got = gang.gang_drain(ct, pbs, topo_keys=meta.topo_keys, device="cpu",
+                          max_rounds=max_rounds, **PROFILE)
+    for name, r, g in zip(("assignments", "rounds", "requested"), ref, got):
+        r = np.asarray(r)
+        assert r.dtype == g.dtype and np.array_equal(r, g), name
+    assert (np.asarray(ref[0]) >= 0).sum() > 0
+
+
+def test_drain_step_profile_equals_reference():
+    """drain_step takes the profile as the scheduler passes it (sorted
+    tuples); assignments, rounds, new_fill and the folded context are
+    bit-equal."""
+    node_dicts, bound, pending, _, ns_labels = _relational()
+    (rct, rpbs, rmeta, _), (ct, pbs, meta, _) = _encode_both(
+        node_dicts, bound, pending[:16], 8, ns_labels, pending_slots=True)
+    rctx, e0, rfill = ref_gang.build_drain_context(rct, rpbs, nom_bucket=8)
+    ctx, _, fill = gang.build_drain_context(ct, pbs, nom_bucket=8,
+                                            device="cpu")
+    kw = dict(seed=PROFILE["seed"], fit_strategy=PROFILE["fit_strategy"],
+              weights=tuple(sorted(PROFILE["weights"].items())),
+              enabled_filters=tuple(sorted(PROFILE["enabled_filters"])),
+              max_rounds=3)
+    ra, rr, rctx, rfill = ref_gang.drain_step(
+        rctx, _ref_stack(rpbs), rfill, e0=e0, topo_keys=rmeta.topo_keys, **kw)
+    pa, pr, ctx, fill = gang.drain_step(
+        ctx, gang.stack_batches(gang.unify_batches(pbs)), fill, e0=e0,
+        topo_keys=meta.topo_keys, **kw)
+    assert np.array_equal(np.asarray(ra), pa.numpy())
+    assert np.array_equal(np.asarray(rr), pr.numpy())
+    assert int(rfill) == int(fill) and (pa >= 0).any()
+    _assert_same(_flat(rctx), _flat(ctx), "folded")
+
+
 def test_gang_drain_sees_earlier_batches():
     """The cross-batch semantics of tests/test_gang_drain.py, on the port:
     anti-affinity spreads 8 pods over 8 nodes across two batches."""
