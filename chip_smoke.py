@@ -23,7 +23,10 @@ Phases, one JSON line each:
            resident drain with Recreate churn over a small relational_mix
            cluster on both, 9 cycles: placements, rounds, new_fill and the
            folded requested/epod_valid/epod_node equal after every cycle,
-           and at least 5 cycles folding behind a fused patch
+           and at least 5 cycles folding behind a fused patch; and the
+           port's Scheduler (sched/scheduler.py) over a small relational_mix
+           cluster with churn between pops, at pipeline depth 1 and 2:
+           binder logs, ctx_stats and the folded context equal
   path     the sidecar engine in process: PushSnapshot of a 5000-node
            MixedHeterogeneous cluster with 2000 bound pods, then 8 Schedule
            requests of 256 pending pods, each followed by the PushDelta that
@@ -52,8 +55,22 @@ Phases, one JSON line each:
            kernels.drain
   profile.drain  one more resident cycle under torch.profiler: the
            device's busy share of the drain_step and the top operations
+  scheduler  the north star through the port's Scheduler: 10,000
+           MixedHeterogeneous pods on 5000 nodes, reference defaults
+           (8 x 256 a pop, pipeline depth 2, fused fold, staging arena),
+           warm_drain, then run_once with Recreate churn before every pop
+           until the queue is empty; scheduled, the window from the first
+           queue.add to the last binding and pods/s over it, p50/p99 of
+           ATTEMPT_DURATION, per-cycle ms, ctx_stats, staging stats; the
+           placements are checked, 90% placed, breaker "single", 0 loop
+           errors, 0 pods through the oracle, 0 separate patches
+  kernels.scheduler  count_pn at the scheduler's resident shape (the
+           folded context after the run), as kernels.drain
+  profile.scheduler  one more pop of 2048 pods under torch.profiler:
+           the device's busy share of the whole cycle, assume and bind
+           included
 
-Each path (path, drain, resident) is driven with the launch counts set to
+Each path (path, drain, resident, scheduler) is driven with the launch counts set to
 0 just before it and read just after. Then the kernel table line
 ({"kernels": [...]}, one row per kernel at the shape of its most launches,
 launches summed over the paths, the shapes checked), the card's name and
@@ -849,6 +866,317 @@ def profile_drain_phase(drv, churn, pods, i):
             **summary, "trace": os.path.relpath(trace_path)}
 
 
+# ------------------------------------------------------------------ scheduler
+
+SCHED_PODS = 10000   # the north star: MixedHeterogeneous/10000Pods5000Nodes
+SCHED_PROFILED = 2048  # one more pop's worth of pods for profile.scheduler
+
+
+def sched_config(**overrides):
+    """The port's SchedulerConfiguration: the reference defaults (batch_size
+    256, max_drain_batches 8, pipeline_depth 2, fused fold and staging on)
+    with the explainer and the parity sentinel off, which the port refuses
+    (later slices)."""
+    from kubernetes_tpu_torch.config.types import (SchedulerConfiguration,
+                                                   validate)
+    cfg = SchedulerConfiguration(explainer_enabled=False,
+                                 parity_sample_every=0, **overrides)
+    validate(cfg)
+    return cfg
+
+
+def make_scheduler(cfg, node_objs, bound_objs=(), ns_labels=None,
+                   device=None, confirm=True):
+    """A port Scheduler over a fresh SchedulerCache and SchedulingQueue,
+    PreemptionSimulation off (default preemption is a later slice), and an
+    in-process binder that logs (pod key, node, seconds) and, with
+    ``confirm``, confirms the binding in the cache as the runner's informer
+    would. -> (scheduler, binder log)."""
+    import dataclasses
+    from kubernetes_tpu_torch.config.features import FeatureGate
+    from kubernetes_tpu_torch.sched.cache import SchedulerCache
+    from kubernetes_tpu_torch.sched.queue import SchedulingQueue
+    from kubernetes_tpu_torch.sched.scheduler import Scheduler
+    cache = SchedulerCache(assume_ttl=3600.0)
+    for name, labels in (ns_labels or {}).items():
+        cache.update_namespace({"metadata": {"name": name, "labels": labels}})
+    for n in node_objs:
+        cache.add_node(n)
+    for p in bound_objs:
+        cache.add_pod(p)
+    # backoff beyond the run: a pod that fails stays out of later pops
+    queue = SchedulingQueue(backoff_initial=3600.0, backoff_max=3600.0)
+    log = []
+
+    def binder(pod, node):
+        log.append((pod.key, node, time.perf_counter()))
+        if confirm:
+            cache.add_pod(dataclasses.replace(
+                pod, spec=dataclasses.replace(pod.spec, node_name=node)))
+        return True
+
+    gate = FeatureGate()
+    gate.set("PreemptionSimulation", False)
+    sched = Scheduler(cfg, cache, queue, binder, feature_gate=gate,
+                      device=device)
+    return sched, log
+
+
+def sched_parity_phase(seed=SEED, devices=("cuda", "cpu"), depths=(1, 2)):
+    """The port's Scheduler over a small relational_mix cluster with churn
+    between pops (Recreate churn, a nominee held from the first pop and
+    cleared at the fourth), on each device, at each pipeline depth: the
+    binder logs (pod -> node), ctx_stats and the folded requested,
+    epod_valid and epod_node must be equal on every device. In-flight
+    drains resolve only at the depth bound and the pipeline's own drains
+    (``_drain_ready`` is held False), so both devices resolve at the same
+    points, as in tests/test_torch_sched.py."""
+    from kubernetes_tpu_torch.api.types import Node, Pod
+    from kubernetes_tpu_torch.testing.workloads import relational_mix
+    from kubernetes_tpu_torch.testing.wrappers import make_pod
+    nodes, bound, pending, ns_labels = relational_mix(pods=160, nodes=16,
+                                                      bound=12, seed=seed)
+    clean = [p for p in pending[16:]
+             if not p.host_ports() and not p.spec.volumes]
+    pods = [p.to_dict() for p in pending[:16] + clean[:64]]
+    nominee = make_pod("nominee", "churn").req({"cpu": "3"}).obj()
+    out = {}
+    for depth in depths:
+        runs = {}
+        for device in devices:
+            sched, log = make_scheduler(
+                sched_config(batch_size=8, max_drain_batches=2,
+                             pipeline_depth=depth),
+                [Node.from_dict(n.to_dict()) for n in nodes],
+                [Pod.from_dict(p.to_dict()) for p in bound], ns_labels,
+                device=device, confirm=False)
+            sched._drain_ready = lambda pend: False
+            try:
+                check(sched.warm_drain([Pod.from_dict(d) for d in pods[:16]],
+                                       slot_headroom=256),
+                      "scheduler parity: the context did not arm")
+                for d in pods:
+                    sched.queue.add(Pod.from_dict(d))
+                churn = ([], [])
+                for i in range(10):
+                    if i < 6:
+                        if i in (0, 3):
+                            sched.nominate_external(nominee,
+                                                    "node-0" if i == 0 else "")
+                        _churn(sched.cache, i, *churn)
+                    sched.run_once(wait=0.01)
+                sched._resolve_pending()
+                sched.wait_for_bindings()
+                ctx = sched._drain_ctx
+                ct = ctx["ct"]
+                runs[device] = {
+                    "log": {k: n for k, n, _t in log},
+                    "ctx_stats": json.loads(json.dumps(sched.ctx_stats)),
+                    "fill_host": ctx["cs"].fill_host, "top": ctx["cs"].top,
+                    "fill_bound": ctx["fill_bound"],
+                    "requested": ct.requested.cpu().tolist(),
+                    "epod_valid": ct.epod_valid.cpu().tolist(),
+                    "epod_node": ct.epod_node.cpu().tolist()}
+            finally:
+                sched.close()
+        first = runs[devices[0]]
+        for device in devices[1:]:
+            for key, value in first.items():
+                check(runs[device][key] == value,
+                      f"scheduler parity at depth {depth}: {key} on "
+                      f"{devices[0]} differs from {device}")
+        check(first["fill_bound"] == first["fill_host"],
+              f"scheduler parity at depth {depth}: fill_bound "
+              f"{first['fill_bound']} != fill_host {first['fill_host']}")
+        check(first["ctx_stats"]["folds"] >= 3 and len(first["log"]) >= 40,
+              f"scheduler parity at depth {depth}: too little folded "
+              f"({first['ctx_stats']}, {len(first['log'])} placed)")
+        out[f"depth_{depth}"] = {"placed": len(first["log"]),
+                                 "ctx_stats": first["ctx_stats"],
+                                 "fill_host": first["fill_host"]}
+    return out
+
+
+def sched_workload(pods=SCHED_PODS + SCHED_PROFILED, nodes=N_NODES,
+                   seed=SEED):
+    """MixedHeterogeneous/10000Pods5000Nodes and one more pop for the
+    profiled cycle. -> (node dicts, [measured pod dicts], [profiled])."""
+    from kubernetes_tpu_torch.testing.workloads import mixed_heterogeneous
+    node_objs, pod_objs = mixed_heterogeneous(pods=pods, nodes=nodes,
+                                              seed=seed)
+    dicts = [p.to_dict() for p in pod_objs]
+    return ([n.to_dict() for n in node_objs], dicts[:SCHED_PODS],
+            dicts[SCHED_PODS:])
+
+
+def _cycles(cycle_log):
+    """cycle_log entries -> one dict per drain: pods, and the ms from the
+    cycle's start to each mark (encode, dispatch, dispatched, resolved)."""
+    return [{"pods": n, **{k: v * 1e3 for k, v in marks.items()}}
+            for n, _t0, marks in cycle_log]
+
+
+def scheduler_phase(node_dicts, pod_dicts, device=None, smi=""):
+    """The north star through the port's Scheduler: warm_drain on the first
+    pop's pods, then every pod into the queue and run_once until the queue
+    is empty and the pipeline has resolved, with the Recreate churn applied
+    to the cache before every pop. The window runs from the first
+    queue.add to the last binding in the binder's log. The placements are
+    checked; at least 90% placed; the breaker still "single", no loop
+    error, no pod through the oracle, no separate patch dispatch (fused
+    fold). The loop's tracer spans over the window are summed by name
+    (count, total and longest ms). -> (summary, scheduler, churn
+    state)."""
+    from kubernetes_tpu_torch.api.types import Node, Pod
+    from kubernetes_tpu_torch.metrics.registry import (ATTEMPT_DURATION,
+                                                       LOOP_ERRORS)
+    from kubernetes_tpu_torch.ops import kernels
+    from kubernetes_tpu_torch.utils.tracing import TRACER
+    cfg = sched_config()
+    sched, log = make_scheduler(cfg, [Node.from_dict(d) for d in node_dicts],
+                                device=device)
+    oracle_pods = []
+    to_oracle = sched._schedule_oracle
+
+    def counted_oracle(profile, items):
+        oracle_pods.append(len(items))
+        return to_oracle(profile, items)
+
+    sched._schedule_oracle = counted_oracle
+    sched.cycle_log = []
+    pods = [Pod.from_dict(d) for d in pod_dicts]
+    pop = cfg.batch_size * cfg.max_drain_batches
+    t0 = time.perf_counter()
+    check(sched.warm_drain(pods[:pop], slot_headroom=len(pods) + 2 * pop),
+          "scheduler: warm_drain did not arm the context")
+    warm_s = time.perf_counter() - t0
+    errors0 = sum(LOOP_ERRORS.items().values())
+    ATTEMPT_DURATION.reset()
+    TRACER.reset()
+    kernels.reset_launches()
+    churn = ([], [])
+    pops = 0
+    t_start = time.perf_counter()
+    for p in pods:
+        sched.queue.add(p)
+    while True:
+        _churn(sched.cache, pops, *churn)
+        sched.run_once(wait=0.05)
+        pops += 1
+        if (not sched._pending and not sched._staged
+                and sched.queue.stats()["active"] == 0):
+            break
+        check(pops < 100, "scheduler: the queue did not drain in 100 pops")
+    sched._resolve_pending()
+    sched.wait_for_bindings(timeout=120.0)
+    t_end = max((t for _k, _n, t in log), default=t_start)
+    launches = dict(kernels.LAUNCHES)
+    errors = sum(LOOP_ERRORS.items().values()) - errors0
+    window_s = t_end - t_start
+    spans = {}
+    for sp in TRACER.spans():
+        agg = spans.setdefault(sp.name, {"count": 0, "total_ms": 0.0,
+                                         "max_ms": 0.0})
+        agg["count"] += 1
+        agg["total_ms"] += sp.duration_ms
+        agg["max_ms"] = max(agg["max_ms"], sp.duration_ms)
+    placed = {k: n for k, n, _t in log}
+    check(len(placed) == len(log), "scheduler: a pod was bound twice")
+    by_key = {d["metadata"].get("namespace", "default") + "/"
+              + d["metadata"]["name"]: d for d in pod_dicts}
+    placed_dicts = []
+    for key, node in placed.items():
+        d = dict(by_key[key])
+        d["spec"] = dict(d["spec"], nodeName=node)
+        placed_dicts.append(d)
+    churn_nodes = [{"metadata": {"name": f"churn-n{i}"},
+                    "status": {"allocatable": {"cpu": "2", "memory": "4Gi",
+                                               "pods": "8"}}}
+                   for i in range(pops)]
+    check_placements(node_dicts + churn_nodes, [], placed_dicts, len(pods))
+    stats = sched.ctx_stats
+    check(sched.breaker.mode == "single",
+          f"scheduler: the breaker degraded to {sched.breaker.mode!r}")
+    check(errors == 0, f"scheduler: {errors} loop errors")
+    check(not oracle_pods, f"scheduler: {sum(oracle_pods)} pods went "
+                           "through the numpy oracle")
+    check(stats["patches"] == 0,
+          f"scheduler: {stats['patches']} separate patch dispatches in "
+          "fused mode (the fusion degraded)")
+    for name, n in launches.items():
+        check(n > 0, f"kernel {name} was never launched by the scheduler")
+    q = {"result": "scheduled"}
+    return ({"pods": len(pods), "nodes": len(node_dicts), "pops": pops,
+             "scheduled": len(placed), "warm_drain_s": warm_s,
+             "window_s": window_s, "pods_per_s": len(placed) / window_s,
+             "attempt_p50_s": ATTEMPT_DURATION.percentile(0.5, q),
+             "attempt_p99_s": ATTEMPT_DURATION.percentile(0.99, q),
+             "attempts_observed": ATTEMPT_DURATION.count(q),
+             "north_star_p99_under_1s":
+                 ATTEMPT_DURATION.percentile(0.99, q) < 1.0,
+             "cycles": _cycles(sched.cycle_log), "spans": spans,
+             "spans_dropped": TRACER.dropped,
+             "ctx_stats": stats, "staging": sched.cache.staging_stats(),
+             "encode_cache": sched.cache.encode_cache_stats(),
+             "breaker": sched.breaker.mode, "loop_errors": errors,
+             "oracle_pods": sum(oracle_pods), "launches": launches,
+             "card": smi}, sched, churn)
+
+
+def scheduler_count_cases(sched, pod_dicts):
+    """count_pn's inputs as the scheduler's resident drain meets them: the
+    folded context after the run (E = e0 + B·P, N = 8192) and the spread
+    and preferred affinity terms of a batch encoded against the context's
+    meta and padded to its batch shapes."""
+    from kubernetes_tpu_torch.api.types import Pod
+    from kubernetes_tpu_torch.models.gang import (_batch, pad_batch_to,
+                                                  stack_batches)
+    ctx = sched._drain_ctx
+    ct = ctx["ct"]
+    P = sched.cfg.batch_size
+    pb = sched.cache.encode_pods([Pod.from_dict(d) for d in pod_dicts[:P]],
+                                 ctx["meta"], min_p=P)
+    stack = pad_batch_to(stack_batches([pb] * sched.cfg.max_drain_batches),
+                         ctx["pb_shape"])
+    check(stack is not None, "scheduler: the batch exceeds the context")
+    return _term_cases("scheduler", ct,
+                       _batch(stack.to(ct.epod_valid.device), 0))
+
+
+def profile_scheduler_phase(sched, churn, pod_dicts, i):
+    """One more pop (churn, then run_once of B x P pods until its bindings
+    land) under torch.profiler: the device's busy share of the whole
+    cycle, assume and bind included, and ``trace_summary`` of the trace
+    (kept under build/profile/)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from kubernetes_tpu_torch.api.types import Pod
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build", "profile")
+    os.makedirs(out_dir, exist_ok=True)
+    trace_path = os.path.join(out_dir, "scheduler_cycle.json")
+    for d in pod_dicts:
+        sched.queue.add(Pod.from_dict(d))
+    _churn(sched.cache, i, *churn)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        bound = sched.run_once(wait=0.05)
+        bound += sched._resolve_pending()
+        sched.wait_for_bindings(timeout=60.0)
+        torch.cuda.synchronize()
+        cycle_ms = (time.perf_counter() - t0) * 1e3
+    prof.export_chrome_trace(trace_path)
+    with open(trace_path) as f:
+        summary = trace_summary(json.load(f)["traceEvents"])
+    check(summary["device_ops"] > 0,
+          "profiled scheduler cycle: the trace holds no device time")
+    return {"pods": len(pod_dicts), "bound": bound, "cycle_ms": cycle_ms,
+            "device_busy_share_of_cycle": summary["device_busy_ms"]
+            / cycle_ms, **summary, "trace": os.path.relpath(trace_path)}
+
+
 # ------------------------------------------------------------------ main
 
 def main() -> int:
@@ -890,7 +1218,7 @@ def main() -> int:
           "launches_while_comparing": dict(kernels.LAUNCHES)})
 
     emit({"phase": "parity", **parity_phase(),
-          "drain": drain_parity_phase()})
+          "drain": drain_parity_phase(), "scheduler": sched_parity_phase()})
 
     launches = {}   # kernel -> {path: launches}
 
@@ -931,17 +1259,35 @@ def main() -> int:
                                 resident["cycles"])})
     del drv
 
-    # one entry per kernel, at the shape of its most launches (count_pn:
-    # the resident drain's spread terms), launches summed over every path;
-    # every row of the kernels phases was held bit-equal to the plain version
+    s_nodes, s_pods, s_profiled = sched_workload()
+    sched_sum, sched, s_churn = scheduler_phase(s_nodes, s_pods, smi=smi)
+    for name, n in sched_sum["launches"].items():
+        launches.setdefault(name, {})["scheduler"] = n
+    emit({"phase": "scheduler", **sched_sum})
+    sched_rows = kernels_phase(scheduler_count_cases(sched, s_pods))
+    emit({"phase": "kernels.scheduler", "rows": sched_rows})
+    emit({"phase": "profile.scheduler",
+          **profile_scheduler_phase(sched, s_churn, s_profiled,
+                                    sched_sum["pops"])})
+    sched.close()
+    del sched
+
+    # one entry per kernel, at the shape of the path with its most launches
+    # among those whose rows are taken from the path's own context
+    # (resident, scheduler), launches summed over every path; every row of
+    # the kernels phases was held bit-equal to the plain version
+    rows_by_path = {"resident": resident_rows, "scheduler": sched_rows}
     table = []
     for name, by_path in launches.items():
-        row = dict(next(r for r in resident_rows
+        top = max(rows_by_path, key=lambda path: by_path.get(path, 0))
+        row = dict(next(r for r in rows_by_path[top]
                         if r["name"].startswith(name + "[")))
         row.update(name=name, launches=sum(by_path.values()),
                    launches_by_path=by_path, ms=row.pop("kernel_ms"),
+                   shape_of=top,
                    shapes_checked=[r["name"] for r in
                                    rows + drain_rows + resident_rows
+                                   + sched_rows
                                    if r["name"].startswith(name + "[")])
         table.append(row)
     emit({"kernels": table})

@@ -49,7 +49,9 @@ def from_reference(tree: dict, device):
 
 
 def patch_to(patch: dict, device) -> dict:
-    """A compiled churn patch (numpy arrays by key) -> tensors on
-    ``device``, one copy per key (a patch is a few KB)."""
-    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+    """A compiled churn patch (numpy arrays by key, or tensors a staging
+    call already moved) -> tensors on ``device``, one copy per key that is
+    not there yet (a patch is a few KB)."""
+    return {k: (v.to(device) if isinstance(v, torch.Tensor)
+                else torch.from_numpy(np.ascontiguousarray(v)).to(device))
             for k, v in patch.items()}

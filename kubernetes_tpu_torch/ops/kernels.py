@@ -10,6 +10,10 @@ source, so an edited kernel is rebuilt and a stale one is never loaded.
 ``LAUNCHES`` counts the launches of each kernel. A wrapper adds one where
 it launches its kernel and nowhere else, so a caller can set the counts to
 0, run a path, and see which kernels it went through.
+
+``KernelError`` is what a kernel's build, load, launch or input check
+raises. It is never degraded around: the scheduler's circuit breaker lets
+it escape instead of moving the work off the card.
 """
 
 from __future__ import annotations
@@ -34,6 +38,14 @@ _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
 
 
+class KernelError(RuntimeError):
+    """A hand-written kernel failed to build, load or launch."""
+
+
+class KernelInputError(KernelError, ValueError):
+    """A kernel's wrapper refused its inputs or its launch geometry."""
+
+
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
@@ -47,7 +59,7 @@ def _nvcc() -> str:
     path = os.path.join(home, "bin", "nvcc")
     if os.path.exists(path):
         return path
-    raise RuntimeError("nvcc not found: the CUDA kernels build only where "
+    raise KernelError("nvcc not found: the CUDA kernels build only where "
                        "the CUDA toolkit is installed")
 
 
@@ -82,7 +94,7 @@ def build(names=KERNELS) -> dict[str, dict]:
         os.replace(tmp, path)
         out[name].update(built=True, ptxas=log.strip())
     if failed:
-        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+        raise KernelError("nvcc failed for " + "\n".join(failed))
     return out
 
 
@@ -94,6 +106,9 @@ def library(name: str) -> ctypes.CDLL:
             path = _lib_path(name)
             if not path.exists():
                 build((name,))
-            lib = ctypes.CDLL(str(path))
+            try:
+                lib = ctypes.CDLL(str(path))
+            except OSError as e:
+                raise KernelError(f"cannot load {path}: {e}") from e
             _LIBS[name] = lib
         return lib

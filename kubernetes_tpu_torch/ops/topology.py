@@ -190,8 +190,9 @@ def count_pn_geometry(PT: int, N: int, X: int, V: int,
     _THREADS: ``pt_tile`` is cut to PT and ``node_range`` to N, then
     ``node_range`` is halved (then ``pt_tile``) while a block's shared
     memory would exceed SMEM_PER_BLOCK, and ``pt_tile`` is halved while
-    the grid would leave SMs idle. Raises ValueError when one selector's
-    staging alone does not fit or the grid exceeds its limit."""
+    the grid would leave SMs idle. Raises ``kernels.KernelInputError`` (a
+    ValueError) when one selector's staging alone does not fit or the grid
+    exceeds its limit."""
     pt_tile = next(p for p in PT_TILES if p >= min(_PT_TILE, PT))
     node_range = min(_NODE_RANGE, -(-N // 4) * 4)
     while _smem_layout(pt_tile, node_range, X, V, NSB) > SMEM_PER_BLOCK:
@@ -200,7 +201,7 @@ def count_pn_geometry(PT: int, N: int, X: int, V: int,
         elif pt_tile > 1:
             pt_tile //= 2
         else:
-            raise ValueError(
+            raise kernels.KernelInputError(
                 f"count_pn: one selector (X={X}, V={V}, NSB={NSB}) does not "
                 f"fit a block's {SMEM_PER_BLOCK} bytes of shared memory")
 
@@ -212,7 +213,8 @@ def count_pn_geometry(PT: int, N: int, X: int, V: int,
         pt_tile //= 2
     g = geometry()
     if g.blocks > GRID_X_MAX:
-        raise ValueError(f"count_pn: {g.blocks} blocks exceed the grid")
+        raise kernels.KernelInputError(
+            f"count_pn: {g.blocks} blocks exceed the grid")
     return g
 
 
@@ -236,7 +238,7 @@ def _refuse(name, t, dtype, shape, dev):
         why = f"is on {t.device}, the other inputs on cuda:{dev}"
     else:
         why = "is not contiguous"
-    raise ValueError(f"count_pn: {name} {why}")
+    raise kernels.KernelInputError(f"count_pn: {name} {why}")
 
 
 def _count_pn_fn():
@@ -250,8 +252,9 @@ def _count_pn_fn():
 def count_pn(ct: ClusterTensors, sel, pod_ns, ns_explicit=None, ns_mask=None,
              geometry: CountPnGeometry | None = None):
     """cnt_pn [P,T,N] f32 through the CUDA kernel ``csrc/count_pn.cu``.
-    Takes tensors on one card only; raises on anything the kernel does not
-    take, and when the launch fails. ``geometry`` overrides the default
+    Takes tensors on one card only; raises ``kernels.KernelInputError`` on
+    anything the kernel does not take, and ``kernels.KernelError`` when
+    the build or the launch fails. ``geometry`` overrides the default
     launch geometry (for tuning); its PT and N must be this call's."""
     labels = ct.epod_labels
     E, K = labels.shape
@@ -280,8 +283,8 @@ def count_pn(ct: ClusterTensors, sel, pod_ns, ns_explicit=None, ns_mask=None,
         return cnt
     g = geometry or count_pn_geometry(PT, N, X, V, NSB)
     if (g.PT, g.N) != (PT, N):
-        raise ValueError(f"count_pn: geometry for {(g.PT, g.N)}, "
-                         f"called with {(PT, N)}")
+        raise kernels.KernelInputError(
+            f"count_pn: geometry for {(g.PT, g.N)}, called with {(PT, N)}")
     args = array.array("q", [t.data_ptr() for t in tensors])
     if ns_explicit is None:
         args.extend((0, 0))
@@ -290,7 +293,7 @@ def count_pn(ct: ClusterTensors, sel, pod_ns, ns_explicit=None, ns_mask=None,
                  g.n_ranges, g.blocks, g.threads, g.smem_bytes))
     err = _count_pn_fn()(args.buffer_info()[0], _N_ARGS)
     if err != 0:
-        raise RuntimeError(
+        raise kernels.KernelError(
             "count_pn launch failed: " + ("geometry disagrees with the "
             "kernel's shared-memory layout" if err == -1
             else f"CUDA error {err}"))

@@ -11,8 +11,12 @@ SnapshotEncoder keeps intern tables stable across snapshots. The ordered
 delta log feeds the device-resident drain context's churn patches
 (encode/patch.py).
 
-Of the reference cache this module leaves out the staging arena, the
-device mesh, the DRA catalogs and the metrics gauges.
+The staging arena (sched/staging.py) stages drain batches for the
+scheduler's ``device``: pinned host buffers and a side CUDA stream on the
+card, the plain conversion on the CPU. Of the reference cache this module
+leaves out the device mesh (``mesh`` is always None: one device) and DRA:
+a DRA object, or a pod with resource claims, raises NotImplementedError
+(ROADMAP Queue A item 11).
 """
 
 from __future__ import annotations
@@ -23,8 +27,10 @@ import time
 from typing import Optional
 
 import numpy as np
+import torch
 
 from kubernetes_tpu_torch.api.types import Node, Pod
+from kubernetes_tpu_torch.encode.convert import patch_to
 from kubernetes_tpu_torch.encode.patch import compile_patch, fork_patch_state
 from kubernetes_tpu_torch.encode.snapshot import (TENANT_LABEL, ClusterTensors,
                                                   SnapshotEncoder, SnapshotMeta)
@@ -39,6 +45,14 @@ from kubernetes_tpu_torch.encode.snapshot import (TENANT_LABEL, ClusterTensors,
 NODE_HEADROOM = 64
 VALUE_HEADROOM = 256
 NS_HEADROOM = 16
+
+
+def _refuse_claims(pods) -> None:
+    for p in pods:
+        if p.spec.resource_claims:
+            raise NotImplementedError(
+                f"pod {p.key} has resource claims: DRA is not ported yet "
+                "(ROADMAP Queue A item 11)")
 
 
 class SchedulerCache:
@@ -79,6 +93,79 @@ class SchedulerCache:
         # status/conditions must not invalidate the encoding at all
         self._node_fps: dict[str, tuple] = {}  # guarded by: self._lock
         self._full_encodes = 0  # guarded by: self._lock
+        # double-buffered batch staging (sched/staging.py): batch K+1
+        # stages on the background stager thread while batch K's host work
+        # finishes; dispatch redeems a buffer swap. configure_staging (the
+        # scheduler, from SchedulerConfiguration.staging_arena) switches it
+        # and names the device the drains run on.
+        from kubernetes_tpu_torch.sched.staging import StagingArena
+        self._arena = StagingArena()
+        self._staging_enabled = True
+        self._device = torch.device("cpu")
+
+    # ---- device and staging ----------------------------------------------
+
+    def set_mesh(self, mesh) -> None:
+        """The port runs on one device: only ``None`` is accepted."""
+        if mesh is not None:
+            raise NotImplementedError(
+                "a device mesh is not ported: ROADMAP Queue A item 8")
+        self._arena.invalidate()
+
+    @property
+    def mesh(self):
+        return None
+
+    def configure_staging(self, enabled: bool, device=None) -> None:
+        """Arena switch, and the device staged batches and patches go to
+        (``None`` keeps the current one)."""
+        self._staging_enabled = bool(enabled)
+        if device is not None and torch.device(device) != self._device:
+            self._device = torch.device(device)
+            self._arena.invalidate()
+
+    def stage_submit(self, pb_stack):
+        """Hand the final stacked drain batch to the staging arena: the
+        stager thread uploads it while the scheduling thread finishes the
+        cycle's host work. Returns a ticket for stage_redeem, or None
+        (arena off, or the double buffer full) — the dispatch then stages
+        inline."""
+        if not self._staging_enabled:
+            return None
+        return self._arena.submit(pb_stack, self._device)
+
+    def stage_redeem(self, ticket):
+        """Redeem a stage_submit ticket: the staged batch, ordered on the
+        current stream, or None (invalidated/failed/timed out — caller
+        stages inline)."""
+        if ticket is None:
+            return None
+        return self._arena.redeem(ticket, self._device)
+
+    def close_staging(self) -> None:
+        self._arena.close()
+
+    def stage_drain_batch(self, pb_stack):
+        """INLINE staging of a stacked drain batch [B,P,...]: the fallback
+        half of the staging pair (the steady state redeems a stage_submit
+        ticket instead)."""
+        from kubernetes_tpu_torch.metrics.registry import STAGE_BYTES
+        from kubernetes_tpu_torch.sched.staging import _tree_nbytes
+        staged = pb_stack.to(self._device)
+        STAGE_BYTES.inc({"path": "inline"}, by=_tree_nbytes(pb_stack))
+        return staged
+
+    def stage_patch(self, patch):
+        """A compiled churn patch's host arrays (~KB) on the device, one
+        copy per key (``convert.patch_to``), before the dispatch that
+        consumes them."""
+        if patch is None:
+            return None
+        return patch_to(patch, self._device)
+
+    def staging_stats(self) -> dict:
+        """Arena health for status and bench legs."""
+        return dict(self._arena.stats(), enabled=self._staging_enabled)
 
     # ---- delta log (drain-context patch feed) ----------------------------
 
@@ -134,6 +221,17 @@ class SchedulerCache:
             self._generation += 1
             self._needs_full = True
             self._log_locked("full", None)
+
+    @property
+    def volume_catalog(self):
+        with self._lock:
+            return self._volumes
+
+    # ---- DRA objects -----------------------------------------------------
+
+    def update_dra_object(self, kind: str, obj: dict, deleted: bool = False):
+        raise NotImplementedError(
+            "DRA objects are not ported yet: ROADMAP Queue A item 11")
 
     # ---- namespace labels (Namespace informer feeds this) ----------------
 
@@ -223,6 +321,7 @@ class SchedulerCache:
         ``status`` on every sync; the encoder reads labels + spec only, so
         equality there keeps the encoding valid; the stored object still
         refreshes."""
+        _refuse_claims((pod,))
         with self._lock:
             if not pod.spec.node_name:
                 return
@@ -275,6 +374,18 @@ class SchedulerCache:
             self._encoder.pod_cache_discard(pod_key)
             return True
 
+    def is_bound(self, pod_key: str) -> bool:
+        """True if the pod is recorded as bound (confirmed via watch)."""
+        with self._lock:
+            return pod_key in self._pods
+
+    def is_assumed_or_bound(self, pod_key: str) -> bool:
+        """True if the pod holds capacity (assumed OR confirmed) — the
+        mid-cycle rescue path must not requeue a pod whose placement this
+        very cycle already committed."""
+        with self._lock:
+            return pod_key in self._pods or pod_key in self._assumed
+
     def remove_pod(self, pod_key: str):
         with self._lock:
             existed = self._pods.pop(pod_key, None) or self._assumed.pop(pod_key, None)
@@ -292,6 +403,7 @@ class SchedulerCache:
         confirms via add_pod or expires after assume_ttl. Stores a two-level
         copy (new Pod + new spec): the caller's pod object stays unbound so
         a failed binding can requeue it cleanly."""
+        _refuse_claims((pod,))
         with self._lock:
             p = dataclasses.replace(
                 pod, spec=dataclasses.replace(pod.spec, node_name=node_name))
@@ -306,6 +418,7 @@ class SchedulerCache:
         """assume() for a whole drain's winners in ONE lock pass.
         ``pairs``: [(Pod, node_name)]. Advances the generation by exactly
         len(pairs)."""
+        _refuse_claims(p for p, _ in pairs)
         with self._lock:
             deadline = time.time() + self.assume_ttl
             for pod, node_name in pairs:
@@ -327,6 +440,9 @@ class SchedulerCache:
                 self._delta_upserts.pop(pod_key, None)
                 self._delta_deletes.add(pod_key)
                 self._log_locked("poddel", pod_key)
+
+    def finish_binding(self, pod_key: str):
+        """Binding RPC done; keep assumed until the watch confirms (TTL holds)."""
 
     def _expire_assumed_locked(self):
         now = time.time()
@@ -361,9 +477,26 @@ class SchedulerCache:
         with self._encode_lock:
             return self._snapshot_serialized(pending_pods, slot_headroom)
 
+    def _export_gauges_locked(self):
+        from kubernetes_tpu_torch.metrics.registry import (
+            CACHE_FULL_ENCODES,
+            CACHE_GENERATION,
+            ENCODE_POD_CACHE_HITS,
+            ENCODE_POD_CACHE_MISSES,
+            ENCODE_POD_ROWS_FILLED,
+            ENCODE_POD_ROWS_STACKED,
+        )
+        CACHE_GENERATION.set(self._generation)
+        CACHE_FULL_ENCODES.set(self._full_encodes)
+        ENCODE_POD_CACHE_HITS.set(self._encoder.pod_cache_hits)
+        ENCODE_POD_CACHE_MISSES.set(self._encoder.pod_cache_misses)
+        ENCODE_POD_ROWS_STACKED.set(self._encoder.pod_rows_stacked)
+        ENCODE_POD_ROWS_FILLED.set(self._encoder.pod_rows_filled)
+
     def _snapshot_serialized(self, pending_pods, slot_headroom):
         with self._lock:
             self._expire_assumed_locked()
+            self._export_gauges_locked()
             self._snap_seq = self._dlog_seq
             nodes = list(self._nodes.values())
             gen = self._generation
@@ -413,6 +546,7 @@ class SchedulerCache:
             if self._generation == gen:
                 self._needs_full = False
             self._full_encodes += 1
+            self._export_gauges_locked()
         return nodes, ct, meta
 
     def patch_state_fork(self):
@@ -432,9 +566,41 @@ class SchedulerCache:
 
     def encode_pods(self, pods: list[Pod], meta: SnapshotMeta,
                     min_p: int = 1, cache_rows: bool = True):
+        _refuse_claims(pods)
         with self._encode_lock:
             return self._encoder.encode_pods(pods, meta, min_p=min_p,
                                              cache_rows=cache_rows)
+
+    def precompile_pod(self, pod: Pod) -> None:
+        """Informer-event-time half of the incremental encode: compile the
+        pod's encode record NOW (watch thread) so the drain's encode_pods
+        later is array-fill only. NON-BLOCKING on the encode lock — if the
+        scheduling loop is mid-encode, skipping is strictly better than
+        convoying the watch thread behind the encode."""
+        if not self._encode_lock.acquire(blocking=False):
+            return
+        try:
+            self._encoder.precompile_pod(pod)
+        except Exception:  # ktpu-lint: disable=KTL002 -- best-effort warm-up; encode_pods recompiles this pod authoritatively on the hot path, so a precompile failure costs latency, never correctness
+            pass
+        finally:
+            self._encode_lock.release()
+
+    def encode_cache_stats(self) -> dict[str, int]:
+        """Hit/miss counters of the pod compile cache plus the row-pack
+        assembly split (a healthy connected run shows hits >> misses and
+        rows_stacked >> rows_filled)."""
+        return {"hits": self._encoder.pod_cache_hits,
+                "misses": self._encoder.pod_cache_misses,
+                "rows_stacked": self._encoder.pod_rows_stacked,
+                "rows_filled": self._encoder.pod_rows_filled}
+
+    def overlay_nominated(self, ct, meta, entries, min_m: int = 0):
+        """ct with nominated-pod reservations applied (encoder.with_nominated);
+        entries: [(node_name, priority, Pod)]."""
+        with self._encode_lock:
+            return self._encoder.with_nominated(ct, meta, entries,
+                                                min_m=min_m)
 
     def request_vector(self, pod: Pod, resources: list) -> np.ndarray:
         """One pod's scaled request vector on ``resources`` — the same
@@ -449,6 +615,35 @@ class SchedulerCache:
                 out += [p for p, _ in self._assumed.values()]
             return out
 
+    def get_node(self, name: str) -> Optional[Node]:
+        """Cheap single-node lookup; avoids a full snapshot from
+        non-scheduling threads."""
+        with self._lock:
+            return self._nodes.get(name)
+
     def list_nodes(self) -> list[Node]:
+        """Plain node list WITHOUT an encode pass — the oracle fallback
+        path reads typed objects only, so a broken device layer never
+        stands between it and the cluster state."""
         with self._lock:
             return list(self._nodes.values())
+
+    def namespace_labels(self) -> dict[str, dict]:
+        """Namespace -> labels view (the oracle's namespaceSelector
+        resolution source)."""
+        with self._lock:
+            return dict(self._namespace_labels)
+
+    def delta_info(self) -> tuple[int, set, bool, bool]:
+        """-> (generation, pending upsert keys, any deletes pending,
+        needs_full)."""
+        with self._lock:
+            return (self._generation, set(self._delta_upserts),
+                    bool(self._delta_deletes), self._needs_full)
+
+    def stats(self) -> dict[str, int]:
+        with self._lock:
+            return {"nodes": len(self._nodes), "pods": len(self._pods),
+                    "assumed": len(self._assumed),
+                    "generation": self._generation,
+                    "full_encodes": self._full_encodes}

@@ -1,0 +1,239 @@
+"""Scheduling queue — three-tier activeQ / backoffQ / unschedulable map.
+
+Reference: ``pkg/scheduler/internal/queue/scheduling_queue.go``
+(``PriorityQueue``: Add, Pop, AddUnschedulableIfNotPresent,
+MoveAllToActiveOrBackoffQueue). Two deliberate departures for the TPU design:
+
+- ``pop_batch``: the gang batcher wants P pods per device step, so Pop drains
+  up to ``max_batch`` pods at once (priority order preserved). The reference
+  pops exactly one.
+- Queueing hints are event-kind coarse (node-add/pod-delete/...) rather than
+  per-plugin closures; precision hints can layer on later.
+"""
+
+from __future__ import annotations
+
+import heapq
+import itertools
+import threading
+import time
+from dataclasses import dataclass, field
+from typing import Optional
+
+from kubernetes_tpu_torch.api.types import Pod
+from kubernetes_tpu_torch.utils.tracing import FLIGHT
+
+# Cluster events that can make unschedulable pods schedulable again
+# (events.go ClusterEvent analog).
+EVENT_NODE_ADD = "NodeAdd"
+EVENT_NODE_UPDATE = "NodeUpdate"
+EVENT_POD_DELETE = "PodDelete"
+EVENT_POD_UPDATE = "PodUpdate"
+EVENT_UNSCHEDULABLE_TIMEOUT = "UnschedulableTimeout"
+
+
+@dataclass(order=True)
+class _QueuedPod:
+    sort_key: tuple
+    pod: Pod = field(compare=False)
+    attempts: int = field(default=0, compare=False)
+    timestamp: float = field(default=0.0, compare=False)
+
+
+class SchedulingQueue:
+    """Thread-safe 3-tier queue with exponential per-pod backoff."""
+
+    def __init__(self, backoff_initial: float = 1.0, backoff_max: float = 10.0,
+                 unschedulable_timeout: float = 60.0):
+        self._lock = threading.Condition()
+        self._active: list[_QueuedPod] = []  # guarded by: self._lock (heap: (-priority, seq))
+        self._backoff: list[tuple[float, _QueuedPod]] = []  # guarded by: self._lock (heap: (expiry, item))
+        self._unschedulable: dict[str, _QueuedPod] = {}  # guarded by: self._lock
+        self._keys_queued: set[str] = set()  # guarded by: self._lock
+        # key -> CURRENT queued item. Deletion is lazy: delete() drops the
+        # entry and consumers skip heap items that are no longer current —
+        # eager deletion rebuilt the whole activeQ heap per call, which is
+        # O(queue) work per binding-confirmation event (10k bound pods while
+        # 10k more sit queued = O(n^2) on the watch thread).
+        self._entries: dict[str, _QueuedPod] = {}  # guarded by: self._lock
+        self._seq = itertools.count()
+        self.backoff_initial = backoff_initial
+        self.backoff_max = backoff_max
+        self.unschedulable_timeout = unschedulable_timeout
+        self.closed = False
+
+    def _key(self, pod: Pod) -> str:
+        return pod.key
+
+    def _sort_key(self, pod: Pod):
+        # PrioritySort: priority desc, then FIFO arrival.
+        return (-pod.spec.priority, next(self._seq))
+
+    # ---- producers -------------------------------------------------------
+
+    def add(self, pod: Pod, attempts: int = 0):
+        """New pod (or update making it schedulable): into activeQ.
+        ``attempts`` carries prior attempt history through re-adds (e.g.
+        scheduler restarts re-queueing parked pods) so backoff does not
+        reset."""
+        with self._lock:
+            k = self._key(pod)
+            if k in self._keys_queued:
+                return
+            item = _QueuedPod(self._sort_key(pod), pod, attempts=attempts,
+                              timestamp=time.time())
+            self._entries[k] = item
+            self._keys_queued.add(k)
+            if pod.spec.scheduling_gates:
+                # SchedulingGates PreEnqueue: hold until gates cleared.
+                self._unschedulable[k] = item
+                return
+            heapq.heappush(self._active, item)
+            self._lock.notify_all()
+        FLIGHT.record(k, "queue_add")
+
+    def add_unschedulable(self, pod: Pod, attempts: int):
+        """Failed scheduling attempt: backoffQ (will retry), mirroring
+        AddUnschedulableIfNotPresent with moveRequestCycle semantics folded in."""
+        with self._lock:
+            k = self._key(pod)
+            if k in self._keys_queued and k not in self._unschedulable:
+                return
+            item = _QueuedPod(self._sort_key(pod), pod, attempts=attempts,
+                              timestamp=time.time())
+            delay = min(self.backoff_initial * (2 ** max(attempts - 1, 0)),
+                        self.backoff_max)
+            self._entries[k] = item
+            self._unschedulable.pop(k, None)
+            heapq.heappush(self._backoff, (time.time() + delay, item))
+            self._keys_queued.add(k)
+            self._lock.notify_all()
+        FLIGHT.record(k, "requeue", attempts=attempts)
+
+    def park_unschedulable(self, pod: Pod, attempts: int):
+        """No event expected to help soon: unschedulable map (event-driven requeue)."""
+        with self._lock:
+            k = self._key(pod)
+            item = _QueuedPod(self._sort_key(pod), pod, attempts=attempts,
+                              timestamp=time.time())
+            self._entries[k] = item
+            self._unschedulable[k] = item
+            self._keys_queued.add(k)
+        FLIGHT.record(k, "park", attempts=attempts)
+
+    def delete(self, pod: Pod):
+        self.delete_key(self._key(pod))
+
+    def delete_key(self, k: str):
+        # Lazy: drop the membership records; stale heap entries are skipped
+        # by consumers when they surface (O(1) here instead of O(queue)).
+        with self._lock:
+            self._keys_queued.discard(k)
+            self._unschedulable.pop(k, None)
+            self._entries.pop(k, None)
+
+    def _current_locked(self, item: _QueuedPod) -> bool:
+        return self._entries.get(item.pod.key) is item
+
+    def move_all_to_active_or_backoff(self, event: str):
+        """Cluster event: unschedulable pods get another chance
+        (MoveAllToActiveOrBackoffQueue)."""
+        with self._lock:
+            for k, item in list(self._unschedulable.items()):
+                if item.pod.spec.scheduling_gates:
+                    continue  # still gated; activate_gated handles gate removal
+                del self._unschedulable[k]
+                if self._current_locked(item):
+                    heapq.heappush(self._active, item)
+            self._lock.notify_all()
+
+    def activate_gated(self, pod: Pod):
+        """Gates removed (pod update): move from unschedulable to activeQ."""
+        with self._lock:
+            k = self._key(pod)
+            item = self._unschedulable.pop(k, None)
+            if (item is not None and not pod.spec.scheduling_gates
+                    and self._current_locked(item)):
+                item.pod = pod
+                heapq.heappush(self._active, item)
+                self._lock.notify_all()
+
+    # ---- consumer --------------------------------------------------------
+
+    def _flush_backoff_locked(self):
+        now = time.time()
+        moved = False
+        while self._backoff and self._backoff[0][0] <= now:
+            _, item = heapq.heappop(self._backoff)
+            if self._current_locked(item):
+                heapq.heappush(self._active, item)
+                moved = True
+        # unschedulable timeout sweep
+        for k, item in list(self._unschedulable.items()):
+            if (not item.pod.spec.scheduling_gates
+                    and now - item.timestamp > self.unschedulable_timeout):
+                del self._unschedulable[k]
+                if self._current_locked(item):
+                    heapq.heappush(self._active, item)
+                    moved = True
+        return moved
+
+    def _active_has_current_locked(self) -> bool:
+        # drop stale heap heads so waiters don't wake for deleted pods
+        while self._active and not self._current_locked(self._active[0]):
+            heapq.heappop(self._active)
+        return bool(self._active)
+
+    def _wait_for_work_locked(self, deadline: float) -> bool:
+        """Block (under the lock) until >=1 current pod is in activeQ, the
+        queue closes, or ``deadline`` passes with nothing available.
+        Returns True when work is available — shared by pop_batch and the
+        FleetQueue's fairness-aware override, so the wait/close semantics
+        can never drift between them."""
+        while not self.closed:
+            self._flush_backoff_locked()
+            if self._active_has_current_locked():
+                return True
+            timeout = min(0.05, max(deadline - time.time(), 0.01))
+            self._lock.wait(timeout)
+            if time.time() > deadline \
+                    and not self._active_has_current_locked():
+                return False
+        return self._active_has_current_locked()
+
+    def pop_batch(self, max_batch: int = 256, wait: float = 0.5
+                  ) -> list[tuple[Pod, int]]:
+        """Block until >=1 pod is available, then drain up to max_batch in
+        priority order. Returns [(pod, attempts)]."""
+        deadline = time.time() + wait
+        with self._lock:
+            if not self._wait_for_work_locked(deadline):
+                return []
+            out = []
+            while self._active and len(out) < max_batch:
+                item = heapq.heappop(self._active)
+                if not self._current_locked(item):
+                    continue  # lazily-deleted or superseded entry
+                self._keys_queued.discard(item.pod.key)
+                self._entries.pop(item.pod.key, None)
+                out.append((item.pod, item.attempts))
+            return out
+
+    def close(self):
+        with self._lock:
+            self.closed = True
+            self._lock.notify_all()
+
+    def unschedulable_pods(self) -> list[Pod]:
+        """Snapshot of the unschedulable map's pods — the cluster
+        autoscaler's scale-up signal (the reference reads the analogous
+        list through its unschedulablePods lister)."""
+        with self._lock:
+            return [item.pod for item in self._unschedulable.values()]
+
+    def stats(self) -> dict[str, int]:
+        with self._lock:
+            nb = sum(1 for _, it in self._backoff if self._current_locked(it))
+            nu = len(self._unschedulable)
+            na = max(len(self._keys_queued) - nb - nu, 0)
+            return {"active": na, "backoff": nb, "unschedulable": nu}

@@ -1,0 +1,1521 @@
+"""Scheduler main loop — pop batch -> snapshot -> gang step -> assume/bind.
+
+The PyTorch port of ``kubernetes_tpu/sched/scheduler.py``. Reference shape:
+``pkg/scheduler/scheduler.go`` (Scheduler.Run) + ``schedule_one.go``
+(scheduleOne / schedulingCycle / bindingCycle), inverted for batching:
+each iteration drains up to batch_size pods from the queue, runs ONE device
+gang step for the whole batch, then assumes + binds asynchronously.
+Binding overlaps the next batch's scheduling cycle exactly like the
+reference's ``go bindingCycle`` — failures roll back via Cache.forget.
+
+Profiles: pods are grouped by spec.schedulerName; unknown names are ignored
+(the reference leaves such pods to whatever scheduler owns them).
+
+Where the port differs from the reference:
+
+- Dispatch is not asynchronous: ``drain_step`` reads each round's progress
+  on the host, so it returns once the drain has converged. The pipeline
+  (``_pending``, ``fill_bound`` reserved at dispatch and adjusted at
+  resolve, the depth bound, the resolver thread) keeps its structure; the
+  overlap with the card comes from the staging arena (the next batch's
+  copy on a side stream) and the binding pool. The resolver's fetch is one
+  non-blocking copy of ``assignments [B,P]`` and ``rounds [B]`` into pinned
+  memory, plus an event it waits on.
+- The resident context is updated IN PLACE where the reference donates
+  it, so the ``ct`` an in-flight drain refers to is the live one:
+  ``_resolve_one`` reads only the patch state and the host mirror, and
+  ``warm_drain`` runs its warm-up drains on a context it throws away.
+- The ``KTPU_*`` environment overrides of the reference's constructor are
+  left out; the config fields behind them stay. ``cycle_log`` is None
+  unless the caller sets it to a list.
+
+Features that wait for later slices raise ``NotImplementedError`` naming
+their ROADMAP Queue A item: default preemption (4), the explainer (5),
+slice carving (6), fleet mode (7), a device mesh (8), DRA (11), out-of-tree
+tensor plugins (12), and the parity sentinel and extenders (3b, with the
+runner and the auditor).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+import queue as queue_mod
+import threading
+import time
+from collections import deque
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from kubernetes_tpu_torch.api.types import Pod
+from kubernetes_tpu_torch.config.features import DEFAULT_FEATURE_GATE
+from kubernetes_tpu_torch.config.types import (SchedulerConfiguration,
+                                               refuse_unported)
+from kubernetes_tpu_torch.config.types import not_ported as _not_ported
+from kubernetes_tpu_torch.device import resolve_device
+from kubernetes_tpu_torch.metrics.registry import (
+    ATTEMPT_DURATION,
+    BATCH_DURATION,
+    DRAIN_SHARD_MS,
+    GANG_ROUNDS,
+    LOOP_ERRORS,
+    PIPELINE_DEPTH,
+    PIPELINE_INFLIGHT,
+    QUEUE_DEPTH,
+    RESOLVE_BYTES,
+    SCHEDULE_ATTEMPTS,
+)
+from kubernetes_tpu_torch.models.gang import gang_schedule
+from kubernetes_tpu_torch.ops.kernels import KernelError
+from kubernetes_tpu_torch.sched.cache import SchedulerCache
+from kubernetes_tpu_torch.sched.queue import SchedulingQueue
+from kubernetes_tpu_torch.sched.resilience import DeviceCircuitBreaker
+from kubernetes_tpu_torch.utils import sanity
+from kubernetes_tpu_torch.utils.events import NullRecorder
+from kubernetes_tpu_torch.utils.tracing import FLIGHT, TRACER
+
+_LOG = logging.getLogger(__name__)
+
+# binder(pod, node_name) -> bool success. The client layer supplies the real
+# POST pods/<p>/binding; tests pass a lambda.
+Binder = Callable[[Pod, str], bool]
+
+# Resident nominee-reservation bucket in the drain context (encode/patch.py):
+# preemption storms patch reservations device-side instead of dropping the
+# context. Static — part of the drain shapes.
+DRAIN_NOM_BUCKET = 128
+
+# Bounded resolve wait: how long the scheduling thread waits on the
+# resolver's Event before degrading to an inline fetch — a dead or stalled
+# resolver must never hang the loop.
+RESOLVE_WAIT_S = 30.0
+
+
+class Scheduler:
+    def __init__(self, cfg: SchedulerConfiguration, cache: SchedulerCache,
+                 queue: SchedulingQueue, binder: Binder,
+                 feature_gate=DEFAULT_FEATURE_GATE,
+                 preemptor: Optional[Callable] = None,
+                 registry=None, bulk_binder: Optional[Callable] = None,
+                 device=None):
+        # refused at construction too, for a caller that skipped validate
+        refuse_unported(cfg)
+        self.cfg = cfg
+        self.cache = cache
+        self.queue = queue
+        self.binder = binder
+        # the card unless the caller asks for the CPU (tests)
+        self.device = resolve_device(device)
+        # bulk_binder(pairs: [(Pod, node_name)]) -> [bool]: one API call
+        # binding a whole gang batch. Pods needing per-pod ceremony
+        # (lifecycle hooks, volume binding) still go through ``binder``.
+        self._bulk_binder = bulk_binder
+        self.features = feature_gate
+        self._custom_preemptor = preemptor is not None
+        self.preemptor = preemptor if preemptor is not None else self._default_preempt
+        # Binding pool: a fixed set of long-lived workers (the reference
+        # spawns a goroutine per bindingCycle behind client-go's shared
+        # rate-limited transport).
+        self._bind_q: "queue_mod.Queue[tuple[Pod, str]]" = queue_mod.Queue()
+        self._bind_workers: list[threading.Thread] = []
+        self._bind_inflight = 0
+        self._bind_cv = threading.Condition()
+        # device-resident drain context (see _schedule_drain): the card's
+        # replica of the cluster encoding, valid while the only pending
+        # cache deltas are assumes this loop folded on the device
+        self._drain_ctx = None
+        # device circuit breaker: consecutive device-program failures walk
+        # single-device -> pure-numpy oracle, with half-open recovery
+        # (sched/resilience.py)
+        self.breaker = DeviceCircuitBreaker(
+            levels=("single", "oracle"), threshold=cfg.breaker_threshold,
+            cooldown_s=cfg.breaker_cooldown_s)
+        self._attempt_level = self.breaker.mode
+        # watchdog heartbeats (the runner wires these to its watchdog;
+        # library embedders keep the no-ops)
+        self.heartbeat: Callable[[], None] = lambda: None
+        self.resolver_heartbeat: Callable[[], None] = lambda: None
+        # Fused fold: churn patches ride the drain dispatch as drain_step's
+        # patch input instead of a separate apply_ctx_patch (and fold-safe
+        # churn skips the pipeline drain).
+        self._fused_fold = cfg.fused_fold
+        # double-buffered batch staging (sched/staging.py); the cache owns
+        # the arena and stages for this scheduler's device
+        self.cache.configure_staging(cfg.staging_arena, self.device)
+        # context lifecycle counters: "folds" are churn deltas fused into a
+        # drain dispatch, "patches" separate apply_ctx_patch calls —
+        # steady-state fused churn keeps patches at 0
+        self.ctx_stats = {"patches": 0, "folds": 0, "rebuilds": 0,
+                          "unfit": 0, "reasons": {}}
+        # per-drain-cycle debug trail (pop size, t_pop, marks); set it to a
+        # list to record
+        self.cycle_log: Optional[list] = None
+        # Multi-deep software pipeline: in-flight drains awaiting
+        # resolution, oldest first. Bounded by cfg.pipeline_depth.
+        self._pending: "deque[dict]" = deque()
+        # Dedicated resolver thread: the fetch of each drain's results runs
+        # there; the scheduling thread waits on a plain Event.
+        # serializes (queue, thread) swaps between the scheduling thread's
+        # lazy spawn, the watchdog's restart_resolver, and close()
+        self._resolver_swap_lock = threading.Lock()
+        self._resolver_q: Optional["queue_mod.Queue"] = None  # guarded by: self._resolver_swap_lock
+        self._resolver_thread: Optional[threading.Thread] = None  # guarded by: self._resolver_swap_lock
+        # fleet mode (FleetRunner) is ROADMAP item 7: _tenant_chunks refuses
+        self.fleet_mode = False
+        # fragment pops parked while the device is busy (see run_once)
+        self._staged: list = []
+        self._staged_once = False   # a parked fragment merges at most once
+        self._last_pop_full = False  # burst heuristic: arrivals are hot
+        # preemption nominees awaiting re-schedule: key -> (node, prio, pod,
+        # ts). Their freed capacity is reserved against lower-priority pods
+        # until they bind. The TTL backstops pods deleted while nominated.
+        self._nominated: dict[str, tuple] = {}
+        self._nominated_ttl = 300.0
+        # API-visible nominations set by OTHER components, staged under a
+        # lock by the informer thread and folded into _nominated on the
+        # scheduling thread each cycle
+        self._nominated_staged: dict[str, Optional[tuple]] = {}
+        self._nominated_staged_lock = threading.Lock()
+        # keys whose _nominated entry came from the API: only those may be
+        # cleared by an API-side removal
+        self._nominated_external: set[str] = set()
+        # event recording; the runner wires a real recorder
+        self.recorder = NullRecorder()
+        # out-of-tree plugin registry (framework.Registry analog). Profiles
+        # referencing unregistered names fail fast here.
+        from kubernetes_tpu_torch.sched.framework import Registry
+        self.registry = registry if registry is not None else Registry()
+        if self.registry.tensor_plugins():
+            raise _not_ported("out-of-tree tensor plugins", "12")
+        known = {p.name for p in self.registry.lifecycle_plugins()}
+        for prof in cfg.profiles:
+            unknown = set(prof.out_of_tree or ()) - known
+            if unknown:
+                raise ValueError(
+                    f"profile {prof.scheduler_name!r} references "
+                    f"unregistered out-of-tree plugins: {sorted(unknown)}")
+
+    # ---- staging ---------------------------------------------------------
+
+    def _stage_batch(self, pb_stack, ticket, n_pods: int):
+        """Dispatch-time batch staging: the whole operation is
+        ``scheduler/stage_batch`` and the arena redeem within it is
+        ``scheduler/stage_swap`` — in steady state the swap IS the whole
+        cost, and an inline fallback shows up as stage_batch time exceeding
+        stage_swap. Every drain staging site goes through here."""
+        with TRACER.span("scheduler/stage_batch", pods=n_pods):
+            if ticket is not None:
+                with TRACER.span("scheduler/stage_swap", pods=n_pods):
+                    staged = self.cache.stage_redeem(ticket)
+                if staged is not None:
+                    return staged
+            return self.cache.stage_drain_batch(pb_stack)
+
+    def _stage_fill(self, fill: int):
+        """Device-resident fill scalar for a fresh context (the steady state
+        passes the previous drain's new_fill through)."""
+        return torch.tensor(fill, dtype=torch.int32, device=self.device)
+
+    # ---- external nominations -------------------------------------------
+
+    def nominate_external(self, pod: Pod, node_name: str) -> None:
+        """Register a nominatedNodeName another component wrote to the API.
+        The reservation shields the node's capacity from lower-priority
+        pods until the nominee binds. Safe to call from the informer
+        thread; entries fold into _nominated on the scheduling thread. An
+        empty ``node_name`` stages a CLEAR of an API-origin entry."""
+        with self._nominated_staged_lock:
+            if node_name:
+                self._nominated_staged[pod.key] = (
+                    node_name, pod.spec.priority, pod, time.time())
+            else:
+                self._nominated_staged[pod.key] = None
+
+    def _fold_staged_nominations(self) -> None:
+        if not self._nominated_staged:
+            return
+        with self._nominated_staged_lock:
+            staged, self._nominated_staged = self._nominated_staged, {}
+        # entries pruned since registration (bound / TTL) drop out of the
+        # external set too, keeping it bounded by live nominations
+        self._nominated_external &= set(self._nominated)
+        for k, e in staged.items():
+            if e is None:
+                if k in self._nominated_external:
+                    self._nominated.pop(k, None)
+                    self._nominated_external.discard(k)
+            elif not self.cache.is_bound(k):
+                self._nominated[k] = e
+                self._nominated_external.add(k)
+
+    # ---- dispatch pipeline ----------------------------------------------
+
+    @property
+    def _pending_drain(self) -> Optional[dict]:
+        """Oldest in-flight drain, or None when the pipeline is empty."""
+        return self._pending[0] if self._pending else None
+
+    @staticmethod
+    def _drain_ready(pend: dict) -> bool:
+        return pend["done"].is_set()
+
+    def _resolve_ready(self) -> int:
+        """Land every in-flight drain whose results are already on the host
+        (no blocking). Returns pods bound."""
+        n = 0
+        while self._pending and self._drain_ready(self._pending[0]):
+            n += self._resolve_one()
+        return n
+
+    def _start_fetch(self, pend: dict) -> None:
+        """Queue the copy of the drain's results to the host: on the card
+        one non-blocking copy each of assignments [B,P] and rounds [B] into
+        pinned memory, then an event the resolver waits on."""
+        a, r = pend["assignments"], pend["rounds"]
+        if a.device.type != "cuda":
+            pend["host"] = (a, r)
+            return
+        host = tuple(torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+                     for x in (a, r))
+        for h, x in zip(host, (a, r)):
+            h.copy_(x, non_blocking=True)
+        ev = torch.cuda.Event()
+        ev.record()
+        pend["host"] = host
+        pend["fetched"] = ev
+
+    @staticmethod
+    def _fetch(pend: dict):
+        """(assignments, rounds) as numpy: waits for the queued copy."""
+        ev = pend.get("fetched")
+        if ev is not None:
+            ev.synchronize()
+        return tuple(h.numpy().copy() for h in pend["host"])
+
+    def _submit_resolve(self, pend: dict) -> None:
+        """Hand the drain's result fetch to the resolver thread: it waits
+        for the copy and publishes numpy results + sets ``pend['done']``."""
+        self._start_fetch(pend)
+        pend["done"] = threading.Event()
+        self._ensure_resolver().put(pend)
+
+    def _ensure_resolver(self) -> "queue_mod.Queue":
+        """Resolver queue, (re)spawning the thread if dead. Serialized with
+        restart_resolver."""
+        with self._resolver_swap_lock:
+            if (self._resolver_thread is None
+                    or not self._resolver_thread.is_alive()):
+                self._spawn_resolver_locked()
+            return self._resolver_q
+
+    def _spawn_resolver_locked(self) -> None:
+        """Install a fresh (queue, thread) pair and MIGRATE the old queue's
+        drains — a dead thread's queued pends would otherwise never get
+        their done Event set."""
+        old_q = self._resolver_q
+        new_q = queue_mod.Queue()
+        t = threading.Thread(
+            target=self._resolver_loop, args=(new_q,),
+            daemon=True, name="drain-resolver")
+        self._resolver_q = new_q
+        self._resolver_thread = t
+        t.start()
+        if old_q is not None:
+            try:
+                while True:
+                    it = old_q.get_nowait()
+                    if it is not None:
+                        new_q.put(it)
+            except queue_mod.Empty:
+                pass
+            old_q.put(None)  # poison, should the old thread still wake
+
+    def restart_resolver(self) -> None:
+        """Watchdog restart path: swap in a fresh resolver thread and move
+        the old queue's drains over. The resident ctx is NOT touched —
+        resolver death loses no device state, only a fetch."""
+        with self._resolver_swap_lock:
+            self._spawn_resolver_locked()
+
+    def _resolver_loop(self, q: "queue_mod.Queue") -> None:
+        while True:
+            pend = q.get()
+            if pend is None:  # poison pill from close()/restart
+                return
+            try:
+                self.resolver_heartbeat()
+                pend["resolved"] = self._fetch(pend)
+            except Exception:
+                # surface on the scheduling thread: _resolve_one retries the
+                # fetch inline and handles the real error
+                LOOP_ERRORS.inc({"site": "resolver"})
+                _LOG.exception("drain resolver fetch failed")
+            finally:
+                pend["done"].set()
+
+    # ---- one batch iteration --------------------------------------------
+
+    def run_once(self, wait: float = 0.5) -> int:
+        """Schedule one pop's worth of pods. Returns pods bound (or assumed).
+
+        A pop can yield up to ``batch_size * max_drain_batches`` pods; a deep
+        backlog takes the resident drain path while shallow pops run the
+        single-batch program."""
+        self._fold_staged_nominations()
+        # land finished drains' bindings first (don't let finished results
+        # sit behind a blocking pop)
+        n_early = self._resolve_ready()
+        cap = self.cfg.batch_size * max(1, self.cfg.max_drain_batches)
+        batch = self.queue.pop_batch(
+            max(1, cap - len(self._staged)),
+            wait=0.05 if self._pending else wait)
+        if self._staged:
+            batch = self._staged + batch
+            self._staged = []
+        if not batch:
+            return n_early + self._resolve_pending()
+        try:
+            return n_early + self._run_batch(batch, cap)
+        except BaseException:
+            # mid-cycle failure with the popped batch in hand: the pods are
+            # in no queue and no watch event will re-deliver them — requeue
+            # before the exception escapes
+            self._rescue_batch(batch)
+            raise
+
+    def _rescue_batch(self, batch) -> None:
+        self._staged = []  # a fragment staged THIS cycle is part of batch
+        rescued = 0
+        for pod, attempts in batch:
+            if not self.cache.is_assumed_or_bound(pod.key):
+                self.queue.add_unschedulable(pod, attempts + 1)
+                rescued += 1
+        if rescued:
+            _LOG.warning("mid-cycle failure: requeued %d popped pods",
+                         rescued)
+
+    def _run_batch(self, batch, cap: int) -> int:
+        """The body of one cycle once a batch is in hand (split out so
+        run_once can rescue the batch on ANY failure)."""
+        if (len(batch) < self.cfg.batch_size and not self._staged_once
+                and (self._pending or self._last_pop_full)):
+            # A fragment pop while the device is busy or right after a
+            # full-size pop: park it once, settle the OLDEST in-flight
+            # drain, and let the fragment merge with the arrivals that land
+            # meanwhile.
+            self._staged = batch
+            self._staged_once = True
+            return self._resolve_one()
+        self._staged_once = False
+        self._last_pop_full = len(batch) >= cap
+        stats = self.queue.stats()
+        for q, v in stats.items():
+            QUEUE_DEPTH.set(v, {"queue": q})
+        # Slot headroom = everything still pending (this batch + queued):
+        # the snapshot reserves that many existing-pod slots so the whole
+        # drain binds via incremental patches with stable tensor shapes.
+        headroom = len(batch) + sum(stats.values())
+
+        by_profile: dict[str, list[tuple[Pod, int]]] = {}
+        for pod, attempts in batch:
+            by_profile.setdefault(pod.spec.scheduler_name, []).append((pod, attempts))
+
+        n_bound = n_landed = 0
+        serial = not self.features.enabled("TPUBatchScheduling")
+        # degrade-don't-die routing: the breaker picks the level this cycle
+        # attempts — "single" runs the tensor programs, "oracle" bypasses
+        # the device entirely
+        level = self.breaker.attempt_level()
+        self._attempt_level = level
+        if level == "oracle" and self._pending:
+            # oracle mode dispatches nothing new; in-flight drains from
+            # before the degrade must not linger (bounded waits inside)
+            n_landed += self._resolve_pending()
+        for sched_name, items in by_profile.items():
+            profile = self.cfg.profile_for(sched_name)
+            if profile is None:
+                # Not ours: park it rather than losing it.
+                for pod, attempts in items:
+                    self.queue.park_unschedulable(pod, attempts)
+                continue
+            if level == "oracle":
+                n_bound += self._schedule_oracle(profile, items)
+                continue
+            # slice-shaped gangs are carved on the group path (ROADMAP
+            # item 6): a drain would place members as independent pods
+            if any(self._slice_shape_of(it[0]) is not None for it in items):
+                raise _not_ported("slice carving (topology/carve.py)", "6")
+            if ((len(items) > self.cfg.batch_size
+                    or self._drain_ctx is not None) and not serial):
+                n_bound += self._schedule_drain(profile, items, headroom)
+            else:
+                for chunk in self._tenant_chunks(items, self.cfg.batch_size):
+                    n_bound += self._schedule_group(profile, chunk, headroom)
+        return n_landed + n_bound
+
+    def _tenant_chunks(self, items: list, P: int) -> list[list]:
+        """Split a popped batch into device chunks of up to ``P`` pods:
+        plain consecutive slices. Fleet mode's tenant-homogeneous chunks
+        are ROADMAP item 7."""
+        if self.fleet_mode:
+            raise _not_ported("fleet mode", "7")
+        return [items[i:i + P] for i in range(0, len(items), P)]
+
+    # ---- slice gangs (carving is ROADMAP item 6) --------------------------
+
+    def _slice_shape_of(self, pod: Pod) -> Optional[tuple]:
+        """The pod's requested slice shape from its slice-shape label. None
+        = not a slice pod (malformed shapes schedule as normal pods)."""
+        from kubernetes_tpu_torch.topology.slicing import shape_of_labels
+        return shape_of_labels(pod.metadata.labels)
+
+    def _schedule_group(self, profile, items, slot_headroom: int = 0) -> int:
+        t0 = time.time()
+        pods = [p for p, _ in items]
+        with TRACER.span("scheduler/snapshot", pods=len(pods)):
+            nodes, ct, meta = self.cache.snapshot(pending_pods=pods,
+                                                  slot_headroom=slot_headroom)
+        if not nodes:
+            for pod, attempts in items:
+                self.queue.add_unschedulable(pod, attempts + 1)
+                SCHEDULE_ATTEMPTS.inc({"result": "unschedulable"})
+            return 0
+        batch_keys = {p.key for p in pods}
+        now = time.time()
+        self._nominated = {
+            k: e for k, e in self._nominated.items()
+            if now - e[3] < self._nominated_ttl and not self.cache.is_bound(k)}
+        entries = [(n, prio, p) for k, (n, prio, p, _ts)
+                   in self._nominated.items() if k not in batch_keys]
+        # nominations the snapshot is about to reserve resource-accurately
+        # (overlay below); only arrivals AFTER this point need the coarse
+        # assume-time re-check
+        overlaid_noms = set(self._nominated)
+        if entries:
+            # nominees OUTSIDE this batch hold their reservation tensor-side;
+            # the bucket is pinned so the batch shapes stay stable
+            ct = self.cache.overlay_nominated(ct, meta, entries,
+                                              min_m=DRAIN_NOM_BUCKET)
+        with TRACER.span("scheduler/encode_pods", pods=len(pods)):
+            # placement-time view: the profile's addedAffinity folds into
+            # the encoded terms; assume/bind/requeue keep the ORIGINAL pod.
+            # min_p pins the batch bucket to ONE width
+            pb = self.cache.encode_pods(
+                profile.apply_added_affinity(pods), meta,
+                min_p=self.cfg.batch_size,
+                cache_rows=not profile.added_affinity)
+        serial = not self.features.enabled("TPUBatchScheduling")
+        with BATCH_DURATION.time(), TRACER.span(
+                "scheduler/gang_schedule", pods=len(pods),
+                nodes=len(nodes)) as sp_gang:
+            try:
+                assignment, rounds = gang_schedule(
+                    ct.to(self.device), pb.to(self.device),
+                    seed=self.cfg.seed,
+                    fit_strategy=profile.fit_strategy,
+                    topo_keys=meta.topo_keys, serial=serial,
+                    max_rounds=self.cfg.max_gang_rounds,
+                    weights=profile.weights(),
+                    enabled_filters=profile.enabled_filters)
+            except KernelError:
+                # a kernel that does not build or launch is not a device
+                # fault to degrade around: the work stays on the card
+                raise
+            except Exception:
+                # device program failed: feed the breaker and schedule THIS
+                # batch with the pure-numpy oracle — degraded, never dropped
+                LOOP_ERRORS.inc({"site": "device_gang"})
+                _LOG.warning("gang program failed at level %r; scheduling "
+                             "the batch with the host oracle",
+                             self._attempt_level, exc_info=True)
+                self.breaker.fail(self._attempt_level)
+                return self._schedule_oracle(profile, items)
+        self.breaker.succeed(self._attempt_level)
+        GANG_ROUNDS.observe(rounds)
+        if sanity.check_enabled():
+            for problem in sanity.check_assignment(assignment, len(nodes)):
+                _LOG.error("KTPU_CHECK: %s (batch of %d)", problem, len(pods))
+
+        # Nominations that arrived while this cycle's snapshot was in
+        # flight: the snapshot could not reserve them, so winners re-check
+        # against them before the assume. ONLY the mid-cycle arrivals.
+        self._fold_staged_nominations()
+        reserved: dict[str, int] = {}
+        for k, (n, prio, _p, _ts) in self._nominated.items():
+            if k not in batch_keys and k not in overlaid_noms:
+                reserved[n] = max(prio, reserved.get(n, prio))
+
+        n_bound = n_unsched = 0
+        to_bind: list[tuple[Pod, str]] = []
+        failures: list[tuple[Pod, int]] = []
+        dt = time.time() - t0
+        for (pod, attempts), a in zip(items, assignment[:len(items)]):
+            if a >= 0:
+                node_name = meta.node_names[int(a)]
+                rp = reserved.get(node_name)
+                # >=: equal-priority nominees shield too, matching the
+                # device-side fit_mask (prio_s >= pb.priority)
+                if rp is not None and rp >= pod.spec.priority:
+                    failures.append((pod, attempts))
+                    n_unsched += 1
+                    continue
+                self._nominated.pop(pod.key, None)
+                self.cache.assume(pod, node_name)
+                to_bind.append((pod, node_name))
+                n_bound += 1
+            else:
+                failures.append((pod, attempts))
+                n_unsched += 1
+        if FLIGHT.enabled:
+            for pod, _a in items:
+                FLIGHT.record(pod.key, "dispatch", span=sp_gang)
+            for pod, _n in to_bind:
+                FLIGHT.record(pod.key, "resolve", span=sp_gang)
+        self._handle_failures(failures)
+        self._bind_async_batch(to_bind, profile)
+        # every pod in the batch shares one cycle's wall time
+        for result, n in (("scheduled", n_bound),
+                          ("unschedulable", n_unsched)):
+            if n:
+                SCHEDULE_ATTEMPTS.inc({"result": result}, by=n)
+                ATTEMPT_DURATION.observe(dt, {"result": result}, n=n)
+        return n_bound
+
+    def _schedule_drain(self, profile, items, slot_headroom: int = 0) -> int:
+        """Deep-backlog path: the whole pop in ONE ``drain_step`` over a
+        DEVICE-RESIDENT cluster encoding.
+
+        The cluster tensors stay on the card (``_drain_ctx``), each drain
+        ships only the new pod batches, and ``drain_step`` folds what it
+        commits into free existing-pod slots. Foreign changes — node churn,
+        pod deletes, rebinds, preemption nominees — are replayed from the
+        cache's delta log as DEVICE-SIDE PATCHES (encode/patch.py) before
+        or inside the next dispatch; the context rebuilds from a host
+        snapshot only when a delta doesn't fit the resident buckets."""
+        from kubernetes_tpu_torch.encode.patch import (entries_all_folded,
+                                                       entries_fold_safe,
+                                                       fork_meta,
+                                                       sync_resident_widths)
+        from kubernetes_tpu_torch.models.gang import (
+            apply_ctx_patch, batch_shapes, build_drain_context, drain_step,
+            drain_widths_fit, pad_batch_to, stack_batches, unify_batches)
+        from kubernetes_tpu_torch.sched.staging import ResidentShadow
+        t0 = time.time()
+        self._cyc_marks = []  # fresh debug trail per cycle (cycle_log)
+        pods = [p for p, _ in items]
+        batch_keys = {p.key for p in pods}
+        now = time.time()
+        self._nominated = {
+            k: e for k, e in self._nominated.items()
+            if now - e[3] < self._nominated_ttl and not self.cache.is_bound(k)}
+        # desired resident reservation set: nominees NOT in this pop (a
+        # nominee scheduling itself must not be blocked by its own hold)
+        nom_target = {k: (n, prio, p) for k, (n, prio, p, _ts)
+                      in self._nominated.items() if k not in batch_keys}
+
+        ctx = self._drain_ctx
+        use_ctx = False
+        fused_patch = None  # churn deltas riding THIS dispatch (fused fold)
+        n_prev = 0
+        if ctx is not None and ctx["profile"] == profile.scheduler_name:
+            cs = ctx["cs"]
+            known = set(ctx["meta"].resources)
+            fits = (not cs.tainted
+                    and ctx["fill_bound"] + len(pods) <= cs.top
+                    and not any(r not in known for p in pods
+                                for r in p.resource_requests()))
+            if not fits:
+                self._ctx_reason("tainted" if cs.tainted else "capacity")
+            else:
+                entries = self.cache.deltas_since(ctx["seq"])
+                nom_dirty = (set(nom_target) != set(cs.nom_applied)
+                             or any(cs.nom_applied[k][1:] != (n, prio)
+                                    for k, (n, prio, _p)
+                                    in nom_target.items()
+                                    if k in cs.nom_applied))
+                if entries is None:
+                    self._ctx_reason("log_window")
+                elif not nom_dirty and entries_all_folded(cs, entries):
+                    # Every entry is an assume of a placement this context
+                    # already folded device-side (our own resolves): advance
+                    # the cursor and dispatch WITHOUT draining the pipeline.
+                    if entries:
+                        ctx["seq"] = entries[-1][0] + 1
+                    use_ctx = True
+                else:
+                    # Foreign churn / nominee change. Fused-fold mode
+                    # compiles the patch against the LIVE patch state and
+                    # ships it as the drain's patch input — the pipeline
+                    # drains first only when a delta depends on an
+                    # in-flight drain's unmirrored folds
+                    # (encode/patch.py entries_fold_safe). Legacy mode
+                    # resolves everything and applies a separate patch.
+                    if self._pending and not (
+                            self._fused_fold and entries_fold_safe(
+                                cs, entries,
+                                {p.key for pend in self._pending
+                                 for c in pend["chunks"] for p, _ in c})):
+                        if self.cycle_log is not None:
+                            self._cyc_marks.append(("resolve_prev_start",
+                                                    round(time.time() - t0,
+                                                          3)))
+                        n_prev += self._resolve_pending()
+                        if self.cycle_log is not None:
+                            self._cyc_marks.append(
+                                ("resolve_prev_end",
+                                 round(time.time() - t0, 3)))
+                        entries = self.cache.deltas_since(ctx["seq"])
+                    if entries is not None:
+                        new_seq = (entries[-1][0] + 1 if entries
+                                   else ctx["seq"])
+                        # host-side half of the fold: delta log -> static
+                        # shape scatter arrays. fold_floor pins the patch
+                        # allocator above the DISPATCH-side fill reservation
+                        # so a patch compiled with drains still in flight
+                        # can never hand out a slot an unresolved fold takes.
+                        with TRACER.span("scheduler/fold_deltas",
+                                         deltas=len(entries)):
+                            patch = self.cache.compile_ctx_patch(
+                                ctx["meta"], cs, entries, nom_target,
+                                DRAIN_NOM_BUCKET,
+                                fold_floor=ctx["fill_bound"])
+                        # the patch may have moved the slot cursor: the fold
+                        # region this dispatch writes must still clear every
+                        # patched slot (re-check AFTER compile; on failure
+                        # the context is discarded and rebuilt)
+                        if (patch is not None
+                                and ctx["fill_bound"] + len(pods)
+                                <= cs.top):
+                            shadow = ctx.get("shadow")
+                            if shadow is not None:
+                                # mirror the requested/allocatable writes
+                                # host-side; pending winner folds flush
+                                # FIRST (ResidentShadow.apply_patch)
+                                shadow.catch_up(
+                                    lambda p: self.cache.request_vector(
+                                        p, cs.resources))
+                                shadow.apply_patch(patch)
+                            if self._fused_fold:
+                                fused_patch = patch
+                                self.ctx_stats["folds"] += 1
+                            else:
+                                with TRACER.span("scheduler/ctx_patch_apply"):
+                                    ctx["ct"] = apply_ctx_patch(
+                                        ctx["ct"],
+                                        self.cache.stage_patch(patch))
+                                self.ctx_stats["patches"] += 1
+                            ctx["seq"] = new_seq
+                            use_ctx = True
+                        elif patch is None:
+                            self.ctx_stats["unfit"] += 1
+                            self._ctx_reason("patch_unfit")
+                        else:
+                            self._ctx_reason("capacity")
+        if use_ctx:
+            nodes, meta = ctx["nodes"], ctx["meta"]
+        else:
+            # the in-flight drain's placements must land in the cache before
+            # a host snapshot, or the re-encode double-books their capacity
+            n_prev += self._resolve_pending()
+            self._drain_ctx = None
+            with TRACER.span("scheduler/snapshot", pods=len(pods)):
+                nodes, ct, meta = self.cache.snapshot(
+                    pending_pods=pods, slot_headroom=slot_headroom)
+            seq0 = self.cache.last_snapshot_seq()
+            if not nodes:
+                for pod, attempts in items:
+                    self.queue.add_unschedulable(pod, attempts + 1)
+                    SCHEDULE_ATTEMPTS.inc({"result": "unschedulable"})
+                return n_prev
+
+        P = self.cfg.batch_size
+        if self.cycle_log is not None:
+            self._cyc_marks.append(("encode_start",
+                                    round(time.time() - t0, 3)))
+        chunks = self._tenant_chunks(items, P)
+        with TRACER.span("scheduler/encode_pods", pods=len(pods)) as sp_enc:
+            pbs = [self.cache.encode_pods(
+                profile.apply_added_affinity([p for p, _ in c]),
+                meta, min_p=P,
+                cache_rows=not profile.added_affinity) for c in chunks]
+        if FLIGHT.enabled:
+            for pod, _a in items:
+                FLIGHT.record(pod.key, "drain_fill", span=sp_enc)
+        # pad to the fixed drain width with all-invalid batches (their pods
+        # propose nothing; each converges in one dead round)
+        B = max(1, self.cfg.max_drain_batches)
+        while len(pbs) < B:
+            pad = pbs[-1]
+            pbs.append(pad.replace(
+                pod_valid=np.zeros_like(np.asarray(pad.pod_valid))))
+        pb_stack = stack_batches(unify_batches(pbs))
+
+        if not use_ctx:
+            built = build_drain_context(ct, pbs, nom_bucket=DRAIN_NOM_BUCKET,
+                                        device=self.device)
+            cs = self.cache.patch_state_fork()
+            if built is None or cs is None:
+                # base slots not packed (host patches left holes): run the
+                # host per-batch path this cycle
+                self._drain_ctx = None
+                return n_prev + sum(
+                    self._schedule_group(profile, c, slot_headroom)
+                    for c in chunks)
+            ct_dev, e0, fill = built
+            sync_resident_widths(cs, ct_dev)
+            self.ctx_stats["rebuilds"] += 1
+            ctx = {"ct": ct_dev, "e0": e0,
+                   "fill_dev": self._stage_fill(fill),
+                   "fill_bound": fill, "meta": fork_meta(meta),
+                   "nodes": nodes, "cs": cs, "seq": seq0,
+                   "pb_shape": batch_shapes(pb_stack),
+                   "profile": profile.scheduler_name,
+                   # host mirror of the resident [N,R] totals, cut from the
+                   # SAME host encoding the context staged (its own copies)
+                   "shadow": ResidentShadow(ct.allocatable, ct.requested)}
+            meta = ctx["meta"]
+            if nom_target:
+                patch = self.cache.compile_ctx_patch(
+                    meta, cs, [], nom_target, DRAIN_NOM_BUCKET)
+                if patch is None:
+                    # reservation set exceeds the resident bucket: keep
+                    # semantics via the per-batch overlay path this cycle
+                    return n_prev + sum(
+                        self._schedule_group(profile, c, slot_headroom)
+                        for c in chunks)
+                ctx["shadow"].apply_patch(patch)
+                ctx["ct"] = apply_ctx_patch(ctx["ct"],
+                                            self.cache.stage_patch(patch))
+            self._drain_ctx = ctx
+        else:
+            # pin the batch to the context's shapes: pop-dependent bucket
+            # widths would otherwise change the resident extension rows
+            padded = pad_batch_to(pb_stack, ctx["pb_shape"])
+            if padded is None or not drain_widths_fit(ctx["ct"], padded):
+                # wider than the context: rebuild it
+                self._ctx_reason("batch_shape")
+                n_prev += self._resolve_pending()
+                self._drain_ctx = None
+                return n_prev + self._schedule_drain(profile, items,
+                                                     slot_headroom)
+            pb_stack = padded
+
+        # hand the FINAL stacked batch to the staging arena now: the stager
+        # copies it while this thread finishes the cycle's remaining host
+        # work — the dispatch below then swaps buffers
+        stage_ticket = self.cache.stage_submit(pb_stack)
+        if self.cycle_log is not None:
+            self._cyc_marks.append(("dispatch_start",
+                                    round(time.time() - t0, 3)))
+        pb_staged = self._stage_batch(pb_stack, stage_ticket, len(pods))
+        if fused_patch is not None:
+            fused_patch = self.cache.stage_patch(fused_patch)
+        with TRACER.span("scheduler/gang_dispatch",
+                         pods=len(pods), nodes=len(nodes),
+                         depth=len(self._pending) + 1) as sp_disp:
+            try:
+                assignments, rounds, new_ct, new_fill = drain_step(
+                    ctx["ct"], pb_staged,
+                    ctx["fill_dev"], fused_patch, e0=ctx["e0"],
+                    seed=self.cfg.seed, fit_strategy=profile.fit_strategy,
+                    topo_keys=meta.topo_keys,
+                    weights=tuple(sorted(profile.weights().items())),
+                    enabled_filters=tuple(
+                        sorted(profile.enabled_filters or ())),
+                    max_rounds=self.cfg.max_gang_rounds)
+            except KernelError:
+                # never degraded around (see _schedule_group); the context
+                # may be half-updated in place, so it goes with the error
+                self._drain_ctx = None
+                raise
+            except Exception:
+                # the drain failed: the resident context's device state is
+                # unaccountable (it is updated in place) — drop it, land
+                # whatever is still in flight, and schedule this pop on the
+                # per-batch path (which itself degrades to the oracle if the
+                # device stays broken)
+                LOOP_ERRORS.inc({"site": "device_drain"})
+                _LOG.warning("drain dispatch failed at level %r; falling "
+                             "back to the per-batch path",
+                             self._attempt_level, exc_info=True)
+                self.breaker.fail(self._attempt_level)
+                self._drain_ctx = None
+                n_prev += self._resolve_pending()
+                return n_prev + sum(
+                    self._schedule_group(profile, c, slot_headroom)
+                    for c in chunks)
+        ctx["ct"] = new_ct
+        ctx["fill_dev"] = new_fill
+        ctx["fill_bound"] += len(pods)
+        pend = {
+            "assignments": assignments, "rounds": rounds,
+            "chunks": chunks, "ctx": ctx,
+            "meta": meta, "n_nodes": len(nodes), "profile": profile,
+            "t0": t0,
+            # breaker attribution: the level THIS drain was dispatched at
+            # and the dispatch time on the BREAKER's clock
+            "level": self._attempt_level,
+            "dispatched_at": self.breaker.clock.now(),
+            # nominations the dispatched program already respects; resolve
+            # re-checks winners only against later ones
+            "nom_keys": set(nom_target),
+        }
+        if FLIGHT.enabled:
+            for pod, _a in items:
+                FLIGHT.record(pod.key, "dispatch", span=sp_disp)
+        if self.cycle_log is not None:
+            marks = dict(self._cyc_marks)
+            marks["done"] = round(time.time() - t0, 3)
+            pend["cyc"] = (len(pods), t0, marks)
+        self._submit_resolve(pend)
+        self._pending.append(pend)
+        PIPELINE_DEPTH.observe(len(self._pending))
+        PIPELINE_INFLIGHT.set(len(self._pending))
+        # land whatever already finished, then enforce the depth bound: the
+        # oldest drain resolves (blocking) only once MORE than
+        # cfg.pipeline_depth drains are in flight
+        n_prev += self._resolve_ready()
+        while len(self._pending) > max(1, self.cfg.pipeline_depth):
+            n_prev += self._resolve_one()
+        return n_prev
+
+    def _ctx_reason(self, why: str):
+        r = self.ctx_stats["reasons"]
+        r[why] = r.get(why, 0) + 1
+
+    def _resolve_pending(self) -> int:
+        """Drain the WHOLE dispatch pipeline, oldest first, and apply the
+        results host-side. Returns pods bound."""
+        n = 0
+        while self._pending:
+            n += self._resolve_one()
+        return n
+
+    def _resolve_one(self) -> int:
+        """Wait for the OLDEST in-flight drain's results and apply them
+        host-side: assume + bulk-bind the placements, requeue the failures,
+        and record the device folds in the context's patch state (the fold
+        packs committed pods into base slots [fill, fill+n) in flattened
+        batch order — mirrored here so later churn patches can address
+        them). Reads no tensor of the context. Returns pods bound."""
+        if not self._pending:
+            return 0
+        pend = self._pending.popleft()
+        PIPELINE_INFLIGHT.set(len(self._pending))
+        if self.cycle_log is not None and "cyc" in pend:
+            n, tp, marks = pend["cyc"]
+            marks["resolve_at"] = round(time.time() - tp, 3)
+            self.cycle_log.append((n, round(tp, 3), marks))
+        t_wait = time.time()
+        fetch_failed = False
+        with BATCH_DURATION.time(), TRACER.span(
+                "scheduler/resolve_wait",
+                depth=len(self._pending) + 1) as sp_res:
+            done = pend.get("done")
+            res = None
+            if done is not None:
+                # the resolver thread owns the fetch; this thread parks on a
+                # plain Event — BOUNDED: a dead or stalled resolver degrades
+                # to an inline fetch instead of hanging the loop
+                deadline = time.time() + RESOLVE_WAIT_S
+                while not done.wait(0.25):
+                    t = self._resolver_thread  # ktpu-lint: disable=KTL001 -- lock-free liveness peek: a stale handle costs one redundant 0.25s wait round, never a wrong resolve
+                    dead = t is not None and not t.is_alive()
+                    if dead or time.time() > deadline:
+                        LOOP_ERRORS.inc({"site": "resolver_wait"})
+                        _LOG.warning(
+                            "drain resolver %s; fetching inline",
+                            "died" if dead
+                            else f"silent for {RESOLVE_WAIT_S:.0f}s")
+                        break
+                res = pend.pop("resolved", None)
+            if res is None:  # resolver off/stalled or its fetch failed
+                try:
+                    res = self._fetch(pend)
+                except Exception:
+                    fetch_failed = True
+                    LOOP_ERRORS.inc({"site": "drain_resolve"})
+                    _LOG.exception("drain results unrecoverable; "
+                                   "requeueing the drain's pods")
+            if not fetch_failed:
+                assignments, rounds = res
+        if fetch_failed:
+            # the drain's winners are lost: requeue every pod (the cache
+            # never assumed them), release the fold reservation, and taint
+            # the resident context — the device-side fold state is unknown
+            self.breaker.fail(pend.get("level", self._attempt_level))
+            ctx = pend["ctx"]
+            pend_count = sum(len(c) for c in pend["chunks"])
+            if self._drain_ctx is ctx:
+                ctx["cs"].tainted = True
+                ctx["fill_bound"] -= pend_count
+            for chunk in pend["chunks"]:
+                for pod, attempts in chunk:
+                    if not self.cache.is_bound(pod.key):
+                        self.queue.add_unschedulable(pod, attempts + 1)
+            SCHEDULE_ATTEMPTS.inc({"result": "error"}, by=pend_count)
+            return 0
+        # results landed: the breaker's success signal for the drain path,
+        # attributed to the level and time the drain was DISPATCHED at
+        self.breaker.succeed(pend.get("level", self._attempt_level),
+                             dispatched_at=pend.get("dispatched_at"))
+        wait_ms = round((time.time() - t_wait) * 1000.0, 3)
+        RESOLVE_BYTES.set(assignments.nbytes + rounds.nbytes)
+        DRAIN_SHARD_MS.set(wait_ms)
+        ctx, meta, profile = pend["ctx"], pend["meta"], pend["profile"]
+        active = self._drain_ctx is ctx
+        pend_count = sum(len(c) for c in pend["chunks"])
+        GANG_ROUNDS.observe(int(np.sum(rounds)))
+        # nominations that arrived while this drain was in flight: the
+        # dispatched program could not reserve them, so winners re-check
+        # here — same contract as _schedule_group's assume-time re-check
+        self._fold_staged_nominations()
+        fresh: dict[str, int] = {}
+        if self._nominated:
+            known = pend.get("nom_keys", set())
+            drain_keys = {pod.key for chunk in pend["chunks"]
+                          for pod, _ in chunk}
+            for k, (n, prio, _p, _ts) in self._nominated.items():
+                if k not in known and k not in drain_keys:
+                    fresh[n] = max(prio, fresh.get(n, prio))
+        lost_races = 0
+        to_bind: list[tuple[Pod, str]] = []
+        bound_rows: list[int] = []  # node index per to_bind entry
+        failures: list[tuple[Pod, int]] = []
+        with TRACER.span("scheduler/apply"):
+            for b, chunk in enumerate(pend["chunks"]):
+                assignment = assignments[b]
+                if sanity.check_enabled():
+                    for problem in sanity.check_assignment(
+                            assignment, pend["n_nodes"]):
+                        _LOG.error("KTPU_CHECK: %s (drain chunk %d)",
+                                   problem, b)
+                node_names = meta.node_names
+                for (pod, attempts), a in zip(chunk,
+                                              assignment[:len(chunk)]):
+                    if a >= 0:
+                        node_name = node_names[int(a)]
+                        rp = fresh.get(node_name)
+                        if rp is not None and rp >= pod.spec.priority:
+                            failures.append((pod, attempts))
+                            lost_races += 1
+                            continue
+                        to_bind.append((pod, node_name))
+                        bound_rows.append(int(a))
+                    else:
+                        failures.append((pod, attempts))
+            if lost_races and active:
+                # the device fold already committed the rejected winners
+                # into the resident encoding: it is now approximate —
+                # rebuild at next dispatch
+                ctx["cs"].tainted = True
+            if to_bind:
+                # one lock pass for the whole drain's winners; failures are
+                # handled AFTER
+                self.cache.assume_many(to_bind)
+                nominated = self._nominated
+                if active:
+                    # mirror the device fold: winners occupy base slots
+                    # [fill_host, fill_host+n) in this exact order. slot_req
+                    # stores the Pod itself — the request vector is computed
+                    # lazily only if the pod is later deleted/rebound.
+                    cs = ctx["cs"]
+                    fill = cs.fill_host
+                    for (pod, node), row in zip(to_bind, bound_rows):
+                        cs.slot_of[pod.key] = fill
+                        cs.slot_node[pod.key] = row
+                        cs.slot_req[pod.key] = pod
+                        cs.row_pods[row] = cs.row_pods.get(row, 0) + 1
+                        cs.folded[pod.key] = node
+                        fill += 1
+                        if pod.spec.volumes or pod.host_ports():
+                            # the fold cannot reproduce this pod's node-side
+                            # port/volume state: rebuild at next dispatch
+                            cs.tainted = True
+                    cs.fill_host = fill
+                    shadow = ctx.get("shadow")
+                    if shadow is not None:
+                        shadow.fold_winners(
+                            [(pod, row) for (pod, _n), row
+                             in zip(to_bind, bound_rows)])
+                for pod, _node in to_bind:
+                    if nominated:
+                        nominated.pop(pod.key, None)
+        pend["winners"] = list(to_bind)
+        n_bound = len(to_bind)
+        n_unsched = len(failures)
+        if FLIGHT.enabled:
+            for pod, _n in to_bind:
+                FLIGHT.record(pod.key, "resolve", span=sp_res)
+            for pod, _a in failures:
+                FLIGHT.record(pod.key, "resolve", span=sp_res)
+        self._handle_failures(failures)
+        # fill_bound is ADJUSTED, never overwritten: drains dispatched after
+        # this one already reserved their own += len(pods) on top, so only
+        # this drain's unused reservation (pend_count - n_bound) is released
+        if active and self._drain_ctx is ctx:
+            ctx["fill_bound"] -= (pend_count - n_bound)
+        self._bind_async_batch(to_bind, profile)
+        dt = time.time() - pend["t0"]
+        for result, n in (("scheduled", n_bound),
+                          ("unschedulable", n_unsched)):
+            if n:
+                SCHEDULE_ATTEMPTS.inc({"result": result}, by=n)
+                ATTEMPT_DURATION.observe(dt, {"result": result}, n=n)
+        return n_bound
+
+    def warm_drain(self, sample_pods: list, slot_headroom: int) -> bool:
+        """Run the drain once at the shapes a representative workload will
+        use (the first call also builds the card's kernels) and stage the
+        device-resident cluster context; benchmarks call it so the measured
+        window is steady-state. The warm-up drains run on a context that is
+        thrown away: drain_step updates its context in place, so the kept
+        one is built afterwards from the host encoding. Returns True when
+        the context is armed."""
+        from kubernetes_tpu_torch.encode.patch import (fork_meta,
+                                                       sync_resident_widths)
+        from kubernetes_tpu_torch.models.gang import (
+            apply_ctx_patch, batch_shapes, build_drain_context, drain_step,
+            stack_batches, unify_batches)
+        from kubernetes_tpu_torch.sched.staging import ResidentShadow
+        if not sample_pods:
+            return False
+        profile = self.cfg.profile_for(sample_pods[0].spec.scheduler_name)
+        if profile is None:
+            return False
+        B, P = max(1, self.cfg.max_drain_batches), self.cfg.batch_size
+        nodes, ct, meta = self.cache.snapshot(
+            pending_pods=sample_pods[:P], slot_headroom=slot_headroom)
+        if not nodes:
+            return False
+        chunks = [sample_pods[i * P:(i + 1) * P] or sample_pods[:P]
+                  for i in range(B)]
+        pbs = [self.cache.encode_pods(profile.apply_added_affinity(c),
+                                      meta, min_p=P,
+                                      cache_rows=not profile.added_affinity)
+               for c in chunks]
+        pb_stack = stack_batches(unify_batches(pbs))
+        built = build_drain_context(ct, pbs, nom_bucket=DRAIN_NOM_BUCKET,
+                                    device=self.device)
+        if built is None:
+            return False
+        ct_warm, e0, fill = built
+        kw = dict(e0=e0, seed=self.cfg.seed,
+                  fit_strategy=profile.fit_strategy,
+                  topo_keys=meta.topo_keys,
+                  weights=tuple(sorted(profile.weights().items())),
+                  enabled_filters=tuple(sorted(profile.enabled_filters or ())),
+                  max_rounds=self.cfg.max_gang_rounds)
+        # the SAME staging path (and spans) the live dispatch uses — warms
+        # the stager thread and the pinned buffers
+        pb_staged = self._stage_batch(
+            pb_stack, self.cache.stage_submit(pb_stack), len(sample_pods))
+        _, _, ct_warm, fill2 = drain_step(ct_warm, pb_staged,
+                                          self._stage_fill(fill), **kw)
+        # rehearse the churn programs on the throwaway context: the fused
+        # drain (patch input) in fused mode, the standalone apply_ctx_patch
+        # in both (it stages rebuild-time nominee reservations)
+        try:
+            cs_warm = self.cache.patch_state_fork()
+            if cs_warm is not None:
+                # compiled at the throwaway context's widths, as the live
+                # path compiles at the resident ones
+                sync_resident_widths(cs_warm, ct_warm)
+                warm_patch = self.cache.stage_patch(
+                    self.cache.compile_ctx_patch(
+                        fork_meta(meta), cs_warm, [], {},
+                        DRAIN_NOM_BUCKET))
+                if warm_patch is not None and self._fused_fold:
+                    drain_step(ct_warm, pb_staged, fill2, warm_patch, **kw)
+                    apply_ctx_patch(ct_warm, warm_patch)
+                elif warm_patch is not None:
+                    apply_ctx_patch(ct_warm, warm_patch)
+                    drain_step(ct_warm, pb_staged, fill2, **kw)
+        except KernelError:
+            raise
+        except Exception:
+            _LOG.exception("patch-program warmup failed (non-fatal)")
+        del ct_warm
+        built = build_drain_context(ct, pbs, nom_bucket=DRAIN_NOM_BUCKET,
+                                    device=self.device)
+        cs = self.cache.patch_state_fork()
+        if built is None or cs is None:
+            return False
+        ct_dev, e0, fill = built
+        sync_resident_widths(cs, ct_dev)
+        if self.device.type == "cuda":
+            # the context upload is queued on the stream: wait for it, so
+            # the first real drain does not pay it inside the window
+            torch.cuda.synchronize(self.device)
+        self._drain_ctx = {"ct": ct_dev, "e0": e0,
+                           "fill_dev": self._stage_fill(fill),
+                           "fill_bound": fill,
+                           "meta": fork_meta(meta), "nodes": nodes,
+                           "cs": cs,
+                           "seq": self.cache.last_snapshot_seq(),
+                           "pb_shape": batch_shapes(pb_stack),
+                           "profile": profile.scheduler_name,
+                           "shadow": ResidentShadow(ct.allocatable,
+                                                    ct.requested)}
+        return True
+
+    # ---- degraded floor: pure-numpy oracle scheduling --------------------
+
+    def _schedule_oracle(self, profile, items) -> int:
+        """Degrade-don't-die floor: schedule a batch with the serial
+        pure-numpy oracle (sched/oracle.py). Orders of magnitude slower
+        than the tensor programs, but device-free and exactly
+        parity-tested against them — the breaker routes here when the
+        device layer is broken so a scheduling cycle is never dropped."""
+        from kubernetes_tpu_torch.sched.oracle import OracleScheduler
+        t0 = time.time()
+        nodes = self.cache.list_nodes()
+        if not nodes:
+            for pod, attempts in items:
+                self.queue.add_unschedulable(pod, attempts + 1)
+                SCHEDULE_ATTEMPTS.inc({"result": "unschedulable"})
+            return 0
+        orc = OracleScheduler(
+            nodes, bound_pods=self.cache.bound_pods(include_assumed=True),
+            weights=profile.weights(), seed=self.cfg.seed,
+            volumes=self.cache.volume_catalog,
+            namespace_labels=self.cache.namespace_labels())
+        pods = profile.apply_added_affinity([p for p, _ in items])
+        # the oracle's assume() writes node_name onto what it schedules:
+        # give it detached views so a failed bind can requeue the ORIGINAL
+        # pod unbound
+        views = [dataclasses.replace(p, spec=dataclasses.replace(p.spec))
+                 for p in pods]
+        placed = orc.schedule_all(views)
+        # same assume-time nomination re-check as the tensor paths; the
+        # prune matters here too (in a long oracle window this is the only
+        # path running)
+        self._fold_staged_nominations()
+        now = time.time()
+        self._nominated = {
+            k: e for k, e in self._nominated.items()
+            if now - e[3] < self._nominated_ttl
+            and not self.cache.is_bound(k)}
+        batch_keys = {p.key for p, _ in items}
+        reserved: dict[str, int] = {}
+        for k, (n, prio, _p, _ts) in self._nominated.items():
+            if k not in batch_keys:
+                reserved[n] = max(prio, reserved.get(n, prio))
+        n_bound = n_unsched = 0
+        to_bind: list[tuple[Pod, str]] = []
+        failures: list[tuple[Pod, int]] = []
+        for (pod, attempts), ni in zip(items, placed):
+            if ni is None:
+                failures.append((pod, attempts))
+                n_unsched += 1
+                continue
+            node_name = nodes[ni].metadata.name
+            rp = reserved.get(node_name)
+            if rp is not None and rp >= pod.spec.priority:
+                failures.append((pod, attempts))
+                n_unsched += 1
+                continue
+            self._nominated.pop(pod.key, None)
+            self.cache.assume(pod, node_name)
+            to_bind.append((pod, node_name))
+            n_bound += 1
+        if FLIGHT.enabled:
+            for pod, _n in to_bind:
+                FLIGHT.record(pod.key, "resolve", mode="oracle")
+        self._handle_failures(failures)
+        self._bind_async_batch(to_bind, profile)
+        dt = time.time() - t0
+        for result, n in (("scheduled", n_bound),
+                          ("unschedulable", n_unsched)):
+            if n:
+                SCHEDULE_ATTEMPTS.inc({"result": result}, by=n)
+                ATTEMPT_DURATION.observe(dt, {"result": result}, n=n)
+        return n_bound
+
+    # ---- failure path: PostFilter / preemption ---------------------------
+
+    def _handle_failures(self, failures: list[tuple[Pod, int]]):
+        """Failure path for a whole batch: preemption-eligible pods go to
+        the preemptor (an injected one, one pod at a time; the default
+        preemption wave is ROADMAP item 4), the rest requeue with backoff.
+        (Metrics for the unschedulable result are batched by the caller.)"""
+        preemptable: list[tuple[Pod, int]] = []
+        preempt_on = self.features.enabled("PreemptionSimulation")
+        unschedulable: list[Pod] = []
+        for pod, attempts in failures:
+            if self.cache.is_bound(pod.key):
+                # Bound by another party while in-flight: requeueing would
+                # cycle it through backoffQ forever. No FailedScheduling
+                # event either: the pod IS scheduled.
+                continue
+            unschedulable.append(pod)
+            if pod.spec.priority > 0 and preempt_on:
+                preemptable.append((pod, attempts))
+            else:
+                self._after_preempt(pod, attempts, None)
+        self._emit_failed_scheduling(unschedulable)
+        if not preemptable:
+            return
+        if self._custom_preemptor or len(preemptable) == 1:
+            # injected preemptors keep the one-pod contract
+            for pod, attempts in preemptable:
+                self._after_preempt(pod, attempts, self.preemptor(pod))
+        else:
+            nominations = self._default_preempt_wave(
+                [p for p, _ in preemptable])
+            for (pod, attempts), node in zip(preemptable, nominations):
+                self._after_preempt(pod, attempts, node)
+
+    def _emit_failed_scheduling(self, pods: list[Pod]) -> None:
+        """FailedScheduling events for one cycle's unschedulable pods (the
+        generic single-line event: the explainer is ROADMAP item 5)."""
+        for pod in pods:
+            self.recorder.event(pod, "Warning", "FailedScheduling",
+                                "no node satisfied the pod's scheduling "
+                                "constraints this cycle")
+
+    def _after_preempt(self, pod: Pod, attempts: int,
+                       nominated: Optional[str]):
+        if nominated:
+            # Victims were evicted: retry immediately (no backoff); until
+            # the pod binds, the reservation shields the capacity from
+            # lower-priority pods in other batches.
+            pod.status.nominated_node_name = nominated
+            self._nominated[pod.key] = (nominated, pod.spec.priority, pod,
+                                        time.time())
+            # this entry is in-memory, whatever the key's history
+            self._nominated_external.discard(pod.key)
+            self.queue.add(pod)
+        else:
+            self.queue.add_unschedulable(pod, attempts + 1)
+            if self.cache.is_bound(pod.key):  # bound event raced the requeue
+                self.queue.delete(pod)
+
+    def _default_preempt(self, pod: Pod) -> Optional[str]:
+        raise _not_ported("default preemption", "4")
+
+    def _default_preempt_wave(self, pods: list[Pod]) -> list[Optional[str]]:
+        raise _not_ported("the default preemption wave", "4")
+
+    # ---- binding cycle (async, overlaps next batch) ----------------------
+
+    def _bind_async_batch(self, pairs: list[tuple[Pod, str]], profile):
+        """Dispatch a batch's bindings: pods needing per-pod ceremony
+        (lifecycle hooks, volume binding) go one call each; the rest ride
+        ONE bulk-binding call per chunk."""
+        if not pairs:
+            return
+        oot = (None if profile is None or profile.out_of_tree is None
+               else set(profile.out_of_tree))
+        lifecycle = self.registry.lifecycle_plugins(oot)
+        if self._bulk_binder is None or lifecycle:
+            for pod, node_name in pairs:
+                self._bind_async(pod, node_name)
+            return
+        simple: list[tuple[Pod, str]] = []
+        for pod, node_name in pairs:
+            if pod.spec.resource_claims or pod.pvc_names():
+                self._bind_async(pod, node_name)
+            else:
+                simple.append((pod, node_name))
+        # chunk bulk requests so one call never grows unbounded
+        CHUNK = 2048
+        for i in range(0, len(simple), CHUNK):
+            chunk = simple[i:i + CHUNK]
+            self._enqueue_bind(("bulk", chunk), n=len(chunk))
+
+    def _bind_async(self, pod: Pod, node_name: str):
+        self._enqueue_bind(("one", pod, node_name), n=1)
+
+    def _enqueue_bind(self, item, n: int):
+        with self._bind_cv:
+            self._bind_inflight += n
+            if (len(self._bind_workers) < max(1, self.cfg.bind_workers)
+                    and len(self._bind_workers) < self._bind_inflight):
+                t = threading.Thread(target=self._bind_worker, daemon=True,
+                                     name=f"binder-{len(self._bind_workers)}")
+                t.start()
+                self._bind_workers.append(t)
+        self._bind_q.put(item)
+
+    def _bind_worker(self):
+        while True:
+            item = self._bind_q.get()
+            if item is None:  # poison pill from close()
+                return
+            n = 1
+            try:
+                if item[0] == "bulk":
+                    n = len(item[1])
+                    self._bind_bulk(item[1])
+                else:
+                    self._bind_one(item[1], item[2])
+            except Exception:
+                LOOP_ERRORS.inc({"site": "bind_worker"})
+                _LOG.exception("binding cycle failed")
+            finally:
+                with self._bind_cv:
+                    self._bind_inflight -= n
+                    if self._bind_inflight == 0:
+                        self._bind_cv.notify_all()
+
+    def _bind_bulk(self, pairs: list[tuple[Pod, str]]):
+        """One call binds the whole chunk; per-item results fan back out
+        into the same success/failure handling as _bind_one."""
+        try:
+            results = self._bulk_binder(pairs)
+        except Exception:
+            _LOG.exception("bulk binding failed (%d pods)", len(pairs))
+            results = [False] * len(pairs)
+        if len(results) != len(pairs):
+            results = list(results) + [False] * (len(pairs) - len(results))
+        for (pod, node_name), ok in zip(pairs, results):
+            if ok:
+                self.cache.finish_binding(pod.key)
+                FLIGHT.record(pod.key, "bind", node=node_name)
+                self.recorder.event(
+                    pod, "Normal", "Scheduled",
+                    f"Successfully assigned {pod.key} to {node_name}")
+            elif ok is None:
+                # the pod vanished while its binding was in flight: drop
+                # the assumption quietly (the informer's DELETED event owns
+                # the queue cleanup)
+                self.cache.forget(pod.key)
+            else:
+                self.cache.forget(pod.key)
+                if not self.cache.is_bound(pod.key):
+                    self.queue.add_unschedulable(pod, 1)
+                    if self.cache.is_bound(pod.key):  # event raced the requeue
+                        self.queue.delete(pod)
+                SCHEDULE_ATTEMPTS.inc({"result": "error"})
+
+    def close(self, timeout: float = 5.0):
+        """Stop the binding pool: land in-flight drains, poison-pill every
+        worker and join them. Idempotent."""
+        try:
+            self._resolve_pending()  # land every in-flight drain's bindings
+        except Exception:
+            _LOG.exception("resolving in-flight drains at close")
+        with self._resolver_swap_lock:  # vs a racing watchdog restart
+            if self._resolver_q is not None:
+                self._resolver_q.put(None)  # poison pill; thread is daemon
+                self._resolver_thread = None
+                self._resolver_q = None
+        self.cache.close_staging()  # poison the batch-stager (daemon too)
+        if self._staged:
+            # parked fragments go back to the queue, not the void — with
+            # their attempt history, so backoff does not reset
+            for pod, attempts in self._staged:
+                self.queue.add(pod, attempts=attempts)
+            self._staged = []
+        with self._bind_cv:
+            workers = list(self._bind_workers)
+            self._bind_workers = []
+        for _ in workers:
+            self._bind_q.put(None)
+        for t in workers:
+            t.join(timeout=timeout)
+
+    def _bind_one(self, pod: Pod, node_name: str):
+        from kubernetes_tpu_torch.sched import framework as fw
+        # lifecycle hooks honor the pod's profile opt-in
+        profile = self.cfg.profile_for(pod.spec.scheduler_name)
+        oot = (None if profile is None or profile.out_of_tree is None
+               else set(profile.out_of_tree))
+        lifecycle = self.registry.lifecycle_plugins(oot)
+        rollback: list = []
+        try:
+            # Permit -> PreBind -> Bind (framework extension-point order);
+            # plugins that allowed/prepared join the unreserve rollback set
+            ok, permitted = fw.run_permit(lifecycle, pod, node_name)
+            rollback.extend(permitted)
+            if ok:
+                ok, prebound = fw.run_pre_bind(lifecycle, pod, node_name)
+                rollback.extend(p for p in prebound if p not in rollback)
+            if ok:
+                ok = self.binder(pod, node_name)
+        except Exception:
+            LOOP_ERRORS.inc({"site": "bind_lifecycle"})
+            _LOG.exception("binding cycle for %s failed", pod.key)
+            ok = False
+        # a binder returning None means the pod no longer exists (deleted
+        # while the binding was in flight): nothing to requeue, nothing
+        # failed
+        gone = ok is None
+        if ok:
+            fw.run_post_bind(lifecycle, pod, node_name)
+            FLIGHT.record(pod.key, "bind", node=node_name)
+            self.recorder.event(pod, "Normal", "Scheduled",
+                                f"Successfully assigned {pod.key} to {node_name}")
+        else:
+            fw.run_unreserve(rollback, pod, node_name)
+        if ok:
+            self.cache.finish_binding(pod.key)
+        elif gone:
+            self.cache.forget(pod.key)
+        else:
+            self.cache.forget(pod.key)
+            # 409 ordering: if another party bound this pod while it was
+            # in-flight, requeueing now would retry forever
+            if not self.cache.is_bound(pod.key):
+                self.queue.add_unschedulable(pod, 1)
+                if self.cache.is_bound(pod.key):  # event raced the requeue
+                    self.queue.delete(pod)
+            SCHEDULE_ATTEMPTS.inc({"result": "error"})
+
+    def wait_for_bindings(self, timeout: float = 5.0):
+        deadline = time.time() + timeout
+        with self._bind_cv:
+            while self._bind_inflight > 0:
+                remaining = deadline - time.time()
+                if remaining <= 0 or not self._bind_cv.wait(remaining):
+                    break
+
+    # ---- loop ------------------------------------------------------------
+
+    def taint_ctx(self) -> None:
+        """Mark the device-resident drain context unaccountable: the next
+        dispatch rebuilds from a host snapshot."""
+        ctx = self._drain_ctx
+        if ctx is not None:
+            ctx["cs"].tainted = True
+
+    def audit_ctx_view(self) -> Optional[dict]:
+        """Plain-value view of the resident drain context's host-side fold
+        ledger for the invariant auditor. Reads from a foreign thread:
+        each field is one GIL-atomic read or dict copy."""
+        ctx = self._drain_ctx
+        if ctx is None:
+            return None
+        cs = ctx["cs"]
+        return {"profile": ctx["profile"], "tainted": cs.tainted,
+                "seq": ctx["seq"], "fill_bound": ctx["fill_bound"],
+                "fill_host": cs.fill_host, "top": cs.top,
+                "folded": dict(cs.folded),
+                "pending": len(self._pending)}
+
+    def run(self, stop: threading.Event):
+        """wait.UntilWithContext(sched.ScheduleOne, 0) analog — hardened:
+        a run_once failure is logged + counted (never swallowed, never
+        fatal), the resident drain context is tainted, and the loop backs
+        off briefly and continues. A BaseException escapes, and so do the
+        two failures a retry cannot cure: a feature this port has not got
+        yet (NotImplementedError) and a kernel that does not build or
+        launch (KernelError). run_once has requeued the popped pods."""
+        consecutive = 0
+        while not stop.is_set() and not self.queue.closed:
+            self.heartbeat()
+            try:
+                self.run_once()
+                consecutive = 0
+            except (NotImplementedError, KernelError):
+                raise
+            except Exception:
+                consecutive += 1
+                LOOP_ERRORS.inc({"site": "run_once"})
+                _LOG.exception("run_once failed (%d consecutive); "
+                               "self-healing", consecutive)
+                self.taint_ctx()
+                stop.wait(min(0.05 * (2 ** min(consecutive, 6)), 2.0))

@@ -17,7 +17,9 @@ mesh, parity sentinel or preemption. One ``cycle`` is:
      the context's ``CtxPatchState`` (slot, row and request of every
      folded pod, in the fold's order), so later patches can address them.
 
-The connected scheduler, when it is ported, replaces this harness.
+``sched/scheduler.Scheduler`` replaces this harness once
+``tests/test_torch_patch.py`` and ``chip_smoke.py``'s resident phase
+move to it.
 """
 
 from __future__ import annotations
@@ -35,10 +37,7 @@ from kubernetes_tpu_torch.models.gang import (apply_ctx_patch, batch_shapes,
                                               build_drain_context, drain_step,
                                               drain_widths_fit, pad_batch_to,
                                               stack_batches, unify_batches)
-
-# size of the resident nominee-reservation tensors (the reference
-# scheduler's DRAIN_NOM_BUCKET default)
-DRAIN_NOM_BUCKET = 128
+from kubernetes_tpu_torch.sched.scheduler import DRAIN_NOM_BUCKET
 
 
 @dataclass

@@ -1,0 +1,357 @@
+"""Tracing — span instrumentation, per-pod flight recorder, exporters.
+
+Reference: ``staging/src/k8s.io/component-base/tracing/`` (OpenTelemetry
+spans behind a TracerProvider; apiserver/kubelet attach spans around request
+handling and CRI calls). The scheduler upstream is metrics-only (SURVEY §5);
+here spans cover the batched cycle too since one span per *batch* is cheap
+where one per pod would not be.
+
+Two layers:
+
+- :class:`Tracer` — batch-granularity spans with real span/trace ids and a
+  true ring buffer (drop-oldest, drops counted). Exports OTLP/JSON (the
+  apiserver's ``/debug/traces``) and Chrome trace-event JSON
+  (``export_chrome`` — loads directly in Perfetto / chrome://tracing).
+- :class:`FlightRecorder` — a per-pod ring buffer of lifecycle stages
+  (informer event -> precompile -> queue admit -> dispatch -> resolve ->
+  bind/requeue), each stage optionally linked to the batch span it rode in.
+  Stitches causal per-pod timelines out of the batch pipeline and derives
+  the end-to-end ``scheduler_e2e_scheduling_duration_seconds`` histogram
+  at bind time. O(1) per stage; ``enabled=False`` reduces ``record`` to an
+  attribute test.
+"""
+
+from __future__ import annotations
+
+import itertools
+import json
+import threading
+import time
+from collections import OrderedDict, deque
+from contextlib import contextmanager
+from dataclasses import dataclass, field
+from typing import Any, Optional
+
+
+@dataclass
+class Span:
+    name: str
+    start: float
+    end: float = 0.0
+    # real id-based linkage (ids are process-unique, never name-derived):
+    # span_id is allocated at span start, parent_id is the ENCLOSING span's
+    # id (0 = root), trace_id is shared by a root span and all descendants.
+    span_id: int = 0
+    parent_id: int = 0
+    trace_id: int = 0
+    # parent NAME kept as a display convenience (diagnostics print it);
+    # exporters link by id only.
+    parent: Optional[str] = None
+    attributes: dict[str, Any] = field(default_factory=dict)
+
+    @property
+    def duration_ms(self) -> float:
+        return (self.end - self.start) * 1000.0
+
+
+class Tracer:
+    """Minimal tracer: nested spans via a thread-local stack, finished spans
+    collected in a RING buffer (oldest dropped first, drops counted in
+    ``dropped``; sampling via ``ratio``)."""
+
+    def __init__(self, ratio: float = 1.0, max_spans: int = 4096):
+        self.ratio = ratio
+        self._lock = threading.Lock()
+        self._max_spans = max_spans
+        self._spans: "deque[Span]" = deque(maxlen=max_spans)
+        self._tls = threading.local()
+        self._counter = 0
+        self._ids = itertools.count(1)
+        self.dropped = 0
+
+    @property
+    def max_spans(self) -> int:
+        return self._max_spans
+
+    @max_spans.setter
+    def max_spans(self, n: int) -> None:
+        # benches resize the window before a run; keep whatever fits
+        with self._lock:
+            self._max_spans = n
+            self._spans = deque(self._spans, maxlen=n)
+
+    @contextmanager
+    def span(self, name: str, **attributes):
+        with self._lock:
+            self._counter += 1
+            sampled = self.ratio >= 1.0 or (self._counter * self.ratio) % 1.0 < self.ratio
+            sid = next(self._ids)
+        if not sampled:
+            yield None
+            return
+        stack = getattr(self._tls, "stack", None)
+        if stack is None:
+            stack = self._tls.stack = []
+        top = stack[-1] if stack else None
+        sp = Span(name=name, start=time.time(), span_id=sid,
+                  parent_id=top.span_id if top else 0,
+                  trace_id=top.trace_id if top else sid,
+                  parent=top.name if top else None,
+                  attributes=dict(attributes))
+        stack.append(sp)
+        try:
+            yield sp
+        finally:
+            sp.end = time.time()
+            stack.pop()
+            with self._lock:
+                if len(self._spans) == self._spans.maxlen:
+                    self.dropped += 1
+                self._spans.append(sp)
+
+    def spans(self, name: Optional[str] = None) -> list[Span]:
+        with self._lock:
+            return [s for s in self._spans if name is None or s.name == name]
+
+    def reset(self):
+        with self._lock:
+            self._spans.clear()
+            self.dropped = 0
+
+    def export_chrome(self, path: Optional[str] = None, flight=None,
+                      max_events: Optional[int] = None,
+                      max_flight_pods: Optional[int] = None) -> dict:
+        """Finished spans (+ the flight recorder's per-pod timelines) in
+        Chrome trace-event JSON — the format Perfetto and chrome://tracing
+        load directly. Spans are complete ("X") events grouped per trace id
+        (pid 1); pod lifecycles are per-pod tracks (pid 2) whose stage
+        slices carry the linked batch span id in ``args``. ``path`` also
+        writes the document to disk; ``max_events`` keeps only the newest
+        N span events and ``max_flight_pods`` the newest N pod tracks —
+        the runner's periodically-published trace ConfigMap bounds both
+        (an unbounded flight export is fine for a one-shot bench dump but
+        megabytes per publish on a cadence)."""
+        events: list[dict] = []
+        finished = self.spans()
+        if max_events is not None and len(finished) > max_events:
+            finished = finished[-max_events:]
+        for sp in finished:
+            events.append({
+                "name": sp.name, "cat": "scheduler", "ph": "X",
+                "ts": sp.start * 1e6,
+                "dur": max(sp.end - sp.start, 0.0) * 1e6,
+                "pid": 1, "tid": sp.trace_id,
+                "args": {"span_id": sp.span_id,
+                         "parent_id": sp.parent_id,
+                         **{k: str(v) for k, v in sp.attributes.items()}},
+            })
+        events.append({"name": "process_name", "ph": "M", "pid": 1,
+                       "args": {"name": "kubernetes-tpu-scheduler"}})
+        if flight is None:
+            flight = FLIGHT
+        if flight is not None:
+            events.extend(flight.export_chrome_events(
+                pid=2, max_pods=max_flight_pods))
+            events.append({"name": "process_name", "ph": "M", "pid": 2,
+                           "args": {"name": "pods"}})
+        doc = {"traceEvents": events, "displayTimeUnit": "ms"}
+        if path:
+            with open(path, "w") as f:
+                json.dump(doc, f)
+        return doc
+
+
+# process-global default tracer (TracerProvider analog)
+TRACER = Tracer()
+
+
+def validate_chrome_trace(doc: dict) -> list[str]:
+    """Problems with ``doc`` as a Chrome trace-event document (empty list =
+    valid). Checks the subset of the spec Perfetto requires to load: a
+    ``traceEvents`` array whose entries carry a string ``ph``, string
+    ``name``, numeric ``ts`` (and numeric ``dur`` for complete events), and
+    a ``pid``. Tests and ``ktpu trace dump`` share this."""
+    problems: list[str] = []
+    events = doc.get("traceEvents")
+    if not isinstance(events, list):
+        return ["traceEvents missing or not a list"]
+    for i, ev in enumerate(events):
+        if not isinstance(ev, dict):
+            problems.append(f"event {i}: not an object")
+            continue
+        ph = ev.get("ph")
+        if not isinstance(ph, str) or not ph:
+            problems.append(f"event {i}: ph missing")
+            continue
+        if not isinstance(ev.get("name"), str):
+            problems.append(f"event {i}: name missing")
+        if ph != "M":
+            if not isinstance(ev.get("ts"), (int, float)):
+                problems.append(f"event {i}: ts missing/non-numeric")
+            elif ev["ts"] < 0:
+                problems.append(f"event {i}: negative ts")
+        if ph == "X" and not isinstance(ev.get("dur"), (int, float)):
+            problems.append(f"event {i}: complete event without dur")
+        if "pid" not in ev:
+            problems.append(f"event {i}: pid missing")
+    return problems
+
+
+class FlightRecorder:
+    """Per-pod lifecycle ring buffer keyed by pod key.
+
+    Each ``record(key, stage)`` appends (stage, ts, span_id, attrs) to the
+    pod's bounded timeline; the recorder itself holds at most ``max_pods``
+    pods (oldest-inserted dropped first, counted in ``dropped_pods``).
+    ``span`` links the stage to the batch span it rode in (the Span object
+    from ``TRACER.span(...) as sp`` or a raw id). Stage ``bind`` closes
+    the timeline and derives the end-to-end scheduling SLI histograms."""
+
+    def __init__(self, max_pods: int = 4096, max_events: int = 32,
+                 enabled: Optional[bool] = None):
+        if enabled is None:
+            import os
+            enabled = os.environ.get("KTPU_FLIGHT", "1") != "0"
+        self.enabled = enabled
+        self.max_pods = max_pods
+        self.max_events = max_events
+        self._lock = threading.Lock()
+        self._pods: "OrderedDict[str, deque]" = OrderedDict()
+        self.dropped_pods = 0
+
+    def record(self, key: str, stage: str, span=None, **attrs) -> None:
+        if not self.enabled:
+            return
+        span_id = span.span_id if isinstance(span, Span) else (span or 0)
+        now = time.time()
+        with self._lock:
+            tl = self._pods.get(key)
+            if tl is None:
+                if len(self._pods) >= self.max_pods:
+                    self._pods.popitem(last=False)
+                    self.dropped_pods += 1
+                tl = self._pods[key] = deque(maxlen=self.max_events)
+            elif stage == "informer" and any(e[0] == "bind" for e in tl):
+                # a fresh informer event on a CLOSED (bound) timeline is a
+                # recreated pod under the same ns/name: start a new
+                # incarnation instead of stitching two lifecycles into one
+                # (which would poison the derived e2e histogram with the
+                # gap between them)
+                tl.clear()
+            tl.append((stage, now, span_id, attrs or None))
+            first_ts = tl[0][1]
+            queued_ts = None
+            if stage == "bind":
+                for st, ts, _sid, _a in tl:
+                    if st == "queue_add":
+                        queued_ts = ts
+                        break
+        if stage == "bind":
+            from kubernetes_tpu_torch.metrics.registry import (E2E_DURATION,
+                                                         E2E_SCHEDULING)
+            E2E_SCHEDULING.observe(max(now - first_ts, 0.0))
+            if queued_ts is not None:
+                E2E_DURATION.observe(max(now - queued_ts, 0.0))
+
+    def timeline(self, key: str) -> list[dict]:
+        with self._lock:
+            tl = list(self._pods.get(key, ()))
+        return [{"stage": st, "ts": ts, "span_id": sid,
+                 **({"attrs": a} if a else {})} for st, ts, sid, a in tl]
+
+    def keys(self) -> list[str]:
+        with self._lock:
+            return list(self._pods)
+
+    def stats(self) -> dict:
+        with self._lock:
+            return {"enabled": self.enabled, "pods": len(self._pods),
+                    "droppedPods": self.dropped_pods}
+
+    def reset(self) -> None:
+        with self._lock:
+            self._pods.clear()
+            self.dropped_pods = 0
+
+    def export_chrome_events(self, pid: int = 2,
+                             max_pods: Optional[int] = None) -> list[dict]:
+        """One track per pod: consecutive stages become complete ("X")
+        slices spanning stage->next stage; the final stage is an instant
+        ("i"). ``args`` carry the linked batch span id, so a Perfetto user
+        can jump from a pod's ``dispatch`` slice to the scheduler's
+        ``gang_dispatch`` span that carried it. ``max_pods`` keeps the
+        newest-inserted N tracks only."""
+        with self._lock:
+            snap = [(k, list(tl)) for k, tl in self._pods.items()]
+        if max_pods is not None and len(snap) > max_pods:
+            snap = snap[-max_pods:]
+        events: list[dict] = []
+        for tid, (key, tl) in enumerate(snap, start=1):
+            events.append({"name": "thread_name", "ph": "M", "pid": pid,
+                           "tid": tid, "args": {"name": key}})
+            for i, (stage, ts, sid, attrs) in enumerate(tl):
+                args = {"span_id": sid, **(attrs or {})}
+                if i + 1 < len(tl):
+                    events.append({"name": stage, "cat": "pod", "ph": "X",
+                                   "ts": ts * 1e6,
+                                   "dur": max(tl[i + 1][1] - ts, 0.0) * 1e6,
+                                   "pid": pid, "tid": tid, "args": args})
+                else:
+                    events.append({"name": stage, "cat": "pod", "ph": "i",
+                                   "ts": ts * 1e6, "s": "t",
+                                   "pid": pid, "tid": tid, "args": args})
+        return events
+
+
+# process-global flight recorder (KTPU_FLIGHT=0 disables at import;
+# benches flip .enabled at runtime for the A/B)
+FLIGHT = FlightRecorder()
+
+
+def export_otlp_json(tracer: "Tracer", service_name: str = "kubernetes-tpu"
+                     ) -> dict:
+    """Finished spans in the OTLP/JSON resourceSpans wire shape
+    (opentelemetry-proto trace/v1, JSON mapping) — what an OTLP/HTTP
+    collector ingests at /v1/traces. component-base/tracing emits the same
+    protocol; exporting on demand (vs a background OTLP pusher) fits the
+    bench-and-test deployment here. Linkage is by the tracer's REAL span
+    ids (a parent evicted from the ring simply leaves the child a root)."""
+    finished = tracer.spans()
+    live = {sp.span_id for sp in finished}
+    spans = []
+    for sp in finished:
+        parent_id = sp.parent_id if sp.parent_id in live else 0
+        spans.append({
+            "traceId": f"{sp.trace_id:032x}",
+            "spanId": f"{sp.span_id:016x}",
+            "parentSpanId": f"{parent_id:016x}" if parent_id else "",
+            "name": sp.name,
+            "kind": "SPAN_KIND_INTERNAL",
+            "startTimeUnixNano": str(int(sp.start * 1e9)),
+            "endTimeUnixNano": str(int(sp.end * 1e9)),
+            "attributes": [
+                {"key": k, "value": {"stringValue": str(v)}}
+                for k, v in sp.attributes.items()],
+        })
+    return {"resourceSpans": [{
+        "resource": {"attributes": [
+            {"key": "service.name",
+             "value": {"stringValue": service_name}}]},
+        "scopeSpans": [{
+            "scope": {"name": "kubernetes_tpu_torch.utils.tracing"},
+            "spans": spans}],
+    }]}
+
+
+def dump_stacks() -> str:
+    """Every live thread's stack — the /debug/pprof goroutine-dump analog
+    (component-base healthz mux exposes the Go equivalent on every
+    binary)."""
+    import sys
+    import traceback
+    out = []
+    for tid, frame in sys._current_frames().items():
+        out.append(f"thread {tid}:")
+        out.extend("  " + ln.rstrip()
+                   for ln in traceback.format_stack(frame))
+    return "\n".join(out) + "\n"

@@ -59,3 +59,44 @@ def test_port_imports_with_jax_blocked():
 def test_no_reference_imports(path):
     # top-level names only: "kubernetes_tpu_torch" is not "kubernetes_tpu"
     assert not _top_level_imports(path) & set(FORBIDDEN)
+
+
+_SCHED_MODULES = (
+    "config.features", "config.types", "metrics.registry", "utils.clock",
+    "utils.events", "utils.sanity", "utils.tracing", "topology.slicing",
+    "sched.queue", "sched.framework", "sched.resilience", "sched.oracle",
+    "sched.staging", "sched.cache", "sched.scheduler")
+
+_NO_YAML = r"""
+import importlib, sys
+sys.modules["jax"] = None
+sys.modules["flax"] = None
+sys.modules["yaml"] = None
+for name in sys.argv[1:]:
+    importlib.import_module("kubernetes_tpu_torch." + name)
+from kubernetes_tpu_torch.config.types import SchedulerConfiguration, validate
+cfg = SchedulerConfiguration.from_dict({"batchSize": 8, "pipelineDepth": 3})
+validate(cfg)
+leaked = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("kubernetes_tpu", "benchmarks"))
+print(cfg.batch_size, cfg.pipeline_depth, leaked)
+"""
+
+
+def test_scheduler_modules_import_without_yaml():
+    """The scheduling loop's modules import with JAX, flax and PyYAML
+    blocked (the card's machine lists no PyYAML: config/types.py imports
+    it in ``from_yaml`` only), and pull in nothing of the JAX package."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    res = subprocess.run([sys.executable, "-c", _NO_YAML, *_SCHED_MODULES],
+                         cwd=ROOT, env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.split() == ["8", "3", "[]"]
+
+
+@pytest.mark.parametrize("name", _SCHED_MODULES)
+def test_scheduler_module_is_walked(name):
+    # the blocked-import walk above reaches every module of the slice
+    assert (PORT / (name.replace(".", "/") + ".py")).is_file()
+    assert (PORT / name.split(".")[0] / "__init__.py").is_file()
