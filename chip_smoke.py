@@ -26,7 +26,13 @@ Phases, one JSON line each:
            and at least 5 cycles folding behind a fused patch; and the
            port's Scheduler (sched/scheduler.py) over a small relational_mix
            cluster with churn between pops, at pipeline depth 1 and 2:
-           binder logs, ctx_stats and the folded context equal
+           binder logs, ctx_stats and the folded context equal; and the
+           port's SchedulerRunner over a DirectClient, at depth 1 and 2,
+           on a small relational_mix cluster and on a MixedHeterogeneous
+           cluster of 32 nodes x 192 pods, the parity sentinel sampling
+           every drain: the store's bindings, ctx_stats and the sentinel's
+           samples, divergences and breaker mode equal on the card and the
+           CPU, at least one sample and 0 divergences on each
   path     the sidecar engine in process: PushSnapshot of a 5000-node
            MixedHeterogeneous cluster with 2000 bound pods, then 8 Schedule
            requests of 256 pending pods, each followed by the PushDelta that
@@ -69,9 +75,28 @@ Phases, one JSON line each:
   profile.scheduler  one more pop of 2048 pods under torch.profiler:
            the device's busy share of the whole cycle, assume and bind
            included
+  connected  Connected/10000Pods5000Nodes as benchmarks/connected.py runs
+           it: the port's APIServer in a spawned process, 5000 nodes seeded,
+           SchedulerRunner(HTTPClient(url, wire="json")) with pops of
+           2 x 512, depth 2, fused fold, staging, the parity sentinel every
+           4th drain and a fail-fast auditor every 2 s; informers synced,
+           warm_drain, 10,000 pods created in concurrent chunks of 2500,
+           the loop started, a watcher process counting the bound pods.
+           The window from the first create to the last bound event,
+           pods/s, ATTEMPT_DURATION p50/p99, E2E_SCHEDULING p99, tracer
+           span totals (the loop's, and the pod handler's, the audit
+           sweeps' and the sentinel checks' on their own threads), the
+           encode cache's hits and misses at pop time,
+           ctx_stats, staging, breaker, loop errors, relists, audit sweeps
+           and violations, sentinel samples and divergences, launches.
+           Gates: 10,000 of 10,000 bound within 300 s, placements checked,
+           breaker "single", 0 oracle pods, 0 loop errors, >= 1 audit sweep
+           with 0 violations, >= 1 sentinel sample with 0 divergences
+  kernels.connected  count_pn at the connected run's folded resident
+           shape, as kernels.drain
 
-Each path (path, drain, resident, scheduler) is driven with the launch counts set to
-0 just before it and read just after. Then the kernel table line
+Each path (path, drain, resident, scheduler, connected) is driven with the
+launch counts set to 0 just before it and read just after. Then the kernel table line
 ({"kernels": [...]}, one row per kernel at the shape of its most launches,
 launches summed over the paths, the shapes checked), the card's name and
 power limit, and last {"ok": true, "device": {...}}. Any failed phase
@@ -875,14 +900,23 @@ SCHED_PROFILED = 2048  # one more pop's worth of pods for profile.scheduler
 def sched_config(**overrides):
     """The port's SchedulerConfiguration: the reference defaults (batch_size
     256, max_drain_batches 8, pipeline_depth 2, fused fold and staging on)
-    with the explainer and the parity sentinel off, which the port refuses
-    (later slices)."""
+    with the explainer off (the port refuses it: a later slice) and, unless
+    ``overrides`` names it, the parity sentinel off (as the scheduler phase
+    has measured the loop since it was ported)."""
     from kubernetes_tpu_torch.config.types import (SchedulerConfiguration,
                                                    validate)
-    cfg = SchedulerConfiguration(explainer_enabled=False,
-                                 parity_sample_every=0, **overrides)
+    cfg = SchedulerConfiguration(**dict(
+        dict(explainer_enabled=False, parity_sample_every=0), **overrides))
     validate(cfg)
     return cfg
+
+
+def no_preemption_gate():
+    """PreemptionSimulation off: default preemption is a later slice."""
+    from kubernetes_tpu_torch.config.features import FeatureGate
+    gate = FeatureGate()
+    gate.set("PreemptionSimulation", False)
+    return gate
 
 
 def make_scheduler(cfg, node_objs, bound_objs=(), ns_labels=None,
@@ -893,7 +927,6 @@ def make_scheduler(cfg, node_objs, bound_objs=(), ns_labels=None,
     ``confirm``, confirms the binding in the cache as the runner's informer
     would. -> (scheduler, binder log)."""
     import dataclasses
-    from kubernetes_tpu_torch.config.features import FeatureGate
     from kubernetes_tpu_torch.sched.cache import SchedulerCache
     from kubernetes_tpu_torch.sched.queue import SchedulingQueue
     from kubernetes_tpu_torch.sched.scheduler import Scheduler
@@ -915,10 +948,8 @@ def make_scheduler(cfg, node_objs, bound_objs=(), ns_labels=None,
                 pod, spec=dataclasses.replace(pod.spec, node_name=node)))
         return True
 
-    gate = FeatureGate()
-    gate.set("PreemptionSimulation", False)
-    sched = Scheduler(cfg, cache, queue, binder, feature_gate=gate,
-                      device=device)
+    sched = Scheduler(cfg, cache, queue, binder,
+                      feature_gate=no_preemption_gate(), device=device)
     return sched, log
 
 
@@ -1123,7 +1154,7 @@ def scheduler_phase(node_dicts, pod_dicts, device=None, smi=""):
              "card": smi}, sched, churn)
 
 
-def scheduler_count_cases(sched, pod_dicts):
+def scheduler_count_cases(sched, pod_dicts, prefix="scheduler"):
     """count_pn's inputs as the scheduler's resident drain meets them: the
     folded context after the run (E = e0 + B·P, N = 8192) and the spread
     and preferred affinity terms of a batch encoded against the context's
@@ -1139,7 +1170,7 @@ def scheduler_count_cases(sched, pod_dicts):
     stack = pad_batch_to(stack_batches([pb] * sched.cfg.max_drain_batches),
                          ctx["pb_shape"])
     check(stack is not None, "scheduler: the batch exceeds the context")
-    return _term_cases("scheduler", ct,
+    return _term_cases(prefix, ct,
                        _batch(stack.to(ct.epod_valid.device), 0))
 
 
@@ -1175,6 +1206,408 @@ def profile_scheduler_phase(sched, churn, pod_dicts, i):
     return {"pods": len(pod_dicts), "bound": bound, "cycle_ms": cycle_ms,
             "device_busy_share_of_cycle": summary["device_busy_ms"]
             / cycle_ms, **summary, "trace": os.path.relpath(trace_path)}
+
+
+# ------------------------------------------------------------------ connected
+
+CONNECTED_PODS = 10000   # Connected/10000Pods5000Nodes (bench.py's case)
+CONNECTED_BATCH = 512    # benchmarks/connected.py run_connected's defaults
+CONNECTED_DRAIN_BATCHES = 2
+CONNECTED_CHUNK = 2500   # concurrent bulk creates, as run_connected makes
+CONNECTED_TIMEOUT_S = 300.0
+CONNECTED_PARITY_EVERY = 4   # the reference's chaos runs sample this densely
+CONNECTED_AUDIT_S = 2.0
+
+
+def connected_workload(pods=CONNECTED_PODS, nodes=N_NODES, seed=SEED):
+    """MixedHeterogeneous/10000Pods5000Nodes as wire dicts, without the
+    wrappers' process-local uids (the store stamps its own). -> (node
+    dicts, pod dicts)."""
+    from kubernetes_tpu_torch.testing.workloads import mixed_heterogeneous
+    node_objs, pod_objs = mixed_heterogeneous(pods=pods, nodes=nodes,
+                                              seed=seed)
+    out = []
+    for objs in (node_objs, pod_objs):
+        dicts = [o.to_dict() for o in objs]
+        for d in dicts:
+            d["metadata"].pop("uid", None)
+        out.append(dicts)
+    return tuple(out)
+
+
+def watch_bound(url, ns, rv0, n_pods, count, done, dead, ready):
+    """Watcher process: count the pods whose nodeName got set (one event
+    per binding). Its JSON decode burns its own interpreter, not the
+    scheduler's."""
+    from kubernetes_tpu_torch.client.clientset import HTTPClient
+    client = HTTPClient(url, timeout=30.0, wire="json")
+    seen = set()
+    try:
+        w = client.pods(ns).watch(since_rv=rv0)
+        ready.set()
+        for ev in w:
+            if (ev.object or {}).get("spec", {}).get("nodeName"):
+                seen.add(ev.object["metadata"]["name"])
+                count.value = len(seen)
+                if len(seen) >= n_pods:
+                    done.set()
+                    return
+    except Exception:
+        import traceback
+        traceback.print_exc()
+    dead.set()
+
+
+def start_apiserver(ctx):
+    """The port's APIServer in its own process (spawned: this process holds
+    a CUDA context and must not fork). -> (process, stop pipe, url)."""
+    from kubernetes_tpu_torch.store.apiserver import serve
+    parent, child = ctx.Pipe()
+    proc = ctx.Process(target=serve, args=(child,), daemon=True)
+    proc.start()
+    check(parent.poll(120.0), "connected: the apiserver did not start")
+    return proc, parent, f"http://127.0.0.1:{parent.recv()}"
+
+
+def stop_process(proc, pipe=None) -> None:
+    if pipe is not None:
+        try:
+            pipe.send("stop")
+        except (OSError, EOFError):
+            pass
+    proc.join(10.0)
+    if proc.is_alive():
+        proc.terminate()
+        proc.join(10.0)
+
+
+def _span_totals(t0=None):
+    """Tracer spans by name: count, total and longest ms, and with ``t0``
+    (a time.time()) the seconds from it to the last span's end."""
+    from kubernetes_tpu_torch.utils.tracing import TRACER
+    spans = {}
+    for sp in TRACER.spans():
+        agg = spans.setdefault(sp.name, {"count": 0, "total_ms": 0.0,
+                                         "max_ms": 0.0, "end": sp.end})
+        agg["count"] += 1
+        agg["total_ms"] += sp.duration_ms
+        agg["max_ms"] = max(agg["max_ms"], sp.duration_ms)
+        agg["end"] = max(agg["end"], sp.end)
+    for agg in spans.values():
+        end = agg.pop("end")
+        if t0 is not None:
+            agg["last_end_s"] = end - t0
+    return spans
+
+
+def connected_phase(node_dicts, pod_dicts, device=None, smi=""):
+    """Connected/10000Pods5000Nodes as ``benchmarks/connected.py``
+    run_connected runs it (its ``explain=False`` leg), through the port: an
+    APIServer in a spawned process, the nodes seeded with one bulk create,
+    ``SchedulerRunner(HTTPClient(url, wire="json"))`` with pops of 2 x 512,
+    pipeline depth 2, fused fold and staging, the parity sentinel every
+    4th drain and a fail-fast auditor on a clean client every 2 s;
+    informers synced with the loop stopped,
+    ``warm_drain``, then the pods created in concurrent chunks of 2500 and
+    the loop started. A watcher process counts the bound pods. The window
+    runs from the first create to the last bound event. Gates: every pod
+    bound within the timeout, the placements checked, breaker "single", 0
+    pods through the oracle, 0 loop errors, at least one audit sweep with
+    0 violations, at least one sentinel sample and 0 divergences. The
+    pods through the oracle and the seconds of the other threads (pod
+    handler, audit sweeps, sentinel checks) are read from the tracer's
+    spans. -> (summary, stopped runner)."""
+    import multiprocessing as mp
+    from concurrent.futures import ThreadPoolExecutor
+    from kubernetes_tpu_torch.audit.auditor import (InvariantAuditor,
+                                                    InvariantViolationError)
+    from kubernetes_tpu_torch.client.clientset import HTTPClient
+    from kubernetes_tpu_torch.metrics.registry import (ATTEMPT_DURATION,
+                                                       E2E_SCHEDULING,
+                                                       LOOP_ERRORS)
+    from kubernetes_tpu_torch.ops import kernels
+    from kubernetes_tpu_torch.sched.runner import SchedulerRunner
+    from kubernetes_tpu_torch.utils.tracing import FLIGHT, TRACER
+    ctx = mp.get_context("spawn")
+    server, server_pipe, url = start_apiserver(ctx)
+    watcher = runner = None
+    try:
+        seed_client = HTTPClient(url, timeout=120.0, wire="json")
+        t0 = time.perf_counter()
+        seed_client.nodes().create_many(node_dicts)
+        seed_s = time.perf_counter() - t0
+        cfg = sched_config(batch_size=CONNECTED_BATCH,
+                           max_drain_batches=CONNECTED_DRAIN_BATCHES,
+                           parity_sample_every=CONNECTED_PARITY_EVERY,
+                           audit_interval_s=CONNECTED_AUDIT_S,
+                           audit_fail_fast=True)
+        runner = SchedulerRunner(HTTPClient(url, wire="json"), cfg,
+                                 feature_gate=no_preemption_gate(),
+                                 device=device)
+        # fail-fast audit over a CLEAN client, as run_connected's
+        # _bench_auditor: the scheduler's transport is not the auditor's
+        runner.auditor = InvariantAuditor(
+            client=HTTPClient(url, timeout=60.0, wire="json"),
+            cache=runner.cache, scheduler=runner.scheduler,
+            interval_s=CONNECTED_AUDIT_S, fail_fast=True,
+            pre_sweep=runner.sweep_stale_nominations,
+            post_sweep=runner.publish_status,
+            relists=runner._total_relists)
+        t0 = time.perf_counter()
+        runner.start(wait_sync=120.0, start_loop=False)
+        check(runner.has_synced(), "connected: the informers did not sync")
+        sync_s = time.perf_counter() - t0
+        from kubernetes_tpu_torch.api.types import Pod
+        pods = [Pod.from_dict(d) for d in pod_dicts]
+        pop = CONNECTED_BATCH * CONNECTED_DRAIN_BATCHES
+        t0 = time.perf_counter()
+        check(runner.scheduler.warm_drain(pods, slot_headroom=len(pods)
+                                          + pop),
+              "connected: warm_drain did not arm the context")
+        warm_s = time.perf_counter() - t0
+        del pods
+
+        _, rv0 = seed_client.pods("default").list_rv()
+        count = ctx.Value("i", 0)
+        all_bound, watch_dead, ready = ctx.Event(), ctx.Event(), ctx.Event()
+        watcher = ctx.Process(target=watch_bound,
+                              args=(url, "default", rv0, len(pod_dicts),
+                                    count, all_bound, watch_dead, ready),
+                              daemon=True)
+        watcher.start()
+        check(ready.wait(120.0), "connected: the watcher did not start")
+
+        errors0 = sum(LOOP_ERRORS.items().values())
+        ATTEMPT_DURATION.reset()
+        E2E_SCHEDULING.reset()
+        FLIGHT.reset()
+        # every pod's timeline kept: E2E_SCHEDULING is derived from them
+        FLIGHT.max_pods = max(FLIGHT.max_pods, 2 * len(pod_dicts))
+        # the window's spans all kept: one per pod watch event (two events
+        # a pod), the loop's and the binds', the sweeps' and the checks'
+        TRACER.max_spans = max(TRACER.max_spans, 8 * len(pod_dicts))
+        TRACER.reset()
+        enc0 = runner.cache.encode_cache_stats()
+        kernels.reset_launches()
+        jobs = [pod_dicts[i:i + CONNECTED_CHUNK]
+                for i in range(0, len(pod_dicts), CONNECTED_CHUNK)]
+        t_start, t_start_wall = time.perf_counter(), time.time()
+        with ThreadPoolExecutor(max_workers=min(4, len(jobs))) as pool:
+            list(pool.map(lambda objs: seed_client.pods("default")
+                          .create_many(objs), jobs))
+        t_created = time.perf_counter()
+        enc_created = runner.cache.encode_cache_stats()
+        runner.start_loop()
+        deadline = t_start + CONNECTED_TIMEOUT_S
+        milestones = {}
+        completed = False
+        while time.perf_counter() < deadline:
+            n = count.value
+            for frac in (0.25, 0.5, 0.75):
+                if n >= len(pod_dicts) * frac and frac not in milestones:
+                    milestones[frac] = time.perf_counter() - t_start
+            if all_bound.wait(timeout=0.02):
+                completed = True
+                break
+            check(runner.loop_error is None,
+                  f"connected: the scheduling loop died: "
+                  f"{runner.loop_error!r}")
+            check(not watch_dead.is_set(), "connected: the watcher died")
+        window_s = time.perf_counter() - t_start
+        check(completed, f"connected: {count.value} of {len(pod_dicts)} "
+                         f"pods bound in {CONNECTED_TIMEOUT_S} s")
+        q = {"result": "scheduled"}
+        launches = dict(kernels.LAUNCHES)
+        spans = _span_totals(t_start_wall)
+        oracle_pods = sum(sp.attributes["pods"]
+                          for sp in TRACER.spans("scheduler/oracle"))
+        enc = runner.cache.encode_cache_stats()
+        errors = sum(LOOP_ERRORS.items().values()) - errors0
+        ctx_stats = json.loads(json.dumps(runner.scheduler.ctx_stats))
+        summary = {
+            "pods": len(pod_dicts), "nodes": len(node_dicts),
+            "bound": count.value, "window_s": window_s,
+            "pods_per_s": count.value / window_s,
+            "create_s": t_created - t_start, "bound_frac_s": milestones,
+            "seed_nodes_s": seed_s, "informer_sync_s": sync_s,
+            "warm_drain_s": warm_s,
+            "attempt_p50_s": ATTEMPT_DURATION.percentile(0.5, q),
+            "attempt_p99_s": ATTEMPT_DURATION.percentile(0.99, q),
+            "attempts_observed": ATTEMPT_DURATION.count(q),
+            "e2e_p50_s": E2E_SCHEDULING.percentile(0.5),
+            "e2e_p99_s": E2E_SCHEDULING.percentile(0.99),
+            "e2e_observed": E2E_SCHEDULING.count(),
+            "north_star_p99_under_1s":
+                ATTEMPT_DURATION.percentile(0.99, q) < 1.0,
+            # runner/pod_*, audit/sweep and sentinel/check are the other
+            # consumers of the one interpreter, each on its own thread
+            "spans": spans, "spans_dropped": TRACER.dropped,
+            # pops' encode against the informer-time compile cache: hits
+            # are rows compiled on the watch thread; the window's misses
+            # were compiled on the scheduling thread
+            "encode_cache_window": {k: enc[k] - enc0[k] for k in enc},
+            "encode_cache_by_create_end": {k: enc_created[k] - enc0[k]
+                                           for k in enc},
+            "ctx_stats": ctx_stats,
+            "staging": runner.cache.staging_stats(),
+            "breaker": runner.scheduler.breaker.mode,
+            "breaker_trip_reasons": dict(
+                runner.scheduler.breaker.trip_reasons),
+            "loop_errors": errors, "oracle_pods": oracle_pods,
+            "relists": runner._total_relists(),
+            "launches": launches, "card": smi}
+        # the settle: the sentinel's verdicts land (bounded), the auditor
+        # stops and sweeps twice more (confirm-2 invariants need two looks)
+        sentinel = runner.scheduler.sentinel
+        sentinel.drain(120.0)
+        summary["sentinel_backlog"] = sentinel._q.unfinished_tasks
+        runner.auditor.stop()
+        for _ in range(2):
+            try:
+                runner.auditor.run_once()
+            except InvariantViolationError:
+                pass  # counted below
+        audit = runner.auditor.status()
+        summary["audit"] = {k: audit[k] for k in ("sweeps", "violations",
+                                                  "byInvariant", "failed")}
+        summary["sentinel"] = sentinel.stats()
+        bindings = {p["metadata"]["name"]: p["spec"].get("nodeName", "")
+                    for p in seed_client.pods("default").list()}
+    finally:
+        if runner is not None:
+            runner.stop()  # re-raises a KernelError that ended the loop
+        if watcher is not None:
+            stop_process(watcher)
+        stop_process(server, server_pipe)
+    placed = []
+    for d in pod_dicts:
+        node = bindings.get(d["metadata"]["name"], "")
+        if node:
+            placed.append(dict(d, spec=dict(d["spec"], nodeName=node)))
+    check(len(placed) == len(pod_dicts),
+          f"connected: {len(placed)} of {len(pod_dicts)} pods bound in the "
+          "store")
+    check_placements(node_dicts, [], placed, len(pod_dicts))
+    check(summary["breaker"] == "single",
+          f"connected: the breaker degraded to {summary['breaker']!r} "
+          f"({summary['breaker_trip_reasons']})")
+    check(summary["spans_dropped"] == 0,
+          f"connected: the tracer dropped {summary['spans_dropped']} spans "
+          "of the window")
+    check(summary["oracle_pods"] == 0,
+          f"connected: {summary['oracle_pods']} pods went through the oracle")
+    check(summary["loop_errors"] == 0,
+          f"connected: {summary['loop_errors']} loop errors")
+    check(summary["audit"]["sweeps"] >= 1, "connected: the auditor never swept")
+    check(summary["audit"]["violations"] == 0,
+          f"connected: invariant violations {summary['audit']['byInvariant']}")
+    check(summary["sentinel"]["samples"]["drain"] >= 1,
+          "connected: the sentinel took no sample")
+    check(summary["sentinel"]["divergences"] == 0,
+          f"connected: parity divergence {summary['sentinel']}")
+    check(summary["sentinel_backlog"] == 0,
+          "connected: the sentinel's verdicts did not land in 120 s")
+    for name, n in launches.items():
+        check(n > 0, f"kernel {name} was never launched by the connected "
+                     "scheduler")
+    return summary, runner
+
+
+def connected_parity_phase(seed=SEED, devices=("cuda", "cpu"), depths=(1, 2)):
+    """The port's runner over a DirectClient, on each device, at each
+    pipeline depth, on two small clusters: ``relational_mix`` (24 nodes,
+    required and preferred pod (anti-)affinity, hard and soft spread) and
+    MixedHeterogeneous (32 nodes x 192 pods, soft spread). Informers synced
+    with the loop stopped, then run_once until the queue and the pipeline
+    are empty, the parity sentinel sampling every drain (its verdicts
+    landed after each pop). The store's bindings, ctx_stats, the
+    sentinel's samples and divergences and the breaker's mode must be equal
+    on every device, with at least one sample and 0 divergences. In-flight
+    drains resolve only at the depth bound, as in sched_parity_phase."""
+    from kubernetes_tpu_torch.client.clientset import DirectClient
+    from kubernetes_tpu_torch.sched.runner import SchedulerRunner
+    from kubernetes_tpu_torch.store.store import ObjectStore
+    from kubernetes_tpu_torch.testing.workloads import (mixed_heterogeneous,
+                                                        relational_mix)
+    m_nodes, m_pending = mixed_heterogeneous(pods=192, nodes=32, seed=seed)
+    clusters = {"relational": relational_mix(pods=64, nodes=24, bound=24,
+                                             seed=seed),
+                "mixed": (m_nodes, [], m_pending, {})}
+    out = {}
+    for leg, (nodes, bound, pending, ns_labels) in clusters.items():
+        for depth in depths:
+            runs = {}
+            for device in devices:
+                client = DirectClient(ObjectStore())
+                for name, labels in sorted(ns_labels.items()):
+                    client.resource("namespaces", None).create(
+                        {"kind": "Namespace",
+                         "metadata": {"name": name, "labels": labels}})
+                client.nodes().create_many([n.to_dict() for n in nodes])
+                for pods in (bound, pending):
+                    by_ns = {}
+                    for p in pods:
+                        by_ns.setdefault(p.metadata.namespace, []).append(
+                            p.to_dict())
+                    for ns in sorted(by_ns):
+                        client.pods(ns).create_many(by_ns[ns])
+                runner = SchedulerRunner(
+                    client, sched_config(batch_size=16, max_drain_batches=2,
+                                         pipeline_depth=depth,
+                                         parity_sample_every=1,
+                                         backoff_initial_s=3600.0,
+                                         backoff_max_s=3600.0,
+                                         assume_ttl_s=3600.0,
+                                         audit_interval_s=3600.0),
+                    feature_gate=no_preemption_gate(), device=device)
+                try:
+                    runner.start(start_loop=False)
+                    check(runner.has_synced(),
+                          "connected parity: the informers did not sync")
+                    sched = runner.scheduler
+                    sched._drain_ready = lambda pend: False
+                    for _ in range(64):
+                        sched.run_once(wait=0.01)
+                        sched.sentinel.drain(60.0)
+                        if (runner.queue.stats()["active"] == 0
+                                and not sched._pending):
+                            break
+                    sched._resolve_pending()
+                    sched.wait_for_bindings()
+                    sched.sentinel.drain(60.0)
+                    runs[device] = {
+                        "bindings": {
+                            p["metadata"]["namespace"] + "/"
+                            + p["metadata"]["name"]:
+                                p["spec"].get("nodeName", "")
+                            for p in client.pods(None).list()},
+                        "ctx_stats": json.loads(json.dumps(sched.ctx_stats)),
+                        "samples": dict(sched.sentinel.samples),
+                        "divergences": sched.sentinel.divergences,
+                        "breaker": sched.breaker.mode}
+                finally:
+                    runner.stop()  # raises a ParityError that ended it
+            first = runs[devices[0]]
+            where = f"connected parity ({leg}, depth {depth})"
+            for device in devices[1:]:
+                for key, value in first.items():
+                    check(runs[device][key] == value,
+                          f"{where}: {key} on {devices[0]} differs from "
+                          f"{device}")
+            placed = sum(1 for n in first["bindings"].values() if n)
+            check(placed >= len(bound) + len(pending) // 2,
+                  f"{where}: only {placed} bound")
+            check(first["samples"]["drain"] >= 1,
+                  f"{where}: the sentinel took no sample")
+            check(first["divergences"] == 0 and first["breaker"] == "single",
+                  f"{where}: {first['divergences']} divergences, breaker "
+                  f"{first['breaker']!r}")
+            out[f"{leg}_depth_{depth}"] = {
+                "bound": placed, "ctx_stats": first["ctx_stats"],
+                "sentinel_samples": first["samples"],
+                "divergences": first["divergences"],
+                "breaker": first["breaker"]}
+    return out
 
 
 # ------------------------------------------------------------------ main
@@ -1218,7 +1651,8 @@ def main() -> int:
           "launches_while_comparing": dict(kernels.LAUNCHES)})
 
     emit({"phase": "parity", **parity_phase(),
-          "drain": drain_parity_phase(), "scheduler": sched_parity_phase()})
+          "drain": drain_parity_phase(), "scheduler": sched_parity_phase(),
+          "connected": connected_parity_phase()})
 
     launches = {}   # kernel -> {path: launches}
 
@@ -1272,11 +1706,23 @@ def main() -> int:
     sched.close()
     del sched
 
+    c_nodes, c_pods = connected_workload()
+    conn_sum, runner = connected_phase(c_nodes, c_pods, smi=smi)
+    for name, n in conn_sum["launches"].items():
+        launches.setdefault(name, {})["connected"] = n
+    emit({"phase": "connected", **conn_sum})
+    conn_rows = kernels_phase(scheduler_count_cases(runner.scheduler, c_pods,
+                                                    prefix="connected"))
+    emit({"phase": "kernels.connected", "rows": conn_rows})
+    del runner
+
     # one entry per kernel, at the shape of the path with its most launches
     # among those whose rows are taken from the path's own context
-    # (resident, scheduler), launches summed over every path; every row of
-    # the kernels phases was held bit-equal to the plain version
-    rows_by_path = {"resident": resident_rows, "scheduler": sched_rows}
+    # (resident, scheduler, connected), launches summed over every path;
+    # every row of the kernels phases was held bit-equal to the plain
+    # version
+    rows_by_path = {"resident": resident_rows, "scheduler": sched_rows,
+                    "connected": conn_rows}
     table = []
     for name, by_path in launches.items():
         top = max(rows_by_path, key=lambda path: by_path.get(path, 0))
@@ -1287,7 +1733,7 @@ def main() -> int:
                    shape_of=top,
                    shapes_checked=[r["name"] for r in
                                    rows + drain_rows + resident_rows
-                                   + sched_rows
+                                   + sched_rows + conn_rows
                                    if r["name"].startswith(name + "[")])
         table.append(row)
     emit({"kernels": table})

@@ -15,9 +15,10 @@ by ``from_yaml`` only: the port's other entry points run without it.
 
 Options of features the port has not got yet are refused by ``validate``
 (and by the ``Scheduler`` that is handed such a configuration) with a
-``NotImplementedError`` naming the ROADMAP item: the explainer, the parity
-sentinel, extenders and a device mesh. So the explainer and the sentinel
-are off by default here, where the reference turns them on. The
+``NotImplementedError`` naming the ROADMAP item: the explainer, extenders
+and a device mesh. So the explainer is off by default here, where the
+reference turns it on; the parity sentinel is on, every 16th drain, as in
+the reference. The
 reference's durable AOT executable cache has no counterpart: the port's
 kernels build once into hash-named libraries (``ops/kernels.py``).
 """
@@ -189,12 +190,10 @@ class SchedulerConfiguration:
     # Fail-fast: a confirmed violation RAISES (tests/benches) instead of
     # only counting + writing a repro bundle (production default).
     audit_fail_fast: bool = False
-    # Device-parity sentinel: every Kth drain_step / preempt_wave dispatch
+    # Device-parity sentinel: every Kth drain_step dispatch
     # is re-checked against the numpy oracle off the hot path; a refuted
-    # answer trips the circuit breaker with reason "parity". 0 disables.
-    # Off here (the reference's default is 16): the sentinel is not
-    # ported yet, and validate refuses a value above 0.
-    parity_sample_every: int = 0
+    # answer stops the scheduling loop with a ParityError. 0 disables.
+    parity_sample_every: int = 16
     # ---- explainable scheduling (sched/explainer.py) ---------------------
     # Decision-provenance explainer: a background thread re-runs the static
     # filter stack in per-filter-output mode over each cycle's
@@ -273,10 +272,8 @@ def refuse_unported(cfg: SchedulerConfiguration) -> None:
     if cfg.explainer_enabled:
         raise not_ported("the scheduling explainer (explainer_enabled)",
                          "5")
-    if cfg.parity_sample_every > 0:
-        raise not_ported("the parity sentinel (parity_sample_every)", "3b")
     if cfg.extenders:
-        raise not_ported("scheduler extenders", "3b")
+        raise not_ported("scheduler extenders", "3c")
     if (cfg.mesh_shape is not None
             and cfg.mesh_shape[0] * cfg.mesh_shape[1] > 1):
         raise not_ported("a device mesh (mesh_shape)", "8")

@@ -615,6 +615,22 @@ class SchedulerCache:
                 out += [p for p, _ in self._assumed.values()]
             return out
 
+    def audit_view(self) -> dict:
+        """One-lock-pass consistent view for the invariant auditor:
+        confirmed-bound and assumed placements (key -> node), the node-name
+        set, and the generation. Plain values only — the auditor runs on
+        its own thread and must never hold references that alias the
+        cache's mutable state."""
+        with self._lock:
+            return {
+                "bound": {k: p.spec.node_name
+                          for k, p in self._pods.items()},
+                "assumed": {k: p.spec.node_name
+                            for k, (p, _dl) in self._assumed.items()},
+                "nodes": set(self._nodes),
+                "generation": self._generation,
+            }
+
     def get_node(self, name: str) -> Optional[Node]:
         """Cheap single-node lookup; avoids a full snapshot from
         non-scheduling threads."""

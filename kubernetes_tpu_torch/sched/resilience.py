@@ -59,10 +59,9 @@ class DeviceCircuitBreaker:
         self._probing = False
         self.trips = 0
         self.restores = 0
-        # why each trip happened: "device" (program raised) vs "parity"
-        # (the sentinel proved the program returned a WRONG answer). A
-        # miscompile that yields garbage without raising is invisible to
-        # fail(); trip_now is the sentinel's entry for it.
+        # why each trip happened ("device": a program raised). A program
+        # that returns a WRONG answer without raising is the parity
+        # sentinel's to catch, and it stops the loop (audit/sentinel.py).
         self.trip_reasons: dict[str, int] = {}
         self.last_trip_reason: Optional[str] = None
         DEGRADED_MODE.set(0)
@@ -168,42 +167,6 @@ class DeviceCircuitBreaker:
         self.trip_reasons[reason] = self.trip_reasons.get(reason, 0) + 1
         self.last_trip_reason = reason
         BREAKER_TRIPS.inc({"reason": reason})
-
-    def trip_now(self, level: str, reason: str = "parity") -> str:
-        """Degrade one level IMMEDIATELY (no consecutive-failure count).
-        The parity sentinel's entry: a device program that returned a
-        provably WRONG answer is a miscompile, not a transient fault —
-        waiting for ``threshold`` more wrong answers would bind pods onto
-        overcommitted nodes in the meantime. Stale attributions — work
-        dispatched at a level the breaker has since degraded past OR
-        restored past (the verdict's level is no longer the active one)
-        — are ignored: degrading the CURRENT level over an answer from a
-        different one would punish a level nobody refuted. A wrong answer
-        from a half-open probe re-arms the cooldown like any failed
-        probe. Returns the resulting mode."""
-        with self._lock:
-            self._last_fail_at = self.clock.now()
-            try:
-                li = self.levels.index(level)
-            except ValueError:
-                return self.mode
-            if self._probing and li < self._idx:
-                self._probing = False
-                self._tripped_at = self.clock.now()
-                _LOG.warning("device circuit breaker: probe of %r returned "
-                             "a wrong answer (%s); staying %r",
-                             level, reason, self.mode)
-                return self.mode
-            if li != self._idx:
-                return self.mode  # stale: that level is not active now
-            if self._idx < len(self.levels) - 1:
-                self._trip_locked(reason)
-                _LOG.error(
-                    "device circuit breaker: %s divergence at level %r -> "
-                    "degrading to %r NOW (trips=%d)",
-                    reason, level, self.mode, self.trips)
-            DEGRADED_MODE.set(self._idx)
-            return self.mode
 
 
 class _Target:

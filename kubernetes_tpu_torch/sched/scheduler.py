@@ -30,10 +30,12 @@ Where the port differs from the reference:
   unless the caller sets it to a list.
 
 Features that wait for later slices raise ``NotImplementedError`` naming
-their ROADMAP Queue A item: default preemption (4), the explainer (5),
-slice carving (6), fleet mode (7), a device mesh (8), DRA (11), out-of-tree
-tensor plugins (12), and the parity sentinel and extenders (3b, with the
-runner and the auditor).
+their ROADMAP Queue A item: extenders (3c), default preemption (4), the
+explainer (5), slice carving (6), fleet mode (7), a device mesh (8), DRA
+(11) and out-of-tree tensor plugins (12). The parity sentinel
+(``audit/sentinel.py``) samples drains as in the reference, but a drain it
+refutes stops the loop with a ``ParityError`` where the reference trips
+the breaker to the oracle.
 """
 
 from __future__ import annotations
@@ -68,6 +70,7 @@ from kubernetes_tpu_torch.metrics.registry import (
     SCHEDULE_ATTEMPTS,
 )
 from kubernetes_tpu_torch.models.gang import gang_schedule
+from kubernetes_tpu_torch.audit.sentinel import ParityError, ParitySentinel
 from kubernetes_tpu_torch.ops.kernels import KernelError
 from kubernetes_tpu_torch.sched.cache import SchedulerCache
 from kubernetes_tpu_torch.sched.queue import SchedulingQueue
@@ -133,6 +136,13 @@ class Scheduler:
             levels=("single", "oracle"), threshold=cfg.breaker_threshold,
             cooldown_s=cfg.breaker_cooldown_s)
         self._attempt_level = self.breaker.mode
+        # device-parity sentinel (audit/sentinel.py): every Kth drain
+        # dispatch is re-judged against the numpy oracle off this thread;
+        # a refuted answer is a ParityError that the next pop raises (the
+        # reference trips the breaker to the oracle instead)
+        self.sentinel = None
+        if cfg.parity_sample_every > 0:
+            self.sentinel = ParitySentinel(every=cfg.parity_sample_every)
         # watchdog heartbeats (the runner wires these to its watchdog;
         # library embedders keep the no-ops)
         self.heartbeat: Callable[[], None] = lambda: None
@@ -362,7 +372,12 @@ class Scheduler:
 
         A pop can yield up to ``batch_size * max_drain_batches`` pods; a deep
         backlog takes the resident drain path while shallow pops run the
-        single-batch program."""
+        single-batch program.
+
+        Raises the sentinel's ``ParityError`` once it has refuted a
+        drain, before popping anything."""
+        if self.sentinel is not None and self.sentinel.fault is not None:
+            raise self.sentinel.fault
         self._fold_staged_nominations()
         # land finished drains' bindings first (don't let finished results
         # sit behind a blocking pop)
@@ -806,6 +821,17 @@ class Scheduler:
         # copies it while this thread finishes the cycle's remaining host
         # work — the dispatch below then swaps buffers
         stage_ticket = self.cache.stage_submit(pb_stack)
+        # parity sentinel: on sampled dispatches capture the host views the
+        # resident encoding mirrors (consistent here — the ctx's log cursor
+        # was settled on this thread moments ago; anything newer is carried
+        # as the exempt set). Winners of still-in-flight drains resolve
+        # before this one, so their placements are collected at resolve.
+        parity_cap = None
+        if self.sentinel is not None:
+            parity_cap = self.sentinel.maybe_capture_drain(
+                self.cache, profile, self._attempt_level, ctx["seq"])
+            if parity_cap is not None:
+                parity_cap["prior"] = list(self._pending)
         if self.cycle_log is not None:
             self._cyc_marks.append(("dispatch_start",
                                     round(time.time() - t0, 3)))
@@ -862,6 +888,8 @@ class Scheduler:
             # re-checks winners only against later ones
             "nom_keys": set(nom_target),
         }
+        if parity_cap is not None:
+            pend["parity"] = parity_cap
         if FLIGHT.enabled:
             for pod, _a in items:
                 FLIGHT.record(pod.key, "dispatch", span=sp_disp)
@@ -1043,7 +1071,15 @@ class Scheduler:
                 for pod, _node in to_bind:
                     if nominated:
                         nominated.pop(pod.key, None)
+        # every resolved drain records its winners: a later sampled drain's
+        # parity check needs the placements of the drains that were in
+        # flight when it dispatched (the device fold already counted them)
         pend["winners"] = list(to_bind)
+        cap = pend.get("parity")
+        if cap is not None and self.sentinel is not None:
+            prior = [w for pp in cap.pop("prior", ())
+                     for w in pp.get("winners", ())]
+            self.sentinel.submit_drain(cap, list(to_bind), prior)
         n_bound = len(to_bind)
         n_unsched = len(failures)
         if FLIGHT.enabled:
@@ -1170,69 +1206,72 @@ class Scheduler:
         parity-tested against them — the breaker routes here when the
         device layer is broken so a scheduling cycle is never dropped."""
         from kubernetes_tpu_torch.sched.oracle import OracleScheduler
-        t0 = time.time()
-        nodes = self.cache.list_nodes()
-        if not nodes:
-            for pod, attempts in items:
-                self.queue.add_unschedulable(pod, attempts + 1)
-                SCHEDULE_ATTEMPTS.inc({"result": "unschedulable"})
-            return 0
-        orc = OracleScheduler(
-            nodes, bound_pods=self.cache.bound_pods(include_assumed=True),
-            weights=profile.weights(), seed=self.cfg.seed,
-            volumes=self.cache.volume_catalog,
-            namespace_labels=self.cache.namespace_labels())
-        pods = profile.apply_added_affinity([p for p, _ in items])
-        # the oracle's assume() writes node_name onto what it schedules:
-        # give it detached views so a failed bind can requeue the ORIGINAL
-        # pod unbound
-        views = [dataclasses.replace(p, spec=dataclasses.replace(p.spec))
-                 for p in pods]
-        placed = orc.schedule_all(views)
-        # same assume-time nomination re-check as the tensor paths; the
-        # prune matters here too (in a long oracle window this is the only
-        # path running)
-        self._fold_staged_nominations()
-        now = time.time()
-        self._nominated = {
-            k: e for k, e in self._nominated.items()
-            if now - e[3] < self._nominated_ttl
-            and not self.cache.is_bound(k)}
-        batch_keys = {p.key for p, _ in items}
-        reserved: dict[str, int] = {}
-        for k, (n, prio, _p, _ts) in self._nominated.items():
-            if k not in batch_keys:
-                reserved[n] = max(prio, reserved.get(n, prio))
-        n_bound = n_unsched = 0
-        to_bind: list[tuple[Pod, str]] = []
-        failures: list[tuple[Pod, int]] = []
-        for (pod, attempts), ni in zip(items, placed):
-            if ni is None:
-                failures.append((pod, attempts))
-                n_unsched += 1
-                continue
-            node_name = nodes[ni].metadata.name
-            rp = reserved.get(node_name)
-            if rp is not None and rp >= pod.spec.priority:
-                failures.append((pod, attempts))
-                n_unsched += 1
-                continue
-            self._nominated.pop(pod.key, None)
-            self.cache.assume(pod, node_name)
-            to_bind.append((pod, node_name))
-            n_bound += 1
-        if FLIGHT.enabled:
-            for pod, _n in to_bind:
-                FLIGHT.record(pod.key, "resolve", mode="oracle")
-        self._handle_failures(failures)
-        self._bind_async_batch(to_bind, profile)
-        dt = time.time() - t0
-        for result, n in (("scheduled", n_bound),
-                          ("unschedulable", n_unsched)):
-            if n:
-                SCHEDULE_ATTEMPTS.inc({"result": result}, by=n)
-                ATTEMPT_DURATION.observe(dt, {"result": result}, n=n)
-        return n_bound
+        # one span per oracle batch: a run counts the pods that left the
+        # card from these
+        with TRACER.span("scheduler/oracle", pods=len(items)):
+            t0 = time.time()
+            nodes = self.cache.list_nodes()
+            if not nodes:
+                for pod, attempts in items:
+                    self.queue.add_unschedulable(pod, attempts + 1)
+                    SCHEDULE_ATTEMPTS.inc({"result": "unschedulable"})
+                return 0
+            orc = OracleScheduler(
+                nodes, bound_pods=self.cache.bound_pods(include_assumed=True),
+                weights=profile.weights(), seed=self.cfg.seed,
+                volumes=self.cache.volume_catalog,
+                namespace_labels=self.cache.namespace_labels())
+            pods = profile.apply_added_affinity([p for p, _ in items])
+            # the oracle's assume() writes node_name onto what it schedules:
+            # give it detached views so a failed bind can requeue the ORIGINAL
+            # pod unbound
+            views = [dataclasses.replace(p, spec=dataclasses.replace(p.spec))
+                     for p in pods]
+            placed = orc.schedule_all(views)
+            # same assume-time nomination re-check as the tensor paths; the
+            # prune matters here too (in a long oracle window this is the only
+            # path running)
+            self._fold_staged_nominations()
+            now = time.time()
+            self._nominated = {
+                k: e for k, e in self._nominated.items()
+                if now - e[3] < self._nominated_ttl
+                and not self.cache.is_bound(k)}
+            batch_keys = {p.key for p, _ in items}
+            reserved: dict[str, int] = {}
+            for k, (n, prio, _p, _ts) in self._nominated.items():
+                if k not in batch_keys:
+                    reserved[n] = max(prio, reserved.get(n, prio))
+            n_bound = n_unsched = 0
+            to_bind: list[tuple[Pod, str]] = []
+            failures: list[tuple[Pod, int]] = []
+            for (pod, attempts), ni in zip(items, placed):
+                if ni is None:
+                    failures.append((pod, attempts))
+                    n_unsched += 1
+                    continue
+                node_name = nodes[ni].metadata.name
+                rp = reserved.get(node_name)
+                if rp is not None and rp >= pod.spec.priority:
+                    failures.append((pod, attempts))
+                    n_unsched += 1
+                    continue
+                self._nominated.pop(pod.key, None)
+                self.cache.assume(pod, node_name)
+                to_bind.append((pod, node_name))
+                n_bound += 1
+            if FLIGHT.enabled:
+                for pod, _n in to_bind:
+                    FLIGHT.record(pod.key, "resolve", mode="oracle")
+            self._handle_failures(failures)
+            self._bind_async_batch(to_bind, profile)
+            dt = time.time() - t0
+            for result, n in (("scheduled", n_bound),
+                              ("unschedulable", n_unsched)):
+                if n:
+                    SCHEDULE_ATTEMPTS.inc({"result": result}, by=n)
+                    ATTEMPT_DURATION.observe(dt, {"result": result}, n=n)
+            return n_bound
 
     # ---- failure path: PostFilter / preemption ---------------------------
 
@@ -1404,6 +1443,8 @@ class Scheduler:
                 self._resolver_thread = None
                 self._resolver_q = None
         self.cache.close_staging()  # poison the batch-stager (daemon too)
+        if self.sentinel is not None:
+            self.sentinel.close()
         if self._staged:
             # parked fragments go back to the queue, not the void — with
             # their attempt history, so backoff does not reset
@@ -1501,16 +1542,17 @@ class Scheduler:
         a run_once failure is logged + counted (never swallowed, never
         fatal), the resident drain context is tainted, and the loop backs
         off briefly and continues. A BaseException escapes, and so do the
-        two failures a retry cannot cure: a feature this port has not got
-        yet (NotImplementedError) and a kernel that does not build or
-        launch (KernelError). run_once has requeued the popped pods."""
+        three failures a retry cannot cure: a feature this port has not got
+        yet (NotImplementedError), a kernel that does not build or launch
+        (KernelError) and a device answer the parity sentinel refuted
+        (ParityError). run_once has requeued the popped pods."""
         consecutive = 0
         while not stop.is_set() and not self.queue.closed:
             self.heartbeat()
             try:
                 self.run_once()
                 consecutive = 0
-            except (NotImplementedError, KernelError):
+            except (NotImplementedError, KernelError, ParityError):
                 raise
             except Exception:
                 consecutive += 1

@@ -1,0 +1,1247 @@
+"""HTTP API server — REST + watch streams over the object store.
+
+Reference shape: ``apiserver/pkg/endpoints/handlers/{create,get,update,delete,
+watch}.go`` behind ``DefaultBuildHandlerChain``; the pod ``binding``
+subresource mirrors ``pkg/registry/core/pod/storage/storage.go``
+(``BindingREST.Create`` -> sets spec.nodeName). Watch is chunked
+newline-delimited JSON exactly like ``?watch=true`` upstream; msgpack is
+negotiated per request when the module is installed.
+
+Paths:
+  /api/v1/nodes[/{name}]
+  /api/v1/namespaces/{ns}/{plural}[/{name}]          pods, services, ...
+  /api/v1/namespaces/{ns}/pods/{name}/binding        POST (bind)
+  /api/v1/namespaces/{ns}/pods/{name}/status         PUT
+  /api/v1/namespaces/{ns}/pods/-/{binding,status}    POST (bulk)
+  /api/v1/nodes/-/status, .../leases/-/renew         POST (bulk)
+  /apis/apps/v1/namespaces/{ns}/{plural}[/{name}]    deployments, replicasets
+  /healthz /readyz /metrics
+
+The port of ``kubernetes_tpu/store/apiserver.py`` over a plain
+``ObjectStore`` (with or without ``data_dir``). The planes that need a
+module of ``store/`` the port has not copied raise ``NotImplementedError``
+naming ROADMAP Queue A item 13: flow control, authentication and RBAC,
+admission (and with it webhooks and aggregation), the read-replica front
+door, and server-side apply (PATCH answers 501). The kubelet-proxied pod
+subresources (log, exec, portforward) answer 501 until the kubelet is
+ported. ``serve(conn)`` is the entry a spawned server process runs.
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import threading
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import Callable, Optional
+from urllib.parse import parse_qs, urlparse
+
+try:  # binary wire format (protobuf-negotiation analog); JSON remains default
+    import msgpack as _msgpack
+except Exception:  # ktpu-lint: disable=KTL002 -- import-time feature probe; the JSON wire format serves when msgpack is absent
+    _msgpack = None
+
+MSGPACK_CT = "application/x-msgpack"
+
+_LOG = logging.getLogger(__name__)
+
+from kubernetes_tpu_torch.api.selectors import compile_list_selector
+from kubernetes_tpu_torch.metrics.registry import READ_REQUESTS, REGISTRY
+from kubernetes_tpu_torch.store.store import (
+    AlreadyExists,
+    Conflict,
+    Event,
+    NotFound,
+    ObjectStore,
+    TooOld,
+)
+
+# kind registries: plural -> (kind, namespaced)
+CORE_RESOURCES = {
+    "pods": ("Pod", True),
+    "nodes": ("Node", False),
+    "services": ("Service", True),
+    "endpoints": ("Endpoints", True),
+    "events": ("Event", True),
+    "configmaps": ("ConfigMap", True),
+    "namespaces": ("Namespace", False),
+    "persistentvolumes": ("PersistentVolume", False),
+    "persistentvolumeclaims": ("PersistentVolumeClaim", True),
+    "resourcequotas": ("ResourceQuota", True),
+    "limitranges": ("LimitRange", True),
+    "secrets": ("Secret", True),
+    "replicationcontrollers": ("ReplicationController", True),
+    "serviceaccounts": ("ServiceAccount", True),
+}
+STORAGE_RESOURCES = {"storageclasses": ("StorageClass", False),
+                     "volumeattachments": ("VolumeAttachment", False)}
+SCHEDULING_RESOURCES = {"priorityclasses": ("PriorityClass", False)}
+APPS_RESOURCES = {
+    "deployments": ("Deployment", True),
+    "replicasets": ("ReplicaSet", True),
+    "statefulsets": ("StatefulSet", True),
+    "daemonsets": ("DaemonSet", True),
+    "jobs": ("Job", True),
+}
+BATCH_RESOURCES = {"cronjobs": ("CronJob", True)}
+APIEXT_RESOURCES = {
+    "customresourcedefinitions": ("CustomResourceDefinition", False)}
+DRA_RESOURCES = {
+    "resourceclaims": ("ResourceClaim", True),
+    "resourceclaimtemplates": ("ResourceClaimTemplate", True),
+    "deviceclasses": ("DeviceClass", False),
+    "resourceslices": ("ResourceSlice", False),
+}
+AUTOSCALING_RESOURCES = {
+    "horizontalpodautoscalers": ("HorizontalPodAutoscaler", True)}
+DISCOVERY_RESOURCES = {"endpointslices": ("EndpointSlice", True)}
+COORD_RESOURCES = {"leases": ("Lease", True)}
+POLICY_RESOURCES = {"poddisruptionbudgets": ("PodDisruptionBudget", True)}
+RBAC_RESOURCES = {
+    "roles": ("Role", True),
+    "rolebindings": ("RoleBinding", True),
+    "clusterroles": ("ClusterRole", False),
+    "clusterrolebindings": ("ClusterRoleBinding", False),
+}
+ADMISSIONREG_RESOURCES = {
+    "mutatingwebhookconfigurations": ("MutatingWebhookConfiguration", False),
+    "validatingwebhookconfigurations": ("ValidatingWebhookConfiguration",
+                                        False),
+}
+APIREG_RESOURCES = {"apiservices": ("APIService", False)}
+CERT_RESOURCES = {
+    "certificatesigningrequests": ("CertificateSigningRequest", False)}
+
+ALL_RESOURCES = {**CORE_RESOURCES, **APPS_RESOURCES, **COORD_RESOURCES,
+                 **STORAGE_RESOURCES, **SCHEDULING_RESOURCES,
+                 **RBAC_RESOURCES, **POLICY_RESOURCES, **BATCH_RESOURCES,
+                 **AUTOSCALING_RESOURCES, **DISCOVERY_RESOURCES,
+                 **DRA_RESOURCES, **APIEXT_RESOURCES,
+                 **ADMISSIONREG_RESOURCES, **APIREG_RESOURCES,
+                 **CERT_RESOURCES}
+KIND_TO_PLURAL = {k: p for p, (k, _) in ALL_RESOURCES.items()}
+
+# API group per kind (core = ""), for GroupVersionKind-bearing payloads
+# (admission webhooks' AdmissionReview.request.kind)
+KIND_TO_GROUP = {}
+for _table, _group in ((CORE_RESOURCES, ""), (APPS_RESOURCES, "apps"),
+                       (COORD_RESOURCES, "coordination.k8s.io"),
+                       (STORAGE_RESOURCES, "storage.k8s.io"),
+                       (SCHEDULING_RESOURCES, "scheduling.k8s.io"),
+                       (RBAC_RESOURCES, "rbac.authorization.k8s.io"),
+                       (POLICY_RESOURCES, "policy"),
+                       (BATCH_RESOURCES, "batch"),
+                       (AUTOSCALING_RESOURCES, "autoscaling"),
+                       (DISCOVERY_RESOURCES, "discovery.k8s.io"),
+                       (DRA_RESOURCES, "resource.k8s.io"),
+                       (APIEXT_RESOURCES, "apiextensions.k8s.io"),
+                       (ADMISSIONREG_RESOURCES,
+                        "admissionregistration.k8s.io"),
+                       (APIREG_RESOURCES, "apiregistration.k8s.io"),
+                       (CERT_RESOURCES, "certificates.k8s.io")):
+    for _k, _ns in _table.values():
+        KIND_TO_GROUP[_k] = _group
+
+
+class _BadRequest(Exception):
+    pass
+
+
+class _HTTPServer(ThreadingHTTPServer):
+    # Generous listen backlog: clients hold per-thread keep-alive
+    # connections now, so backlog pressure comes from many components
+    # CONNECTING at once (startup, reconnect storms after a restart)
+    # rather than per-request churn — but a burst of fresh connections
+    # would still overflow http.server's default backlog of 5 instantly.
+    request_queue_size = 128
+
+    def __init__(self, *a, **kw):
+        super().__init__(*a, **kw)
+        # live connections, so stop() can sever keep-alive sockets whose
+        # handler threads would otherwise keep serving after shutdown()
+        self._conns: set = set()
+        self._conns_lock = threading.Lock()
+
+    def close_all_connections(self):
+        import socket as _socket
+        with self._conns_lock:
+            conns = list(self._conns)
+        for c in conns:
+            try:
+                c.shutdown(_socket.SHUT_RDWR)
+            except OSError:
+                pass
+            try:
+                c.close()
+            except OSError:
+                pass
+
+    def handle_error(self, request, client_address):
+        import sys
+        exc = sys.exc_info()[1]
+        if isinstance(exc, (ConnectionResetError, BrokenPipeError)):
+            return  # severed keep-alive (stop() or client teardown)
+        super().handle_error(request, client_address)
+
+
+# ``ktpu status`` reads the apiserver's durability block (WAL growth,
+# snapshot age, replay cost, readyz state) from this ConfigMap — published
+# by durable-mode servers only (in-memory stores have nothing to report)
+APISERVER_CONFIGMAP = "kubernetes-tpu-apiserver-status"
+
+
+class APIServer:
+    def __init__(self, store: Optional[ObjectStore] = None,
+                 host: str = "127.0.0.1", port: int = 0,
+                 data_dir: Optional[str] = None,
+                 async_restore: bool = False):
+        """``data_dir``: durable mode — the store journals every write and
+        restores state on construction (store.py WAL + snapshot).
+        ``async_restore``: defer the WAL replay to a background thread
+        started by ``start()`` — the server binds and serves immediately,
+        answering 503 on ``/readyz`` and every resource path until replay
+        completes (upstream's not-yet-ready startup window)."""
+        self._ready = threading.Event()
+        self._async_restore = async_restore and store is None and bool(data_dir)
+        if store is not None:
+            self.store = store
+        else:
+            self.store = ObjectStore(data_dir=data_dir,
+                                     defer_restore=self._async_restore)
+        if not self._async_restore:
+            # readiness is a property of the RESTORE, not of start():
+            # a synchronously-constructed store is already replayed, and
+            # embedders that serve this handler without start() (the
+            # aggregator's in-process delegate) must not 503
+            self._ready.set()
+        from kubernetes_tpu_torch.api.scheme import default_scheme
+        # multi-version serving: (kind, served version) -> conversion pair
+        # (runtime.Scheme analog, api/scheme.py); storage stays at the hub
+        self.scheme = default_scheme()
+        # dynamic resources served for stored CustomResourceDefinitions
+        # (apiextensions-apiserver analog): plural -> (Kind, namespaced).
+        # The lock serializes validate+write: collision checks are
+        # check-then-act and handler threads race (ThreadingHTTPServer).
+        self.custom_resources: dict[str, tuple[str, bool]] = {}
+        self._crd_lock = threading.RLock()
+        self._rebuild_custom()  # durable restore may already hold CRDs
+        self._httpd = _HTTPServer((host, port), self._make_handler())
+        self._httpd.daemon_threads = True
+        self.port = self._httpd.server_address[1]
+        self._thread: Optional[threading.Thread] = None
+        self._restore_thread: Optional[threading.Thread] = None
+        self._publish_thread: Optional[threading.Thread] = None
+        self._stopping = threading.Event()
+
+    # ---- CRDs (apiextensions.k8s.io) -------------------------------------
+
+    def _rebuild_custom(self) -> None:
+        crds, _ = self.store.list("CustomResourceDefinition")
+        table: dict[str, tuple[str, bool]] = {}
+        for crd in crds:
+            spec = crd.get("spec") or {}
+            names = spec.get("names") or {}
+            plural, kind = names.get("plural", ""), names.get("kind", "")
+            if plural and kind and plural not in ALL_RESOURCES:
+                table[plural] = (kind, spec.get("scope", "Namespaced")
+                                 == "Namespaced")
+        self.custom_resources = table
+
+    def validate_crd(self, body: dict) -> Optional[str]:
+        """-> error message or None (apiextensions validation essentials).
+        Both plural AND kind must be collision-free against built-ins and
+        every other stored CRD — the store is keyed by kind and the delete
+        cascade removes by kind, so a shared kind would let one CRD serve
+        (or wipe) another's objects."""
+        spec = body.get("spec") or {}
+        names = spec.get("names") or {}
+        if not spec.get("group"):
+            return "spec.group is required"
+        plural, kind = names.get("plural"), names.get("kind")
+        if not plural or not kind:
+            return "spec.names.plural and spec.names.kind are required"
+        if plural in ALL_RESOURCES:
+            return f"plural {plural!r} shadows a built-in resource"
+        builtin_kinds = {k for (k, _ns) in ALL_RESOURCES.values()}
+        if kind in builtin_kinds:
+            return f"kind {kind!r} shadows a built-in kind"
+        my_name = (body.get("metadata") or {}).get("name", "")
+        others, _ = self.store.list("CustomResourceDefinition")
+        for other in others:
+            omd = other.get("metadata") or {}
+            onames = (other.get("spec") or {}).get("names") or {}
+            if omd.get("name") == my_name:
+                # updating self: plural/kind are immutable — the store keys
+                # objects by kind, so changing either would orphan every
+                # existing instance (unroutable AND missed by the cascade)
+                if onames.get("plural") != plural or onames.get("kind") != kind:
+                    return "spec.names.plural and spec.names.kind are immutable"
+                continue
+            if onames.get("plural") == plural:
+                return f"plural {plural!r} already served by CRD " \
+                       f"{omd.get('name')!r}"
+            if onames.get("kind") == kind:
+                return f"kind {kind!r} already served by CRD " \
+                       f"{omd.get('name')!r}"
+        return None
+
+    def _crd_guard(self, kind: str):
+        """Serialize CRD validate+write+table-rebuild; no-op otherwise."""
+        import contextlib
+        return (self._crd_lock if kind == "CustomResourceDefinition"
+                else contextlib.nullcontext())
+
+    def _on_crd_change(self, crd: dict, deleted: bool) -> None:
+        """Refresh the serving table; deleting a CRD deletes its instances
+        (the apiextensions finalizer's cascade)."""
+        if deleted:
+            kind = ((crd.get("spec") or {}).get("names") or {}).get("kind", "")
+            if kind:
+                objs, _ = self.store.list(kind)
+                for o in objs:
+                    md = o.get("metadata") or {}
+                    try:
+                        self.store.delete(kind, md.get("namespace", ""),
+                                          md.get("name", ""))
+                    except NotFound:
+                        pass
+        self._rebuild_custom()
+
+    # ---- lifecycle -------------------------------------------------------
+
+    SYSTEM_NAMESPACES = ("default", "kube-system", "kube-public",
+                         "kube-node-lease")
+
+    def _finish_startup(self):
+        """Restore (async mode), seed system namespaces, flip ready. In
+        async mode this runs on a background thread while the HTTP server
+        already answers 503s; synchronous starts run it inline BEFORE the
+        serve thread, preserving the original ordering."""
+        if self._stopping.is_set():
+            return  # stop() won the race: stay not-ready, touch nothing
+        self.store.finish_restore()
+        if self._stopping.is_set():
+            return
+        # the system namespaces always exist (pkg/controlplane's
+        # SystemNamespaces controller creates them on startup): namespaced
+        # controllers like the root-CA publisher key off Namespace objects
+        for ns in self.SYSTEM_NAMESPACES:
+            try:
+                self.store.create("Namespace", {
+                    "kind": "Namespace", "metadata": {"name": ns},
+                    "status": {"phase": "Active"}})
+            except AlreadyExists:
+                pass
+        # durable restore may already hold CRDs the empty pre-restore
+        # rebuild missed
+        self._rebuild_custom()
+        self._ready.set()
+        self.publish_durability()
+
+    def start(self):
+        if not self._async_restore:
+            self._finish_startup()
+        self._thread = threading.Thread(target=self._httpd.serve_forever,
+                                        daemon=True)
+        self._thread.start()
+        if self._async_restore:
+            self._restore_thread = threading.Thread(
+                target=self._finish_startup, daemon=True,
+                name="apiserver-restore")
+            self._restore_thread.start()
+        if getattr(self.store, "_data_dir", None):
+            self._publish_thread = threading.Thread(
+                target=self._publish_loop, daemon=True,
+                name="apiserver-status-publish")
+            self._publish_thread.start()
+        return self
+
+    def stop(self):
+        self._stopping.set()
+        if self._restore_thread is not None:
+            # an in-flight deferred restore must settle before the store
+            # closes: store._closed keeps a late finish_restore from
+            # reopening the WAL, but joining avoids even transient reads
+            # against a directory a successor may be replaying
+            self._restore_thread.join(timeout=10.0)
+        if self._thread is not None:
+            # shutdown() waits on an event only serve_forever() sets —
+            # calling it on a never-started server deadlocks forever
+            self._httpd.shutdown()
+        # sever established keep-alive connections: shutdown() only stops
+        # the ACCEPT loop — handler threads would keep serving (and
+        # mutating the store) on pooled client sockets after stop
+        self._httpd.close_all_connections()
+        self._httpd.server_close()
+        self.store.close()
+
+    @property
+    def ready(self) -> bool:
+        return self._ready.is_set()
+
+    def wait_ready(self, timeout: float = 30.0) -> bool:
+        return self._ready.wait(timeout)
+
+    @property
+    def url(self) -> str:
+        return f"http://127.0.0.1:{self.port}"
+
+    # ---- durability status (data_dir mode) -------------------------------
+
+    def durability_status(self) -> dict:
+        st = self.store.durability_stats()
+        st["ready"] = self._ready.is_set()
+        return st
+
+    def publish_durability(self) -> None:
+        """Best-effort write of the durability ConfigMap ``ktpu status``
+        reads (durable mode only — an in-memory store has no WAL to
+        report). Publishing must never take the server down."""
+        if not getattr(self.store, "_data_dir", None) or not self.ready:
+            return
+        body = {"apiVersion": "v1", "kind": "ConfigMap",
+                "metadata": {"name": APISERVER_CONFIGMAP,
+                             "namespace": "default"},
+                "data": {"durability": json.dumps(self.durability_status())}}
+        try:
+            try:
+                cur = self.store.get("ConfigMap", "default",
+                                     APISERVER_CONFIGMAP)
+                cur["data"] = body["data"]
+                self.store.update("ConfigMap", cur)
+            except NotFound:
+                self.store.create("ConfigMap", body)
+        except Exception:  # ktpu-lint: disable=KTL002 -- a racing writer or a closing store; the durability publisher retries next tick
+            pass  # a racing writer or a closing store; next tick retries
+
+    def _publish_loop(self) -> None:
+        while not self._stopping.wait(5.0):
+            self.publish_durability()
+
+    def enable_flow_control(self, controller=None):
+        """API Priority and Fairness (the reference's store/flowcontrol.py)."""
+        raise _not_ported("API priority and fairness (enable_flow_control)")
+
+    def enable_auth(self, authenticator=None, authorizer=None, audit=None,
+                    bootstrap: bool = True):
+        """Authentication, RBAC and the audit log (store/auth.py)."""
+        raise _not_ported("authentication and RBAC (enable_auth)")
+
+    def enable_admission(self, chain=None):
+        """The admission plugins, webhooks included (store/admission.py)."""
+        raise _not_ported("admission (enable_admission)")
+
+    # ---- request handling ------------------------------------------------
+
+    def _make_handler(self):
+        server = self
+
+        class Handler(BaseHTTPRequestHandler):
+            protocol_version = "HTTP/1.1"
+            # TCP_NODELAY: headers and body go out as separate writes; with
+            # Nagle on, the body write waits for the client's delayed ACK —
+            # a flat ~40ms stall per request capping ANY one keep-alive
+            # connection at ~25 req/s no matter how fast the store is
+            disable_nagle_algorithm = True
+
+            def setup(self):
+                super().setup()
+                with self.server._conns_lock:
+                    self.server._conns.add(self.connection)
+
+            def finish(self):
+                with self.server._conns_lock:
+                    self.server._conns.discard(self.connection)
+                super().finish()
+
+            def log_message(self, *a):
+                pass
+
+            def _not_ready(self):
+                """503 until WAL replay completes (async_restore): clients
+                must not read an empty pre-restore store as truth, and
+                /readyz is how orchestrators (and the chaos harness) know
+                the replay finished."""
+                self._drain_body()
+                body = json.dumps({
+                    "kind": "Status", "status": "Failure",
+                    "message": "apiserver is not ready: WAL replay in "
+                               "progress", "reason": "ServiceUnavailable",
+                    "code": 503}).encode()
+                self.send_response(503)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Retry-After", "1")
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+            def _shaped(self, fn):
+                # per-REQUEST state: one handler instance serves every
+                # request on a keep-alive connection
+                self._body_consumed = False
+                if not server._ready.is_set():
+                    # only liveness + metrics answer during replay;
+                    # /readyz reports the replay itself as 503
+                    path = urlparse(self.path).path
+                    if path not in ("/healthz", "/livez", "/metrics"):
+                        return self._not_ready()
+                return fn()
+
+            def _drain_body(self):
+                """Consume an unread request body before responding: with
+                keep-alive (HTTP/1.1), leftover body bytes would be parsed
+                as the NEXT request line, 400ing every later request on the
+                connection. Error/authz paths respond without ever calling
+                _read_body, so this runs in front of every response."""
+                if getattr(self, "_body_consumed", False):
+                    return
+                self._body_consumed = True
+                n = int(self.headers.get("Content-Length") or 0)
+                if n > 1 << 20:
+                    # don't buffer attacker-sized bodies on pre-auth error
+                    # paths: give up keep-alive for this connection instead
+                    self.close_connection = True
+                    return
+                if n:
+                    try:
+                        self.rfile.read(n)
+                    except Exception:  # ktpu-lint: disable=KTL002 -- client vanished mid-body; closing the connection IS the handling
+                        self.close_connection = True
+
+            def _wants_msgpack(self) -> bool:
+                return (_msgpack is not None
+                        and MSGPACK_CT in self.headers.get("Accept", ""))
+
+            def _conv_in(self, kind: str, body: dict) -> dict:
+                """Spoke-version request body -> the stored hub shape."""
+                conv = server.scheme.converter(
+                    kind, getattr(self, "_req_version", "v1"))
+                return conv[0](body) if conv else body
+
+            def _conv_out(self, kind: str, obj: dict) -> dict:
+                """Stored hub shape -> the requested spoke version."""
+                conv = server.scheme.converter(
+                    kind, getattr(self, "_req_version", "v1"))
+                return conv[1](obj) if conv else obj
+
+            def _send_json(self, code: int, obj):
+                """Respond in the NEGOTIATED format (the name is historic):
+                msgpack when the client's Accept asks for it, JSON otherwise —
+                the serializer-negotiation analog of the reference's
+                JSON/protobuf content types."""
+                self._drain_body()
+                if self._wants_msgpack():
+                    body, ctype = _msgpack.packb(obj), MSGPACK_CT
+                else:
+                    body, ctype = json.dumps(obj).encode(), "application/json"
+                self.send_response(code)
+                self.send_header("Content-Type", ctype)
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+            def _error(self, code: int, msg: str, reason: str = ""):
+                self._send_json(code, {"kind": "Status", "status": "Failure",
+                                       "message": msg, "reason": reason,
+                                       "code": code})
+
+            def _read_body(self) -> dict:
+                self._body_consumed = True
+                n = int(self.headers.get("Content-Length", 0))
+                if not n:
+                    return {}
+                raw = self.rfile.read(n)
+                if (_msgpack is not None and MSGPACK_CT
+                        in self.headers.get("Content-Type", "")):
+                    try:
+                        out = _msgpack.unpackb(raw)
+                    except Exception as e:
+                        raise _BadRequest(
+                            f"invalid msgpack body: {e}") from None
+                else:
+                    try:
+                        out = json.loads(raw)
+                    except (json.JSONDecodeError, UnicodeDecodeError,
+                            ValueError) as e:
+                        # UnicodeDecodeError covers binary bodies reaching a
+                        # JSON-only server — the 400 text is what a msgpack
+                        # client's downgrade probe keys on, so it must be
+                        # produced, not a dead handler thread
+                        raise _BadRequest(f"invalid JSON body: {e}") from None
+                if not isinstance(out, dict):
+                    raise _BadRequest("body must be a JSON object")
+                return out
+
+            def _route(self):
+                """-> (plural, kind, namespace|None, name|None, subresource|None)"""
+                parts = [p for p in urlparse(self.path).path.split("/") if p]
+                # /api/v1/... or /apis/<group>/<version>/...
+                self._req_version = "v1"
+                if parts[:2] == ["api", "v1"]:
+                    rest = parts[2:]
+                elif len(parts) >= 3 and parts[0] == "apis":
+                    self._req_version = parts[2]
+                    rest = parts[3:]
+                else:
+                    return None
+                ns = None
+                if rest and rest[0] == "namespaces" and len(rest) >= 3:
+                    ns, rest = rest[1], rest[2:]
+                elif rest and rest[0] == "namespaces":
+                    rest = ["namespaces"] + rest[1:]
+                if not rest:
+                    return None
+                plural = rest[0]
+                if plural in ALL_RESOURCES:
+                    kind, namespaced = ALL_RESOURCES[plural]
+                elif plural in server.custom_resources:
+                    kind, namespaced = server.custom_resources[plural]
+                else:
+                    return None
+                name = rest[1] if len(rest) > 1 else None
+                sub = rest[2] if len(rest) > 2 else None
+                return plural, kind, ns, name, sub
+
+            # ---- verbs ---------------------------------------------------
+
+            def do_GET(self):
+                return self._shaped(self._do_GET)
+
+            def _do_GET(self):
+                path = urlparse(self.path).path
+                if path in ("/healthz", "/readyz", "/livez"):
+                    body = b"ok"
+                    self.send_response(200)
+                    self.send_header("Content-Length", "2")
+                    self.end_headers()
+                    self.wfile.write(body)
+                    return
+                if path == "/debug/traces":
+                    # OTLP/JSON export of the process tracer's spans;
+                    # ?format=chrome serves Chrome trace-event JSON instead
+                    # (flight-recorder pod tracks included) — curl it
+                    # straight into ui.perfetto.dev
+                    from kubernetes_tpu_torch.utils.tracing import (TRACER,
+                                                              export_otlp_json)
+                    q = parse_qs(urlparse(self.path).query)
+                    if q.get("format", [""])[0] == "chrome":
+                        return self._send_json(200, TRACER.export_chrome())
+                    return self._send_json(200, export_otlp_json(TRACER))
+                if path == "/debug/stacks":
+                    # /debug/pprof goroutine-dump analog
+                    from kubernetes_tpu_torch.utils.tracing import dump_stacks
+                    body = dump_stacks().encode()
+                    self.send_response(200)
+                    self.send_header("Content-Type", "text/plain")
+                    self.send_header("Content-Length", str(len(body)))
+                    self.end_headers()
+                    self.wfile.write(body)
+                    return
+                if path == "/metrics":
+                    body = REGISTRY.expose_text().encode()
+                    self.send_response(200)
+                    self.send_header("Content-Type", "text/plain")
+                    self.send_header("Content-Length", str(len(body)))
+                    self.end_headers()
+                    self.wfile.write(body)
+                    return
+                r = self._route()
+                if r is None:
+                    return self._error(404, f"unknown path {path}")
+                plural, kind, ns, name, sub = r
+                READ_REQUESTS.inc({"role": "leader"})
+                qs = parse_qs(urlparse(self.path).query)
+                if sub == "scale" and name:
+                    if kind not in SCALABLE_KINDS:
+                        # upstream 404s unregistered scale subresources —
+                        # falling through would leak the full object
+                        return self._error(
+                            404, f"{kind} has no scale subresource",
+                            "NotFound")
+                    try:
+                        obj = server.store.get(kind, ns or "", name)
+                    except NotFound as e:
+                        return self._error(404, str(e), "NotFound")
+                    return self._send_json(200, _scale_of(kind, obj))
+                if sub in _KUBELET_SUBRESOURCES and kind == "Pod":
+                    return self._kubelet_not_ported(sub)
+                if name:
+                    try:
+                        obj = server.store.get(kind, ns or "", name)
+                    except NotFound as e:
+                        return self._error(404, str(e), "NotFound")
+                    return self._send_json(200, self._conv_out(kind, obj))
+                if qs.get("watch", ["false"])[0] in ("true", "1"):
+                    return self._watch(kind, ns, qs)
+                sel = _field_label_selector(qs)
+                items, rv = server.store.list(kind, namespace=ns, selector=sel)
+                if server.scheme.converter(kind, self._req_version):
+                    items = [self._conv_out(kind, o) for o in items]
+                return self._send_json(200, {
+                    "kind": f"{kind}List", "apiVersion": "v1",
+                    "metadata": {"resourceVersion": str(rv)}, "items": items})
+
+            def _kubelet_not_ported(self, sub: str):
+                return self._error(
+                    501, f"pods/{sub} proxies to the kubelet, which is not "
+                         "ported yet", "NotImplemented")
+
+            def _dry_run(self) -> bool:
+                qs = parse_qs(urlparse(self.path).query)
+                return bool(qs.get("dryRun"))
+
+            def _watch(self, kind: str, ns, qs):
+                # Namespace filtering happens here (matching DirectClient's
+                # _NamespaceFilteredWatch); label/field selector filtering is
+                # deliberately left to the informer layer, which needs to see
+                # matched -> unmatched MODIFIEDs to synthesize DELETEDs.
+                since = int(qs.get("resourceVersion", ["0"])[0] or 0)
+                try:
+                    w = server.store.watch(kind, since_rv=since)
+                except TooOld:
+                    return self._error(410, "resourceVersion too old", "Expired")
+                # Stream format rides the Accept header: msgpack frames
+                # (heartbeat = single nil byte 0xc0) or newline-JSON lines
+                # (heartbeat = bare newline). Event payload bytes are
+                # serialized once per event PER FORMAT and shared across
+                # every watcher of that format.
+                use_mp = self._wants_msgpack()
+                if use_mp:
+                    payload = Event.wire_msgpack
+                    heartbeat = b"1\r\n\xc0\r\n"
+                    ctype = MSGPACK_CT
+                else:
+                    payload = Event.wire
+                    heartbeat = b"1\r\n\n\r\n"
+                    ctype = "application/json"
+                conv = server.scheme.converter(kind, self._req_version)
+                if conv is not None:
+                    # spoke-version watch: per-watcher serialization (the
+                    # zero-copy shared wire bytes carry the hub shape)
+                    from_hub = conv[1]
+                    if use_mp:
+                        payload = lambda e: _msgpack.packb(
+                            {"type": e.type, "object": from_hub(e.object)})
+                    else:
+                        payload = lambda e: json.dumps(
+                            {"type": e.type,
+                             "object": from_hub(e.object)}).encode() + b"\n"
+                self.send_response(200)
+                self.send_header("Content-Type", ctype)
+                self.send_header("Transfer-Encoding", "chunked")
+                self.end_headers()
+                try:
+                    idle = 0
+                    while True:
+                        ev = w.get(timeout=0.5)
+                        if w.closed:
+                            # stream invalidated (restore): terminate the
+                            # chunked response so the client sees EOF at once
+                            # instead of waiting out its heartbeat grace
+                            self.wfile.write(b"0\r\n\r\n")
+                            self.wfile.flush()
+                            self.close_connection = True
+                            break
+                        if ev is None:
+                            idle += 1
+                            if idle >= 2:  # ~1s heartbeat
+                                self.wfile.write(heartbeat)
+                                self.wfile.flush()
+                                idle = 0
+                            continue
+                        idle = 0
+                        # Batch: everything already queued goes out in ONE
+                        # socket write (one chunk per event keeps the client
+                        # protocol unchanged) — per-event write+flush was a
+                        # measurable slice of a binding storm's host time.
+                        evs = [ev]
+                        while len(evs) < 256:
+                            nxt = w.get(timeout=0)
+                            if nxt is None:
+                                break
+                            evs.append(nxt)
+                        chunks = []
+                        for e in evs:
+                            if ns is not None and (e.object.get("metadata") or
+                                                   {}).get("namespace", "") != ns:
+                                continue
+                            # serialized once per event, shared across watchers
+                            line = payload(e)
+                            chunks.append(hex(len(line))[2:].encode() + b"\r\n"
+                                          + line + b"\r\n")
+                        if chunks:
+                            self.wfile.write(b"".join(chunks))
+                            self.wfile.flush()
+                except (BrokenPipeError, ConnectionResetError, OSError):
+                    pass
+                finally:
+                    w.stop()
+
+            def do_POST(self):
+                return self._shaped(self._do_POST)
+
+            def _do_POST(self):
+                r = self._route()
+                if r is None:
+                    return self._error(404, "unknown path")
+                plural, kind, ns, name, sub = r
+                try:
+                    body = self._read_body()
+                except _BadRequest as e:
+                    return self._error(400, str(e), "BadRequest")
+                if sub is None:
+                    body = self._conv_in(kind, body)
+                if sub in _KUBELET_SUBRESOURCES and kind == "Pod":
+                    return self._kubelet_not_ported(sub)
+                if sub == "binding" and kind == "Pod" and name == "-":
+                    # Bulk binding: one POST applies many bindings in a single
+                    # store lock pass (the scheduler's gang step binds a whole
+                    # batch at once — per-pod POSTs were the connected path's
+                    # dominant cost). Body: {"bindings": [{"namespace":...,
+                    # "name":..., "target": {"name": node}}]}; response is a
+                    # per-item status array in request order.
+                    items = body.get("bindings")
+                    if not isinstance(items, list):
+                        return self._error(400, "bindings must be a list",
+                                           "BadRequest")
+                    reqs = []
+                    for it in items:
+                        tgt = (it.get("target") or {}).get("name", "")
+                        reqs.append((it.get("namespace", ns or "default"),
+                                     it.get("name", ""), tgt))
+                    errors = server.store.bind_many(reqs)
+                    results = [
+                        {"code": 200} if e is None else
+                        {"code": 404 if "not found" in e else 409,
+                         "message": e,
+                         "reason": ("NotFound" if "not found" in e
+                                    else "Conflict")}
+                        for e in errors]
+                    return self._send_json(200, {"kind": "Status",
+                                                 "results": results})
+                if sub == "status" and kind == "Pod" and name == "-":
+                    # Bulk status: one POST applies many kubelet status
+                    # writes in a single store lock pass (a hollow-kubelet
+                    # fleet emits thousands of Pending->Running transitions
+                    # in seconds; per-pod PUTs were the kubemark
+                    # bottleneck). Body: {"statuses": [{"namespace":...,
+                    # "name":..., "status": {...}}]}; response is a
+                    # per-item status array in request order.
+                    items = body.get("statuses")
+                    if not isinstance(items, list):
+                        return self._error(400, "statuses must be a list",
+                                           "BadRequest")
+                    reqs = [(it.get("namespace", ns or "default"),
+                             it.get("name", ""), it.get("status") or {})
+                            for it in items]
+                    errors = server.store.update_status_many("Pod", reqs)
+                    results = [
+                        {"code": 200} if e is None else
+                        {"code": 404, "message": e, "reason": "NotFound"}
+                        for e in errors]
+                    return self._send_json(200, {"kind": "Status",
+                                                 "results": results})
+                if sub == "status" and kind == "Node" and name == "-":
+                    # Bulk heartbeat: one POST refreshes many nodes' status
+                    # conditions in a single store lock pass with ONE watch
+                    # fan-out pass per batch (a 10k hollow-node fleet's
+                    # per-node GET+PUT heartbeat chatter was the control-
+                    # plane bottleneck once the device program got cheap).
+                    # Body: {"statuses": [{"name":..., "status": {...}}]};
+                    # conditions merge by type server-side; response is a
+                    # per-item status array in request order.
+                    items = body.get("statuses")
+                    if not isinstance(items, list):
+                        return self._error(400, "statuses must be a list",
+                                           "BadRequest")
+                    reqs = [(it.get("name", ""), it.get("status") or {})
+                            for it in items]
+                    errors = server.store.heartbeat_many(reqs)
+                    results = [
+                        {"code": 200} if e is None else
+                        {"code": 404, "message": e, "reason": "NotFound"}
+                        for e in errors]
+                    return self._send_json(200, {"kind": "Status",
+                                                 "results": results})
+                if sub == "renew" and kind == "Lease" and name == "-":
+                    # Bulk lease renewal: one POST bumps many Leases'
+                    # spec.renewTime in a single store lock pass (the
+                    # kube-node-lease analog of the bulk heartbeat — the
+                    # kubelet's cheap liveness signal, batched fleet-wide).
+                    # Body: {"renews": [{"name":..., "renewTime": <epoch>}]};
+                    # missing leases report per-item 404s without failing
+                    # siblings (the fleet batcher creates them in bulk).
+                    items = body.get("renews")
+                    if not isinstance(items, list):
+                        return self._error(400, "renews must be a list",
+                                           "BadRequest")
+                    import time as _time
+                    reqs = [(it.get("name", ""),
+                             float(it.get("renewTime") or _time.time()))
+                            for it in items]
+                    errors = server.store.renew_leases(
+                        ns or "kube-node-lease", reqs)
+                    results = [
+                        {"code": 200} if e is None else
+                        {"code": 404, "message": e, "reason": "NotFound"}
+                        for e in errors]
+                    return self._send_json(200, {"kind": "Status",
+                                                 "results": results})
+                if sub == "binding" and kind == "Pod":
+                    # BindingREST.Create: set spec.nodeName if not already set.
+                    target = body.get("target", {}).get("name", "")
+                    try:
+                        pod = server.store.get("Pod", ns or "", name)
+                    except NotFound as e:
+                        return self._error(404, str(e), "NotFound")
+                    if pod.get("spec", {}).get("nodeName"):
+                        return self._error(409, "pod already bound", "Conflict")
+                    pod["spec"]["nodeName"] = target
+                    pod.setdefault("status", {})["phase"] = "Pending"
+                    try:
+                        # rv precondition: two racing binders -> second gets 409
+                        out = server.store.update(
+                            "Pod", pod,
+                            expect_rv=pod["metadata"]["resourceVersion"])
+                    except Conflict as e:
+                        return self._error(409, str(e), "Conflict")
+                    return self._send_json(201, out)
+                if sub == "eviction" and kind == "Pod":
+                    # Eviction API honors PodDisruptionBudgets
+                    # (registry/core/pod/storage/eviction.go): 429 when the
+                    # governing budget has no disruptions left. Preemption
+                    # deletes pods directly and is allowed to violate PDBs as
+                    # a last resort, exactly as upstream.
+                    from kubernetes_tpu_torch.api.policy import disruptions_allowed_for
+                    try:
+                        pod_obj = server.store.get("Pod", ns or "", name)
+                    except NotFound as e:
+                        return self._error(404, str(e), "NotFound")
+                    pdbs, _ = server.store.list("PodDisruptionBudget",
+                                                namespace=ns or "")
+                    if pdbs:
+                        pods_ns, _ = server.store.list("Pod", namespace=ns or "")
+                        allowed, governing = disruptions_allowed_for(
+                            pod_obj, pdbs, pods_ns)
+                        if allowed <= 0:
+                            g = (governing or {}).get("metadata", {}).get(
+                                "name", "")
+                            return self._error(
+                                429, f"Cannot evict pod as it would violate "
+                                     f"the pod's disruption budget {g!r}",
+                                "TooManyRequests")
+                    try:
+                        out = server.store.delete("Pod", ns or "", name)
+                    except NotFound as e:
+                        return self._error(404, str(e), "NotFound")
+                    return self._send_json(200, out)
+                if self._dry_run() and (
+                        body.get("kind") == "List"
+                        and isinstance(body.get("items"), list)):
+                    # honest over silent: the batch path has per-item
+                    # store semantics a preview can't faithfully simulate
+                    return self._error(
+                        400, "dryRun is not supported for bulk creates",
+                        "BadRequest")
+                if body.get("kind") == "List" and isinstance(
+                        body.get("items"), list) and kind != "CustomResourceDefinition":
+                    # Bulk create: POST a v1 List manifest to a collection
+                    # path creates every item in one store lock pass (the
+                    # write-side analog of chunked LIST reads; kubectl's
+                    # ``apply -f`` emits exactly this shape for multi-doc
+                    # manifests). Admission runs per item; per-item failures
+                    # report in order without aborting siblings.
+                    results = []
+                    for item in body["items"]:
+                        md = item.setdefault("metadata", {})
+                        if ns:
+                            md["namespace"] = ns
+                        try:
+                            out = server.store.create(kind, item, owned=True)
+                            # server-stamped identity back to the client
+                            # (full objects would double the response size
+                            # of a 10k-item storm for fields callers rarely
+                            # read beyond metadata)
+                            results.append({"code": 201,
+                                            "metadata": out["metadata"]})
+                        except AlreadyExists as e:
+                            results.append({"code": 409, "message": str(e),
+                                            "reason": "AlreadyExists"})
+                    return self._send_json(200, {"kind": "Status",
+                                                 "results": results})
+                with server._crd_guard(kind):
+                    if kind == "CustomResourceDefinition":
+                        err = server.validate_crd(body)
+                        if err:
+                            return self._error(400, err, "Invalid")
+                    md = body.setdefault("metadata", {})
+                    if ns:
+                        md["namespace"] = ns
+                    if self._dry_run():
+                        # server-side dry run (?dryRun=All, endpoints/
+                        # handlers/create.go): the full path except
+                        # persistence
+                        name_prev = md.get("name", "")
+                        if not name_prev and md.get("generateName"):
+                            # name generation runs in real creates; the
+                            # preview synthesizes the same shape without
+                            # consuming the suffix counter
+                            name_prev = md["name"] =                                 f"{md['generateName']}xxxxx"
+                        if name_prev:
+                            try:
+                                server.store.get(kind, ns or "", name_prev)
+                                if not md.get("generateName"):
+                                    return self._error(
+                                        409, f"{kind} {name_prev!r} "
+                                             "already exists",
+                                        "AlreadyExists")
+                            except NotFound:
+                                pass
+                        return self._send_json(
+                            201, self._conv_out(kind, body))
+                    try:
+                        # body is this request's freshly-parsed JSON: hand
+                        # ownership to the store (skips its defensive copy)
+                        out = server.store.create(kind, body, owned=True)
+                    except AlreadyExists as e:
+                        return self._error(409, str(e), "AlreadyExists")
+                    if kind == "CustomResourceDefinition":
+                        server._on_crd_change(out, deleted=False)
+                    return self._send_json(201, self._conv_out(kind, out))
+
+            def do_PUT(self):
+                return self._shaped(self._do_PUT)
+
+            def _do_PUT(self):
+                r = self._route()
+                if r is None:
+                    return self._error(404, "unknown path")
+                plural, kind, ns, name, sub = r
+                try:
+                    body = self._read_body()
+                except _BadRequest as e:
+                    return self._error(400, str(e), "BadRequest")
+                if sub == "scale" and name:
+                    if kind not in SCALABLE_KINDS:
+                        # the full-object update path would store the Scale
+                        # body AS the object — 404 like upstream
+                        return self._error(
+                            404, f"{kind} has no scale subresource",
+                            "NotFound")
+                    if self._dry_run():
+                        # preview: current object with replicas applied
+                        try:
+                            cur = server.store.get(kind, ns or "", name)
+                        except NotFound as e:
+                            return self._error(404, str(e), "NotFound")
+                        raw0 = (body.get("spec") or {}).get("replicas")
+                        if raw0 is None:
+                            return self._error(
+                                400, "spec.replicas is required",
+                                "BadRequest")
+                        cur.setdefault("spec", {})["replicas"] = int(raw0)
+                        return self._send_json(200, _scale_of(kind, cur))
+                    # ScaleREST.Update: only spec.replicas moves. A caller
+                    # rv is the strict precondition; with none, this is a
+                    # GuaranteedUpdate-style retry against each read's own
+                    # rv so a concurrent writer is never silently reverted
+                    raw = (body.get("spec") or {}).get("replicas")
+                    if raw is None:
+                        return self._error(
+                            400, "spec.replicas is required", "BadRequest")
+                    want = int(raw)
+                    caller_rv = ((body.get("metadata") or {})
+                                 .get("resourceVersion") or None)
+                    for attempt in range(5):
+                        try:
+                            cur = server.store.get(kind, ns or "", name)
+                        except NotFound as e:
+                            return self._error(404, str(e), "NotFound")
+                        cur.setdefault("spec", {})["replicas"] = want
+                        expect = caller_rv or (cur.get("metadata") or {})\
+                            .get("resourceVersion")
+                        try:
+                            out = server.store.update(kind, cur,
+                                                      expect_rv=expect)
+                            return self._send_json(200,
+                                                   _scale_of(kind, out))
+                        except Conflict as e:
+                            if caller_rv is not None or attempt == 4:
+                                return self._error(409, str(e), "Conflict")
+                        except NotFound as e:
+                            return self._error(404, str(e), "NotFound")
+                if sub in (None, "status"):
+                    # status fragments convert too (a v1 controller PUTs
+                    # v1-shaped status; the store must only hold hub shape)
+                    body = self._conv_in(kind, body)
+                with server._crd_guard(kind):
+                    if kind == "CustomResourceDefinition" and sub != "status":
+                        err = server.validate_crd(body)
+                        if err:
+                            return self._error(400, err, "Invalid")
+                    if self._dry_run():
+                        try:
+                            cur = server.store.get(kind, ns or "", name)
+                        except NotFound as e:
+                            return self._error(404, str(e), "NotFound")
+                        if sub == "status":
+                            # preview the REAL status merge: stored object
+                            # with only status replaced
+                            cur["status"] = body.get("status", body)
+                            return self._send_json(
+                                200, self._conv_out(kind, cur))
+                        return self._send_json(
+                            200, self._conv_out(kind, body))
+                    if sub == "status":
+                        try:
+                            cur = server.store.get(kind, ns or "", name)
+                        except NotFound as e:
+                            return self._error(404, str(e), "NotFound")
+                        cur["status"] = body.get("status", body)
+                        body = cur
+                    expect = self.headers.get("If-Match") or None
+                    try:
+                        out = server.store.update(kind, body, expect_rv=expect,
+                                                  owned=True)
+                    except NotFound as e:
+                        return self._error(404, str(e), "NotFound")
+                    except Conflict as e:
+                        return self._error(409, str(e), "Conflict")
+                    if kind == "CustomResourceDefinition":
+                        server._on_crd_change(out, deleted=False)
+                    return self._send_json(200, self._conv_out(kind, out))
+
+            def do_PATCH(self):
+                return self._shaped(self._do_PATCH)
+
+            def _do_PATCH(self):
+                """Server-side apply (the reference's store/apply.py)."""
+                return self._error(
+                    501, "server-side apply is not ported yet: ROADMAP "
+                         "Queue A item 13", "NotImplemented")
+
+            def do_DELETE(self):
+                return self._shaped(self._do_DELETE)
+
+            def _do_DELETE(self):
+                r = self._route()
+                if r is None:
+                    return self._error(404, "unknown path")
+                plural, kind, ns, name, _ = r
+                if name is None:
+                    return self._error(405, "collection delete unsupported")
+                if self._dry_run():
+                    # delete preview: the object that WOULD be deleted
+                    try:
+                        cur = server.store.get(kind, ns or "", name)
+                    except NotFound as e:
+                        return self._error(404, str(e), "NotFound")
+                    return self._send_json(200, self._conv_out(kind, cur))
+                # DeleteOptions.propagationPolicy (query param or body):
+                # Foreground/Orphan stamp the matching GC finalizer BEFORE
+                # the delete, so the object terminates and the garbage
+                # collector finishes the job (delete dependents first /
+                # strip ownerReferences) exactly like
+                # registry.Store.Delete + gc_admission upstream
+                qs = parse_qs(urlparse(self.path).query)
+                policy = qs.get("propagationPolicy", [""])[0]
+                if not policy:
+                    try:
+                        body = self._read_body()
+                        policy = (body or {}).get("propagationPolicy", "")
+                    except Exception:  # ktpu-lint: disable=KTL002 -- malformed delete-options body: default propagation policy applies
+                        policy = ""
+                fin = {"Foreground": "foregroundDeletion",
+                       "Orphan": "orphan"}.get(policy)
+                with server._crd_guard(kind):
+                    if fin is not None:
+                        try:
+                            cur = server.store.get(kind, ns or "", name)
+                            fins = (cur.get("metadata") or {})                                 .get("finalizers") or []
+                            if fin not in fins:
+                                cur.setdefault("metadata", {})[
+                                    "finalizers"] = list(fins) + [fin]
+                                server.store.update(kind, cur)
+                        except NotFound as e:
+                            return self._error(404, str(e), "NotFound")
+                        except Conflict:
+                            pass  # racing writer; delete still proceeds
+                    try:
+                        out = server.store.delete(kind, ns or "", name)
+                    except NotFound as e:
+                        return self._error(404, str(e), "NotFound")
+                    if kind == "CustomResourceDefinition":
+                        server._on_crd_change(out, deleted=True)
+                    return self._send_json(200, self._conv_out(kind, out))
+
+        return Handler
+
+
+SCALABLE_KINDS = {"Deployment", "ReplicaSet", "StatefulSet",
+                  "ReplicationController"}
+_KUBELET_SUBRESOURCES = ("log", "exec", "portforward")
+
+
+def _not_ported(what: str) -> NotImplementedError:
+    from kubernetes_tpu_torch.config.types import not_ported
+    return not_ported(what, "13")
+
+
+def _scale_of(kind: str, obj: dict) -> dict:
+    """autoscaling/v1 Scale wire shape for a workload object
+    (``pkg/registry/apps/deployment/storage`` ScaleREST.Get analog)."""
+    md = obj.get("metadata") or {}
+    spec = obj.get("spec") or {}
+    sel = spec.get("selector") or {}
+    parts = []
+    if isinstance(sel, dict):
+        labels = sel.get("matchLabels")
+        if labels is None and "matchExpressions" not in sel:
+            labels = {k: v for k, v in sel.items()
+                      if not isinstance(v, (list, dict))}
+        for k, v in (labels or {}).items():
+            parts.append(f"{k}={v}")
+        for e in sel.get("matchExpressions") or []:
+            op = (e.get("operator") or "").lower()
+            vals = ",".join(e.get("values") or [])
+            key = e.get("key", "")
+            if op == "in":
+                parts.append(f"{key} in ({vals})")
+            elif op == "notin":
+                parts.append(f"{key} notin ({vals})")
+            elif op == "exists":
+                parts.append(key)
+            elif op == "doesnotexist":
+                parts.append(f"!{key}")
+    sel_str = ",".join(parts)
+    return {
+        "kind": "Scale", "apiVersion": "autoscaling/v1",
+        "metadata": {"name": md.get("name", ""),
+                     "namespace": md.get("namespace", ""),
+                     "resourceVersion": md.get("resourceVersion", "")},
+        "spec": {"replicas": int(spec.get("replicas", 1) or 0)},
+        "status": {"replicas": int((obj.get("status") or {})
+                                   .get("replicas", 0) or 0),
+                   "selector": sel_str},
+    }
+
+
+def _field_label_selector(qs) -> Optional[Callable[[dict], bool]]:
+    """labelSelector=k=v,k2=v2 and fieldSelector=spec.nodeName=x supported."""
+    return compile_list_selector(qs.get("labelSelector", [None])[0],
+                                 qs.get("fieldSelector", [None])[0])
+
+
+def serve(conn, data_dir: Optional[str] = None) -> None:
+    """Server-process entry: an ``APIServer`` (in memory, or durable under
+    ``data_dir``) until told to stop. Sends the bound port on ``conn``,
+    then any message received on ``conn`` stops it. Start it with
+    ``multiprocessing.get_context("spawn").Process(target=serve,
+    args=(child_conn,))``: a parent holding a CUDA context must not fork."""
+    server = APIServer(data_dir=data_dir).start()
+    conn.send(server.port)
+    try:
+        conn.recv()
+    except EOFError:
+        pass  # the parent went away: stop all the same
+    server.stop()

@@ -65,13 +65,19 @@ _SCHED_MODULES = (
     "config.features", "config.types", "metrics.registry", "utils.clock",
     "utils.events", "utils.sanity", "utils.tracing", "topology.slicing",
     "sched.queue", "sched.framework", "sched.resilience", "sched.oracle",
-    "sched.staging", "sched.cache", "sched.scheduler")
+    "sched.staging", "sched.cache", "sched.scheduler",
+    # the connected scheduler
+    "utils.atomicio", "utils.retry", "utils.configmap", "api.scheme",
+    "api.policy", "store.store", "store.apiserver", "client.clientset",
+    "client.informer", "client.leaderelection", "audit.invariants",
+    "audit.auditor", "audit.sentinel", "sched.runner")
 
 _NO_YAML = r"""
 import importlib, sys
 sys.modules["jax"] = None
 sys.modules["flax"] = None
 sys.modules["yaml"] = None
+sys.modules["msgpack"] = None
 for name in sys.argv[1:]:
     importlib.import_module("kubernetes_tpu_torch." + name)
 from kubernetes_tpu_torch.config.types import SchedulerConfiguration, validate
@@ -84,9 +90,11 @@ print(cfg.batch_size, cfg.pipeline_depth, leaked)
 
 
 def test_scheduler_modules_import_without_yaml():
-    """The scheduling loop's modules import with JAX, flax and PyYAML
-    blocked (the card's machine lists no PyYAML: config/types.py imports
-    it in ``from_yaml`` only), and pull in nothing of the JAX package."""
+    """The scheduling loop's and the connected scheduler's modules import
+    with JAX, flax, PyYAML and msgpack blocked (the card's machine lists
+    neither PyYAML nor msgpack: config/types.py imports PyYAML in
+    ``from_yaml`` only, and the store and the clients speak JSON without
+    msgpack), and pull in nothing of the JAX package."""
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     res = subprocess.run([sys.executable, "-c", _NO_YAML, *_SCHED_MODULES],
                          cwd=ROOT, env=env, capture_output=True, text=True,

@@ -447,14 +447,13 @@ def _port_sched(cfg_kw=None, gates=None, nodes=2, **kw):
 # config options of features that wait, each with its ROADMAP item
 _WAITING_OPTIONS = [
     ({"explainer_enabled": True}, "item 5"),
-    ({"parity_sample_every": 16}, "item 3b"),
-    ({"extenders": [{"urlPrefix": "http://localhost:1"}]}, "item 3b"),
+    ({"extenders": [{"urlPrefix": "http://localhost:1"}]}, "item 3c"),
     ({"mesh_shape": (1, 2)}, "item 8"),
 ]
 
 
 @pytest.mark.parametrize("cfg_kw,item", _WAITING_OPTIONS,
-                         ids=["explainer", "sentinel", "extenders", "mesh"])
+                         ids=["explainer", "extenders", "mesh"])
 def test_construction_refuses_what_waits(cfg_kw, item):
     with pytest.raises(NotImplementedError, match=item):
         _port_sched(cfg_kw)
@@ -523,7 +522,7 @@ def test_refuses_fleet_mode_and_tensor_plugins():
 
 
 @pytest.mark.parametrize("cfg_kw,item", _WAITING_OPTIONS,
-                         ids=["explainer", "sentinel", "extenders", "mesh"])
+                         ids=["explainer", "extenders", "mesh"])
 def test_validate_refuses_what_waits(cfg_kw, item):
     """The refusal comes at config time, not only when a Scheduler is
     built."""
@@ -533,7 +532,8 @@ def test_validate_refuses_what_waits(cfg_kw, item):
 
 
 def test_default_config_builds_a_scheduler():
-    """The port's defaults leave the unported features off, so the default
+    """The port's defaults leave the unported features off (the parity
+    sentinel is ported and on, as in the reference), so the default
     configuration validates and builds a Scheduler."""
     cfg = port_config.SchedulerConfiguration()
     port_config.validate(cfg)
