@@ -94,9 +94,46 @@ Phases, one JSON line each:
            with 0 violations, >= 1 sentinel sample with 0 divergences
   kernels.connected  count_pn at the connected run's folded resident
            shape, as kernels.drain
+  parity.preemption  default preemption on the card and on the CPU, three
+           legs, every result equal: _wave_scan's four outputs bit-equal
+           (all Qb steps, and stopped after the last preemptor) on a 64-node
+           saturated cluster with a PDB and 40 preemptors of four
+           priorities, and tensor_static_masks on a 32-node
+           MixedHeterogeneous cluster; the Scheduler with
+           PreemptionSimulation on over a 12-node saturated cluster, 10
+           preemptors among 6 pods that fit nowhere, at depth 1 and 2
+           (binder logs, evictions in order, nominations, ctx_stats, the
+           sentinel's wave samples, 0 divergences); the runner over a
+           DirectClient on 16 saturated nodes and 12 preemptors (the
+           store's bindings, what was evicted, the sentinel's samples)
+  preemption  Preemption/128x5000 as benchmarks/preemption_bench.py
+           run_preemption runs it: 5000 nodes of 8 CPU saturated by 10000
+           bound pods of 4 CPU, 128 preemptors of 6 CPU at priority 100; a
+           warm-up preempt_wave, then the measured one (masks_s: the static
+           masks; wave_s: preempt_wave given them), preemptors/s; checks:
+           128 resolved with 256 victims, equal to the CPU's wave, and the
+           parity sentinel's verify_wave_results finds no problem. Then
+           _wave_scan alone (CUDA events; under torch.profiler its launches
+           a preemptor step and the device's busy share), and the exact
+           host scan on 8 preemptors, one spawned process each
+  connected_preemption  ConnectedPreemption/128x5000 as
+           benchmarks/connected.py run_connected_preemption runs it: the
+           saturated cluster behind the port's APIServer in a spawned
+           process, SchedulerRunner(HTTPClient(url, wire="json")) with pops
+           of 256, max_drain_batches 1, PreemptionSimulation on, the
+           sentinel on every wave; warm_preempt, then 128 preemptors created
+           at once and a watcher counting their bindings. Gates: 128 of 128
+           bound, 256 victims evicted, 0 loop errors, breaker "single", at
+           least one wave sample and 0 divergences; PreemptionThroughput,
+           the window, the preempt/* spans
 
-Each path (path, drain, resident, scheduler, connected) is driven with the
-launch counts set to 0 just before it and read just after. Then the kernel table line
+Every phase fails while LOOP_ERRORS{site=device_preempt} is above 0: a
+device preemption failure the scheduler degraded to the host scan.
+
+Each path (path, drain, resident, scheduler, connected, preemption,
+connected_preemption) is driven with the launch counts set to 0 just
+before it and read just after; the preemption paths launch no hand
+kernel (their device work is torch ops), and their counts are printed. Then the kernel table line
 ({"kernels": [...]}, one row per kernel at the shape of its most launches,
 launches summed over the paths, the shapes checked), the card's name and
 power limit, and last {"ok": true, "device": {...}}. Any failed phase
@@ -134,6 +171,13 @@ class PhaseFailed(Exception):
 
 
 def emit(obj) -> None:
+    """Print one phase's line; a phase in which the scheduler degraded a
+    device preemption failure to the host scan fails instead."""
+    if "phase" in obj and "kubernetes_tpu_torch" in sys.modules:
+        n = device_preempt_errors()
+        check(n == 0, f"phase {obj['phase']}: {n} device preemption "
+                      "failure(s) degraded to the host scan "
+                      "(LOOP_ERRORS{site=device_preempt})")
     print(json.dumps(obj), flush=True)
 
 
@@ -912,7 +956,8 @@ def sched_config(**overrides):
 
 
 def no_preemption_gate():
-    """PreemptionSimulation off: default preemption is a later slice."""
+    """PreemptionSimulation off, for the cells where no pod preempts (the
+    reference's default is on; the preemption phases keep it)."""
     from kubernetes_tpu_torch.config.features import FeatureGate
     gate = FeatureGate()
     gate.set("PreemptionSimulation", False)
@@ -920,12 +965,13 @@ def no_preemption_gate():
 
 
 def make_scheduler(cfg, node_objs, bound_objs=(), ns_labels=None,
-                   device=None, confirm=True):
+                   device=None, confirm=True, gate=None):
     """A port Scheduler over a fresh SchedulerCache and SchedulingQueue,
-    PreemptionSimulation off (default preemption is a later slice), and an
-    in-process binder that logs (pod key, node, seconds) and, with
-    ``confirm``, confirms the binding in the cache as the runner's informer
-    would. -> (scheduler, binder log)."""
+    PreemptionSimulation off unless ``gate`` says otherwise (the cells of
+    the main path preempt nothing: every pod fits), and an in-process
+    binder that logs (pod key, node, seconds) and, with ``confirm``,
+    confirms the binding in the cache as the runner's informer would.
+    -> (scheduler, binder log)."""
     import dataclasses
     from kubernetes_tpu_torch.sched.cache import SchedulerCache
     from kubernetes_tpu_torch.sched.queue import SchedulingQueue
@@ -949,7 +995,8 @@ def make_scheduler(cfg, node_objs, bound_objs=(), ns_labels=None,
         return True
 
     sched = Scheduler(cfg, cache, queue, binder,
-                      feature_gate=no_preemption_gate(), device=device)
+                      feature_gate=gate or no_preemption_gate(),
+                      device=device)
     return sched, log
 
 
@@ -1226,13 +1273,16 @@ def connected_workload(pods=CONNECTED_PODS, nodes=N_NODES, seed=SEED):
     from kubernetes_tpu_torch.testing.workloads import mixed_heterogeneous
     node_objs, pod_objs = mixed_heterogeneous(pods=pods, nodes=nodes,
                                               seed=seed)
-    out = []
-    for objs in (node_objs, pod_objs):
-        dicts = [o.to_dict() for o in objs]
-        for d in dicts:
-            d["metadata"].pop("uid", None)
-        out.append(dicts)
-    return tuple(out)
+    return _wire(node_objs), _wire(pod_objs)
+
+
+def _wire(objs):
+    """Wire dicts without the wrappers' process-local uids (the store
+    stamps its own)."""
+    dicts = [o.to_dict() for o in objs]
+    for d in dicts:
+        d["metadata"].pop("uid", None)
+    return dicts
 
 
 def watch_bound(url, ns, rv0, n_pods, count, done, dead, ready):
@@ -1610,6 +1660,517 @@ def connected_parity_phase(seed=SEED, devices=("cuda", "cpu"), depths=(1, 2)):
     return out
 
 
+# ------------------------------------------------------------------ preemption
+
+PREEMPT_NODES = 5000      # bench.py's BENCH_PREEMPT_NODES / BENCH_CPREEMPT_NODES
+PREEMPT_PODS = 128        # bench.py's BENCH_PREEMPT_PODS / BENCH_CPREEMPT_PODS
+PREEMPT_HOST_SAMPLE = 8   # benchmarks/preemption_bench.py's host_sample
+PREEMPT_BATCH = 256       # run_connected_preemption's SchedulerConfiguration
+PREEMPT_TIMEOUT_S = 300.0  # run_connected_preemption's timeout
+
+
+def preemptors(n, ns="default", prefix="hi"):
+    """The preemptors of benchmarks/preemption_bench.py and connected.py:
+    6 CPU / 8Gi at priority 100. On a saturated node (two 4-CPU pods on 8
+    CPU) each needs both victims."""
+    from kubernetes_tpu_torch.testing.wrappers import make_pod
+    return [make_pod(f"{prefix}-{k}", ns).req({"cpu": "6", "memory": "8Gi"})
+            .priority(100).obj() for k in range(n)]
+
+
+def preemption_gate():
+    """PreemptionSimulation on: the reference's default feature gate."""
+    from kubernetes_tpu_torch.config.features import FeatureGate
+    gate = FeatureGate()
+    gate.set("PreemptionSimulation", True)
+    return gate
+
+
+def device_preempt_errors() -> int:
+    """LOOP_ERRORS{site=device_preempt}: device preemption failures the
+    scheduler degraded around (to the exact host scan). Every phase fails
+    while it is above 0 (``emit``)."""
+    from kubernetes_tpu_torch.metrics.registry import LOOP_ERRORS
+    return int(LOOP_ERRORS.items().get((("site", "device_preempt"),), 0))
+
+
+def _result_keys(results):
+    return [None if r is None else
+            (r.node_name, [v.key for v in r.victims], r.num_pdb_violations)
+            for r in results]
+
+
+def host_scan_seconds(args):
+    """Worker process: the exact serial scan (``find_candidate``) for one
+    preemptor of the preemption cell. -> seconds."""
+    n_nodes, k = args
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from kubernetes_tpu_torch.sched.preemption import find_candidate
+    from kubernetes_tpu_torch.testing.workloads import build_saturated
+    nodes, bound = build_saturated(n_nodes)
+    pod = preemptors(k + 1)[k]
+    t0 = time.perf_counter()
+    res = find_candidate(nodes, bound, pod)
+    seconds = time.perf_counter() - t0
+    check(res is not None and len(res.victims) == 2,
+          f"preemption: the host scan found {res}")
+    return seconds
+
+
+def profile_wave_scan(staged, steps, name):
+    """``_wave_scan`` alone under torch.profiler: its launches a preemptor
+    step and the device's busy share of the scan (trace under
+    build/profile/)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from kubernetes_tpu_torch.ops.preemption import _wave_scan
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build", "profile")
+    os.makedirs(out_dir, exist_ok=True)
+    trace_path = os.path.join(out_dir, f"{name}.json")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _wave_scan(*staged, steps=steps)
+        torch.cuda.synchronize()
+        scan_ms = (time.perf_counter() - t0) * 1e3
+    prof.export_chrome_trace(trace_path)
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    summary = trace_summary(events, top=8)
+    n_kernels = sum(1 for e in events
+                    if e.get("ph") == "X" and e.get("cat") == "kernel")
+    check(n_kernels > 0, f"{name}: the trace holds no kernel")
+    return {"steps": steps, "scan_ms": scan_ms, "kernels": n_kernels,
+            "launches_per_step": n_kernels / steps,
+            "device_busy_share": summary["device_busy_ms"] / scan_ms,
+            **summary, "trace": os.path.relpath(trace_path)}
+
+
+def preemption_phase(n_nodes=PREEMPT_NODES, n_pre=PREEMPT_PODS,
+                     host_sample=PREEMPT_HOST_SAMPLE, device=None):
+    """Preemption/128x5000 as ``benchmarks/preemption_bench.py``
+    run_preemption runs it at bench.py's sizes, through the port: a
+    saturated cluster, one warm-up ``preempt_wave``, then the measured
+    wave as the scheduler splits it: the static masks
+    (``tensor_static_masks``, a fresh encode of the cluster) and
+    ``preempt_wave`` given them (the scan on the card, the host's exact
+    verification). Checks: every preemptor resolved with two victims, the
+    results equal to the CPU's wave, and the parity sentinel's
+    ``verify_wave_results`` finds no problem. Then ``_wave_scan`` alone:
+    its time by CUDA events and, under torch.profiler, its launches a
+    preemptor step and the device's busy share. Last, the exact host scan
+    on ``host_sample`` preemptors, one spawned process each, all at once:
+    the rate is ``host_sample`` over the sum of their seconds."""
+    import multiprocessing as mp
+    from concurrent.futures import ProcessPoolExecutor
+    from kubernetes_tpu_torch.audit.sentinel import verify_wave_results
+    from kubernetes_tpu_torch.ops import kernels
+    from kubernetes_tpu_torch.ops.preemption import _wave_scan, wave_inputs
+    from kubernetes_tpu_torch.sched.preemption import (preempt_wave,
+                                                       tensor_static_masks)
+    from kubernetes_tpu_torch.testing.workloads import build_saturated
+    nodes, bound = build_saturated(n_nodes)
+    pre = preemptors(n_pre)
+    t0 = time.perf_counter()
+    preempt_wave(nodes, bound, pre, device=device)
+    warm_s = time.perf_counter() - t0
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    masks = tensor_static_masks(nodes, pre, bound_pods=bound, device=device)
+    t1 = time.perf_counter()
+    results = preempt_wave(nodes, bound, pre, static_masks=masks,
+                           device=device)
+    t2 = time.perf_counter()
+    launches = dict(kernels.LAUNCHES)
+    resolved = sum(r is not None for r in results)
+    victims = sum(len(r.victims) for r in results if r is not None)
+    check(resolved == n_pre, f"preemption: {resolved} of {n_pre} resolved")
+    check(victims == 2 * n_pre,
+          f"preemption: {victims} victims, {2 * n_pre} expected")
+    cpu = preempt_wave(nodes, bound, pre, device="cpu")
+    check(_result_keys(results) == _result_keys(cpu),
+          "preemption: the card's wave differs from the CPU's")
+    problems = verify_wave_results(nodes, bound, pre, results)
+    check(not problems,
+          f"preemption: the oracle refutes the wave: {problems[:3]}")
+    staged, _ = wave_inputs(nodes, bound, pre, [], static_masks=masks,
+                            device=device)
+    scan_ms = cuda_ms(lambda: _wave_scan(*staged, steps=n_pre), iters=3,
+                      warmup=1)
+    profiled = profile_wave_scan(staged, n_pre, "preemption_wave_scan")
+    t3 = time.perf_counter()
+    with ProcessPoolExecutor(max_workers=host_sample,
+                             mp_context=mp.get_context("spawn")) as pool:
+        host_s = list(pool.map(host_scan_seconds,
+                               [(n_nodes, k) for k in range(host_sample)]))
+    host_wall_s = time.perf_counter() - t3
+    return {"nodes": n_nodes, "bound": len(bound), "preemptors": n_pre,
+            "resolved": resolved, "victims": victims, "warmup_s": warm_s,
+            "masks_s": t1 - t0, "wave_s": t2 - t1, "measure_s": t2 - t0,
+            "preemptors_per_s": resolved / (t2 - t0),
+            "equal_to_cpu": True, "oracle_problems": len(problems),
+            "wave_scan_ms": scan_ms, "wave_scan_profile": profiled,
+            "host_scan_s": host_s, "host_scan_wall_s": host_wall_s,
+            "host_serial_per_s": host_sample / sum(host_s),
+            "launches": launches}
+
+
+def warm_preempt(runner, n_high):
+    """Warm the preemption path's device work before the measured window,
+    mutating nothing, as benchmarks/connected.py's _warm_preempt does with
+    the port's own calls: the gang step at the failure batch's shapes,
+    with and without the nominee overlay, the [Q,N] static masks and the
+    wave at the WAVE_BUCKET. -> seconds."""
+    from kubernetes_tpu_torch.models.gang import gang_schedule
+    from kubernetes_tpu_torch.ops.preemption import dry_run_wave
+    from kubernetes_tpu_torch.sched import preemption as pmod
+    from kubernetes_tpu_torch.sched.scheduler import DRAIN_NOM_BUCKET
+    t0 = time.perf_counter()
+    cache, profile = runner.cache, runner.cfg.profiles[0]
+    dev = runner.scheduler.device
+    warm = preemptors(n_high, ns="warmup", prefix="warm")
+    nodes, ct, meta = cache.snapshot(pending_pods=warm)
+    bound = cache.bound_pods()
+    pb = cache.encode_pods(warm, meta, min_p=runner.cfg.batch_size)
+    kw = dict(seed=runner.cfg.seed, fit_strategy=profile.fit_strategy,
+              topo_keys=meta.topo_keys, weights=profile.weights(),
+              enabled_filters=profile.enabled_filters)
+    gang_schedule(ct.to(dev), pb.to(dev), **kw)
+    ct_nom = cache.overlay_nominated(ct, meta,
+                                     [(meta.node_names[0], 100, warm[0])],
+                                     min_m=DRAIN_NOM_BUCKET)
+    gang_schedule(ct_nom.to(dev), pb.to(dev), **kw)
+    masks = pmod.tensor_static_masks(
+        nodes, warm, ct=ct, meta=meta, encode_pods=cache.encode_pods,
+        min_p=pmod.WAVE_BUCKET, device=dev)
+    dry_run_wave(nodes, bound, warm, [], static_masks=masks,
+                 min_q=pmod.WAVE_BUCKET, device=dev)
+    return time.perf_counter() - t0
+
+
+def connected_preemption_phase(n_nodes=PREEMPT_NODES, n_high=PREEMPT_PODS,
+                               device=None):
+    """ConnectedPreemption/128x5000 as ``benchmarks/connected.py``
+    run_connected_preemption runs it at bench.py's sizes, through the
+    port: the saturated cluster behind the port's APIServer in a spawned
+    process (5000 nodes, 10000 bound pods), ``SchedulerRunner(HTTPClient(
+    url, wire="json"))`` with ``batch_size=256, max_drain_batches=1`` and
+    the default feature gate (PreemptionSimulation on), the parity
+    sentinel on every wave (the reference's bench samples every 16th:
+    the cell has one wave, and it is judged); informers synced,
+    ``warm_preempt``; then 128 preemptors created at once, the loop
+    started, a watcher process counting their bindings. The window runs
+    from the create to the last bound event. Gates: 128 of 128 bound
+    within the timeout, 256 victims evicted, 0 loop errors (of them 0
+    ``device_preempt``), breaker "single", at least one wave sample and 0
+    divergences. The preemption spans (``preempt/*``) come from the
+    tracer."""
+    import multiprocessing as mp
+    from kubernetes_tpu_torch.client.clientset import HTTPClient
+    from kubernetes_tpu_torch.metrics.registry import LOOP_ERRORS
+    from kubernetes_tpu_torch.ops import kernels
+    from kubernetes_tpu_torch.sched.runner import SchedulerRunner
+    from kubernetes_tpu_torch.testing.workloads import build_saturated
+    from kubernetes_tpu_torch.utils.tracing import TRACER
+    ctx = mp.get_context("spawn")
+    server, server_pipe, url = start_apiserver(ctx)
+    watcher = runner = None
+    try:
+        seed_client = HTTPClient(url, timeout=120.0, wire="json")
+        node_objs, low_objs = build_saturated(n_nodes)
+        low = _wire(low_objs)
+        t0 = time.perf_counter()
+        seed_client.nodes().create_many(_wire(node_objs))
+        for i in range(0, len(low), CONNECTED_CHUNK):
+            seed_client.pods("default").create_many(
+                low[i:i + CONNECTED_CHUNK])
+        seed_s = time.perf_counter() - t0
+        runner = SchedulerRunner(
+            HTTPClient(url, wire="json"),
+            sched_config(batch_size=PREEMPT_BATCH, max_drain_batches=1,
+                         parity_sample_every=1),
+            feature_gate=preemption_gate(), device=device)
+        t0 = time.perf_counter()
+        runner.start(wait_sync=120.0, start_loop=False)
+        check(runner.has_synced(),
+              "connected preemption: the informers did not sync")
+        sync_s = time.perf_counter() - t0
+        warm_s = warm_preempt(runner, n_high)
+
+        high = _wire(preemptors(n_high, ns="preempt"))
+        _, rv0 = seed_client.pods("preempt").list_rv()
+        count = ctx.Value("i", 0)
+        all_bound, watch_dead, ready = ctx.Event(), ctx.Event(), ctx.Event()
+        watcher = ctx.Process(target=watch_bound,
+                              args=(url, "preempt", rv0, n_high, count,
+                                    all_bound, watch_dead, ready),
+                              daemon=True)
+        watcher.start()
+        check(ready.wait(120.0),
+              "connected preemption: the watcher did not start")
+        errors0 = dict(LOOP_ERRORS.items())
+        TRACER.reset()
+        kernels.reset_launches()
+        t_start, t_start_wall = time.perf_counter(), time.time()
+        seed_client.pods("preempt").create_many(high)
+        runner.start_loop()
+        deadline = t_start + PREEMPT_TIMEOUT_S
+        completed = False
+        while time.perf_counter() < deadline:
+            if all_bound.wait(timeout=0.02):
+                completed = True
+                break
+            check(runner.loop_error is None,
+                  f"connected preemption: the scheduling loop died: "
+                  f"{runner.loop_error!r}")
+            check(not watch_dead.is_set(),
+                  "connected preemption: the watcher died")
+        window_s = time.perf_counter() - t_start
+        check(completed, f"connected preemption: {count.value} of "
+                         f"{n_high} bound in {PREEMPT_TIMEOUT_S} s")
+        launches = dict(kernels.LAUNCHES)
+        spans = _span_totals(t_start_wall)
+        errors = {"/".join(v for _k, v in key): n - errors0.get(key, 0)
+                  for key, n in LOOP_ERRORS.items().items()
+                  if n != errors0.get(key, 0)}
+        sentinel = runner.scheduler.sentinel
+        sentinel.drain(120.0)
+        backlog = sentinel._q.unfinished_tasks
+        stats = sentinel.stats()
+        remaining = len(seed_client.pods("default").list())
+        bindings = {p["metadata"]["name"]: p["spec"].get("nodeName", "")
+                    for p in seed_client.pods("preempt").list()}
+        breaker = runner.scheduler.breaker.mode
+        nominated = len(runner.scheduler._nominated)
+    finally:
+        if runner is not None:
+            runner.stop()  # re-raises a fatal error that ended the loop
+        if watcher is not None:
+            stop_process(watcher)
+        stop_process(server, server_pipe)
+    bound = sum(1 for n in bindings.values() if n)
+    summary = {
+        "nodes": n_nodes, "bound_low": len(low), "preemptors": n_high,
+        "resolved": bound, "window_s": window_s,
+        "PreemptionThroughput": bound / window_s, "measure_s": window_s,
+        "victims_evicted": len(low) - remaining,
+        "seed_s": seed_s, "informer_sync_s": sync_s, "warm_s": warm_s,
+        "loop_errors": errors, "device_preempt_errors":
+            errors.get("device_preempt", 0),
+        "breaker": breaker, "nominated_left": nominated,
+        "sentinel": stats, "sentinel_backlog": backlog,
+        "spans": {k: v for k, v in spans.items()
+                  if k.startswith(("preempt/", "scheduler/", "sentinel/",
+                                   "runner/bind"))},
+        "launches": launches}
+    check(bound == n_high,
+          f"connected preemption: {bound} of {n_high} bound in the store")
+    check(summary["victims_evicted"] == 2 * n_high,
+          f"connected preemption: {summary['victims_evicted']} victims "
+          f"evicted, {2 * n_high} expected")
+    check(not errors, f"connected preemption: loop errors {errors}")
+    check(breaker == "single",
+          f"connected preemption: the breaker degraded to {breaker!r}")
+    check(stats["samples"]["wave"] >= 1,
+          "connected preemption: the sentinel took no wave sample")
+    check(stats["divergences"] == 0 and backlog == 0,
+          f"connected preemption: sentinel {stats}, backlog {backlog}")
+    return summary
+
+
+def preempt_sched_workload(n_nodes=12, n_hi=10, n_filler=6):
+    """A small saturated cluster for the parity legs: ``n_hi`` preemptors
+    interleaved with priority-0 pods that fit nowhere (they fail without
+    preempting), and 8 warm-up pods. -> (nodes, bound, pending, warm) as
+    wire dicts."""
+    from kubernetes_tpu_torch.testing.workloads import build_saturated
+    from kubernetes_tpu_torch.testing.wrappers import make_pod
+    nodes, bound = build_saturated(n_nodes)
+    hi = preemptors(n_hi, ns="preempt")
+    filler = [make_pod(f"fill-{k}", "preempt").req({"cpu": "2"}).obj()
+              for k in range(n_filler)]
+    pending = [p for pair in zip(hi, filler) for p in pair] + hi[n_filler:]
+    warm = preemptors(8, ns="warmup", prefix="warm")
+    return tuple(_wire(objs) for objs in (nodes, bound, pending, warm))
+
+
+def preemption_parity_phase(seed=SEED, devices=("cuda", "cpu"),
+                            depths=(1, 2)):
+    """The port's preemption on each device, three legs, every result
+    equal on every device:
+
+    - ``_wave_scan``'s four outputs bit-equal, all Qb steps and stopped
+      after the last preemptor, on a 64-node saturated cluster with a PDB
+      over a third of the bound pods and 40 preemptors of four priorities
+      (the wave padded to WAVE_BUCKET); and ``tensor_static_masks`` on a
+      32-node MixedHeterogeneous cluster;
+    - the Scheduler with PreemptionSimulation on over a 12-node saturated
+      cluster, 10 preemptors among 6 pods that fit nowhere, at each
+      pipeline depth: binder logs, evictions in order, nominations,
+      ctx_stats and the sentinel's wave samples (every wave sampled);
+    - the SchedulerRunner over a DirectClient, the sentinel on every
+      drain and wave, on a 16-node saturated cluster and 12 preemptors:
+      the store's bindings and the evicted pods."""
+    import numpy as np
+    from kubernetes_tpu_torch.api.types import Node, Pod
+    from kubernetes_tpu_torch.client.clientset import DirectClient
+    from kubernetes_tpu_torch.ops.preemption import _wave_scan, wave_inputs
+    from kubernetes_tpu_torch.sched import preemption as pmod
+    from kubernetes_tpu_torch.sched.runner import SchedulerRunner
+    from kubernetes_tpu_torch.store.store import ObjectStore
+    from kubernetes_tpu_torch.testing.workloads import (build_saturated,
+                                                        mixed_heterogeneous)
+    from kubernetes_tpu_torch.testing.wrappers import make_pod
+    out = {}
+
+    # leg 1: the raw scan and the static masks
+    nodes, bound = build_saturated(64)
+    for i, p in enumerate(bound):
+        if i % 3 == 0:
+            p.metadata.labels["app"] = "db"
+    pdbs = [{"metadata": {"name": "db", "namespace": "default"},
+             "spec": {"maxUnavailable": 4,
+                      "selector": {"matchLabels": {"app": "db"}}}}]
+    budgets = pmod._pdb_budgets(pdbs, bound)
+    pre = [make_pod(f"hi-{k}").req({"cpu": "6", "memory": "8Gi"})
+           .priority(3 + 30 * (k % 4)).obj() for k in range(40)]
+    m_nodes, m_pods = mixed_heterogeneous(pods=40, nodes=32, seed=seed)
+    runs = {}
+    for device in devices:
+        staged, _ = wave_inputs(nodes, bound, pre, budgets,
+                                min_q=pmod.WAVE_BUCKET, device=device)
+        full = [t.cpu().numpy() for t in _wave_scan(*staged)]
+        cut = [t.cpu().numpy() for t in _wave_scan(*staged, steps=len(pre))]
+        for a, b in zip(full, cut):
+            check(np.array_equal(a, b), f"preemption parity: the scan "
+                                        f"stopped after Q differs on {device}")
+        masks = pmod.tensor_static_masks(m_nodes, m_pods, bound_pods=[],
+                                         min_p=pmod.WAVE_BUCKET,
+                                         device=device)
+        runs[device] = (full, masks)
+    first = runs[devices[0]]
+    for device in devices[1:]:
+        for name, a, b in zip(("found", "zero_evict", "cand_nodes",
+                               "evict_sel"), first[0], runs[device][0]):
+            check(a.dtype == b.dtype and np.array_equal(a, b),
+                  f"preemption parity: _wave_scan {name} on {devices[0]} "
+                  f"differs from {device}")
+        check(np.array_equal(first[1], runs[device][1]),
+              f"preemption parity: static masks on {devices[0]} differ "
+              f"from {device}")
+    found = first[0][0]
+    check(found.any() and not found.all(),
+          "preemption parity: the scan found every or no preemptor")
+    out["scan"] = {"qb": int(found.shape[0]), "found": int(found.sum()),
+                   "victims": int(first[0][3].sum()),
+                   "masks_true": int(first[1].sum())}
+
+    # leg 2: the Scheduler
+    s_nodes, s_bound, pending, warm = preempt_sched_workload()
+    for depth in depths:
+        runs = {}
+        for device in devices:
+            sched, log = make_scheduler(
+                sched_config(batch_size=8, max_drain_batches=2,
+                             pipeline_depth=depth, parity_sample_every=1),
+                [Node.from_dict(d) for d in s_nodes],
+                [Pod.from_dict(d) for d in s_bound], device=device,
+                confirm=False, gate=preemption_gate())
+            sched._drain_ready = lambda pend: False
+            evicted = []
+            evict = sched._evict
+            sched._evict = lambda v: evicted.append(v.key) or evict(v)
+            try:
+                check(sched.warm_drain([Pod.from_dict(d) for d in warm],
+                                       slot_headroom=256),
+                      "preemption parity: the context did not arm")
+                for d in pending:
+                    sched.queue.add(Pod.from_dict(d))
+                for _ in range(12):
+                    sched.run_once(wait=0.01)
+                    sched.sentinel.drain(60.0)
+                sched._resolve_pending()
+                sched.wait_for_bindings()
+                runs[device] = {
+                    "log": {k: n for k, n, _t in log}, "evicted": evicted,
+                    "nominated": {k: e[0] for k, e in
+                                  sched._nominated.items()},
+                    "ctx_stats": json.loads(json.dumps(sched.ctx_stats)),
+                    "samples": dict(sched.sentinel.samples),
+                    "divergences": sched.sentinel.divergences}
+            finally:
+                sched.close()
+        first = runs[devices[0]]
+        where = f"preemption parity (scheduler, depth {depth})"
+        for device in devices[1:]:
+            for key, value in first.items():
+                check(runs[device][key] == value,
+                      f"{where}: {key} on {devices[0]} differs from {device}")
+        check(len(first["evicted"]) == 20 and first["samples"]["wave"] >= 1
+              and first["divergences"] == 0,
+              f"{where}: {len(first['evicted'])} evicted, sentinel "
+              f"{first['samples']}, {first['divergences']} divergences")
+        out[f"scheduler_depth_{depth}"] = {
+            "bound": len(first["log"]), "evicted": len(first["evicted"]),
+            "samples": first["samples"], "ctx_stats": first["ctx_stats"]}
+
+    # leg 3: the runner over a DirectClient
+    r_nodes, r_bound = build_saturated(16)
+    r_pending = preemptors(12, ns="preempt")
+    runs = {}
+    for device in devices:
+        client = DirectClient(ObjectStore())
+        client.nodes().create_many(_wire(r_nodes))
+        client.pods("default").create_many(_wire(r_bound))
+        client.pods("preempt").create_many(_wire(r_pending))
+        runner = SchedulerRunner(
+            client, sched_config(batch_size=16, max_drain_batches=1,
+                                 parity_sample_every=1,
+                                 backoff_initial_s=3600.0,
+                                 backoff_max_s=3600.0, assume_ttl_s=3600.0,
+                                 audit_interval_s=3600.0),
+            feature_gate=preemption_gate(), device=device)
+        try:
+            runner.start(start_loop=False)
+            check(runner.has_synced(),
+                  "preemption parity: the informers did not sync")
+            sched = runner.scheduler
+            sched._drain_ready = lambda pend: False
+            for _ in range(8):
+                sched.run_once(wait=0.01)
+                sched.sentinel.drain(60.0)
+            sched._resolve_pending()
+            sched.wait_for_bindings()
+            runs[device] = {
+                "bindings": {
+                    p["metadata"]["namespace"] + "/" + p["metadata"]["name"]:
+                        p["spec"].get("nodeName", "")
+                    for p in client.pods(None).list()},
+                "samples": dict(sched.sentinel.samples),
+                "divergences": sched.sentinel.divergences,
+                "breaker": sched.breaker.mode}
+        finally:
+            runner.stop()
+    first = runs[devices[0]]
+    for device in devices[1:]:
+        for key, value in first.items():
+            check(runs[device][key] == value,
+                  f"preemption parity (runner): {key} on {devices[0]} "
+                  f"differs from {device}")
+    placed = sum(1 for k, n in first["bindings"].items()
+                 if k.startswith("preempt/") and n)
+    check(placed == 12 and len(first["bindings"]) == 32 - 24 + 12,
+          f"preemption parity (runner): {placed} of 12 bound, "
+          f"{len(first['bindings'])} pods left")
+    check(first["samples"]["wave"] >= 1 and first["divergences"] == 0
+          and first["breaker"] == "single",
+          f"preemption parity (runner): {first}")
+    out["runner"] = {"bound": placed, "samples": first["samples"]}
+    return out
+
+
 # ------------------------------------------------------------------ main
 
 def main() -> int:
@@ -1653,6 +2214,7 @@ def main() -> int:
     emit({"phase": "parity", **parity_phase(),
           "drain": drain_parity_phase(), "scheduler": sched_parity_phase(),
           "connected": connected_parity_phase()})
+    emit({"phase": "parity.preemption", **preemption_parity_phase()})
 
     launches = {}   # kernel -> {path: launches}
 
@@ -1715,6 +2277,18 @@ def main() -> int:
                                                     prefix="connected"))
     emit({"phase": "kernels.connected", "rows": conn_rows})
     del runner
+
+    # default preemption: no hand kernel on its path (its device work is
+    # torch ops, ROADMAP B7); count_pn's launches there are recorded
+    pre_sum = preemption_phase()
+    emit({"phase": "preemption", **pre_sum})
+    cpre_sum = connected_preemption_phase()
+    emit({"phase": "connected_preemption", **cpre_sum})
+    for path, summary in (("preemption", pre_sum),
+                          ("connected_preemption", cpre_sum)):
+        for name, n in summary["launches"].items():
+            if n:
+                launches.setdefault(name, {})[path] = n
 
     # one entry per kernel, at the shape of the path with its most launches
     # among those whose rows are taken from the path's own context

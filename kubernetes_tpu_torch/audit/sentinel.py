@@ -6,7 +6,8 @@ breaker (built on exceptions). This sentinel checks for it at runtime:
 
 - the scheduler samples every Kth ``drain_step`` dispatch, capturing the
   typed nodes / bound-pod / namespace-label views the device program's
-  resident encoding was built from;
+  resident encoding was built from, and every Kth preemption wave, with
+  the host objects its masks were built from;
 - a dedicated checker thread — never the scheduling loop — re-judges the
   device's answer with the pure-numpy :class:`OracleScheduler`;
 - a REFUTED answer (overcommitted node, infeasible placement) writes a
@@ -17,11 +18,13 @@ breaker (built on exceptions). This sentinel checks for it at runtime:
 Where the port differs from the reference: the reference trips the
 circuit breaker to the numpy oracle on a refutation, so a kernel that
 counts wrong would quietly move the scheduling to the CPU. Here it ends
-the loop. And a winner with a ``DoNotSchedule`` topology spread
+the loop. And a drain winner with a ``DoNotSchedule`` topology spread
 constraint is skipped per pod: the full-set-minus-self check counts a
 LATER winner of the same drain that joined its domain without a
 constraint of its own (which the device rightly allowed), so it refutes
-correct placements (ROADMAP Queue C); the reference judges them.
+correct placements (ROADMAP Queue C); the reference judges them. A wave
+is judged in its own sequential-commit order, so a preemptor with such a
+constraint is judged there, as in the reference.
 
 The verification is one-sided by construction: the device program's
 constraints are a superset of the oracle checks applied here (profiles
@@ -33,9 +36,8 @@ catalogs (volumes, DRA claims, host ports) or on the order of the
 drain's placements (hard spread) are skipped per pod rather than judged
 wrongly.
 
-The reference also samples preemption waves and slice carves; those
-submits raise until preemption (ROADMAP Queue A item 4) and slice carving
-(item 6) are ported.
+The reference also samples slice carves; that submit raises until slice
+carving (ROADMAP Queue A item 6) is ported.
 """
 
 from __future__ import annotations
@@ -73,16 +75,21 @@ class ParityError(RuntimeError):
     without raising. A retry or the oracle cannot cure that."""
 
 
-def _simple(pod) -> bool:
+def _snapshot_judgeable(pod) -> bool:
     """Pods the oracle can judge from the captured snapshot alone: no
     volume topology, no DRA claims, no host ports (those read shared
-    catalogs the scheduling thread keeps mutating), and no DoNotSchedule
-    spread (the full set counts later winners the device rightly placed
-    after this one)."""
+    catalogs the scheduling thread keeps mutating)."""
     return not (pod.spec.volumes or pod.pvc_names()
-                or pod.spec.resource_claims or pod.host_ports()
-                or any(c.when_unsatisfiable == UNSATISFIABLE_DO_NOT_SCHEDULE
-                       for c in pod.spec.topology_spread_constraints))
+                or pod.spec.resource_claims or pod.host_ports())
+
+
+def _simple(pod) -> bool:
+    """Drain winners the full-set-minus-self check can judge: snapshot
+    judgeable, and no DoNotSchedule spread (the full set counts later
+    winners the device rightly placed after this one)."""
+    return _snapshot_judgeable(pod) and not any(
+        c.when_unsatisfiable == UNSATISFIABLE_DO_NOT_SCHEDULE
+        for c in pod.spec.topology_spread_constraints)
 
 
 def verify_drain_winners(nodes, bound, winners, prior_winners,
@@ -164,6 +171,68 @@ def verify_drain_winners(nodes, bound, winners, prior_winners,
     return problems
 
 
+def verify_wave_results(nodes, bound, views, results,
+                        namespace_labels=None) -> list[str]:
+    """Judge one preemption wave's results with the oracle, in the wave's
+    sequential-commit order: every named victim must actually be a bound
+    pod on that node with priority strictly below the preemptor's, and
+    after the evictions the preemptor must be oracle-feasible there."""
+    from kubernetes_tpu_torch.sched.oracle import OracleScheduler
+    problems: list[str] = []
+    idx = {n.metadata.name: i for i, n in enumerate(nodes)}
+    orc = OracleScheduler(nodes, [p for p in bound
+                                  if p.spec.node_name in idx],
+                          namespace_labels=namespace_labels)
+    by_key = {p.key: p for p in bound}
+    evicted: set = set()
+    for view, res in zip(views, results):
+        if res is None:
+            continue
+        ni = idx.get(res.node_name)
+        if ni is None:
+            problems.append(f"preemptor {view.key}: unknown node "
+                            f"{res.node_name!r}")
+            continue
+        ok = True
+        for v in res.victims:
+            real = by_key.get(v.key)
+            if real is None or real.spec.node_name != res.node_name:
+                problems.append(
+                    f"preemptor {view.key}: victim {v.key} is not a bound "
+                    f"pod on {res.node_name}")
+                ok = False
+                continue
+            if v.key in evicted:
+                # victims must be deduped across picks — a double eviction
+                # double-frees capacity for every later pick in the wave
+                problems.append(
+                    f"preemptor {view.key}: victim {v.key} already "
+                    "evicted by an earlier pick this wave")
+                ok = False
+                continue
+            if v.spec.priority >= view.spec.priority:
+                problems.append(
+                    f"preemptor {view.key} (prio {view.spec.priority}) "
+                    f"named equal/higher-priority victim {v.key} "
+                    f"(prio {v.spec.priority})")
+                ok = False
+        if not ok:
+            continue
+        for v in res.victims:
+            evicted.add(v.key)
+            orc.remove_bound(by_key[v.key])
+        if (_snapshot_judgeable(view)
+                and not orc.feasible_one(_unbound_view(view), ni)):
+            problems.append(
+                f"preemptor {view.key} still infeasible on "
+                f"{res.node_name} after evicting "
+                f"{[v.key for v in res.victims]}")
+        # sequential commit: the preemptor occupies the node for the rest
+        # of the wave (victims stay evicted)
+        orc.assume(_unbound_view(view), ni)
+    return problems
+
+
 class ParitySentinel:
     """Samples device dispatches and re-judges them off the hot path.
 
@@ -181,6 +250,7 @@ class ParitySentinel:
         self._thread: Optional[threading.Thread] = None
         self._spawn_lock = threading.Lock()
         self._n_drain = 0
+        self._n_wave = 0
         self._force_drain = False
         self.samples: dict[str, int] = {"drain": 0, "wave": 0, "carve": 0}
         self.divergences = 0
@@ -254,10 +324,31 @@ class ParitySentinel:
         self._ensure_thread()
         self._q.put(capture)
 
-    def maybe_submit_wave(self, *args, **kwargs) -> None:
-        """The reference samples every Kth tensor preemption wave here."""
-        raise not_ported("the parity sentinel's preemption-wave sample",
-                         "4")
+    def maybe_submit_wave(self, nodes, bound, views, results, level: str,
+                          namespace_labels=None) -> None:
+        """Every Kth device preemption wave: the inputs are already typed
+        host objects in the caller's hands — capture by reference (the
+        product treats pod subtrees as immutable), so no race with the
+        cache exists: the device masks came from the same snapshot.
+        ``namespace_labels`` may be a callable — it is only invoked on
+        SAMPLED waves."""
+        if self.every <= 0:
+            return
+        self._n_wave += 1
+        if self._n_wave % self.every:
+            return
+        if self._q.qsize() >= self._max_backlog:
+            self.skipped += 1
+            return
+        self.samples["wave"] += 1
+        PARITY_SAMPLES.inc({"site": "wave"})
+        if callable(namespace_labels):
+            namespace_labels = namespace_labels()
+        self._ensure_thread()
+        self._q.put({"site": "wave", "level": level, "ts": time.time(),
+                     "nodes": list(nodes), "bound": list(bound),
+                     "views": list(views), "results": list(results),
+                     "ns_labels": namespace_labels})
 
     def maybe_submit_carve(self, *args, **kwargs) -> None:
         """The reference samples every Kth carved slice batch here."""
@@ -279,8 +370,9 @@ class ParitySentinel:
                 self._q.task_done()
                 return
             try:
-                with TRACER.span("sentinel/check",
-                                 winners=len(item["winners"])):
+                with TRACER.span("sentinel/check", site=item["site"],
+                                 winners=len(item.get("winners")
+                                             or item.get("results") or ())):
                     self._check(item)
             except Exception:
                 # the checker must never raise its way into silence: a
@@ -292,11 +384,16 @@ class ParitySentinel:
                 self._q.task_done()
 
     def _check(self, item: dict) -> None:
-        problems = verify_drain_winners(
-            item["nodes"], item["bound"], item["winners"],
-            item["prior_winners"],
-            exempt=item.get("exempt", frozenset()),
-            namespace_labels=item.get("ns_labels"))
+        if item["site"] == "drain":
+            problems = verify_drain_winners(
+                item["nodes"], item["bound"], item["winners"],
+                item["prior_winners"],
+                exempt=item.get("exempt", frozenset()),
+                namespace_labels=item.get("ns_labels"))
+        else:
+            problems = verify_wave_results(
+                item["nodes"], item["bound"], item["views"],
+                item["results"], namespace_labels=item.get("ns_labels"))
         if problems:
             self._diverged(item, problems)
 
@@ -315,6 +412,10 @@ class ParitySentinel:
              "winners": [(p.key, n) for p, n in item.get("winners", [])],
              "priorWinners": [(p.key, n)
                               for p, n in item.get("prior_winners", [])],
+             "results": [(v.key, r.node_name, [x.key for x in r.victims])
+                         for v, r in zip(item.get("views", []),
+                                         item.get("results", []))
+                         if r is not None],
              "nodes": [n.metadata.name for n in item["nodes"]][:200]})
         self.last_divergence = {
             "site": site, "level": level, "ts": item["ts"],

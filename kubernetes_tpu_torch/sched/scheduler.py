@@ -29,13 +29,21 @@ Where the port differs from the reference:
   left out; the config fields behind them stay. ``cycle_log`` is None
   unless the caller sets it to a list.
 
+- Default preemption (the PostFilter path, ``sched/preemption.py``)
+  catches a failure of its device programs only here, in
+  ``_default_preempt`` and ``_default_preempt_wave``: a ``KernelError``,
+  ``ParityError`` or ``NotImplementedError`` propagates, anything else is
+  counted (``LOOP_ERRORS{site=device_preempt}``), feeds the breaker and
+  takes the exact host scan. The reference swallows such failures inside
+  ``sched/preemption.py`` as well, uncounted.
+
 Features that wait for later slices raise ``NotImplementedError`` naming
-their ROADMAP Queue A item: extenders (3c), default preemption (4), the
-explainer (5), slice carving (6), fleet mode (7), a device mesh (8), DRA
-(11) and out-of-tree tensor plugins (12). The parity sentinel
-(``audit/sentinel.py``) samples drains as in the reference, but a drain it
-refutes stops the loop with a ``ParityError`` where the reference trips
-the breaker to the oracle.
+their ROADMAP Queue A item: extenders (3c), the explainer (5), slice
+carving (6), fleet mode (7), a device mesh (8), DRA (11) and out-of-tree
+tensor plugins (12). The parity sentinel (``audit/sentinel.py``) samples
+drains and preemption waves as in the reference, but an answer it refutes
+stops the loop with a ``ParityError`` where the reference trips the
+breaker to the oracle.
 """
 
 from __future__ import annotations
@@ -72,6 +80,7 @@ from kubernetes_tpu_torch.metrics.registry import (
 from kubernetes_tpu_torch.models.gang import gang_schedule
 from kubernetes_tpu_torch.audit.sentinel import ParityError, ParitySentinel
 from kubernetes_tpu_torch.ops.kernels import KernelError
+from kubernetes_tpu_torch.sched import preemption as preemption_mod
 from kubernetes_tpu_torch.sched.cache import SchedulerCache
 from kubernetes_tpu_torch.sched.queue import SchedulingQueue
 from kubernetes_tpu_torch.sched.resilience import DeviceCircuitBreaker
@@ -117,6 +126,9 @@ class Scheduler:
         self._bulk_binder = bulk_binder
         self.features = feature_gate
         self._custom_preemptor = preemptor is not None
+        # PDBs for preemption's victim selection; the runner wires its
+        # informer's store here
+        self.pdb_lister: Callable[[], list] = lambda: []
         self.preemptor = preemptor if preemptor is not None else self._default_preempt
         # Binding pool: a fixed set of long-lived workers (the reference
         # spawns a goroutine per bindingCycle behind client-go's shared
@@ -323,15 +335,18 @@ class Scheduler:
     def _spawn_resolver_locked(self) -> None:
         """Install a fresh (queue, thread) pair and MIGRATE the old queue's
         drains — a dead thread's queued pends would otherwise never get
-        their done Event set."""
+        their done Event set. The thread is published only once started:
+        the watchdog reads ``_resolver_thread.is_alive()`` without the
+        swap lock, and a thread published before ``start()`` returns reads
+        as dead, so a sweep in that window restarted a healthy resolver."""
         old_q = self._resolver_q
         new_q = queue_mod.Queue()
         t = threading.Thread(
             target=self._resolver_loop, args=(new_q,),
             daemon=True, name="drain-resolver")
+        t.start()
         self._resolver_q = new_q
         self._resolver_thread = t
-        t.start()
         if old_q is not None:
             try:
                 while True:
@@ -1277,8 +1292,8 @@ class Scheduler:
 
     def _handle_failures(self, failures: list[tuple[Pod, int]]):
         """Failure path for a whole batch: preemption-eligible pods go to
-        the preemptor (an injected one, one pod at a time; the default
-        preemption wave is ROADMAP item 4), the rest requeue with backoff.
+        the preemptor (an injected one, or a lone pod, one at a time; else
+        one default preemption wave), the rest requeue with backoff.
         (Metrics for the unschedulable result are batched by the caller.)"""
         preemptable: list[tuple[Pod, int]] = []
         preempt_on = self.features.enabled("PreemptionSimulation")
@@ -1332,11 +1347,287 @@ class Scheduler:
             if self.cache.is_bound(pod.key):  # bound event raced the requeue
                 self.queue.delete(pod)
 
+    def _preempt_view(self, pod: Pod) -> Pod:
+        """Feasibility view of the pod for preemption: the profile's
+        addedAffinity applies there too (upstream preemption re-runs the
+        NodeAffinity plugin, which carries the args)."""
+        profile = self.cfg.profile_for(pod.spec.scheduler_name)
+        if profile is None or not profile.added_affinity:
+            return pod
+        return profile.apply_added_affinity([pod])[0]
+
+    def _device_preempt_failed(self, what: str) -> None:
+        """A device preemption program failed with an error a retry may
+        cure: count it, feed the breaker; the caller takes the exact host
+        scan. (``KernelError``, ``ParityError`` and ``NotImplementedError``
+        never reach here: they propagate.)"""
+        LOOP_ERRORS.inc({"site": "device_preempt"})
+        _LOG.warning("%s failed at level %r; degrading to the exact host "
+                     "scan", what, self._attempt_level, exc_info=True)
+        self.breaker.fail(self._attempt_level)
+
     def _default_preempt(self, pod: Pod) -> Optional[str]:
-        raise _not_ported("default preemption", "4")
+        nodes, _, _ = self.cache.snapshot()
+        bound = self.cache.bound_pods(include_assumed=True)
+        view = self._preempt_view(pod)
+        device_ok = self._attempt_level != "oracle"
+        if device_ok:
+            try:
+                res = preemption_mod.find_candidate_tensor(
+                    nodes, bound, view, pdbs=self.pdb_lister(),
+                    device=self.device)
+            except (KernelError, ParityError, NotImplementedError):
+                raise
+            except Exception:
+                self._device_preempt_failed("the preemption dry-run")
+                device_ok = False
+        if not device_ok:
+            # device known-broken (or broke just now): the exact host scan
+            res = preemption_mod.find_candidate(
+                nodes, bound, view, pdbs=self.pdb_lister())
+        if res is None:
+            return None
+        if not self._evict_victims(pod, res.victims):
+            return None
+        return res.node_name
+
+    @staticmethod
+    def _pod_tenant(pod: Pod):
+        from kubernetes_tpu_torch.encode.snapshot import tenant_label_of
+        return tenant_label_of(pod.metadata.labels)
+
+    def _evict_victims(self, preemptor: Pod, victims: list) -> bool:
+        """Evict a preemption result's victims — REFUSING the whole result
+        if any victim belongs to a foreign tenant. The tenant gate makes a
+        cross-tenant candidate node unreachable, so this can only fire on
+        scheduler-side corruption; when it does, evicting a sibling
+        tenant's workload is strictly worse than failing this preemptor."""
+        pt = self._pod_tenant(preemptor)
+        foreign = [v for v in victims if self._pod_tenant(v) != pt]
+        if foreign:
+            LOOP_ERRORS.inc({"site": "cross_tenant_preempt"})
+            _LOG.error(
+                "REFUSING preemption for %s: victim(s) %s belong to a "
+                "foreign tenant", preemptor.key,
+                ", ".join(v.key for v in foreign))
+            return False
+        for v in victims:
+            self._evict(v)
+        return True
+
+    def _preempt_serial(self, nodes, bound, views) -> list:
+        """Serial host-scan preemption for a wave: each winner's victims
+        leave the shared bound view before the next pick, mirroring the
+        wave's sequential-commit semantics without the device."""
+        results = []
+        bound_left = list(bound)
+        for v in views:
+            res = preemption_mod.find_candidate(
+                nodes, bound_left, v, pdbs=self.pdb_lister())
+            results.append(res)
+            if res is not None:
+                gone = {x.key for x in res.victims}
+                bound_left = [p for p in bound_left if p.key not in gone]
+        return results
+
+    def resident_plan_view(self) -> tuple[Optional[dict], str]:
+        """(view, reason) for consumers of the DEVICE-RESIDENT drain
+        context — the preemption wave (the reference's background planners
+        are ROADMAP item 7). ``view`` is None when the resident encoding
+        cannot stand in for a fresh snapshot, with ``reason`` naming why.
+        Valid only when the context is accountable (untainted) and current
+        with the cache — every unconsumed delta-log entry is an assume the
+        context already folded. That is exactly the state at a drain
+        resolve: the wave then shares the resident cluster image (masks
+        run on it in place, per-node totals read from its host shadow or
+        the card, victim request vectors served from its fold ledger)
+        instead of re-staging tensors the card already holds. (The
+        reference also declines a context staged under an older mesh; the
+        port has no mesh.)"""
+        from kubernetes_tpu_torch.encode.patch import entries_all_folded
+        ctx = self._drain_ctx
+        if ctx is None:
+            return None, "no_ctx"
+        if self._pending:
+            # in-flight drains' winners are folded into the resident
+            # requested[N,R] but not yet in the cache's bound view — the
+            # consumers' semantics (judge against bound+assumed, like the
+            # snapshot path) require the two to agree
+            return None, "in_flight"
+        cs = ctx["cs"]
+        if cs.tainted:
+            return None, "tainted"
+        entries = self.cache.deltas_since(ctx["seq"])
+        if entries is None or not entries_all_folded(cs, entries):
+            return None, "stale_log"
+        nodes = self.cache.list_nodes()
+        meta = ctx["meta"]
+        rows = []
+        for n in nodes:
+            ni = meta.node_index.get(n.metadata.name, -1)
+            if ni < 0:
+                return None, "missing_node"  # node the context has not absorbed
+            rows.append(ni)
+        return {"ct": ctx["ct"], "meta": meta, "cs": cs,
+                "nodes": nodes, "rows": np.asarray(rows, np.int32),
+                "shadow": ctx.get("shadow")}, "ok"
+
+    def _resident_wave_view(self) -> Optional[dict]:
+        """The preemption wave's view of the resident drain context (see
+        resident_plan_view) — the wave has no decline accounting."""
+        view, _reason = self.resident_plan_view()
+        return view
+
+    def _resident_cluster_arrays(self, view: dict):
+        """``fn(resources) -> (allocatable, requested)`` for dry_run_wave:
+        the resident [N,R] totals, rows gathered into the live node-list
+        order and columns remapped onto the wave's resource axis. Steady
+        state serves them from the HOST SHADOW (sched/staging.py
+        ResidentShadow — winner folds mirrored at resolve, churn patches
+        applied from their host arrays), so the wave reads nothing back
+        from the card for cluster totals; a poisoned or absent shadow
+        falls back to one readback of the resident arrays. Resources the
+        resident encoding doesn't know stay 0 on both arrays — identical
+        to the host encode, which scales ``alloc.get(r, 0)`` and can have
+        no bound requests for a resource no bound pod carries (patches
+        refuse unknown resource kinds)."""
+
+        def arrays(resources):
+            cs = view["cs"]
+            got = None
+            shadow = view.get("shadow")
+            if shadow is not None:
+                shadow.catch_up(
+                    lambda p: self.cache.request_vector(p, cs.resources))
+                got = shadow.arrays()
+            if got is None:
+                got = (view["ct"].allocatable.cpu().numpy(),
+                       view["ct"].requested.cpu().numpy())
+            alloc_res, req_res = got
+            rows = view["rows"]
+            res_index = cs.res_index
+            N, R = len(view["nodes"]), len(resources)
+            allocatable = np.zeros((N, R), np.int64)
+            requested = np.zeros((N, R), np.int64)
+            for j, r in enumerate(resources):
+                ri = res_index.get(r)
+                if ri is not None:
+                    allocatable[:, j] = alloc_res[rows, ri]
+                    requested[:, j] = req_res[rows, ri]
+            return allocatable, requested
+
+        return arrays
+
+    def _resident_req_lookup(self, view: dict):
+        """``fn(pod, resources) -> [R] | None`` serving victim request
+        vectors from the fold ledger's cached per-pod vectors (compiled at
+        encode/patch time on the RESIDENT resource axis), remapped onto
+        the wave's axis. Pods the ledger holds as raw Pod objects (device
+        folds defer the vector) fall back to the wave's own computation."""
+        slot_req = view["cs"].slot_req
+        res_index = view["cs"].res_index
+
+        def lookup(pod, resources):
+            v = slot_req.get(pod.key)
+            if not isinstance(v, np.ndarray):
+                return None
+            out = np.zeros(len(resources), np.int64)
+            for j, r in enumerate(resources):
+                ri = res_index.get(r)
+                if ri is not None:
+                    out[j] = int(v[ri])
+            return out
+
+        return lookup
+
+    def _evict_results(self, pods: list[Pod], results: list) -> list:
+        out: list[Optional[str]] = []
+        with TRACER.span("preempt/evict"):
+            for p, res in zip(pods, results):
+                if res is None or not self._evict_victims(p, res.victims):
+                    out.append(None)
+                    continue
+                out.append(res.node_name)
+        return out
 
     def _default_preempt_wave(self, pods: list[Pod]) -> list[Optional[str]]:
-        raise _not_ported("the default preemption wave", "4")
+        """One sequential-commit wave for a batch of preemptors
+        (preempt_wave); victims are evicted per winner in wave order,
+        mirroring Q serial _default_preempt calls. Whenever the drain
+        context is current (_resident_wave_view) the wave rides it: static
+        masks run on the resident encoding in place, per-node totals come
+        from its host shadow, and victim vectors from its fold ledger — no
+        snapshot, no re-encode. Otherwise the wave takes one cache
+        snapshot (which itself reuses the cached encoding).
+
+        A failure of the device wave other than ``KernelError``,
+        ``ParityError`` or ``NotImplementedError`` is counted
+        (``LOOP_ERRORS{site=device_preempt}``), feeds the breaker, and the
+        wave runs as the serial host scan; those three propagate."""
+        resident = None
+        if self._attempt_level != "oracle":
+            # bound is captured BEFORE the staleness check: a foreign bind
+            # racing this wave from the informer thread is then either in
+            # BOTH the victim list and the delta log (the view declines) or
+            # in NEITHER the list nor the resident totals — the two views
+            # dry_run_wave reconciles can never disagree
+            bound = self.cache.bound_pods(include_assumed=True)
+            resident = self._resident_wave_view()
+        if resident is not None:
+            with TRACER.span("preempt/resident", pods=len(pods)):
+                nodes = resident["nodes"]
+                ct, meta = resident["ct"], resident["meta"]
+        else:
+            with TRACER.span("preempt/snapshot"):
+                nodes, ct, meta = self.cache.snapshot()
+                bound = self.cache.bound_pods(include_assumed=True)
+        views = [self._preempt_view(p) for p in pods]
+        if self._attempt_level == "oracle":
+            # device known-broken this cycle: go straight to the host scan
+            with TRACER.span("preempt/serial", pods=len(pods)):
+                results = self._preempt_serial(nodes, bound, views)
+            return self._evict_results(pods, results)
+        try:
+            with TRACER.span("preempt/masks", pods=len(pods)):
+                masks = preemption_mod.tensor_static_masks(
+                    nodes, views, ct=ct, meta=meta,
+                    encode_pods=self.cache.encode_pods,
+                    min_p=preemption_mod.WAVE_BUCKET,
+                    pre_staged=resident is not None,
+                    node_rows=(resident["rows"] if resident is not None
+                               else None),
+                    device=self.device)
+            with TRACER.span("preempt/wave", pods=len(pods),
+                             nodes=len(nodes)):
+                results = preemption_mod.preempt_wave(
+                    nodes, bound, views, pdbs=self.pdb_lister(),
+                    static_masks=masks, min_q=preemption_mod.WAVE_BUCKET,
+                    resident_arrays=(
+                        self._resident_cluster_arrays(resident)
+                        if resident is not None else None),
+                    req_lookup=(self._resident_req_lookup(resident)
+                                if resident is not None else None),
+                    device=self.device)
+        except (KernelError, ParityError, NotImplementedError):
+            raise
+        except Exception:
+            self._device_preempt_failed("the preemption wave")
+            with TRACER.span("preempt/serial", pods=len(pods)):
+                results = self._preempt_serial(nodes, bound, views)
+            return self._evict_results(pods, results)
+        if self.sentinel is not None:
+            # parity sample for the DEVICE wave only — the serial fallback
+            # IS the oracle. Inputs are the exact host objects the wave's
+            # masks were built from; judging runs off this thread.
+            self.sentinel.maybe_submit_wave(
+                nodes, bound, views, results, self._attempt_level,
+                namespace_labels=self.cache.namespace_labels)
+        return self._evict_results(pods, results)
+
+    def _evict(self, victim: Pod):
+        """Delete the victim via the binder-side client (the runner
+        overrides this); cache removal happens via the watch event."""
+        self.cache.remove_pod(victim.key)
 
     # ---- binding cycle (async, overlaps next batch) ----------------------
 

@@ -1,7 +1,9 @@
 """Workload generators for the port: MixedHeterogeneous, copied from
 ``benchmarks/workloads.py`` so the port builds it without the JAX package,
-``relational_mix``, the parity tests' small cluster, and
-``required_terms_mix``, its cluster under wide required pod (anti-)affinity.
+``relational_mix``, the parity tests' small cluster,
+``required_terms_mix``, its cluster under wide required pod (anti-)affinity,
+and ``build_saturated``, the preemption cluster, copied from
+``benchmarks/preemption_bench.py``.
 
 Deterministic via seed: all randomness comes from its own
 ``random.Random(seed)``, so the same (params, seed) yields the same objects
@@ -205,3 +207,20 @@ def required_terms_mix(pods: int = 256, nodes: int = 5000, bound: int = 2000,
                              ns_selector={"team": "core"}))
         out_pending.append(w.obj())
     return out_nodes, out_bound, out_pending, ns_labels
+
+
+def build_saturated(n_nodes: int, pods_per_node: int = 2):
+    """The preemption cluster: ``n_nodes`` nodes of 8 CPU / 32Gi / 32 pods,
+    each full with ``pods_per_node`` bound pods of 4 CPU / 4Gi at priority
+    ``1 + (i + j) % 5``. -> (nodes, bound)."""
+    nodes = [make_node(f"n{i}").capacity(
+        {"cpu": "8", "memory": "32Gi", "pods": "32"}).obj()
+        for i in range(n_nodes)]
+    bound = []
+    for i in range(n_nodes):
+        for j in range(pods_per_node):
+            bound.append(
+                make_pod(f"low-{i}-{j}")
+                .req({"cpu": "4", "memory": "4Gi"})
+                .priority(1 + (i + j) % 5).node(f"n{i}").obj())
+    return nodes, bound

@@ -70,7 +70,9 @@ _SCHED_MODULES = (
     "utils.atomicio", "utils.retry", "utils.configmap", "api.scheme",
     "api.policy", "store.store", "store.apiserver", "client.clientset",
     "client.informer", "client.leaderelection", "audit.invariants",
-    "audit.auditor", "audit.sentinel", "sched.runner")
+    "audit.auditor", "audit.sentinel", "sched.runner",
+    # default preemption
+    "ops.preemption", "sched.preemption")
 
 _NO_YAML = r"""
 import importlib, sys

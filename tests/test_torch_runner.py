@@ -8,9 +8,11 @@ so every pod reaches the queue — and the encode cache, at informer time —
 before the first pop; the test then calls ``run_once`` until the queue and
 the pipeline are empty. Whether a finished drain resolves at the next pop's
 start depends on the resolver thread's timing, so both sides hold it until
-the depth bound (as ``tests/test_torch_sched.py`` does). The explainer and
-``PreemptionSimulation`` are off on both sides (later slices), the port's
-parity sentinel samples every drain, and the auditor sweeps at the end.
+the depth bound (as ``tests/test_torch_sched.py`` does). The explainer (a
+later slice) and ``PreemptionSimulation`` are off on both sides (default
+preemption through the runner is held against the reference in
+``tests/test_torch_preemption.py``), the port's parity sentinel samples
+every drain, and the auditor sweeps at the end.
 
 Two differences from the reference's sentinel, pinned here: it skips
 winners with a ``DoNotSchedule`` spread constraint (the reference's
@@ -397,8 +399,6 @@ def test_runner_over_http_matches_direct(wire):
 def test_sentinel_refuses_unported_samples():
     from kubernetes_tpu_torch.audit.sentinel import ParitySentinel
     sentinel = ParitySentinel(every=1)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        sentinel.maybe_submit_wave([], [], [], [], "single")
     with pytest.raises(NotImplementedError, match="item 6"):
         sentinel.maybe_submit_carve([], [], {}, [])
 
@@ -500,3 +500,44 @@ def test_parity_divergence_stops_the_runner(monkeypatch):
     finally:
         with pytest.raises(ParityError, match="a wrong count"):
             runner.stop()
+
+
+def test_watchdog_never_restarts_a_starting_resolver():
+    """The resolver thread is spawned lazily at the first drain, while the
+    runner's watchdog sweeps. A sweep that read the thread between its
+    publication and its start saw it dead and restarted a healthy resolver
+    (a watchdog restart in ``test_parity_divergence_stops_the_runner``
+    under a loaded run). Sweeps every 0.1 ms against 100 first spawns,
+    with the interpreter switching threads every microsecond: no restart."""
+    import sys
+
+    from kubernetes_tpu_torch.sched.cache import SchedulerCache
+    from kubernetes_tpu_torch.sched.queue import SchedulingQueue
+    from kubernetes_tpu_torch.sched.resilience import ThreadWatchdog
+    from kubernetes_tpu_torch.sched.scheduler import Scheduler
+    prev = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    restarts = 0
+    try:
+        for _ in range(100):
+            sched = Scheduler(_cfg(port_config), SchedulerCache(),
+                              SchedulingQueue(), lambda p, n: True,
+                              device="cpu")
+            watchdog = ThreadWatchdog(interval_s=1e-4, stall_s=LONG)
+            watchdog.register(
+                "resolver",
+                is_alive=lambda: (sched._resolver_thread is None
+                                  or sched._resolver_thread.is_alive()),
+                restart=sched.restart_resolver, busy=lambda: False)
+            watchdog.start()
+            try:
+                time.sleep(0.001)
+                sched._ensure_resolver()
+                time.sleep(0.003)
+            finally:
+                watchdog.stop()
+                sched.close()
+            restarts += watchdog.restarts
+    finally:
+        sys.setswitchinterval(prev)
+    assert restarts == 0

@@ -6,8 +6,9 @@ binder log. Every pod is queued before the first ``run_once`` and backoff
 outlasts the test, so the sequence of pops is deterministic; churn lands
 in both caches between the same pops. The explainer and the parity
 sentinel are off and ``PreemptionSimulation`` is off on both sides (the
-port refuses the first two, and default preemption is a later slice), so
-both run the same loop.
+port refuses the explainer; default preemption is held against the
+reference in ``tests/test_torch_preemption.py``), so both run the same
+loop.
 
 - drain path: placements, ``ctx_stats``, the patch state's ``fill_host``
   and ``top``, and the folded resident ``requested``, ``epod_valid`` and
@@ -459,20 +460,6 @@ def test_construction_refuses_what_waits(cfg_kw, item):
         _port_sched(cfg_kw)
 
 
-def test_refuses_default_preemption():
-    """A priority > 0 pod that fails with PreemptionSimulation on reaches
-    the default preemptor: not ported yet."""
-    sched = _port_sched(gates={"PreemptionSimulation": True}, nodes=1)
-    try:
-        sched.queue.add(make_pod("big").req({"cpu": "4"}).priority(10).obj())
-        with pytest.raises(NotImplementedError, match="item 4"):
-            sched.run_once(wait=0.01)
-        # the rescue put the pod back
-        assert sched.queue.stats()["backoff"] == 1
-    finally:
-        sched.close()
-
-
 def test_refuses_slice_gang():
     from kubernetes_tpu_torch.topology.slicing import (GANG_LABEL,
                                                       SLICE_SHAPE_LABEL)
@@ -546,13 +533,17 @@ def test_default_config_builds_a_scheduler():
 def test_run_lets_refusals_escape():
     """``run`` retries a failed cycle, but not a refusal: a retry cannot
     cure it. The popped pod is back in a queue."""
-    sched = _port_sched(gates={"PreemptionSimulation": True}, nodes=1)
+    from kubernetes_tpu_torch.topology.slicing import (GANG_LABEL,
+                                                      SLICE_SHAPE_LABEL)
+    sched = _port_sched()
     stop = threading.Event()
     timer = threading.Timer(30.0, stop.set)  # a loop that swallows it ends
     timer.start()
     try:
-        sched.queue.add(make_pod("big").req({"cpu": "4"}).priority(10).obj())
-        with pytest.raises(NotImplementedError, match="item 4"):
+        sched.queue.add(make_pod("s0").req({"cpu": "100m"})
+                        .label(SLICE_SHAPE_LABEL, "1x1x1")
+                        .label(GANG_LABEL, "g").obj())
+        with pytest.raises(NotImplementedError, match="item 6"):
             sched.run(stop)
         assert not stop.is_set()
         assert sched.queue.stats()["backoff"] == 1
