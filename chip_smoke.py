@@ -75,11 +75,13 @@ Phases, one JSON line each:
   profile.scheduler  one more pop of 2048 pods under torch.profiler:
            the device's busy share of the whole cycle, assume and bind
            included
-  connected  Connected/10000Pods5000Nodes as benchmarks/connected.py runs
-           it: the port's APIServer in a spawned process, 5000 nodes seeded,
+  connected  Connected/10000Pods5000Nodes as bench.py runs
+           benchmarks/connected.py (explain=True): the port's APIServer in
+           a spawned process, 5000 nodes seeded,
            SchedulerRunner(HTTPClient(url, wire="json")) with pops of
-           2 x 512, depth 2, fused fold, staging, the parity sentinel every
-           4th drain and a fail-fast auditor every 2 s; informers synced,
+           2 x 512, depth 2, fused fold, staging, the explainer on, the
+           parity sentinel every 4th drain and a fail-fast auditor every
+           2 s; informers synced,
            warm_drain, 10,000 pods created in concurrent chunks of 2500,
            the loop started, a watcher process counting the bound pods.
            The window from the first create to the last bound event,
@@ -88,7 +90,8 @@ Phases, one JSON line each:
            sweeps' and the sentinel checks' on their own threads), the
            encode cache's hits and misses at pop time,
            ctx_stats, staging, breaker, loop errors, relists, audit sweeps
-           and violations, sentinel samples and divergences, launches.
+           and violations, sentinel samples and divergences, the
+           explainer's stats and explain/* spans, launches.
            Gates: 10,000 of 10,000 bound within 300 s, placements checked,
            breaker "single", 0 oracle pods, 0 loop errors, >= 1 audit sweep
            with 0 violations, >= 1 sentinel sample with 0 divergences
@@ -121,19 +124,58 @@ Phases, one JSON line each:
            saturated cluster behind the port's APIServer in a spawned
            process, SchedulerRunner(HTTPClient(url, wire="json")) with pops
            of 256, max_drain_batches 1, PreemptionSimulation on, the
-           sentinel on every wave; warm_preempt, then 128 preemptors created
-           at once and a watcher counting their bindings. Gates: 128 of 128
-           bound, 256 victims evicted, 0 loop errors, breaker "single", at
-           least one wave sample and 0 divergences; PreemptionThroughput,
-           the window, the preempt/* spans
+           explainer on, the sentinel on every wave; warm_preempt, then 128
+           preemptors created at once and a watcher counting their
+           bindings. Gates: 128 of 128 bound, 256 victims evicted, 0 loop
+           errors, breaker "single", at least one wave sample and 0
+           divergences; at least one preemptor's explanation read back
+           from the scheduler-explanations ConfigMap over HTTP, each
+           {"NodeResourcesFit": 5000} in mode tensor with the message
+           "0/5000 nodes are available: 5000 Insufficient resources.";
+           PreemptionThroughput, the window, the preempt/* and explain/*
+           spans, the preemptors explained
+  parity.explain  explain_step on the card and the CPU over one host
+           encoding of relational_mix, constraint_mix (taints, host ports,
+           nodeSelectors, an unschedulable node) and a small saturated
+           cluster with preemptors: verdicts [F,P,N] and valid bit-equal,
+           first-fail verdicts, histograms and messages equal
+  parity.extender  the port's Scheduler with one in-script HTTP extender
+           (ZoneExtender: a seeded zone veto, per-zone scores) over a
+           32-node MixedHeterogeneous cluster, 96 pods in pops of 32, on the
+           card and the CPU: placements equal, none on a vetoed node
+  explain  explain_step at full width as the explainer's judge runs it:
+           the ConnectedPreemption cluster and its 128 preemptors (every
+           row {"NodeResourcesFit": 5000}) and the path's MixedHeterogeneous
+           cluster with 256 pending pods (8 sampled pods' first-fail
+           verdicts equal to the oracle's reasons); encode ms,
+           explain_step ms (CUDA events), its launches and the device's
+           busy share (torch.profiler), count_pn's launches a call
+  kernels.explain  count_pn at the explain calls' own shapes (the
+           private encoder's cluster, one case for each launch of a call:
+           the MixedHeterogeneous pods' spread terms), as kernels.drain
+  extender  (a) the port's Scheduler with the ZoneExtender (filter and
+           prioritize, node-cache capable, weight 1) places 512
+           MixedHeterogeneous pods on 5000 nodes in pops of 256 through the
+           group path: every placement outside the veto and checked, 0 loop
+           and 0 attempt errors; pods/s, the scheduler/extenders span.
+           (b) TPUExtenderServer on the card over the same cluster answers
+           /filter and /prioritize for 4 pods in both wire forms
+           (nodenames, full node objects), each response equal to the CPU
+           server's (names exactly, 0..10 scores within 1); ms a request
+  kernels.extender  count_pn at (a)'s last pop's shape (the second 256
+           pods against the nodes with the first 256 bound, extended by the
+           batch as gang_schedule extends it), as kernels.drain
 
-Every phase fails while LOOP_ERRORS{site=device_preempt} is above 0: a
-device preemption failure the scheduler degraded to the host scan.
+Every phase fails while LOOP_ERRORS{site=device_preempt} is above 0 (a
+device preemption failure the scheduler degraded to the host scan) or
+LOOP_ERRORS{site=device_explain} is (a failure of the explainer's device
+judge, whose pods then got no verdict).
 
 Each path (path, drain, resident, scheduler, connected, preemption,
-connected_preemption) is driven with the launch counts set to 0 just
-before it and read just after; the preemption paths launch no hand
-kernel (their device work is torch ops), and their counts are printed. Then the kernel table line
+connected_preemption, explain, extender) is driven with the launch counts
+set to 0 just before it and read just after; the preemption paths launch
+no hand kernel (their device work is torch ops), and every path's count
+is printed, 0 included. Then the kernel table line
 ({"kernels": [...]}, one row per kernel at the shape of its most launches,
 launches summed over the paths, the shapes checked), the card's name and
 power limit, and last {"ok": true, "device": {...}}. Any failed phase
@@ -172,12 +214,17 @@ class PhaseFailed(Exception):
 
 def emit(obj) -> None:
     """Print one phase's line; a phase in which the scheduler degraded a
-    device preemption failure to the host scan fails instead."""
+    device preemption failure to the host scan, or the explainer a failure
+    of its device judge to the oracle, fails instead."""
     if "phase" in obj and "kubernetes_tpu_torch" in sys.modules:
         n = device_preempt_errors()
         check(n == 0, f"phase {obj['phase']}: {n} device preemption "
                       "failure(s) degraded to the host scan "
                       "(LOOP_ERRORS{site=device_preempt})")
+        n = device_explain_errors()
+        check(n == 0, f"phase {obj['phase']}: {n} explainer device "
+                      "judge failure(s) judged by the oracle "
+                      "(LOOP_ERRORS{site=device_explain})")
     print(json.dumps(obj), flush=True)
 
 
@@ -579,6 +626,35 @@ def trace_summary(events, top=12):
                              for k, hits in hand.items()}}
 
 
+def profile_call(fn, name, top=6):
+    """One ``fn()`` under torch.profiler (CPU and CUDA): its wall ms, its
+    kernel launches, the device's busy share and ``trace_summary`` (the
+    ``top`` operations; trace under build/profile/)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build", "profile")
+    os.makedirs(out_dir, exist_ok=True)
+    trace_path = os.path.join(out_dir, f"{name}.json")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    prof.export_chrome_trace(trace_path)
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    summary = trace_summary(events, top=top)
+    n_kernels = sum(1 for e in events
+                    if e.get("ph") == "X" and e.get("cat") == "kernel")
+    check(n_kernels > 0, f"{name}: the trace holds no kernel")
+    return {"wall_ms": wall_ms, "launches": n_kernels,
+            "device_busy_share": summary["device_busy_ms"] / wall_ms,
+            **summary, "trace": os.path.relpath(trace_path)}
+
+
 def profile_phase(eng, batch, gen):
     """One Schedule request on ``eng`` under torch.profiler (CPU and CUDA).
     -> the request's host time and its split, the device's busy share of
@@ -944,9 +1020,10 @@ SCHED_PROFILED = 2048  # one more pop's worth of pods for profile.scheduler
 def sched_config(**overrides):
     """The port's SchedulerConfiguration: the reference defaults (batch_size
     256, max_drain_batches 8, pipeline_depth 2, fused fold and staging on)
-    with the explainer off (the port refuses it: a later slice) and, unless
-    ``overrides`` names it, the parity sentinel off (as the scheduler phase
-    has measured the loop since it was ported)."""
+    with, unless ``overrides`` names them, the explainer and the parity
+    sentinel off (as the scheduler phase has measured the loop since it
+    was ported; the connected cells turn both on, as the reference's
+    benches run them)."""
     from kubernetes_tpu_torch.config.types import (SchedulerConfiguration,
                                                    validate)
     cfg = SchedulerConfiguration(**dict(
@@ -1351,22 +1428,25 @@ def _span_totals(t0=None):
 
 
 def connected_phase(node_dicts, pod_dicts, device=None, smi=""):
-    """Connected/10000Pods5000Nodes as ``benchmarks/connected.py``
-    run_connected runs it (its ``explain=False`` leg), through the port: an
-    APIServer in a spawned process, the nodes seeded with one bulk create,
-    ``SchedulerRunner(HTTPClient(url, wire="json"))`` with pops of 2 x 512,
-    pipeline depth 2, fused fold and staging, the parity sentinel every
-    4th drain and a fail-fast auditor on a clean client every 2 s;
+    """Connected/10000Pods5000Nodes as ``bench.py`` runs
+    ``benchmarks/connected.py`` run_connected (``explain=True``, its
+    default), through the port: an APIServer in a spawned process, the
+    nodes seeded with one bulk create, ``SchedulerRunner(HTTPClient(url,
+    wire="json"))`` with pops of 2 x 512, pipeline depth 2, fused fold and
+    staging, the explainer and the flight recorder on, the parity sentinel
+    every 4th drain and a fail-fast auditor on a clean client every 2 s;
     informers synced with the loop stopped,
     ``warm_drain``, then the pods created in concurrent chunks of 2500 and
     the loop started. A watcher process counts the bound pods. The window
     runs from the first create to the last bound event. Gates: every pod
     bound within the timeout, the placements checked, breaker "single", 0
     pods through the oracle, 0 loop errors, at least one audit sweep with
-    0 violations, at least one sentinel sample and 0 divergences. The
-    pods through the oracle and the seconds of the other threads (pod
-    handler, audit sweeps, sentinel checks) are read from the tracer's
-    spans. -> (summary, stopped runner)."""
+    0 violations, at least one sentinel sample and 0 divergences, and (in
+    ``emit``) 0 ``device_explain`` errors. The pods through the oracle and
+    the seconds of the other threads (pod handler, audit sweeps, sentinel
+    checks, the explainer's ``explain/*``) are read from the tracer's
+    spans; the explainer's ``stats()`` are reported. -> (summary, stopped
+    runner)."""
     import multiprocessing as mp
     from concurrent.futures import ThreadPoolExecutor
     from kubernetes_tpu_torch.audit.auditor import (InvariantAuditor,
@@ -1390,7 +1470,7 @@ def connected_phase(node_dicts, pod_dicts, device=None, smi=""):
                            max_drain_batches=CONNECTED_DRAIN_BATCHES,
                            parity_sample_every=CONNECTED_PARITY_EVERY,
                            audit_interval_s=CONNECTED_AUDIT_S,
-                           audit_fail_fast=True)
+                           audit_fail_fast=True, explainer_enabled=True)
         runner = SchedulerRunner(HTTPClient(url, wire="json"), cfg,
                                  feature_gate=no_preemption_gate(),
                                  device=device)
@@ -1521,6 +1601,11 @@ def connected_phase(node_dicts, pod_dicts, device=None, smi=""):
         summary["audit"] = {k: audit[k] for k in ("sweeps", "violations",
                                                   "byInvariant", "failed")}
         summary["sentinel"] = sentinel.stats()
+        explainer = runner.scheduler.explainer
+        explainer.drain(120.0)
+        summary["explainer"] = explainer.stats()
+        summary["explain_spans"] = {k: v for k, v in _span_totals().items()
+                                    if k.startswith("explain/")}
         bindings = {p["metadata"]["name"]: p["spec"].get("nodeName", "")
                     for p in seed_client.pods("default").list()}
     finally:
@@ -1557,6 +1642,8 @@ def connected_phase(node_dicts, pod_dicts, device=None, smi=""):
           f"connected: parity divergence {summary['sentinel']}")
     check(summary["sentinel_backlog"] == 0,
           "connected: the sentinel's verdicts did not land in 120 s")
+    check(summary["explainer"]["errors"] == 0,
+          f"connected: explainer errors {summary['explainer']}")
     for name, n in launches.items():
         check(n > 0, f"kernel {name} was never launched by the connected "
                      "scheduler")
@@ -1721,31 +1808,12 @@ def profile_wave_scan(staged, steps, name):
     """``_wave_scan`` alone under torch.profiler: its launches a preemptor
     step and the device's busy share of the scan (trace under
     build/profile/)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
     from kubernetes_tpu_torch.ops.preemption import _wave_scan
-    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                           "build", "profile")
-    os.makedirs(out_dir, exist_ok=True)
-    trace_path = os.path.join(out_dir, f"{name}.json")
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        _wave_scan(*staged, steps=steps)
-        torch.cuda.synchronize()
-        scan_ms = (time.perf_counter() - t0) * 1e3
-    prof.export_chrome_trace(trace_path)
-    with open(trace_path) as f:
-        events = json.load(f)["traceEvents"]
-    summary = trace_summary(events, top=8)
-    n_kernels = sum(1 for e in events
-                    if e.get("ph") == "X" and e.get("cat") == "kernel")
-    check(n_kernels > 0, f"{name}: the trace holds no kernel")
-    return {"steps": steps, "scan_ms": scan_ms, "kernels": n_kernels,
-            "launches_per_step": n_kernels / steps,
-            "device_busy_share": summary["device_busy_ms"] / scan_ms,
-            **summary, "trace": os.path.relpath(trace_path)}
+    out = profile_call(lambda: _wave_scan(*staged, steps=steps), name,
+                       top=8)
+    return {"steps": steps, "scan_ms": out.pop("wall_ms"),
+            "kernels": out["launches"],
+            "launches_per_step": out.pop("launches") / steps, **out}
 
 
 def preemption_phase(n_nodes=PREEMPT_NODES, n_pre=PREEMPT_PODS,
@@ -1857,21 +1925,27 @@ def connected_preemption_phase(n_nodes=PREEMPT_NODES, n_high=PREEMPT_PODS,
     port: the saturated cluster behind the port's APIServer in a spawned
     process (5000 nodes, 10000 bound pods), ``SchedulerRunner(HTTPClient(
     url, wire="json"))`` with ``batch_size=256, max_drain_batches=1`` and
-    the default feature gate (PreemptionSimulation on), the parity
-    sentinel on every wave (the reference's bench samples every 16th:
-    the cell has one wave, and it is judged); informers synced,
-    ``warm_preempt``; then 128 preemptors created at once, the loop
-    started, a watcher process counting their bindings. The window runs
-    from the create to the last bound event. Gates: 128 of 128 bound
-    within the timeout, 256 victims evicted, 0 loop errors (of them 0
-    ``device_preempt``), breaker "single", at least one wave sample and 0
-    divergences. The preemption spans (``preempt/*``) come from the
-    tracer."""
+    the default feature gate (PreemptionSimulation on), the explainer on
+    (the reference's configuration there), the parity sentinel on every
+    wave (the reference's bench samples every 16th: the cell has one or
+    two waves, and they are judged); informers synced, ``warm_preempt``;
+    then 128 preemptors created at once, the loop started, a watcher
+    process counting their bindings. The window runs from the create to
+    the last bound event. Gates: 128 of 128 bound within the timeout, 256
+    victims evicted, 0 loop errors (of them 0 ``device_preempt`` and 0
+    ``device_explain``), breaker "single", at least one wave sample and 0
+    divergences; at least one preemptor's explanation read back over HTTP
+    from the ``scheduler-explanations`` ConfigMap, and every one of them
+    ``{"NodeResourcesFit": 5000}``, mode ``tensor``, with the message
+    "0/5000 nodes are available: 5000 Insufficient resources.". The
+    preemption and explain spans (``preempt/*``, ``explain/*``) come from
+    the tracer."""
     import multiprocessing as mp
     from kubernetes_tpu_torch.client.clientset import HTTPClient
     from kubernetes_tpu_torch.metrics.registry import LOOP_ERRORS
     from kubernetes_tpu_torch.ops import kernels
-    from kubernetes_tpu_torch.sched.runner import SchedulerRunner
+    from kubernetes_tpu_torch.sched.runner import (EXPLAIN_CONFIGMAP,
+                                                   SchedulerRunner)
     from kubernetes_tpu_torch.testing.workloads import build_saturated
     from kubernetes_tpu_torch.utils.tracing import TRACER
     ctx = mp.get_context("spawn")
@@ -1890,7 +1964,7 @@ def connected_preemption_phase(n_nodes=PREEMPT_NODES, n_high=PREEMPT_PODS,
         runner = SchedulerRunner(
             HTTPClient(url, wire="json"),
             sched_config(batch_size=PREEMPT_BATCH, max_drain_batches=1,
-                         parity_sample_every=1),
+                         parity_sample_every=1, explainer_enabled=True),
             feature_gate=preemption_gate(), device=device)
         t0 = time.perf_counter()
         runner.start(wait_sync=120.0, start_loop=False)
@@ -1944,6 +2018,13 @@ def connected_preemption_phase(n_nodes=PREEMPT_NODES, n_high=PREEMPT_PODS,
                     for p in seed_client.pods("preempt").list()}
         breaker = runner.scheduler.breaker.mode
         nominated = len(runner.scheduler._nominated)
+        explainer = runner.scheduler.explainer
+        explainer.drain(120.0)
+        explain_stats = explainer.stats()
+        explain_backlog = explainer._q.unfinished_tasks
+        cm = seed_client.resource("configmaps", "default").get(
+            EXPLAIN_CONFIGMAP)
+        published = json.loads(cm["data"]["explanations"])
     finally:
         if runner is not None:
             runner.stop()  # re-raises a fatal error that ended the loop
@@ -1963,8 +2044,19 @@ def connected_preemption_phase(n_nodes=PREEMPT_NODES, n_high=PREEMPT_PODS,
         "sentinel": stats, "sentinel_backlog": backlog,
         "spans": {k: v for k, v in spans.items()
                   if k.startswith(("preempt/", "scheduler/", "sentinel/",
-                                   "runner/bind"))},
+                                   "runner/bind", "explain/"))},
         "launches": launches}
+    want = {"filters": {"NodeResourcesFit": n_nodes}, "mode": "tensor",
+            "message": f"0/{n_nodes} nodes are available: {n_nodes} "
+                       "Insufficient resources."}
+    explained = {k: v for k, v in published.items()
+                 if k.startswith("preempt/")}
+    wrong = {k: {f: v.get(f) for f in want} for k, v in explained.items()
+             if any(v.get(f) != w for f, w in want.items())}
+    summary["explainer"] = {**explain_stats, "backlog": explain_backlog,
+                            "preemptors_explained": len(explained),
+                            "published": len(published),
+                            "sample": next(iter(explained.values()), None)}
     check(bound == n_high,
           f"connected preemption: {bound} of {n_high} bound in the store")
     check(summary["victims_evicted"] == 2 * n_high,
@@ -1977,6 +2069,13 @@ def connected_preemption_phase(n_nodes=PREEMPT_NODES, n_high=PREEMPT_PODS,
           "connected preemption: the sentinel took no wave sample")
     check(stats["divergences"] == 0 and backlog == 0,
           f"connected preemption: sentinel {stats}, backlog {backlog}")
+    check(len(explained) >= 1 and explain_backlog == 0,
+          "connected preemption: no preemptor's explanation was published "
+          f"({summary['explainer']})")
+    check(not wrong, "connected preemption: explanations "
+                     f"{dict(list(wrong.items())[:3])}, not {want}")
+    check(explain_stats["errors"] == 0,
+          f"connected preemption: explainer {explain_stats}")
     return summary
 
 
@@ -2171,6 +2270,573 @@ def preemption_parity_phase(seed=SEED, devices=("cuda", "cpu"),
     return out
 
 
+# ------------------------------------------------------------------ explain
+
+EXPLAIN_MIXED_PODS = BATCH   # the MixedHeterogeneous pods the explain phase judges
+EXPLAIN_ORACLE_SAMPLE = 8    # of them, re-judged by the port's oracle
+
+
+def device_explain_errors() -> int:
+    """LOOP_ERRORS{site=device_explain}: failures of the explainer's device
+    judge, whose pods got no verdict. Every phase fails while it is above
+    0 (``emit``)."""
+    from kubernetes_tpu_torch.metrics.registry import LOOP_ERRORS
+    return int(LOOP_ERRORS.items().get((("site", "device_explain"),), 0))
+
+
+def _explain_encode(nodes, bound, pending, ns_labels=None):
+    """A private encoder's encoding of one capture, as the explainer's
+    judge makes it. -> (ct, pb, meta, encode ms) on the host."""
+    from kubernetes_tpu_torch.encode.snapshot import SnapshotEncoder
+    enc = SnapshotEncoder()
+    if ns_labels:
+        enc.set_namespaces(ns_labels)
+    t0 = time.perf_counter()
+    ct, meta = enc.encode_cluster(nodes, bound, pending_pods=pending)
+    pb = enc.encode_pods(pending, meta, cache_rows=False)
+    return ct, pb, meta, (time.perf_counter() - t0) * 1e3
+
+
+def _explain_verdicts(ct, pb, meta, device):
+    """explain_step on ``device`` with the verdicts read back, as the
+    explainer's judge reads them. -> (verdicts, valid) numpy."""
+    from kubernetes_tpu_torch.models.explain import explain_step
+    v, valid = explain_step(ct.to(device), pb.to(device),
+                            topo_keys=meta.topo_keys)
+    return v.cpu().numpy(), valid.cpu().numpy()
+
+
+def _explain_rows(verdicts, valid, n_pods, n_nodes):
+    """-> (first_fail [P,N] over the real pods and nodes, per-pod
+    histograms, per-pod messages)."""
+    from kubernetes_tpu_torch.models.explain import (
+        failed_scheduling_message, first_fail, reject_histogram)
+    ff = first_fail(verdicts, valid)[:n_pods, :n_nodes]
+    hists = [reject_histogram(row) for row in ff]
+    msgs = [failed_scheduling_message(n_nodes, h, int((row == -1).sum()))
+            for h, row in zip(hists, ff)]
+    return ff, hists, msgs
+
+
+def constraint_mix(n_nodes=24, n_pods=32, seed=SEED):
+    """A small cluster whose pods fail on taints, host ports, nodeSelectors,
+    an unschedulable node and resources. -> (nodes, bound, pending)."""
+    import random
+    from kubernetes_tpu_torch.testing.wrappers import make_node, make_pod
+    rng = random.Random(seed)
+    nodes = []
+    for i in range(n_nodes):
+        w = (make_node(f"node-{i}")
+             .capacity({"cpu": rng.choice(["2", "4", "8"]),
+                        "memory": "8Gi", "pods": "16"})
+             .label("disk", rng.choice(["ssd", "hdd"])))
+        if i % 3 == 0:
+            w.taint("dedicated", "infra", "NoSchedule")
+        if i == 5:
+            w.unschedulable()
+        nodes.append(w.obj())
+    bound = [make_pod(f"web-{i}").req({"cpu": "500m"}).host_port(8080)
+             .node(f"node-{i}").obj() for i in range(0, n_nodes, 2)]
+    pending = []
+    for i in range(n_pods):
+        w = make_pod(f"pod-{i}").req({"cpu": rng.choice(["1", "3", "16"])})
+        r = rng.random()
+        if r < 0.3:
+            w.host_port(8080)
+        elif r < 0.55:
+            w.node_selector({"disk": "ssd"})
+        elif r < 0.7:
+            w.toleration(key="dedicated", operator="Equal", value="infra",
+                         effect="NoSchedule")
+        pending.append(w.obj())
+    return nodes, bound, pending
+
+
+def explain_parity_phase(devices=("cuda", "cpu")):
+    """``explain_step`` on each device over one host encoding of three small
+    clusters — ``relational_mix`` (relational filters, a second namespace),
+    ``constraint_mix`` (taints, host ports, nodeSelectors, an unschedulable
+    node) and a saturated cluster with preemptors (resources): the
+    verdicts [F,P,N] and ``valid`` bit-equal, and so the first-fail
+    verdicts, histograms and messages."""
+    import numpy as np
+    from kubernetes_tpu_torch.testing.workloads import (build_saturated,
+                                                        relational_mix)
+    r_nodes, r_bound, r_pending, ns_labels = relational_mix(
+        pods=48, nodes=24, bound=24, seed=SEED)
+    s_nodes, s_bound = build_saturated(16)
+    cases = {"relational_mix": (r_nodes, r_bound, r_pending, ns_labels),
+             "constraint_mix": (*constraint_mix(), None),
+             "saturated": (s_nodes, s_bound, preemptors(8), None)}
+    out = {}
+    for name, (nodes, bound, pending, ns) in cases.items():
+        ct, pb, meta, _ = _explain_encode(nodes, bound, pending, ns)
+        got = {d: _explain_verdicts(ct, pb, meta, d) for d in devices}
+        first = got[devices[0]]
+        for d in devices[1:]:
+            for i, what in enumerate(("verdicts", "valid")):
+                check(np.array_equal(got[d][i], first[i]),
+                      f"explain parity {name}: {what} on {devices[0]} "
+                      f"differs from {d}")
+        rows = {d: _explain_rows(*got[d], len(pending), len(nodes))
+                for d in devices}
+        ff, hists, msgs = rows[devices[0]]
+        for d in devices[1:]:
+            check(np.array_equal(rows[d][0], ff) and rows[d][1] == hists
+                  and rows[d][2] == msgs,
+                  f"explain parity {name}: first-fail verdicts differ")
+        total: dict[str, int] = {}
+        for h in hists:
+            for f, c in h.items():
+                total[f] = total.get(f, 0) + c
+        out[name] = {"pods": len(pending), "nodes": len(nodes),
+                     "shape": list(first[0].shape), "rejects": total,
+                     "message_0": msgs[0]}
+    check(len({f for o in out.values() for f in o["rejects"]}) >= 6,
+          f"explain parity: too few filters reject anything ({out})")
+    return out
+
+
+def explain_count_cases(prefix, ct, pb):
+    """{term set: (ct, count_pn arguments)}: the count_pn calls of one
+    ``explain_step`` over ``ct`` and ``pb`` — the spread terms whenever the
+    batch has any (``spread_mask``), the required affinity and
+    anti-affinity terms where it has them (``interpod_required_mask``)."""
+    cases = {}
+    if pb.sc_valid.shape[1]:
+        cases[f"{prefix}_spread"] = (ct, (pb.sc_sel, pb.pod_ns, None, None))
+    if pb.aff_valid.shape[1]:
+        cases[f"{prefix}_required_affinity"] = (
+            ct, (pb.aff_sel, pb.pod_ns, pb.aff_ns_explicit, pb.aff_ns_mask))
+    if pb.anti_valid.shape[1]:
+        cases[f"{prefix}_required_anti_affinity"] = (
+            ct, (pb.anti_sel, pb.pod_ns, pb.anti_ns_explicit,
+                 pb.anti_ns_mask))
+    return cases
+
+
+def explain_phase(n_nodes=PREEMPT_NODES, n_pre=PREEMPT_PODS,
+                  device="cuda"):
+    """``explain_step`` at full width on the card, as the explainer's judge
+    runs it (a private encoder's encoding, the verdicts read back): the
+    ConnectedPreemption cluster (5000 saturated nodes, 10000 bound pods)
+    and its 128 preemptors, every row's histogram
+    ``{"NodeResourcesFit": 5000}``; and the path phase's MixedHeterogeneous
+    cluster (5000 nodes, 2000 bound) with its first 256 pending pods, the
+    first-fail verdicts of 8 sampled pods equal to the port's oracle's
+    reasons. For each: the encode ms, ``explain_step`` ms (CUDA events
+    around back-to-back calls, read-back included), its launches and the
+    device's busy share under torch.profiler, and count_pn's launches a
+    call (the driven calls' counts are the ``explain`` path's). -> (the
+    summary, count_pn's cases at the shapes those calls gave it: one for
+    each launch of a call, for ``kernels_phase``). On the CPU (a
+    rehearsal) the times and the cases are left out."""
+    from kubernetes_tpu_torch.api.types import Node, Pod
+    from kubernetes_tpu_torch.models.explain import (EXPLAIN_FILTERS,
+                                                     REASON_TO_FILTER)
+    from kubernetes_tpu_torch.ops import kernels
+    from kubernetes_tpu_torch.sched.oracle import OracleScheduler
+    from kubernetes_tpu_torch.testing.workloads import build_saturated
+    s_nodes, s_bound = build_saturated(n_nodes)
+    node_dicts, bound_dicts, batches = workload(n_requests=1)
+    m_nodes = [Node.from_dict(d) for d in node_dicts]
+    m_bound = [Pod.from_dict(d) for d in bound_dicts]
+    m_pending = [Pod.from_dict(d) for d in batches[0][:EXPLAIN_MIXED_PODS]]
+    cases = {"connected_preemption": (s_nodes, s_bound,
+                                      preemptors(n_pre, ns="preempt")),
+             "mixed_heterogeneous": (m_nodes, m_bound, m_pending)}
+    enc = {name: _explain_encode(*c) for name, c in cases.items()}
+    # the path's driven calls: one judge call per cluster
+    kernels.reset_launches()
+    verdicts = {}
+    per_call = {}
+    for name, (ct, pb, meta, _ms) in enc.items():
+        before = dict(kernels.LAUNCHES)
+        verdicts[name] = _explain_verdicts(ct, pb, meta, device)
+        per_call[name] = {k: kernels.LAUNCHES[k] - before[k]
+                          for k in kernels.LAUNCHES}
+    launches = dict(kernels.LAUNCHES)
+    out = {"launches": launches}
+    count_cases = {}
+    for name, (nodes, bound, pending) in cases.items():
+        ct, pb, meta, encode_ms = enc[name]
+        if device == "cuda":
+            mine = explain_count_cases(f"explain_{name}", ct.to(device),
+                                       pb.to(device))
+            check(len(mine) == per_call[name].get("count_pn", 0),
+                  f"explain {name}: {len(mine)} count_pn cases for "
+                  f"{per_call[name].get('count_pn', 0)} launches")
+            count_cases.update(mine)
+        ff, hists, msgs = _explain_rows(*verdicts[name], len(pending),
+                                        len(nodes))
+        row = {"nodes": len(nodes), "bound": len(bound),
+               "pods": len(pending), "shape": list(verdicts[name][0].shape),
+               "encode_ms": encode_ms, "count_pn_launches_per_call":
+                   per_call[name].get("count_pn", 0)}
+        if name == "connected_preemption":
+            want = {"NodeResourcesFit": len(nodes)}
+            bad = [i for i, h in enumerate(hists) if h != want]
+            check(not bad, f"explain {name}: pods {bad[:4]} judged "
+                           f"{[hists[i] for i in bad[:4]]}, not {want}")
+            row["message"] = msgs[0]
+        else:
+            orc = OracleScheduler(nodes, bound)
+            step = max(1, len(pending) // EXPLAIN_ORACLE_SAMPLE)
+            sample = list(range(0, len(pending), step))[
+                :EXPLAIN_ORACLE_SAMPLE]
+            t0 = time.perf_counter()
+            for pi in sample:
+                mask, reasons = orc.feasible(pending[pi])
+                for ni, node in enumerate(nodes):
+                    got = int(ff[pi, ni])
+                    want = (-1 if mask[ni] else EXPLAIN_FILTERS.index(
+                        REASON_TO_FILTER[reasons[node.metadata.name]]))
+                    check(got == want,
+                          f"explain {name}: {pending[pi].key} on "
+                          f"{node.metadata.name}: oracle {want}, card {got}")
+            row["oracle_sample"] = len(sample)
+            row["oracle_s"] = time.perf_counter() - t0
+            rejects: dict[str, int] = {}
+            for h in hists:
+                for f, c in h.items():
+                    rejects[f] = rejects.get(f, 0) + c
+            row["rejects"] = rejects
+        out[name] = row
+        if device != "cuda":
+            continue
+        ct_d, pb_d = ct.to(device), pb.to(device)
+
+        def call(ct_d=ct_d, pb_d=pb_d, meta=meta):
+            from kubernetes_tpu_torch.models.explain import explain_step
+            v, valid = explain_step(ct_d, pb_d, topo_keys=meta.topo_keys)
+            return v.cpu(), valid.cpu()
+        row["explain_step_ms"] = cuda_ms(call, iters=10, warmup=2)
+        row["profile"] = profile_call(call, f"explain_{name}")
+    return out, count_cases
+
+
+# ------------------------------------------------------------------ extender
+
+EXTENDER_PODS = 512     # the extender cell: MixedHeterogeneous pods placed
+EXTENDER_BATCH = 256    # in pops of 256 (the reference's batch_size)
+EXTENDER_SERVER_PODS = 4
+ZONE_KEY = "topology.kubernetes.io/zone"
+
+
+def serve_zone_extender(conn, vetoed, zone_of, table) -> None:
+    """Extender-process entry (``ZoneExtender``): an HTTP extender whose
+    ``/filter`` drops the ``vetoed`` nodes and whose ``/prioritize`` scores
+    each node by its zone's entry in ``table``. Sends its port on
+    ``conn``; any message received on ``conn`` stops it, and it answers
+    with its call counts."""
+    import threading
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+    lock = threading.Lock()
+    calls = {"filter": 0, "prioritize": 0}
+
+    class Handler(BaseHTTPRequestHandler):
+        def log_message(self, *a):
+            pass
+
+        def do_POST(self):
+            n = int(self.headers.get("Content-Length") or 0)
+            payload = json.loads(self.rfile.read(n) or b"{}")
+            names = payload.get("nodenames") or []
+            verb = "filter" if self.path.endswith("/filter") else "prioritize"
+            with lock:
+                calls[verb] += 1
+            if verb == "filter":
+                body = {"nodenames": [x for x in names if x not in vetoed]}
+            else:
+                body = [{"host": x, "score": table.get(zone_of.get(x), 0)}
+                        for x in names]
+            data = json.dumps(body).encode()
+            self.send_response(200)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(data)))
+            self.end_headers()
+            self.wfile.write(data)
+
+    class Server(ThreadingHTTPServer):
+        # run_extenders fans a batch out on 16 threads: the default listen
+        # backlog of 5 refuses some of their connections
+        request_queue_size = 128
+        daemon_threads = True
+
+    httpd = Server(("127.0.0.1", 0), Handler)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    conn.send(httpd.server_address[1])
+    try:
+        conn.recv()
+    except EOFError:
+        pass  # the parent went away: stop all the same
+    httpd.shutdown()
+    httpd.server_close()
+    with lock:
+        conn.send(dict(calls))
+
+
+class ZoneExtender:
+    """A scheduler extender in its own spawned process, as an extender is
+    a service of its own: ``/filter`` vetoes the nodes of a seeded subset
+    of zones (3 of 10), ``/prioritize`` scores every node 0..10 by a
+    seeded per-zone table. Node-cache capable: it keeps its own node ->
+    zone map, as such an extender watches nodes."""
+
+    def __init__(self, node_dicts, seed=SEED):
+        import multiprocessing as mp
+        import random
+        rng = random.Random(seed)
+        zone_of = {d["metadata"]["name"]: d["metadata"]["labels"].get(ZONE_KEY)
+                   for d in node_dicts}
+        zones = sorted({z for z in zone_of.values() if z})
+        banned_zones = set(rng.sample(zones, max(1, 3 * len(zones) // 10)))
+        table = {z: rng.randint(0, 10) for z in zones}
+        self.vetoed = {n for n, z in zone_of.items() if z in banned_zones}
+        self.calls = None  # filled in by stop()
+        ctx = mp.get_context("spawn")
+        self._conn, child = ctx.Pipe()
+        self._proc = ctx.Process(target=serve_zone_extender,
+                                 args=(child, self.vetoed, zone_of, table),
+                                 daemon=True)
+        self._proc.start()
+        check(self._conn.poll(120.0), "the zone extender did not start")
+        self.url = f"http://127.0.0.1:{self._conn.recv()}"
+
+    def config(self):
+        """The scheduler's extender entry: filter and prioritize verbs,
+        node-cache capable, weight 1."""
+        from kubernetes_tpu_torch.sched.extender import ExtenderConfig
+        return ExtenderConfig(url_prefix=self.url, filter_verb="filter",
+                              prioritize_verb="prioritize", weight=1.0,
+                              node_cache_capable=True, timeout_s=60.0)
+
+    def stop(self):
+        """Stop the process; ``calls`` then holds its call counts."""
+        if self._proc is None:
+            return
+        try:
+            self._conn.send("stop")
+            if self._conn.poll(30.0):
+                self.calls = self._conn.recv()
+        except (OSError, EOFError):
+            pass
+        stop_process(self._proc)
+        self._proc = None
+
+
+def _drive_extender_scheduler(node_dicts, pod_dicts, ext, device, batch):
+    """The port's Scheduler with ``ext`` configured, PreemptionSimulation
+    off, pops of ``batch`` (max_drain_batches 1: the group path, which
+    extenders take anyway). -> (binder log {pod: node}, window s from the
+    first queue.add to the last binding)."""
+    from kubernetes_tpu_torch.api.types import Node, Pod
+    sched, log = make_scheduler(
+        sched_config(batch_size=batch, max_drain_batches=1,
+                     extenders=[ext.config()]),
+        [Node.from_dict(d) for d in node_dicts], device=device)
+    pods = [Pod.from_dict(d) for d in pod_dicts]
+    try:
+        t0 = time.perf_counter()
+        for p in pods:
+            sched.queue.add(p)
+        while (sched.queue.stats()["active"] or sched._pending
+               or sched._staged):
+            sched.run_once(wait=0.01)
+        sched.wait_for_bindings(60.0)
+        window = (max(t for _k, _n, t in log) - t0) if log else 0.0
+    finally:
+        sched.close()
+    return {k: n for k, n, _t in log}, window
+
+
+def extender_parity_phase(devices=("cuda", "cpu")):
+    """The port's Scheduler with one HTTP extender (``ZoneExtender``:
+    a seeded zone veto and per-zone scores) over a 32-node
+    MixedHeterogeneous cluster, 96 pods in pops of 32, on each device: the
+    placements equal, none on a vetoed node, the placements checked."""
+    from kubernetes_tpu_torch.testing.workloads import mixed_heterogeneous
+    node_objs, pod_objs = mixed_heterogeneous(pods=96, nodes=32, seed=SEED)
+    node_dicts, pod_dicts = _wire(node_objs), _wire(pod_objs)
+    ext = ZoneExtender(node_dicts)
+    try:
+        logs = {d: _drive_extender_scheduler(node_dicts, pod_dicts, ext, d,
+                                             32)[0] for d in devices}
+    finally:
+        ext.stop()
+    first = logs[devices[0]]
+    for d in devices[1:]:
+        check(logs[d] == first, f"extender parity: placements on "
+                                f"{devices[0]} differ from {d}")
+    check(not set(first.values()) & ext.vetoed,
+          "extender parity: a pod landed on a vetoed node")
+    check(ext.calls["filter"] == len(pod_dicts) * len(devices),
+          f"extender parity: {ext.calls} extender calls for "
+          f"{len(pod_dicts)} pods on {len(devices)} devices")
+    by_name = {d["metadata"]["name"]: d for d in pod_dicts}
+    placed = [dict(by_name[k.split("/", 1)[1]],
+                   spec=dict(by_name[k.split("/", 1)[1]]["spec"],
+                             nodeName=n)) for k, n in first.items()]
+    check_placements(node_dicts, [], placed, len(pod_dicts))
+    return {"pods": len(pod_dicts), "nodes": len(node_dicts),
+            "placed": len(first), "vetoed_nodes": len(ext.vetoed),
+            "extender_calls": dict(ext.calls)}
+
+
+def _post_json(url, payload, timeout=300.0):
+    import urllib.request
+    req = urllib.request.Request(
+        url, data=json.dumps(payload).encode(),
+        headers={"Content-Type": "application/json"}, method="POST")
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        body = json.loads(r.read())
+    return body, (time.perf_counter() - t0) * 1e3
+
+
+def extender_count_cases(node_dicts, pod_dicts, placements,
+                         batch=EXTENDER_BATCH):
+    """count_pn's inputs as the extender scheduler's last pop met them in
+    its first gang round: the last pop's pods (the queue pops in arrival
+    order: MixedHeterogeneous pods carry no priority) encoded against the
+    nodes with every earlier pod bound where it was placed, the cluster
+    extended by the batch as ``gang_schedule`` extends it. Every earlier
+    pod must have been placed, or the last pop saw another cluster."""
+    last = (len(pod_dicts) - 1) // batch * batch
+    earlier = pod_dicts[:last]
+    keys = [f"{d['metadata'].get('namespace', 'default')}/"
+            f"{d['metadata']['name']}" for d in earlier]
+    missing = [k for k in keys if k not in placements]
+    check(not missing, f"extender: earlier pods {missing[:4]} were not "
+                       "placed, so the last pop's cluster is not known")
+    bound = [dict(d, spec=dict(d["spec"], nodeName=placements[k]))
+             for d, k in zip(earlier, keys)]
+    ct, pb = _encoded(node_dicts, bound, pod_dicts[last:])
+    return _term_cases("extender", ct, pb)
+
+
+def extender_phase(n_nodes=N_NODES, n_pods=EXTENDER_PODS, device=None):
+    """Extenders at full width. (a) The port's Scheduler with one
+    HTTPExtender (``ZoneExtender``: filter and prioritize, node-cache
+    capable, weight 1) places 512 MixedHeterogeneous pods on 5000 nodes in
+    pops of 256, through the group path (extenders turn the drain off):
+    every placement passes the veto and ``check_placements``, 0 loop
+    errors; pods/s over the window from the first queue.add to the last
+    binding, the ``scheduler/extenders`` span. (b) ``TPUExtenderServer``
+    on the card over the same cluster with (a)'s pods bound answers
+    ``/filter`` and ``/prioritize`` for 4 more pods in both wire forms
+    (``nodenames``, and full node objects as a stock kube-scheduler sends
+    them); each response equals the CPU server's for the same request —
+    node names exactly, the 0..10 scores within 1 (a float32 score at a
+    rounding step may round either way; the count that differ is
+    reported) — with the card server's ms a request. ``device``: the
+    scheduler's and the first server's (the card unless a rehearsal on
+    the CPU asks for it). -> (the summary, count_pn's cases at the shapes
+    of (a)'s last pop, for ``kernels_phase``; none on the CPU)."""
+    from kubernetes_tpu_torch.api.types import Node, Pod
+    from kubernetes_tpu_torch.metrics.registry import (LOOP_ERRORS,
+                                                       SCHEDULE_ATTEMPTS)
+    from kubernetes_tpu_torch.ops import kernels
+    from kubernetes_tpu_torch.sched.extender_server import TPUExtenderServer
+    from kubernetes_tpu_torch.testing.workloads import mixed_heterogeneous
+    from kubernetes_tpu_torch.utils.tracing import TRACER
+    node_objs, pod_objs = mixed_heterogeneous(
+        pods=n_pods + EXTENDER_SERVER_PODS, nodes=n_nodes, seed=SEED)
+    node_dicts = _wire(node_objs)
+    pod_dicts = _wire(pod_objs[:n_pods])
+    extra = _wire(pod_objs[n_pods:])
+    ext = ZoneExtender(node_dicts)
+    try:
+        errors0 = sum(LOOP_ERRORS.items().values())
+        attempt_errors0 = SCHEDULE_ATTEMPTS.get({"result": "error"})
+        TRACER.reset()
+        kernels.reset_launches()
+        log, window = _drive_extender_scheduler(
+            node_dicts, pod_dicts, ext, device, EXTENDER_BATCH)
+        launches = dict(kernels.LAUNCHES)
+        spans = _span_totals()
+        errors = sum(LOOP_ERRORS.items().values()) - errors0
+        attempt_errors = (SCHEDULE_ATTEMPTS.get({"result": "error"})
+                          - attempt_errors0)
+    finally:
+        ext.stop()
+    check(errors == 0, f"extender: {errors} loop errors")
+    check(attempt_errors == 0,
+          f"extender: {attempt_errors} attempt errors (extender calls failed)")
+    check(not set(log.values()) & ext.vetoed,
+          "extender: a pod landed on a vetoed node")
+    by_name = {d["metadata"]["name"]: d for d in pod_dicts}
+    placed = [dict(by_name[k.split("/", 1)[1]],
+                   spec=dict(by_name[k.split("/", 1)[1]]["spec"],
+                             nodeName=n)) for k, n in log.items()]
+    check_placements(node_dicts, [], placed, len(pod_dicts))
+    sched_sum = {
+        "pods": len(pod_dicts), "nodes": len(node_dicts),
+        "placed": len(log), "vetoed_nodes": len(ext.vetoed),
+        "window_s": window, "pods_per_s": len(log) / window,
+        "extender_calls": dict(ext.calls), "loop_errors": errors,
+        "attempt_errors": attempt_errors,
+        "spans": {k: v for k, v in spans.items()
+                  if k.startswith("scheduler/")}}
+
+    nodes = [Node.from_dict(d) for d in node_dicts]
+    bound = [Pod.from_dict(d) for d in placed]
+    servers = {"cuda": TPUExtenderServer(device=device).start(),
+               "cpu": TPUExtenderServer(device="cpu").start()}
+    requests = []
+    try:
+        for s in servers.values():
+            s.set_cluster(nodes, bound)
+        names = [d["metadata"]["name"] for d in node_dicts]
+        for d in extra:
+            for wire in ("nodenames", "nodes"):
+                payload = {"pod": d}
+                if wire == "nodenames":
+                    payload["nodenames"] = names
+                else:
+                    payload["nodes"] = {"items": node_dicts}
+                for verb in ("filter", "prioritize"):
+                    got = {dev: _post_json(f"{s.url}/{verb}", payload)
+                           for dev, s in servers.items()}
+                    card, cpu = got["cuda"][0], got["cpu"][0]
+                    for dev, body in (("card", card), ("CPU", cpu)):
+                        check(not (isinstance(body, dict) and "error" in body),
+                              f"extender server on the {dev}: {body}")
+                    row = {"pod": d["metadata"]["name"], "wire": wire,
+                           "verb": verb, "ms": got["cuda"][1],
+                           "cpu_ms": got["cpu"][1]}
+                    if verb == "filter":
+                        check(card == cpu, f"extender server: /filter "
+                                           f"({wire}) differs from the CPU's")
+                        kept = (card.get("nodenames") if wire == "nodenames"
+                                else [it["metadata"]["name"]
+                                      for it in card["nodes"]["items"]])
+                        row["feasible"] = len(kept)
+                    else:
+                        check([h["host"] for h in card]
+                              == [h["host"] for h in cpu],
+                              f"extender server: /prioritize ({wire}) hosts "
+                              "differ from the CPU's")
+                        diff = [abs(a["score"] - b["score"])
+                                for a, b in zip(card, cpu)]
+                        check(max(diff) <= 1, f"extender server: a score "
+                                              f"differs by {max(diff)}")
+                        row["scores_differing"] = sum(1 for x in diff if x)
+                    requests.append(row)
+    finally:
+        for s in servers.values():
+            s.stop()
+    ms = [r["ms"] for r in requests]
+    count_cases = (extender_count_cases(node_dicts, pod_dicts, log)
+                   if device in (None, "cuda") else {})
+    return ({**sched_sum, "launches": launches,
+             "server": {"requests": len(requests),
+                        "ms_per_request": sum(ms) / len(ms),
+                        "max_ms": max(ms), "rows": requests}},
+            count_cases)
+
+
 # ------------------------------------------------------------------ main
 
 def main() -> int:
@@ -2215,6 +2881,8 @@ def main() -> int:
           "drain": drain_parity_phase(), "scheduler": sched_parity_phase(),
           "connected": connected_parity_phase()})
     emit({"phase": "parity.preemption", **preemption_parity_phase()})
+    emit({"phase": "parity.explain", **explain_parity_phase()})
+    emit({"phase": "parity.extender", **extender_parity_phase()})
 
     launches = {}   # kernel -> {path: launches}
 
@@ -2284,19 +2952,31 @@ def main() -> int:
     emit({"phase": "preemption", **pre_sum})
     cpre_sum = connected_preemption_phase()
     emit({"phase": "connected_preemption", **cpre_sum})
+    # the explainer's judge and the extender path at full width
+    expl_sum, expl_cases = explain_phase()
+    emit({"phase": "explain", **expl_sum})
+    expl_rows = kernels_phase(expl_cases)
+    del expl_cases
+    emit({"phase": "kernels.explain", "rows": expl_rows})
+    ext_sum, ext_cases = extender_phase()
+    emit({"phase": "extender", **ext_sum})
+    ext_rows = kernels_phase(ext_cases)
+    del ext_cases
+    emit({"phase": "kernels.extender", "rows": ext_rows})
     for path, summary in (("preemption", pre_sum),
-                          ("connected_preemption", cpre_sum)):
+                          ("connected_preemption", cpre_sum),
+                          ("explain", expl_sum), ("extender", ext_sum)):
         for name, n in summary["launches"].items():
-            if n:
-                launches.setdefault(name, {})[path] = n
+            launches.setdefault(name, {})[path] = n
 
     # one entry per kernel, at the shape of the path with its most launches
     # among those whose rows are taken from the path's own context
-    # (resident, scheduler, connected), launches summed over every path;
-    # every row of the kernels phases was held bit-equal to the plain
-    # version
+    # (resident, scheduler, connected, explain, extender), launches summed
+    # over every path; every row of the kernels phases was held bit-equal
+    # to the plain version
     rows_by_path = {"resident": resident_rows, "scheduler": sched_rows,
-                    "connected": conn_rows}
+                    "connected": conn_rows, "explain": expl_rows,
+                    "extender": ext_rows}
     table = []
     for name, by_path in launches.items():
         top = max(rows_by_path, key=lambda path: by_path.get(path, 0))
@@ -2307,7 +2987,8 @@ def main() -> int:
                    shape_of=top,
                    shapes_checked=[r["name"] for r in
                                    rows + drain_rows + resident_rows
-                                   + sched_rows + conn_rows
+                                   + sched_rows + conn_rows + expl_rows
+                                   + ext_rows
                                    if r["name"].startswith(name + "[")])
         table.append(row)
     emit({"kernels": table})

@@ -15,12 +15,11 @@ by ``from_yaml`` only: the port's other entry points run without it.
 
 Options of features the port has not got yet are refused by ``validate``
 (and by the ``Scheduler`` that is handed such a configuration) with a
-``NotImplementedError`` naming the ROADMAP item: the explainer, extenders
-and a device mesh. So the explainer is off by default here, where the
-reference turns it on; the parity sentinel is on, every 16th drain, as in
-the reference. The
-reference's durable AOT executable cache has no counterpart: the port's
-kernels build once into hash-named libraries (``ops/kernels.py``).
+``NotImplementedError`` naming the ROADMAP item: a device mesh. The
+explainer is on by default and the parity sentinel samples every 16th
+drain, as in the reference. The reference's durable AOT executable cache
+has no counterpart: the port's kernels build once into hash-named
+libraries (``ops/kernels.py``).
 """
 
 from __future__ import annotations
@@ -119,9 +118,9 @@ class Profile:
 @dataclass
 class SchedulerConfiguration:
     profiles: list[Profile] = field(default_factory=lambda: [Profile()])
-    # scheduler-extender webhooks (kube-scheduler/config/v1 Extender), as
-    # their wire dicts; the port's Scheduler refuses a non-empty list
-    extenders: list = field(default_factory=list)
+    # scheduler-extender webhooks (kube-scheduler/config/v1 Extender);
+    # sched/extender.py calls them during every scheduling cycle
+    extenders: list = field(default_factory=list)  # list[ExtenderConfig]
     batch_size: int = 256          # pods per gang step (pop_batch max)
     # Deep-backlog drain: when one pop yields more than batch_size pods the
     # loop fuses up to this many batches into ONE device program (lax.scan,
@@ -200,9 +199,8 @@ class SchedulerConfiguration:
     # unschedulable pods, producing upstream-style FailedScheduling
     # messages, the scheduler-explanations ConfigMap (ktpu why), and
     # scheduler_unschedulable_reasons_total. Zero dispatches added to the
-    # drain cycle. Off here (the reference's default is True): the
-    # explainer is not ported yet, and validate refuses True.
-    explainer_enabled: bool = False
+    # drain cycle.
+    explainer_enabled: bool = True
 
     def profile_for(self, scheduler_name: str) -> Optional[Profile]:
         for p in self.profiles:
@@ -216,9 +214,8 @@ class SchedulerConfiguration:
         if d.get("profiles"):
             cfg.profiles = [Profile.from_dict(p) for p in d["profiles"]]
         if d.get("extenders"):
-            # kept as their wire dicts: the port has no extender client yet,
-            # and its Scheduler refuses a configuration that names one
-            cfg.extenders = list(d["extenders"])
+            from kubernetes_tpu_torch.sched.extender import ExtenderConfig
+            cfg.extenders = [ExtenderConfig.from_dict(e) for e in d["extenders"]]
         for yaml_key, attr in [
             ("batchSize", "batch_size"), ("maxGangRounds", "max_gang_rounds"),
             ("maxDrainBatches", "max_drain_batches"),
@@ -269,11 +266,6 @@ def not_ported(what: str, item: str) -> NotImplementedError:
 def refuse_unported(cfg: SchedulerConfiguration) -> None:
     """Raise for an option whose feature waits for a later slice: each
     changes what a cycle does, and a silent no-op would hide that."""
-    if cfg.explainer_enabled:
-        raise not_ported("the scheduling explainer (explainer_enabled)",
-                         "5")
-    if cfg.extenders:
-        raise not_ported("scheduler extenders", "3c")
     if (cfg.mesh_shape is not None
             and cfg.mesh_shape[0] * cfg.mesh_shape[1] > 1):
         raise not_ported("a device mesh (mesh_shape)", "8")

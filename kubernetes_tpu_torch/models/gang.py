@@ -219,11 +219,13 @@ def _gang_round_impl(ct_ext: ClusterTensors, pb: PodBatch, state: GangState,
                      seed: int = 0, fit_strategy: str = "LeastAllocated",
                      topo_keys: tuple[int, ...] = (), serial: bool = False,
                      weights: tuple = (), enabled_filters: tuple = (),
-                     cap_scale=1, slot_start=None):
+                     cap_scale=1, slot_start=None, ext_mask=None,
+                     ext_scores=None):
     """One propose/accept/fold round. Returns (new_state, progress) where
     progress (a 0-d tensor) counts acceptances plus serial-mode attempts.
     ``slot_start``: index of this batch's extension slots in the epod
-    tensors; defaults to the trailing P slots."""
+    tensors; defaults to the trailing P slots. ``ext_mask``/``ext_scores``:
+    the extender veto and score overlay [P,N] (see evaluate)."""
     P = state.committed.shape[0]
     N = ct_ext.node_valid.shape[0]
     dev = state.committed.device
@@ -240,7 +242,8 @@ def _gang_round_impl(ct_ext: ClusterTensors, pb: PodBatch, state: GangState,
     res = evaluate(ct_round, pb_round, seed=seed,
                    fit_strategy=fit_strategy, topo_keys=topo_keys,
                    weights=dict(weights) if weights else None,
-                   enabled_filters=frozenset(enabled_filters) if enabled_filters else None)
+                   enabled_filters=frozenset(enabled_filters) if enabled_filters else None,
+                   ext_mask=ext_mask, ext_scores=ext_scores)
     want = res.assigned & ~state.committed & pb.pod_valid
     tried = state.tried
     n_attempted = torch.zeros((), dtype=torch.int64, device=dev)
@@ -291,7 +294,8 @@ def _gang_round_impl(ct_ext: ClusterTensors, pb: PodBatch, state: GangState,
 
 def _converge(ct_ext, pb, state, *, seed, fit_strategy, topo_keys,
               weights, enabled_filters, max_rounds,
-              serial=False, slot_start=None) -> GangState:
+              serial=False, slot_start=None, ext_mask=None,
+              ext_scores=None) -> GangState:
     """Rounds until one makes no progress, at most ``max_rounds``.
 
     The reference runs a fixed-trip loop whose body goes dead after the
@@ -304,7 +308,7 @@ def _converge(ct_ext, pb, state, *, seed, fit_strategy, topo_keys,
             ct_ext, pb, state, seed=seed, fit_strategy=fit_strategy,
             topo_keys=topo_keys, serial=serial, weights=weights,
             enabled_filters=enabled_filters, cap_scale=1 << min(i, 20),
-            slot_start=slot_start)
+            slot_start=slot_start, ext_mask=ext_mask, ext_scores=ext_scores)
         if int(progress) == 0:
             break
     return state
@@ -313,12 +317,15 @@ def _converge(ct_ext, pb, state, *, seed, fit_strategy, topo_keys,
 def gang_schedule(ct: ClusterTensors, pb: PodBatch, seed: int = 0,
                   fit_strategy: str = "LeastAllocated",
                   topo_keys: tuple[int, ...] = (), serial: bool = False,
-                  max_rounds: int = 64, weights=None, enabled_filters=None):
+                  max_rounds: int = 64, weights=None, enabled_filters=None,
+                  ext_mask=None, ext_scores=None):
     """Drive rounds until convergence. Returns (assignment [P] np.int32 with -1
     for unschedulable, rounds_used). ``weights`` (plugin->weight) and
     ``enabled_filters`` (set of filter names) carry the active profile's
     plugin configuration. ``ct`` and ``pb`` are on one device; the rounds
-    run there."""
+    run there. ``ext_mask`` [P,N] bool / ``ext_scores`` [P,N] float32
+    (numpy, at the bucketed dims): the extender pass's veto and score
+    overlay, copied to that device once for every round."""
     P = int(pb.pod_valid.shape[0])
     dev = pb.pod_valid.device
     ct_ext = extend_cluster(ct, pb)
@@ -332,10 +339,16 @@ def gang_schedule(ct: ClusterTensors, pb: PodBatch, seed: int = 0,
     weights_t = tuple(sorted(weights.items())) if weights else ()
     filters_t = tuple(sorted(enabled_filters)) if enabled_filters else ()
     limit = max(P if serial else max_rounds, 1)
+    if ext_mask is not None:
+        ext_mask = torch.as_tensor(ext_mask, dtype=torch.bool, device=dev)
+    if ext_scores is not None:
+        ext_scores = torch.as_tensor(ext_scores, dtype=torch.float32,
+                                     device=dev)
     state = _converge(ct_ext, pb, state, seed=seed,
                       fit_strategy=fit_strategy, topo_keys=topo_keys,
                       serial=serial, weights=weights_t,
-                      enabled_filters=filters_t, max_rounds=limit)
+                      enabled_filters=filters_t, max_rounds=limit,
+                      ext_mask=ext_mask, ext_scores=ext_scores)
     return state.assignment.cpu().numpy().astype(np.int32), state.rounds
 
 

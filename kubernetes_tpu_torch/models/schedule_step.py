@@ -36,15 +36,18 @@ class StepResult:
 def evaluate(ct: ClusterTensors, pb: PodBatch, seed: int = 0,
              weights=None, fit_strategy: str = "LeastAllocated",
              topo_keys: tuple[int, ...] = (),
-             enabled_filters=None) -> StepResult:
+             enabled_filters=None, ext_mask=None,
+             ext_scores=None) -> StepResult:
     """Filter + score + select for the whole batch, assuming an EMPTY batch
     context (no intra-batch interactions — gang.py supplies those).
 
     ``topo_keys``: tuple of distinct topology key-ids in play
     (meta.topo_keys). ``weights`` / ``enabled_filters``: the active
     profile's plugin config (None = reference defaults / all filters).
-    The reference's extender masks and out-of-tree plugins are not ported
-    yet: no caller of this slice passes them."""
+    ``ext_mask``/``ext_scores`` [P,N] (tensors on the batch's device):
+    host-computed scheduler-extender feasibility veto and weighted score
+    overlay (sched/extender.py) — the findNodesThatPassExtenders position
+    in the cycle. The reference's out-of-tree plugins are ROADMAP item 12."""
     def _on(name):
         return enabled_filters is None or name in enabled_filters
 
@@ -57,6 +60,8 @@ def evaluate(ct: ClusterTensors, pb: PodBatch, seed: int = 0,
     if _on("InterPodAffinity"):
         feasible &= topology.interpod_required_mask(ct, pb, topo_keys)
         feasible &= topology.interpod_symmetry_mask(ct, pb, topo_keys)
+    if ext_mask is not None:
+        feasible &= ext_mask
     extra = {}
     if pb.sc_valid.shape[1] > 0:
         extra["PodTopologySpread"] = (
@@ -69,6 +74,8 @@ def evaluate(ct: ClusterTensors, pb: PodBatch, seed: int = 0,
             torch.any(pb.paff_valid, dim=1))
     scores = combined_score(ct, pb, feasible, weights=weights, extra_raw=extra,
                             fit_strategy=fit_strategy)
+    if ext_scores is not None:
+        scores = torch.where(feasible, scores + ext_scores, scores)
     # tenant-local tie-break identity: arange(N) for single-tenant
     # clusters, the per-tenant rank under a fleet
     choice, has = select_host(scores, seed=seed,

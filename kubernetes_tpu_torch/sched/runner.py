@@ -14,9 +14,9 @@ The port of ``kubernetes_tpu/sched/runner.py``. Where it differs:
   would hide the fault behind a process that looks alive. The exception is
   kept as ``loop_error``, and ``stop()`` re-raises it.
 - Left out: the durable AOT executable cache (ROADMAP Queue A item 8; the
-  port's kernels build into ``build/kernels/``), the explainer's publisher
-  (item 5), DRA — its informers, claim allocation at bind and its release
-  (item 11) — and the ``KTPU_SWITCH_INTERVAL`` knob. The status ConfigMap
+  port's kernels build into ``build/kernels/``), DRA — its informers,
+  claim allocation at bind and its release (item 11) — and the
+  ``KTPU_SWITCH_INTERVAL`` knob. The status ConfigMap
   has no ``aotCache`` and ``topology`` blocks.
 - ``device`` and ``feature_gate`` go to the ``Scheduler``: the card unless
   the caller asks for the CPU.
@@ -65,6 +65,9 @@ from kubernetes_tpu_torch.utils.tracing import TRACER
 # Published like the autoscaler's cluster-autoscaler-status: one ConfigMap
 # other components (and ``ktpu status``) read for the live deployment shape.
 STATUS_CONFIGMAP = "kubernetes-tpu-scheduler-status"
+# Decision provenance: per-pod unschedulability explanations (the
+# explainer's verdicts), read by ``ktpu why <pod>`` in the reference.
+EXPLAIN_CONFIGMAP = "scheduler-explanations"
 # Flight-recorder export: the newest window of batch spans + per-pod
 # lifecycle tracks as Chrome trace-event JSON, read by ``ktpu trace dump``
 # (loads directly in Perfetto). Bounded — see _publish_trace.
@@ -90,6 +93,7 @@ class SchedulerRunner:
                  identity: str = "kubernetes-tpu-scheduler", registry=None,
                  status_namespace: str = "default",
                  status_name: str = STATUS_CONFIGMAP,
+                 explain_name: str = EXPLAIN_CONFIGMAP,
                  trace_name: str = TRACE_CONFIGMAP,
                  feature_gate=DEFAULT_FEATURE_GATE, device=None):
         self.client = client
@@ -98,8 +102,10 @@ class SchedulerRunner:
         # the component's own namespace; ktpu -n <ns> status must match)
         self.status_namespace = status_namespace
         # Per-INSTANCE ConfigMap names: two scheduler identities sharing
-        # one apiserver must not clobber each other's status/trace.
+        # one apiserver must not clobber each other's status/explanations/
+        # trace.
         self.status_name = status_name
+        self.explain_name = explain_name
         self.trace_name = trace_name
         if hasattr(client, "default_user_agent"):
             client.default_user_agent("kube-scheduler")
@@ -115,6 +121,11 @@ class SchedulerRunner:
         from kubernetes_tpu_torch.utils.events import EventRecorder
         self.scheduler.recorder = EventRecorder(client, "default-scheduler")
         self.scheduler._evict = self._evict  # preemption deletes via API
+        # decision provenance: the explainer publishes its verdicts as the
+        # scheduler-explanations ConfigMap (events ride the recorder wired
+        # above)
+        if self.scheduler.explainer is not None:
+            self.scheduler.explainer.publisher = self._publish_explanations
         self.factory = InformerFactory(client)
         self.identity = identity
         self._stop = threading.Event()
@@ -609,7 +620,8 @@ class SchedulerRunner:
             "audit": self._audit_status(),
             "pending": self.queue.stats(),
             "e2e": self._e2e_status(),
-            "explain": None,
+            "explain": (self.scheduler.explainer.stats()
+                        if self.scheduler.explainer is not None else None),
             "flight": self._flight_status(),
         }
         self._publish_configmap(self.status_name,
@@ -636,6 +648,16 @@ class SchedulerRunner:
         from kubernetes_tpu_torch.utils.configmap import upsert_configmap
         upsert_configmap(self.client, self.status_namespace, name, data,
                          site="publish_status")
+
+    def _publish_explanations(self, explanations: dict) -> None:
+        """Explainer-thread callback: the scheduler-explanations ConfigMap.
+        One JSON blob keyed by pod key."""
+        import json
+        import time as _time
+        self._publish_configmap(
+            self.explain_name,
+            {"explanations": json.dumps(explanations),
+             "updated": str(_time.time())})
 
     def publish_trace(self) -> None:
         """Publish the flight-recorder export NOW (``ktpu trace dump``

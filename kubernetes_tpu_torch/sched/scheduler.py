@@ -29,6 +29,13 @@ Where the port differs from the reference:
   left out; the config fields behind them stay. ``cycle_log`` is None
   unless the caller sets it to a list.
 
+- The explainer (``sched/explainer.py``) judges a failed cycle's pods on
+  the scheduler's device, and with the oracle only a cycle at the
+  breaker's oracle level; a failure of its device judge is counted
+  (``LOOP_ERRORS{site=device_explain}``) and leaves the pods with the
+  generic event, and a ``KernelError``,
+  ``ParityError`` or ``NotImplementedError`` there is raised at the next
+  pop, as the parity sentinel's refutation is.
 - Default preemption (the PostFilter path, ``sched/preemption.py``)
   catches a failure of its device programs only here, in
   ``_default_preempt`` and ``_default_preempt_wave``: a ``KernelError``,
@@ -38,12 +45,11 @@ Where the port differs from the reference:
   ``sched/preemption.py`` as well, uncounted.
 
 Features that wait for later slices raise ``NotImplementedError`` naming
-their ROADMAP Queue A item: extenders (3c), the explainer (5), slice
-carving (6), fleet mode (7), a device mesh (8), DRA (11) and out-of-tree
-tensor plugins (12). The parity sentinel (``audit/sentinel.py``) samples
-drains and preemption waves as in the reference, but an answer it refutes
-stops the loop with a ``ParityError`` where the reference trips the
-breaker to the oracle.
+their ROADMAP Queue A item: slice carving (6), fleet mode (7), a device
+mesh (8), DRA (11) and out-of-tree tensor plugins (12). The parity
+sentinel (``audit/sentinel.py``) samples drains and preemption waves as
+in the reference, but an answer it refutes stops the loop with a
+``ParityError`` where the reference trips the breaker to the oracle.
 """
 
 from __future__ import annotations
@@ -82,6 +88,8 @@ from kubernetes_tpu_torch.audit.sentinel import ParityError, ParitySentinel
 from kubernetes_tpu_torch.ops.kernels import KernelError
 from kubernetes_tpu_torch.sched import preemption as preemption_mod
 from kubernetes_tpu_torch.sched.cache import SchedulerCache
+from kubernetes_tpu_torch.sched.explainer import (GENERIC_MESSAGE,
+                                                  SchedulingExplainer)
 from kubernetes_tpu_torch.sched.queue import SchedulingQueue
 from kubernetes_tpu_torch.sched.resilience import DeviceCircuitBreaker
 from kubernetes_tpu_torch.utils import sanity
@@ -129,6 +137,12 @@ class Scheduler:
         # PDBs for preemption's victim selection; the runner wires its
         # informer's store here
         self.pdb_lister: Callable[[], list] = lambda: []
+        # scheduler extenders (extender.go HTTPExtender analog)
+        from kubernetes_tpu_torch.sched.extender import (HTTPExtender,
+                                                         extender_binder)
+        self._extenders = [HTTPExtender(c) for c in (cfg.extenders or [])]
+        self._extender_bind = (extender_binder(self._extenders)
+                               if self._extenders else None)
         self.preemptor = preemptor if preemptor is not None else self._default_preempt
         # Binding pool: a fixed set of long-lived workers (the reference
         # spawns a goroutine per bindingCycle behind client-go's shared
@@ -155,6 +169,16 @@ class Scheduler:
         self.sentinel = None
         if cfg.parity_sample_every > 0:
             self.sentinel = ParitySentinel(every=cfg.parity_sample_every)
+        # decision-provenance explainer (sched/explainer.py): re-runs the
+        # static filter stack in per-filter-output mode over unschedulable
+        # pods on its own thread — upstream-style FailedScheduling
+        # messages and unschedulable-reason metrics with no work added to
+        # the drain cycle. recorder_ref is a callable because the runner
+        # swaps self.recorder after construction.
+        self.explainer = None
+        if cfg.explainer_enabled:
+            self.explainer = SchedulingExplainer(
+                cfg, lambda: self.recorder, device=self.device)
         # watchdog heartbeats (the runner wires these to its watchdog;
         # library embedders keep the no-ops)
         self.heartbeat: Callable[[], None] = lambda: None
@@ -390,9 +414,13 @@ class Scheduler:
         single-batch program.
 
         Raises the sentinel's ``ParityError`` once it has refuted a
-        drain, before popping anything."""
+        drain, and the explainer's fault (a ``KernelError``,
+        ``ParityError`` or ``NotImplementedError`` of its device judge),
+        before popping anything."""
         if self.sentinel is not None and self.sentinel.fault is not None:
             raise self.sentinel.fault
+        if self.explainer is not None and self.explainer.fault is not None:
+            raise self.explainer.fault
         self._fold_staged_nominations()
         # land finished drains' bindings first (don't let finished results
         # sit behind a blocking pop)
@@ -478,7 +506,8 @@ class Scheduler:
             if any(self._slice_shape_of(it[0]) is not None for it in items):
                 raise _not_ported("slice carving (topology/carve.py)", "6")
             if ((len(items) > self.cfg.batch_size
-                    or self._drain_ctx is not None) and not serial):
+                    or self._drain_ctx is not None)
+                    and not serial and not self._extenders):
                 n_bound += self._schedule_drain(profile, items, headroom)
             else:
                 for chunk in self._tenant_chunks(items, self.cfg.batch_size):
@@ -536,6 +565,27 @@ class Scheduler:
                 profile.apply_added_affinity(pods), meta,
                 min_p=self.cfg.batch_size,
                 cache_rows=not profile.added_affinity)
+        ext_mask = ext_scores = None
+        ext_errors: set = set()
+        if self._extenders:
+            from kubernetes_tpu_torch.sched.extender import run_extenders
+            with TRACER.span("scheduler/extenders", pods=len(pods)):
+                m, s, ext_errors = run_extenders(self._extenders, pods, nodes)
+            Pb, Nb = pb.pod_valid.shape[0], ct.node_valid.shape[0]
+            if m is not None:  # pad to bucket dims; padding is neutral
+                ext_mask = np.ones((Pb, Nb), bool)
+                ext_mask[:m.shape[0], :m.shape[1]] = m
+            if s is not None:
+                ext_scores = np.zeros((Pb, Nb), np.float32)
+                ext_scores[:s.shape[0], :s.shape[1]] = s
+            if ext_errors:
+                # extender transport failure = attempt ERROR: exclude from
+                # the gang batch and requeue with backoff — never feed it to
+                # preemption as if the cluster had no room
+                valid = np.asarray(pb.pod_valid).copy()
+                for i in ext_errors:
+                    valid[i] = False
+                pb = pb.replace(pod_valid=valid)
         serial = not self.features.enabled("TPUBatchScheduling")
         with BATCH_DURATION.time(), TRACER.span(
                 "scheduler/gang_schedule", pods=len(pods),
@@ -548,7 +598,8 @@ class Scheduler:
                     topo_keys=meta.topo_keys, serial=serial,
                     max_rounds=self.cfg.max_gang_rounds,
                     weights=profile.weights(),
-                    enabled_filters=profile.enabled_filters)
+                    enabled_filters=profile.enabled_filters,
+                    ext_mask=ext_mask, ext_scores=ext_scores)
             except KernelError:
                 # a kernel that does not build or launch is not a device
                 # fault to degrade around: the work stays on the card
@@ -577,11 +628,16 @@ class Scheduler:
             if k not in batch_keys and k not in overlaid_noms:
                 reserved[n] = max(prio, reserved.get(n, prio))
 
-        n_bound = n_unsched = 0
+        n_bound = n_err = n_unsched = 0
         to_bind: list[tuple[Pod, str]] = []
         failures: list[tuple[Pod, int]] = []
         dt = time.time() - t0
-        for (pod, attempts), a in zip(items, assignment[:len(items)]):
+        for i, ((pod, attempts), a) in enumerate(
+                zip(items, assignment[:len(items)])):
+            if i in ext_errors:
+                self.queue.add_unschedulable(pod, attempts + 1)
+                n_err += 1
+                continue
             if a >= 0:
                 node_name = meta.node_names[int(a)]
                 rp = reserved.get(node_name)
@@ -606,7 +662,7 @@ class Scheduler:
         self._handle_failures(failures)
         self._bind_async_batch(to_bind, profile)
         # every pod in the batch shares one cycle's wall time
-        for result, n in (("scheduled", n_bound),
+        for result, n in (("scheduled", n_bound), ("error", n_err),
                           ("unschedulable", n_unsched)):
             if n:
                 SCHEDULE_ATTEMPTS.inc({"result": result}, by=n)
@@ -842,7 +898,7 @@ class Scheduler:
         # as the exempt set). Winners of still-in-flight drains resolve
         # before this one, so their placements are collected at resolve.
         parity_cap = None
-        if self.sentinel is not None:
+        if self.sentinel is not None and not self._extenders:
             parity_cap = self.sentinel.maybe_capture_drain(
                 self.cache, profile, self._attempt_level, ctx["seq"])
             if parity_cap is not None:
@@ -1221,6 +1277,20 @@ class Scheduler:
         parity-tested against them — the breaker routes here when the
         device layer is broken so a scheduling cycle is never dropped."""
         from kubernetes_tpu_torch.sched.oracle import OracleScheduler
+        if self._extenders:
+            # an extender's filter veto is authoritative (it guards state
+            # the scheduler cannot see — storage capacity, license seats);
+            # the oracle cannot consult it mid-outage, and binding past a
+            # veto is worse than waiting one backoff for the device (or
+            # the operator) to come back
+            _LOG.warning("degraded to oracle but %d extender(s) are "
+                         "configured: requeueing %d pods instead of "
+                         "bypassing extender filters", len(self._extenders),
+                         len(items))
+            for pod, attempts in items:
+                self.queue.add_unschedulable(pod, attempts + 1)
+                SCHEDULE_ATTEMPTS.inc({"result": "unschedulable"})
+            return 0
         # one span per oracle batch: a run counts the pods that left the
         # card from these
         with TRACER.span("scheduler/oracle", pods=len(items)):
@@ -1323,12 +1393,28 @@ class Scheduler:
                 self._after_preempt(pod, attempts, node)
 
     def _emit_failed_scheduling(self, pods: list[Pod]) -> None:
-        """FailedScheduling events for one cycle's unschedulable pods (the
-        generic single-line event: the explainer is ROADMAP item 5)."""
-        for pod in pods:
+        """FailedScheduling events for one cycle's unschedulable pods. The
+        explainer owns them when it accepts the capture (its verdict is the
+        upstream-style per-filter message); the generic single-line event
+        remains the fallback for pods it refused (backlog full, disabled).
+        (The reference's failed-carve branch comes with slice carving,
+        ROADMAP item 6: slice gangs are refused before they get here.)"""
+        if not pods:
+            return
+        leftovers = pods
+        if self.explainer is not None:
+            by_prof: dict[str, list[Pod]] = {}
+            for p in pods:
+                by_prof.setdefault(p.spec.scheduler_name, []).append(p)
+            leftovers = []
+            for name, group in by_prof.items():
+                if not self.explainer.submit(
+                        self.cache, self.cfg.profile_for(name),
+                        self._attempt_level, group):
+                    leftovers.extend(group)
+        for pod in leftovers:
             self.recorder.event(pod, "Warning", "FailedScheduling",
-                                "no node satisfied the pod's scheduling "
-                                "constraints this cycle")
+                                GENERIC_MESSAGE)
 
     def _after_preempt(self, pod: Pod, attempts: int,
                        nominated: Optional[str]):
@@ -1633,14 +1719,15 @@ class Scheduler:
 
     def _bind_async_batch(self, pairs: list[tuple[Pod, str]], profile):
         """Dispatch a batch's bindings: pods needing per-pod ceremony
-        (lifecycle hooks, volume binding) go one call each; the rest ride
-        ONE bulk-binding call per chunk."""
+        (lifecycle hooks, extender binds, volume binding) go one call each;
+        the rest ride ONE bulk-binding call per chunk."""
         if not pairs:
             return
         oot = (None if profile is None or profile.out_of_tree is None
                else set(profile.out_of_tree))
         lifecycle = self.registry.lifecycle_plugins(oot)
-        if self._bulk_binder is None or lifecycle:
+        if (self._bulk_binder is None or lifecycle
+                or self._extender_bind is not None):
             for pod, node_name in pairs:
                 self._bind_async(pod, node_name)
             return
@@ -1736,6 +1823,8 @@ class Scheduler:
         self.cache.close_staging()  # poison the batch-stager (daemon too)
         if self.sentinel is not None:
             self.sentinel.close()
+        if self.explainer is not None:
+            self.explainer.close()
         if self._staged:
             # parked fragments go back to the queue, not the void — with
             # their attempt history, so backoff does not reset
@@ -1767,7 +1856,12 @@ class Scheduler:
                 ok, prebound = fw.run_pre_bind(lifecycle, pod, node_name)
                 rollback.extend(p for p in prebound if p not in rollback)
             if ok:
-                ok = self.binder(pod, node_name)
+                delegated = None
+                if self._extender_bind is not None:
+                    # an interested extender with a bindVerb owns the binding
+                    delegated = self._extender_bind(pod, node_name)
+                ok = (self.binder(pod, node_name) if delegated is None
+                      else delegated)
         except Exception:
             LOOP_ERRORS.inc({"site": "bind_lifecycle"})
             _LOG.exception("binding cycle for %s failed", pod.key)

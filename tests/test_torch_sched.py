@@ -6,9 +6,9 @@ binder log. Every pod is queued before the first ``run_once`` and backoff
 outlasts the test, so the sequence of pops is deterministic; churn lands
 in both caches between the same pops. The explainer and the parity
 sentinel are off and ``PreemptionSimulation`` is off on both sides (the
-port refuses the explainer; default preemption is held against the
-reference in ``tests/test_torch_preemption.py``), so both run the same
-loop.
+explainer is held against the reference in ``tests/test_torch_explain.py``,
+default preemption in ``tests/test_torch_preemption.py``), so both run the
+same loop.
 
 - drain path: placements, ``ctx_stats``, the patch state's ``fill_host``
   and ``top``, and the folded resident ``requested``, ``epod_valid`` and
@@ -445,19 +445,49 @@ def _port_sched(cfg_kw=None, gates=None, nodes=2, **kw):
                                     feature_gate=gate, device="cpu", **kw)
 
 
-# config options of features that wait, each with its ROADMAP item
+# config options of features that wait, each with its ROADMAP item; None =
+# ported since (the explainer, item 5, and extenders, item 3c, were refused
+# until then: their cases now check that the option is taken and built)
 _WAITING_OPTIONS = [
-    ({"explainer_enabled": True}, "item 5"),
-    ({"extenders": [{"urlPrefix": "http://localhost:1"}]}, "item 3c"),
     ({"mesh_shape": (1, 2)}, "item 8"),
 ]
 
+# options an earlier slice refused and this one ports
+_PORTED_OPTIONS = [
+    {"explainer_enabled": True},
+    {"extenders": [{"urlPrefix": "http://localhost:1",
+                    "filterVerb": "filter"}]},
+]
 
-@pytest.mark.parametrize("cfg_kw,item", _WAITING_OPTIONS,
-                         ids=["explainer", "extenders", "mesh"])
+
+def _ported_cfg_kw(cfg_kw):
+    """The option as a configuration file states it (extenders parse into
+    ExtenderConfig there)."""
+    if "extenders" in cfg_kw:
+        return {"extenders": port_config.SchedulerConfiguration.from_dict(
+            {"extenders": cfg_kw["extenders"]}).extenders}
+    return cfg_kw
+
+
+@pytest.mark.parametrize("cfg_kw,item", _WAITING_OPTIONS, ids=["mesh"])
 def test_construction_refuses_what_waits(cfg_kw, item):
     with pytest.raises(NotImplementedError, match=item):
         _port_sched(cfg_kw)
+
+
+@pytest.mark.parametrize("cfg_kw", _PORTED_OPTIONS,
+                         ids=["explainer", "extenders"])
+def test_ported_options_build(cfg_kw):
+    sched = _port_sched(_ported_cfg_kw(cfg_kw))
+    try:
+        if "extenders" in cfg_kw:
+            assert [e.cfg.url_prefix for e in sched._extenders] \
+                == ["http://localhost:1"]
+            assert sched._extender_bind is not None
+        else:
+            assert sched.explainer is not None
+    finally:
+        sched.close()
 
 
 def test_refuses_slice_gang():
@@ -508,8 +538,7 @@ def test_refuses_fleet_mode_and_tensor_plugins():
         _port_sched(registry=reg)
 
 
-@pytest.mark.parametrize("cfg_kw,item", _WAITING_OPTIONS,
-                         ids=["explainer", "extenders", "mesh"])
+@pytest.mark.parametrize("cfg_kw,item", _WAITING_OPTIONS, ids=["mesh"])
 def test_validate_refuses_what_waits(cfg_kw, item):
     """The refusal comes at config time, not only when a Scheduler is
     built."""
@@ -518,10 +547,17 @@ def test_validate_refuses_what_waits(cfg_kw, item):
         port_config.validate(cfg)
 
 
+@pytest.mark.parametrize("cfg_kw", _PORTED_OPTIONS,
+                         ids=["explainer", "extenders"])
+def test_ported_options_validate(cfg_kw):
+    port_config.validate(
+        port_config.SchedulerConfiguration(**_ported_cfg_kw(cfg_kw)))
+
+
 def test_default_config_builds_a_scheduler():
     """The port's defaults leave the unported features off (the parity
-    sentinel is ported and on, as in the reference), so the default
-    configuration validates and builds a Scheduler."""
+    sentinel and the explainer are ported and on, as in the reference), so
+    the default configuration validates and builds a Scheduler."""
     cfg = port_config.SchedulerConfiguration()
     port_config.validate(cfg)
     sched = port_scheduler.Scheduler(
