@@ -166,13 +166,49 @@ Phases, one JSON line each:
            pods against the nodes with the first 256 bound, extended by the
            batch as gang_schedule extends it), as kernels.drain
 
+  parity.slice  the reference's SliceCarve layout (a 4x4x2 torus, 4 cells
+           pinned near-full, 2x2x2 gangs, a 4x4x2 gang that cannot be
+           carved, a 2x2x2 gang at priority 100 placed by slice
+           preemption) through the port's Scheduler on the card and the
+           CPU: binder logs, events, evictions, nominations, the distinct
+           explanations, carve counters, topology_status() and the
+           sentinel's carve samples equal; and carve_step on the card
+           against the numpy twin (the port's oracle carver) on a seeded
+           16x16x16 cluster (empty, full and mixed 4x4x4 cubes: holes,
+           unschedulable nodes, claimed cells), 2x2x4, 4x4x4, 4x4x8, 8x8x8
+           and 8x8x16 with every rotation: fits, cost, node_grid and
+           free_grid bit-equal, both selections equal
+  slice    SliceCarve/16x16x16: a TPU v4 pod's torus, 4096 nodes (one a
+           cell: 240 CPU, 407Gi, 4 google.com/tpu), 205 single-host
+           background pods in the x >= 12 slab, the port's APIServer in a
+           spawned process, SchedulerRunner(HTTPClient(url, wire="json"))
+           (reference defaults, PreemptionSimulation on, the explainer on,
+           the sentinel on every carve, a fail-fast auditor every 2 s),
+           run_once driven by the phase once a gang is wholly queued. A
+           seeded stream of 40 gangs (2x2x4 : 4x4x4 : 4x4x8 : 8x8x8 = 0.4 :
+           0.3 : 0.2 : 0.1; members of 8 CPU, 32Gi, 4 TPU; one in four
+           with a soft hostname spread), the oldest deleted from 70%
+           occupancy on; an 8x8x16 gang that cannot be carved (its
+           FailedScheduling event and {"SliceCarve": 4096} explanation);
+           2x2x4 gangs until no 4x4x8 origin is free, then a 4x4x8 gang
+           at priority 1000 bound by one slice preemption on the box
+           select_eviction names. Gangs, carves/s, create-to-bind p50/p99,
+           spans, carve_step ms per shape (CUDA events, 10 calls with the
+           read-back), its launches and busy share (torch.profiler),
+           topology_status(). Gates: every gang contiguous in the API,
+           sentinel carve samples >= carves with 0 divergences, 0 audit
+           violations, 0 loop errors, count_pn launched
+  kernels.slice  count_pn at the slice path's shape (the last spread
+           gang's terms, P = 256, over the cluster with it bound), as
+           kernels.drain
+
 Every phase fails while LOOP_ERRORS{site=device_preempt} is above 0 (a
 device preemption failure the scheduler degraded to the host scan) or
 LOOP_ERRORS{site=device_explain} is (a failure of the explainer's device
 judge, whose pods then got no verdict).
 
 Each path (path, drain, resident, scheduler, connected, preemption,
-connected_preemption, explain, extender) is driven with the launch counts
+connected_preemption, explain, extender, slice) is driven with the launch counts
 set to 0 just before it and read just after; the preemption paths launch
 no hand kernel (their device work is torch ops), and every path's count
 is printed, 0 included. Then the kernel table line
@@ -2839,6 +2875,774 @@ def extender_phase(n_nodes=N_NODES, n_pods=EXTENDER_PODS, device=None):
 
 # ------------------------------------------------------------------ main
 
+# ------------------------------------------------------------------ slices
+
+# SliceCarve/16x16x16: a TPU v4 pod's 4096-position 3D torus (Jouppi et
+# al., ISCA 2023; the Cloud TPU v4 slice topologies 2x2x4 ... 16x16x16),
+# one node per torus cell as benchmarks/slicecarve.py maps cells, one
+# member filling one host as GKE TPU pods do
+SLICE_DIMS = (16, 16, 16)
+SLICE_NODE_CAPACITY = {"cpu": "240", "memory": "407Gi",
+                       "google.com/tpu": "4", "pods": "110"}
+SLICE_MEMBER = {"cpu": "8", "memory": "32Gi", "google.com/tpu": "4"}
+SLICE_SHAPES = (("2x2x4", 0.4), ("4x4x4", 0.3), ("4x4x8", 0.2),
+                ("8x8x8", 0.1))
+# single-host background: 5% of the cells at seeded uniform positions,
+# priority 0. Such a background leaves no 8x8x8 box free (each box clears
+# all 205 with probability (1 - 512/4096)**205, about 1e-12), so the
+# fill's gangs run at a priority above it and a gang that finds no free
+# box slice-preempts the background pods on the cheapest one.
+SLICE_BACKGROUND = 205
+SLICE_FILL_PRIORITY = 100
+SLICE_GANGS = 40          # the fill's gangs
+SLICE_HOLD = 0.70         # gangs stay bound until this share is occupied
+SLICE_SPREAD_EVERY = 4    # one gang in four carries a soft hostname spread
+SLICE_FAIL = "8x8x16"
+SLICE_PREEMPT = "4x4x8"
+SLICE_PREEMPT_PRIORITY = 1000
+SLICE_NS = "slice"
+SLICE_GANG_TIMEOUT_S = 120.0
+SLICE_CARVE_CALLS = 10
+
+
+def _prod(shape):
+    return shape[0] * shape[1] * shape[2]
+
+
+def slice_node_objs(dims=SLICE_DIMS, capacity=None, holes=(),
+                    unschedulable=()):
+    """One node per torus cell, ``tn-x-y-z``, with its topology labels;
+    ``holes`` and ``unschedulable`` are flat cell indices."""
+    from kubernetes_tpu_torch.testing.wrappers import make_node
+    from kubernetes_tpu_torch.topology.slicing import topology_labels
+    holes, unschedulable = set(holes), set(unschedulable)
+    out = []
+    for i in range(_prod(dims)):
+        if i in holes:
+            continue
+        x, y, z = (i // (dims[1] * dims[2]), (i // dims[2]) % dims[1],
+                   i % dims[2])
+        nb = make_node(f"tn-{x}-{y}-{z}").capacity(
+            capacity or SLICE_NODE_CAPACITY)
+        for k, v in topology_labels(x, y, z).items():
+            nb = nb.label(k, v)
+        if i in unschedulable:
+            nb = nb.unschedulable()
+        out.append(nb.obj())
+    return out
+
+
+def slice_gang_objs(gid, shape, prio=0, spread=False, ns=SLICE_NS,
+                    request=None):
+    """A slice gang: members ``gid-0000`` ... carrying the gang and
+    slice-shape labels; ``spread`` adds a ScheduleAnyway hostname spread
+    over the gang's label (the gang program then reaches count_pn)."""
+    from kubernetes_tpu_torch.testing.wrappers import make_pod
+    from kubernetes_tpu_torch.topology.slicing import (GANG_LABEL,
+                                                       SLICE_SHAPE_LABEL,
+                                                       parse_shape)
+    pods = []
+    for m in range(_prod(parse_shape(shape))):
+        pw = (make_pod(f"{gid}-{m:04d}", ns).req(request or SLICE_MEMBER)
+              .labels({GANG_LABEL: gid, SLICE_SHAPE_LABEL: shape}))
+        if prio:
+            pw = pw.priority(prio)
+        if spread:
+            pw = pw.spread(1, "kubernetes.io/hostname", "ScheduleAnyway",
+                           {GANG_LABEL: gid})
+        pods.append(pw.obj())
+    return pods
+
+
+def carve_full_cluster(seed=SEED, dims=SLICE_DIMS):
+    """The full-size carve check's cluster: the torus cut into 4x4x4 cubes,
+    each drawn empty (40%), full (35%: a member-sized pod on every cell)
+    or mixed (25%: seeded holes, unschedulable nodes, member-sized and
+    small pods, claimed cells), so that small shapes fit, large ones have
+    finite eviction costs, and every branch of the cell verdict is hit.
+    -> (nodes, bound pods, claimed node indices, a member pod)."""
+    import numpy as np
+    from kubernetes_tpu_torch.testing.wrappers import make_pod
+    rng = np.random.default_rng(seed)
+    n = _prod(dims)
+    cube = [((i // (dims[1] * dims[2])) // 4, ((i // dims[2]) % dims[1])
+             // 4, (i % dims[2]) // 4) for i in range(n)]
+    state = {c: rng.choice(3, p=[0.4, 0.35, 0.25]) for c in sorted(set(cube))}
+    kind = rng.random(n)
+    mixed = np.array([state[c] == 2 for c in cube])
+    nodes = slice_node_objs(dims, holes=np.flatnonzero(mixed & (kind < 0.05)),
+                            unschedulable=np.flatnonzero(
+                                mixed & (kind >= 0.05) & (kind < 0.1)))
+    cell_of = {nd.metadata.name: i for i, nd in enumerate(
+        slice_node_objs(dims))}
+    bound = []
+    claimed = set()
+    for j, nd in enumerate(nodes):
+        i = cell_of[nd.metadata.name]
+        s, u = state[cube[i]], kind[i]
+        if s == 1 or (s == 2 and 0.1 <= u < 0.4):
+            req = SLICE_MEMBER
+        elif s == 2 and u < 0.7:
+            req = {"cpu": "2", "memory": "4Gi"}
+        else:
+            if s == 2 and u >= 0.9:
+                claimed.add(j)
+            continue
+        bound.append(make_pod(f"bound-{j}").req(req)
+                     .node(nd.metadata.name).obj())
+    member = slice_gang_objs("g", "2x2x4", ns="default")[0]
+    return nodes, bound, claimed, member
+
+
+def carve_full_encoding(nodes, bound, member, device):
+    """(ct on ``device``, member_req, tenant) as the scheduler's carve
+    reads them: the port's encoder over the cluster, the member's
+    request row and tenant label value."""
+    import numpy as np
+    from kubernetes_tpu_torch.encode.snapshot import (TENANT_KEY_ID,
+                                                      SnapshotEncoder)
+    enc = SnapshotEncoder()
+    ct, meta = enc.encode_cluster(nodes, bound, pending_pods=[member])
+    pb = enc.encode_pods([member], meta)
+    member_req = np.asarray(pb.requests)[0]
+    tenant = int(np.asarray(pb.pod_labels)[0, TENANT_KEY_ID])
+    return ct.to(device), member_req, tenant
+
+
+def carve_full_parity(device, seed=SEED, dims=SLICE_DIMS):
+    """carve_step on ``device`` against the numpy twin (the port's oracle
+    carver over NodeStates) at 16x16x16, every shape of the slice phase
+    and the failing 8x8x16, every rotation: fits, cost, node_grid and
+    free_grid bit-equal, select_assignment and select_eviction equal.
+    -> {shape: summary}."""
+    import numpy as np
+    from kubernetes_tpu_torch.sched.oracle import OracleScheduler
+    from kubernetes_tpu_torch.topology import carve
+    from kubernetes_tpu_torch.topology.slicing import parse_shape
+    nodes, bound, claimed, member = carve_full_cluster(seed, dims)
+    ct, member_req, tenant = carve_full_encoding(nodes, bound, member,
+                                                 device)
+    claimed_np = np.zeros(ct.node_valid.shape[0], bool)
+    claimed_np[sorted(claimed)] = True
+    orc = OracleScheduler(nodes, bound)
+    out = {}
+    for shape in [s for s, _w in SLICE_SHAPES] + [SLICE_FAIL]:
+        shp = parse_shape(shape)
+        got = carve.carve_device(ct, member_req, tenant, claimed_np,
+                                 dims, shp)
+        want = orc.oracle_carve([member], shp, claimed)
+        if got is None or want is None:
+            check(got is None and want is None,
+                  f"parity.slice: {shape} fits the grid on one side only")
+            out[shape] = {"rotations": 0}
+            continue
+        for f in ("fits", "cost", "node_grid", "free_grid"):
+            a, b = getattr(got, f), getattr(want, f)
+            check(a.dtype == b.dtype and a.shape == b.shape
+                  and np.array_equal(a, b),
+                  f"parity.slice: carve_step {f} for {shape} differs from "
+                  "the numpy twin")
+        check(got.rots == want.rots, f"parity.slice: rotations of {shape}")
+        asg = carve.select_assignment(got)
+        ev = carve.select_eviction(got)
+        check(asg == carve.select_assignment(want)
+              and ev == carve.select_eviction(want),
+              f"parity.slice: selections for {shape} differ")
+        out[shape] = {"rotations": len(got.rots),
+                      "origins": int(got.fits.sum()),
+                      "free_cells": int(got.free_grid.sum()),
+                      "first_fit": None if asg is None else asg[0],
+                      "cheapest_cost": None if ev is None else ev[2]}
+    return out
+
+
+def _slice_small_run(device):
+    """The reference's SliceCarve layout through the port's Scheduler on
+    ``device``: a 4x4x2 torus (8 CPU a node), 4 cells pinned near-full,
+    two 2x2x2 gangs of full-node members, a 4x4x2 gang that cannot be
+    carved (its events and explanations), then a 2x2x2 gang at priority
+    100 that only slice preemption can place. -> what must be equal."""
+    from kubernetes_tpu_torch.testing.wrappers import make_pod
+    dims = (4, 4, 2)
+    nodes = slice_node_objs(dims, capacity={"cpu": "8", "memory": "16Gi",
+                                            "pods": "32"})
+    frag = [make_pod(f"frag-{i}", "default").req({"cpu": "7500m"})
+            .node(nodes[i * 8].metadata.name).obj() for i in range(4)]
+    cfg = sched_config(batch_size=8, explainer_enabled=True,
+                       parity_sample_every=1)
+    sched, log = make_scheduler(cfg, nodes, frag, device=device,
+                                gate=preemption_gate())
+    events, evicted = [], []
+
+    class Recorder:
+        def event(self, obj, type_, reason, message):
+            events.append((obj.key, type_, reason, message))
+
+        def flush(self):
+            pass
+    sched.recorder = Recorder()
+    evict = sched._evict
+    sched._evict = lambda v: evicted.append(v.key) or evict(v)
+    sched._drain_ready = lambda pend: False
+    full = {"cpu": "8", "memory": "1Gi"}
+    gangs = [slice_gang_objs(f"g{k}", "2x2x2", ns="default", request=full)
+             for k in range(2)]
+    big = slice_gang_objs("big", "4x4x2", ns="default", request=full)
+    hi = slice_gang_objs("hi", "2x2x2", prio=100, ns="default",
+                         request=full)
+
+    def drive(pods, pops=6):
+        for p in pods:
+            sched.queue.add(p)
+        for _ in range(pops):
+            if sum(sched.queue.stats().values()) == 0:
+                break
+            sched.run_once(wait=0.01)
+            sched.sentinel.drain(60.0)
+        sched.wait_for_bindings(30.0)
+
+    try:
+        for g in gangs:
+            drive(g)
+        drive(big, pops=1)
+        for p in big:
+            sched.queue.delete(p)
+        drive(hi)
+        sched.explainer.drain(60.0)
+        with sched._carve_lock:
+            stats = dict(sched._carve_stats)
+        return {
+            "binds": sorted((k, n) for k, n, _t in log),
+            "events": sorted(events), "evicted": evicted,
+            "nominated": sorted((p.key, p.status.nominated_node_name)
+                                for p in hi if p.status.nominated_node_name),
+            # the distinct verdicts: how many members the explainer takes
+            # before its backlog is full depends on its thread's pace
+            "explanations": sorted({json.dumps(
+                {k: v for k, v in e.items() if k != "ts"}, sort_keys=True)
+                for e in (sched.explainer.explain_of(p.key) for p in big)
+                if e}),
+            "carve_stats": stats, "topology": sched.topology_status(),
+            "sentinel": {"carve": sched.sentinel.samples["carve"],
+                         "divergences": sched.sentinel.divergences}}
+    finally:
+        sched.close()
+
+
+def slice_parity_phase(devices=("cuda", "cpu"), dims=SLICE_DIMS):
+    """parity.slice: the small SliceCarve layout through the port's
+    Scheduler on both devices (binder logs, events, evictions,
+    nominations, explanations, carve counters, topology_status and the
+    sentinel's carve samples equal), and carve_step on the first device
+    against the numpy twin at 16x16x16."""
+    runs = [_slice_small_run(d) for d in devices]
+    check(runs[0] == runs[1], "parity.slice: the Scheduler differs between "
+                              f"{devices[0]} and {devices[1]}")
+    r = runs[0]
+    stats = r["carve_stats"]
+    check(stats == {"carved": 3, "failed": 2, "slicePreempts": 1},
+          f"parity.slice: carve counters {stats}")
+    check(len(r["binds"]) == 3 * 8,
+          f"parity.slice: {len(r['binds'])} binds, want 24")
+    check(r["evicted"] and r["nominated"],
+          "parity.slice: the slice preemption evicted or nominated nothing")
+    check(r["explanations"] and all(json.loads(e)["mode"] == "carve"
+                                    for e in r["explanations"]),
+          f"parity.slice: explanations {r['explanations']}")
+    check(r["sentinel"]["carve"] >= stats["carved"]
+          and r["sentinel"]["divergences"] == 0,
+          f"parity.slice: sentinel {r['sentinel']}")
+    full = carve_full_parity(devices[0], dims=dims)
+    return {"small": {"binds": len(r["binds"]), "evicted": len(r["evicted"]),
+                      "nominated": len(r["nominated"]),
+                      "events": len(r["events"]), "carve_stats": stats,
+                      "topology": r["topology"],
+                      "sentinel": r["sentinel"]},
+            "full": full}
+
+
+def _slice_delete(client, runner, gangs, pool):
+    """Delete the gangs' pods over HTTP and wait until the scheduler's
+    cache has dropped them (the next carve must see the cells free)."""
+    names = [n for _gid, members, _cells in gangs for n in members]
+    list(pool.map(lambda n: client.pods(SLICE_NS).delete(n), names))
+    keys = [f"{SLICE_NS}/{n}" for n in names]
+    deadline = time.perf_counter() + SLICE_GANG_TIMEOUT_S
+    while any(runner.cache.is_assumed_or_bound(k) for k in keys):
+        check(time.perf_counter() < deadline,
+              "slice: deleted pods are still in the scheduler's cache")
+        time.sleep(0.005)
+
+
+def _slice_run_gang(client, runner, pods):
+    """Create one gang over HTTP, wait until the informer queued all of
+    it, drive run_once until every member is assumed, then until the API
+    shows every member bound. -> (create-to-full-bind s, queued s,
+    {name: node})."""
+    from kubernetes_tpu_torch.topology.slicing import GANG_LABEL
+    sched = runner.scheduler
+    gid = pods[0].metadata.labels[GANG_LABEL]
+    keys = [p.key for p in pods]
+    t0 = time.perf_counter()
+    client.pods(SLICE_NS).create_many(_wire(pods))
+    deadline = t0 + SLICE_GANG_TIMEOUT_S
+    while sum(runner.queue.stats().values()) < len(pods):
+        check(time.perf_counter() < deadline,
+              f"slice: gang {gid} never reached the queue")
+        time.sleep(0.001)
+    queued_s = time.perf_counter() - t0
+    while not all(runner.cache.is_assumed_or_bound(k) for k in keys):
+        check(time.perf_counter() < deadline,
+              f"slice: gang {gid} was not placed in "
+              f"{SLICE_GANG_TIMEOUT_S} s")
+        sched.run_once(wait=0.01)
+    sched.wait_for_bindings(SLICE_GANG_TIMEOUT_S)
+    while True:
+        listed = client.pods(SLICE_NS).list(
+            label_selector=f"{GANG_LABEL}={gid}")
+        placed = {p["metadata"]["name"]: p["spec"].get("nodeName")
+                  for p in listed}
+        if len(placed) == len(pods) and all(placed.values()):
+            return time.perf_counter() - t0, queued_s, placed
+        check(time.perf_counter() < deadline,
+              f"slice: gang {gid} not bound in the API")
+        time.sleep(0.002)
+
+
+def _slice_grids(occupied, shape, coords, dims):
+    """The numpy twin over the phase's own view of the torus: one node a
+    cell, one pod on each ``occupied`` cell, every cell evictable for a
+    member on its own (the scheduler's carve reads the same verdicts)."""
+    from kubernetes_tpu_torch.topology.carve import numpy_grids
+    from kubernetes_tpu_torch.topology.slicing import parse_shape
+    n = len(coords)
+    return numpy_grids(coords, [i not in occupied for i in range(n)],
+                       [True] * n, [int(i in occupied) for i in range(n)],
+                       dims, parse_shape(shape))
+
+
+def _slice_origins(occupied, shape, coords, dims):
+    """Carveable origins of ``shape`` with the ``occupied`` cells taken."""
+    res = _slice_grids(occupied, shape, coords, dims)
+    return 0 if res is None else int(res.fits.sum())
+
+
+def _slice_placeable(gang_cells, background, shape, coords, dims):
+    """Whether a fill gang of ``shape`` binds: on a free box, or on the
+    box its slice preemption picks (the cheapest, first in flat order) if
+    that box holds only background pods, which the gang may preempt.
+    Another gang's member on that box (the same priority) abandons the
+    preemption."""
+    from kubernetes_tpu_torch.topology import carve
+    res = _slice_grids(gang_cells | background, shape, coords, dims)
+    if carve.select_assignment(res) is not None:
+        return True
+    ev = carve.select_eviction(res)
+    return ev is not None and not gang_cells.intersection(ev[0])
+
+
+def _pct(xs, q):
+    import numpy as np
+    return float(np.percentile(np.asarray(xs, float), q)) if xs else None
+
+
+def slice_phase(device=None, dims=SLICE_DIMS, n_gangs=SLICE_GANGS,
+                n_background=SLICE_BACKGROUND, seed=SEED):
+    """SliceCarve/16x16x16 through the port: the APIServer in a spawned
+    process, 4096 nodes (one a torus cell) and the background pods seeded,
+    ``SchedulerRunner(HTTPClient(url, wire="json"))`` with the reference
+    defaults, PreemptionSimulation on, the explainer on, the parity
+    sentinel on every carve and a fail-fast auditor every 2 s; informers
+    synced. The phase drives ``run_once`` itself once a gang's members all
+    sit in the queue, a stand-in for the runner's loop: the loop pops
+    whatever the informer has queued, so a gang created while it runs
+    reaches it in fragments, each failing its carve on the member count,
+    in the reference as here (``tests/test_torch_carve.py``
+    ``test_runner_loop_carves_a_gang_only_when_it_arrives_whole``, ROADMAP
+    Queue C).
+
+    Fill: a seeded stream of gangs (2x2x4 : 4x4x4 : 4x4x8 : 8x8x8 = 0.4 :
+    0.3 : 0.2 : 0.1) at priority 100 over a uniform 5% background at
+    priority 0, one gang in four with a soft hostname spread; each gang is
+    created once the previous one is bound in the API, on a free box or,
+    when none is left, by slice-preempting the background pods on the
+    cheapest box; from 70% occupancy on the oldest gang is deleted before
+    each new one, and more until the new gang can bind without evicting
+    another gang. Fail: an 8x8x16 gang at
+    priority 0 (the carve's FailedScheduling event and its
+    ``{"SliceCarve": N}`` explanation), deleted again. Preempt: 2x2x4 gangs
+    until no 4x4x8 origin is free, then a 4x4x8 gang at priority 1000,
+    which must bind on the box ``select_eviction`` names, by one slice
+    preemption whose victims are the pods on that box.
+
+    Reports gangs, carves/s, create-to-bind p50/p99, the carve and gang
+    spans, carve_step ms per shape (CUDA events, 10 calls with the
+    read-back), its launches and busy share under torch.profiler,
+    topology_status(), the sentinel, the auditor, loop errors and
+    count_pn's launches. -> (summary, count_pn cases)."""
+    import multiprocessing as mp
+    from collections import deque
+    from concurrent.futures import ThreadPoolExecutor
+    import numpy as np
+    from kubernetes_tpu_torch.audit.auditor import (InvariantAuditor,
+                                                    InvariantViolationError)
+    from kubernetes_tpu_torch.api.types import Pod
+    from kubernetes_tpu_torch.client.clientset import HTTPClient
+    from kubernetes_tpu_torch.encode.snapshot import TENANT_KEY_ID
+    from kubernetes_tpu_torch.metrics.registry import LOOP_ERRORS
+    from kubernetes_tpu_torch.models.gang import extend_cluster
+    from kubernetes_tpu_torch.ops import kernels
+    from kubernetes_tpu_torch.sched.oracle import OracleScheduler
+    from kubernetes_tpu_torch.sched.runner import (EXPLAIN_CONFIGMAP,
+                                                   SchedulerRunner)
+    from kubernetes_tpu_torch.testing.wrappers import make_pod
+    from kubernetes_tpu_torch.topology import carve
+    from kubernetes_tpu_torch.topology.slicing import (is_contiguous_slice,
+                                                       parse_shape, rotations)
+    from kubernetes_tpu_torch.utils.tracing import TRACER
+    rng = np.random.default_rng(seed)
+    n_cells = _prod(dims)
+    nodes = slice_node_objs(dims)
+    coords = [(i // (dims[1] * dims[2]), (i // dims[2]) % dims[1],
+               i % dims[2]) for i in range(n_cells)]
+    node_cell = {nd.metadata.name: i for i, nd in enumerate(nodes)}
+    bg_cells = rng.choice(n_cells, n_background, replace=False)
+    background = [make_pod(f"bg-{i}", SLICE_NS)
+                  .req({"google.com/tpu": "4"})
+                  .node(nodes[int(c)].metadata.name).obj()
+                  for i, c in enumerate(bg_cells)]
+    ctx = mp.get_context("spawn")
+    server, server_pipe, url = start_apiserver(ctx)
+    runner = None
+    pool = ThreadPoolExecutor(max_workers=8)
+    try:
+        client = HTTPClient(url, timeout=120.0, wire="json")
+        t0 = time.perf_counter()
+        client.nodes().create_many(_wire(nodes))
+        client.pods(SLICE_NS).create_many(_wire(background))
+        seed_s = time.perf_counter() - t0
+        cfg = sched_config(parity_sample_every=1, explainer_enabled=True,
+                           audit_interval_s=CONNECTED_AUDIT_S,
+                           audit_fail_fast=True)
+        runner = SchedulerRunner(HTTPClient(url, wire="json"), cfg,
+                                 feature_gate=preemption_gate(),
+                                 device=device)
+        runner.auditor = InvariantAuditor(
+            client=HTTPClient(url, timeout=60.0, wire="json"),
+            cache=runner.cache, scheduler=runner.scheduler,
+            interval_s=CONNECTED_AUDIT_S, fail_fast=True,
+            pre_sweep=runner.sweep_stale_nominations,
+            post_sweep=runner.publish_status,
+            relists=runner._total_relists)
+        t0 = time.perf_counter()
+        runner.start(wait_sync=120.0, start_loop=False)
+        check(runner.has_synced(), "slice: the informers did not sync")
+        sync_s = time.perf_counter() - t0
+        sched = runner.scheduler
+        sched._drain_ready = lambda pend: False
+
+        # one warm gang, deleted again: the first carve, gang program and
+        # bind pay their one-time costs outside the measured traffic
+        warm = slice_gang_objs("warm", "2x2x4")
+        t0 = time.perf_counter()
+        _w_s, _w_q, w_placed = _slice_run_gang(client, runner, warm)
+        _slice_delete(client, runner, [("warm", [p.metadata.name
+                                                 for p in warm], ())], pool)
+        warm_s = time.perf_counter() - t0
+
+        errors0 = dict(LOOP_ERRORS.items())
+        with sched._carve_lock:
+            stats0 = dict(sched._carve_stats)
+        samples0 = sched.sentinel.samples["carve"]
+        # every span of the traffic kept (a few dozen a gang)
+        TRACER.max_spans = max(TRACER.max_spans, 64 * 1024)
+        TRACER.reset()
+        kernels.reset_launches()
+        gang_cells: set = set()  # cells of the live gangs
+        live: deque = deque()   # (gid, member names, cells), oldest first
+        gangs: list = []        # every gang carved and bound
+        # shape -> the last spread gang's count_pn inputs on the host,
+        # captured while it is bound (a later delete empties its counts);
+        # the capture's time is taken out of the traffic's windows
+        spread_inputs: dict = {}
+        capture_s = 0.0
+        k = 0
+
+        def background_cells():
+            return {node_cell[p.spec.node_name]
+                    for p in runner.cache.bound_pods()
+                    if p.metadata.name.startswith("bg-")}
+
+        background_left = background_cells()
+
+        def run(shape, prio=SLICE_FILL_PRIORITY, spread=None):
+            nonlocal k, background_left, capture_s
+            gid = f"s{k:03d}-{shape}"
+            if spread is None:
+                spread = k % SLICE_SPREAD_EVERY == SLICE_SPREAD_EVERY - 1
+            pods = slice_gang_objs(gid, shape, prio=prio, spread=spread)
+            k += 1
+            took, queued, placed = _slice_run_gang(client, runner, pods)
+            cells = {node_cell[n] for n in placed.values()}
+            ok = is_contiguous_slice([coords[c] for c in cells],
+                                     parse_shape(shape), dims)
+            check(ok, f"slice: gang {gid} is not a contiguous {shape}: "
+                      f"{sorted(placed.values())[:8]}")
+            gang_cells.update(cells)
+            live.append((gid, sorted(placed), cells))
+            left = background_cells()
+            gangs.append({"gang": gid, "shape": shape, "bind_s": took,
+                          "queued_s": queued, "spread": spread,
+                          "evicted": len(background_left - left)})
+            background_left = left
+            if spread:
+                t_cap = time.perf_counter()
+                views = [Pod.from_dict(_wire([p])[0]) for p in pods]
+                _n, sct, smeta = runner.cache.snapshot(pending_pods=views)
+                spread_inputs[shape] = (sct, runner.cache.encode_pods(
+                    views, smeta, min_p=sched.cfg.batch_size))
+                capture_s += time.perf_counter() - t_cap
+            return cells
+
+        t_start, t_start_wall = time.perf_counter(), time.time()
+        draws = rng.choice(len(SLICE_SHAPES), n_gangs,
+                           p=[w for _s, w in SLICE_SHAPES])
+        deleted = 0
+        for d in draws:
+            shape = SLICE_SHAPES[int(d)][0]
+            drop = []
+            if ((len(gang_cells) + len(background_left)) / n_cells
+                    >= SLICE_HOLD and live):
+                drop.append(live.popleft())
+            while not _slice_placeable(
+                    gang_cells - {c for g in drop for c in g[2]},
+                    background_left, shape, coords, dims):
+                check(live, f"slice: no {shape} box on a torus without "
+                            "gangs")
+                drop.append(live.popleft())
+            if drop:
+                _slice_delete(client, runner, drop, pool)
+                for g in drop:
+                    gang_cells.difference_update(g[2])
+                deleted += len(drop)
+            run(shape)
+        fill_s = time.perf_counter() - t_start - capture_s
+        fill_gangs = len(gangs)
+        with sched._carve_lock:
+            fill_preempts = (sched._carve_stats["slicePreempts"]
+                             - stats0["slicePreempts"])
+        occupancy = (len(gang_cells) + len(background_left)) / n_cells
+
+        # fail: a slice no origin can host
+        fail = slice_gang_objs("fail", SLICE_FAIL)
+        t0 = time.perf_counter()
+        client.pods(SLICE_NS).create_many(_wire(fail))
+        while sum(runner.queue.stats().values()) < len(fail):
+            check(time.perf_counter() - t0 < SLICE_GANG_TIMEOUT_S,
+                  "slice: the failing gang never reached the queue")
+            time.sleep(0.001)
+        sched.run_once(wait=0.01)
+        sched.recorder.flush(60.0)
+        sched.explainer.drain(120.0)
+        fail_events = [e for e in client.resource("events", SLICE_NS).list()
+                       if e.get("reason") == "FailedScheduling"
+                       and (e.get("involvedObject") or {}).get("name", "")
+                       .startswith("fail-")]
+        cm = client.resource("configmaps", "default").get(EXPLAIN_CONFIGMAP)
+        published = json.loads(cm["data"]["explanations"])
+        fail_exps = [v for k2, v in published.items()
+                     if k2.startswith(f"{SLICE_NS}/fail-")]
+        _slice_delete(client, runner,
+                      [("fail", [p.metadata.name for p in fail], ())], pool)
+        deadline = time.perf_counter() + SLICE_GANG_TIMEOUT_S
+        while sum(runner.queue.stats().values()):
+            check(time.perf_counter() < deadline,
+                  "slice: the failing gang stayed queued after its delete")
+            time.sleep(0.005)
+        fail_s = time.perf_counter() - t0
+
+        # preempt: 2x2x4 gangs until no 4x4x8 origin is free, then a
+        # 4x4x8 gang at priority 1000
+        t0 = time.perf_counter()
+        prep = 0
+        capture0 = capture_s
+        while _slice_origins(gang_cells | background_left, SLICE_PREEMPT,
+                             coords, dims):
+            run("2x2x4")
+            prep += 1
+        status_before = sched.topology_status()
+        hi = slice_gang_objs("preempt", SLICE_PREEMPT,
+                             prio=SLICE_PREEMPT_PRIORITY)
+        bound_before = {p.key: p.spec.node_name
+                        for p in runner.cache.bound_pods()}
+        orc = OracleScheduler(runner.cache.list_nodes(),
+                              runner.cache.bound_pods())
+        named = carve.select_eviction(orc.oracle_carve(
+            hi, parse_shape(SLICE_PREEMPT), set()))
+        check(named is not None, "slice: no 4x4x8 box can ever be freed")
+        box = {orc.states[i].node.metadata.name for i in named[0]}
+        with sched._carve_lock:
+            preempts0 = sched._carve_stats["slicePreempts"]
+        took, queued, placed = _slice_run_gang(client, runner, hi)
+        bound_after = {p.key for p in runner.cache.bound_pods()}
+        victims = {k2: n for k2, n in bound_before.items()
+                   if k2 not in bound_after}
+        preempt_s = time.perf_counter() - t0 - (capture_s - capture0)
+        gangs.append({"gang": "preempt", "shape": SLICE_PREEMPT,
+                      "bind_s": took, "queued_s": queued, "spread": False,
+                      "evicted": len(victims)})
+        traffic_s = time.perf_counter() - t_start - capture_s
+
+        launches = dict(kernels.LAUNCHES)
+        spans = _span_totals(t_start_wall)
+        errors = {"/".join(v for _k, v in key): n - errors0.get(key, 0)
+                  for key, n in LOOP_ERRORS.items().items()
+                  if n != errors0.get(key, 0)}
+        with sched._carve_lock:
+            stats = {key: v - stats0[key]
+                     for key, v in sched._carve_stats.items()}
+        sched.sentinel.drain(120.0)
+        sentinel = sched.sentinel.stats()
+        carve_samples = sentinel["samples"]["carve"] - samples0
+        sentinel_backlog = sched.sentinel._q.unfinished_tasks
+        status = sched.topology_status()
+        runner.auditor.stop()
+        for _ in range(2):
+            try:
+                runner.auditor.run_once()
+            except InvariantViolationError:
+                pass  # counted below
+        audit = runner.auditor.status()
+
+        # carve_step alone at the end state, every shape: CUDA events over
+        # 10 calls with the read-back, and one call under torch.profiler
+        _n, ct, meta = runner.cache.snapshot(pending_pods=[hi[0]])
+        pb = runner.cache.encode_pods([hi[0]], meta)
+        member_req = np.asarray(pb.requests)[0]
+        tenant = int(np.asarray(pb.pod_labels)[0, TENANT_KEY_ID])
+        ct_dev = ct.to(sched.device)
+        claimed = np.zeros(ct.node_valid.shape[0], bool)
+        carve_ms = {}
+        for shape in [s for s, _w in SLICE_SHAPES] + [SLICE_FAIL]:
+            shp = parse_shape(shape)
+            if not rotations(shp, dims):
+                continue
+
+            def one(shp=shp):
+                return carve.carve_device(ct_dev, member_req, tenant,
+                                          claimed, dims, shp)
+            prof = profile_call(one, f"slice_carve_{shape}", top=4)
+            carve_ms[shape] = {
+                "ms": cuda_ms(one, iters=SLICE_CARVE_CALLS),
+                "rotations": len(rotations(shp, dims)),
+                "launches": prof["launches"],
+                "device_busy_share": prof["device_busy_share"],
+                "device_busy_ms": prof["device_busy_ms"],
+                "wall_ms": prof["wall_ms"]}
+
+        # count_pn at the slice path's shapes: for each gang shape that
+        # carried a spread, the last such gang's terms (P = its pod
+        # bucket) over the cluster with it bound
+        check(spread_inputs, "slice: no gang carried a spread")
+        cases = {}
+        for shape, (sct, spb) in sorted(spread_inputs.items()):
+            spb = spb.to(sched.device)
+            cases[f"slice_spread_{shape}"] = (
+                extend_cluster(sct.to(sched.device), spb),
+                (spb.sc_sel, spb.pod_ns, None, None))
+    finally:
+        pool.shutdown(wait=True)
+        if runner is not None:
+            runner.stop()  # re-raises a fatal error that ended the loop
+        stop_process(server, server_pipe)
+
+    binds = [g["bind_s"] for g in gangs]
+    fill_binds = binds[:fill_gangs]
+    summary = {
+        "cell": "SliceCarve/16x16x16", "grid": "x".join(map(str, dims)),
+        "nodes": len(nodes), "background": n_background,
+        "gangs": len(gangs), "fill_gangs": fill_gangs,
+        "prep_gangs": prep, "gangs_deleted": deleted,
+        "members_bound": sum(_prod(parse_shape(g["shape"])) for g in gangs),
+        "occupancy_after_fill": occupancy,
+        "fill_s": fill_s, "fail_s": fail_s, "preempt_s": preempt_s,
+        "traffic_s": traffic_s,
+        "carves_per_s": len(gangs) / traffic_s,
+        "fill_carves_per_s": fill_gangs / fill_s,
+        "bind_p50_s": _pct(binds, 50), "bind_p99_s": _pct(binds, 99),
+        "fill_bind_p50_s": _pct(fill_binds, 50),
+        "fill_bind_p99_s": _pct(fill_binds, 99),
+        "queued_p50_s": _pct([g["queued_s"] for g in gangs], 50),
+        "by_shape": {s: {"gangs": sum(1 for g in gangs if g["shape"] == s),
+                         "spread_gangs": sum(1 for g in gangs
+                                             if g["shape"] == s
+                                             and g["spread"]),
+                         "preempting_gangs": sum(1 for g in gangs
+                                                 if g["shape"] == s
+                                                 and g["evicted"]),
+                         "bind_p50_s": _pct([g["bind_s"] for g in gangs
+                                             if g["shape"] == s], 50)}
+                     for s, _w in SLICE_SHAPES},
+        "fill_slice_preempts": fill_preempts,
+        "count_pn_capture_s": capture_s,
+        "background_evicted": n_background - len(background_left),
+        "carve_stats": stats, "carve_step": carve_ms,
+        "spans": {k2: v for k2, v in spans.items()
+                  if k2.startswith(("scheduler/", "sentinel/",
+                                    "runner/bind", "explain/"))},
+        "topology": status, "topology_before_preempt": status_before,
+        "fail": {"events": len(fail_events),
+                 "message": fail_events[0]["message"] if fail_events
+                 else None,
+                 "explanations": len(fail_exps),
+                 "explanation": fail_exps[0] if fail_exps else None},
+        "preempt": {"box_cost": named[2], "victims": len(victims),
+                    "on_the_box": sorted(set(placed.values())) ==
+                    sorted(box)},
+        "sentinel": sentinel, "carve_samples": carve_samples,
+        "sentinel_backlog": sentinel_backlog,
+        "audit": {key: audit[key] for key in ("sweeps", "violations",
+                                              "byInvariant", "failed")},
+        "loop_errors": errors, "launches": launches,
+        "seed_s": seed_s, "informer_sync_s": sync_s, "warm_s": warm_s,
+        "warm_placed": len(w_placed)}
+    fail_n = len(nodes)
+    want_msg = f"origins can host a {SLICE_FAIL} slice: "
+    check(fail_events and all(want_msg in e["message"]
+                              for e in fail_events),
+          f"slice: the {SLICE_FAIL} gang's FailedScheduling events "
+          f"{summary['fail']}")
+    check(fail_events[0]["message"].startswith("0/"),
+          f"slice: {fail_events[0]['message']}")
+    check(fail_exps and all(v.get("mode") == "carve"
+                            and v.get("filters") == {"SliceCarve": fail_n}
+                            for v in fail_exps),
+          f"slice: the {SLICE_FAIL} gang's explanations {summary['fail']}")
+    check(stats["failed"] >= 1, f"slice: carve counters {stats}")
+    check(stats["slicePreempts"] - (preempts0 - stats0["slicePreempts"])
+          == 1, f"slice: the {SLICE_PREEMPT} gang's slice preemptions "
+                f"{stats}, {fill_preempts} in the fill")
+    check(summary["preempt"]["on_the_box"],
+          f"slice: the {SLICE_PREEMPT} gang bound on "
+          f"{sorted(set(placed.values()))[:6]}..., not the box "
+          f"select_eviction named ({sorted(box)[:6]}...)")
+    check(victims and all(n in box for n in victims.values())
+          and {k2 for k2, n in bound_before.items() if n in box}
+          == set(victims),
+          f"slice: victims {sorted(victims.items())[:6]} are not the pods "
+          "on the box")
+    check(carve_samples >= stats["carved"] and sentinel["divergences"] == 0
+          and sentinel_backlog == 0,
+          f"slice: sentinel carve samples {carve_samples} for "
+          f"{stats['carved']} carves, {sentinel}")
+    check(summary["audit"]["violations"] == 0,
+          f"slice: audit {summary['audit']}")
+    check(not errors, f"slice: loop errors {errors}")
+    check(launches.get("count_pn", 0) > 0,
+          "slice: kernel count_pn was never launched on the slice path")
+    return summary, cases
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2883,6 +3687,7 @@ def main() -> int:
     emit({"phase": "parity.preemption", **preemption_parity_phase()})
     emit({"phase": "parity.explain", **explain_parity_phase()})
     emit({"phase": "parity.extender", **extender_parity_phase()})
+    emit({"phase": "parity.slice", **slice_parity_phase()})
 
     launches = {}   # kernel -> {path: launches}
 
@@ -2963,20 +3768,27 @@ def main() -> int:
     ext_rows = kernels_phase(ext_cases)
     del ext_cases
     emit({"phase": "kernels.extender", "rows": ext_rows})
+    # topology slice carving at SliceCarve/16x16x16
+    slice_sum, slice_cases = slice_phase()
+    emit({"phase": "slice", **slice_sum})
+    slice_rows = kernels_phase(slice_cases)
+    del slice_cases
+    emit({"phase": "kernels.slice", "rows": slice_rows})
     for path, summary in (("preemption", pre_sum),
                           ("connected_preemption", cpre_sum),
-                          ("explain", expl_sum), ("extender", ext_sum)):
+                          ("explain", expl_sum), ("extender", ext_sum),
+                          ("slice", slice_sum)):
         for name, n in summary["launches"].items():
             launches.setdefault(name, {})[path] = n
 
     # one entry per kernel, at the shape of the path with its most launches
     # among those whose rows are taken from the path's own context
-    # (resident, scheduler, connected, explain, extender), launches summed
-    # over every path; every row of the kernels phases was held bit-equal
-    # to the plain version
+    # (resident, scheduler, connected, explain, extender, slice), launches
+    # summed over every path; every row of the kernels phases was held
+    # bit-equal to the plain version
     rows_by_path = {"resident": resident_rows, "scheduler": sched_rows,
                     "connected": conn_rows, "explain": expl_rows,
-                    "extender": ext_rows}
+                    "extender": ext_rows, "slice": slice_rows}
     table = []
     for name, by_path in launches.items():
         top = max(rows_by_path, key=lambda path: by_path.get(path, 0))
@@ -2988,7 +3800,7 @@ def main() -> int:
                    shapes_checked=[r["name"] for r in
                                    rows + drain_rows + resident_rows
                                    + sched_rows + conn_rows + expl_rows
-                                   + ext_rows
+                                   + ext_rows + slice_rows
                                    if r["name"].startswith(name + "[")])
         table.append(row)
     emit({"kernels": table})

@@ -36,8 +36,9 @@ catalogs (volumes, DRA claims, host ports) or on the order of the
 drain's placements (hard spread) are skipped per pod rather than judged
 wrongly.
 
-The reference also samples slice carves; that submit raises until slice
-carving (ROADMAP Queue A item 6) is ported.
+Slice carves are sampled too: every Kth carved group batch, the numpy
+oracle carver replays the device carver's member -> node picks, and any
+difference is a divergence (the carve is deterministic end to end).
 """
 
 from __future__ import annotations
@@ -50,7 +51,6 @@ import time
 from typing import Optional
 
 from kubernetes_tpu_torch.api.types import UNSATISFIABLE_DO_NOT_SCHEDULE
-from kubernetes_tpu_torch.config.types import not_ported
 from kubernetes_tpu_torch.metrics.registry import (
     LOOP_ERRORS,
     PARITY_DIVERGENCES,
@@ -171,6 +171,28 @@ def verify_drain_winners(nodes, bound, winners, prior_winners,
     return problems
 
 
+def verify_carve_assignments(nodes, bound, assignments,
+                             members) -> list[str]:
+    """Re-run the numpy oracle carver (sched/oracle.py plan_slices over
+    topology/carve.numpy_grids) on the captured host views and demand
+    BIT-EQUAL member -> node assignments for every gang the device carved.
+    The carve is deterministic end to end — same grids, same max-wins
+    scatter, same first-fit flat order — so ANY difference is a
+    divergence, never a tie-break."""
+    from kubernetes_tpu_torch.sched.oracle import OracleScheduler
+    orc = OracleScheduler(nodes, bound)
+    plans = orc.plan_slices(members, validate=False)
+    problems: list[str] = []
+    for gang, got in sorted(assignments.items()):
+        want = plans.get(gang)
+        if want != got:
+            problems.append(
+                f"carve for gang {gang!r} diverged: device placed "
+                f"{sorted(got.items())}, the oracle carver says "
+                f"{sorted(want.items()) if want else None}")
+    return problems
+
+
 def verify_wave_results(nodes, bound, views, results,
                         namespace_labels=None) -> list[str]:
     """Judge one preemption wave's results with the oracle, in the wave's
@@ -251,6 +273,7 @@ class ParitySentinel:
         self._spawn_lock = threading.Lock()
         self._n_drain = 0
         self._n_wave = 0
+        self._n_carve = 0
         self._force_drain = False
         self.samples: dict[str, int] = {"drain": 0, "wave": 0, "carve": 0}
         self.divergences = 0
@@ -350,9 +373,28 @@ class ParitySentinel:
                      "views": list(views), "results": list(results),
                      "ns_labels": namespace_labels})
 
-    def maybe_submit_carve(self, *args, **kwargs) -> None:
-        """The reference samples every Kth carved slice batch here."""
-        raise not_ported("the parity sentinel's slice-carve sample", "6")
+    def maybe_submit_carve(self, nodes, bound, assignments, members,
+                           level: str = "single") -> None:
+        """Every Kth carved group batch: the scheduler hands over the
+        typed host views its snapshot encoded (capture by reference — the
+        product treats pod subtrees as immutable) plus the device carver's
+        member -> node picks per gang. The checker replays the numpy
+        oracle carver and demands bit-equality."""
+        if self.every <= 0:
+            return
+        self._n_carve += 1
+        if self._n_carve % self.every:
+            return
+        if self._q.qsize() >= self._max_backlog:
+            self.skipped += 1
+            return
+        self.samples["carve"] += 1
+        PARITY_SAMPLES.inc({"site": "carve"})
+        self._ensure_thread()
+        self._q.put({"site": "carve", "level": level, "ts": time.time(),
+                     "nodes": list(nodes), "bound": list(bound),
+                     "assignments": dict(assignments),
+                     "members": list(members)})
 
     # ---- checker thread --------------------------------------------------
 
@@ -372,7 +414,8 @@ class ParitySentinel:
             try:
                 with TRACER.span("sentinel/check", site=item["site"],
                                  winners=len(item.get("winners")
-                                             or item.get("results") or ())):
+                                             or item.get("results")
+                                             or item.get("members") or ())):
                     self._check(item)
             except Exception:
                 # the checker must never raise its way into silence: a
@@ -390,6 +433,10 @@ class ParitySentinel:
                 item["prior_winners"],
                 exempt=item.get("exempt", frozenset()),
                 namespace_labels=item.get("ns_labels"))
+        elif item["site"] == "carve":
+            problems = verify_carve_assignments(
+                item["nodes"], item["bound"], item["assignments"],
+                item["members"])
         else:
             problems = verify_wave_results(
                 item["nodes"], item["bound"], item["views"],
@@ -409,6 +456,8 @@ class ParitySentinel:
             {"ts": item["ts"], "site": site, "level": level,
              "chaosSeed": active_chaos_seed(),
              "problems": problems,
+             "carve": {g: sorted(a.items()) for g, a
+                       in item.get("assignments", {}).items()},
              "winners": [(p.key, n) for p, n in item.get("winners", [])],
              "priorWinners": [(p.key, n)
                               for p, n in item.get("prior_winners", [])],

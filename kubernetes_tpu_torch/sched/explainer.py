@@ -152,8 +152,8 @@ class SchedulingExplainer:
         """A READY-MADE verdict from the scheduling thread — the carve
         path's "0/N origins can host a 2x2x4 slice" message, which no
         per-node judge can reconstruct. Recorded + published on the
-        checker thread; the EVENT stays with the caller. (Its caller, the
-        carve path, is ROADMAP Queue A item 6.)"""
+        checker thread; the EVENT stays with the caller (the scheduler's
+        failed-carve branch, ``_emit_failed_scheduling``)."""
         now = time.time()
         if now - self._last_explained.get(pod.key, 0.0) < REEXPLAIN_INTERVAL_S:
             return True

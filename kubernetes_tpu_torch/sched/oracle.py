@@ -15,10 +15,10 @@ Resource arithmetic uses the SAME scaled integer units as the tensor path
 approximate. Plugin weights default to the reference's
 (pkg/scheduler/apis/config/v1/default_plugins.go).
 
-The PyTorch port's copy of ``kubernetes_tpu/sched/oracle.py``. Two parts
-wait for later slices and raise ``NotImplementedError``: the slice-gang
-carver (``topology/carve.py``, ROADMAP Queue A item 6) and DRA device
-claims (item 11).
+The PyTorch port's copy of ``kubernetes_tpu/sched/oracle.py``. DRA device
+claims wait for a later slice and raise ``NotImplementedError`` (ROADMAP
+Queue A item 11); the slice-gang branches run the numpy twin of
+``topology/carve.py``.
 """
 
 from __future__ import annotations
@@ -54,13 +54,6 @@ from kubernetes_tpu_torch.encode.termprep import (
     resolve_term_namespaces,
     spread_selector,
 )
-
-def _carve_module():
-    """The slice carver the slice-gang branches run: not ported yet."""
-    raise NotImplementedError(
-        "slice carving (topology/carve.py) is not ported yet: ROADMAP "
-        "Queue A item 6")
-
 
 def _refuse_dra() -> None:
     raise NotImplementedError(
@@ -370,7 +363,7 @@ class OracleScheduler:
         if self.slice_explain:
             shape = self._slice_shape_of(pod)
             if shape is not None:
-                carve_mod = _carve_module()
+                from kubernetes_tpu_torch.topology import carve as carve_mod
                 slice_ok = carve_mod.covered_nodes(
                     self.oracle_carve([pod], shape, set()),
                     len(self.states))
@@ -726,7 +719,7 @@ class OracleScheduler:
         of the device's carve_step (asserted by the parity tests and the
         sentinel's carve site). ``claimed`` holds node indices earlier
         gangs of the same cycle already took."""
-        carve_mod = _carve_module()
+        from kubernetes_tpu_torch.topology import carve as carve_mod
         if self._dims is None or not members:
             return None
         member_req = self._slice_member_req(members)
@@ -758,7 +751,7 @@ class OracleScheduler:
         infeasible member); the parity sentinel replays with
         validate=False to judge the CARVE alone — the device's gang
         program applies its own filters after the carve pins."""
-        carve_mod = _carve_module()
+        from kubernetes_tpu_torch.topology import carve as carve_mod
         from kubernetes_tpu_torch.topology.slicing import GANG_LABEL
         groups: dict[str, list[Pod]] = {}
         shapes: dict[str, tuple] = {}

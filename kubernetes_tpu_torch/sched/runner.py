@@ -623,6 +623,9 @@ class SchedulerRunner:
             "explain": (self.scheduler.explainer.stats()
                         if self.scheduler.explainer is not None else None),
             "flight": self._flight_status(),
+            # topology/ slice-carving surface: grid extent, carveable
+            # origins per requested shape, fragmentation %, carve counters
+            "topology": self.scheduler.topology_status(),
         }
         self._publish_configmap(self.status_name,
                                 {"status": json.dumps(status, indent=1)})

@@ -44,12 +44,20 @@ Where the port differs from the reference:
   takes the exact host scan. The reference swallows such failures inside
   ``sched/preemption.py`` as well, uncounted.
 
+- Slice gangs (``kubernetes-tpu.io/slice-shape``) are carved on the
+  group path by ``topology/carve.carve_step`` on the scheduler's device,
+  outside the gang program's breaker site: a carve that fails raises, and
+  is never carved by the oracle in the card's place (only a cycle at the
+  breaker's oracle level carves on the host). The snapshot moves to the
+  device once and the carve and ``gang_schedule`` share it.
+
 Features that wait for later slices raise ``NotImplementedError`` naming
-their ROADMAP Queue A item: slice carving (6), fleet mode (7), a device
-mesh (8), DRA (11) and out-of-tree tensor plugins (12). The parity
-sentinel (``audit/sentinel.py``) samples drains and preemption waves as
-in the reference, but an answer it refutes stops the loop with a
-``ParityError`` where the reference trips the breaker to the oracle.
+their ROADMAP Queue A item: fleet mode (7), a device mesh (8), DRA (11;
+a slice-shaped ResourceClaim included) and out-of-tree tensor plugins
+(12). The parity sentinel (``audit/sentinel.py``) samples drains,
+preemption waves and slice carves as in the reference, but an answer it
+refutes stops the loop with a ``ParityError`` where the reference trips
+the breaker to the oracle.
 """
 
 from __future__ import annotations
@@ -214,6 +222,18 @@ class Scheduler:
         self._staged: list = []
         self._staged_once = False   # a parked fragment merges at most once
         self._last_pop_full = False  # burst heuristic: arrivals are hot
+        # ---- topology slice carving (topology/) --------------------------
+        # Carve plans for slice gangs that could NOT be placed this cycle:
+        # gang id -> {"res": CarveResult, "members": [...], "nodes": [...],
+        # "shape": ..., "dims": ...}. Written by _carve_slices and consumed
+        # by _handle_failures within the SAME _run_batch call — scheduling
+        # thread only, cleared each cycle.
+        self._carve_plans: dict[str, dict] = {}
+        self._carve_lock = threading.Lock()
+        # shapes seen on slice gangs + carve outcome counters — read by the
+        # runner's status thread (topology_status)
+        self._carve_shapes_seen: set = set()  # guarded by: self._carve_lock
+        self._carve_stats = {"carved": 0, "failed": 0, "slicePreempts": 0}  # guarded by: self._carve_lock
         # preemption nominees awaiting re-schedule: key -> (node, prio, pod,
         # ts). Their freed capacity is reserved against lower-priority pods
         # until they bind. The TTL backstops pods deleted while nominated.
@@ -468,6 +488,7 @@ class Scheduler:
             return self._resolve_one()
         self._staged_once = False
         self._last_pop_full = len(batch) >= cap
+        self._carve_plans.clear()  # plans never outlive their cycle
         stats = self.queue.stats()
         for q, v in stats.items():
             QUEUE_DEPTH.set(v, {"queue": q})
@@ -501,10 +522,19 @@ class Scheduler:
             if level == "oracle":
                 n_bound += self._schedule_oracle(profile, items)
                 continue
-            # slice-shaped gangs are carved on the group path (ROADMAP
-            # item 6): a drain would place members as independent pods
-            if any(self._slice_shape_of(it[0]) is not None for it in items):
-                raise _not_ported("slice carving (topology/carve.py)", "6")
+            # slice-shaped gangs never ride the drain path: the carve is a
+            # group-path stage (_schedule_group), and a resident drain would
+            # place members as independent pods — feasible but not
+            # contiguous. Split them out and route them per gang.
+            slice_items = [it for it in items
+                           if self._slice_shape_of(it[0]) is not None]
+            if slice_items:
+                items = [it for it in items
+                         if self._slice_shape_of(it[0]) is None]
+                for chunk in self._slice_chunks(slice_items):
+                    n_bound += self._schedule_group(profile, chunk, headroom)
+            if not items:
+                continue
             if ((len(items) > self.cfg.batch_size
                     or self._drain_ctx is not None)
                     and not serial and not self._extenders):
@@ -522,13 +552,272 @@ class Scheduler:
             raise _not_ported("fleet mode", "7")
         return [items[i:i + P] for i in range(0, len(items), P)]
 
-    # ---- slice gangs (carving is ROADMAP item 6) --------------------------
+    # ---- topology slice carving (topology/) ------------------------------
 
     def _slice_shape_of(self, pod: Pod) -> Optional[tuple]:
         """The pod's requested slice shape from its slice-shape label. None
-        = not a slice pod (malformed shapes schedule as normal pods)."""
+        = not a slice pod (malformed shapes schedule as normal pods). A
+        slice-shaped ResourceClaim is DRA, ROADMAP item 11: the encode
+        refuses any pod with resource claims."""
         from kubernetes_tpu_torch.topology.slicing import shape_of_labels
         return shape_of_labels(pod.metadata.labels)
+
+    def _slice_chunks(self, items: list) -> list[list]:
+        """Group slice pods into device chunks: members of one gang stay
+        together (the carve is per-gang), chunks are tenant-homogeneous,
+        and whole gangs pack greedily up to batch_size — an oversize gang
+        still rides ONE chunk (the pod bucket grows; contiguity over
+        bucket reuse)."""
+        from kubernetes_tpu_torch.encode.snapshot import tenant_label_of
+        from kubernetes_tpu_torch.topology.slicing import GANG_LABEL
+        gangs: dict[tuple, list] = {}
+        order: list[tuple] = []
+        for it in items:
+            pod = it[0]
+            t = tenant_label_of(pod.metadata.labels) or ""
+            g = (pod.metadata.labels or {}).get(GANG_LABEL) or f"pod:{pod.key}"
+            key = (t, g)
+            if key not in gangs:
+                gangs[key] = []
+                order.append(key)
+            gangs[key].append(it)
+        chunks: list[list] = []
+        cur: list = []
+        cur_tenant = None
+        P = self.cfg.batch_size
+        for key in order:
+            g = gangs[key]
+            if cur and (cur_tenant != key[0] or len(cur) + len(g) > P):
+                chunks.append(cur)
+                cur = []
+            cur = cur + g
+            cur_tenant = key[0]
+        if cur:
+            chunks.append(cur)
+        return chunks
+
+    def _carve_slices(self, items, nodes, ct, meta, pb, ext_mask):
+        """Carve contiguous sub-slices for the batch's slice gangs and pin
+        members to their cells.
+
+        One ``carve_step`` call per gang over the SAME device tensors
+        gang_schedule is about to run on (``ct`` is already on the
+        scheduler's device); earlier gangs' cells are claimed against later
+        ones. Returns ``(ext_mask, gang_of, gang_nodes)``: winners get a
+        one-hot ext_mask row pinning member -> cell node (the gang
+        program's atomicity/tenant machinery is untouched — the carve only
+        narrows candidates); a failed carve writes all-False rows so the
+        members fail through the NORMAL failure path, where the stashed
+        plan (_carve_plans) drives slice preemption and the explain event.
+        """
+        from kubernetes_tpu_torch.encode.snapshot import TENANT_KEY_ID
+        from kubernetes_tpu_torch.topology import carve as carve_mod
+        from kubernetes_tpu_torch.topology.slicing import (GANG_LABEL,
+                                                           coords_of_labels,
+                                                           grid_dims,
+                                                           shape_str)
+        pods = [p for p, _ in items]
+        groups: dict[str, list[int]] = {}
+        shapes: dict[str, tuple] = {}
+        for i, pod in enumerate(pods):
+            shape = self._slice_shape_of(pod)
+            if shape is None:
+                continue
+            g = (pod.metadata.labels or {}).get(GANG_LABEL) or f"pod:{pod.key}"
+            groups.setdefault(g, []).append(i)
+            shapes[g] = shape
+        if not groups:
+            return ext_mask, {}, {}
+        dims = grid_dims([c for c in (coords_of_labels(n.metadata.labels)
+                                      for n in nodes) if c is not None])
+        Pb, Nb = pb.pod_valid.shape[0], ct.node_valid.shape[0]
+        if ext_mask is None:
+            ext_mask = np.ones((Pb, Nb), bool)
+        pod_labels = np.asarray(pb.pod_labels)
+        requests = np.asarray(pb.requests)
+        # a host array that grows across the gangs of this cycle, copied in
+        # per call
+        claimed = np.zeros(Nb, bool)
+        gang_of: dict[int, str] = {}
+        gang_nodes: dict[str, dict[int, int]] = {}
+        for g in sorted(groups):
+            # member order is sorted by pod key — the SAME order the oracle
+            # carver uses, so member m <-> C-order box cell m on both sides
+            # (part of the bit-parity contract)
+            idxs = sorted(groups[g], key=lambda i: pods[i].key)
+            shape = shapes[g]
+            want = shape[0] * shape[1] * shape[2]
+            res = None
+            asg = None
+            if len(idxs) == want and dims is not None:
+                # conservative homogeneous view of the gang: every cell must
+                # fit the elementwise-MAX member request (the oracle carver
+                # mirrors this)
+                member_req = requests[idxs].max(axis=0)
+                tenant = (int(pod_labels[idxs[0], TENANT_KEY_ID])
+                          if pod_labels.shape[1] > TENANT_KEY_ID else -1)
+                res = carve_mod.carve_device(ct, member_req, tenant,
+                                             claimed, dims, shape)
+                asg = carve_mod.select_assignment(res)
+            with self._carve_lock:
+                self._carve_shapes_seen.add(shape_str(shape))
+                self._carve_stats["carved" if asg is not None
+                                  else "failed"] += 1
+            for i in idxs:
+                gang_of[i] = g
+            if asg is None:
+                for i in idxs:
+                    ext_mask[i, :] = False
+                self._carve_plans[g] = {
+                    "res": res, "dims": dims, "shape": shape, "nodes": nodes,
+                    "members": [pods[i] for i in idxs]}  # cell order
+                continue
+            gang_nodes[g] = {}
+            for m, i in enumerate(idxs):
+                ni = asg[m]
+                row = np.zeros(Nb, bool)
+                row[ni] = True
+                ext_mask[i] &= row  # AND keeps an extender's veto binding
+                claimed[ni] = True
+                gang_nodes[g][i] = ni
+        return ext_mask, gang_of, gang_nodes
+
+    def _carve_gang_of(self, pod: Pod) -> Optional[str]:
+        """Gang id of a slice pod whose carve FAILED this cycle (a plan is
+        stashed), else None."""
+        from kubernetes_tpu_torch.topology.slicing import GANG_LABEL
+        if not self._carve_plans or self._slice_shape_of(pod) is None:
+            return None
+        g = (pod.metadata.labels or {}).get(GANG_LABEL) or f"pod:{pod.key}"
+        return g if g in self._carve_plans else None
+
+    @staticmethod
+    def _slice_fail_message(plan: dict) -> str:
+        """The slice flavor of failed_scheduling_message: "0/N origins can
+        host a 2x2x4 slice: <why>" with N = candidate origins actually
+        evaluated (rotations x torus cells)."""
+        from kubernetes_tpu_torch.topology import carve as carve_mod
+        from kubernetes_tpu_torch.topology.slicing import shape_str
+        res = plan["res"]
+        shape = shape_str(plan["shape"])
+        want = plan["shape"][0] * plan["shape"][1] * plan["shape"][2]
+        if len(plan["members"]) != want:
+            return (f"0/0 origins can host a {shape} slice: gang has "
+                    f"{len(plan['members'])} member(s), the shape needs "
+                    f"{want}")
+        if plan["dims"] is None:
+            return (f"0/0 origins can host a {shape} slice: no node "
+                    "carries kubernetes-tpu.io/topology-{x,y,z} labels")
+        if res is None:
+            return (f"0/0 origins can host a {shape} slice: no rotation "
+                    f"of the shape fits the {shape_str(plan['dims'])} grid")
+        sel = carve_mod.select_eviction(res)
+        hint = (f"freeing the cheapest origin costs {int(sel[2])} "
+                "eviction(s)" if sel is not None
+                else "no origin can ever host it")
+        return (f"0/{res.fits.size} origins can host a {shape} slice: "
+                f"{int(res.free_grid.sum())} free cell(s) on the "
+                f"{shape_str(res.dims)} torus are too fragmented; {hint}")
+
+    def _slice_preempt_gang(self, gang: str, members: list,
+                            preempt_on: bool) -> None:
+        """Slice preemption: a blocked slice nominates the CHEAPEST
+        CONTIGUOUS victim set — the finite-minimum origin of the carve's
+        eviction plane — instead of asking the per-pod wave for N unrelated
+        nodes. Victims are chosen per occupied cell with the full
+        preemption machinery (PDBs, priorities, graceful victim ordering:
+        sched/preemption.find_candidate restricted to that cell's node);
+        free cells need no victims; any cell without a legal victim set
+        abandons the whole wave — a half-freed slice helps nobody."""
+        from kubernetes_tpu_torch.topology import carve as carve_mod
+        plan = self._carve_plans.pop(gang, None)
+        nominations: Optional[dict] = None
+        if (plan is not None and preempt_on
+                and any(p.spec.priority > 0 for p, _a in members)
+                and len(plan["members"]) == len(members)):
+            sel = carve_mod.select_eviction(plan["res"])
+            if sel is not None:
+                node_idxs, cells, _cost = sel
+                nodes = plan["nodes"]
+                cell_members = plan["members"]  # cell order
+                free_grid = plan["res"].free_grid
+                bound_left = self.cache.bound_pods(include_assumed=True)
+                victims: list = []
+                ok = True
+                for m, (ni, cell) in enumerate(zip(node_idxs, cells)):
+                    if free_grid[cell]:
+                        continue  # free cell: nothing to evict
+                    found = preemption_mod.find_candidate(
+                        [nodes[ni]], bound_left,
+                        self._preempt_view(cell_members[m]),
+                        pdbs=self.pdb_lister())
+                    if found is None:
+                        ok = False
+                        break
+                    gone = {v.key for v in found.victims}
+                    bound_left = [p for p in bound_left
+                                  if p.key not in gone]
+                    victims.extend(found.victims)
+                if ok:
+                    # ONE eviction for the whole contiguous set — evict
+                    # nothing unless every cell cleared
+                    lead = max((p for p, _a in members),
+                               key=lambda p: p.spec.priority)
+                    if self._evict_victims(lead, victims):
+                        with self._carve_lock:
+                            self._carve_stats["slicePreempts"] += 1
+                        nominations = {
+                            cell_members[m].key:
+                                nodes[ni].metadata.name
+                            for m, ni in enumerate(node_idxs)}
+        for pod, attempts in members:
+            self._after_preempt(
+                pod, attempts,
+                None if nominations is None
+                else nominations.get(pod.key))
+
+    def topology_status(self) -> Optional[dict]:
+        """Topology block for the status ConfigMap: grid extent,
+        per-requested-shape carveable-origin counts + fragmentation %, and
+        carve counters. Host-side numpy over the cache's lists — a status
+        surface, not the carve itself, so "free" here is the defrag notion
+        (a schedulable node with ZERO bound pods). None when no node
+        carries coordinates."""
+        from kubernetes_tpu_torch.topology import carve as carve_mod
+        from kubernetes_tpu_torch.topology.slicing import (coords_of_labels,
+                                                           grid_dims,
+                                                           parse_shape,
+                                                           shape_str)
+        nodes = self.cache.list_nodes()
+        coords = [coords_of_labels(n.metadata.labels) for n in nodes]
+        dims = grid_dims([c for c in coords if c is not None])
+        if dims is None:
+            return None
+        with self._carve_lock:
+            shapes = sorted(self._carve_shapes_seen)
+            stats = dict(self._carve_stats)
+        per_node: dict[str, int] = {}
+        for p in self.cache.bound_pods(include_assumed=True):
+            if p.spec.node_name:
+                per_node[p.spec.node_name] = (
+                    per_node.get(p.spec.node_name, 0) + 1)
+        free, evictable, n_pods = [], [], []
+        for n in nodes:
+            b = per_node.get(n.metadata.name, 0)
+            sched = not n.spec.unschedulable
+            free.append(sched and b == 0)
+            evictable.append(sched)
+            n_pods.append(b)
+        out_shapes: dict[str, dict] = {}
+        for s in shapes:
+            res = carve_mod.numpy_grids(coords, free, evictable, n_pods,
+                                        dims, parse_shape(s))
+            out_shapes[s] = carve_mod.coverage_stats(res)
+        return {"grid": shape_str(dims),
+                "nodes": sum(1 for c in coords if c is not None),
+                "freeCells": int(sum(free)),
+                "shapes": out_shapes,
+                "carves": stats}
 
     def _schedule_group(self, profile, items, slot_headroom: int = 0) -> int:
         t0 = time.time()
@@ -586,13 +875,35 @@ class Scheduler:
                 for i in ext_errors:
                     valid[i] = False
                 pb = pb.replace(pod_valid=valid)
+        # the snapshot moves to the device ONCE: the carve and the gang
+        # program read the same tensors
+        ct = ct.to(self.device)
+        gang_of: dict[int, str] = {}
+        gang_nodes: dict[str, dict[int, int]] = {}
+        if any(self._slice_shape_of(p) is not None for p in pods):
+            # outside the gang program's breaker site: a carve that fails
+            # on the device raises, and the oracle never carves in its
+            # place (only a cycle at the breaker's oracle level does)
+            with TRACER.span("scheduler/carve", pods=len(pods)):
+                ext_mask, gang_of, gang_nodes = self._carve_slices(
+                    items, nodes, ct, meta, pb, ext_mask)
+            if gang_nodes and self.sentinel is not None and not entries:
+                # parity sampling only when the snapshot had no nominee
+                # overlay (the host replay can't see overlay reservations)
+                self.sentinel.maybe_submit_carve(
+                    nodes, self.cache.bound_pods(include_assumed=True),
+                    {g: {pods[i].key: meta.node_names[ni]
+                         for i, ni in picks.items()}
+                     for g, picks in gang_nodes.items()},
+                    [pods[i] for i in sorted(gang_of)],
+                    level=self._attempt_level)
         serial = not self.features.enabled("TPUBatchScheduling")
         with BATCH_DURATION.time(), TRACER.span(
                 "scheduler/gang_schedule", pods=len(pods),
                 nodes=len(nodes)) as sp_gang:
             try:
                 assignment, rounds = gang_schedule(
-                    ct.to(self.device), pb.to(self.device),
+                    ct, pb.to(self.device),
                     seed=self.cfg.seed,
                     fit_strategy=profile.fit_strategy,
                     topo_keys=meta.topo_keys, serial=serial,
@@ -628,6 +939,20 @@ class Scheduler:
             if k not in batch_keys and k not in overlaid_noms:
                 reserved[n] = max(prio, reserved.get(n, prio))
 
+        # slice gangs bind all-or-nothing: the carve pinned each member to
+        # its cell, so ANY member the program (or the reservation shield
+        # below) refuses fails the WHOLE gang this cycle — no partial
+        # assume ever reaches the cache
+        gang_ok: dict[str, bool] = {}
+        for i, g in gang_of.items():
+            pod = items[i][0]
+            a = int(assignment[i]) if i < len(items) else -1
+            ok = a >= 0 and gang_nodes.get(g, {}).get(i) == a
+            if ok:
+                rp = reserved.get(meta.node_names[a])
+                ok = rp is None or rp < pod.spec.priority
+            gang_ok[g] = gang_ok.get(g, True) and ok
+
         n_bound = n_err = n_unsched = 0
         to_bind: list[tuple[Pod, str]] = []
         failures: list[tuple[Pod, int]] = []
@@ -637,6 +962,11 @@ class Scheduler:
             if i in ext_errors:
                 self.queue.add_unschedulable(pod, attempts + 1)
                 n_err += 1
+                continue
+            g = gang_of.get(i)
+            if g is not None and not gang_ok.get(g, False):
+                failures.append((pod, attempts))
+                n_unsched += 1
                 continue
             if a >= 0:
                 node_name = meta.node_names[int(a)]
@@ -1361,13 +1691,16 @@ class Scheduler:
     # ---- failure path: PostFilter / preemption ---------------------------
 
     def _handle_failures(self, failures: list[tuple[Pod, int]]):
-        """Failure path for a whole batch: preemption-eligible pods go to
-        the preemptor (an injected one, or a lone pod, one at a time; else
-        one default preemption wave), the rest requeue with backoff.
+        """Failure path for a whole batch: a failed-carve slice gang
+        preempts as one contiguous victim set; other preemption-eligible
+        pods go to the preemptor (an injected one, or a lone pod, one at a
+        time; else one default preemption wave), the rest requeue with
+        backoff.
         (Metrics for the unschedulable result are batched by the caller.)"""
         preemptable: list[tuple[Pod, int]] = []
         preempt_on = self.features.enabled("PreemptionSimulation")
         unschedulable: list[Pod] = []
+        slice_gangs: dict[str, list[tuple[Pod, int]]] = {}
         for pod, attempts in failures:
             if self.cache.is_bound(pod.key):
                 # Bound by another party while in-flight: requeueing would
@@ -1375,11 +1708,19 @@ class Scheduler:
                 # event either: the pod IS scheduled.
                 continue
             unschedulable.append(pod)
-            if pod.spec.priority > 0 and preempt_on:
+            g = self._carve_gang_of(pod)
+            if g is not None:
+                # failed-carve slice members: the whole gang preempts as
+                # one contiguous victim set (below), never as per-pod
+                # wave entries chasing unrelated nodes
+                slice_gangs.setdefault(g, []).append((pod, attempts))
+            elif pod.spec.priority > 0 and preempt_on:
                 preemptable.append((pod, attempts))
             else:
                 self._after_preempt(pod, attempts, None)
         self._emit_failed_scheduling(unschedulable)
+        for g, gang_members in sorted(slice_gangs.items()):
+            self._slice_preempt_gang(g, gang_members, preempt_on)
         if not preemptable:
             return
         if self._custom_preemptor or len(preemptable) == 1:
@@ -1397,10 +1738,34 @@ class Scheduler:
         explainer owns them when it accepts the capture (its verdict is the
         upstream-style per-filter message); the generic single-line event
         remains the fallback for pods it refused (backlog full, disabled).
-        (The reference's failed-carve branch comes with slice carving,
-        ROADMAP item 6: slice gangs are refused before they get here.)"""
+        Failed-carve slice members get the carve's own verdict instead."""
         if not pods:
             return
+        if self._carve_plans:
+            # failed-carve slice members get the carve's own verdict — the
+            # per-node explainer cannot say "the free nodes don't compose
+            # into a 2x2x4 box"; the stashed score planes can
+            remaining: list[Pod] = []
+            for pod in pods:
+                g = self._carve_gang_of(pod)
+                if g is not None:
+                    plan = self._carve_plans[g]
+                    msg = self._slice_fail_message(plan)
+                    self.recorder.event(
+                        pod, "Warning", "FailedScheduling", msg)
+                    if self.explainer is not None:
+                        # the carve verdict goes into the explanations
+                        # ConfigMap too (event emission stays here)
+                        self.explainer.submit_direct(
+                            pod, msg,
+                            {"SliceCarve": len(plan["nodes"])},
+                            len(plan["nodes"]),
+                            profile=pod.spec.scheduler_name)
+                else:
+                    remaining.append(pod)
+            pods = remaining
+            if not pods:
+                return
         leftovers = pods
         if self.explainer is not None:
             by_prof: dict[str, list[Pod]] = {}

@@ -437,11 +437,10 @@ def test_submit_direct_records_a_ready_verdict():
 
 
 def test_slice_shaped_pod_waits_for_slice_carving():
-    """A slice-shaped pod goes to the oracle judge (its SliceCarve gate is
-    oracle-only), in the reference and here. The port's oracle refuses
-    the gate until slice carving is ported (item 6), so the explainer
-    keeps that refusal as its fault, as the scheduler refuses slice gangs
-    — no device_explain count, no verdict."""
+    """A slice-shaped pod that no carveable slice can host waits for slice
+    carving: its verdict is the SliceCarve gate's, from the oracle judge
+    (the gate is oracle-only), in the reference and here: the same
+    verdict, no tensor judge, no device_explain count."""
     from kubernetes_tpu.topology.slicing import SLICE_SHAPE_LABEL
     errs = port_registry.LOOP_ERRORS
     base = errs.get({"site": "device_explain"})
@@ -458,9 +457,9 @@ def test_slice_shaped_pod_waits_for_slice_carving():
         ex.drain()
         ex.close()
     assert rex.explain_of(pod.key)["mode"] == "oracle"
-    assert isinstance(tex.fault, NotImplementedError)
-    assert "item 6" in str(tex.fault)
-    assert tex.explain_of(pod.key) is None and not called
+    assert rex.explain_of(pod.key)["filters"] == {"SliceCarve": 1}
+    assert tex.fault is None and not called
+    assert _no_ts(tex.explain_of(pod.key)) == _no_ts(rex.explain_of(pod.key))
     assert errs.get({"site": "device_explain"}) == base
 
 

@@ -72,7 +72,9 @@ _SCHED_MODULES = (
     "client.informer", "client.leaderelection", "audit.invariants",
     "audit.auditor", "audit.sentinel", "sched.runner",
     # default preemption
-    "ops.preemption", "sched.preemption")
+    "ops.preemption", "sched.preemption",
+    # slice carving
+    "topology.carve")
 
 _NO_YAML = r"""
 import importlib, sys

@@ -397,10 +397,16 @@ def test_runner_over_http_matches_direct(wire):
 
 
 def test_sentinel_refuses_unported_samples():
+    """No sample site is refused any more: the name dates from the slices
+    that refused the carve site. Slice carving is ported, so the carve
+    site takes its sample and judges it."""
     from kubernetes_tpu_torch.audit.sentinel import ParitySentinel
     sentinel = ParitySentinel(every=1)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        sentinel.maybe_submit_carve([], [], {}, [])
+    sentinel.maybe_submit_carve([], [], {}, [])
+    sentinel.drain()
+    sentinel.close()
+    assert sentinel.samples["carve"] == 1
+    assert sentinel.divergences == 0 and sentinel.fault is None
 
 
 def _spread_case(ref_side: bool, kind: str):

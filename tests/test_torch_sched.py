@@ -491,14 +491,20 @@ def test_ported_options_build(cfg_kw):
 
 
 def test_refuses_slice_gang():
+    """The slice gang that is still refused: one whose pods carry resource
+    claims waits for DRA (item 11). Plain slice gangs are carved
+    (tests/test_torch_carve.py)."""
     from kubernetes_tpu_torch.topology.slicing import (GANG_LABEL,
                                                       SLICE_SHAPE_LABEL)
     sched = _port_sched()
     try:
-        sched.queue.add(make_pod("s0").req({"cpu": "100m"})
-                        .label(SLICE_SHAPE_LABEL, "1x1x1").label(GANG_LABEL, "g")
-                        .obj())
-        with pytest.raises(NotImplementedError, match="item 6"):
+        d = (make_pod("s0").req({"cpu": "100m"})
+             .label(SLICE_SHAPE_LABEL, "1x1x1").label(GANG_LABEL, "g")
+             .obj().to_dict())
+        d["spec"]["resourceClaims"] = [
+            {"name": "tpu", "resourceClaimName": "claim-0"}]
+        sched.queue.add(port_types.Pod.from_dict(d))
+        with pytest.raises(NotImplementedError, match="item 11"):
             sched.run_once(wait=0.01)
     finally:
         sched.close()
@@ -576,10 +582,14 @@ def test_run_lets_refusals_escape():
     timer = threading.Timer(30.0, stop.set)  # a loop that swallows it ends
     timer.start()
     try:
-        sched.queue.add(make_pod("s0").req({"cpu": "100m"})
-                        .label(SLICE_SHAPE_LABEL, "1x1x1")
-                        .label(GANG_LABEL, "g").obj())
-        with pytest.raises(NotImplementedError, match="item 6"):
+        # a slice pod with a resource claim: DRA waits for item 11
+        d = (make_pod("s0").req({"cpu": "100m"})
+             .label(SLICE_SHAPE_LABEL, "1x1x1")
+             .label(GANG_LABEL, "g").obj().to_dict())
+        d["spec"]["resourceClaims"] = [
+            {"name": "tpu", "resourceClaimName": "claim-0"}]
+        sched.queue.add(port_types.Pod.from_dict(d))
+        with pytest.raises(NotImplementedError, match="item 11"):
             sched.run(stop)
         assert not stop.is_set()
         assert sched.queue.stats()["backoff"] == 1
