@@ -202,15 +202,55 @@ Phases, one JSON line each:
            gang's terms, P = 256, over the cluster with it bound), as
            kernels.drain
 
+  parity.planner  the resident planners on the card and the CPU, over
+           tests/test_planner.py's fuzz (seeds 0-2): the port's Scheduler
+           armed over the fuzz cluster, the scale-up options, scale-down
+           plan, eviction plan and gang plan through its ResidentPlanner
+           (all hits, no decline) and cold, equal on each device and across
+           the devices; tenant_quota_mask on seeded tenants and quotas and
+           without_pods (two victims on one node) equal across the devices
+  autoscaler  ClusterAutoscalerScaleUp/1000Nodes2000Pending as
+           benchmarks/scheduler_perf.py runs it (1000 node-default nodes,
+           1000 fill pods bound round-robin, 2000 pod-default pods pending,
+           node-group-default and node-group-large, least-waste), the
+           warm-up excluded: ScaleUpDecisionSeconds cold (host encode,
+           run_filters on the card) and resident (a Scheduler armed over
+           the cluster with warm_drain, its ResidentPlanner), the options,
+           the chosen group, the planner/* spans, one resident call under
+           torch.profiler. Gates: options equal on both paths and to the
+           CPU's, 2000 pods placed, each decision within 60 s, every
+           resident call a hit
+  defrag   DeschedulerDefrag/1000Nodes100Gang as scheduler_perf.py runs it
+           (1000 nodes fragmented by one 12-CPU pod each, a gang of 100
+           24-CPU pods, drain prefixes capped at 110), the warm-up
+           excluded: DefragPlanSeconds, batch_victims, the candidate sets,
+           the evictions, one plan under torch.profiler. Gates: 100 gang
+           pods seated within 60 s, the plan equal to the CPU's, each gang
+           pod alone on a drained node, no victim on a drained node
+  planner  PlannerLoop (benchmarks/plannerloop.py) at 5000 nodes and 3 pods
+           a node: the port's APIServer in a spawned process, the
+           SchedulerRunner with its loop stopped and a fail-fast auditor,
+           warm_drain, a ClusterAutoscaler and a dry-run Descheduler driven
+           by one BackgroundPlanner; adaptive warm-up, a window of 6
+           cycles, the resident-vs-cold parity legs on one observation, one
+           more cycle under torch.profiler. cycle_ms, the planner/* spans
+           (observe, encode, dispatch, each planner). Gates: the warm-up
+           goes quiet; the window counts 0 steadyCompiles, 0 declines and
+           0 scheduler full encodes; every planner's hits advance; the four
+           legs equal, scale-up options not empty; 0 invariant violations;
+           count_pn never launched
+
 Every phase fails while LOOP_ERRORS{site=device_preempt} is above 0 (a
 device preemption failure the scheduler degraded to the host scan) or
 LOOP_ERRORS{site=device_explain} is (a failure of the explainer's device
 judge, whose pods then got no verdict).
 
 Each path (path, drain, resident, scheduler, connected, preemption,
-connected_preemption, explain, extender, slice) is driven with the launch counts
-set to 0 just before it and read just after; the preemption paths launch
-no hand kernel (their device work is torch ops), and every path's count
+connected_preemption, explain, extender, slice, autoscaler, defrag,
+planner) is driven with the launch counts
+set to 0 just before it and read just after; the preemption and planner
+paths launch no hand kernel (their device work is torch ops), and every
+path's count
 is printed, 0 included. Then the kernel table line
 ({"kernels": [...]}, one row per kernel at the shape of its most launches,
 launches summed over the paths, the shapes checked), the card's name and
@@ -3643,6 +3683,587 @@ def slice_phase(device=None, dims=SLICE_DIMS, n_gangs=SLICE_GANGS,
     return summary, cases
 
 
+# ------------------------------------------------------ the resident planners
+
+PLANNER_SEEDS = (0, 1, 2)   # tests/test_planner.py's parity fuzz
+AUTOSCALE_NODES = 1000      # ClusterAutoscalerScaleUp/1000Nodes2000Pending
+AUTOSCALE_FILL = 1000
+AUTOSCALE_PENDING = 2000
+AUTOSCALE_LIMIT_S = 60.0    # its ScaleUpDecisionSeconds threshold
+DEFRAG_NODES = 1000         # DeschedulerDefrag/1000Nodes100Gang
+DEFRAG_FILL = 1000
+DEFRAG_GANG = 100
+DEFRAG_MAX_DRAIN = 110
+DEFRAG_LIMIT_S = 60.0       # its DefragPlanSeconds threshold
+LOOP_NODES = N_NODES        # PlannerLoop at the north star's width
+LOOP_PODS_PER_NODE = 3      # benchmarks/plannerloop.py's defaults below
+LOOP_WINDOW = 6
+LOOP_MAX_WARMUP = 14
+LOOP_QUIET = 2
+LOOP_CREATE_CHUNK = 5000
+
+
+def norm_scale_up(options) -> list:
+    """``benchmarks/plannerloop.py``'s normal forms of the four plans."""
+    return [(o.group.name, sorted(o.pod_indices), o.nodes_needed,
+             round(float(o.waste), 9)) for o in options]
+
+
+def norm_scale_down(plan) -> tuple:
+    return (sorted(plan.removable),
+            {n: sorted(m) for n, m in plan.placements.items()},
+            dict(plan.blocked))
+
+
+def norm_evictions(plan) -> tuple:
+    return ([(s.name, s.strategy, sorted(p.key for p in s.victims),
+              sorted(s.moves), s.reason) for s in plan.accepted],
+            dict(plan.blocked), plan.batch_victims, plan.batch_sets)
+
+
+def norm_gang(plan) -> tuple:
+    acc = None
+    if plan.accepted is not None:
+        acc = (plan.accepted.name, plan.accepted.strategy,
+               sorted(p.key for p in plan.accepted.victims),
+               sorted(plan.accepted.moves))
+    return (plan.gang, acc, sorted(plan.gang_moves),
+            plan.fits_without_evictions, dict(plan.blocked))
+
+
+def planner_questions(seed):
+    """``tests/test_planner.py``'s fuzz for ``seed``: the cluster, pending
+    pods only a template absorbs (with a pod-side label no node carries),
+    one node group, one drain set and a pending gang with one candidate
+    set per occupied node."""
+    import random
+    from kubernetes_tpu_torch.autoscaler import NodeGroup
+    from kubernetes_tpu_torch.descheduler import GANG_LABEL, CandidateSet
+    from kubernetes_tpu_torch.testing.workloads import planner_fuzz_cluster
+    from kubernetes_tpu_torch.testing.wrappers import make_node, make_pod
+    rng = random.Random(1000 + seed)
+    nodes, bound = planner_fuzz_cluster(seed)
+    pending = [make_pod(f"pend{j}").req({"cpu": rng.choice(["20", "24"])})
+               .label(GANG_LABEL, "noise").obj()
+               for j in range(rng.randint(1, 3))]
+    groups = [NodeGroup(name="ng-big", min_size=0, max_size=4,
+                        template=make_node("ng-big-t").capacity(
+                            {"cpu": "32", "memory": "64Gi",
+                             "pods": "32"}).obj())]
+    per_node = {}
+    for p in bound:
+        per_node.setdefault(p.spec.node_name, []).append(p)
+    victim_node = min(per_node, key=lambda n: len(per_node[n]))
+    sets = [CandidateSet(name=f"drain-{victim_node}", strategy="Fuzz",
+                         victims=per_node[victim_node],
+                         exclude_targets={victim_node})]
+    gang = [make_pod(f"g{j}").req({"cpu": "2"}).label(GANG_LABEL, "fuzz")
+            .obj() for j in range(2)]
+    gsets = [CandidateSet(name=f"consolidate-{n}", strategy="GangFuzz",
+                          victims=list(ps), exclude_targets={n})
+             for n, ps in sorted(per_node.items())]
+    return nodes, bound, pending, groups, sets, gang, gsets
+
+
+def planner_plans(seed, resident, device):
+    """The four planners' plans for fuzz ``seed`` in normal form, through
+    ``resident`` (a ResidentPlanner) or cold (None) on ``device``."""
+    from kubernetes_tpu_torch.autoscaler import (simulate_scale_down,
+                                                 simulate_scale_up)
+    from kubernetes_tpu_torch.descheduler import (plan_evictions,
+                                                  plan_gang_defrag)
+    from kubernetes_tpu_torch.encode.snapshot import SnapshotEncoder
+    nodes, bound, pending, groups, sets, gang, gsets = planner_questions(seed)
+    kw = dict(encoder=SnapshotEncoder(), resident=resident, device=device)
+    return {
+        "scale_up": norm_scale_up(simulate_scale_up(
+            nodes, bound, pending, groups, **kw)),
+        "scale_down": norm_scale_down(simulate_scale_down(
+            nodes, bound, [n.metadata.name for n in nodes],
+            utilization_threshold=0.6, **kw)),
+        "evictions": norm_evictions(plan_evictions(nodes, bound, sets,
+                                                   **kw)),
+        "gang_defrag": norm_gang(plan_gang_defrag(nodes, bound, gang, "fuzz",
+                                                  gsets, **kw)),
+    }
+
+
+def _two_on_one_node(enc, bound):
+    st = enc._patch
+    by_node = {}
+    for p in bound:
+        if p.key in st.slot_of and p.key not in st.unpatchable:
+            by_node.setdefault(p.spec.node_name, []).append(p.key)
+    shared = next(keys for keys in by_node.values() if len(keys) >= 2)
+    other = next(keys[0] for keys in by_node.values()
+                 if keys[0] not in shared)
+    return [shared[0], shared[1], other]
+
+
+def planner_parity_phase(devices=("cuda", "cpu"), seeds=PLANNER_SEEDS):
+    """The resident planners on each device: for each fuzz seed, the port's
+    Scheduler armed over the fuzz cluster, the four plans through its
+    ResidentPlanner (every one a hit, no decline) and cold; resident equal
+    to cold on each device, and each plan equal across the devices. Then
+    ``tenant_quota_mask`` on seeded tenants and quotas, and ``without_pods``
+    (two victims on one node) on the tensors of each device, equal across
+    the devices and to the host path."""
+    import numpy as np
+    from kubernetes_tpu_torch.encode.overlay import (ResidentPlanner,
+                                                     tenant_quota_mask)
+    from kubernetes_tpu_torch.encode.snapshot import SnapshotEncoder
+    from kubernetes_tpu_torch.testing.workloads import planner_fuzz_cluster
+    from kubernetes_tpu_torch.testing.wrappers import make_pod
+    out = {"seeds": list(seeds), "devices": list(devices)}
+    plans = {}
+    for device in devices:
+        for seed in seeds:
+            nodes, bound = planner_fuzz_cluster(seed)
+            sched, _log = make_scheduler(
+                sched_config(batch_size=4, max_drain_batches=2), nodes,
+                bound, device=device)
+            try:
+                check(sched.warm_drain(
+                    [make_pod(f"__warm{i}").req({"cpu": "100m"}).obj()
+                     for i in range(4)], slot_headroom=64),
+                    "parity.planner: warm_drain did not arm the context")
+                rp = ResidentPlanner(sched.resident_plan_view, sched.cache)
+                resident = planner_plans(seed, rp, device)
+                stats = rp.stats()
+                check(stats == {"hits": {"autoscaler": 2, "descheduler": 1,
+                                         "gangDefrag": 1}, "declines": {}},
+                      f"parity.planner: {device} seed {seed}: {stats}")
+                cold = planner_plans(seed, None, device)
+                check(resident == cold,
+                      f"parity.planner: {device} seed {seed}: resident "
+                      f"{resident} != cold {cold}")
+                check(cold["scale_up"], "parity.planner: no scale-up option")
+                plans.setdefault(seed, []).append(cold)
+            finally:
+                sched.close()
+    for seed, per_device in plans.items():
+        check(all(p == per_device[0] for p in per_device),
+              f"parity.planner: seed {seed}: the plans differ across "
+              f"{devices}")
+    out["plans"] = {str(s): {"scale_up_options": len(p["scale_up"]),
+                             "removable": len(p["scale_down"][0]),
+                             "accepted_sets": len(p["evictions"][0]),
+                             "gang_moves": len(p["gang_defrag"][2])}
+                    for s, (p, *_rest) in plans.items()}
+    rng = np.random.default_rng(SEED)
+    quota_cases = 0
+    for V, T in ((1, 1), (5, 2), (40, 3), (300, 7), (1000, 16)):
+        ids = rng.integers(-1, T, V).tolist()
+        quotas = rng.integers(-1, 6, T).tolist()
+        got = [tenant_quota_mask(ids, quotas, device=d).tolist()
+               for d in devices]
+        check(all(g == got[0] for g in got),
+              f"parity.planner: tenant_quota_mask differs at V={V}, T={T}")
+        quota_cases += 1
+    out["quota_cases"] = quota_cases
+    nodes, bound = planner_fuzz_cluster(1)
+    enc = SnapshotEncoder()
+    ct, meta = enc.encode_cluster(nodes, bound)
+    keys = _two_on_one_node(enc, bound)
+    host = enc.without_pods(ct, meta, keys)
+    for d in devices:
+        got = enc.without_pods(ct.to(d), meta, keys)
+        for f in ("requested", "epod_valid"):
+            check(np.array_equal(getattr(got, f).cpu().numpy(),
+                                 getattr(host, f)),
+                  f"parity.planner: without_pods {f} on {d} != host")
+    out["without_pods_victims"] = keys
+    return out
+
+
+def autoscaler_phase(device=None, n_nodes=AUTOSCALE_NODES,
+                     fill=AUTOSCALE_FILL, pending=AUTOSCALE_PENDING):
+    """ClusterAutoscalerScaleUp/1000Nodes2000Pending as
+    ``benchmarks/scheduler_perf.py`` runs it: 1000 node-default nodes, one
+    pod-autoscaler-fill pod bound on each, 2000 pod-default pods pending,
+    node-group-default and node-group-large, the least-waste expander; a
+    warm-up call excluded, then ScaleUpDecisionSeconds of
+    ``simulate_scale_up`` on the cold path (host encode, ``run_filters`` on
+    the card) and on the resident path (a Scheduler armed over the same
+    cluster with ``warm_drain``, its ResidentPlanner). The groups' template
+    label key is not in the resident key bucket: the first resident call
+    declines ``template_bucket`` and asks the cache for a full encode, which
+    a second ``warm_drain`` makes, as the live scheduler's next cycle would.
+    Gates: that one decline and one full encode, the options equal on both
+    paths (and to the CPU's cold options), every pending pod placed by the
+    chosen option, each decision within 60 s, every later resident call a
+    hit. One more resident call under torch.profiler."""
+    from kubernetes_tpu_torch.autoscaler import (EXPANDERS, load_node_group,
+                                                 simulate_scale_up)
+    from kubernetes_tpu_torch.encode.overlay import ResidentPlanner
+    from kubernetes_tpu_torch.ops import kernels
+    from kubernetes_tpu_torch.testing.workloads import autoscaler_scale_up
+    from kubernetes_tpu_torch.utils.tracing import TRACER
+    nodes, bound, pods, group_dicts = autoscaler_scale_up(n_nodes, fill,
+                                                          pending)
+    groups = [load_node_group(d) for d in group_dicts]
+    expander = EXPANDERS["least-waste"]
+
+    def cold():
+        return simulate_scale_up(nodes, bound, pods, groups, device=device)
+
+    cfg = sched_config()
+    sched, _log = make_scheduler(cfg, nodes, bound, device=device)
+    try:
+        pop = cfg.batch_size * cfg.max_drain_batches
+        t0 = time.perf_counter()
+        check(sched.warm_drain(pods[:pop], slot_headroom=len(pods) + pop),
+              "autoscaler: warm_drain did not arm the context")
+        warm_drain_s = time.perf_counter() - t0
+        rp = ResidentPlanner(sched.resident_plan_view, sched.cache)
+
+        def resident():
+            return simulate_scale_up(nodes, bound, pods, groups,
+                                     resident=rp, device=device)
+
+        full0 = sched.cache.stats()["full_encodes"]
+        t0 = time.perf_counter()
+        resident()
+        declined_s = time.perf_counter() - t0
+        first = rp.stats()
+        check(first == {"hits": {}, "declines": {
+            "autoscaler": {"template_bucket": 1}}},
+              f"autoscaler: the first resident call did not decline "
+              f"template_bucket: {first}")
+        t0 = time.perf_counter()
+        check(sched.warm_drain(pods[:pop], slot_headroom=len(pods) + pop),
+              "autoscaler: warm_drain did not re-arm the context")
+        rearm_s = time.perf_counter() - t0
+        full_encodes = sched.cache.stats()["full_encodes"] - full0
+        check(full_encodes == 1,
+              f"autoscaler: {full_encodes} full encodes after the template "
+              f"decline, not 1")
+        t0 = time.perf_counter()
+        cold()
+        resident()
+        warmup_s = time.perf_counter() - t0
+        TRACER.reset()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        cold_opts = cold()
+        cold_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res_opts = resident()
+        res_s = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        spans = _span_totals()
+        prof = profile_call(resident, "autoscaler_resident")
+        stats = rp.stats()
+    finally:
+        sched.close()
+    cpu_opts = simulate_scale_up(nodes, bound, pods, groups, device="cpu")
+    choice = expander(cold_opts, seed=0)
+    placed = choice.pods_placed if choice else 0
+    summary = {
+        "case": "ClusterAutoscalerScaleUp/1000Nodes2000Pending",
+        "nodes": len(nodes), "bound": len(bound), "pending": len(pods),
+        "candidate_groups": len(groups),
+        "ScaleUpDecisionSeconds": {"cold": cold_s, "resident": res_s},
+        "warmup_s": warmup_s, "warm_drain_s": warm_drain_s,
+        "declined_s": declined_s, "rearm_s": rearm_s,
+        "rearm_full_encodes": full_encodes,
+        "options": [{"group": o.group.name, "pods": o.pods_placed,
+                     "nodes_needed": o.nodes_needed, "waste": o.waste}
+                    for o in cold_opts],
+        "chosen_group": choice.group.name if choice else None,
+        "nodes_needed": choice.nodes_needed if choice else 0,
+        "pods_placed": placed, "overlay": stats,
+        "spans": {k: v for k, v in spans.items()
+                  if k.startswith("planner/")},
+        "profile": {k: prof[k] for k in ("wall_ms", "launches",
+                                         "device_busy_ms",
+                                         "device_busy_share",
+                                         "top_device_ops", "trace")},
+        "launches": launches}
+    check(norm_scale_up(res_opts) == norm_scale_up(cold_opts),
+          "autoscaler: resident options != cold options")
+    check(norm_scale_up(cpu_opts) == norm_scale_up(cold_opts),
+          "autoscaler: the card's options != the CPU's")
+    check(stats == {"hits": {"autoscaler": 3},
+                    "declines": {"autoscaler": {"template_bucket": 1}}},
+          f"autoscaler: the resident path declined again: {stats}")
+    check(placed == len(pods),
+          f"autoscaler: pods_placed {placed} != {len(pods)}")
+    for path, s in (("cold", cold_s), ("resident", res_s)):
+        check(s <= AUTOSCALE_LIMIT_S,
+              f"autoscaler: the {path} decision took {s:.1f} s")
+    return summary
+
+
+def defrag_phase(device=None, n_nodes=DEFRAG_NODES, fill=DEFRAG_FILL,
+                 gang_pods=DEFRAG_GANG, max_drain=DEFRAG_MAX_DRAIN):
+    """DeschedulerDefrag/1000Nodes100Gang as ``scheduler_perf.py`` runs it:
+    1000 node-default nodes fragmented by one pod-defrag-fill pod each (12
+    of 32 CPU), a pending gang of 100 pod-defrag-gang pods (24 CPU), drain
+    prefixes capped at 110; a warm-up plan excluded, then
+    DefragPlanSeconds of ``gang_consolidation_candidates`` +
+    ``plan_gang_defrag`` (one ``run_filters`` + ``combined_score`` on the
+    card over every prefix's victims and the gang, then the host's
+    fewest-evictions ledger scan). Gates: all 100 gang pods seated, within
+    60 s, the plan equal to the CPU's, every gang pod on its own drained
+    node, no victim parked on a drained node. One more plan under
+    torch.profiler."""
+    from kubernetes_tpu_torch.descheduler import (
+        gang_consolidation_candidates, plan_gang_defrag)
+    from kubernetes_tpu_torch.ops import kernels
+    from kubernetes_tpu_torch.testing.workloads import descheduler_defrag
+    nodes, bound, gang = descheduler_defrag(n_nodes, fill, gang_pods)
+
+    def plan(on=device):
+        cands = gang_consolidation_candidates(nodes, bound,
+                                              max_nodes=max_drain)
+        return plan_gang_defrag(nodes, bound, gang, "bench", cands,
+                                device=on)
+
+    t0 = time.perf_counter()
+    plan()
+    warmup_s = time.perf_counter() - t0
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    gp = plan()
+    plan_s = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    prof = profile_call(plan, "defrag_plan")
+    cpu = plan("cpu")
+    seated = len(gp.gang_moves)
+    drained = {p.spec.node_name for p in gp.accepted.victims} \
+        if gp.accepted else set()
+    summary = {
+        "case": "DeschedulerDefrag/1000Nodes100Gang",
+        "nodes": len(nodes), "bound": len(bound), "gang": len(gang),
+        "max_drain": max_drain, "DefragPlanSeconds": plan_s,
+        "warmup_s": warmup_s, "batch_victims": gp.batch_victims,
+        "candidate_sets": gp.batch_sets, "evictions": gp.evictions,
+        "accepted_set": gp.accepted.name if gp.accepted else None,
+        "blocked_sets": len(gp.blocked), "gang_seated": seated,
+        "profile": {k: prof[k] for k in ("wall_ms", "launches",
+                                         "device_busy_ms",
+                                         "device_busy_share",
+                                         "top_device_ops", "trace")},
+        "launches": launches}
+    check(norm_gang(gp) == norm_gang(cpu),
+          "defrag: the card's plan != the CPU's")
+    check(seated == len(gang), f"defrag: gang_seated {seated} != {len(gang)}")
+    check(plan_s <= DEFRAG_LIMIT_S, f"defrag: the plan took {plan_s:.1f} s")
+    seats = [node for _key, node in gp.gang_moves]
+    check(len(set(seats)) == len(seats) and set(seats) <= drained,
+          "defrag: a gang pod is not alone on a drained node")
+    check(not {node for _key, node in gp.accepted.moves} & drained,
+          "defrag: a victim was parked on a drained node")
+    return summary
+
+
+def planner_loop_phase(device=None, n_nodes=LOOP_NODES,
+                       pods_per_node=LOOP_PODS_PER_NODE,
+                       window=LOOP_WINDOW, max_warmup=LOOP_MAX_WARMUP,
+                       quiet_cycles=LOOP_QUIET):
+    """PlannerLoop (``benchmarks/plannerloop.py``) at 5000 nodes: the port's
+    APIServer in a spawned process, ``planner_loop``'s cluster (pl-n0 with
+    one small pod, every other node 3 pods of 2 CPU, two pods nothing fits,
+    a pending 3-pod gang), the port's SchedulerRunner (pops of 8, one
+    batch, the loop not started: the fleet is static) with a fail-fast
+    auditor, ``warm_drain``; ClusterAutoscaler (pool-a and pool-big,
+    utilization 0.5, reclaim never), a dry-run Descheduler with the
+    default strategies, one BackgroundPlanner over them. Adaptive warm-up
+    until ``quiet_cycles`` cycles count no ``steadyCompiles``, then a
+    window of ``window`` cycles; then the same observation planned through
+    the resident view and cold (scale-up with headroom, scale-down over
+    every node, the descheduler's evictions and gang plans); one more
+    cycle under torch.profiler. Gates: the warm-up goes quiet; the window
+    counts 0 ``steadyCompiles``, 0 resident declines and 0 scheduler full
+    encodes; every planner's hits advance; the four parity legs equal and
+    the scale-up options not empty; 0 invariant violations; count_pn never
+    launched. -> summary (cycle_ms, the planner/* spans)."""
+    import multiprocessing as mp
+    from kubernetes_tpu_torch.audit.auditor import (InvariantAuditor,
+                                                    InvariantViolationError)
+    from kubernetes_tpu_torch.autoscaler import (ClusterAutoscaler,
+                                                 StaticNodeGroupProvider,
+                                                 load_node_group,
+                                                 simulate_scale_down,
+                                                 simulate_scale_up)
+    from kubernetes_tpu_torch.client.clientset import HTTPClient
+    from kubernetes_tpu_torch.descheduler import (Descheduler,
+                                                  DeschedulerConfiguration)
+    from kubernetes_tpu_torch.ops import kernels
+    from kubernetes_tpu_torch.sched.bgplanner import BackgroundPlanner
+    from kubernetes_tpu_torch.sched.runner import SchedulerRunner
+    from kubernetes_tpu_torch.testing.workloads import planner_loop
+    from kubernetes_tpu_torch.testing.wrappers import make_pod
+    from kubernetes_tpu_torch.utils.tracing import TRACER
+    nodes, bound, pending, group_dicts = planner_loop(n_nodes, pods_per_node)
+    ctx = mp.get_context("spawn")
+    server, server_pipe, url = start_apiserver(ctx)
+    runner = None
+    summary = {"case": "PlannerLoop", "nodes": n_nodes, "bound": len(bound),
+               "pending": len(pending), "window_cycles": window}
+    try:
+        client = HTTPClient(url, timeout=120.0, wire="json")
+        t0 = time.perf_counter()
+        client.nodes().create_many(_wire(nodes))
+        bound_dicts = _wire(bound)
+        for i in range(0, len(bound_dicts), LOOP_CREATE_CHUNK):
+            client.pods("default").create_many(
+                bound_dicts[i:i + LOOP_CREATE_CHUNK])
+        summary["seed_s"] = time.perf_counter() - t0
+        cfg = sched_config(batch_size=8, max_drain_batches=1,
+                           explainer_enabled=True, parity_sample_every=16)
+        runner = SchedulerRunner(HTTPClient(url, wire="json"), cfg,
+                                 device=device)
+        runner.auditor = InvariantAuditor(
+            client=HTTPClient(url, timeout=60.0, wire="json"),
+            cache=runner.cache, scheduler=runner.scheduler,
+            interval_s=CONNECTED_AUDIT_S, fail_fast=True,
+            pre_sweep=runner.sweep_stale_nominations,
+            post_sweep=runner.publish_status,
+            relists=runner._total_relists)
+        t0 = time.perf_counter()
+        runner.start(wait_sync=120.0, start_loop=False)
+        check(runner.has_synced(), "planner: the informers did not sync")
+        summary["sync_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        check(runner.scheduler.warm_drain(
+            [make_pod(f"pl-w{k}", "default").req({"cpu": "2"}).obj()
+             for k in range(8)], slot_headroom=len(bound) + 64),
+            "planner: warm_drain did not arm the context")
+        summary["warm_drain_s"] = time.perf_counter() - t0
+        client.pods("default").create_many(_wire(pending))
+
+        groups = [load_node_group(d) for d in group_dicts]
+        autoscaler = ClusterAutoscaler(
+            HTTPClient(url, timeout=60.0, wire="json"),
+            StaticNodeGroupProvider(HTTPClient(url, timeout=60.0,
+                                               wire="json"), groups),
+            utilization_threshold=0.5, scale_down_unneeded_s=10 ** 9,
+            device=device)
+        descheduler = Descheduler(HTTPClient(url, timeout=60.0, wire="json"),
+                                  DeschedulerConfiguration(), device=device)
+        planner = BackgroundPlanner(client, runner.scheduler,
+                                    autoscaler=autoscaler,
+                                    descheduler=descheduler,
+                                    descheduler_dry_run=True,
+                                    warmup_cycles=1)
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        quiet = warm = 0
+        while warm < max_warmup and quiet < quiet_cycles:
+            s = planner.run_once()
+            warm += 1
+            quiet = quiet + 1 if s.get("steadyCompiles", 1) == 0 else 0
+        summary["warmup_cycles"] = warm
+        summary["warmup_s"] = time.perf_counter() - t0
+        check(quiet >= quiet_cycles,
+              f"planner: the warm-up never went quiet in {warm} cycles")
+
+        stats0 = planner.resident.stats()
+        enc0 = runner.cache.stats()["full_encodes"]
+        TRACER.max_spans = max(TRACER.max_spans, 4096)
+        TRACER.reset()
+        compiles = 0
+        cycle_ms = []
+        for _ in range(window):
+            t0 = time.perf_counter()
+            s = planner.run_once()
+            cycle_ms.append((time.perf_counter() - t0) * 1e3)
+            compiles += s.get("steadyCompiles", 0)
+        stats1 = planner.resident.stats()
+        summary["cycle_ms"] = sum(cycle_ms) / len(cycle_ms)
+        summary["cycles_ms"] = cycle_ms
+        summary["window_compiles"] = compiles
+        summary["window_declines"] = (
+            sum(sum(v.values()) for v in stats1["declines"].values())
+            - sum(sum(v.values()) for v in stats0["declines"].values()))
+        summary["window_full_encodes"] = \
+            runner.cache.stats()["full_encodes"] - enc0
+        summary["window_hits"] = {
+            name: stats1["hits"].get(name, 0) - stats0["hits"].get(name, 0)
+            for name in ("autoscaler", "descheduler", "gangDefrag")}
+        summary["spans"] = {k: v for k, v in _span_totals().items()
+                            if k.startswith("planner/")}
+        summary["planner_spans_s"] = dict(planner._spans)
+
+        # the same observation through the resident view and cold
+        nodes_o, pods_o, pod_dicts_o = autoscaler._observe()
+        bound_o = [p for p in pods_o if p.spec.node_name]
+        pending_o = [p for p in pods_o if not p.spec.node_name]
+        headroom = {"pool-a": 4, "pool-big": 2}  # force a real option
+        up = [norm_scale_up(simulate_scale_up(
+            nodes_o, bound_o, pending_o, groups, headroom=headroom,
+            encoder=autoscaler.encoder, resident=r, device=device))
+            for r in (planner.resident, None)]
+        down = [norm_scale_down(simulate_scale_down(
+            nodes_o, bound_o, [n.metadata.name for n in nodes_o],
+            utilization_threshold=0.5, all_pod_dicts=pod_dicts_o,
+            encoder=autoscaler.encoder, resident=r, device=device))
+            for r in (planner.resident, None)]
+        obs = descheduler._observe()
+        dplans = []
+        for r in (planner.resident, None):
+            descheduler.resident = r
+            ep, gps = descheduler.plan(*obs)
+            dplans.append((norm_evictions(ep), [norm_gang(g) for g in gps]))
+        descheduler.resident = planner.resident
+        summary["plan_parity"] = {
+            "scale_up": up[0] == up[1], "scale_down": down[0] == down[1],
+            "evictions": dplans[0][0] == dplans[1][0],
+            "gang_defrag": dplans[0][1] == dplans[1][1]}
+        summary["parity_scale_up_options"] = len(up[1])
+        summary["parity_gang_plans"] = len(dplans[1][1])
+        summary["parity_hits"] = {
+            k: v - stats1["hits"].get(k, 0)
+            for k, v in planner.resident.stats()["hits"].items()}
+        prof = profile_call(planner.run_once, "planner_cycle")
+        summary["profile"] = {k: prof[k] for k in (
+            "wall_ms", "launches", "device_busy_ms", "device_busy_share",
+            "top_device_ops", "trace")}
+        summary["launches"] = dict(kernels.LAUNCHES)
+        summary["planner_status"] = planner.status()
+        summary["overlay"] = planner.resident.stats()
+        runner.auditor.stop()
+        for _ in range(2):
+            try:
+                runner.auditor.run_once()
+            except InvariantViolationError:
+                pass  # counted below
+        audit = runner.auditor.status()
+        summary["audit"] = {k: audit[k] for k in ("sweeps", "violations",
+                                                  "byInvariant", "failed")}
+    finally:
+        if runner is not None:
+            runner.stop()
+        stop_process(server, server_pipe)
+    check(summary["window_compiles"] == 0,
+          f"planner: {summary['window_compiles']} steadyCompiles in the "
+          "window")
+    check(summary["window_declines"] == 0,
+          f"planner: {summary['window_declines']} resident declines in the "
+          f"window ({summary['overlay']['declines']})")
+    check(summary["window_full_encodes"] == 0,
+          f"planner: {summary['window_full_encodes']} scheduler full "
+          "encodes in the window")
+    for name, d in summary["window_hits"].items():
+        check(d > 0, f"planner: {name}'s hits did not advance ({d})")
+    for leg, ok in summary["plan_parity"].items():
+        check(ok, f"planner: resident/cold plan divergence: {leg}")
+    check(summary["parity_scale_up_options"] > 0,
+          "planner: the parity scale-up compared no option")
+    check(all(summary["parity_hits"].get(k, 0) > 0
+              for k in ("autoscaler", "descheduler", "gangDefrag")),
+          f"planner: a parity leg did not hit ({summary['parity_hits']})")
+    check(summary["audit"]["violations"] == 0,
+          f"planner: invariant violations {summary['audit']['byInvariant']}")
+    check(all(n == 0 for n in summary["launches"].values()),
+          f"planner: count_pn launched on the planner path "
+          f"{summary['launches']}")
+    return summary
+
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3688,6 +4309,7 @@ def main() -> int:
     emit({"phase": "parity.explain", **explain_parity_phase()})
     emit({"phase": "parity.extender", **extender_parity_phase()})
     emit({"phase": "parity.slice", **slice_parity_phase()})
+    emit({"phase": "parity.planner", **planner_parity_phase()})
 
     launches = {}   # kernel -> {path: launches}
 
@@ -3774,10 +4396,19 @@ def main() -> int:
     slice_rows = kernels_phase(slice_cases)
     del slice_cases
     emit({"phase": "kernels.slice", "rows": slice_rows})
+    # the resident planners: no hand kernel on their path (the static
+    # filters and the B9 programs are torch ops); count_pn's 0 is recorded
+    auto_sum = autoscaler_phase()
+    emit({"phase": "autoscaler", **auto_sum})
+    defrag_sum = defrag_phase()
+    emit({"phase": "defrag", **defrag_sum})
+    loop_sum = planner_loop_phase()
+    emit({"phase": "planner", **loop_sum})
     for path, summary in (("preemption", pre_sum),
                           ("connected_preemption", cpre_sum),
                           ("explain", expl_sum), ("extender", ext_sum),
-                          ("slice", slice_sum)):
+                          ("slice", slice_sum), ("autoscaler", auto_sum),
+                          ("defrag", defrag_sum), ("planner", loop_sum)):
         for name, n in summary["launches"].items():
             launches.setdefault(name, {})[path] = n
 

@@ -23,9 +23,11 @@ Design notes:
   the same domain iff ``node_labels[:, k]`` agree (see ops/topology.py).
 - Of the reference encoder this module keeps ``encode_cluster``,
   ``encode_pods`` and the pod precompile cache they use, the patch
-  bookkeeping (``_PatchState``) with ``apply_pod_deltas``, and
-  ``with_nominated``. The planners' overlays (``with_hypothetical``,
-  ``without_pods``) and DRA (``set_dra``) are not ported yet.
+  bookkeeping (``_PatchState``) with ``apply_pod_deltas``,
+  ``with_nominated``, and the planners' overlays ``with_hypothetical``
+  and ``without_pods`` (on an encoding held in torch tensors they run
+  through encode/overlay.py on the tensors' device). DRA (``set_dra``) is
+  not ported yet (ROADMAP Queue A item 11).
 """
 
 from __future__ import annotations
@@ -357,6 +359,14 @@ class SnapshotMeta:
     pod_keys: list[str] = dc_field(default_factory=list)  # keys of the encoded batch
     topo_keys: tuple[int, ...] = ()  # distinct topology key-ids in play (static)
     generation: int = 0
+
+
+def _is_device_backed(ct: ClusterTensors) -> bool:
+    """True when the encoding's fields are torch tensors (a drain
+    context's resident image, on the card or the CPU) rather than the
+    encoder's numpy arrays — the overlay methods route these through
+    encode/overlay.py so the image never round-trips."""
+    return isinstance(ct.node_valid, torch.Tensor)
 
 
 def _resource_union(nodes: list[Node], pods: list[Pod]) -> list[str]:
@@ -754,6 +764,169 @@ class SnapshotEncoder:
             nom_req=np.zeros((0, R), np.int32), nom_valid=np.zeros(0, bool),
         )
         return ct, meta
+
+    def with_hypothetical(self, ct: ClusterTensors, meta: "SnapshotMeta",
+                          nodes: list[Node],
+                          ) -> tuple[ClusterTensors, list[int]]:
+        """Overlay K hypothetical nodes onto an encoded snapshot — the
+        cluster-autoscaler's "would the pending pods fit on a node from
+        group g?" question, asked for every candidate group in ONE tensor
+        program instead of K sequential binpacking passes (the reference
+        delegates this to simulator.SchedulerBasedPredicateChecker in
+        kubernetes/autoscaler).
+
+        The overlay is ephemeral and copy-on-write: node-axis arrays widen
+        to the next bucket past N+K and the template rows fill in after the
+        existing bucket, so real rows (and the incremental-patch bookkeeping,
+        which is NOT touched) keep their indices. Template labels/taints
+        intern into the shared tables; node_labels' key axis and the
+        label-value-number table widen if a template introduces new ids.
+        Template resources outside the encoded resource axis are ignored —
+        encode the cluster with the pending pods so R already covers them.
+
+        Returns (overlaid tensors, row index per hypothetical node).
+
+        Handed an encoding held in torch tensors (the scheduler's drain
+        context), the overlay stays on their device: template planes are
+        built host-side at the resident bucket widths and appended by one
+        concatenate per field (encode/overlay.py). A template that
+        overflows a resident bucket (new label key past K, more taints than
+        T, a value past V) raises ``ValueError``: the tensors are not copied
+        to the host to answer it (encode/overlay.py's planners decline
+        there and run their cold encode instead).
+        """
+        K = len(nodes)
+        if K == 0:
+            return ct, []
+        if _is_device_backed(ct):
+            from kubernetes_tpu_torch.encode import overlay
+            out = overlay.resident_with_hypothetical(self, ct, meta, nodes)
+            if out is None:
+                raise ValueError(
+                    "a template overflows a bucket of the encoding held in "
+                    "tensors (label key, taint or value): encode the "
+                    "cluster again on the host")
+            return out
+        N = ct.node_valid.shape[0]
+        N2 = next_bucket(N + K, minimum=1)
+        rows = list(range(N, N + K))
+
+        # intern template state first so every bucket decision sees it
+        tmpl_labels = [self._label_ids(n.metadata.labels,
+                                       {NODE_NAME_LABEL: n.metadata.name})
+                       for n in nodes]
+        tmpl_taints = [[(self.keys.intern(t.key), self.values.intern(t.value),
+                         EFFECTC.get(t.effect, 0)) for t in n.spec.taints]
+                       for n in nodes]
+
+        def _widen(arr, axis, new, fill):
+            arr = np.asarray(arr)
+            if arr.shape[axis] >= new:
+                return np.array(arr)
+            pad = [(0, 0)] * arr.ndim
+            pad[axis] = (0, new - arr.shape[axis])
+            return np.pad(arr, pad, constant_values=fill)
+
+        K2 = max(np.asarray(ct.node_labels).shape[1],
+                 next_bucket(len(self.keys), minimum=1))
+        T2 = max(np.asarray(ct.taint_key).shape[1],
+                 next_bucket(max((len(t) for t in tmpl_taints), default=0)))
+        allocatable = _widen(ct.allocatable, 0, N2, 0)
+        requested = _widen(ct.requested, 0, N2, 0)
+        node_valid = _widen(ct.node_valid, 0, N2, False)
+        unschedulable = _widen(ct.unschedulable, 0, N2, False)
+        node_labels = _widen(_widen(ct.node_labels, 1, K2, -1), 0, N2, -1)
+        taint_key = _widen(_widen(ct.taint_key, 1, T2, -1), 0, N2, -1)
+        taint_val = _widen(_widen(ct.taint_val, 1, T2, -1), 0, N2, -1)
+        taint_effect = _widen(_widen(ct.taint_effect, 1, T2, -1), 0, N2, -1)
+        taint_valid = _widen(_widen(ct.taint_valid, 1, T2, False), 0, N2, False)
+        port_proto = _widen(ct.port_proto, 0, N2, -1)
+        port_port = _widen(ct.port_port, 0, N2, -1)
+        port_ip = _widen(ct.port_ip, 0, N2, -1)
+        port_valid = _widen(ct.port_valid, 0, N2, False)
+        node_images = _widen(ct.node_images, 0, N2, -1)
+        used_rwo = _widen(ct.used_rwo, 0, N2, -1)
+        used_rwo_valid = _widen(ct.used_rwo_valid, 0, N2, False)
+        attach_used = _widen(ct.attach_used, 0, N2, 0)
+        attach_limit = _widen(ct.attach_limit, 0, N2, UNLIMITED)
+
+        from kubernetes_tpu_torch.sched.volumebinding import node_attach_limit
+        for k, n in enumerate(nodes):
+            i = rows[k]
+            node_valid[i] = True
+            unschedulable[i] = n.spec.unschedulable
+            alloc = n.allocatable_canonical()
+            for r_idx, r in enumerate(meta.resources):
+                if r in alloc:
+                    allocatable[i, r_idx] = min(
+                        scale_allocatable(r, alloc[r]), UNLIMITED)
+                elif r == "pods":
+                    allocatable[i, r_idx] = UNLIMITED
+            for kid, vid in tmpl_labels[k].items():
+                node_labels[i, kid] = vid
+            for t_idx, (tk, tv, te) in enumerate(tmpl_taints[k]):
+                taint_key[i, t_idx] = tk
+                taint_val[i, t_idx] = tv
+                taint_effect[i, t_idx] = te
+                taint_valid[i, t_idx] = True
+            lim = node_attach_limit(n.status.allocatable)
+            if lim >= 0:
+                attach_limit[i] = lim
+
+        # label values the templates interned may spill past the V bucket
+        V2 = max(np.asarray(ct.label_value_num).shape[0],
+                 next_bucket(len(self.values), minimum=1))
+        label_value_num = np.full(V2, np.nan, np.float32)
+        nums = self.values.numeric_values()
+        label_value_num[:len(nums)] = np.asarray(nums, np.float32)
+
+        return ct.replace(
+            allocatable=allocatable, requested=requested,
+            node_valid=node_valid, unschedulable=unschedulable,
+            node_labels=node_labels, label_value_num=label_value_num,
+            taint_key=taint_key, taint_val=taint_val,
+            taint_effect=taint_effect, taint_valid=taint_valid,
+            port_proto=port_proto, port_port=port_port, port_ip=port_ip,
+            port_valid=port_valid, node_images=node_images,
+            used_rwo=used_rwo, used_rwo_valid=used_rwo_valid,
+            attach_used=attach_used, attach_limit=attach_limit,
+        ), rows
+
+    def without_pods(self, ct: ClusterTensors, meta: "SnapshotMeta",
+                     pod_keys: list[str]) -> Optional[ClusterTensors]:
+        """``with_hypothetical`` in reverse: mask bound pods OUT of an
+        encoded snapshot — the descheduler's "what does the cluster look
+        like after these evictions?" question. The victims' epod rows
+        invalidate (their relational footprint — anti-affinity symmetry,
+        spread counts — disappears) and their request vectors leave
+        ``requested``; everything else is shared with the source encoding.
+
+        Ephemeral and copy-on-write like the other overlays: the
+        incremental-patch bookkeeping still considers the pods resident
+        (use ``apply_pod_deltas`` for a real delete). Returns None when a
+        key is outside the current patch state or carries port/volume node
+        state an overlay cannot reconstruct — callers fall back to a full
+        re-encode without the victims.
+
+        An encoding held in torch tensors stays on their device: the
+        subtraction runs as one scatter there (encode/overlay.py).
+        """
+        st = self._patch
+        if st is None or st.generation != meta.generation:
+            return None
+        if any(k in st.unpatchable for k in pod_keys):
+            return None
+        if any(k not in st.slot_of for k in pod_keys):
+            return None
+        if _is_device_backed(ct):
+            from kubernetes_tpu_torch.encode import overlay
+            return overlay.resident_without_pods(st, ct, pod_keys)
+        requested = np.array(ct.requested)
+        epod_valid = np.array(ct.epod_valid)
+        for k in set(pod_keys):
+            requested[st.slot_node[k]] -= st.slot_req[k]
+            epod_valid[st.slot_of[k]] = False
+        return ct.replace(requested=requested, epod_valid=epod_valid)
 
     def with_nominated(self, ct: ClusterTensors, meta: "SnapshotMeta",
                        nominated: list, min_m: int = 0) -> ClusterTensors:

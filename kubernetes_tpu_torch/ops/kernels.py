@@ -7,7 +7,10 @@ source, all started together; ``library`` loads one with ``ctypes``,
 building it at first use. A library's file name carries a hash of its
 source, so an edited kernel is rebuilt and a stale one is never loaded.
 
-``LAUNCHES`` counts the launches of each kernel. A wrapper adds one where
+``BUILDS`` counts the ``nvcc`` builds this process ran (a library found on
+disk costs none): the planners' ``CompileCounter`` (encode/overlay.py)
+reads it to prove a window built nothing. ``LAUNCHES`` counts the launches
+of each kernel. A wrapper adds one where
 it launches its kernel and nowhere else, so a caller can set the counts to
 0, run a path, and see which kernels it went through.
 
@@ -33,6 +36,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 KERNELS = ("count_pn",)
 LAUNCHES = {name: 0 for name in KERNELS}
+BUILDS = 0
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -85,6 +89,8 @@ def build(names=KERNELS) -> dict[str, dict]:
         jobs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                        stderr=subprocess.STDOUT, text=True),
                       tmp, path)
+    global BUILDS
+    BUILDS += len(jobs)
     failed = []
     for name, (proc, tmp, path) in jobs.items():
         log, _ = proc.communicate()

@@ -608,6 +608,26 @@ class SchedulerCache:
         with self._encode_lock:
             return self._encoder._request_vector(pod, resources)
 
+    def request_full_encode(self) -> None:
+        """Make the next snapshot a full encode. The resident planners ask
+        for one when a node-group template declines because the encoder's
+        intern tables outgrew a resident bucket (label keys, values,
+        images): only a full encode sizes the buckets from those tables, and
+        a static fleet makes no structural change that would bring one.
+        The ``full`` log entry also tells the drain context to rebuild."""
+        with self._lock:
+            self._generation += 1
+            self._needs_full = True
+            self._log_locked("full", None)
+
+    def with_encoder(self, fn):
+        """Run ``fn(encoder)`` under the encode lock — the resident
+        planners (encode/overlay.py) encode derived pod batches and build
+        template planes against the LIVE encoder's intern tables, which
+        must not interleave with snapshot/overlay work on other threads."""
+        with self._encode_lock:
+            return fn(self._encoder)
+
     def bound_pods(self, include_assumed: bool = True) -> list[Pod]:
         with self._lock:
             out = list(self._pods.values())

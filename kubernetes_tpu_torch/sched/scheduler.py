@@ -547,9 +547,9 @@ class Scheduler:
     def _tenant_chunks(self, items: list, P: int) -> list[list]:
         """Split a popped batch into device chunks of up to ``P`` pods:
         plain consecutive slices. Fleet mode's tenant-homogeneous chunks
-        are ROADMAP item 7."""
+        are ROADMAP item 7b."""
         if self.fleet_mode:
-            raise _not_ported("fleet mode", "7")
+            raise _not_ported("fleet mode", "7b")
         return [items[i:i + P] for i in range(0, len(items), P)]
 
     # ---- topology slice carving (topology/) ------------------------------
@@ -1883,9 +1883,10 @@ class Scheduler:
 
     def resident_plan_view(self) -> tuple[Optional[dict], str]:
         """(view, reason) for consumers of the DEVICE-RESIDENT drain
-        context — the preemption wave (the reference's background planners
-        are ROADMAP item 7). ``view`` is None when the resident encoding
-        cannot stand in for a fresh snapshot, with ``reason`` naming why.
+        context — the preemption wave and the three background planners
+        (encode/overlay.ResidentPlanner). ``view`` is None when the
+        resident encoding cannot stand in for a fresh snapshot, with
+        ``reason`` naming why (the planners' decline accounting).
         Valid only when the context is accountable (untainted) and current
         with the cache — every unconsumed delta-log entry is an assume the
         context already folded. That is exactly the state at a drain
@@ -1894,7 +1895,9 @@ class Scheduler:
         the card, victim request vectors served from its fold ledger)
         instead of re-staging tensors the card already holds. (The
         reference also declines a context staged under an older mesh; the
-        port has no mesh.)"""
+        port has no mesh.) ``seq`` is the delta-log position the context
+        has consumed: the planners compare it after a dispatch to see
+        whether a churn patch moved the context meanwhile."""
         from kubernetes_tpu_torch.encode.patch import entries_all_folded
         ctx = self._drain_ctx
         if ctx is None:
@@ -1921,7 +1924,7 @@ class Scheduler:
             rows.append(ni)
         return {"ct": ctx["ct"], "meta": meta, "cs": cs,
                 "nodes": nodes, "rows": np.asarray(rows, np.int32),
-                "shadow": ctx.get("shadow")}, "ok"
+                "shadow": ctx.get("shadow"), "seq": ctx["seq"]}, "ok"
 
     def _resident_wave_view(self) -> Optional[dict]:
         """The preemption wave's view of the resident drain context (see

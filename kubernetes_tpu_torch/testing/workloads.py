@@ -2,8 +2,14 @@
 ``benchmarks/workloads.py`` so the port builds it without the JAX package,
 ``relational_mix``, the parity tests' small cluster,
 ``required_terms_mix``, its cluster under wide required pod (anti-)affinity,
-and ``build_saturated``, the preemption cluster, copied from
-``benchmarks/preemption_bench.py``.
+``build_saturated``, the preemption cluster, copied from
+``benchmarks/preemption_bench.py``, and the planners' clusters:
+``planner_fuzz_cluster`` (``tests/test_planner.py``'s fuzz generator),
+``autoscaler_scale_up`` and ``descheduler_defrag``
+(``benchmarks/config/performance-config.yaml``'s ClusterAutoscalerScaleUp
+and DeschedulerDefrag cases, their templates copied as data, materialized
+as ``benchmarks/scheduler_perf.py`` does) and ``planner_loop``
+(``benchmarks/plannerloop.py``'s cluster).
 
 Deterministic via seed: all randomness comes from its own
 ``random.Random(seed)``, so the same (params, seed) yields the same objects
@@ -16,6 +22,8 @@ import random
 
 from kubernetes_tpu_torch.api.types import (LabelSelector, PodAffinityTerm,
                                             Requirement)
+from kubernetes_tpu_torch.autoscaler.nodegroup import NODE_GROUP_LABEL
+from kubernetes_tpu_torch.topology.slicing import GANG_LABEL
 from kubernetes_tpu_torch.testing.wrappers import make_node, make_pod
 
 ZONES = [f"zone-{i}" for i in range(10)]
@@ -224,3 +232,165 @@ def build_saturated(n_nodes: int, pods_per_node: int = 2):
                 .req({"cpu": "4", "memory": "4Gi"})
                 .priority(1 + (i + j) % 5).node(f"n{i}").obj())
     return nodes, bound
+
+
+# ---- the planners' clusters ---------------------------------------------
+
+
+
+def planner_fuzz_cluster(seed: int):
+    """``tests/test_planner.py``'s ``_fuzz_cluster``: 8 nodes of random
+    size, 0-2 bound pods each. -> (nodes, bound)."""
+    rng = random.Random(seed)
+    nodes, bound = [], []
+    for i in range(8):
+        cpu, mem = rng.choice([("8", "16Gi"), ("4", "8Gi"), ("16", "32Gi")])
+        nodes.append(make_node(f"f{i}")
+                     .capacity({"cpu": cpu, "memory": mem, "pods": "32"})
+                     .label("disk", rng.choice(["ssd", "hdd"]))
+                     .label("kubernetes.io/hostname", f"f{i}")
+                     .label(NODE_GROUP_LABEL, "fuzz-pool")
+                     .obj())
+    k = 0
+    for i in range(8):
+        for _ in range(rng.randint(0, 2)):
+            bound.append(make_pod(f"fb{k}")
+                         .req({"cpu": rng.choice(["500m", "1", "2"])})
+                         .node(f"f{i}").obj())
+            k += 1
+    return nodes, bound
+
+
+# benchmarks/config/templates, as yaml.safe_load parses them
+_PAUSE = "registry.k8s.io/pause:3.9"
+NODE_DEFAULT = {"apiVersion": "v1", "kind": "Node",
+                "metadata": {"generateName": "perf-node-"},
+                "status": {"capacity": {"cpu": "32", "memory": "128Gi",
+                                        "pods": "110"},
+                           "allocatable": {"cpu": "32", "memory": "128Gi",
+                                           "pods": "110"}}}
+
+
+def _pod_template(generate_name: str, cpu: str, memory: str) -> dict:
+    return {"apiVersion": "v1", "kind": "Pod",
+            "metadata": {"generateName": generate_name},
+            "spec": {"containers": [{
+                "name": "c", "image": _PAUSE,
+                "resources": {"requests": {"cpu": cpu, "memory": memory}}}]}}
+
+
+POD_DEFAULT = _pod_template("perf-pod-", "500m", "500Mi")
+POD_AUTOSCALER_FILL = _pod_template("fill-pod-", "31700m", "127Gi")
+POD_DEFRAG_FILL = _pod_template("defrag-fill-", "12", "48Gi")
+POD_DEFRAG_GANG = _pod_template("defrag-gang-", "24", "96Gi")
+
+
+def _node_group(name, max_size, priority, instance_type, cpu, memory, pods):
+    caps = {"cpu": cpu, "memory": memory, "pods": pods}
+    return {"name": name, "minSize": 0, "maxSize": max_size,
+            "priority": priority, "cooldownSeconds": 0,
+            "backoffSeconds": 30,
+            "template": {"apiVersion": "v1", "kind": "Node",
+                         "metadata": {"labels": {
+                             "node.kubernetes.io/instance-type":
+                                 instance_type}},
+                         "status": {"capacity": dict(caps),
+                                    "allocatable": dict(caps)}}}
+
+
+NODE_GROUP_DEFAULT = _node_group("perf-group", 50, 0, "perf-standard",
+                                 "32", "128Gi", "110")
+NODE_GROUP_LARGE = _node_group("perf-group-large", 20, 10, "perf-large",
+                               "96", "384Gi", "250")
+
+
+def _materialize(template: dict, count: int, prior: int = 0) -> list:
+    """``scheduler_perf.materialize``'s createNodes/createPods: names are
+    generateName + index (pods: + the list's prior length), nodes carry
+    their hostname label."""
+    import json
+    from kubernetes_tpu_torch.api.types import Node, Pod
+    out = []
+    for i in range(count):
+        d = json.loads(json.dumps(template))
+        md = d.setdefault("metadata", {})
+        prefix = md.pop("generateName")
+        if d["kind"] == "Node":
+            md["name"] = f"{prefix}{i}"
+            md.setdefault("labels", {})["kubernetes.io/hostname"] = md["name"]
+            out.append(Node.from_dict(d))
+        else:
+            md["name"] = f"{prefix}{prior}-{i}"
+            out.append(Pod.from_dict(d))
+    return out
+
+
+def _round_robin(pods: list, nodes: list) -> None:
+    for i, p in enumerate(pods):
+        p.spec.node_name = nodes[i % len(nodes)].metadata.name
+
+
+def autoscaler_scale_up(init_nodes: int = 1000, fill_pods: int = 1000,
+                        pending_pods: int = 2000):
+    """ClusterAutoscalerScaleUp/1000Nodes2000Pending
+    (performance-config.yaml:128-156): node-default nodes, one
+    pod-autoscaler-fill pod bound on each (round-robin), pod-default pods
+    pending, and the node-group-default and node-group-large groups (as
+    ``load_node_group`` dicts). -> (nodes, bound, pending, group dicts)."""
+    nodes = _materialize(NODE_DEFAULT, init_nodes)
+    bound = _materialize(POD_AUTOSCALER_FILL, fill_pods)
+    _round_robin(bound, nodes)
+    pending = _materialize(POD_DEFAULT, pending_pods)
+    return nodes, bound, pending, [NODE_GROUP_DEFAULT, NODE_GROUP_LARGE]
+
+
+def descheduler_defrag(init_nodes: int = 1000, fill_pods: int = 1000,
+                       gang_pods: int = 100):
+    """DeschedulerDefrag/1000Nodes100Gang (performance-config.yaml:158-185):
+    node-default nodes, one pod-defrag-fill pod bound on each (12 of 32
+    CPU), and a pending gang of pod-defrag-gang pods (24 CPU: no fragmented
+    node hosts one). -> (nodes, bound, gang)."""
+    nodes = _materialize(NODE_DEFAULT, init_nodes)
+    bound = _materialize(POD_DEFRAG_FILL, fill_pods)
+    _round_robin(bound, nodes)
+    return nodes, bound, _materialize(POD_DEFRAG_GANG, gang_pods)
+
+
+def planner_loop(n_nodes: int = 8, pods_per_node: int = 3):
+    """``benchmarks/plannerloop.py``'s cluster: ``n_nodes`` group-labeled
+    nodes of 8 CPU / 32Gi / 32 pods; pl-n0 holds ONE small pod (a
+    persistent HighNodeUtilization candidate and a live scale-down proof),
+    every other node ``pods_per_node`` pods of 2 CPU / 2Gi; two pods no
+    node or template fits and a pending 3-pod gang; the node groups
+    pool-a and pool-big (headroom 0). -> (nodes, bound, pending, groups),
+    the groups as ``load_node_group`` dicts."""
+    nodes = [make_node(f"pl-n{i}")
+             .capacity({"cpu": "8", "memory": "32Gi", "pods": "32"})
+             .label(NODE_GROUP_LABEL, "pool-a").obj()
+             for i in range(n_nodes)]
+    bound = [make_pod("pl-b0-0", "default")
+             .req({"cpu": "1", "memory": "1Gi"}).node("pl-n0").obj()]
+    for i in range(1, n_nodes):
+        for j in range(pods_per_node):
+            bound.append(make_pod(f"pl-b{i}-{j}", "default")
+                         .req({"cpu": "2", "memory": "2Gi"})
+                         .node(f"pl-n{i}").obj())
+    pending = [make_pod(f"pl-big{k}", "default")
+               .req({"cpu": "64", "memory": "128Gi"}).obj()
+               for k in range(2)]
+    pending += [make_pod(f"pl-g{k}", "default").req({"cpu": "6"})
+                .label(GANG_LABEL, "pl-gang").obj() for k in range(3)]
+
+    def group(name, max_size, cpu, memory, pods):
+        caps = {"cpu": cpu, "memory": memory, "pods": pods}
+        return {"name": name, "minSize": 0, "maxSize": max_size,
+                "template": {"metadata": {
+                                 "name": f"{name}-template",
+                                 "labels": {"kubernetes.io/hostname":
+                                            f"{name}-template"}},
+                             "status": {"capacity": dict(caps),
+                                        "allocatable": dict(caps)}}}
+
+    groups = [group("pool-a", n_nodes + 4, "2", "4Gi", "16"),
+              group("pool-big", 0, "96", "256Gi", "32")]
+    return nodes, bound, pending, groups

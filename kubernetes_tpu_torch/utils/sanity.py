@@ -13,8 +13,8 @@ assignments pointing at pad nodes. Two tools:
 - ``checked_evaluate`` — the schedule step with its NaN and bounds
   checks, for tests and debugging sessions (NOT for the hot path).
 
-The PyTorch port of ``kubernetes_tpu/utils/sanity.py``, without the
-autoscaler's node-group checks.
+The PyTorch port of ``kubernetes_tpu/utils/sanity.py``, with the
+autoscaler's node-group checks (``check_node_groups``).
 """
 
 from __future__ import annotations
@@ -73,6 +73,36 @@ def check_assignment(assignment, n_real_nodes: int) -> list[str]:
     if bad.any():
         return [f"{int(bad.sum())} assignments outside [-1, {n_real_nodes})"]
     return []
+
+
+def check_node_groups(groups) -> list[str]:
+    """Autoscaler startup validation -> list of problems (empty = clean).
+
+    Checks: 0 <= min <= max, a usable template (allocatable present, node
+    encodes cleanly through the snapshot encoder), unique names. Run at
+    construction so a bad group config fails fast, not three reconciles
+    into a scale-up.
+    """
+    problems: list[str] = []
+    seen: set[str] = set()
+    for g in groups:
+        if g.name in seen:
+            problems.append(f"duplicate node group name {g.name!r}")
+        seen.add(g.name)
+        if g.min_size < 0:
+            problems.append(f"group {g.name}: min_size {g.min_size} < 0")
+        if g.min_size > g.max_size:
+            problems.append(f"group {g.name}: min_size {g.min_size} > "
+                            f"max_size {g.max_size}")
+        if not g.template.status.allocatable:
+            problems.append(f"group {g.name}: template has no allocatable")
+        try:
+            from kubernetes_tpu_torch.encode.snapshot import SnapshotEncoder
+            SnapshotEncoder().encode_cluster(
+                [g.template_node(f"{g.name}-sanity")], [])
+        except Exception as e:
+            problems.append(f"group {g.name}: template does not encode: {e}")
+    return problems
 
 
 def checked_evaluate(ct, pb, **kw):

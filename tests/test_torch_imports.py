@@ -74,7 +74,11 @@ _SCHED_MODULES = (
     # default preemption
     "ops.preemption", "sched.preemption",
     # slice carving
-    "topology.carve")
+    "topology.carve",
+    # the resident planners
+    "encode.overlay", "autoscaler.nodegroup", "autoscaler.expander",
+    "autoscaler.simulator", "autoscaler.autoscaler", "descheduler.planner",
+    "descheduler.strategies", "descheduler.descheduler", "sched.bgplanner")
 
 _NO_YAML = r"""
 import importlib, sys
@@ -94,11 +98,12 @@ print(cfg.batch_size, cfg.pipeline_depth, leaked)
 
 
 def test_scheduler_modules_import_without_yaml():
-    """The scheduling loop's and the connected scheduler's modules import
-    with JAX, flax, PyYAML and msgpack blocked (the card's machine lists
-    neither PyYAML nor msgpack: config/types.py imports PyYAML in
-    ``from_yaml`` only, and the store and the clients speak JSON without
-    msgpack), and pull in nothing of the JAX package."""
+    """The scheduling loop's, the connected scheduler's and the resident
+    planners' modules import with JAX, flax, PyYAML and msgpack blocked
+    (the card's machine lists neither PyYAML nor msgpack: config/types.py
+    and descheduler/descheduler.py import PyYAML in ``from_yaml`` only,
+    and the store and the clients speak JSON without msgpack), and pull in
+    nothing of the JAX package."""
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     res = subprocess.run([sys.executable, "-c", _NO_YAML, *_SCHED_MODULES],
                          cwd=ROOT, env=env, capture_output=True, text=True,

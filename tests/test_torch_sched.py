@@ -533,7 +533,7 @@ def test_refuses_fleet_mode_and_tensor_plugins():
     sched = _port_sched()
     try:
         sched.fleet_mode = True
-        with pytest.raises(NotImplementedError, match="item 7"):
+        with pytest.raises(NotImplementedError, match="item 7b"):
             sched._tenant_chunks([], 4)
     finally:
         sched.close()
