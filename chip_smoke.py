@@ -240,6 +240,33 @@ Phases, one JSON line each:
            legs equal, scale-up options not empty; 0 invariant violations;
            count_pn never launched
 
+  parity.fleet  fleet mode on the card and the CPU: tests/test_fleet.py's
+           randomized parity workloads (seeds 0-2: three tenants, nodes
+           interleaved, zone values shared), each device's fleet-batched
+           drain equal to its standalone drains and assignments and rounds
+           bit-equal across the devices; the fleet preemption wave (nodes
+           and victims); a FleetRunner over three DirectClients driven pop
+           by pop (bindings on every tenant, ctx_stats, pops)
+  fleet.drain  4 tenants x 1250 nodes (the parity generator at full
+           width, 512 pods a tenant): one FleetQueue pop split by the
+           fleet-mode Scheduler's _tenant_chunks, one gang_drain on the
+           card (count_pn's launches counted) bit-equal to the four
+           standalone drains
+  kernels.fleet  count_pn at the fleet drain's last block with every
+           committed pod valid (its spread and anti-affinity terms, P =
+           512, N = 8192), as kernels.drain
+  fleet    FleetChurn as benchmarks/fleetchurn.py runs it (8 s warm-up,
+           12 s window, churn every 0.4 s, tenant 0 at 4x) at 4 tenant
+           apiservers x 1250 nodes, 2500 upfront pods a tenant, pops of
+           4 x 512, on the port's FleetRunner (see fleet_phase). Gates
+           (fleet_failures): upfront 100% bound, 0 invariant violations
+           (cross_tenant live), 0 sentinel divergences, 0 CompileCounter
+           events and 0 context rebuilds in the window, per tenant churn
+           created, completion >= 0.5 and every churn pod bound within
+           120 s, no t<id>. name on a tenant, the fleet status ConfigMap
+           on every tenant. Each tenant's bind p99 is reported against the
+           reference's 10 s SLO (fleet_slo), not gated on
+
 Every phase fails while LOOP_ERRORS{site=device_preempt} is above 0 (a
 device preemption failure the scheduler degraded to the host scan) or
 LOOP_ERRORS{site=device_explain} is (a failure of the explainer's device
@@ -247,11 +274,12 @@ judge, whose pods then got no verdict).
 
 Each path (path, drain, resident, scheduler, connected, preemption,
 connected_preemption, explain, extender, slice, autoscaler, defrag,
-planner) is driven with the launch counts
-set to 0 just before it and read just after; the preemption and planner
-paths launch no hand kernel (their device work is torch ops), and every
-path's count
-is printed, 0 included. Then the kernel table line
+planner, fleet.drain, fleet) is driven with the launch counts set to 0
+just before it and read just after; the preemption and planner paths
+launch no hand kernel (their device work is torch ops), nor does the
+fleet path (the FleetChurn pods carry no topology term; fleet.drain
+launches count_pn), and every path's count is printed, 0 included. Then
+the kernel table line
 ({"kernels": [...]}, one row per kernel at the shape of its most launches,
 launches summed over the paths, the shapes checked), the card's name and
 power limit, and last {"ok": true, "device": {...}}. Any failed phase
@@ -4262,6 +4290,817 @@ def planner_loop_phase(device=None, n_nodes=LOOP_NODES,
           f"{summary['launches']}")
     return summary
 
+# ------------------------------------------------------------------ fleet
+
+FLEET_TENANTS = 4
+FLEET_NODES = 1250         # per tenant: 5000 nodes in all
+FLEET_UPFRONT = 2500       # upfront pods per tenant
+FLEET_BATCH = 512
+FLEET_DRAIN_BATCHES = 4    # one drain block per tenant (fleetchurn.py's B)
+FLEET_WARMUP_S = 8.0       # benchmarks/fleetchurn.py run_fleet_churn's
+FLEET_WINDOW_S = 12.0      # defaults, from here down
+FLEET_CHURN_PERIOD_S = 0.4
+FLEET_NOISY = 4            # tenant 0 churns 4x
+FLEET_LIVE_CAP = 6         # bound churn pods kept alive per tenant
+FLEET_BIND_TIMEOUT_S = 120.0   # the starvation wall
+FLEET_P99_SLO_S = 10.0     # reported, not gated (see fleet_slo)
+FLEET_MIN_RATIO = 0.5
+FLEET_QUIET_S = 4.0        # the window opens after this long without a
+FLEET_QUIET_TIMEOUT_S = 45.0   # CompileCounter event
+FLEET_PROFILE_S = 1.0      # churn under torch.profiler after the window
+FLEET_DRAIN_PODS = 512     # fleet.drain: one block per tenant
+FLEET_PARITY_SEEDS = (0, 1, 2)
+FLEET_ZONES = ("z0", "z1", "z2")   # SHARED across tenants on purpose
+
+
+def fleet_failures(result) -> list:
+    """The FleetChurn phase's hard gates over its summary: every tenant's
+    upfront pods bound; 0 invariant violations and 0 sentinel divergences;
+    0 CompileCounter events and 0 resident-context rebuilds in the window;
+    per tenant churn created, a completion ratio of at least 0.5 and every
+    churn pod bound within 120 s of its creation (the reference's
+    ``bind_timeout``, its starvation wall); no ``t<id>.`` name on a tenant's
+    apiserver; the fleet status ConfigMap on every tenant. The reference's
+    10 s bind p99 is not among them: ``fleet_slo`` reports it."""
+    out = []
+    for t, b in enumerate(result["upfront_bound"]):
+        if b < result["upfront_per_tenant"]:
+            out.append(f"tenant {t}: only {b}/{result['upfront_per_tenant']}"
+                       " upfront pods bound")
+    if result["audit"]["violations"]:
+        out.append(f"invariant violations {result['audit']['byInvariant']}")
+    if result["sentinel"]["divergences"]:
+        out.append(f"{result['sentinel']['divergences']} sentinel "
+                   "divergence(s)")
+    win = result["ctx_window"]
+    if win["steady_compiles"]:
+        out.append(f"{win['steady_compiles']} CompileCounter event(s) in "
+                   "the window")
+    if win["rebuilds"]:
+        out.append(f"{win['rebuilds']} resident-context rebuild(s) in the "
+                   "window")
+    for t, s in sorted(result["tenant"].items()):
+        if s["created"] <= 0:
+            out.append(f"tenant {t}: churn created nothing")
+            continue
+        if s["unbound"]:
+            out.append(f"tenant {t}: {s['unbound']} churn pod(s) still "
+                       f"unbound {FLEET_BIND_TIMEOUT_S:.0f} s after "
+                       "creation (starved)")
+        if s["max_bind_s"] > FLEET_BIND_TIMEOUT_S:
+            out.append(f"tenant {t}: a churn pod bound only after "
+                       f"{s['max_bind_s']:.1f} s, past the "
+                       f"{FLEET_BIND_TIMEOUT_S:.0f} s wall")
+        if s["ratio"] is None or s["ratio"] < FLEET_MIN_RATIO:
+            out.append(f"tenant {t}: bind ratio {s['ratio']} below "
+                       f"{FLEET_MIN_RATIO}")
+    if result["prefix_leaks"]:
+        out.append(f"fleet names on tenant apiservers: "
+                   f"{result['prefix_leaks'][:5]}")
+    for t, n in enumerate(result["fleet_configmaps"]):
+        if n != result["tenants"]:
+            out.append(f"tenant {t}: fleet status ConfigMap missing or "
+                       f"wrong ({n} tenants)")
+    return out
+
+
+def fleet_slo(result) -> dict:
+    """The reference's FleetChurn SLO, each tenant's bind p99 within 10 s,
+    as a verdict. It is measured and reported, not gated: a tenant binds
+    tens of churn pods in a 12 s window, so its p99 is its slowest bind,
+    which host time moves by 2x between calls."""
+    met = {t: s["p99_bind_s"] <= FLEET_P99_SLO_S
+           for t, s in sorted(result["tenant"].items())}
+    return {"p99_slo_s": FLEET_P99_SLO_S, "tenant_p99_slo_met": met,
+            "p99_slo_met": all(met.values())}
+
+
+def fleet_workload(rng, n_nodes, n_pods):
+    """One tenant's randomized cluster (tests/test_fleet.py's generator):
+    shared zone values, 2/4/8-CPU nodes, pods of 250m-1 CPU at priority 0
+    or 10, 30% with a DoNotSchedule zone spread, 20% anti-affine on the
+    hostname. -> (node dicts, pod dicts), untenanted."""
+    from kubernetes_tpu_torch.testing.wrappers import make_node, make_pod
+    nodes = [make_node(f"n{i}")
+             .capacity({"cpu": rng.choice(["2", "4", "8"]),
+                        "memory": "16Gi", "pods": "64"})
+             .label("kubernetes.io/hostname", f"n{i}")
+             .label("topology.kubernetes.io/zone", rng.choice(FLEET_ZONES))
+             .obj().to_dict() for i in range(n_nodes)]
+    pods = []
+    for i in range(n_pods):
+        w = (make_pod(f"p{i}")
+             .req({"cpu": rng.choice(["250m", "500m", "1"])})
+             .label("app", rng.choice(["a", "b"]))
+             .priority(rng.choice([0, 0, 10])))
+        r = rng.random()
+        if r < 0.3:
+            w = w.spread(1, "topology.kubernetes.io/zone", "DoNotSchedule",
+                         {"app": "a"})
+        elif r < 0.5:
+            w = w.pod_anti_affinity("kubernetes.io/hostname", {"app": "b"})
+        pods.append(w.obj().to_dict())
+    for d in nodes + pods:
+        d["metadata"].pop("uid", None)
+    return nodes, pods
+
+
+def _fleet_drain(node_dicts, chunks, batch, device):
+    """gang_drain of ``chunks`` (pod dict lists) over the nodes, every
+    chunk's bucket pinned to ``batch``. -> ({pod key: node or None},
+    rounds, seconds, (plan, assignments))."""
+    from kubernetes_tpu_torch.api.types import Node, Pod
+    from kubernetes_tpu_torch.encode.snapshot import SnapshotEncoder
+    from kubernetes_tpu_torch.models.gang import gang_drain, prepare_drain
+    enc = SnapshotEncoder()
+    batches = [[Pod.from_dict(d) for d in c] for c in chunks]
+    ct, meta = enc.encode_cluster([Node.from_dict(d) for d in node_dicts],
+                                  [], pending_pods=[p for c in batches
+                                                    for p in c])
+    pbs = [enc.encode_pods(b, meta, min_p=batch) for b in batches]
+    t0 = time.perf_counter()
+    plan = prepare_drain(ct, pbs, device=device)
+    a, rounds, _req = gang_drain(seed=SEED, topo_keys=meta.topo_keys,
+                                 prepared=plan)
+    seconds = time.perf_counter() - t0
+    out = {}
+    for b, chunk in enumerate(batches):
+        for i, p in enumerate(chunk):
+            ni = int(a[b][i])
+            out[p.key] = meta.node_names[ni] if ni >= 0 else None
+    return out, [int(r) for r in rounds], seconds, (plan, a)
+
+
+def _interleave(per_tenant_nodes):
+    """Tenants' rekeyed nodes interleaved on the node axis (the worst case
+    for index-based tie-breaks)."""
+    from kubernetes_tpu_torch.sched.fleet import rekey_for_tenant
+    out = []
+    for i in range(max(len(n) for n in per_tenant_nodes)):
+        for t, nodes in enumerate(per_tenant_nodes):
+            if i < len(nodes):
+                out.append(rekey_for_tenant(t, "nodes", nodes[i]))
+    return out
+
+
+def _fleet_vs_singles(per_tenant, fleet, singles):
+    """[(fleet key, standalone node, fleet node)] where a tenant's fleet
+    placement differs from its standalone run; a cross-tenant placement
+    fails the phase."""
+    from kubernetes_tpu_torch.sched.fleet import split_fleet_name
+    bad = []
+    for t, (_nodes, pods) in enumerate(per_tenant):
+        for p in pods:
+            name = p["metadata"]["name"]
+            got = fleet.get(f"t{t}.default/{name}")
+            if got is not None:
+                tid, got = split_fleet_name(got)
+                check(tid == t, f"fleet: cross-tenant placement of "
+                                f"t{t}.default/{name} on tenant {tid}")
+            want = singles[t][f"default/{name}"]
+            if want != got:
+                bad.append((f"t{t}.default/{name}", want, got))
+    return bad
+
+
+def _fleet_parity_drains(seed, device):
+    """tests/test_fleet.py's randomized parity case at ``seed`` on
+    ``device``: three tenants' standalone drains and their fleet-batched
+    drain. -> (singles, fleet, rounds)."""
+    import random
+    from kubernetes_tpu_torch.sched.fleet import rekey_for_tenant
+    rng = random.Random(seed)
+    batch = 8
+    per_tenant = [fleet_workload(rng, rng.randint(3, 6), rng.randint(6, 12))
+                  for _t in range(3)]
+    singles, rounds = [], []
+    for nodes, pods in per_tenant:
+        got, r, _s, _p = _fleet_drain(
+            nodes, [pods[i:i + batch] for i in range(0, len(pods), batch)],
+            batch, device)
+        singles.append(got)
+        rounds.append(r)
+    chunks = []
+    for t, (_nodes, pods) in enumerate(per_tenant):
+        rk = [rekey_for_tenant(t, "pods", p) for p in pods]
+        chunks += [rk[i:i + batch] for i in range(0, len(rk), batch)]
+    fleet, r, _s, _p = _fleet_drain(
+        _interleave([n for n, _p in per_tenant]), chunks, batch, device)
+    rounds.append(r)
+    check(not _fleet_vs_singles(per_tenant, fleet, singles),
+          f"parity.fleet: seed {seed} on {device}: fleet placements differ "
+          "from the standalone runs")
+    return singles, fleet, rounds
+
+
+def _fleet_wave(device):
+    """tests/test_fleet.py's fleet preemption wave on ``device``: two
+    tenants of two saturated nodes and one preemptor each, and the same
+    tenant standalone. -> [(node, sorted victim keys)] per leg."""
+    from kubernetes_tpu_torch.api.types import Node, Pod
+    from kubernetes_tpu_torch.sched.fleet import rekey_for_tenant
+    from kubernetes_tpu_torch.sched.preemption import preempt_wave
+    from kubernetes_tpu_torch.testing.wrappers import make_node, make_pod
+
+    def leg(t_ids):
+        nodes, bound, views = [], [], []
+        for t in t_ids:
+            def rk(plural, d):
+                return rekey_for_tenant(t, plural, d) if t is not None else d
+            for i in range(2):
+                nodes.append(Node.from_dict(rk("nodes", make_node(f"n{i}")
+                    .capacity({"cpu": "2", "memory": "4Gi", "pods": "8"})
+                    .label("kubernetes.io/hostname", f"n{i}")
+                    .obj().to_dict())))
+                pd = make_pod(f"victim{i}").req({"cpu": "2"}).priority(0) \
+                    .obj().to_dict()
+                pd["spec"]["nodeName"] = f"n{i}"
+                bound.append(Pod.from_dict(rk("pods", pd)))
+            views.append(Pod.from_dict(rk("pods", make_pod("vip")
+                .req({"cpu": "2"}).priority(100).obj().to_dict())))
+        res = preempt_wave(nodes, bound, views, device=device)
+        check(all(r is not None for r in res),
+              f"parity.fleet: a preemptor found no victims on {device}")
+        return [(r.node_name, sorted(v.key for v in r.victims)) for r in res]
+
+    fleet, single = leg([0, 1]), leg([None])
+    for t, (node, victims) in enumerate(fleet):
+        check(node == f"t{t}.{single[0][0]}"
+              and victims == [f"t{t}.{v}" for v in single[0][1]],
+              f"parity.fleet: tenant {t}'s wave differs from the standalone "
+              f"wave on {device}")
+    return fleet
+
+
+def _fleet_runner_run(device, per_tenant):
+    """A FleetRunner over one DirectClient per tenant, its loop stopped,
+    driven pop by pop to an empty queue. -> (bindings per tenant,
+    ctx_stats, pops)."""
+    import copy
+    from kubernetes_tpu_torch.client.clientset import DirectClient
+    from kubernetes_tpu_torch.sched.fleet import FleetRunner
+    from kubernetes_tpu_torch.store.store import ObjectStore
+    clients = [DirectClient(ObjectStore()) for _ in per_tenant]
+    for c, (nodes, pods) in zip(clients, per_tenant):
+        c.nodes().create_many(copy.deepcopy(nodes))
+        c.pods("default").create_many(copy.deepcopy(pods))
+    cfg = sched_config(batch_size=8, max_drain_batches=len(per_tenant),
+                       backoff_initial_s=3600.0, backoff_max_s=3600.0,
+                       assume_ttl_s=3600.0)
+    runner = FleetRunner(clients, cfg, device=device,
+                         feature_gate=no_preemption_gate())
+    try:
+        runner.start(wait_sync=60.0, start_loop=False)
+        n_pods = sum(len(p) for _n, p in per_tenant)
+        deadline = time.time() + 60.0
+        while runner.queue.stats()["active"] < n_pods:
+            check(time.time() < deadline, "parity.fleet: pods not queued")
+            time.sleep(0.01)
+        sched = runner.scheduler
+        sched._drain_ready = lambda pend: False
+        pops = []
+        for _ in range(64):
+            before = dict(runner.queue.batch_share)
+            sched.run_once(wait=0.01)
+            pops.append({t: n - before.get(t, 0) for t, n in
+                         runner.queue.batch_share.items()
+                         if n != before.get(t, 0)})
+            if runner.queue.stats()["active"] == 0 and not sched._pending:
+                break
+        sched._resolve_pending()
+        sched.wait_for_bindings()
+        bindings = [{p["metadata"]["name"]: p["spec"].get("nodeName", "")
+                     for p in c.pods("default").list()} for c in clients]
+        ctx_stats = json.loads(json.dumps(sched.ctx_stats))
+    finally:
+        runner.stop()
+    return bindings, ctx_stats, [p for p in pops if p]
+
+
+def fleet_parity_phase(devices=("cuda", "cpu"), seeds=FLEET_PARITY_SEEDS):
+    """Fleet mode on the card and on the CPU: tests/test_fleet.py's
+    randomized parity workloads (seeds 0-2; three tenants, nodes
+    interleaved, zone values shared) — each device's fleet-batched drain
+    equal to its standalone drains, and assignments and rounds bit-equal
+    across the devices; the fleet preemption wave (nodes and victims equal
+    to the standalone wave's, and across the devices); a FleetRunner over
+    three DirectClients (seed 0's tenants) driven pop by pop: the bindings
+    on every tenant, ctx_stats and the pops equal across the devices."""
+    import random
+    out = {"seeds": list(seeds), "devices": list(devices)}
+    for seed in seeds:
+        got = [_fleet_parity_drains(seed, d) for d in devices]
+        check(got[0] == got[1], f"parity.fleet: seed {seed}: the card's "
+                                "drains differ from the CPU's")
+        out.setdefault("placed", {})[seed] = sum(
+            v is not None for v in got[0][1].values())
+        out.setdefault("pods", {})[seed] = len(got[0][1])
+        out.setdefault("rounds", {})[seed] = got[0][2]
+    waves = [_fleet_wave(d) for d in devices]
+    check(waves[0] == waves[1], "parity.fleet: the card's wave differs from "
+                                "the CPU's")
+    out["wave"] = waves[0]
+    rng = random.Random(FLEET_PARITY_SEEDS[0])
+    per_tenant = [fleet_workload(rng, rng.randint(3, 6), rng.randint(6, 12))
+                  for _t in range(3)]
+    runs = [_fleet_runner_run(d, per_tenant) for d in devices]
+    check(runs[0] == runs[1], "parity.fleet: the card's FleetRunner differs "
+                              f"from the CPU's: {runs}")
+    for b in runs[0][0]:
+        check(all(not v.startswith("t") for v in b.values() if v),
+              "parity.fleet: a fleet node name on a tenant apiserver")
+    out["runner"] = {"bound": [sum(1 for v in b.values() if v)
+                               for b in runs[0][0]],
+                     "ctx_stats": runs[0][1], "pops": runs[0][2]}
+    return out
+
+
+def fleet_drain_phase(device=None, tenants=FLEET_TENANTS,
+                      nodes_per_tenant=FLEET_NODES, pods=FLEET_DRAIN_PODS,
+                      batch=FLEET_BATCH):
+    """The fleet-batched drain at full width: ``tenants`` randomized
+    clusters of ``nodes_per_tenant`` nodes (fleet_workload, one seed
+    each), ``pods`` pending pods each. The fleet leg: the rekeyed nodes
+    interleaved, every pod in one FleetQueue (block = ``batch``), one pop
+    split by a fleet-mode Scheduler's ``_tenant_chunks``, one gang_drain on
+    the card, its count_pn launches counted. The standalone legs: each
+    tenant's raw cluster, its pods popped from a plain SchedulingQueue,
+    one gang_drain each. Gate: every tenant's fleet placements bit-equal
+    to its standalone drain's. -> (summary, count_pn cases)."""
+    import random
+    from kubernetes_tpu_torch.api.types import Pod
+    from kubernetes_tpu_torch.ops import kernels
+    from kubernetes_tpu_torch.sched.cache import SchedulerCache
+    from kubernetes_tpu_torch.sched.fleet import FleetQueue, rekey_for_tenant
+    from kubernetes_tpu_torch.sched.queue import SchedulingQueue
+    from kubernetes_tpu_torch.sched.scheduler import Scheduler
+    per_tenant = [fleet_workload(random.Random(SEED + t), nodes_per_tenant,
+                                 pods) for t in range(tenants)]
+    sched = Scheduler(sched_config(batch_size=batch,
+                                   max_drain_batches=tenants),
+                      SchedulerCache(), FleetQueue(block=batch),
+                      lambda p, n: True, feature_gate=no_preemption_gate(),
+                      device=device)
+    try:
+        sched.fleet_mode = True
+        by_key = {}
+        for t, (_nodes, pod_dicts) in enumerate(per_tenant):
+            for d in pod_dicts:
+                rk = rekey_for_tenant(t, "pods", d)
+                p = Pod.from_dict(rk)
+                by_key[p.key] = rk
+                sched.queue.add(p)
+        popped = sched.queue.pop_batch(tenants * batch, wait=1.0)
+        check(len(popped) == tenants * pods,
+              f"fleet.drain: one pop took {len(popped)} pods")
+        chunks = [[by_key[p.key] for p, _a in c]
+                  for c in sched._tenant_chunks(popped, batch)]
+    finally:
+        sched.close()
+    check(len(chunks) == tenants and all(
+        len({d["metadata"]["namespace"] for d in c}) == 1 for c in chunks),
+        "fleet.drain: the pop did not split into one block per tenant")
+    node_dicts = _interleave([n for n, _p in per_tenant])
+    kernels.reset_launches()
+    fleet, fleet_rounds, fleet_s, (plan, a) = _fleet_drain(
+        node_dicts, chunks, batch, device)
+    launches = dict(kernels.LAUNCHES)
+    singles, single_s = [], 0.0
+    for nodes, pod_dicts in per_tenant:
+        q = SchedulingQueue()
+        raw = {}
+        for d in pod_dicts:
+            p = Pod.from_dict(d)
+            raw[p.key] = d
+            q.add(p)
+        order = [raw[p.key] for p, _a in q.pop_batch(batch, wait=1.0)]
+        q.close()
+        got, _r, s, _p = _fleet_drain(nodes, [order], batch, device)
+        singles.append(got)
+        single_s += s
+    bad = _fleet_vs_singles(per_tenant, fleet, singles)
+    check(not bad, f"fleet.drain: {len(bad)} placements differ from the "
+                   f"standalone drains, e.g. {bad[:3]}")
+    for name, n in launches.items():
+        check(n > 0, f"kernel {name} was never launched in the fleet drain")
+    placed = {}
+    for key, node in fleet.items():
+        if node is not None:
+            t = key.split(".", 1)[0][1:]
+            placed[t] = placed.get(t, 0) + 1
+    summary = {"tenants": tenants, "nodes_per_tenant": nodes_per_tenant,
+               "nodes": len(node_dicts), "pods_per_tenant": pods,
+               "placed": placed, "fleet_drain_s": fleet_s,
+               "standalone_drains_s": single_s,
+               "fleet_pods_per_s": sum(placed.values()) / fleet_s,
+               "fleet_rounds": fleet_rounds, "launches": launches,
+               "bit_equal": True}
+    return summary, fleet_count_cases(plan, a)
+
+
+def fleet_count_cases(plan, assignments):
+    """count_pn's inputs as the fleet drain's last tenant block meets them
+    in its last round: every committed pod of the drain valid, the
+    block's own included (a tenant's terms match only its own pods: the
+    other tenants' blocks count nothing), its spread and its
+    anti-affinity terms (E = the fleet's existing-pod bucket, P = 512,
+    N = 8192)."""
+    import torch
+    from kubernetes_tpu_torch.models.gang import _batch
+    ct_all, pb_stack, e0 = plan
+    B, P = pb_stack.pod_valid.shape
+    a = torch.as_tensor(assignments, device=ct_all.epod_node.device)
+    node = ct_all.epod_node.clone()
+    valid = ct_all.epod_valid.clone()
+    node[e0:] = a.reshape(-1)
+    valid[e0:] = a.reshape(-1) >= 0
+    ct = ct_all.replace(epod_node=node, epod_valid=valid)
+    pb = _batch(pb_stack, B - 1)
+    return {"fleet_spread": (ct, (pb.sc_sel, pb.pod_ns, None, None)),
+            "fleet_anti_affinity": (ct, (pb.anti_sel, pb.pod_ns,
+                                         pb.anti_ns_explicit,
+                                         pb.anti_ns_mask))}
+
+
+def fleet_nodes(t, n):
+    """Tenant ``t``'s nodes as a kubemark hollow node registers (8 CPU,
+    16Gi, 110 pods, its hostname label), created as objects."""
+    from kubernetes_tpu_torch.testing.wrappers import make_node
+    out = []
+    for i in range(n):
+        name = f"fc{t}-node-{i}"
+        d = (make_node(name)
+             .capacity({"cpu": "8", "memory": "16Gi", "pods": "110"})
+             .label("kubernetes.io/hostname", name).obj().to_dict())
+        d["metadata"].pop("uid", None)
+        out.append(d)
+    return out
+
+
+def churn_loop(url, stop, period_s, stats, live_cap=FLEET_LIVE_CAP):
+    """One tenant's churn (benchmarks/fleetchurn.py _tenant_churn_loop):
+    create a 50m pod in namespace ``churn``, then list ``churn`` and
+    record the bind latency of every pod seen bound since, delete the
+    oldest bound pods beyond ``live_cap``, wait ``period_s``. ``stats``:
+    created, bound, latencies, errors, and the unbound pods' create times
+    (``pending``)."""
+    from kubernetes_tpu_torch.client.clientset import HTTPClient
+    from kubernetes_tpu_torch.testing.wrappers import make_pod
+    client = HTTPClient(url, timeout=60.0, wire="json")
+    pending = stats.setdefault("pending", {})
+    bound_live = []
+    i = 0
+    while not stop.is_set():
+        try:
+            name = f"fc-{i}"
+            i += 1
+            d = make_pod(name, "churn").req({"cpu": "50m"}).obj().to_dict()
+            d["metadata"].pop("uid", None)
+            client.pods("churn").create(d)
+            pending[name] = time.time()
+            stats["created"] = stats.get("created", 0) + 1
+            for p in client.pods("churn").list():
+                nm = p["metadata"]["name"]
+                if nm in pending and (p.get("spec") or {}).get("nodeName"):
+                    stats.setdefault("lat", []).append(
+                        time.time() - pending.pop(nm))
+                    stats["bound"] = stats.get("bound", 0) + 1
+                    bound_live.append(nm)
+            while len(bound_live) > live_cap:
+                client.pods("churn").delete(bound_live.pop(0))
+        except Exception as e:  # churn is load; the gates own correctness
+            stats["errors"] = stats.get("errors", 0) + 1
+            stats["last_error"] = repr(e)
+        stop.wait(period_s)
+
+
+def churn_stragglers(url, stats, timeout_s=FLEET_BIND_TIMEOUT_S):
+    """After the window: wait for the pods created before it closed until
+    each is bound or ``timeout_s`` has passed since its creation; their
+    latencies join ``stats["late"]``."""
+    from kubernetes_tpu_torch.client.clientset import HTTPClient
+    client = HTTPClient(url, timeout=60.0, wire="json")
+    pending = stats.get("pending") or {}
+    while pending:
+        now = time.time()
+        for p in client.pods("churn").list():
+            nm = p["metadata"]["name"]
+            if nm in pending and (p.get("spec") or {}).get("nodeName"):
+                stats.setdefault("late", []).append(now - pending.pop(nm))
+        if not pending or now > max(pending.values()) + timeout_s:
+            break
+        time.sleep(0.3)
+
+
+def _pctl(xs, q):
+    """The reference's percentile (benchmarks/fleetchurn.py _p99): the
+    sorted sample at int(q·n)."""
+    if not xs:
+        return 0.0
+    s = sorted(xs)
+    return s[min(len(s) - 1, int(q * len(s)))]
+
+
+def _prefix_leaks(client):
+    """``t<id>.`` names on a tenant's apiserver: pods' node references and
+    namespaces, events' involved objects."""
+    import re
+    fleet = re.compile(r"^t\d+\.")
+    leaks = []
+    for p in client.resource("pods", None).list():
+        md, spec = p.get("metadata") or {}, p.get("spec") or {}
+        for v in (md.get("namespace"), spec.get("nodeName"),
+                  (p.get("status") or {}).get("nominatedNodeName")):
+            if v and fleet.match(v):
+                leaks.append(v)
+    for e in client.resource("events", None).list():
+        v = (e.get("involvedObject") or {}).get("namespace")
+        if v and fleet.match(v):
+            leaks.append(v)
+    return leaks
+
+
+def fleet_phase(device=None, smi="", tenants=FLEET_TENANTS,
+                nodes_per_tenant=FLEET_NODES, upfront=FLEET_UPFRONT,
+                batch=FLEET_BATCH, drain_batches=FLEET_DRAIN_BATCHES,
+                warmup_s=FLEET_WARMUP_S, window_s=FLEET_WINDOW_S):
+    """FleetChurn (``benchmarks/fleetchurn.py`` run_fleet_churn's defaults:
+    an 8 s warm-up, a 12 s window, churn every 0.4 s, tenant 0 churning
+    4x) on the port's FleetRunner at 4 tenants x 1250 nodes: one APIServer
+    per tenant in a spawned process, the nodes created as objects (the
+    hollow kubelets are not ported), FleetRunner over the four
+    HTTPClient(url, wire="json") with pops of 4 x 512 (one block per
+    tenant), the explainer on, the parity sentinel every 4th drain and a
+    fail-fast auditor (``cross_tenant`` live) over a FleetClient of clean
+    clients every 2 s; informers synced, ``warm_drain``, the loop started,
+    2500 pods per tenant created at once and counted bound by one watcher
+    process per tenant; then churn threads per tenant, the warm-up, an
+    adaptive quiet tail (4 s without a CompileCounter event), the window
+    and 1 s more of churn under torch.profiler; each churn pod created
+    before then waited for up to 120 s. Reports upfront pods/s, each
+    tenant's bind p50/p99/max and count, ``fleet_slo``, the window's spans
+    and the device's busy share; ``fleet_failures`` lists the gates
+    missed. -> summary."""
+    import multiprocessing as mp
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+    from kubernetes_tpu_torch.api.types import Pod
+    from kubernetes_tpu_torch.audit.auditor import (InvariantAuditor,
+                                                    InvariantViolationError)
+    from kubernetes_tpu_torch.client.clientset import HTTPClient
+    from kubernetes_tpu_torch.encode.overlay import CompileCounter
+    from kubernetes_tpu_torch.ops import kernels
+    from kubernetes_tpu_torch.sched.fleet import (FLEET_SCHED_CONFIGMAP,
+                                                  FleetClient, FleetRunner,
+                                                  rekey_for_tenant)
+    from kubernetes_tpu_torch.testing.wrappers import make_pod
+    from kubernetes_tpu_torch.utils.tracing import TRACER
+    from torch.profiler import ProfilerActivity, profile
+    import torch
+    ctx = mp.get_context("spawn")
+    servers, watchers, runner = [], [], None
+    churn_stop = threading.Event()
+    threads = []
+    summary = {"tenants": tenants, "nodes_per_tenant": nodes_per_tenant,
+               "upfront_per_tenant": upfront, "batch": batch,
+               "max_drain_batches": drain_batches, "window_s": window_s,
+               "noisy_factor": FLEET_NOISY, "card": smi}
+    try:
+        t0 = time.perf_counter()
+        servers = [start_apiserver(ctx) for _ in range(tenants)]
+        urls = [url for _p, _pipe, url in servers]
+        clients = [HTTPClient(u, timeout=120.0, wire="json") for u in urls]
+        for t, c in enumerate(clients):
+            c.nodes().create_many(fleet_nodes(t, nodes_per_tenant))
+        summary["register_s"] = time.perf_counter() - t0
+        cfg = sched_config(batch_size=batch, max_drain_batches=drain_batches,
+                           explainer_enabled=True,
+                           parity_sample_every=CONNECTED_PARITY_EVERY,
+                           audit_interval_s=CONNECTED_AUDIT_S,
+                           audit_fail_fast=True)
+        runner = FleetRunner([HTTPClient(u, wire="json") for u in urls], cfg,
+                             device=device)
+        # fail-fast audit over CLEAN clients, as fleetchurn.py's
+        # _bench_auditor: the scheduler's transport is not the auditor's
+        runner.auditor = InvariantAuditor(
+            client=FleetClient([HTTPClient(u, timeout=60.0, wire="json")
+                                for u in urls]),
+            cache=runner.cache, scheduler=runner.scheduler,
+            interval_s=CONNECTED_AUDIT_S, fail_fast=True,
+            pre_sweep=runner.sweep_stale_nominations,
+            post_sweep=runner.publish_status,
+            relists=runner._total_relists)
+        t0 = time.perf_counter()
+        runner.start(wait_sync=120.0, start_loop=False)
+        check(runner.has_synced(), "fleet: the informers did not sync")
+        summary["informer_sync_s"] = time.perf_counter() - t0
+        # the drain context armed at the window's shapes with fleet-keyed
+        # sample pods, so the tenant plane is in the warm shapes
+        warm = [Pod.from_dict(rekey_for_tenant(
+            k % tenants, "pods", make_pod(f"warm-{k}", "default")
+            .req({"cpu": "50m"}).obj().to_dict()))
+            for k in range(batch * drain_batches)]
+        t0 = time.perf_counter()
+        check(runner.scheduler.warm_drain(
+            warm, slot_headroom=tenants * upfront + batch * drain_batches
+            + 64), "fleet: warm_drain did not arm the context")
+        summary["warm_s"] = time.perf_counter() - t0
+        runner.start_loop()
+
+        # ---- upfront: every tenant's pods, counted by a watcher each ----
+        rv0 = [c.pods("default").list_rv()[1] for c in clients]
+        counts, dones, deads = [], [], []
+        for u, rv in zip(urls, rv0):
+            count = ctx.Value("i", 0)
+            done, dead, ready = ctx.Event(), ctx.Event(), ctx.Event()
+            w = ctx.Process(target=watch_bound,
+                            args=(u, "default", rv, upfront, count, done,
+                                  dead, ready), daemon=True)
+            w.start()
+            watchers.append(w)
+            check(ready.wait(120.0), "fleet: a watcher did not start")
+            counts.append(count)
+            dones.append(done)
+            deads.append(dead)
+        kernels.reset_launches()
+        pods = []
+        for k in range(upfront):
+            d = make_pod(f"up-{k}", "default").req({"cpu": "100m"}) \
+                .obj().to_dict()
+            d["metadata"].pop("uid", None)
+            pods.append(d)
+        t_bind = time.perf_counter()
+        with ThreadPoolExecutor(max_workers=tenants) as pool:
+            list(pool.map(lambda c: c.pods("default").create_many(pods),
+                          clients))
+        summary["upfront_create_s"] = time.perf_counter() - t_bind
+        deadline = t_bind + FLEET_BIND_TIMEOUT_S
+        while time.perf_counter() < deadline and not all(
+                d.is_set() for d in dones):
+            check(runner.loop_error is None,
+                  f"fleet: the scheduling loop died: {runner.loop_error!r}")
+            check(not any(d.is_set() for d in deads),
+                  "fleet: a watcher died")
+            time.sleep(0.05)
+        summary["upfront_bind_s"] = time.perf_counter() - t_bind
+        summary["upfront_bound"] = [c.value for c in counts]
+        summary["upfront_pods_per_s"] = (sum(summary["upfront_bound"])
+                                         / summary["upfront_bind_s"])
+        for w in watchers:
+            stop_process(w)
+        watchers = []
+
+        # ---- churn: tenant 0 at 4x -------------------------------------
+        stats = [{} for _ in range(tenants)]
+        for t, u in enumerate(urls):
+            period = FLEET_CHURN_PERIOD_S / (FLEET_NOISY if t == 0 else 1)
+            th = threading.Thread(target=churn_loop,
+                                  args=(u, churn_stop, period, stats[t]),
+                                  daemon=True)
+            th.start()
+            threads.append(th)
+        time.sleep(warmup_s)
+        compiles = CompileCounter()
+        compiles.arm()
+        t0 = time.perf_counter()
+        last, last_change = compiles.take(), t0
+        while time.perf_counter() - t0 < FLEET_QUIET_TIMEOUT_S:
+            time.sleep(0.25)
+            n = compiles.take()
+            if n != last:
+                last, last_change = n, time.perf_counter()
+            elif time.perf_counter() - last_change >= FLEET_QUIET_S:
+                break
+        compiles.disarm()
+        summary["warmup_quiet_s"] = time.perf_counter() - t0
+        summary["warmup_compile_events"] = compiles.take()
+
+        # ---- the window ---------------------------------------------------
+        ctx0 = dict(runner.scheduler.ctx_stats)
+        enc0 = runner.cache.stats()["full_encodes"]
+        for s in stats:
+            s["created"] = s["bound"] = 0
+            s["lat"] = []
+        TRACER.max_spans = max(TRACER.max_spans, 200000)
+        TRACER.reset()
+        window = CompileCounter()
+        window.arm()
+        t_win = time.perf_counter()
+        time.sleep(window_s)
+        window.disarm()
+        summary["window_wall_s"] = time.perf_counter() - t_win
+        ctx1 = dict(runner.scheduler.ctx_stats)
+        enc1 = runner.cache.stats()["full_encodes"]
+        spans = _span_totals()
+        summary["spans_dropped"] = TRACER.dropped
+        # the device's busy share: 1 s of the same churn under
+        # torch.profiler, just after the window (the reference's window
+        # runs no profiler, and starting one stalls the host threads)
+        torch.cuda.synchronize()
+        trace_path = os.path.join(os.path.dirname(os.path.abspath(
+            __file__)), "build", "profile", "fleet_churn.json")
+        os.makedirs(os.path.dirname(trace_path), exist_ok=True)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            tp = time.perf_counter()
+            time.sleep(FLEET_PROFILE_S)
+            torch.cuda.synchronize()
+            prof_wall_ms = (time.perf_counter() - tp) * 1e3
+        churn_stop.set()
+        for th in threads:
+            th.join(30.0)
+        for t, u in enumerate(urls):
+            churn_stragglers(u, stats[t])
+        prof.export_chrome_trace(trace_path)
+        with open(trace_path) as f:
+            events = json.load(f)["traceEvents"]
+        tsum = trace_summary(events, top=6)
+        summary["profile"] = {
+            "wall_ms": prof_wall_ms,
+            "launches": sum(1 for e in events if e.get("ph") == "X"
+                            and e.get("cat") == "kernel"),
+            "device_busy_ms": tsum["device_busy_ms"],
+            "device_busy_share": tsum["device_busy_ms"] / prof_wall_ms,
+            "top_device_ops": tsum["top_device_ops"],
+            "hand_kernels": tsum["hand_kernels"],
+            "trace": os.path.relpath(trace_path)}
+        summary["launches"] = dict(kernels.LAUNCHES)
+        summary["ctx_window"] = {
+            "steady_compiles": window.take(),
+            "rebuilds": ctx1["rebuilds"] - ctx0["rebuilds"],
+            "folds": ctx1["folds"] - ctx0["folds"],
+            "patches": ctx1["patches"] - ctx0["patches"],
+            "full_encodes": enc1 - enc0,
+            "resident_ctx_live": runner.scheduler._drain_ctx is not None,
+            "rebuild_reasons": dict(ctx1.get("reasons") or {})}
+        summary["window_spans_top"] = dict(sorted(
+            spans.items(), key=lambda kv: -kv[1]["total_ms"])[:12])
+
+        # ---- per tenant --------------------------------------------------
+        out = {}
+        for t, s in enumerate(stats):
+            lat = s.get("lat") or []
+            late = s.get("late") or []
+            created, bound = s.get("created", 0), s.get("bound", 0)
+            every = lat + late
+            out[str(t)] = {
+                "noisy": t == 0, "created": created, "bound": bound,
+                "binds": len(lat), "late_binds": len(late),
+                "unbound": len(s.get("pending") or {}),
+                "binds_per_s": bound / summary["window_wall_s"],
+                "ratio": bound / created if created else None,
+                "p50_bind_s": _pctl(lat, 0.5), "p99_bind_s": _pctl(lat, 0.99),
+                "max_bind_s": max(every) if every else 0.0,
+                "slowest_s": sorted(lat)[-5:],
+                "churn_errors": s.get("errors", 0),
+                "last_churn_error": s.get("last_error")}
+        summary["tenant"] = out
+        summary["fleet_sched"] = runner.fleet_sched_status()
+        summary["relists"] = runner._total_relists()
+        sentinel = runner.scheduler.sentinel
+        sentinel.drain(120.0)
+        summary["sentinel"] = sentinel.stats()
+        runner.auditor.stop()
+        for _ in range(2):
+            try:
+                runner.auditor.run_once()
+            except InvariantViolationError:
+                pass  # counted below
+        audit = runner.auditor.status()
+        summary["audit"] = {k: audit[k] for k in ("sweeps", "violations",
+                                                  "byInvariant", "failed")}
+        summary["breaker"] = runner.scheduler.breaker.mode
+        summary["loop_error"] = (repr(runner.loop_error)
+                                 if runner.loop_error is not None else None)
+        fleet_cms = []
+        for c in clients:
+            try:
+                cm = c.resource("configmaps", "default").get(
+                    FLEET_SCHED_CONFIGMAP)
+                fleet_cms.append(json.loads(cm["data"]["fleetSched"])
+                                 ["tenants"])
+            except Exception:
+                fleet_cms.append(0)
+        summary["fleet_configmaps"] = fleet_cms
+        summary["prefix_leaks"] = [v for c in clients
+                                   for v in _prefix_leaks(c)]
+    finally:
+        churn_stop.set()
+        for th in threads:
+            th.join(30.0)
+        if runner is not None:
+            runner.stop()  # re-raises a fatal failure that ended the loop
+        for w in watchers:
+            stop_process(w)
+        for proc, pipe, _url in servers:
+            stop_process(proc, pipe)
+    summary.update(fleet_slo(summary))
+    summary["failures"] = fleet_failures(summary)
+    check(summary["breaker"] == "single",
+          f"fleet: the breaker degraded to {summary['breaker']!r}")
+    check(summary["spans_dropped"] == 0,
+          f"fleet: the tracer dropped {summary['spans_dropped']} spans")
+    return summary
 
 
 def main() -> int:
@@ -4310,6 +5149,7 @@ def main() -> int:
     emit({"phase": "parity.extender", **extender_parity_phase()})
     emit({"phase": "parity.slice", **slice_parity_phase()})
     emit({"phase": "parity.planner", **planner_parity_phase()})
+    emit({"phase": "parity.fleet", **fleet_parity_phase()})
 
     launches = {}   # kernel -> {path: launches}
 
@@ -4404,22 +5244,37 @@ def main() -> int:
     emit({"phase": "defrag", **defrag_sum})
     loop_sum = planner_loop_phase()
     emit({"phase": "planner", **loop_sum})
+    # fleet mode: the fleet-batched drain at 4 x 1250 nodes, then
+    # FleetChurn on the FleetRunner (its churn pods carry no topology term:
+    # count_pn's count there is recorded, 0 included)
+    fdrain_sum, fleet_cases = fleet_drain_phase()
+    emit({"phase": "fleet.drain", **fdrain_sum})
+    fleet_rows = kernels_phase(fleet_cases)
+    del fleet_cases
+    emit({"phase": "kernels.fleet", "rows": fleet_rows})
+    fleet_sum = fleet_phase(smi=smi)
+    emit({"phase": "fleet", **fleet_sum})
+    check(not fleet_sum["failures"],
+          f"fleet: {fleet_sum['failures']}")
     for path, summary in (("preemption", pre_sum),
                           ("connected_preemption", cpre_sum),
                           ("explain", expl_sum), ("extender", ext_sum),
                           ("slice", slice_sum), ("autoscaler", auto_sum),
-                          ("defrag", defrag_sum), ("planner", loop_sum)):
+                          ("defrag", defrag_sum), ("planner", loop_sum),
+                          ("fleet.drain", fdrain_sum), ("fleet", fleet_sum)):
         for name, n in summary["launches"].items():
             launches.setdefault(name, {})[path] = n
 
     # one entry per kernel, at the shape of the path with its most launches
     # among those whose rows are taken from the path's own context
-    # (resident, scheduler, connected, explain, extender, slice), launches
+    # (resident, scheduler, connected, explain, extender, slice,
+    # fleet.drain), launches
     # summed over every path; every row of the kernels phases was held
     # bit-equal to the plain version
     rows_by_path = {"resident": resident_rows, "scheduler": sched_rows,
                     "connected": conn_rows, "explain": expl_rows,
-                    "extender": ext_rows, "slice": slice_rows}
+                    "extender": ext_rows, "slice": slice_rows,
+                    "fleet.drain": fleet_rows}
     table = []
     for name, by_path in launches.items():
         top = max(rows_by_path, key=lambda path: by_path.get(path, 0))
@@ -4431,7 +5286,7 @@ def main() -> int:
                    shapes_checked=[r["name"] for r in
                                    rows + drain_rows + resident_rows
                                    + sched_rows + conn_rows + expl_rows
-                                   + ext_rows + slice_rows
+                                   + ext_rows + slice_rows + fleet_rows
                                    if r["name"].startswith(name + "[")])
         table.append(row)
     emit({"kernels": table})

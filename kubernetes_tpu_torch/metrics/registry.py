@@ -444,6 +444,17 @@ FLEET_PENDING = REGISTRY.gauge(
     "scheduler_fleet_pending",
     "Pods queued (active+backoff+unschedulable) per tenant")
 
+# Fleet scheduling fairness (sched/fleet.py): per-tenant batch-slot share
+# and pending depth — a noisy neighbor starving siblings shows up as one
+# tenant's share climbing while another's pending grows unbounded.
+FLEET_BATCH_SHARE = REGISTRY.gauge(
+    "scheduler_fleet_batch_share",
+    "Pods handed to the shared drain pipeline per tenant (monotone; "
+    "labelled by tenant)")
+FLEET_PENDING = REGISTRY.gauge(
+    "scheduler_fleet_pending",
+    "Pods queued (active+backoff+unschedulable) per tenant")
+
 # Kubelet pod-sync health (pod_workers.go error bookkeeping analog).
 # Aggregate only — per-pod counts are PodWorkers.sync_errors(uid); a
 # per-uid label would grow one label set per failing pod forever.

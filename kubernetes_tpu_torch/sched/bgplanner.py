@@ -34,10 +34,9 @@ status
     Queue A item 10).
 
 The PyTorch port of ``kubernetes_tpu/sched/bgplanner.py``. Unlike the
-reference's, the loop of ``start`` stops for good on a ``KernelError``,
-``ParityError`` or ``NotImplementedError`` (the runner's ``_FATAL`` set) or
-an error of the CUDA runtime (``loop_error`` keeps it), and logs only other
-failures.
+reference's, the loop of ``start`` stops for good on a failure that
+``sched/faults.is_fatal`` calls fatal (``loop_error`` keeps it), and logs
+only other failures.
 """
 
 from __future__ import annotations
@@ -47,39 +46,19 @@ import logging
 import threading
 from typing import Optional
 
-import torch
-
-from kubernetes_tpu_torch.audit.sentinel import ParityError
 from kubernetes_tpu_torch.encode.overlay import CompileCounter, ResidentPlanner
 from kubernetes_tpu_torch.metrics.registry import (
     SCHEDULER_PLANNER_COMPILES,
     SCHEDULER_PLANNER_CYCLE_DURATION,
 )
-from kubernetes_tpu_torch.ops.kernels import KernelError
+from kubernetes_tpu_torch.sched.faults import is_fatal
 from kubernetes_tpu_torch.utils.clock import REAL_CLOCK, rfc3339_from_epoch
 from kubernetes_tpu_torch.utils.tracing import TRACER
 
 _LOG = logging.getLogger(__name__)
 
-# cycle failures a retry cannot cure (sched/runner.py's _FATAL)
-_FATAL = (KernelError, ParityError, NotImplementedError)
-
 PLANNER_CONFIGMAP = "kubernetes-tpu-planner-status"
 STATUS_NAMESPACE = "default"
-
-
-def _fatal(e: BaseException) -> bool:
-    """A cycle failure that no later cycle cures: the runner's ``_FATAL``
-    set, or an error the CUDA runtime raised (``torch.AcceleratorError``;
-    a torch without that class raises ``RuntimeError("CUDA error: ...")``).
-    A CUDA error leaves the context unusable, so retrying it only logs the
-    same error every interval."""
-    if isinstance(e, _FATAL):
-        return True
-    accel = getattr(torch, "AcceleratorError", None)
-    if accel is not None and isinstance(e, accel):
-        return True
-    return isinstance(e, RuntimeError) and str(e).startswith("CUDA error")
 
 
 class BackgroundPlanner:
@@ -214,7 +193,7 @@ class BackgroundPlanner:
                 try:
                     self.run_once()
                 except Exception as e:
-                    if not _fatal(e):
+                    if not is_fatal(e):
                         _LOG.exception("background planner cycle failed")
                     else:
                         # a kernel that fails, a parity refutation, a

@@ -31,7 +31,8 @@ only a cycle that ran at the ``oracle`` level (the breaker already
 degraded) or a slice-shaped pod. Any other failure of the tensor judge is
 counted as ``LOOP_ERRORS{site=device_explain}`` and its pods get no
 verdict: each gets the generic ``FailedScheduling`` event and no entry. A
-``KernelError``, ``ParityError`` or ``NotImplementedError`` there is kept
+failure that ``sched/faults.is_fatal`` calls fatal (a ``KernelError``,
+``ParityError``, ``NotImplementedError`` or CUDA error) is kept
 as :attr:`SchedulingExplainer.fault`, which the scheduler raises at its
 next pop (the loop then stops, as for the parity sentinel's refutation).
 """
@@ -45,13 +46,12 @@ import time
 from collections import OrderedDict
 from typing import Callable, Optional
 
-from kubernetes_tpu_torch.audit.sentinel import ParityError
 from kubernetes_tpu_torch.metrics.registry import (
     EXPLAIN_SAMPLES,
     LOOP_ERRORS,
     UNSCHEDULABLE_REASONS,
 )
-from kubernetes_tpu_torch.ops.kernels import KernelError
+from kubernetes_tpu_torch.sched.faults import is_fatal
 
 _LOG = logging.getLogger(__name__)
 
@@ -72,10 +72,6 @@ MAX_ENTRIES = 1024
 # the event of a pod that got no per-filter verdict
 GENERIC_MESSAGE = ("no node satisfied the pod's scheduling constraints "
                    "this cycle")
-
-
-# the failures no judge may be swapped in for (see the module doc)
-_FATAL = (KernelError, ParityError, NotImplementedError)
 
 
 class SchedulingExplainer:
@@ -107,8 +103,8 @@ class SchedulingExplainer:
         self.pods_explained = 0
         self.errors = 0
         self.skipped = 0
-        # a KernelError / ParityError / NotImplementedError of the tensor
-        # judge: the scheduler raises it at its next pop
+        # a fatal failure (sched/faults.is_fatal) of the tensor judge: the
+        # scheduler raises it at its next pop
         self.fault: Optional[BaseException] = None
 
     # ---- scheduling-thread half -----------------------------------------
@@ -219,20 +215,21 @@ class SchedulingExplainer:
                     self._record_direct(item)
                 else:
                     self._explain(item)
-            except _FATAL as e:
-                # not judged around: the scheduling loop raises it
+            except Exception as e:
                 self.errors += 1
-                if self.fault is None:
-                    self.fault = e
-                _LOG.error("explanation stopped by %r; the scheduler "
-                           "raises it at its next pop", e)
-            except Exception:
-                # a broken explanation is counted and logged, never raised
-                # into silence — and never into the scheduling loop either
-                self.errors += 1
-                LOOP_ERRORS.inc({"site": "explainer"})
-                _LOG.exception("explanation failed (pods get no verdict "
-                               "this cycle)")
+                if is_fatal(e):
+                    # not judged around: the scheduling loop raises it
+                    if self.fault is None:
+                        self.fault = e
+                    _LOG.error("explanation stopped by %r; the scheduler "
+                               "raises it at its next pop", e)
+                else:
+                    # a broken explanation is counted and logged, never
+                    # raised into silence — and never into the scheduling
+                    # loop either
+                    LOOP_ERRORS.inc({"site": "explainer"})
+                    _LOG.exception("explanation failed (pods get no "
+                                   "verdict this cycle)")
             finally:
                 self._q.task_done()
 
@@ -297,9 +294,9 @@ class SchedulingExplainer:
                 mode = "tensor"
                 try:
                     per_pod = self._judge_tensor(item, views, profile)
-                except _FATAL:
-                    raise
-                except Exception:
+                except Exception as e:
+                    if is_fatal(e):
+                        raise
                     # no judge is swapped in for the device: the pods get
                     # the generic event and no verdict
                     self.errors += 1

@@ -1,0 +1,786 @@
+"""Fleet scheduling — K tenant clusters through ONE scheduler on one card.
+
+The PyTorch port of ``kubernetes_tpu/sched/fleet.py``. Tenants concatenate
+along the NODE axis of the one resident cluster encoding, with per-tenant
+visibility enforced by the pre-interned ``kubernetes-tpu.io/tenant`` label
+plane (encode/snapshot.py ``TENANT_KEY_ID``: the tenant gate in
+``ops/filters.py``, ``tenant_local_rank`` in the tie-break, the oracle's
+``FailReason.TENANT``). Pods from all tenants ride the SAME ``drain_step``
+dispatch and churn from all tenants folds into the SAME resident context.
+
+Three layers live here:
+
+``rekey_for_tenant``/``unrekey_for_tenant``
+    The translation boundary. Each tenant is an independent apiserver with
+    its own name space; objects ingest into the shared scheduler re-keyed
+    (namespaces and cluster-scoped names get a ``t<id>.`` prefix, every
+    object is stamped with the tenant label, pod references — nodeName,
+    nominatedNodeName, affinity ``namespaces`` lists, ``metadata.name``
+    matchFields, PV nodeAffinity zone terms — are rewritten consistently)
+    and every write routes back through the inverse.
+
+``FleetClient``
+    A routing clientset facade over the K tenant clients: aggregate
+    re-keyed reads for ``ns=None`` listers (the invariant auditor, the
+    stale-nomination GC), per-tenant routed writes for prefixed
+    namespaces (binds, evictions, status updates, events). List/watch
+    stays on the REAL per-tenant clients — each tenant keeps its own
+    informer set and resourceVersion space.
+
+``FleetQueue`` / ``FleetRunner``
+    The fairness plane and the multiplexer: one scheduler, N informer
+    sets, one shared drain pipeline. ``FleetQueue.pop_batch`` fills the
+    drain in ``batch_size`` single-tenant blocks, weighted round-robin
+    across tenants, so a churning tenant cannot starve siblings' batch
+    slots — and because every tenant's pods sit at positions 0..n of
+    their own block (``Scheduler._tenant_chunks``), fleet-batched
+    placements are bit-equal to independent per-tenant runs.
+
+Where the port differs: ``FleetRunner`` wires its tenants' informers
+through ``SchedulerRunner._start_informers`` and keeps the base class's
+start-up otherwise (the boot nomination sweep runs through the
+``FleetClient``); ``stop`` stops every tenant's informers even when it
+re-raises the loop's fatal failure. No ``except`` here moves work off the
+card: a fatal failure (``sched/faults.is_fatal``) reaches the runner's
+loop.
+"""
+
+from __future__ import annotations
+
+import heapq
+import json
+import logging
+import re
+import threading
+import time
+from typing import Optional
+
+from kubernetes_tpu_torch.client.clientset import ApiError
+from kubernetes_tpu_torch.client.informer import InformerFactory
+from kubernetes_tpu_torch.config.types import SchedulerConfiguration
+from kubernetes_tpu_torch.encode.snapshot import TENANT_LABEL, tenant_label_of
+from kubernetes_tpu_torch.metrics.registry import (
+    BIND_RESULTS,
+    FLEET_BATCH_SHARE,
+    FLEET_PENDING,
+    LOOP_ERRORS,
+)
+from kubernetes_tpu_torch.sched.queue import SchedulingQueue, _QueuedPod
+from kubernetes_tpu_torch.sched.runner import SchedulerRunner
+from kubernetes_tpu_torch.sched.volumebinding import ZONE_LABELS
+from kubernetes_tpu_torch.utils.configmap import upsert_configmap
+from kubernetes_tpu_torch.utils.tracing import TRACER
+
+_LOG = logging.getLogger(__name__)
+
+# per-tenant scheduler status ConfigMap, published to EVERY tenant's own
+# apiserver (a status reader pointed at any tenant sees the fleet block)
+FLEET_SCHED_CONFIGMAP = "kubernetes-tpu-fleet-sched-status"
+
+_PREFIX_RE = re.compile(r"^t(\d+)\.")
+
+# kinds whose identity is their (cluster-scoped) name: the name carries the
+# tenant prefix. Everything else is namespaced and prefixes the namespace.
+CLUSTER_SCOPED = frozenset({
+    "nodes", "namespaces", "storageclasses", "deviceclasses",
+    "resourceslices", "persistentvolumes",
+})
+
+
+def fleet_name(tid: int, name: str) -> str:
+    return f"t{tid}.{name}"
+
+
+def split_fleet_name(name: str) -> tuple[Optional[int], str]:
+    """-> (tenant id, raw name); (None, name) when unprefixed."""
+    m = _PREFIX_RE.match(name or "")
+    if not m:
+        return None, name
+    return int(m.group(1)), name[m.end():]
+
+
+def _strip(name: Optional[str], tid: int) -> Optional[str]:
+    pref = f"t{tid}."
+    if name and name.startswith(pref):
+        return name[len(pref):]
+    return name
+
+
+def _rekey_pod_affinity_terms(terms: list, pref: str) -> list:
+    out = []
+    for t in terms:
+        t = dict(t)
+        inner = t.get("podAffinityTerm")
+        if inner is not None:  # weighted form
+            t["podAffinityTerm"] = _rekey_pod_affinity_terms([inner], pref)[0]
+        elif t.get("namespaces"):
+            t["namespaces"] = [pref + n for n in t["namespaces"]]
+        out.append(t)
+    return out
+
+
+def _map_pv_terms(terms: list, fn) -> list:
+    """Apply ``fn`` to the node-name matchFields values and zone-label
+    matchExpressions values of PV nodeSelectorTerms. CSI topology names
+    nodes and zones inside PV nodeAffinity; both are per-tenant names, so
+    they cross the fleet boundary through the same rewrite as nodeName —
+    two tenants publishing the same zone string must NOT appear co-located
+    in the shared view."""
+    out = []
+    for t in terms:
+        t = dict(t)
+        mf = t.get("matchFields")
+        if mf:
+            t["matchFields"] = [
+                (dict(e, values=[fn(v) for v in e.get("values") or []])
+                 if e.get("key") == "metadata.name" else e)
+                for e in mf]
+        me = t.get("matchExpressions")
+        if me:
+            t["matchExpressions"] = [
+                (dict(e, values=[fn(v) for v in e.get("values") or []])
+                 if e.get("key") in ZONE_LABELS else e)
+                for e in me]
+        out.append(t)
+    return out
+
+
+def _map_pv_node_affinity(spec: dict, fn) -> dict:
+    na = spec.get("nodeAffinity")
+    req = (na or {}).get("required")
+    if not (req or {}).get("nodeSelectorTerms"):
+        return spec
+    spec["nodeAffinity"] = dict(na, required=dict(
+        req, nodeSelectorTerms=_map_pv_terms(req["nodeSelectorTerms"], fn)))
+    return spec
+
+
+def _map_zone_labels(md: dict, fn) -> dict:
+    """Rewrite CSI topology label VALUES on the object's metadata (nodes
+    and PVs carry zone/region labels that volume binding compares)."""
+    labels = md.get("labels")
+    if not labels or not any(labels.get(z) for z in ZONE_LABELS):
+        return md
+    labels = dict(labels)
+    for z in ZONE_LABELS:
+        if labels.get(z):
+            labels[z] = fn(labels[z])
+    md["labels"] = labels
+    return md
+
+
+def _rekey_match_fields(term: dict, pref: str) -> dict:
+    mf = term.get("matchFields")
+    if not mf:
+        return term
+    term = dict(term)
+    term["matchFields"] = [
+        (dict(e, values=[pref + v for v in e.get("values") or []])
+         if e.get("key") == "metadata.name" else e)
+        for e in mf]
+    return term
+
+
+def _rekey_affinity(aff: dict, pref: str) -> dict:
+    aff = dict(aff)
+    for k in ("podAffinity", "podAntiAffinity"):
+        a = aff.get(k)
+        if not a:
+            continue
+        a = dict(a)
+        for req in ("requiredDuringSchedulingIgnoredDuringExecution",
+                    "preferredDuringSchedulingIgnoredDuringExecution"):
+            if a.get(req):
+                a[req] = _rekey_pod_affinity_terms(a[req], pref)
+        aff[k] = a
+    na = aff.get("nodeAffinity")
+    if na:
+        na = dict(na)
+        req = na.get("requiredDuringSchedulingIgnoredDuringExecution")
+        if req and req.get("nodeSelectorTerms"):
+            na["requiredDuringSchedulingIgnoredDuringExecution"] = dict(
+                req, nodeSelectorTerms=[
+                    _rekey_match_fields(t, pref)
+                    for t in req["nodeSelectorTerms"]])
+        pol = na.get("preferredDuringSchedulingIgnoredDuringExecution")
+        if pol:
+            na["preferredDuringSchedulingIgnoredDuringExecution"] = [
+                dict(w, preference=_rekey_match_fields(
+                    w.get("preference") or {}, pref)) for w in pol]
+        aff["nodeAffinity"] = na
+    return aff
+
+
+def rekey_for_tenant(tid: int, plural: str, obj: Optional[dict]
+                     ) -> Optional[dict]:
+    """A tenant apiserver object as the SHARED scheduler sees it: tenant
+    label stamped, namespace (or cluster-scoped name) prefixed, and every
+    intra-object reference that names another object rewritten to match.
+    Copies every level it mutates — informer stores share the originals."""
+    if obj is None:
+        return None
+    pref = f"t{tid}."
+    out = dict(obj)
+    md = dict(out.get("metadata") or {})
+    labels = dict(md.get("labels") or {})
+    labels[TENANT_LABEL] = str(tid)
+    md["labels"] = labels
+    if plural in CLUSTER_SCOPED:
+        md["name"] = pref + (md.get("name") or "")
+    else:
+        md["namespace"] = pref + (md.get("namespace") or "default")
+    out["metadata"] = md
+    if plural == "pods":
+        spec = dict(out.get("spec") or {})
+        if spec.get("nodeName"):
+            spec["nodeName"] = pref + spec["nodeName"]
+        if spec.get("affinity"):
+            spec["affinity"] = _rekey_affinity(spec["affinity"], pref)
+        out["spec"] = spec
+        st = out.get("status")
+        if st and st.get("nominatedNodeName"):
+            out["status"] = dict(
+                st, nominatedNodeName=pref + st["nominatedNodeName"])
+    elif plural == "persistentvolumeclaims":
+        spec = dict(out.get("spec") or {})
+        for f in ("volumeName", "storageClassName"):
+            if spec.get(f):
+                spec[f] = pref + spec[f]
+        out["spec"] = spec
+    elif plural == "persistentvolumes":
+        spec = dict(out.get("spec") or {})
+        if spec.get("storageClassName"):
+            spec["storageClassName"] = pref + spec["storageClassName"]
+        cr = spec.get("claimRef")
+        if cr and cr.get("namespace"):
+            spec["claimRef"] = dict(cr, namespace=pref + cr["namespace"])
+        spec = _map_pv_node_affinity(spec, lambda v: pref + v)
+        out["spec"] = spec
+        out["metadata"] = _map_zone_labels(md, lambda v: pref + v)
+    elif plural == "nodes":
+        out["metadata"] = _map_zone_labels(md, lambda v: pref + v)
+    return out
+
+
+def unrekey_for_tenant(tid: int, plural: str, obj: Optional[dict]
+                       ) -> Optional[dict]:
+    """Inverse of ``rekey_for_tenant`` — what the shared scheduler writes
+    back to tenant ``tid``'s apiserver."""
+    if obj is None:
+        return None
+    out = dict(obj)
+    md = dict(out.get("metadata") or {})
+    labels = dict(md.get("labels") or {})
+    if labels.get(TENANT_LABEL) == str(tid):
+        labels.pop(TENANT_LABEL)
+        md["labels"] = labels
+    if plural in CLUSTER_SCOPED:
+        md["name"] = _strip(md.get("name"), tid)
+    else:
+        md["namespace"] = _strip(md.get("namespace"), tid)
+    out["metadata"] = md
+    if plural == "pods":
+        spec = dict(out.get("spec") or {})
+        if spec.get("nodeName"):
+            spec["nodeName"] = _strip(spec["nodeName"], tid)
+        out["spec"] = spec
+        st = out.get("status")
+        if st and st.get("nominatedNodeName"):
+            out["status"] = dict(st, nominatedNodeName=_strip(
+                st["nominatedNodeName"], tid))
+    elif plural == "persistentvolumeclaims":
+        # inverse of the ingest rewrites PLUS the binder's write-backs:
+        # spec.volumeName/storageClassName carry the fleet prefix, and the
+        # provisioner-facing selected-node annotation names a FLEET node
+        spec = dict(out.get("spec") or {})
+        for f in ("volumeName", "storageClassName"):
+            if spec.get(f):
+                spec[f] = _strip(spec[f], tid)
+        out["spec"] = spec
+        ann = md.get("annotations")
+        sel = (ann or {}).get("volume.kubernetes.io/selected-node")
+        if sel:
+            md["annotations"] = dict(ann, **{
+                "volume.kubernetes.io/selected-node": _strip(sel, tid)})
+    elif plural == "persistentvolumes":
+        spec = dict(out.get("spec") or {})
+        if spec.get("storageClassName"):
+            spec["storageClassName"] = _strip(spec["storageClassName"], tid)
+        cr = spec.get("claimRef")
+        if cr and cr.get("namespace"):
+            spec["claimRef"] = dict(cr, namespace=_strip(cr["namespace"],
+                                                         tid))
+        spec = _map_pv_node_affinity(spec, lambda v: _strip(v, tid))
+        out["spec"] = spec
+        out["metadata"] = _map_zone_labels(md, lambda v: _strip(v, tid))
+    elif plural == "nodes":
+        out["metadata"] = _map_zone_labels(md, lambda v: _strip(v, tid))
+    elif plural == "resourceclaims":
+        # the scheduler's PreBind allocation embeds the node name
+        st = out.get("status")
+        alloc = (st or {}).get("allocation")
+        if alloc and alloc.get("nodeName"):
+            out["status"] = dict(st, allocation=dict(
+                alloc, nodeName=_strip(alloc["nodeName"], tid)))
+    elif plural == "events":
+        # the recorder builds involvedObject from the fleet-view pod; a
+        # tenant apiserver must never see the internal prefix
+        io_ = out.get("involvedObject")
+        if io_ and io_.get("namespace"):
+            out["involvedObject"] = dict(
+                io_, namespace=_strip(io_["namespace"], tid))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# FleetClient: a routing clientset facade over K tenant clients
+# ---------------------------------------------------------------------------
+
+class _TenantResource:
+    """One tenant's ResourceClient behind the rekey/unrekey boundary."""
+
+    def __init__(self, fleet: "FleetClient", tid: int, plural: str,
+                 raw_ns: Optional[str]):
+        self._fleet = fleet
+        self._tid = tid
+        self._plural = plural
+        self._res = fleet.clients[tid].resource(plural, raw_ns)
+
+    def _rk(self, obj):
+        return rekey_for_tenant(self._tid, self._plural, obj)
+
+    def _uk(self, obj):
+        return unrekey_for_tenant(self._tid, self._plural, obj)
+
+    def _name(self, name: str) -> str:
+        return (_strip(name, self._tid) if self._plural in CLUSTER_SCOPED
+                else name)
+
+    def create(self, obj: dict, **kw) -> dict:
+        return self._rk(self._res.create(self._uk(obj), **kw))
+
+    def create_many(self, objs: list) -> list:
+        return [self._rk(o)
+                for o in self._res.create_many([self._uk(o) for o in objs])]
+
+    def get(self, name: str) -> dict:
+        return self._rk(self._res.get(self._name(name)))
+
+    def list(self, **kw) -> list:
+        return [self._rk(o) for o in self._res.list(**kw)]
+
+    def update(self, obj: dict) -> dict:
+        return self._rk(self._res.update(self._uk(obj)))
+
+    def update_status(self, obj: dict) -> dict:
+        return self._rk(self._res.update_status(self._uk(obj)))
+
+    def delete(self, name: str, **kw):
+        return self._res.delete(self._name(name), **kw)
+
+    def evict(self, name: str):
+        return self._res.evict(self._name(name))
+
+    def bind(self, name: str, node_name: str) -> dict:
+        ntid, raw = split_fleet_name(node_name)
+        if ntid != self._tid:
+            # the tenant gate makes this unreachable from the scheduler;
+            # refusing here is the transport-level backstop
+            raise ApiError(403, f"cross-tenant bind: pod of tenant "
+                                f"{self._tid} onto node {node_name!r}")
+        return self._res.bind(name, raw)
+
+
+class _FleetAllResource:
+    """``ns=None`` aggregate reader: the auditor's and the GC's fleet-wide
+    listers. Reads concatenate every tenant's re-keyed objects (stable
+    tenant order); name-addressed writes route by prefix for
+    cluster-scoped kinds."""
+
+    def __init__(self, fleet: "FleetClient", plural: str):
+        self._fleet = fleet
+        self._plural = plural
+
+    def list(self, **kw) -> list:
+        out: list = []
+        for tid in sorted(self._fleet.clients):
+            res = self._fleet.clients[tid].resource(self._plural, None)
+            out += [rekey_for_tenant(tid, self._plural, o)
+                    for o in res.list(**kw)]
+        return out
+
+    def _route(self, name: str):
+        tid, raw = split_fleet_name(name)
+        if tid is None or tid not in self._fleet.clients:
+            raise ApiError(404, f"no tenant for {name!r}")
+        return tid, self._fleet.clients[tid].resource(self._plural, None), raw
+
+    def get(self, name: str) -> dict:
+        tid, res, raw = self._route(name)
+        return rekey_for_tenant(tid, self._plural, res.get(raw))
+
+    def delete(self, name: str, **kw):
+        _tid, res, raw = self._route(name)
+        return res.delete(raw, **kw)
+
+    def update(self, obj: dict) -> dict:
+        """Cluster-scoped update routed by name prefix — the volume
+        binder's static-PV claimRef write (persistentvolumes, ns=None)
+        goes through here."""
+        md = obj.get("metadata") or {}
+        tid, res, _raw = self._route(md.get("name") or "")
+        return rekey_for_tenant(
+            tid, self._plural,
+            res.update(unrekey_for_tenant(tid, self._plural, obj)))
+
+    def update_status(self, obj: dict) -> dict:
+        md = obj.get("metadata") or {}
+        tid, res, _raw = self._route(md.get("name") or "")
+        return rekey_for_tenant(
+            tid, self._plural,
+            res.update_status(unrekey_for_tenant(tid, self._plural, obj)))
+
+
+class FleetClient:
+    """Routing clientset over K tenant clients. Namespaced calls with a
+    ``t<id>.`` prefix route (and translate) to that tenant; ``ns=None``
+    reads aggregate; unprefixed namespaces pass through to the HOME tenant
+    (tenant 0) untranslated — that is where the runner's own status
+    ConfigMaps live."""
+
+    def __init__(self, clients: list):
+        self.clients = {i: c for i, c in enumerate(clients)}
+
+    def default_user_agent(self, ua: str) -> None:
+        for c in self.clients.values():
+            if hasattr(c, "default_user_agent"):
+                c.default_user_agent(ua)
+
+    def resource(self, plural: str, ns: Optional[str] = "default"):
+        if ns is None:
+            return _FleetAllResource(self, plural)
+        tid, raw = split_fleet_name(ns)
+        if tid is not None and plural not in CLUSTER_SCOPED:
+            if tid not in self.clients:
+                raise ApiError(404, f"unknown tenant namespace {ns!r}")
+            return _TenantResource(self, tid, plural, raw)
+        return self.clients[0].resource(plural, ns)
+
+    def pods(self, ns: str = "default"):
+        return self.resource("pods", ns)
+
+    def nodes(self):
+        return self.resource("nodes", None)
+
+    def leases(self, ns: str = "kube-system"):
+        return self.clients[0].leases(ns)
+
+
+# ---------------------------------------------------------------------------
+# FleetQueue: the fairness plane
+# ---------------------------------------------------------------------------
+
+class FleetQueue(SchedulingQueue):
+    """SchedulingQueue whose ``pop_batch`` fills the drain in
+    ``block``-sized SINGLE-TENANT blocks, weighted round-robin across the
+    tenants with pending pods. Two properties fall out:
+
+    - fairness: a tenant churning 4x harder than its siblings gets its
+      weighted share of batch slots per rotation, never the whole batch —
+      the rotation cursor advances every pop, so nobody is pinned to the
+      tail.
+    - bit-parity: each tenant's pods enter the device program at positions
+      0..n of their own block (the first SHORT block closes the pop, so a
+      later tenant can never start mid-chunk), which together with the
+      tenant-local tie-break ranks makes fleet placements identical to
+      standalone runs.
+
+    Single-tenant queues (no tenant labels) degrade to the base behavior
+    exactly: one group, plain priority-ordered drain."""
+
+    def __init__(self, block: int = 256, weights: Optional[dict] = None,
+                 **kw):
+        super().__init__(**kw)
+        self._block = max(1, int(block))
+        self._weights = {str(k): max(1, int(v))
+                         for k, v in (weights or {}).items()}
+        self._rr = 0
+        # pods handed to the scheduler per tenant (monotone; the fleet
+        # status ConfigMap and scheduler_fleet_batch_share report it)
+        self.batch_share: dict[str, int] = {}
+
+    @staticmethod
+    def _tenant(pod) -> str:
+        return tenant_label_of(pod.metadata.labels) or ""
+
+    def set_weight(self, tenant, blocks: int) -> None:
+        """Quota-weighted fill: ``blocks`` batch blocks per rotation."""
+        with self._lock:
+            self._weights[str(tenant)] = max(1, int(blocks))
+
+    def pending_by_tenant(self) -> dict[str, int]:
+        with self._lock:
+            out: dict[str, int] = {}
+            for item in self._entries.values():
+                t = self._tenant(item.pod)
+                out[t] = out.get(t, 0) + 1
+            return out
+
+    def pop_batch(self, max_batch: int = 256, wait: float = 0.5
+                  ) -> list:
+        deadline = time.time() + wait
+        with self._lock:
+            if not self._wait_for_work_locked(deadline):
+                return []
+            # Drain a bounded look-ahead window in priority order, group by
+            # tenant (order within a tenant stays priority order). The
+            # window is PROPORTIONAL to the batch — under a deep backlog a
+            # fixed large floor would heappop+push thousands of entries of
+            # pure churn per cycle on the hot loop. FIFO tie-breaks age
+            # out-of-window tenants to the front across cycles, so nobody
+            # is starved by the bound.
+            drained: list[_QueuedPod] = []
+            cap = max(max_batch * 4, 256)
+            while self._active and len(drained) < cap:
+                item = heapq.heappop(self._active)
+                if self._current_locked(item):
+                    drained.append(item)
+            groups: dict[str, list] = {}
+            order: list[str] = []
+            for item in drained:
+                t = self._tenant(item.pod)
+                if t not in groups:
+                    groups[t] = []
+                    order.append(t)
+                groups[t].append(item)
+            if len(groups) <= 1:
+                chosen = drained[:max_batch]
+                leftovers = drained[max_batch:]
+            else:
+                chosen, leftovers = self._fill_fair(groups, order, max_batch)
+            for item in leftovers:
+                heapq.heappush(self._active, item)
+            out = []
+            for item in chosen:
+                self._keys_queued.discard(item.pod.key)
+                self._entries.pop(item.pod.key, None)
+                out.append((item.pod, item.attempts))
+                t = self._tenant(item.pod)
+                self.batch_share[t] = self.batch_share.get(t, 0) + 1
+            return out
+
+    def _fill_fair(self, groups: dict, order: list, max_batch: int):
+        """Weighted round-robin block fill. The first block that comes up
+        SHORT (its tenant ran out of pods) is the pop's final block —
+        alignment before greed: the leftover trickle pods get the next
+        cycle (milliseconds away) instead of starting mid-chunk now."""
+        ring = sorted(order)
+        start = self._rr % len(ring)
+        ring = ring[start:] + ring[:start]
+        self._rr += 1
+        chosen: list[_QueuedPod] = []
+        closed = False
+        for _rotation in range(max(2, max_batch // self._block + 2)):
+            took_any = False
+            for t in ring:
+                if closed or len(chosen) >= max_batch:
+                    break
+                g = groups[t]
+                for _b in range(self._weights.get(t, 1)):
+                    if not g or len(chosen) >= max_batch:
+                        break
+                    n = min(self._block, max_batch - len(chosen), len(g))
+                    chosen.extend(g[:n])
+                    del g[:n]
+                    took_any = True
+                    if n < self._block:
+                        closed = True  # short block: only ever the last
+                        break
+            if closed or not took_any or len(chosen) >= max_batch:
+                break
+        leftovers = [it for t in order for it in groups[t]]
+        return chosen, leftovers
+
+
+
+# ---------------------------------------------------------------------------
+# FleetRunner: N informer sets -> one scheduler
+# ---------------------------------------------------------------------------
+
+class FleetRunner(SchedulerRunner):
+    """ONE scheduler serving K tenant apiservers: per-tenant informer
+    factories feed the shared cache/queue through the rekey boundary;
+    binds, evictions, events, nomination GC and the invariant auditor
+    route back through the FleetClient. One resident context on the card
+    serves every tenant's drain."""
+
+    def __init__(self, tenant_clients: list,
+                 cfg: Optional[SchedulerConfiguration] = None,
+                 identity: str = "kubernetes-tpu-fleet-scheduler",
+                 tenant_weights: Optional[dict] = None, **kw):
+        if cfg is not None and cfg.leader_elect:
+            raise ValueError("fleet mode owns the loop lifecycle; "
+                             "leader election is per-tenant-cluster state "
+                             "and is not supported")
+        self.tenant_clients = list(tenant_clients)
+        if not self.tenant_clients:
+            raise ValueError("FleetRunner needs >= 1 tenant client")
+        self._tenant_weights = dict(tenant_weights or {})
+        super().__init__(FleetClient(self.tenant_clients), cfg,
+                         identity=identity, **kw)
+        self.scheduler.fleet_mode = True
+        # real per-tenant informer factories (each tenant keeps its own
+        # resourceVersion space + watch streams); the base class's
+        # self.factory (over the FleetClient) is never started
+        self.factories = [InformerFactory(c) for c in self.tenant_clients]
+        self._fleet_status_lock = threading.Lock()
+
+    # ---- construction hooks ---------------------------------------------
+
+    def _build_queue(self, cfg: SchedulerConfiguration) -> SchedulingQueue:
+        return FleetQueue(block=cfg.batch_size, weights=self._tenant_weights,
+                          backoff_initial=cfg.backoff_initial_s,
+                          backoff_max=cfg.backoff_max_s)
+
+    def _all_informers(self):
+        out = []
+        for f in getattr(self, "factories", []):
+            out += list(f._informers.values())
+        return out
+
+    # ---- lifecycle -------------------------------------------------------
+
+    def _start_informers(self, wait_sync: float):
+        """Every tenant's informers through ``_wire_informers`` with a
+        re-keying wrap — the base class owns THE list of watched
+        resources, so a resource added there reaches every tenant. ->
+        the fleet-wide PDB lister."""
+        for tid, factory in enumerate(self.factories):
+            self._wire_informers(factory, wrap=self._rekey_wrap(tid))
+            factory.start_all()
+        for factory in self.factories:
+            factory.wait_for_cache_sync(wait_sync)
+        return self._list_pdbs
+
+    @staticmethod
+    def _rekey_wrap(tid: int):
+        def wrap(handler, plural):
+            def h(type_, obj, old):
+                handler(type_, rekey_for_tenant(tid, plural, obj),
+                        rekey_for_tenant(tid, plural, old))
+            return h
+        return wrap
+
+    def _list_pdbs(self) -> list:
+        out: list = []
+        for tid, factory in enumerate(self.factories):
+            inf = factory._informers.get(("poddisruptionbudgets", None))
+            if inf is not None:
+                out += [rekey_for_tenant(tid, "poddisruptionbudgets", o)
+                        for o in inf.store.list()]
+        return out
+
+    def stop(self):
+        try:
+            super().stop()
+        finally:
+            for f in self.factories:
+                f.stop_all()
+
+    def kill(self):
+        super().kill()
+        for f in self.factories:
+            f.stop_all()
+
+    # ---- binding ---------------------------------------------------------
+
+    def _bind_many(self, pairs) -> list:
+        """Bulk binder, split per tenant: one POST pods/-/binding per
+        tenant apiserver. Cross-tenant pairs are refused outright (the
+        tenant gate makes them unreachable; refusing beats binding)."""
+        out: list = [False] * len(pairs)
+        groups: dict[int, list] = {}
+        for idx, (pod, node) in enumerate(pairs):
+            tid, raw_ns = split_fleet_name(pod.metadata.namespace)
+            ntid, raw_node = split_fleet_name(node)
+            if tid is None or ntid != tid:
+                LOOP_ERRORS.inc({"site": "cross_tenant_bind"})
+                _LOG.error("REFUSING cross-tenant bind %s -> %s",
+                           pod.key, node)
+                continue
+            groups.setdefault(tid, []).append(
+                (idx, raw_ns, pod, raw_node))
+        for tid, entries in groups.items():
+            bindings = [(ns, pod.metadata.name, node)
+                        for (_i, ns, pod, node) in entries]
+            try:
+                with TRACER.span("runner/bind", pods=len(entries)):
+                    errs = self._retry(
+                        lambda t=tid, b=bindings:
+                        self.tenant_clients[t].pods("default").bind_many(b))
+            except ApiError as e:
+                BIND_RESULTS.inc({"result": "error"}, by=len(entries))
+                _LOG.warning("bulk bind of %d pods (tenant %d) failed: %s",
+                             len(entries), tid, e)
+                continue
+            except Exception as e:
+                BIND_RESULTS.inc({"result": "connection"}, by=len(entries))
+                _LOG.warning("bulk bind (tenant %d): API unreachable: %s",
+                             tid, e)
+                continue
+            for (idx, _ns, pod, node), err in zip(entries, errs):
+                if err is None:
+                    out[idx] = True
+                elif "not found" in err:
+                    BIND_RESULTS.inc({"result": "gone"})
+                    _LOG.debug("bind %s -> %s: pod gone", pod.key, node)
+                    out[idx] = None
+                else:
+                    label = "conflict" if "bound" in err else "error"
+                    BIND_RESULTS.inc({"result": label})
+                    if label != "conflict":
+                        _LOG.warning("bind %s -> %s failed: %s",
+                                     pod.key, node, err)
+        return out
+
+    # ---- per-tenant status -----------------------------------------------
+
+    def set_tenant_weight(self, tenant, blocks: int) -> None:
+        """Quota knob: give a tenant ``blocks`` batch blocks per fill
+        rotation (default 1)."""
+        self.queue.set_weight(str(tenant), blocks)
+
+    def fleet_sched_status(self) -> dict:
+        """The per-tenant fairness figures the fleet ConfigMap and the
+        ``scheduler_fleet_*`` gauges publish."""
+        pending = self.queue.pending_by_tenant()
+        share = dict(self.queue.batch_share)
+        bound: dict[str, int] = {}
+        for key in (self.cache.audit_view().get("bound") or {}):
+            tid, _rest = split_fleet_name(key)
+            t = str(tid) if tid is not None else ""
+            bound[t] = bound.get(t, 0) + 1
+        tenants = {}
+        for tid in range(len(self.tenant_clients)):
+            t = str(tid)
+            tenants[t] = {
+                "pending": pending.get(t, 0),
+                "bound": bound.get(t, 0),
+                "batchShare": share.get(t, 0),
+                "weight": self.queue._weights.get(t, 1),
+            }
+            FLEET_PENDING.set(pending.get(t, 0), {"tenant": t})
+            FLEET_BATCH_SHARE.set(share.get(t, 0), {"tenant": t})
+        return {"tenants": len(self.tenant_clients),
+                "identity": self.identity,
+                "tenant": tenants,
+                "updated": time.time()}
+
+    def publish_status(self) -> None:
+        super().publish_status()
+        with self._fleet_status_lock:
+            doc = {"fleetSched": json.dumps(self.fleet_sched_status())}
+            for client in self.tenant_clients:
+                upsert_configmap(client, self.status_namespace,
+                                 FLEET_SCHED_CONFIGMAP, doc,
+                                 site="publish_status")

@@ -7,11 +7,13 @@ in leader election (active-passive HA, SURVEY §5).
 
 The port of ``kubernetes_tpu/sched/runner.py``. Where it differs:
 
-- A loop that dies of a ``KernelError`` (a kernel that does not build, load
-  or launch), a ``ParityError`` (the parity sentinel refuted a device
-  answer) or a ``NotImplementedError`` (a feature the port has not got
-  yet) is not revived: a retry cannot cure any of them, and a revived loop
-  would hide the fault behind a process that looks alive. The exception is
+- A loop that dies of a failure ``sched/faults.is_fatal`` calls fatal — a
+  ``KernelError`` (a kernel that does not build, load or launch), a
+  ``ParityError`` (the parity sentinel refuted a device answer), a
+  ``NotImplementedError`` (a feature the port has not got yet) or a CUDA
+  error (the context is unusable) — is not revived: a retry cannot cure
+  any of them, and a revived loop would hide the fault behind a process
+  that looks alive. The exception is
   kept as ``loop_error``, and ``stop()`` re-raises it.
 - Left out: the durable AOT executable cache (ROADMAP Queue A item 8; the
   port's kernels build into ``build/kernels/``), DRA — its informers,
@@ -35,7 +37,6 @@ from typing import Optional
 _LOG = logging.getLogger("kubernetes_tpu_torch.sched.runner")
 
 from kubernetes_tpu_torch.api.types import Node, Pod
-from kubernetes_tpu_torch.audit.sentinel import ParityError
 from kubernetes_tpu_torch.client.clientset import ApiError
 from kubernetes_tpu_torch.client.informer import InformerFactory
 from kubernetes_tpu_torch.client.leaderelection import (LeaderElectionConfig,
@@ -48,8 +49,8 @@ from kubernetes_tpu_torch.metrics.registry import (
     LOOP_ERRORS,
     NODE_LIVENESS_SKIPS,
 )
-from kubernetes_tpu_torch.ops.kernels import KernelError
 from kubernetes_tpu_torch.sched.cache import SchedulerCache
+from kubernetes_tpu_torch.sched.faults import is_fatal
 from kubernetes_tpu_torch.sched.resilience import ThreadWatchdog
 from kubernetes_tpu_torch.utils.retry import with_retries
 from kubernetes_tpu_torch.sched.queue import (
@@ -81,9 +82,6 @@ TRACE_PUBLISH_PODS = 200
 # one span per pod watch event, by type
 _POD_SPANS = {ADDED: "runner/pod_added", MODIFIED: "runner/pod_modified",
               DELETED: "runner/pod_deleted"}
-
-# loop deaths a restart cannot cure: the runner keeps them, never revives
-_FATAL = (KernelError, ParityError, NotImplementedError)
 
 
 class SchedulerRunner:
@@ -136,8 +134,8 @@ class SchedulerRunner:
         self._loop_stop: Optional[threading.Event] = None
         self._loop_thread: Optional[threading.Thread] = None
         self._loop_expected = False
-        # the KernelError / ParityError / NotImplementedError that ended the
-        # loop, if one did: kept for stop() to re-raise, and it bars any
+        # the fatal failure (sched/faults.is_fatal) that ended the loop, if
+        # one did: kept for stop() to re-raise, and it bars any
         # restart
         self.loop_error: Optional[BaseException] = None
         # serializes loop lifecycle transitions between the elector thread
@@ -491,29 +489,40 @@ class SchedulerRunner:
         """Every informer has delivered its initial list."""
         return all(inf.has_synced() for inf in self._all_informers())
 
-    def _wire_informers(self, factory: InformerFactory):
+    def _wire_informers(self, factory: InformerFactory, wrap=None):
         """Register every watched resource's handlers on ``factory`` —
-        THE single list of what the scheduler watches. Returns the PDB
-        informer (its store feeds preemption's victim selection)."""
-        factory.informer("pods", None).add_event_handler(self._on_pod)
-        factory.informer("nodes", None).add_event_handler(self._on_node)
+        THE single list of what the scheduler watches. ``wrap(handler,
+        plural)`` adapts handlers (the FleetRunner re-keys each tenant's
+        events through it); a watched resource added here reaches fleet
+        tenants too. Returns the PDB informer (its store feeds
+        preemption's victim selection)."""
+        w = wrap if wrap is not None else (lambda h, _plural: h)
+        factory.informer("pods", None).add_event_handler(
+            w(self._on_pod, "pods"))
+        factory.informer("nodes", None).add_event_handler(
+            w(self._on_node, "nodes"))
         for plural, kind in (("persistentvolumeclaims", "PersistentVolumeClaim"),
                              ("persistentvolumes", "PersistentVolume"),
                              ("storageclasses", "StorageClass")):
             factory.informer(plural, None).add_event_handler(
-                self._on_volume(kind))
+                w(self._on_volume(kind), plural))
         factory.informer("namespaces", None).add_event_handler(
-            lambda type_, obj, old: self.cache.update_namespace(
-                obj, deleted=(type_ == "DELETED")))
+            w(lambda type_, obj, old: self.cache.update_namespace(
+                obj, deleted=(type_ == "DELETED")), "namespaces"))
         # PDBs feed preemption's victim selection (default_preemption.go
         # checks budgets when picking victims)
         return factory.informer("poddisruptionbudgets", None)
 
-    def _start(self, wait_sync: float, start_loop: bool):
+    def _start_informers(self, wait_sync: float):
+        """Wire, start and sync the informers. -> the PDB lister that
+        preemption reads (the FleetRunner gives a fleet-wide one)."""
         pdb_inf = self._wire_informers(self.factory)
-        self.scheduler.pdb_lister = lambda: list(pdb_inf.store.list())
         self.factory.start_all()
         self.factory.wait_for_cache_sync(wait_sync)
+        return lambda: list(pdb_inf.store.list())
+
+    def _start(self, wait_sync: float, start_loop: bool):
+        self.scheduler.pdb_lister = self._start_informers(wait_sync)
         # Boot resync: a predecessor that died mid-cycle leaves stale
         # nominations in the API. Sweeping HERE — after the informers
         # synced, before the loop binds anything — means the first
@@ -706,10 +715,13 @@ class SchedulerRunner:
                 prev_t.join()
             try:
                 self.scheduler.run(stop)
-            except _FATAL as e:
-                # a kernel that fails or counts wrong, or a feature not
-                # ported yet: a restart cannot cure any of them. Keep the error, mark the loop
-                # not expected (the watchdog must not revive it) and end.
+            except Exception as e:
+                if not is_fatal(e):
+                    raise
+                # a kernel that fails or counts wrong, a feature not ported
+                # yet or a CUDA error: a restart cannot cure any of them.
+                # Keep the error, mark the loop not expected (the watchdog
+                # must not revive it) and end.
                 with self._loop_lock:
                     self.loop_error = e
                     self._loop_expected = False
@@ -759,8 +771,8 @@ class SchedulerRunner:
         thread is only SIGNALED to stop: two loops would mutate the
         scheduler's unsynchronized state concurrently (a Python thread
         cannot be killed), so the restart happens on the sweep after the
-        wedged thread actually exits. A loop that died of a KernelError, a
-        ParityError or a NotImplementedError is never revived. Returns False when no
+        wedged thread actually exits. A loop that died of a fatal failure
+        (``sched/faults.is_fatal``) is never revived. Returns False when no
         restart actually happened (the watchdog then doesn't count one).
         Runs under the loop lock so a revive can never race a
         leadership-change start/stop."""
@@ -797,15 +809,16 @@ class SchedulerRunner:
 
     def stop(self):
         """Tear down the loop, the auditor, the watchdog and the informers.
-        Re-raises the ``KernelError``, ``ParityError`` or
-        ``NotImplementedError`` that ended the loop, if one did."""
+        Re-raises the fatal failure that ended the loop, if one did."""
         self._stop.set()
         self._watchdog.stop()
         self.auditor.stop()
         self._stop_loop()
         self.queue.close()
-        self.scheduler.close()
-        self.factory.stop_all()
+        try:
+            self.scheduler.close()
+        finally:
+            self.factory.stop_all()
         if self.loop_error is not None:
             raise self.loop_error
 

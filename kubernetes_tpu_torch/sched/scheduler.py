@@ -28,20 +28,26 @@ Where the port differs from the reference:
 - The ``KTPU_*`` environment overrides of the reference's constructor are
   left out; the config fields behind them stay. ``cycle_log`` is None
   unless the caller sets it to a list.
+- A failure that ``sched/faults.is_fatal`` calls fatal (a ``KernelError``,
+  a ``ParityError``, a ``NotImplementedError`` or a CUDA error) is
+  re-raised at every site that catches device work: the gang program, the
+  drain dispatch and resolve, preemption, ``run``. It never feeds the
+  breaker and never moves the work to the oracle or the host scan, where
+  the reference degrades to the oracle on an XLA error. A CUDA
+  out-of-memory error is not fatal and keeps that retry path.
 
 - The explainer (``sched/explainer.py``) judges a failed cycle's pods on
   the scheduler's device, and with the oracle only a cycle at the
   breaker's oracle level; a failure of its device judge is counted
   (``LOOP_ERRORS{site=device_explain}``) and leaves the pods with the
-  generic event, and a ``KernelError``,
-  ``ParityError`` or ``NotImplementedError`` there is raised at the next
-  pop, as the parity sentinel's refutation is.
+  generic event, and a fatal failure there is raised at the next pop, as
+  the parity sentinel's refutation is.
 - Default preemption (the PostFilter path, ``sched/preemption.py``)
   catches a failure of its device programs only here, in
-  ``_default_preempt`` and ``_default_preempt_wave``: a ``KernelError``,
-  ``ParityError`` or ``NotImplementedError`` propagates, anything else is
-  counted (``LOOP_ERRORS{site=device_preempt}``), feeds the breaker and
-  takes the exact host scan. The reference swallows such failures inside
+  ``_default_preempt`` and ``_default_preempt_wave``: a fatal failure
+  propagates, anything else is counted
+  (``LOOP_ERRORS{site=device_preempt}``), feeds the breaker and takes the
+  exact host scan. The reference swallows such failures inside
   ``sched/preemption.py`` as well, uncounted.
 
 - Slice gangs (``kubernetes-tpu.io/slice-shape``) are carved on the
@@ -52,12 +58,13 @@ Where the port differs from the reference:
   device once and the carve and ``gang_schedule`` share it.
 
 Features that wait for later slices raise ``NotImplementedError`` naming
-their ROADMAP Queue A item: fleet mode (7), a device mesh (8), DRA (11;
-a slice-shaped ResourceClaim included) and out-of-tree tensor plugins
-(12). The parity sentinel (``audit/sentinel.py``) samples drains,
-preemption waves and slice carves as in the reference, but an answer it
-refutes stops the loop with a ``ParityError`` where the reference trips
-the breaker to the oracle.
+their ROADMAP Queue A item: a device mesh (8), DRA (11; a slice-shaped
+ResourceClaim included) and out-of-tree tensor plugins (12). Fleet mode
+(7b) is ported: ``sched/fleet.FleetRunner`` sets ``fleet_mode``. The
+parity sentinel (``audit/sentinel.py``) samples drains, preemption waves
+and slice carves as in the reference, but an answer it refutes stops the
+loop with a ``ParityError`` where the reference trips the breaker to the
+oracle.
 """
 
 from __future__ import annotations
@@ -79,6 +86,7 @@ from kubernetes_tpu_torch.config.types import (SchedulerConfiguration,
                                                refuse_unported)
 from kubernetes_tpu_torch.config.types import not_ported as _not_ported
 from kubernetes_tpu_torch.device import resolve_device
+from kubernetes_tpu_torch.encode.snapshot import tenant_label_of
 from kubernetes_tpu_torch.metrics.registry import (
     ATTEMPT_DURATION,
     BATCH_DURATION,
@@ -92,12 +100,12 @@ from kubernetes_tpu_torch.metrics.registry import (
     SCHEDULE_ATTEMPTS,
 )
 from kubernetes_tpu_torch.models.gang import gang_schedule
-from kubernetes_tpu_torch.audit.sentinel import ParityError, ParitySentinel
-from kubernetes_tpu_torch.ops.kernels import KernelError
+from kubernetes_tpu_torch.audit.sentinel import ParitySentinel
 from kubernetes_tpu_torch.sched import preemption as preemption_mod
 from kubernetes_tpu_torch.sched.cache import SchedulerCache
 from kubernetes_tpu_torch.sched.explainer import (GENERIC_MESSAGE,
                                                   SchedulingExplainer)
+from kubernetes_tpu_torch.sched.faults import is_fatal
 from kubernetes_tpu_torch.sched.queue import SchedulingQueue
 from kubernetes_tpu_torch.sched.resilience import DeviceCircuitBreaker
 from kubernetes_tpu_torch.utils import sanity
@@ -216,7 +224,11 @@ class Scheduler:
         self._resolver_swap_lock = threading.Lock()
         self._resolver_q: Optional["queue_mod.Queue"] = None  # guarded by: self._resolver_swap_lock
         self._resolver_thread: Optional[threading.Thread] = None  # guarded by: self._resolver_swap_lock
-        # fleet mode (FleetRunner) is ROADMAP item 7: _tenant_chunks refuses
+        # Fleet mode (sched/fleet.py FleetRunner sets this): pops are split
+        # into TENANT-HOMOGENEOUS drain chunks so every tenant's pods sit at
+        # positions 0..n of their own chunk — the alignment property that
+        # makes fleet-batched placements bit-equal to independent
+        # per-tenant runs (same seed, same tie-break salts).
         self.fleet_mode = False
         # fragment pops parked while the device is busy (see run_once)
         self._staged: list = []
@@ -416,11 +428,15 @@ class Scheduler:
             try:
                 self.resolver_heartbeat()
                 pend["resolved"] = self._fetch(pend)
-            except Exception:
-                # surface on the scheduling thread: _resolve_one retries the
-                # fetch inline and handles the real error
-                LOOP_ERRORS.inc({"site": "resolver"})
-                _LOG.exception("drain resolver fetch failed")
+            except Exception as e:
+                if is_fatal(e):
+                    # the scheduling thread raises it in _resolve_one
+                    pend["fault"] = e
+                else:
+                    # surface on the scheduling thread: _resolve_one
+                    # retries the fetch inline and handles the real error
+                    LOOP_ERRORS.inc({"site": "resolver"})
+                    _LOG.exception("drain resolver fetch failed")
             finally:
                 pend["done"].set()
 
@@ -434,9 +450,8 @@ class Scheduler:
         single-batch program.
 
         Raises the sentinel's ``ParityError`` once it has refuted a
-        drain, and the explainer's fault (a ``KernelError``,
-        ``ParityError`` or ``NotImplementedError`` of its device judge),
-        before popping anything."""
+        drain, and the explainer's fault (a fatal failure of its device
+        judge, ``sched/faults.is_fatal``), before popping anything."""
         if self.sentinel is not None and self.sentinel.fault is not None:
             raise self.sentinel.fault
         if self.explainer is not None and self.explainer.fault is not None:
@@ -545,12 +560,52 @@ class Scheduler:
         return n_landed + n_bound
 
     def _tenant_chunks(self, items: list, P: int) -> list[list]:
-        """Split a popped batch into device chunks of up to ``P`` pods:
-        plain consecutive slices. Fleet mode's tenant-homogeneous chunks
-        are ROADMAP item 7b."""
-        if self.fleet_mode:
-            raise _not_ported("fleet mode", "7b")
-        return [items[i:i + P] for i in range(0, len(items), P)]
+        """Split a popped batch into device chunks of up to ``P`` pods.
+        Single-tenant (the default): plain consecutive slices.
+        Fleet mode: chunks are TENANT-HOMOGENEOUS — each tenant's pods,
+        in pop (priority) order, fill their own chunks from position 0,
+        so the per-position tie-break salt and the per-chunk balance
+        guard see exactly what a standalone run of that tenant would.
+        The chunk count is bounded by max_drain_batches (one drain width,
+        the resident context's batch count): surplus partial chunks merge
+        into mixed chunks, which stay CORRECT (the tenant gate isolates
+        them) but waive bit-parity — only full per-tenant blocks claim
+        it."""
+        if not self.fleet_mode:
+            return [items[i:i + P] for i in range(0, len(items), P)]
+        groups: dict[str, list] = {}
+        order: list[str] = []
+        for it in items:
+            t = tenant_label_of(it[0].metadata.labels) or ""
+            if t not in groups:
+                groups[t] = []
+                order.append(t)
+            groups[t].append(it)
+        if len(order) <= 1:
+            return [items[i:i + P] for i in range(0, len(items), P)]
+        chunks: list[list] = []
+        for t in order:
+            g = groups[t]
+            chunks += [g[i:i + P] for i in range(0, len(g), P)]
+        cap = max(max(1, self.cfg.max_drain_batches), -(-len(items) // P))
+        # Bound the batch axis by merging ADJACENT chunks — the flattened
+        # pod order (and with it the pop's cross-tenant priority order
+        # inside the sequential batch scan) is preserved exactly; a
+        # size-sorted merge would let a larger low-priority chunk fold its
+        # wins into contested capacity ahead of an earlier higher-priority
+        # one.
+        while len(chunks) > cap:
+            best_i = None
+            best = P + 1
+            for i in range(len(chunks) - 1):
+                comb = len(chunks[i]) + len(chunks[i + 1])
+                if comb <= P and comb < best:
+                    best, best_i = comb, i
+            if best_i is None:
+                break  # nothing merges within P: accept the extra width
+            chunks[best_i] = chunks[best_i] + chunks[best_i + 1]
+            del chunks[best_i + 1]
+        return chunks
 
     # ---- topology slice carving (topology/) ------------------------------
 
@@ -911,13 +966,14 @@ class Scheduler:
                     weights=profile.weights(),
                     enabled_filters=profile.enabled_filters,
                     ext_mask=ext_mask, ext_scores=ext_scores)
-            except KernelError:
-                # a kernel that does not build or launch is not a device
-                # fault to degrade around: the work stays on the card
-                raise
-            except Exception:
-                # device program failed: feed the breaker and schedule THIS
-                # batch with the pure-numpy oracle — degraded, never dropped
+            except Exception as e:
+                if is_fatal(e):
+                    # a kernel that does not build or launch, or a CUDA
+                    # error, is not a device fault to degrade around
+                    raise
+                # device program failed (out of memory): feed the breaker
+                # and schedule THIS batch with the pure-numpy oracle —
+                # degraded, never dropped
                 LOOP_ERRORS.inc({"site": "device_gang"})
                 _LOG.warning("gang program failed at level %r; scheduling "
                              "the batch with the host oracle",
@@ -1252,12 +1308,13 @@ class Scheduler:
                     enabled_filters=tuple(
                         sorted(profile.enabled_filters or ())),
                     max_rounds=self.cfg.max_gang_rounds)
-            except KernelError:
-                # never degraded around (see _schedule_group); the context
-                # may be half-updated in place, so it goes with the error
-                self._drain_ctx = None
-                raise
-            except Exception:
+            except Exception as e:
+                if is_fatal(e):
+                    # never degraded around (see _schedule_group); the
+                    # context may be half-updated in place, so it goes with
+                    # the error
+                    self._drain_ctx = None
+                    raise
                 # the drain failed: the resident context's device state is
                 # unaccountable (it is updated in place) — drop it, land
                 # whatever is still in flight, and schedule this pop on the
@@ -1360,10 +1417,14 @@ class Scheduler:
                             else f"silent for {RESOLVE_WAIT_S:.0f}s")
                         break
                 res = pend.pop("resolved", None)
+                if "fault" in pend:
+                    raise pend["fault"]
             if res is None:  # resolver off/stalled or its fetch failed
                 try:
                     res = self._fetch(pend)
-                except Exception:
+                except Exception as e:
+                    if is_fatal(e):
+                        raise
                     fetch_failed = True
                     LOOP_ERRORS.inc({"site": "drain_resolve"})
                     _LOG.exception("drain results unrecoverable; "
@@ -1570,9 +1631,9 @@ class Scheduler:
                 elif warm_patch is not None:
                     apply_ctx_patch(ct_warm, warm_patch)
                     drain_step(ct_warm, pb_staged, fill2, **kw)
-        except KernelError:
-            raise
-        except Exception:
+        except Exception as e:
+            if is_fatal(e):
+                raise
             _LOG.exception("patch-program warmup failed (non-fatal)")
         del ct_warm
         built = build_drain_context(ct, pbs, nom_bucket=DRAIN_NOM_BUCKET,
@@ -1810,8 +1871,8 @@ class Scheduler:
     def _device_preempt_failed(self, what: str) -> None:
         """A device preemption program failed with an error a retry may
         cure: count it, feed the breaker; the caller takes the exact host
-        scan. (``KernelError``, ``ParityError`` and ``NotImplementedError``
-        never reach here: they propagate.)"""
+        scan. (A failure ``is_fatal`` calls fatal never reaches here: it
+        propagates.)"""
         LOOP_ERRORS.inc({"site": "device_preempt"})
         _LOG.warning("%s failed at level %r; degrading to the exact host "
                      "scan", what, self._attempt_level, exc_info=True)
@@ -1827,9 +1888,9 @@ class Scheduler:
                 res = preemption_mod.find_candidate_tensor(
                     nodes, bound, view, pdbs=self.pdb_lister(),
                     device=self.device)
-            except (KernelError, ParityError, NotImplementedError):
-                raise
-            except Exception:
+            except Exception as e:
+                if is_fatal(e):
+                    raise
                 self._device_preempt_failed("the preemption dry-run")
                 device_ok = False
         if not device_ok:
@@ -2014,10 +2075,10 @@ class Scheduler:
         snapshot, no re-encode. Otherwise the wave takes one cache
         snapshot (which itself reuses the cached encoding).
 
-        A failure of the device wave other than ``KernelError``,
-        ``ParityError`` or ``NotImplementedError`` is counted
-        (``LOOP_ERRORS{site=device_preempt}``), feeds the breaker, and the
-        wave runs as the serial host scan; those three propagate."""
+        A failure of the device wave that ``is_fatal`` does not call fatal
+        is counted (``LOOP_ERRORS{site=device_preempt}``), feeds the
+        breaker, and the wave runs as the serial host scan; a fatal one
+        propagates."""
         resident = None
         if self._attempt_level != "oracle":
             # bound is captured BEFORE the staleness check: a foreign bind
@@ -2062,9 +2123,9 @@ class Scheduler:
                     req_lookup=(self._resident_req_lookup(resident)
                                 if resident is not None else None),
                     device=self.device)
-        except (KernelError, ParityError, NotImplementedError):
-            raise
-        except Exception:
+        except Exception as e:
+            if is_fatal(e):
+                raise
             self._device_preempt_failed("the preemption wave")
             with TRACER.span("preempt/serial", pods=len(pods)):
                 results = self._preempt_serial(nodes, bound, views)
@@ -2178,11 +2239,16 @@ class Scheduler:
 
     def close(self, timeout: float = 5.0):
         """Stop the binding pool: land in-flight drains, poison-pill every
-        worker and join them. Idempotent."""
+        worker and join them. Idempotent. A fatal failure while landing the
+        drains is raised once the rest is shut down."""
+        fault = None
         try:
             self._resolve_pending()  # land every in-flight drain's bindings
-        except Exception:
-            _LOG.exception("resolving in-flight drains at close")
+        except Exception as e:
+            if is_fatal(e):
+                fault = e  # raised once the rest of the pool is down
+            else:
+                _LOG.exception("resolving in-flight drains at close")
         with self._resolver_swap_lock:  # vs a racing watchdog restart
             if self._resolver_q is not None:
                 self._resolver_q.put(None)  # poison pill; thread is daemon
@@ -2206,6 +2272,8 @@ class Scheduler:
             self._bind_q.put(None)
         for t in workers:
             t.join(timeout=timeout)
+        if fault is not None:
+            raise fault
 
     def _bind_one(self, pod: Pod, node_name: str):
         from kubernetes_tpu_torch.sched import framework as fw
@@ -2294,20 +2362,20 @@ class Scheduler:
         """wait.UntilWithContext(sched.ScheduleOne, 0) analog — hardened:
         a run_once failure is logged + counted (never swallowed, never
         fatal), the resident drain context is tainted, and the loop backs
-        off briefly and continues. A BaseException escapes, and so do the
-        three failures a retry cannot cure: a feature this port has not got
-        yet (NotImplementedError), a kernel that does not build or launch
-        (KernelError) and a device answer the parity sentinel refuted
-        (ParityError). run_once has requeued the popped pods."""
+        off briefly and continues. A BaseException escapes, and so does a
+        failure a retry cannot cure (``sched/faults.is_fatal``: a feature
+        this port has not got yet, a kernel that does not build or launch,
+        a device answer the parity sentinel refuted, a CUDA error).
+        run_once has requeued the popped pods."""
         consecutive = 0
         while not stop.is_set() and not self.queue.closed:
             self.heartbeat()
             try:
                 self.run_once()
                 consecutive = 0
-            except (NotImplementedError, KernelError, ParityError):
-                raise
-            except Exception:
+            except Exception as e:
+                if is_fatal(e):
+                    raise
                 consecutive += 1
                 LOOP_ERRORS.inc({"site": "run_once"})
                 _LOG.exception("run_once failed (%d consecutive); "

@@ -561,10 +561,12 @@ def test_oracle_level_does_not_count_a_device_error():
     assert ex.explain_of(pod.key)["mode"] == "oracle"
 
 
-@pytest.mark.parametrize("exc", [KernelError("count_pn did not launch"),
-                                 ParityError("refuted"),
-                                 NotImplementedError("item 11")],
-                         ids=["kernel", "parity", "not_ported"])
+@pytest.mark.parametrize("exc", [
+    KernelError("count_pn did not launch"), ParityError("refuted"),
+    NotImplementedError("item 11"),
+    getattr(torch, "AcceleratorError", RuntimeError)(
+        "CUDA error: an illegal memory access was encountered")],
+    ids=["kernel", "parity", "not_ported", "cuda"])
 def test_fatal_tensor_judge_errors_propagate(exc):
     """No verdict, no oracle, no device_explain count: the scheduler raises
     the error at its next pop."""

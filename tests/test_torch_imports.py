@@ -78,7 +78,9 @@ _SCHED_MODULES = (
     # the resident planners
     "encode.overlay", "autoscaler.nodegroup", "autoscaler.expander",
     "autoscaler.simulator", "autoscaler.autoscaler", "descheduler.planner",
-    "descheduler.strategies", "descheduler.descheduler", "sched.bgplanner")
+    "descheduler.strategies", "descheduler.descheduler", "sched.bgplanner",
+    # the shared fatal-failure predicate and fleet mode
+    "sched.faults", "sched.fleet")
 
 _NO_YAML = r"""
 import importlib, sys

@@ -962,12 +962,20 @@ def test_refuted_wave_stops_the_runner(monkeypatch):
 
 # ---- no fallback hides the device ----------------------------------------------
 
-class _DeviceFault(RuntimeError):
-    pass
+class _DeviceFault(torch.cuda.OutOfMemoryError):
+    """The device failure a retry may cure: the allocator refused one
+    request (sched/faults.is_fatal keeps it on the retry path)."""
 
 
 def _fail(*_a, **_k):
-    raise _DeviceFault("CUDA error: an illegal memory access")
+    raise _DeviceFault("CUDA out of memory. Tried to allocate 2.00 GiB")
+
+
+def _cuda_error(msg):
+    """The error the CUDA runtime raises: ``torch.AcceleratorError`` where
+    this torch has it, else ``RuntimeError("CUDA error: ...")``."""
+    cls = getattr(torch, "AcceleratorError", RuntimeError)
+    return cls(f"CUDA error: {msg}")
 
 
 def test_device_paths_let_errors_through(monkeypatch):
@@ -994,9 +1002,9 @@ def _errors(site):
 
 @pytest.mark.parametrize("path", ["wave", "single"])
 def test_scheduler_counts_a_device_failure(monkeypatch, path):
-    """A device failure of the wave (or of a lone preemptor's dry-run) is
-    counted, feeds the breaker, and the serial scan gives the reference's
-    answer."""
+    """A device failure of the wave (or of a lone preemptor's dry-run) that
+    a retry may cure (CUDA out of memory) is counted, feeds the breaker,
+    and the serial scan gives the reference's answer."""
     nodes, bound, pending, warm = _preempt_workload(
         n_nodes=4, n_hi=2 if path == "wave" else 1, n_filler=0)
     cfg = dict(batch_size=8, max_drain_batches=1, breaker_threshold=3)
@@ -1019,14 +1027,16 @@ def test_scheduler_counts_a_device_failure(monkeypatch, path):
         port.close()
 
 
-@pytest.mark.parametrize("error", ["kernel", "parity", "not_ported"])
+@pytest.mark.parametrize("error", ["kernel", "parity", "not_ported", "cuda"])
 @pytest.mark.parametrize("path", ["wave", "single"])
 def test_scheduler_lets_fatal_errors_through(monkeypatch, error, path):
     from kubernetes_tpu_torch.audit.sentinel import ParityError
     from kubernetes_tpu_torch.ops.kernels import KernelError
     exc = {"kernel": KernelError("count_pn launch failed"),
            "parity": ParityError("a wrong count"),
-           "not_ported": NotImplementedError("item 99")}[error]
+           "not_ported": NotImplementedError("item 99"),
+           "cuda": _cuda_error("an illegal memory access was encountered"),
+           }[error]
 
     def raise_it(*_a, **_k):
         raise exc

@@ -365,6 +365,80 @@ def test_kernel_error_stops_the_runner(monkeypatch):
             runner.stop()
 
 
+def _cuda_error(msg):
+    """The error the CUDA runtime raises: ``torch.AcceleratorError`` where
+    this torch has it, else ``RuntimeError("CUDA error: ...")``."""
+    cls = getattr(torch, "AcceleratorError", RuntimeError)
+    return cls(f"CUDA error: {msg}")
+
+
+@pytest.mark.parametrize("max_drain_batches", [1, 2],
+                         ids=["group", "drain"])
+def test_cuda_error_stops_the_runner(monkeypatch, max_drain_batches):
+    """A CUDA error in the scheduler's device work ends the loop for good,
+    as a ``KernelError`` does: neither the per-batch path nor the oracle
+    takes the pods, the breaker does not trip, nothing binds, and
+    ``stop()`` raises the error. The reference degrades to its oracle on
+    a device error; the port does not (sched/faults.is_fatal)."""
+    from kubernetes_tpu_torch.ops import topology as port_topology
+    from kubernetes_tpu_torch.metrics import registry as port_registry
+    launches = []
+
+    def broken_count_pn(*args, **kwargs):
+        launches.append(1)
+        raise _cuda_error("an illegal memory access was encountered")
+
+    monkeypatch.setattr(port_topology, "_count_pn", broken_count_pn)
+    nodes, bound, pending, ns = _workload("relational")
+    client = port_clientset.DirectClient(port_store.ObjectStore())
+    _seed(client, nodes, bound, pending, ns)
+    runner = port_runner.SchedulerRunner(
+        client, _cfg(port_config, batch_size=16,
+                     max_drain_batches=max_drain_batches,
+                     watchdog_interval_s=0.05, breaker_threshold=1),
+        feature_gate=_port_gate(), device="cpu")
+    oracle = []
+    monkeypatch.setattr(runner.scheduler, "_schedule_oracle",
+                        lambda *a: oracle.append(a) or 0)
+    errors = port_registry.LOOP_ERRORS
+    before = {site: errors.get({"site": site})
+              for site in ("device_gang", "device_drain", "run_once")}
+    bound_before = _bindings(client)
+    runner.start()
+    try:
+        _wait(lambda: runner.loop_error is not None, what="the loop error")
+        time.sleep(0.5)  # ten watchdog sweeps
+        assert "CUDA error" in str(runner.loop_error)
+        assert launches and not oracle
+        assert not runner._loop_thread.is_alive()
+        assert runner._watchdog.restarts == 0
+        assert runner.scheduler.breaker.mode == "single"
+        assert runner.scheduler.breaker.trips == 0
+        assert {site: errors.get({"site": site}) for site in before} \
+            == before
+        assert _bindings(client) == bound_before
+    finally:
+        with pytest.raises(type(runner.loop_error),
+                           match="illegal memory access"):
+            runner.stop()
+
+
+@pytest.mark.parametrize("exc, fatal", [
+    (_cuda_error("an illegal memory access was encountered"), True),
+    (RuntimeError("CUDA error: device-side assert triggered"), True),
+    (torch.cuda.OutOfMemoryError("CUDA out of memory. Tried to allocate "
+                                 "2.00 GiB"), False),
+    (RuntimeError("device lost"), False),
+    (ValueError("CUDA error: not from the runtime"), False),
+], ids=["accelerator", "runtime_cuda", "out_of_memory", "other_runtime",
+        "value_error"])
+def test_is_fatal_classes_cuda_errors(exc, fatal):
+    """The one predicate every device site shares: a CUDA error is fatal,
+    a CUDA out-of-memory error keeps the retry path."""
+    from kubernetes_tpu_torch.sched.faults import is_fatal
+    assert is_fatal(exc) is fatal
+
+
 @pytest.mark.parametrize("wire", ["json", "msgpack"])
 def test_runner_over_http_matches_direct(wire):
     """The port's runner behind an ``HTTPClient`` against the port's

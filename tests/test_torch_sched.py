@@ -532,9 +532,10 @@ def test_refuses_fleet_mode_and_tensor_plugins():
     from kubernetes_tpu_torch.sched.framework import Registry, TensorPlugin
     sched = _port_sched()
     try:
+        # fleet mode (item 7b) is ported: its chunks are no longer refused
+        # (tests/test_torch_fleet.py holds them against the reference)
         sched.fleet_mode = True
-        with pytest.raises(NotImplementedError, match="item 7b"):
-            sched._tenant_chunks([], 4)
+        assert sched._tenant_chunks([], 4) == []
     finally:
         sched.close()
     reg = Registry()
