@@ -231,8 +231,9 @@ Phases, one JSON line each:
            a node: the port's APIServer in a spawned process, the
            SchedulerRunner with its loop stopped and a fail-fast auditor,
            warm_drain, a ClusterAutoscaler and a dry-run Descheduler driven
-           by one BackgroundPlanner; adaptive warm-up, a window of 6
-           cycles, the resident-vs-cold parity legs on one observation, one
+           by one BackgroundPlanner; adaptive warm-up, a window of 3
+           cycles (the reference's 6, cut so that the script keeps to its
+           time), the resident-vs-cold parity legs on one observation, one
            more cycle under torch.profiler. cycle_ms, the planner/* spans
            (observe, encode, dispatch, each planner). Gates: the warm-up
            goes quiet; the window counts 0 steadyCompiles, 0 declines and
@@ -267,6 +268,44 @@ Phases, one JSON line each:
            on every tenant. Each tenant's bind p99 is reported against the
            reference's 10 s SLO (fleet_slo), not gated on
 
+  The gang rounds run as captured CUDA graphs on the card
+  (kubernetes_tpu_torch/models/graphs.py: K rounds a replay, one host
+  read of the progress flag a chunk). The drain, resident, scheduler,
+  connected and fleet.drain paths run captured (the main path, whose
+  launches fill the kernel table: count_pn's launches inside a graph are
+  counted at every replay; each path's line carries its graph counters:
+  captures, replays and host reads a batch, keys, pool bytes, K) and
+  eager on the card (``capture=False``), in the same call:
+  drain.eager  right after kernels.drain: the drain's prepared plan
+           again, eager, bit-equal to the captured drain, pods/s
+  and, after the fleet phase:
+  resident.eager  the first RESIDENT_EAGER_CYCLES resident cycles eager:
+           their placements and the folded context bit-equal to the
+           captured run's at that cycle, drain ms
+  scheduler.eager  the scheduler phase eager
+  connected.eager  the connected phase eager, cut to 5000 pods
+  (fleet.drain runs its eager and replay-only drains itself, bit-equal)
+  parity.graph  at the drain, resident, scheduler, connected and
+           fleet.drain shapes: one drain_step (gang_drain for the drain and
+           the fleet drain, of their first batch) captured and eager on
+           the card, under torch.profiler (the device's busy share of the
+           call, the host's launch calls and the kernels a round), bit-equal
+           (assignments, rounds, requested, new fill, the folded context);
+           and captured, eager and on the CPU with the rounds cut at
+           GRAPH_CPU_ROUNDS (the CPU takes seconds a round at these
+           widths), bit-equal
+  warm     three boots of a SchedulerRunner (a 64-node MixedHeterogeneous
+           cluster over a DirectClient), each in a child process
+           (``--warm-boot DIR``), on one empty temporary aotCacheDir: cold
+           (count_pn built, the ladder captures), warm (nothing built, the
+           same fingerprint, the canary drain sample with 0 divergences),
+           and after one byte of the cached library is flipped (swept and
+           counted at boot, built again, never loaded); the ladder's and
+           the first drain's seconds of each, the threads left after the
+           runner stopped; each child exits as a process does, its exit
+           code held at 0; then a changed build flag invalidates the
+           cache wholesale
+
 Every phase fails while LOOP_ERRORS{site=device_preempt} is above 0 (a
 device preemption failure the scheduler degraded to the host scan) or
 LOOP_ERRORS{site=device_explain} is (a failure of the explainer's device
@@ -286,6 +325,11 @@ power limit, and last {"ok": true, "device": {...}}. Any failed phase
 exits non-zero before the last line. Without a CUDA card the script exits
 non-zero and prints no result.
 
+``python3 chip_smoke.py --chunks`` instead times the captured rounds' chunk
+K (models/gang.GRAPH_CHUNK: rounds a replay between host reads) at the
+drain's and the resident cycle's shapes, eager beside it, one line each
+(chunk_sweep_phase).
+
 ``python3 chip_smoke.py --sweep`` instead times count_pn's launch geometries
 (selectors per block, nodes per block, threads) at the kernels phase's
 shapes, each checked bit-equal to the plain version, and prints one line
@@ -294,10 +338,12 @@ each.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
 import sys
+import threading
 import time
 
 SEED = 0
@@ -316,10 +362,16 @@ class PhaseFailed(Exception):
     pass
 
 
+_T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
-    """Print one phase's line; a phase in which the scheduler degraded a
-    device preemption failure to the host scan, or the explainer a failure
-    of its device judge to the oracle, fails instead."""
+    """Print one phase's line, with the seconds since the script started
+    (``at_s``); a phase in which the scheduler degraded a device
+    preemption failure to the host scan, or the explainer a failure of its
+    device judge to the oracle, fails instead."""
+    if "phase" in obj:
+        obj = {**obj, "at_s": time.perf_counter() - _T0}
     if "phase" in obj and "kubernetes_tpu_torch" in sys.modules:
         n = device_preempt_errors()
         check(n == 0, f"phase {obj['phase']}: {n} device preemption "
@@ -730,19 +782,43 @@ def trace_summary(events, top=12):
                              for k, hits in hand.items()}}
 
 
+def api_launches(events) -> int:
+    """The launches the host made in a trace: the runtime's and the
+    driver's kernel and graph launch calls (a replayed graph is one)."""
+    return sum(1 for e in events if e.get("ph") == "X"
+               and e.get("cat") in ("cuda_runtime", "cuda_driver")
+               and "Launch" in e.get("name", ""))
+
+
+@contextlib.contextmanager
+def profiled():
+    """torch.profiler (CPU and CUDA) over a ``with`` block, started and
+    stopped while no thread replays a graph of the gang rounds (under
+    ``models/graphs.LOCK``): on the card its stop has hung against the
+    scheduler loop's concurrent ``CUDAGraph.replay`` (PERF.md §7)."""
+    from torch.profiler import ProfilerActivity, profile
+    from kubernetes_tpu_torch.models import graphs
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    with graphs.LOCK:
+        prof.start()
+    try:
+        yield prof
+    finally:
+        with graphs.LOCK:
+            prof.stop()
+
+
 def profile_call(fn, name, top=6):
     """One ``fn()`` under torch.profiler (CPU and CUDA): its wall ms, its
     kernel launches, the device's busy share and ``trace_summary`` (the
     ``top`` operations; trace under build/profile/)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "build", "profile")
     os.makedirs(out_dir, exist_ok=True)
     trace_path = os.path.join(out_dir, f"{name}.json")
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profiled() as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -755,6 +831,7 @@ def profile_call(fn, name, top=6):
                     if e.get("ph") == "X" and e.get("cat") == "kernel")
     check(n_kernels > 0, f"{name}: the trace holds no kernel")
     return {"wall_ms": wall_ms, "launches": n_kernels,
+            "api_launches": api_launches(events),
             "device_busy_share": summary["device_busy_ms"] / wall_ms,
             **summary, "trace": os.path.relpath(trace_path)}
 
@@ -765,14 +842,12 @@ def profile_phase(eng, batch, gen):
     the request and of its schedule part, and ``trace_summary`` of the
     trace, which is kept under build/profile/."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "build", "profile")
     os.makedirs(out_dir, exist_ok=True)
     trace_path = os.path.join(out_dir, "schedule_request.json")
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profiled() as prof:
         t0 = time.perf_counter()
         resp = eng.dispatch("Schedule", {"pods": batch, "generation": gen})
         torch.cuda.synchronize()
@@ -811,8 +886,9 @@ def drain_phase(nodes, pods, batch=DRAIN_BATCH, device=None):
     """The non-resident drain as ``benchmarks/scheduler_perf.py``'s
     ``run_workload`` runs it: encode (pending slots off), batches of
     ``batch``, ``prepare_drain`` (counted as encode time), one warm-up
-    ``gang_drain``, then the measured one, whose launches are counted.
-    The placements are checked like the path's."""
+    ``gang_drain`` (it captures the graphs of the rounds), then the
+    measured one, whose launches and graph replays are counted. The
+    placements are checked like the path's."""
     import numpy as np
     from kubernetes_tpu_torch.encode.snapshot import SnapshotEncoder
     from kubernetes_tpu_torch.models.gang import gang_drain, prepare_drain
@@ -829,11 +905,13 @@ def drain_phase(nodes, pods, batch=DRAIN_BATCH, device=None):
     gang_drain(topo_keys=meta.topo_keys, prepared=plan)
     warmup_s = time.perf_counter() - t0
     kernels.reset_launches()
+    g0 = graph_counters()
     t0 = time.perf_counter()
     assignments, rounds, requested = gang_drain(topo_keys=meta.topo_keys,
                                                 prepared=plan)
     measured_s = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
+    graphs = graph_report(g0, len(chunks))
     check(np.isfinite(requested).all() and requested.shape == (
         ct.allocatable.shape[0], len(meta.resources)),
         "drain: requested is not [N,R]")
@@ -850,7 +928,34 @@ def drain_phase(nodes, pods, batch=DRAIN_BATCH, device=None):
             "rounds": [int(r) for r in rounds], "encode_s": encode_s,
             "warmup_s": warmup_s, "measured_s": measured_s,
             "pods_per_s": len(placed) / measured_s, "launches": launches,
-            "plan": plan, "assignments": assignments, "meta": meta}
+            "graphs": graphs, "captured": True,
+            "plan": plan, "assignments": assignments, "meta": meta,
+            "requested": requested, "host": (ct, pbs)}
+
+
+def drain_eager_phase(drain):
+    """The captured drain's prepared plan once more with the rounds eager
+    on the card (``capture=False``): one warm-up gang_drain, then the
+    measured one, bit-equal to the captured drain's results. -> the
+    eager leg's numbers."""
+    from kubernetes_tpu_torch.models.gang import gang_drain
+    from kubernetes_tpu_torch.ops import kernels
+    kw = dict(topo_keys=drain["meta"].topo_keys, prepared=drain["plan"],
+              capture=False)
+    t0 = time.perf_counter()
+    gang_drain(**kw)
+    warmup_s = time.perf_counter() - t0
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    assignments, rounds, requested = gang_drain(**kw)
+    measured_s = time.perf_counter() - t0
+    check(_same([drain[k] for k in ("assignments", "rounds", "requested")],
+                [assignments, [int(r) for r in rounds], requested]),
+          "drain: the eager drain differs from the captured one")
+    return {"bit_equal": True, "warmup_s": warmup_s,
+            "measured_s": measured_s,
+            "pods_per_s": drain["scheduled"] / measured_s,
+            "launches": dict(kernels.LAUNCHES)}
 
 
 def _term_cases(prefix, ct, pb):
@@ -900,6 +1005,7 @@ def resident_count_cases(drv):
 RESIDENT_B = 8       # SchedulerConfiguration.max_drain_batches default
 RESIDENT_P = BATCH   # SchedulerConfiguration.batch_size default
 RESIDENT_CYCLES = 8
+RESIDENT_EAGER_CYCLES = 4   # resident.eager: the first cycles, eager
 
 
 def resident_workload(n_nodes=N_NODES, n_bound=N_BOUND,
@@ -964,13 +1070,17 @@ def recount(drv):
 
 
 def resident_phase(node_dicts, bound, pending, device=None, B=RESIDENT_B,
-                   P=RESIDENT_P, cycles=RESIDENT_CYCLES):
+                   P=RESIDENT_P, cycles=RESIDENT_CYCLES, capture=True,
+                   tree_at=None):
     """The connected steady state through testing/resident.py: a
-    SchedulerCache of the path's cluster, a context armed with B x P, then
-    ``cycles`` cycles of Recreate churn + one fused drain_step of B x P
-    pending pods each, every one checked against a host recount. 0
-    rebuilds after the arming build, and a compiled patch in every
-    cycle. -> (summary, harness, churn state)."""
+    SchedulerCache of the path's cluster, a context armed with B x P (its
+    slots sized for RESIDENT_CYCLES, whatever ``cycles``), then ``cycles``
+    cycles of Recreate churn + one fused drain_step of B x P pending pods
+    each, every one checked against a host recount. 0 rebuilds after the
+    arming build, and a compiled patch in every cycle. ``capture=False``:
+    the rounds run eagerly on the card. ``tree_at``: the summary's
+    ``tree`` holds the context on the host after that many cycles. ->
+    (summary, harness, churn state)."""
     from kubernetes_tpu_torch.api.types import Node, Pod
     from kubernetes_tpu_torch.ops import kernels
     from kubernetes_tpu_torch.sched.cache import SchedulerCache
@@ -981,14 +1091,16 @@ def resident_phase(node_dicts, bound, pending, device=None, B=RESIDENT_B,
     for d in bound:
         cache.add_pod(Pod.from_dict(d))
     drv = ResidentDrain(cache, batch_size=P, max_drain_batches=B,
-                        slot_headroom=(cycles + 1) * B * P + 64,
-                        device=device)
+                        slot_headroom=(max(cycles, RESIDENT_CYCLES) + 1)
+                        * B * P + 64, device=device)
+    drv.capture = capture
     t0 = time.perf_counter()
     drv.arm([Pod.from_dict(d) for d in pending[0]])
     arm_s = time.perf_counter() - t0
     churn = ([], [])
-    rows = []
+    rows, tree = [], None
     kernels.reset_launches()
+    g0 = graph_counters()
     for i in range(cycles):
         _churn(cache, i, *churn)
         out = drv.cycle([Pod.from_dict(d) for d in pending[i + 1]])
@@ -998,13 +1110,17 @@ def resident_phase(node_dicts, bound, pending, device=None, B=RESIDENT_B,
                "rounds": out.rounds, "patch": out.patched,
                "rebuilds": drv.stats["rebuilds"], "fill_host": cs.fill_host,
                "top": cs.top, "recounted_pods": recount(drv)}
-        emit({"phase": "resident.cycle", **row})
+        emit({"phase": "resident.cycle", "captured": capture, **row})
+        row["placements"] = out.placed
         rows.append(row)
         check(out.patched, f"resident: cycle {i} compiled no patch")
         check(drv.stats["rebuilds"] == 0,
               f"resident: the context rebuilt at cycle {i}: "
               f"{drv.stats['reasons']}")
+        if i + 1 == tree_at:
+            tree = _host_tree(drv.ctx["ct"])
     launches = dict(kernels.LAUNCHES)
+    graphs = graph_report(g0, cycles * B)
     for name, n in launches.items():
         check(n > 0, f"kernel {name} was never launched in the resident "
                      f"cycles")
@@ -1015,7 +1131,10 @@ def resident_phase(node_dicts, bound, pending, device=None, B=RESIDENT_B,
              "cycles": cycles, "arm_s": arm_s, "placed": placed,
              "pods": pods, "rebuilds": drv.stats["rebuilds"],
              "folds": drv.stats["folds"], "launches": launches,
-             "e0": drv.ctx["e0"]}, drv, churn)
+             "e0": drv.ctx["e0"], "captured": capture, "graphs": graphs,
+             "drain_ms": [r["drain_ms"] for r in rows],
+             "placements": [r["placements"] for r in rows], "tree": tree},
+            drv, churn)
 
 
 # cycles of drain_parity_phase that must fold behind a fused churn patch
@@ -1086,7 +1205,6 @@ def profile_drain_phase(drv, churn, pods, i):
     under torch.profiler: the device's busy share of the drain and of the
     cycle, and ``trace_summary`` of the trace (kept under build/profile/)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from kubernetes_tpu_torch.api.types import Pod
     out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "build", "profile")
@@ -1095,8 +1213,7 @@ def profile_drain_phase(drv, churn, pods, i):
     pods = [Pod.from_dict(d) for d in pods]
     _churn(drv.cache, i, *churn)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profiled() as prof:
         out = drv.cycle(pods)
         torch.cuda.synchronize()
     check(out.patched and not out.rebuilt,
@@ -1275,7 +1392,8 @@ def _cycles(cycle_log):
             for n, _t0, marks in cycle_log]
 
 
-def scheduler_phase(node_dicts, pod_dicts, device=None, smi=""):
+def scheduler_phase(node_dicts, pod_dicts, device=None, smi="",
+                    capture=True):
     """The north star through the port's Scheduler: warm_drain on the first
     pop's pods, then every pod into the queue and run_once until the queue
     is empty and the pipeline has resolved, with the Recreate churn applied
@@ -1284,7 +1402,9 @@ def scheduler_phase(node_dicts, pod_dicts, device=None, smi=""):
     checked; at least 90% placed; the breaker still "single", no loop
     error, no pod through the oracle, no separate patch dispatch (fused
     fold). The loop's tracer spans over the window are summed by name
-    (count, total and longest ms). -> (summary, scheduler, churn
+    (count, total and longest ms). ``capture=False``: the rounds run
+    eagerly on the card. The warm ladder's captures and seconds and the
+    window's graph counters are reported. -> (summary, scheduler, churn
     state)."""
     from kubernetes_tpu_torch.api.types import Node, Pod
     from kubernetes_tpu_torch.metrics.registry import (ATTEMPT_DURATION,
@@ -1303,6 +1423,7 @@ def scheduler_phase(node_dicts, pod_dicts, device=None, smi=""):
 
     sched._schedule_oracle = counted_oracle
     sched.cycle_log = []
+    sched.capture = capture
     pods = [Pod.from_dict(d) for d in pod_dicts]
     pop = cfg.batch_size * cfg.max_drain_batches
     t0 = time.perf_counter()
@@ -1313,6 +1434,7 @@ def scheduler_phase(node_dicts, pod_dicts, device=None, smi=""):
     ATTEMPT_DURATION.reset()
     TRACER.reset()
     kernels.reset_launches()
+    g0 = graph_counters()
     churn = ([], [])
     pops = 0
     t_start = time.perf_counter()
@@ -1330,6 +1452,7 @@ def scheduler_phase(node_dicts, pod_dicts, device=None, smi=""):
     sched.wait_for_bindings(timeout=120.0)
     t_end = max((t for _k, _n, t in log), default=t_start)
     launches = dict(kernels.LAUNCHES)
+    graphs = graph_report(g0, pops * cfg.max_drain_batches)
     errors = sum(LOOP_ERRORS.items().values()) - errors0
     window_s = t_end - t_start
     spans = {}
@@ -1379,7 +1502,8 @@ def scheduler_phase(node_dicts, pod_dicts, device=None, smi=""):
              "encode_cache": sched.cache.encode_cache_stats(),
              "breaker": sched.breaker.mode, "loop_errors": errors,
              "oracle_pods": sum(oracle_pods), "launches": launches,
-             "card": smi}, sched, churn)
+             "captured": capture, "warm_ladder": sched.warm_stats,
+             "graphs": graphs, "card": smi}, sched, churn)
 
 
 def scheduler_count_cases(sched, pod_dicts, prefix="scheduler"):
@@ -1408,7 +1532,6 @@ def profile_scheduler_phase(sched, churn, pod_dicts, i):
     cycle, assume and bind included, and ``trace_summary`` of the trace
     (kept under build/profile/)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from kubernetes_tpu_torch.api.types import Pod
     out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "build", "profile")
@@ -1418,8 +1541,7 @@ def profile_scheduler_phase(sched, churn, pod_dicts, i):
         sched.queue.add(Pod.from_dict(d))
     _churn(sched.cache, i, *churn)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profiled() as prof:
         t0 = time.perf_counter()
         bound = sched.run_once(wait=0.05)
         bound += sched._resolve_pending()
@@ -1445,6 +1567,9 @@ CONNECTED_CHUNK = 2500   # concurrent bulk creates, as run_connected makes
 CONNECTED_TIMEOUT_S = 300.0
 CONNECTED_PARITY_EVERY = 4   # the reference's chaos runs sample this densely
 CONNECTED_AUDIT_S = 2.0
+CONNECTED_EAGER = 5000   # connected.eager's pods: the eager run, cut to
+                         # five drains of 2 x 512 (the sentinel samples
+                         # every 4th)
 
 
 def connected_workload(pods=CONNECTED_PODS, nodes=N_NODES, seed=SEED):
@@ -1531,7 +1656,8 @@ def _span_totals(t0=None):
     return spans
 
 
-def connected_phase(node_dicts, pod_dicts, device=None, smi=""):
+def connected_phase(node_dicts, pod_dicts, device=None, smi="",
+                    capture=True):
     """Connected/10000Pods5000Nodes as ``bench.py`` runs
     ``benchmarks/connected.py`` run_connected (``explain=True``, its
     default), through the port: an APIServer in a spawned process, the
@@ -1549,8 +1675,8 @@ def connected_phase(node_dicts, pod_dicts, device=None, smi=""):
     ``emit``) 0 ``device_explain`` errors. The pods through the oracle and
     the seconds of the other threads (pod handler, audit sweeps, sentinel
     checks, the explainer's ``explain/*``) are read from the tracer's
-    spans; the explainer's ``stats()`` are reported. -> (summary, stopped
-    runner)."""
+    spans; the explainer's ``stats()`` are reported. ``capture=False``:
+    the rounds run eagerly on the card. -> (summary, stopped runner)."""
     import multiprocessing as mp
     from concurrent.futures import ThreadPoolExecutor
     from kubernetes_tpu_torch.audit.auditor import (InvariantAuditor,
@@ -1578,6 +1704,7 @@ def connected_phase(node_dicts, pod_dicts, device=None, smi=""):
         runner = SchedulerRunner(HTTPClient(url, wire="json"), cfg,
                                  feature_gate=no_preemption_gate(),
                                  device=device)
+        runner.scheduler.capture = capture
         # fail-fast audit over a CLEAN client, as run_connected's
         # _bench_auditor: the scheduler's transport is not the auditor's
         runner.auditor = InvariantAuditor(
@@ -1623,6 +1750,7 @@ def connected_phase(node_dicts, pod_dicts, device=None, smi=""):
         TRACER.reset()
         enc0 = runner.cache.encode_cache_stats()
         kernels.reset_launches()
+        g0 = graph_counters()
         jobs = [pod_dicts[i:i + CONNECTED_CHUNK]
                 for i in range(0, len(pod_dicts), CONNECTED_CHUNK)]
         t_start, t_start_wall = time.perf_counter(), time.time()
@@ -1652,6 +1780,8 @@ def connected_phase(node_dicts, pod_dicts, device=None, smi=""):
                          f"pods bound in {CONNECTED_TIMEOUT_S} s")
         q = {"result": "scheduled"}
         launches = dict(kernels.LAUNCHES)
+        pops = sum(1 for sp in TRACER.spans("scheduler/gang_dispatch"))
+        graphs = graph_report(g0, pops * CONNECTED_DRAIN_BATCHES)
         spans = _span_totals(t_start_wall)
         oracle_pods = sum(sp.attributes["pods"]
                           for sp in TRACER.spans("scheduler/oracle"))
@@ -1689,7 +1819,9 @@ def connected_phase(node_dicts, pod_dicts, device=None, smi=""):
                 runner.scheduler.breaker.trip_reasons),
             "loop_errors": errors, "oracle_pods": oracle_pods,
             "relists": runner._total_relists(),
-            "launches": launches, "card": smi}
+            "launches": launches, "captured": capture,
+            "warm_ladder": runner.scheduler.warm_stats, "graphs": graphs,
+            "card": smi}
         # the settle: the sentinel's verdicts land (bounded), the auditor
         # stops and sweeps twice more (confirm-2 invariants need two looks)
         sentinel = runner.scheduler.sentinel
@@ -3725,7 +3857,7 @@ DEFRAG_MAX_DRAIN = 110
 DEFRAG_LIMIT_S = 60.0       # its DefragPlanSeconds threshold
 LOOP_NODES = N_NODES        # PlannerLoop at the north star's width
 LOOP_PODS_PER_NODE = 3      # benchmarks/plannerloop.py's defaults below
-LOOP_WINDOW = 6
+LOOP_WINDOW = 3              # benchmarks/plannerloop.py's 6, cut to fit
 LOOP_MAX_WARMUP = 14
 LOOP_QUIET = 2
 LOOP_CREATE_CHUNK = 5000
@@ -4405,10 +4537,14 @@ def fleet_workload(rng, n_nodes, n_pods):
     return nodes, pods
 
 
-def _fleet_drain(node_dicts, chunks, batch, device):
+def _fleet_drain(node_dicts, chunks, batch, device, capture=True,
+                 repeat=1):
     """gang_drain of ``chunks`` (pod dict lists) over the nodes, every
-    chunk's bucket pinned to ``batch``. -> ({pod key: node or None},
-    rounds, seconds, (plan, assignments))."""
+    chunk's bucket pinned to ``batch``, ``repeat`` times (``capture=False``:
+    the rounds run eagerly on the card). -> ({pod key: node or None},
+    rounds, seconds of prepare_drain and the first call, (plan,
+    assignments, (host encoding, batches, meta), seconds of the last call
+    alone))."""
     from kubernetes_tpu_torch.api.types import Node, Pod
     from kubernetes_tpu_torch.encode.snapshot import SnapshotEncoder
     from kubernetes_tpu_torch.models.gang import gang_drain, prepare_drain
@@ -4420,15 +4556,20 @@ def _fleet_drain(node_dicts, chunks, batch, device):
     pbs = [enc.encode_pods(b, meta, min_p=batch) for b in batches]
     t0 = time.perf_counter()
     plan = prepare_drain(ct, pbs, device=device)
-    a, rounds, _req = gang_drain(seed=SEED, topo_keys=meta.topo_keys,
-                                 prepared=plan)
-    seconds = time.perf_counter() - t0
+    for i in range(repeat):
+        t1 = time.perf_counter()
+        a, rounds, _req = gang_drain(seed=SEED, topo_keys=meta.topo_keys,
+                                     prepared=plan, capture=capture)
+        last_s = time.perf_counter() - t1
+        if i == 0:
+            seconds = time.perf_counter() - t0
     out = {}
     for b, chunk in enumerate(batches):
         for i, p in enumerate(chunk):
             ni = int(a[b][i])
             out[p.key] = meta.node_names[ni] if ni >= 0 else None
-    return out, [int(r) for r in rounds], seconds, (plan, a)
+    return (out, [int(r) for r in rounds], seconds,
+            (plan, a, (ct, pbs, meta), last_s))
 
 
 def _interleave(per_tenant_nodes):
@@ -4626,7 +4767,10 @@ def fleet_drain_phase(device=None, tenants=FLEET_TENANTS,
     the card, its count_pn launches counted. The standalone legs: each
     tenant's raw cluster, its pods popped from a plain SchedulingQueue,
     one gang_drain each. Gate: every tenant's fleet placements bit-equal
-    to its standalone drain's. -> (summary, count_pn cases)."""
+    to its standalone drain's. Then the fleet drain again, eager on the
+    card (rounds not captured), and twice captured (the second replays
+    only): placements and rounds bit-equal to the first. -> (summary,
+    count_pn cases, (the fleet's plan, the host encoding))."""
     import random
     from kubernetes_tpu_torch.api.types import Pod
     from kubernetes_tpu_torch.ops import kernels
@@ -4662,9 +4806,19 @@ def fleet_drain_phase(device=None, tenants=FLEET_TENANTS,
         "fleet.drain: the pop did not split into one block per tenant")
     node_dicts = _interleave([n for n, _p in per_tenant])
     kernels.reset_launches()
-    fleet, fleet_rounds, fleet_s, (plan, a) = _fleet_drain(
+    g0 = graph_counters()
+    fleet, fleet_rounds, fleet_s, (plan, a, host, _l) = _fleet_drain(
         node_dicts, chunks, batch, device)
     launches = dict(kernels.LAUNCHES)
+    graphs = graph_report(g0, len(chunks))
+    legs = {}
+    for leg, kw in (("eager", {"capture": False}), ("replayed",
+                                                     {"repeat": 2})):
+        got, got_rounds, _s, extra = _fleet_drain(node_dicts, chunks,
+                                                  batch, device, **kw)
+        legs[leg] = extra[3]
+        check(got == fleet and got_rounds == fleet_rounds,
+              f"fleet.drain: the {leg} drain differs from the captured one")
     singles, single_s = [], 0.0
     for nodes, pod_dicts in per_tenant:
         q = SchedulingQueue()
@@ -4694,8 +4848,14 @@ def fleet_drain_phase(device=None, tenants=FLEET_TENANTS,
                "standalone_drains_s": single_s,
                "fleet_pods_per_s": sum(placed.values()) / fleet_s,
                "fleet_rounds": fleet_rounds, "launches": launches,
-               "bit_equal": True}
-    return summary, fleet_count_cases(plan, a)
+               "bit_equal": True, "graphs": graphs,
+               # pods/s without the first call's captures, and eager
+               "replayed_drain_s": legs["replayed"],
+               "replayed_pods_per_s": sum(placed.values())
+               / legs["replayed"],
+               "eager_drain_s": legs["eager"],
+               "eager_pods_per_s": sum(placed.values()) / legs["eager"]}
+    return summary, fleet_count_cases(plan, a), (plan, host)
 
 
 def fleet_count_cases(plan, assignments):
@@ -4855,7 +5015,6 @@ def fleet_phase(device=None, smi="", tenants=FLEET_TENANTS,
                                                   rekey_for_tenant)
     from kubernetes_tpu_torch.testing.wrappers import make_pod
     from kubernetes_tpu_torch.utils.tracing import TRACER
-    from torch.profiler import ProfilerActivity, profile
     import torch
     ctx = mp.get_context("spawn")
     servers, watchers, runner = [], [], None
@@ -5000,8 +5159,7 @@ def fleet_phase(device=None, smi="", tenants=FLEET_TENANTS,
         trace_path = os.path.join(os.path.dirname(os.path.abspath(
             __file__)), "build", "profile", "fleet_churn.json")
         os.makedirs(os.path.dirname(trace_path), exist_ok=True)
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profiled() as prof:
             tp = time.perf_counter()
             time.sleep(FLEET_PROFILE_S)
             torch.cuda.synchronize()
@@ -5103,13 +5261,449 @@ def fleet_phase(device=None, smi="", tenants=FLEET_TENANTS,
     return summary
 
 
-def main() -> int:
+# ------------------------------------------------------------------ graphs
+
+# parity.graph's round cut: the CPU leg converges a full-width batch in
+# seconds a round, so every leg of the three-way comparison stops at this
+# many rounds (the same cut on each: the reference's max_rounds cut)
+GRAPH_CPU_ROUNDS = 2
+
+
+def graph_counters() -> dict:
+    from kubernetes_tpu_torch.models import graphs
+    return {"captures": graphs.CAPTURES, "replays": graphs.REPLAYS,
+            "host_reads": graphs.HOST_READS}
+
+
+def graph_report(before: dict, batches: int) -> dict:
+    """The round graphs' counters since ``before`` (captures, replays,
+    host reads of the progress flag; replays and reads per batch over
+    ``batches``), the keys held, the graph pool's bytes and K."""
+    from kubernetes_tpu_torch.models import gang, graphs
+    now = graph_counters()
+    out = {k: now[k] - before[k] for k in now}
+    out.update(replays_per_batch=out["replays"] / max(batches, 1),
+               host_reads_per_batch=out["host_reads"] / max(batches, 1),
+               keys=graphs.counters()["keys"],
+               pool_bytes=graphs.pool_bytes(), K=gang.GRAPH_CHUNK)
+    return out
+
+
+def _host_tree(tree) -> list:
+    from kubernetes_tpu_torch.models.gang import _tree_leaves
+    return [t.cpu().numpy().copy() for t in _tree_leaves(tree)]
+
+
+def _same(a, b) -> bool:
+    import numpy as np
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(_same(x, y) for x, y in zip(a, b))
+    a, b = np.asarray(a), np.asarray(b)
+    return a.dtype == b.dtype and np.array_equal(
+        a, b, equal_nan=a.dtype.kind == "f")
+
+
+def drain_step_legs(ct, e0, fill, stack, cut_stack, topo_keys, name,
+                    card="cuda", cut=True):
+    """One ``drain_step`` at a resident context's shape (``ct``, never
+    written: every leg runs on its own copy). Of ``stack`` at the full
+    round limit, captured and eager on the card, each warmed by one call
+    on its copy and the copy restored, then profiled (torch.profiler: the
+    device's busy share of the call, the host's launch calls and the
+    kernels a round): assignments, rounds, new fill and the folded context
+    bit-equal. With ``cut``: the first batch of ``cut_stack`` through the
+    drain's batch loop (``gang._drain_batches``, its slots at ``e0``) at
+    GRAPH_CPU_ROUNDS, captured, eager and on the CPU: assignments, rounds,
+    requested and the context's slots bit-equal. -> the report (graph
+    counters of the profiled captured call)."""
+    from kubernetes_tpu_torch.models.gang import (_batch, _drain_batches,
+                                                  _drain_kw, _tree_map,
+                                                  adopt_storage, drain_step,
+                                                  stack_batches)
+    B = int(stack.pod_valid.shape[0])
+    out, results = {}, {}
+    for leg, capture in (("captured", True), ("eager", False)):
+        ctx = _tree_map(lambda x: x.to(card, copy=True), ct)
+        kw = dict(e0=e0, topo_keys=topo_keys, capture=capture)
+        drain_step(ctx, stack, fill, **kw)
+        adopt_storage(ctx, ct)
+        res = []
+        g0 = graph_counters()
+        prof = profile_call(lambda: res.append(drain_step(
+            ctx, stack, fill, **kw)), f"{name}_drain_step_{leg}")
+        rounds = int(res[0][1].sum())
+        out[leg] = {"wall_ms": prof["wall_ms"], "rounds": rounds,
+                    "device_busy_share": prof["device_busy_share"],
+                    "launches_per_round": prof["api_launches"] / rounds,
+                    "kernels_per_round": prof["launches"] / rounds}
+        if capture:
+            out[leg]["graphs"] = graph_report(g0, B)
+        a, r, folded, new_fill = res[0]
+        results[leg] = (a.cpu().numpy(), r.cpu().numpy(), int(new_fill),
+                        _host_tree(folded))
+        del ctx, folded
+    check(_same(results["captured"], results["eager"]),
+          f"parity.graph ({name}): the eager drain_step differs from the "
+          "captured one")
+    if cut:
+        first = stack_batches([_batch(cut_stack, 0)])
+        for leg, capture, device in (("captured_cut", True, card),
+                                     ("eager_cut", False, card),
+                                     ("cpu_cut", True, "cpu")):
+            ctx = _tree_map(lambda x: x.to(device, copy=True), ct)
+            kw = _drain_kw(0, "LeastAllocated", topo_keys, (), (),
+                           GRAPH_CPU_ROUNDS, capture)
+            t0 = time.perf_counter()
+            a, r, req = _drain_batches(ctx, first.to(device), e0, kw)
+            out[leg] = {"seconds": time.perf_counter() - t0}
+            results[leg] = [x.cpu().numpy() for x in (
+                a, r, req, ctx.epod_node, ctx.epod_valid)]
+            del ctx
+        for leg in ("eager_cut", "cpu_cut"):
+            check(_same(results["captured_cut"], results[leg]),
+                  f"parity.graph ({name}): {leg} differs from captured_cut")
+    out["bit_equal"] = True
+    return out
+
+
+def gang_drain_legs(ct, pbs, topo_keys, name, seed=0, card="cuda"):
+    """``gang_drain`` of a drain's first batch (the host encoding ``ct``,
+    ``pbs``), three ways: at GRAPH_CPU_ROUNDS captured, eager on the card
+    and on the CPU (assignments, rounds, requested bit-equal); at the
+    full round limit captured and eager, each warmed by one call, under
+    torch.profiler: the device's busy share and the host's launch calls a
+    round, and bit-equal. -> the report."""
+    from kubernetes_tpu_torch.models.gang import gang_drain, prepare_drain
+    out, res = {}, {}
+    for leg, capture, device in (("captured_cut", True, card),
+                                 ("eager_cut", False, card),
+                                 ("cpu_cut", True, "cpu")):
+        t0 = time.perf_counter()
+        res[leg] = gang_drain(ct, pbs[:1], topo_keys=topo_keys, seed=seed,
+                              max_rounds=GRAPH_CPU_ROUNDS, device=device,
+                              capture=capture)
+        out[leg] = {"seconds": time.perf_counter() - t0}
+    plan = prepare_drain(ct, pbs[:1], device=card)
+    for leg, capture in (("captured", True), ("eager", False)):
+        got = []
+        gang_drain(topo_keys=topo_keys, seed=seed, prepared=plan,
+                   capture=capture)
+        g0 = graph_counters()
+        prof = profile_call(lambda: got.append(gang_drain(
+            topo_keys=topo_keys, seed=seed, prepared=plan,
+            capture=capture)), f"{name}_gang_drain_{leg}")
+        rounds = int(got[0][1].sum())
+        out[leg] = {"wall_ms": prof["wall_ms"], "rounds": rounds,
+                    "device_busy_share": prof["device_busy_share"],
+                    "launches_per_round": prof["api_launches"] / rounds,
+                    "kernels_per_round": prof["launches"] / rounds}
+        if capture:
+            out[leg]["graphs"] = graph_report(g0, 1)
+        res[leg] = got[0]
+    for want, leg in (("captured_cut", "eager_cut"),
+                      ("captured_cut", "cpu_cut"), ("captured", "eager")):
+        check(_same(res[want], res[leg]),
+              f"parity.graph ({name}): gang_drain {leg} differs from {want}")
+    out["bit_equal"] = True
+    return out
+
+
+def sched_drain_inputs(ctx, encode_pods, B, P, pod_dicts):
+    """A resident context (a scheduler's ``_drain_ctx``, a ResidentDrain's
+    ``ctx``) and two drains of it, padded to the context's batch shapes:
+    the first P of ``pod_dicts`` encoded against the context's meta in
+    every one of the B batches, and the same with only the first batch
+    valid. -> (ct, e0, fill, stack, cut stack, topo_keys)."""
+    import numpy as np
+    from kubernetes_tpu_torch.api.types import Pod
+    from kubernetes_tpu_torch.models.gang import pad_batch_to, stack_batches
+    pb = encode_pods([Pod.from_dict(d) for d in pod_dicts[:P]],
+                     ctx["meta"], min_p=P)
+    pad = pb.replace(pod_valid=np.zeros_like(np.asarray(pb.pod_valid)))
+    stacks = [pad_batch_to(stack_batches(batches), ctx["pb_shape"])
+              for batches in ([pb] * B, [pb] + [pad] * (B - 1))]
+    check(None not in stacks, "parity.graph: the batch exceeds the context")
+    return (ctx["ct"], ctx["e0"], ctx["fill_dev"], *stacks,
+            ctx["meta"].topo_keys)
+
+
+
+# K settings of chunk_sweep_phase: the rounds a replay between host reads
+SWEEP_CHUNKS = (1, 2, 3, 4, 8)
+
+
+def chunk_sweep_phase(chunks=SWEEP_CHUNKS):
+    """The chunk K of the captured rounds (models/gang.GRAPH_CHUNK) against
+    its cost: at the drain's shape (MixedHeterogeneous, 10 x 1024 pods on
+    5000 nodes) gang_drain three times for each K, captured (the first
+    call captures; seconds of the two replay-only calls), and eager with
+    K = 1 and 2; at the resident shape (8 x 256 on 5000 nodes, 2000
+    bound) four resident cycles for each K, captured, and eager. Each
+    result bit-equal to the first; one line each: seconds, replays, host
+    reads and count_pn launches a call, the rounds, dead rounds run."""
+    import numpy as np
     import torch
+    from kubernetes_tpu_torch.encode.snapshot import SnapshotEncoder
+    from kubernetes_tpu_torch.models import gang, graphs
+    from kubernetes_tpu_torch.models.gang import gang_drain, prepare_drain
+    from kubernetes_tpu_torch.ops import kernels
+    nodes, pods = drain_workload()
+    enc = SnapshotEncoder()
+    ct, meta = enc.encode_cluster(nodes, [], pending_pods=pods,
+                                  pending_slots=False)
+    pbs = [enc.encode_pods(pods[i:i + DRAIN_BATCH], meta)
+           for i in range(0, len(pods), DRAIN_BATCH)]
+    plan = prepare_drain(ct, pbs, device="cuda")
+    first, default_k = None, gang.GRAPH_CHUNK
+    for K, capture in ([(k, True) for k in chunks]
+                       + [(1, False), (2, False)]):
+        gang.GRAPH_CHUNK = K
+        calls = []
+        for _ in range(3):
+            g0 = graph_counters()
+            kernels.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = gang_drain(topo_keys=meta.topo_keys, prepared=plan,
+                             capture=capture)
+            calls.append((time.perf_counter() - t0,
+                          {k: graph_counters()[k] - g0[k] for k in g0},
+                          kernels.LAUNCHES["count_pn"]))
+        first = first or out
+        check(_same(first, out), f"chunk sweep: drain K={K} differs")
+        rounds = [int(r) for r in out[1]]
+        emit({"phase": "sweep.chunk", "shape": "drain", "K": K,
+              "captured": capture, "first_s": calls[0][0],
+              "seconds": [c[0] for c in calls[1:]],
+              "counters": calls[-1][1], "launches": calls[-1][2],
+              "rounds": rounds,
+              "dead_rounds": sum(-(-r // K) * K - r for r in rounds),
+              "pool_bytes": graphs.pool_bytes()})
+    del plan
+    graphs.reset()
+    r_nodes, r_bound, r_pending = resident_workload(cycles=4)
+    quiet, placed = emit, None
+    for K, capture in [(k, True) for k in chunks[:4]] + [(2, False)]:
+        gang.GRAPH_CHUNK = K
+        g0 = graph_counters()
+        globals()["emit"] = lambda obj: None
+        try:
+            summary, drv, _c = resident_phase(r_nodes, r_bound, r_pending,
+                                              cycles=4, capture=capture)
+        finally:
+            globals()["emit"] = quiet
+        placed = placed or summary["placements"]
+        check(summary["placements"] == placed,
+              f"chunk sweep: resident K={K} differs")
+        emit({"phase": "sweep.chunk", "shape": "resident", "K": K,
+              "captured": capture, "drain_ms": summary["drain_ms"],
+              "counters": {k: graph_counters()[k] - g0[k] for k in g0},
+              "launches": summary["launches"],
+              "pool_bytes": graphs.pool_bytes()})
+        del drv
+    gang.GRAPH_CHUNK = default_k
+
+# ------------------------------------------------------------------ warm
+
+WARM_NODES = 64      # the warm boots' cluster (MixedHeterogeneous)
+WARM_PODS = 128
+WARM_BATCH = 32
+
+
+def warm_boot(cache_dir: str, device=None) -> dict:
+    """One scheduler boot on ``cache_dir`` (``aotCacheDir``), in this
+    process: a SchedulerRunner over a DirectClient holding a small
+    MixedHeterogeneous cluster, the parity sentinel on (every 1000th
+    drain: it samples the first drain only when the boot found entries
+    and forced its canary), warm_drain (the ladder: the kernel is built
+    or loaded from the cache, the rounds captured), the pods created and
+    run_once until they are placed, the sentinel's verdicts landed, the
+    cache sealed. -> the boot's report."""
+    import torch
+    from kubernetes_tpu_torch.api.types import Pod
+    from kubernetes_tpu_torch.client.clientset import DirectClient
+    from kubernetes_tpu_torch.models import graphs
+    from kubernetes_tpu_torch.ops import kernels
+    from kubernetes_tpu_torch.sched.runner import SchedulerRunner
+    from kubernetes_tpu_torch.store.store import ObjectStore
+    from kubernetes_tpu_torch.testing.workloads import mixed_heterogeneous
+    t_boot = time.perf_counter()
+    nodes, pods = mixed_heterogeneous(pods=WARM_PODS, nodes=WARM_NODES,
+                                      seed=SEED)
+    client = DirectClient(ObjectStore())
+    client.nodes().create_many([n.to_dict() for n in nodes])
+    runner = SchedulerRunner(
+        client, sched_config(batch_size=WARM_BATCH, max_drain_batches=2,
+                             aot_cache_dir=cache_dir,
+                             parity_sample_every=1000,
+                             backoff_initial_s=3600.0, backoff_max_s=3600.0,
+                             assume_ttl_s=3600.0, audit_interval_s=3600.0),
+        feature_gate=no_preemption_gate(), device=device)
+    report = {}
+    try:
+        boot = dict(runner.aot_cache.boot)
+        runner.start(start_loop=False)
+        sched = runner.scheduler
+        sched._drain_ready = lambda pend: False
+        t0 = time.perf_counter()
+        check(sched.warm_drain(pods, slot_headroom=2 * WARM_PODS),
+              "warm: warm_drain did not arm the context")
+        if sched.device.type == "cuda":
+            torch.cuda.synchronize()
+        ladder_s = time.perf_counter() - t0
+        client.pods("default").create_many([p.to_dict() for p in pods])
+        deadline = time.perf_counter() + 60.0
+        while (runner.queue.stats()["active"] < len(pods)
+               and time.perf_counter() < deadline):
+            time.sleep(0.01)
+        c0 = graphs.CAPTURES
+        t0 = time.perf_counter()
+        sched.run_once(wait=0.01)
+        sched._resolve_pending()
+        first_drain_s = time.perf_counter() - t0
+        for _ in range(16):
+            if runner.queue.stats()["active"] == 0 and not sched._pending:
+                break
+            sched.run_once(wait=0.01)
+        sched._resolve_pending()
+        sched.wait_for_bindings()
+        sched.sentinel.drain(60.0)
+        bound = sum(1 for p in client.pods("default").list()
+                    if p["spec"].get("nodeName"))
+        sealed = runner.aot_cache.seal()
+        entries = sorted(os.listdir(runner.aot_cache.entries_dir))
+        report = {"boot": boot, "fingerprint": runner.aot_cache.fingerprint,
+                "builds": kernels.BUILDS, "ladder": sched.warm_stats,
+                "ladder_s": ladder_s, "first_drain_s": first_drain_s,
+                "first_drain_captures": graphs.CAPTURES - c0,
+                "bound": bound, "pods": len(pods),
+                "sentinel": sched.sentinel.stats(),
+                "stats": runner.aot_cache.stats(), "sealed": sealed,
+                "entries": entries, "loaded": sorted(kernels._LIBS),
+                "boot_to_bound_s": time.perf_counter() - t_boot}
+    finally:
+        runner.stop()
+    # the threads left once the runner stopped (informers, the event
+    # broadcaster: none of them in a torch call)
+    report["threads_after_stop"] = sorted(
+        t.name for t in threading.enumerate()
+        if t is not threading.main_thread())
+    return report
+
+
+def warm_phase(seconds_limit=300.0) -> dict:
+    """Warm start: three boots of a scheduler, each in a child process
+    (``python3 chip_smoke.py --warm-boot DIR``), on one empty temporary
+    ``aotCacheDir``: cold (count_pn is built, the ladder captures), warm
+    (nothing built, the same fingerprint, the canary sample judged with 0
+    divergences), and after one byte of the cached library is flipped
+    (swept and counted at boot, built again: the damaged library is never
+    loaded). Then the fingerprint's wholesale invalidation on a changed
+    build flag, in this process (the flags are restored and the cache
+    disarmed after it). -> the report."""
+    import shutil
+    import tempfile
+    from kubernetes_tpu_torch.ops import kernels
+    from kubernetes_tpu_torch.sched.aotcache import (AotExecutableCache,
+                                                     cache_knobs)
+    root = tempfile.mkdtemp(prefix="warm-", dir=os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "build"))
+    cache_dir = os.path.join(root, "aot")
+    boots = {}
+    try:
+        for leg in ("cold", "warm", "flipped"):
+            if leg == "flipped":
+                lib = os.path.join(cache_dir, "entries",
+                                   boots["warm"]["entries"][0])
+                blob = bytearray(open(lib, "rb").read())
+                blob[len(blob) // 2] ^= 0xFF
+                with open(lib, "wb") as f:
+                    f.write(bytes(blob))
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, os.path.abspath(__file__), "--warm-boot",
+                 cache_dir], capture_output=True, text=True,
+                timeout=seconds_limit)
+            check(proc.returncode == 0,
+                  f"warm: the {leg} boot failed: {proc.stderr[-2000:]}")
+            boots[leg] = json.loads(proc.stdout.strip().splitlines()[-1])
+            boots[leg]["process_s"] = time.perf_counter() - t0
+        cold, warm, flipped = boots["cold"], boots["warm"], boots["flipped"]
+        for leg, b in boots.items():
+            check(b["bound"] >= 0.9 * b["pods"],
+                  f"warm: the {leg} boot bound {b['bound']} of {b['pods']}")
+            check(b["sentinel"]["divergences"] == 0,
+                  f"warm: the {leg} boot's sentinel diverged")
+            check(b["first_drain_captures"] == 0,
+                  f"warm: the {leg} boot's first drain captured "
+                  f"{b['first_drain_captures']} graphs past its ladder")
+        check(cold["builds"] >= 1 and cold["ladder"]["captures"] >= 1,
+              f"warm: the cold boot built {cold['builds']} kernels and "
+              f"captured {cold['ladder']['captures']} graphs")
+        check(cold["boot"]["entries"] == 0 and cold["sealed"] >= 1,
+              f"warm: the cold boot found {cold['boot']} and sealed "
+              f"{cold['sealed']}")
+        check(warm["builds"] == 0 and warm["stats"]["realBuilds"] == 0,
+              f"warm: the warm boot built {warm['builds']} kernels")
+        check(warm["fingerprint"] == cold["fingerprint"]
+              and not warm["boot"]["fingerprintStale"],
+              "warm: the warm boot's fingerprint differs")
+        check(warm["boot"]["entries"] >= 1 and warm["loaded"] == ["count_pn"],
+              f"warm: the warm boot found {warm['boot']}")
+        check(warm["sentinel"]["samples"]["drain"] >= 1,
+              "warm: the canary sample was not taken")
+        check(flipped["boot"]["corruptSwept"] == 1
+              and flipped["stats"]["errors"] == 1 and flipped["builds"] == 1,
+              f"warm: the flipped entry: boot {flipped['boot']}, stats "
+              f"{flipped['stats']}, builds {flipped['builds']}")
+        # a changed build flag: the fingerprint no longer matches
+        flags = kernels.NVCC_FLAGS
+        kernels.NVCC_FLAGS = flags + ("-lineinfo",)
+        stale = AotExecutableCache(cache_dir,
+                                   knobs=cache_knobs(sched_config()))
+        try:
+            boot = stale.activate()
+        finally:
+            kernels.NVCC_FLAGS = flags
+            AotExecutableCache.disarm()
+        check(boot["fingerprintStale"] and stale.invalidations >= 1
+              and boot["entries"] == 0,
+              f"warm: the changed build flag did not invalidate the cache: "
+              f"{boot}")
+        keep = ("boot", "builds", "ladder", "ladder_s", "first_drain_s",
+                "first_drain_captures", "bound", "sentinel", "stats",
+                "process_s", "boot_to_bound_s", "threads_after_stop")
+        return {**{leg: {k: b[k] for k in keep} for leg, b in boots.items()},
+                "fingerprint_equal": True,
+                "flags_changed": {"boot": boot,
+                                  "invalidations": stale.invalidations}}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+# past this many seconds the script prints every thread's stack and exits
+# 1, inside the 1200 s the card's check allows: a hang names its place
+DEADLINE_S = 1100.0
+
+
+def main() -> int:
+    import faulthandler
+    import signal
+    import torch
+    faulthandler.dump_traceback_later(DEADLINE_S, exit=True)
+    faulthandler.register(signal.SIGTERM, all_threads=True, chain=True)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only",
               file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    if sys.argv[1:2] == ["--warm-boot"]:
+        # one boot of the warm phase, in its own process, which exits as
+        # any process does: the parent holds its exit code at 0; should it
+        # abort, every thread's stack goes to stderr
+        faulthandler.enable(all_threads=True)
+        print(json.dumps(warm_boot(sys.argv[2])), flush=True)
+        return 0
     from kubernetes_tpu_torch.ops import kernels
 
     smi = nvidia_smi_line()
@@ -5133,6 +5727,11 @@ def main() -> int:
     cases = count_pn_cases(node_dicts, bound, batches[0])
     if "--sweep" in sys.argv[1:]:
         sweep_phase(cases)
+        print(smi, flush=True)
+        emit({"ok": True, "device": device})
+        return 0
+    if "--chunks" in sys.argv[1:]:
+        chunk_sweep_phase()
         print(smi, flush=True)
         emit({"ok": True, "device": device})
         return 0
@@ -5168,26 +5767,41 @@ def main() -> int:
                                               path["generation"])})
     del path
 
+    # the drain, resident, scheduler, connected and fleet.drain paths run
+    # captured here (the main path: its launches fill the table); their
+    # eager runs, parity.graph and warm follow the last path, so that no
+    # comparison (nor its profiler sessions) sits between timed windows
     drain = drain_phase(*drain_workload())
     for name, n in drain["launches"].items():
         check(n > 0, f"kernel {name} was never launched in the drain")
         launches.setdefault(name, {})["drain"] = n
     emit({"phase": "drain", **{k: v for k, v in drain.items()
-                               if k not in ("plan", "assignments", "meta")}})
+                               if k not in ("plan", "assignments", "meta",
+                                            "requested", "host")}})
     drain_rows = kernels_phase(drain_count_cases(drain))
-    del drain
     emit({"phase": "kernels.drain", "rows": drain_rows})
+    # the same plan eager: the captured drain's numbers against the eager
+    # loop's, one after the other
+    emit({"phase": "drain.eager", **drain_eager_phase(drain)})
+    drain_host = (*drain["host"], drain["meta"].topo_keys)
+    del drain
 
     r_nodes, r_bound, r_pending = resident_workload()
-    resident, drv, churn = resident_phase(r_nodes, r_bound, r_pending)
+    resident, drv, churn = resident_phase(r_nodes, r_bound, r_pending,
+                                          tree_at=RESIDENT_EAGER_CYCLES)
     for name, n in resident["launches"].items():
         launches.setdefault(name, {})["resident"] = n
-    emit({"phase": "resident", **resident})
+    emit({"phase": "resident",
+          **{k: v for k, v in resident.items()
+             if k not in ("placements", "tree")}})
+    resident_out = (resident["placements"], resident.pop("tree"))
     resident_rows = kernels_phase(resident_count_cases(drv))
     emit({"phase": "kernels.resident", "rows": resident_rows})
     emit({"phase": "profile.drain",
           **profile_drain_phase(drv, churn, r_pending[-1],
                                 resident["cycles"])})
+    resident_in = sched_drain_inputs(drv.ctx, drv.cache.encode_pods,
+                                     RESIDENT_B, RESIDENT_P, r_pending[-1])
     del drv
 
     s_nodes, s_pods, s_profiled = sched_workload()
@@ -5200,6 +5814,9 @@ def main() -> int:
     emit({"phase": "profile.scheduler",
           **profile_scheduler_phase(sched, s_churn, s_profiled,
                                     sched_sum["pops"])})
+    sched_in = sched_drain_inputs(sched._drain_ctx, sched.cache.encode_pods,
+                                  sched.cfg.max_drain_batches,
+                                  sched.cfg.batch_size, s_profiled)
     sched.close()
     del sched
 
@@ -5211,6 +5828,10 @@ def main() -> int:
     conn_rows = kernels_phase(scheduler_count_cases(runner.scheduler, c_pods,
                                                     prefix="connected"))
     emit({"phase": "kernels.connected", "rows": conn_rows})
+    conn_in = sched_drain_inputs(runner.scheduler._drain_ctx,
+                                 runner.cache.encode_pods,
+                                 CONNECTED_DRAIN_BATCHES, CONNECTED_BATCH,
+                                 c_pods)
     del runner
 
     # default preemption: no hand kernel on its path (its device work is
@@ -5247,15 +5868,55 @@ def main() -> int:
     # fleet mode: the fleet-batched drain at 4 x 1250 nodes, then
     # FleetChurn on the FleetRunner (its churn pods carry no topology term:
     # count_pn's count there is recorded, 0 included)
-    fdrain_sum, fleet_cases = fleet_drain_phase()
+    fdrain_sum, fleet_cases, (_plan, (f_ct, f_pbs, f_meta)) = \
+        fleet_drain_phase()
     emit({"phase": "fleet.drain", **fdrain_sum})
     fleet_rows = kernels_phase(fleet_cases)
-    del fleet_cases
+    del fleet_cases, _plan
     emit({"phase": "kernels.fleet", "rows": fleet_rows})
     fleet_sum = fleet_phase(smi=smi)
     emit({"phase": "fleet", **fleet_sum})
     check(not fleet_sum["failures"],
           f"fleet: {fleet_sum['failures']}")
+    # ---- captured against eager, parity.graph, warm start --------------
+    # (parity.graph profiles drain_step captured and eager at the
+    # resident, scheduler and connected shapes)
+    res_eager, drv, _churn = resident_phase(r_nodes, r_bound, r_pending,
+                                            cycles=RESIDENT_EAGER_CYCLES,
+                                            capture=False)
+    check(res_eager["placements"] == resident_out[0][:RESIDENT_EAGER_CYCLES]
+          and _same(_host_tree(drv.ctx["ct"]), resident_out[1]),
+          "resident: the eager cycles differ from the captured ones")
+    emit({"phase": "resident.eager", "bit_equal": True,
+          **{k: res_eager[k] for k in ("cycles", "arm_s", "placed",
+                                       "drain_ms", "launches")}})
+    del drv, res_eager, resident_out
+    sched_eager, sched, _churn = scheduler_phase(s_nodes, s_pods, smi=smi,
+                                                 capture=False)
+    emit({"phase": "scheduler.eager", **sched_eager})
+    sched.close()
+    del sched
+    conn_eager, runner = connected_phase(c_nodes, c_pods[:CONNECTED_EAGER],
+                                         smi=smi, capture=False)
+    emit({"phase": "connected.eager", **conn_eager})
+    del runner
+    graph_legs = {}   # shape -> its legs and their seconds
+    for shape, legs in (
+            ("drain", lambda: gang_drain_legs(*drain_host, "drain")),
+            ("resident", lambda: drain_step_legs(*resident_in, "resident")),
+            ("scheduler", lambda: drain_step_legs(*sched_in, "scheduler")),
+            ("connected", lambda: drain_step_legs(*conn_in, "connected",
+                                                  cut=False)),
+            ("fleet.drain", lambda: gang_drain_legs(
+                f_ct, f_pbs, f_meta.topo_keys, "fleet.drain", seed=SEED))):
+        t0 = time.perf_counter()
+        graph_legs[shape] = {**legs(), "seconds": time.perf_counter() - t0}
+    emit({"phase": "parity.graph", "cpu_round_cut": GRAPH_CPU_ROUNDS,
+          **graph_legs})
+    del resident_in, sched_in, conn_in, f_ct, f_pbs
+    # warm start: three scheduler boots on one kernel cache
+    emit({"phase": "warm", **warm_phase()})
+
     for path, summary in (("preemption", pre_sum),
                           ("connected_preemption", cpre_sum),
                           ("explain", expl_sum), ("extender", ext_sum),

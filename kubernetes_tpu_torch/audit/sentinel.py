@@ -286,8 +286,8 @@ class ParitySentinel:
     def force_next(self) -> None:
         """Arm a one-shot guaranteed sample: the next JUDGEABLE drain
         dispatch is parity-checked regardless of the every-Kth modulus.
-        (The reference's runner arms it after a boot from its executable
-        cache, which the port does not have.) The flag stays armed across
+        (The runner arms it after a boot from a kernel cache with entries:
+        sched/aotcache.py.) The flag stays armed across
         skipped dispatches (disabled-filter profiles, unjudgeable churn)
         and clears only when a capture actually happens."""
         self._force_drain = True
@@ -499,8 +499,11 @@ class ParitySentinel:
         while self._q.unfinished_tasks and time.time() < deadline:
             time.sleep(0.01)
 
-    def close(self) -> None:
+    def close(self, timeout: float = 5.0) -> None:
+        """Poison-pill the checker thread and join it (a verdict in flight
+        lands first)."""
         t = self._thread
         if t is not None and t.is_alive():
             self._q.put(None)
             self._thread = None
+            t.join(timeout=timeout)

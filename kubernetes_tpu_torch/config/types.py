@@ -13,13 +13,13 @@ compat fields; the TPU path always scores all nodes).
 The PyTorch port of ``kubernetes_tpu/config/types.py``. PyYAML is imported
 by ``from_yaml`` only: the port's other entry points run without it.
 
-Options of features the port has not got yet are refused by ``validate``
-(and by the ``Scheduler`` that is handed such a configuration) with a
-``NotImplementedError`` naming the ROADMAP item: a device mesh. The
-explainer is on by default and the parity sentinel samples every 16th
-drain, as in the reference. The reference's durable AOT executable cache
-has no counterpart: the port's kernels build once into hash-named
-libraries (``ops/kernels.py``).
+The port runs on one device: a ``meshShape`` is validated as the
+reference validates it and then run single-device with a warning, as the
+reference's scheduler does when the backend has fewer devices than the
+mesh asks for. The explainer is on by default and the parity sentinel
+samples every 16th drain, as in the reference. ``aotCacheDir`` arms the
+durable cache of the port's one persistent artifact, the ``nvcc``-built
+kernel libraries (``sched/aotcache.py``; ``KTPU_AOT_CACHE`` overrides it).
 """
 
 from __future__ import annotations
@@ -201,6 +201,18 @@ class SchedulerConfiguration:
     # scheduler_unschedulable_reasons_total. Zero dispatches added to the
     # drain cycle.
     explainer_enabled: bool = True
+    # ---- durable kernel cache (sched/aotcache.py) --------------------------
+    # Directory for the persisted nvcc-built kernel libraries: a restarted
+    # scheduler loads them instead of building. The directory is
+    # fingerprint-guarded (torch/CUDA/driver/card/nvcc + config knobs) and
+    # checksum-scanned at boot; any damaged entry degrades to a counted
+    # rebuild. None = disabled (the default). YAML ``aotCacheDir``; the
+    # KTPU_AOT_CACHE env var overrides ("0"/"off" disables).
+    aot_cache_dir: Optional[str] = None
+    # Size bound for the cache directory; the least recently used entries
+    # rotate out past it (counted under
+    # scheduler_aot_cache_invalidations_total).
+    aot_cache_max_mb: int = 512
 
     def profile_for(self, scheduler_name: str) -> Optional[Profile]:
         for p in self.profiles:
@@ -237,9 +249,15 @@ class SchedulerConfiguration:
             ("auditFailFast", "audit_fail_fast"),
             ("paritySampleEvery", "parity_sample_every"),
             ("explainerEnabled", "explainer_enabled"),
+            ("aotCacheMaxMB", "aot_cache_max_mb"),
         ]:
             if yaml_key in d:
                 setattr(cfg, attr, type(getattr(cfg, attr))(d[yaml_key]))
+        if "aotCacheDir" in d:
+            # Optional[str]: the generic type-cast list above would turn
+            # None into the string "None"
+            v = d["aotCacheDir"]
+            cfg.aot_cache_dir = str(v) if v else None
         if "meshShape" in d:
             try:
                 cfg.mesh_shape = parse_mesh_shape(d["meshShape"])
@@ -261,14 +279,6 @@ class ValidationError(ValueError):
 def not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported yet: ROADMAP Queue A item {item}")
-
-
-def refuse_unported(cfg: SchedulerConfiguration) -> None:
-    """Raise for an option whose feature waits for a later slice: each
-    changes what a cycle does, and a silent no-op would hide that."""
-    if (cfg.mesh_shape is not None
-            and cfg.mesh_shape[0] * cfg.mesh_shape[1] > 1):
-        raise not_ported("a device mesh (mesh_shape)", "8")
 
 
 def parse_mesh_shape(value) -> "tuple[int, int] | None":
@@ -346,6 +356,8 @@ def validate(cfg: SchedulerConfiguration):
         raise ValidationError("auditIntervalSeconds must be > 0")
     if cfg.parity_sample_every < 0:
         raise ValidationError("paritySampleEvery must be >= 0 (0 = off)")
+    if cfg.aot_cache_max_mb < 1:
+        raise ValidationError("aotCacheMaxMB must be >= 1")
     if cfg.mesh_shape is not None:
         if len(cfg.mesh_shape) != 2:
             raise ValidationError(
@@ -363,4 +375,3 @@ def validate(cfg: SchedulerConfiguration):
                 f"batchSize ({cfg.batch_size}) must be divisible by the "
                 f"meshShape pods axis ({pods_axis}) so pod padding shards "
                 "evenly")
-    refuse_unported(cfg)

@@ -50,8 +50,9 @@ resident image allowed to go stale (interning appends host-side between
 full encodes), so every program takes FRESHLY built tables as inputs —
 tiny vectors, rebuilt per dispatch under the encode lock.
 
-The port has no mesh (ROADMAP Queue A item 8): no view carries one, and
-every dispatch runs on the device the resident tensors live on.
+The port runs on one device (a ``meshShape`` runs single-device): no view
+carries a mesh epoch, and every dispatch runs on the device the resident
+tensors live on.
 """
 
 from __future__ import annotations
@@ -386,10 +387,13 @@ def resident_without_pods(st, ct, pod_keys):
 class CompileCounter:
     """Counts, inside armed windows, what would cost a warm steady state
     time on the card: every ``nvcc`` build ``ops/kernels.build`` runs
-    (``kernels.BUILDS``) and every bucketed input signature of a B9 program
-    seen for the first time in this process (``SHAPES_FIRST_SEEN``: the
-    reference's XLA would compile the program anew there; eager PyTorch
-    compiles nothing, so a new bucket is the event that stands for it).
+    (``kernels.BUILDS``), every CUDA graph of the gang rounds captured
+    (``models/graphs.CAPTURES``: the reference's XLA would compile the
+    converge program there) and every bucketed input signature of a B9
+    program seen for the first time in this process (``SHAPES_FIRST_SEEN``:
+    the reference's XLA would compile the program anew there; eager
+    PyTorch compiles nothing, so a new bucket is the event that stands for
+    it).
     The BackgroundPlanner cadence and the smoke's PlannerLoop share it to
     prove a zero-compile steady window (the status key
     ``steadyCompiles``)."""
@@ -402,8 +406,9 @@ class CompileCounter:
 
     @staticmethod
     def _events() -> int:
+        from kubernetes_tpu_torch.models import graphs
         from kubernetes_tpu_torch.ops import kernels
-        return kernels.BUILDS + SHAPES_FIRST_SEEN
+        return kernels.BUILDS + graphs.CAPTURES + SHAPES_FIRST_SEEN
 
     def arm(self) -> None:
         with self._lock:
@@ -425,6 +430,13 @@ class CompileCounter:
 
 
 # ---- the planner adapter ----------------------------------------------------
+
+def _stamp(view: dict) -> tuple:
+    """What moves when the resident context does: its build epoch, the
+    delta-log position it consumed and its patch state's cursors."""
+    cs = view["cs"]
+    return (view["epoch"], view["seq"], cs.fill_host, cs.top)
+
 
 class ResidentPlanner:
     """Adapter giving the three background planners resident fast paths.
@@ -499,17 +511,18 @@ class ResidentPlanner:
             generation=meta.generation)
         return {"view": view, "ct": view["ct"], "meta": meta, "cs": cs,
                 "rows": rows, "plan_meta": plan_meta, "planner": planner,
-                "stamp": (view["seq"], cs.fill_host, cs.top)}
+                "stamp": _stamp(view)}
 
     def _moved(self, ctx: dict) -> bool:
-        """True when the context changed since ``plan_view``: a drain is in
-        flight or resolved, a churn patch was folded (``seq``), or the
-        view no longer stands."""
+        """True when the context changed since ``plan_view``: it was
+        rebuilt (``epoch``: a rebuild at the same shapes writes the new
+        snapshot into the same tensors), a drain is in flight or resolved,
+        a churn patch was folded (``seq``), or the view no longer
+        stands."""
         view, _reason = self._view_source()
         if view is None or view["ct"] is not ctx["ct"]:
             return True
-        cs = view["cs"]
-        return (view["seq"], cs.fill_host, cs.top) != ctx["stamp"]
+        return _stamp(view) != ctx["stamp"]
 
     # -- cluster totals ------------------------------------------------------
 

@@ -423,6 +423,38 @@ NODELIFE_DEFERRED = REGISTRY.counter(
     "or the secondary-rate token bucket) — retried by the next monitor "
     "sweep if the node is still unhealthy")
 
+# Warm start (sched/aotcache.py): the durable cache of the nvcc-built
+# kernel libraries a restarted scheduler loads instead of building.
+# Errors/invalidations are COUNTED degrades — a corrupt or stale entry is
+# rebuilt, never loaded.
+AOT_CACHE_ERRORS = REGISTRY.counter(
+    "scheduler_aot_cache_errors_total",
+    "Durable kernel-cache entries rejected at boot or load (checksum "
+    "mismatch, truncation, unreadable file), by reason — each one "
+    "degraded to a counted rebuild")
+AOT_CACHE_INVALIDATIONS = REGISTRY.counter(
+    "scheduler_aot_cache_invalidations_total",
+    "Kernel-cache entries invalidated wholesale (toolchain/config "
+    "fingerprint mismatch) or rotated out by the size bound, by reason")
+AOT_CACHE_ENTRIES = REGISTRY.gauge(
+    "scheduler_aot_cache_entries",
+    "Live entries in the durable kernel cache after the last boot scan / "
+    "seal")
+AOT_CACHE_BYTES = REGISTRY.gauge(
+    "scheduler_aot_cache_bytes",
+    "Bytes held by the durable kernel cache after the last boot scan / "
+    "seal")
+AOT_CACHE_BOOT_MS = REGISTRY.gauge(
+    "scheduler_aot_cache_boot_load_ms",
+    "Milliseconds the last activation spent fingerprinting, integrity-"
+    "scanning and arming the durable kernel cache")
+# the counterpart of jax.jit's cache misses on the round loop
+# (models/graphs.py): each capture of a chunk of gang rounds
+GRAPH_CAPTURES = REGISTRY.counter(
+    "scheduler_graph_captures_total",
+    "CUDA graph captures of a chunk of gang rounds (a new shape, static "
+    "argument or context address); 0 in a warm steady window")
+
 # Scheduler informer hygiene at fleet scale: node MODIFIEDs whose only
 # news is liveness (heartbeat condition timestamps / lease-driven
 # refreshes) are skipped BEFORE decode — they must not wake the

@@ -42,6 +42,7 @@ from kubernetes_tpu_torch.device import resolve_device
 from kubernetes_tpu_torch.encode.convert import patch_to
 from kubernetes_tpu_torch.encode.snapshot import (ClusterTensors, PodBatch,
                                                   SelectorSet, _Tensors)
+from kubernetes_tpu_torch.models import graphs
 from kubernetes_tpu_torch.models.schedule_step import evaluate
 from kubernetes_tpu_torch.ops.exprs import eval_selector_set
 from kubernetes_tpu_torch.ops.sorting import lexsort
@@ -57,7 +58,11 @@ class GangState:
     committed: torch.Tensor    # [P] bool
     assignment: torch.Tensor   # [P] int32, -1 unassigned
     tried: torch.Tensor        # [P] bool (serial mode: attempted exactly once)
-    rounds: int                # rounds run
+    rounds: torch.Tensor       # 0-d int32: rounds run
+
+    def fields(self) -> list:
+        return [self.requested, self.committed, self.assignment, self.tried,
+                self.rounds]
 
 
 def _pad_axis(a: torch.Tensor, axis: int, size: int, fill):
@@ -292,25 +297,111 @@ def _gang_round_impl(ct_ext: ClusterTensors, pb: PodBatch, state: GangState,
     return new_state, torch.sum(accept) + n_attempted
 
 
+# the chunk of rounds between two host reads on the card (``_converge``):
+# every round past the last live one in a chunk is a dead round that costs
+# a live one's device time, and every chunk one replay and one host read.
+# On an H100 (700 W) K = 1 was 5-9% faster than K = 2 at the drain and
+# resident shapes, K = 4 and 8 slower still (chip_smoke.py --chunks,
+# PERF.md §6); 2 is the least K that does not read the host after every
+# round. On the CPU a read costs nothing and every round is followed by
+# one.
+GRAPH_CHUNK = 2
+CPU_CHUNK = 1
+
+
+def default_chunk(device) -> int:
+    """K on ``device``: GRAPH_CHUNK on the card, CPU_CHUNK on the CPU."""
+    return GRAPH_CHUNK if torch.device(device).type == "cuda" else CPU_CHUNK
+
+
+def _masked_round(ct_ext, pb, state: GangState, n, limit: int, kw: dict):
+    """One trip of the reference's static-trip loop: the round runs when
+    the previous one made progress (``n > 0``) and fewer than ``limit``
+    have run; otherwise every field, ``rounds`` included, comes back as it
+    was (``torch.where`` field by field), as the reference's ``cond``
+    leaves its carry. ``cap_scale`` doubles every live round, from the
+    device's round counter. -> (state, progress of this trip)."""
+    live = (n > 0) & (state.rounds < limit)
+    one = torch.ones((), dtype=torch.int64, device=n.device)
+    cap = one << state.rounds.clamp(max=20).to(torch.int64)
+    new, progress = _gang_round_impl(ct_ext, pb, state, cap_scale=cap, **kw)
+    state = GangState(*(torch.where(live, a, b)
+                        for a, b in zip(new.fields(), state.fields())))
+    return state, torch.where(live, progress, torch.zeros_like(progress))
+
+
+def converge_key(ct_ext, pb, state: GangState, *, limit: int, chunk: int,
+                 slot_start: int, ext_mask=None, ext_scores=None,
+                 **statics) -> tuple:
+    """The graph key of a chunk of ``chunk`` rounds (models/graphs.py): the
+    static arguments, the round limit, K, every input tensor's address and
+    layout, and the carried state's layout."""
+    return graphs.graph_key(
+        "gang_rounds",
+        (tuple(sorted(statics.items())), int(limit), int(chunk),
+         int(slot_start)),
+        _tree_leaves(ct_ext) + _tree_leaves(pb) + [ext_mask, ext_scores],
+        state.fields())
+
+
 def _converge(ct_ext, pb, state, *, seed, fit_strategy, topo_keys,
               weights, enabled_filters, max_rounds,
               serial=False, slot_start=None, ext_mask=None,
-              ext_scores=None) -> GangState:
-    """Rounds until one makes no progress, at most ``max_rounds``.
+              ext_scores=None, capture=True) -> GangState:
+    """The reference's static trip of ``max_rounds`` cond-guarded rounds,
+    cut at a chunk edge: rounds run K (``default_chunk``) at a time, each
+    masked
+    (``_masked_round``), and the host reads the progress flag once per
+    chunk, never once per round. A chunk past the last live round changes
+    nothing, so the cut gives the reference's rounds and assignments for
+    every K. On the card the chunk is one captured CUDA graph, replayed
+    (models/graphs.py); ``capture=False`` runs the same rounds eagerly."""
+    limit = max(int(max_rounds), 1)
+    P = int(state.committed.shape[0])
+    dev = state.committed.device
+    K = max(1, min(default_chunk(dev), limit))
+    if slot_start is None:
+        slot_start = int(ct_ext.epod_valid.shape[0]) - P
+    kw = dict(seed=seed, fit_strategy=fit_strategy, topo_keys=topo_keys,
+              serial=serial, weights=weights,
+              enabled_filters=enabled_filters, slot_start=slot_start,
+              ext_mask=ext_mask, ext_scores=ext_scores)
 
-    The reference runs a fixed-trip loop whose body goes dead after the
-    first round without progress; ``cap_scale = 1 << min(i, 20)`` counts
-    the live rounds. This loop breaks at that round instead, which gives
-    the same rounds and assignments for one host read per round. Capturing
-    the rounds in a CUDA graph is later work."""
-    for i in range(max(int(max_rounds), 1)):
-        state, progress = _gang_round_impl(
-            ct_ext, pb, state, seed=seed, fit_strategy=fit_strategy,
-            topo_keys=topo_keys, serial=serial, weights=weights,
-            enabled_filters=enabled_filters, cap_scale=1 << min(i, 20),
-            slot_start=slot_start, ext_mask=ext_mask, ext_scores=ext_scores)
-        if int(progress) == 0:
+    def rounds(st: GangState, n):
+        for _ in range(K):
+            st, n = _masked_round(ct_ext, pb, st, n, limit, kw)
+        return st, n
+
+    def body(flat):
+        st, n = rounds(GangState(*flat[:5]), flat[5])
+        return st.fields() + [n]
+
+    captured = capture and dev.type == "cuda"
+    if captured:
+        key = converge_key(ct_ext, pb, state, limit=limit, chunk=K,
+                           slot_start=slot_start, ext_mask=ext_mask,
+                           ext_scores=ext_scores, seed=seed,
+                           fit_strategy=fit_strategy,
+                           topo_keys=tuple(topo_keys), serial=bool(serial),
+                           weights=tuple(weights),
+                           enabled_filters=tuple(enabled_filters))
+    n = torch.ones((), dtype=torch.int64, device=dev)
+    done = 0
+    while True:
+        if captured:
+            flat = graphs.replay(key, body, state.fields() + [n])
+            state, n = GangState(*flat[:5]), flat[5]
+        else:
+            state, n = rounds(state, n)
+        done += K
+        if done >= limit:
             break
+        graphs.count_host_read()
+        if int(n) == 0:
+            break
+    if captured:
+        # the graph's buffers are overwritten at its next replay
+        state = GangState(*(t.clone() for t in state.fields()))
     return state
 
 
@@ -318,24 +409,19 @@ def gang_schedule(ct: ClusterTensors, pb: PodBatch, seed: int = 0,
                   fit_strategy: str = "LeastAllocated",
                   topo_keys: tuple[int, ...] = (), serial: bool = False,
                   max_rounds: int = 64, weights=None, enabled_filters=None,
-                  ext_mask=None, ext_scores=None):
+                  ext_mask=None, ext_scores=None, capture: bool = True):
     """Drive rounds until convergence. Returns (assignment [P] np.int32 with -1
     for unschedulable, rounds_used). ``weights`` (plugin->weight) and
     ``enabled_filters`` (set of filter names) carry the active profile's
     plugin configuration. ``ct`` and ``pb`` are on one device; the rounds
     run there. ``ext_mask`` [P,N] bool / ``ext_scores`` [P,N] float32
     (numpy, at the bucketed dims): the extender pass's veto and score
-    overlay, copied to that device once for every round."""
+    overlay, copied to that device once for every round. ``capture``: on
+    the card, replay each chunk of rounds as a CUDA graph (False: run it
+    eagerly, for comparisons)."""
     P = int(pb.pod_valid.shape[0])
     dev = pb.pod_valid.device
     ct_ext = extend_cluster(ct, pb)
-    state = GangState(
-        requested=ct.requested,
-        committed=torch.zeros(P, dtype=torch.bool, device=dev),
-        assignment=torch.full((P,), -1, dtype=torch.int32, device=dev),
-        tried=torch.zeros(P, dtype=torch.bool, device=dev),
-        rounds=0,
-    )
     weights_t = tuple(sorted(weights.items())) if weights else ()
     filters_t = tuple(sorted(enabled_filters)) if enabled_filters else ()
     limit = max(P if serial else max_rounds, 1)
@@ -344,12 +430,20 @@ def gang_schedule(ct: ClusterTensors, pb: PodBatch, seed: int = 0,
     if ext_scores is not None:
         ext_scores = torch.as_tensor(ext_scores, dtype=torch.float32,
                                      device=dev)
-    state = _converge(ct_ext, pb, state, seed=seed,
-                      fit_strategy=fit_strategy, topo_keys=topo_keys,
-                      serial=serial, weights=weights_t,
-                      enabled_filters=filters_t, max_rounds=limit,
-                      ext_mask=ext_mask, ext_scores=ext_scores)
-    return state.assignment.cpu().numpy().astype(np.int32), state.rounds
+    with graphs.LOCK:
+        if capture and dev.type == "cuda":
+            ct_ext = _stable("gang_ct", ct_ext)
+            pb = _stable("gang_pb", pb)
+            ext_mask, ext_scores = graphs.stable("gang_ext",
+                                                 [ext_mask, ext_scores])
+        state = _converge(ct_ext, pb, _new_state(ct.requested, P, dev),
+                          seed=seed, fit_strategy=fit_strategy,
+                          topo_keys=topo_keys, serial=serial,
+                          weights=weights_t, enabled_filters=filters_t,
+                          max_rounds=limit, ext_mask=ext_mask,
+                          ext_scores=ext_scores, capture=capture)
+    return (state.assignment.cpu().numpy().astype(np.int32),
+            int(state.rounds))
 
 
 # -- multi-batch drain: the whole queue in one call ---------------------------
@@ -445,7 +539,15 @@ def _new_state(requested, P: int, dev) -> GangState:
                      assignment=torch.full((P,), -1, dtype=torch.int32,
                                            device=dev),
                      tried=torch.zeros(P, dtype=torch.bool, device=dev),
-                     rounds=0)
+                     rounds=torch.zeros((), dtype=torch.int32, device=dev))
+
+
+def _stable(tag: str, tree):
+    """``tree`` copied into persistent buffers of its shapes on the card
+    (models/graphs.stable), so the graphs keyed on their addresses are
+    found again at the next call of the same shapes."""
+    bufs = iter(graphs.stable(tag, _tree_leaves(tree)))
+    return _tree_map(lambda _: next(bufs), tree)
 
 
 def _drain_batches(ct: ClusterTensors, pb_stack: PodBatch, e0: int,
@@ -454,29 +556,36 @@ def _drain_batches(ct: ClusterTensors, pb_stack: PodBatch, e0: int,
     full convergence against the cluster plus every earlier batch's
     committed pods, and its own committed slots are written into
     ``ct.epod_node``/``ct.epod_valid`` IN PLACE for the batches after it.
-    -> (assignments [B,P] int32, rounds [B] np.int32, requested [N,R])."""
+    On the card each batch's chunk of rounds is a captured graph, keyed on
+    the context's addresses and on the batch's slot start; the batches are
+    first copied into persistent buffers. The rounds stay on the device.
+    -> (assignments [B,P] int32, rounds [B] int32, requested [N,R])."""
     B, P = pb_stack.pod_valid.shape
     dev = pb_stack.pod_valid.device
     requested = ct.requested
     assignments, rounds = [], []
-    for b in range(B):
-        start = e0 + b * P
-        st = _converge(ct, _batch(pb_stack, b), _new_state(requested, P, dev),
-                       slot_start=start, **kw)
-        ct.epod_node[start:start + P] = st.assignment
-        ct.epod_valid[start:start + P] = st.committed
-        requested = st.requested
-        assignments.append(st.assignment)
-        rounds.append(st.rounds)
-    return torch.stack(assignments), np.asarray(rounds, np.int32), requested
+    with graphs.LOCK:
+        if kw.get("capture", True) and dev.type == "cuda":
+            pb_stack = _stable("drain_pb", pb_stack)
+        for b in range(B):
+            start = e0 + b * P
+            st = _converge(ct, _batch(pb_stack, b),
+                           _new_state(requested, P, dev), slot_start=start,
+                           **kw)
+            ct.epod_node[start:start + P] = st.assignment
+            ct.epod_valid[start:start + P] = st.committed
+            requested = st.requested
+            assignments.append(st.assignment)
+            rounds.append(st.rounds)
+    return torch.stack(assignments), torch.stack(rounds), requested
 
 
 def _drain_kw(seed, fit_strategy, topo_keys, weights, enabled_filters,
-              max_rounds) -> dict:
+              max_rounds, capture=True) -> dict:
     return dict(seed=seed, fit_strategy=fit_strategy,
                 topo_keys=tuple(topo_keys), weights=tuple(weights),
                 enabled_filters=tuple(enabled_filters),
-                max_rounds=max_rounds)
+                max_rounds=max_rounds, capture=capture)
 
 
 def prepare_drain(ct: ClusterTensors, pbs: list[PodBatch], device=None):
@@ -496,14 +605,14 @@ def gang_drain(ct: ClusterTensors = None, pbs: list[PodBatch] = None,
                seed: int = 0, fit_strategy: str = "LeastAllocated",
                topo_keys: tuple[int, ...] = (), weights=None,
                enabled_filters=None, max_rounds: int = 64, prepared=None,
-               device=None):
+               device=None, capture: bool = True):
     """Schedule a whole queue of batches in one call.
 
     A loop over the batch axis, each step a full gang convergence,
     carrying (requested[N,R], epod slot state) batch to batch — so capacity
     AND relational effects of earlier batches are visible to later ones.
     The carries stay on the device; the host reads the results once, at
-    the end.
+    the end, besides one read of the progress flag per chunk of rounds.
 
     Returns (assignments [B,P] np.int32 with -1 unschedulable,
     rounds [B] np.int32, requested_final [N,R] np.int32).
@@ -511,19 +620,26 @@ def gang_drain(ct: ClusterTensors = None, pbs: list[PodBatch] = None,
     ``prepared``: the result of prepare_drain() — pass it to amortize host
     prep and staging across repeated drains of the same queue (it is not
     modified). Otherwise ``ct`` and ``pbs`` are prepared on ``device``.
+    ``capture``: as ``gang_schedule``.
     """
     if prepared is None:
         prepared = prepare_drain(ct, pbs, device=device)
     ct_all, pb_stack, e0 = prepared
-    ct_run = ct_all.replace(epod_node=ct_all.epod_node.clone(),
-                            epod_valid=ct_all.epod_valid.clone())
+    if capture and ct_all.epod_node.is_cuda:
+        # a copy in persistent buffers: the graphs find it again
+        ct_run = _stable("drain_ct", ct_all)
+    else:
+        ct_run = ct_all.replace(epod_node=ct_all.epod_node.clone(),
+                                epod_valid=ct_all.epod_valid.clone())
     kw = _drain_kw(seed, fit_strategy, topo_keys,
                    sorted(weights.items()) if weights else (),
                    sorted(enabled_filters) if enabled_filters else (),
-                   max_rounds)
-    assignments, rounds, requested = _drain_batches(ct_run, pb_stack, e0, kw)
-    return (assignments.cpu().numpy(), rounds,
-            requested.cpu().numpy())
+                   max_rounds, capture)
+    with graphs.LOCK:
+        assignments, rounds, requested = _drain_batches(ct_run, pb_stack,
+                                                        e0, kw)
+        return (assignments.cpu().numpy(), rounds.cpu().numpy(),
+                requested.cpu().numpy())
 
 
 # -- device-resident drain: cluster tensors stay on the card across drains ----
@@ -609,6 +725,24 @@ def build_drain_context(ct: ClusterTensors, pbs: list[PodBatch],
     return ct_all, e0, fill0
 
 
+def adopt_storage(old, new):
+    """``new``'s content written into ``old``'s tensors when every leaf
+    has the same shape, dtype and device, so the graphs captured on
+    ``old`` (models/graphs.py keys them on its addresses) serve ``new``;
+    -> ``old``, or ``new`` itself when the shapes differ (it is captured
+    anew at its first drain)."""
+    if old is None:
+        return new
+    lo, ln = _tree_leaves(old), _tree_leaves(new)
+    if len(lo) != len(ln) or any(
+            a.shape != b.shape or a.dtype != b.dtype or a.device != b.device
+            for a, b in zip(lo, ln)):
+        return new
+    for a, b in zip(lo, ln):
+        a.copy_(b)
+    return old
+
+
 def _refill(dst, e0: int, src, fill) -> None:
     """dst[e0:] = src, padded at the end of its trailing axes with ``fill``."""
     region = dst[e0:]
@@ -632,7 +766,8 @@ def drain_step(ct_all: ClusterTensors, pb_stack: PodBatch, fill,
                patch=None, *, e0: int, seed: int = 0,
                fit_strategy: str = "LeastAllocated",
                topo_keys: tuple[int, ...] = (), weights: tuple = (),
-               enabled_filters: tuple = (), max_rounds: int = 64):
+               enabled_filters: tuple = (), max_rounds: int = 64,
+               capture: bool = True):
     """One fused drain over a DEVICE-RESIDENT cluster encoding.
 
     ``ct_all``: rows [0,e0) are base existing-pod slots (``fill`` of them
@@ -656,6 +791,11 @@ def drain_step(ct_all: ClusterTensors, pb_stack: PodBatch, fill,
     ``patch``: optional compiled churn patch (encode/patch.py; numpy arrays
     by key), applied in front of the batches as ``apply_ctx_patch`` would
     apply it.
+
+    On the card the rounds are captured graphs that read the context at
+    its addresses (models/graphs.py): a context rebuilt elsewhere is
+    captured anew. ``capture``: as ``gang_schedule``. The fold's
+    ``nonzero`` and the patch's row filters read the host outside them.
     """
     B, P = pb_stack.pod_valid.shape
     BP = B * P
@@ -685,7 +825,7 @@ def drain_step(ct_all: ClusterTensors, pb_stack: PodBatch, fill,
     _refill(ct_all.ea_ns_mask, e0, _flat(pb_stack.anti_ns_mask), False)
 
     kw = _drain_kw(seed, fit_strategy, topo_keys, weights, enabled_filters,
-                   max_rounds)
+                   max_rounds, capture)
     assignments, rounds, requested = _drain_batches(ct_all, pb_stack, e0, kw)
     ct_all.requested.copy_(requested)
 
@@ -712,8 +852,7 @@ def drain_step(ct_all: ClusterTensors, pb_stack: PodBatch, fill,
     # once the valid flags drop)
     ct_all.epod_valid[e0:] = False
     ct_all.ea_valid[e0:] = False
-    return (assignments, torch.as_tensor(rounds, device=dev), ct_all,
-            new_fill)
+    return assignments, rounds, ct_all, new_fill
 
 
 # churn-patch scatters: (container field path, patch key) by row kind

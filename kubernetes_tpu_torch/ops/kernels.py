@@ -7,12 +7,21 @@ source, all started together; ``library`` loads one with ``ctypes``,
 building it at first use. A library's file name carries a hash of its
 source, so an edited kernel is rebuilt and a stale one is never loaded.
 
+While a durable cache is armed (``sched/aotcache.py``: ``arm``), the
+libraries are built into and loaded from its ``entries`` directory
+instead, and each is checked against the cache's manifest before it is
+loaded: a damaged entry is deleted and rebuilt (counted by the cache),
+never loaded. ``disarm`` restores ``build/kernels/``.
+
 ``BUILDS`` counts the ``nvcc`` builds this process ran (a library found on
 disk costs none): the planners' ``CompileCounter`` (encode/overlay.py)
 reads it to prove a window built nothing. ``LAUNCHES`` counts the launches
-of each kernel. A wrapper adds one where
-it launches its kernel and nowhere else, so a caller can set the counts to
-0, run a path, and see which kernels it went through.
+of each kernel. A wrapper calls ``count_launch`` where it launches its
+kernel and nowhere else, so a caller can set the counts to 0, run a path,
+and see which kernels it went through. A launch made while a CUDA graph
+is captured runs at each replay, not then: it is tallied in ``CAPTURED``
+and the graph adds it to ``LAUNCHES`` at every replay
+(``models/graphs.py``).
 
 ``KernelError`` is what a kernel's build, load, launch or input check
 raises. It is never degraded around: the scheduler's circuit breaker lets
@@ -36,10 +45,13 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 KERNELS = ("count_pn",)
 LAUNCHES = {name: 0 for name in KERNELS}
+CAPTURED = {name: 0 for name in KERNELS}
 BUILDS = 0
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
+# the armed cache: (entries directory, verify(path) -> bool) or None
+_ARMED = None
 
 
 class KernelError(RuntimeError):
@@ -53,6 +65,38 @@ class KernelInputError(KernelError, ValueError):
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def count_launch(name: str) -> None:
+    """One launch of kernel ``name`` by its wrapper; under a CUDA graph's
+    capture it is tallied for the graph's replays instead."""
+    import torch
+    if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+        CAPTURED[name] += 1
+    else:
+        LAUNCHES[name] += 1
+
+
+def arm(directory, verify=None) -> None:
+    """Build into and load from ``directory`` (a durable cache's entries);
+    ``verify(path)`` judges a library before it is loaded and deletes it
+    when it is damaged. Loaded libraries are forgotten."""
+    global _ARMED
+    with _LOCK:
+        _ARMED = (Path(directory), verify)
+        _LIBS.clear()
+
+
+def disarm() -> None:
+    """Back to ``build/kernels/`` (loaded libraries are forgotten)."""
+    global _ARMED
+    with _LOCK:
+        _ARMED = None
+        _LIBS.clear()
+
+
+def build_dir() -> Path:
+    return _ARMED[0] if _ARMED is not None else BUILD_DIR
 
 
 def _nvcc() -> str:
@@ -69,20 +113,29 @@ def _nvcc() -> str:
 
 def _lib_path(name: str) -> Path:
     digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    return build_dir() / f"lib{name}-{digest}.so"
+
+
+def _present(path: Path) -> bool:
+    """The library is on disk and, under an armed cache, intact (a
+    damaged one is deleted by the cache's check, so it is built anew)."""
+    if not path.exists():
+        return False
+    verify = _ARMED[1] if _ARMED is not None else None
+    return verify is None or verify(path)
 
 
 def build(names=KERNELS) -> dict[str, dict]:
     """Compile every named kernel whose library is missing, in parallel.
     -> {name: {"path", "built", "ptxas"}}; raises with nvcc's output if a
     build fails."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    build_dir().mkdir(parents=True, exist_ok=True)
     jobs = {}
     out = {}
     for name in names:
         path = _lib_path(name)
         out[name] = {"path": str(path), "built": False, "ptxas": ""}
-        if path.exists():
+        if _present(path):
             continue
         tmp = path.with_suffix(f".{os.getpid()}.tmp")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
@@ -110,11 +163,15 @@ def library(name: str) -> ctypes.CDLL:
         lib = _LIBS.get(name)
         if lib is None:
             path = _lib_path(name)
-            if not path.exists():
+            if not _present(path):
                 build((name,))
             try:
-                lib = ctypes.CDLL(str(path))
+                lib = _load(path)
             except OSError as e:
                 raise KernelError(f"cannot load {path}: {e}") from e
             _LIBS[name] = lib
         return lib
+
+
+def _load(path: Path):
+    return ctypes.CDLL(str(path))

@@ -297,7 +297,7 @@ def count_pn(ct: ClusterTensors, sel, pod_ns, ns_explicit=None, ns_mask=None,
             "count_pn launch failed: " + ("geometry disagrees with the "
             "kernel's shared-memory layout" if err == -1
             else f"CUDA error {err}"))
-    kernels.LAUNCHES["count_pn"] += 1
+    kernels.count_launch("count_pn")
     return cnt
 
 

@@ -14,7 +14,8 @@ delta log feeds the device-resident drain context's churn patches
 The staging arena (sched/staging.py) stages drain batches for the
 scheduler's ``device``: pinned host buffers and a side CUDA stream on the
 card, the plain conversion on the CPU. Of the reference cache this module
-leaves out the device mesh (``mesh`` is always None: one device) and DRA:
+leaves out the device mesh (``set_mesh`` takes one and runs on one
+device) and DRA:
 a DRA object, or a pod with resource claims, raises NotImplementedError
 (ROADMAP Queue A item 11).
 """
@@ -106,10 +107,9 @@ class SchedulerCache:
     # ---- device and staging ----------------------------------------------
 
     def set_mesh(self, mesh) -> None:
-        """The port runs on one device: only ``None`` is accepted."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "a device mesh is not ported: ROADMAP Queue A item 8")
+        """The port runs on one device: a mesh is taken and run
+        single-device, as the reference's scheduler runs a mesh it has too
+        few devices for. The staged buffers are dropped, as there."""
         self._arena.invalidate()
 
     @property

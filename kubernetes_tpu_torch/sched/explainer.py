@@ -189,11 +189,14 @@ class SchedulingExplainer:
         while self._q.unfinished_tasks and time.time() < deadline:
             time.sleep(0.01)
 
-    def close(self) -> None:
+    def close(self, timeout: float = 5.0) -> None:
+        """Poison-pill the judging thread and join it (a verdict in flight
+        lands first)."""
         t = self._thread
         if t is not None and t.is_alive():
             self._q.put(None)
             self._thread = None
+            t.join(timeout=timeout)
 
     # ---- checker thread --------------------------------------------------
 

@@ -17,6 +17,7 @@ from __future__ import annotations
 import torch
 
 from kubernetes_tpu_torch.audit.sentinel import ParityError
+from kubernetes_tpu_torch.models.graphs import GraphError
 from kubernetes_tpu_torch.ops.kernels import KernelError
 
 
@@ -24,6 +25,8 @@ def is_fatal(e: BaseException) -> bool:
     """True for a failure that no retry cures:
 
     - ``KernelError``: a hand kernel that does not build, load or launch;
+    - ``GraphError``: a CUDA graph of the gang rounds that does not
+      capture or replay (models/graphs.py; never run eagerly instead);
     - ``ParityError``: the parity sentinel refuted a device answer;
     - ``NotImplementedError``: a feature the port has not got yet;
     - an error of the CUDA runtime (``torch.AcceleratorError``; a torch
@@ -36,7 +39,8 @@ def is_fatal(e: BaseException) -> bool:
     """
     if isinstance(e, torch.cuda.OutOfMemoryError):
         return False
-    if isinstance(e, (KernelError, ParityError, NotImplementedError)):
+    if isinstance(e, (KernelError, GraphError, ParityError,
+                      NotImplementedError)):
         return True
     accel = getattr(torch, "AcceleratorError", None)
     if accel is not None and isinstance(e, accel):

@@ -26,8 +26,8 @@ the port such an error propagates to the caller, and only the scheduler
 degrade, counting it as a loop error and feeding the breaker. The
 semantic fallbacks to ``find_candidate`` (a zero-eviction fit, ranked
 candidates that fail exact verification) are part of the algorithm and
-stay. DRA claims and a device mesh are later slices (ROADMAP Queue A
-items 11 and 8): the oracle refuses a DRA catalog, and a mesh raises.
+stay. DRA claims are a later slice (ROADMAP Queue A item 11): the oracle
+refuses a DRA catalog. A device mesh is taken and run single-device.
 """
 
 from __future__ import annotations
@@ -40,7 +40,6 @@ import numpy as np
 
 from kubernetes_tpu_torch.api.policy import _matches, compute_pdb_status
 from kubernetes_tpu_torch.api.types import Node, Pod
-from kubernetes_tpu_torch.config.types import not_ported
 from kubernetes_tpu_torch.device import resolve_device
 from kubernetes_tpu_torch.sched.oracle import OracleScheduler
 
@@ -229,10 +228,8 @@ def tensor_static_masks(nodes, preemptors, ct=None, meta=None,
     ``node_rows``: optional row index per entry of ``nodes`` into ``ct``'s
     node axis — the resident context's row order diverges from the node
     list after node churn patches, so the columns are gathered by row
-    instead of sliced positionally. ``mesh``: a device mesh is ROADMAP
-    item 8; anything but None raises."""
-    if mesh is not None:
-        raise not_ported("a device mesh (preemption static masks)", "8")
+    instead of sliced positionally. ``mesh``: the port runs on one
+    device; a mesh is taken and the masks computed single-device."""
     device = resolve_device(device)
     if ct is None:
         from kubernetes_tpu_torch.encode.snapshot import SnapshotEncoder
@@ -277,8 +274,6 @@ def preempt_wave(nodes: list[Node], bound_pods: list[Pod],
 
     Returns one ``PreemptionResult | None`` per preemptor, in order."""
     from kubernetes_tpu_torch.ops.preemption import dry_run_wave
-    if mesh is not None:
-        raise not_ported("a device mesh (preemption wave)", "8")
     if not preemptors:
         return []
     budgets = _pdb_budgets(pdbs or [], bound_pods)

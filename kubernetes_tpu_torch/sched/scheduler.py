@@ -13,8 +13,9 @@ Profiles: pods are grouped by spec.schedulerName; unknown names are ignored
 
 Where the port differs from the reference:
 
-- Dispatch is not asynchronous: ``drain_step`` reads each round's progress
-  on the host, so it returns once the drain has converged. The pipeline
+- Dispatch is not asynchronous: ``drain_step`` reads its progress flag on
+  the host once per chunk of K rounds (each chunk one captured CUDA graph,
+  models/graphs.py), so it returns once the drain has converged. The pipeline
   (``_pending``, ``fill_bound`` reserved at dispatch and adjusted at
   resolve, the depth bound, the resolver thread) keeps its structure; the
   overlap with the card comes from the staging arena (the next batch's
@@ -58,10 +59,11 @@ Where the port differs from the reference:
   device once and the carve and ``gang_schedule`` share it.
 
 Features that wait for later slices raise ``NotImplementedError`` naming
-their ROADMAP Queue A item: a device mesh (8), DRA (11; a slice-shaped
-ResourceClaim included) and out-of-tree tensor plugins (12). Fleet mode
-(7b) is ported: ``sched/fleet.FleetRunner`` sets ``fleet_mode``. The
-parity sentinel (``audit/sentinel.py``) samples drains, preemption waves
+their ROADMAP Queue A item: DRA (11; a slice-shaped ResourceClaim
+included) and out-of-tree tensor plugins (12). A ``meshShape`` runs
+single-device with a warning, as the reference does with too few
+devices. Fleet mode (7b) is ported: ``sched/fleet.FleetRunner`` sets
+``fleet_mode``. The parity sentinel (``audit/sentinel.py``) samples drains, preemption waves
 and slice carves as in the reference, but an answer it refutes stops the
 loop with a ``ParityError`` where the reference trips the breaker to the
 oracle.
@@ -82,8 +84,7 @@ import torch
 
 from kubernetes_tpu_torch.api.types import Pod
 from kubernetes_tpu_torch.config.features import DEFAULT_FEATURE_GATE
-from kubernetes_tpu_torch.config.types import (SchedulerConfiguration,
-                                               refuse_unported)
+from kubernetes_tpu_torch.config.types import SchedulerConfiguration
 from kubernetes_tpu_torch.config.types import not_ported as _not_ported
 from kubernetes_tpu_torch.device import resolve_device
 from kubernetes_tpu_torch.encode.snapshot import tenant_label_of
@@ -93,6 +94,7 @@ from kubernetes_tpu_torch.metrics.registry import (
     DRAIN_SHARD_MS,
     GANG_ROUNDS,
     LOOP_ERRORS,
+    MESH_DEVICES,
     PIPELINE_DEPTH,
     PIPELINE_INFLIGHT,
     QUEUE_DEPTH,
@@ -136,14 +138,21 @@ class Scheduler:
                  preemptor: Optional[Callable] = None,
                  registry=None, bulk_binder: Optional[Callable] = None,
                  device=None):
-        # refused at construction too, for a caller that skipped validate
-        refuse_unported(cfg)
         self.cfg = cfg
         self.cache = cache
         self.queue = queue
         self.binder = binder
         # the card unless the caller asks for the CPU (tests)
         self.device = resolve_device(device)
+        mesh = cfg.mesh_shape
+        if mesh is not None and mesh[0] * mesh[1] > 1:
+            # the port runs on one device: as the reference does when the
+            # backend has fewer devices than the mesh asks for, it runs
+            # single-device rather than refuse to schedule (the mesh is a
+            # throughput knob, not a correctness requirement)
+            _LOG.warning("mesh shape %s unavailable: the port runs on one "
+                         "device; running single-device", mesh)
+        MESH_DEVICES.set(1)
         # bulk_binder(pairs: [(Pod, node_name)]) -> [bool]: one API call
         # binding a whole gang batch. Pods needing per-pod ceremony
         # (lifecycle hooks, volume binding) still go through ``binder``.
@@ -171,6 +180,17 @@ class Scheduler:
         # replica of the cluster encoding, valid while the only pending
         # cache deltas are assumes this loop folded on the device
         self._drain_ctx = None
+        # bumped by every context build (a rebuild, warm_drain): a rebuild
+        # at the old shapes reuses the old tensors (gang.adopt_storage), so
+        # the planners' race check reads this instead of their identity
+        self._ctx_epoch = 0
+        # the last warm ladder's report (warm_drain)
+        self.warm_stats: dict = {}
+        # on the card the gang rounds replay as captured CUDA graphs
+        # (models/graphs.py); False runs them eagerly, for comparisons
+        # only: the scheduler itself never turns it off, and a capture
+        # that fails is fatal (sched/faults.is_fatal)
+        self.capture = True
         # device circuit breaker: consecutive device-program failures walk
         # single-device -> pure-numpy oracle, with half-open recovery
         # (sched/resilience.py)
@@ -965,7 +985,8 @@ class Scheduler:
                     max_rounds=self.cfg.max_gang_rounds,
                     weights=profile.weights(),
                     enabled_filters=profile.enabled_filters,
-                    ext_mask=ext_mask, ext_scores=ext_scores)
+                    ext_mask=ext_mask, ext_scores=ext_scores,
+                    capture=self.capture)
             except Exception as e:
                 if is_fatal(e):
                     # a kernel that does not build or launch, or a CUDA
@@ -1071,8 +1092,9 @@ class Scheduler:
                                                        fork_meta,
                                                        sync_resident_widths)
         from kubernetes_tpu_torch.models.gang import (
-            apply_ctx_patch, batch_shapes, build_drain_context, drain_step,
-            drain_widths_fit, pad_batch_to, stack_batches, unify_batches)
+            adopt_storage, apply_ctx_patch, batch_shapes, build_drain_context,
+            drain_step, drain_widths_fit, pad_batch_to, stack_batches,
+            unify_batches)
         from kubernetes_tpu_torch.sched.staging import ResidentShadow
         t0 = time.time()
         self._cyc_marks = []  # fresh debug trail per cycle (cycle_log)
@@ -1088,6 +1110,7 @@ class Scheduler:
                       in self._nominated.items() if k not in batch_keys}
 
         ctx = self._drain_ctx
+        old_ct = None       # the context a rebuild replaces
         use_ctx = False
         fused_patch = None  # churn deltas riding THIS dispatch (fused fold)
         n_prev = 0
@@ -1191,6 +1214,8 @@ class Scheduler:
             # the in-flight drain's placements must land in the cache before
             # a host snapshot, or the re-encode double-books their capacity
             n_prev += self._resolve_pending()
+            if self._drain_ctx is not None:
+                old_ct = self._drain_ctx["ct"]
             self._drain_ctx = None
             with TRACER.span("scheduler/snapshot", pods=len(pods)):
                 nodes, ct, meta = self.cache.snapshot(
@@ -1236,9 +1261,14 @@ class Scheduler:
                     self._schedule_group(profile, c, slot_headroom)
                     for c in chunks)
             ct_dev, e0, fill = built
+            # a rebuild at the old shapes takes the old context's storage:
+            # the graphs of the rounds, keyed on its addresses, stay valid
+            # (nothing in flight refers to it: _resolve_pending ran)
+            ct_dev = adopt_storage(old_ct, ct_dev)
             sync_resident_widths(cs, ct_dev)
             self.ctx_stats["rebuilds"] += 1
-            ctx = {"ct": ct_dev, "e0": e0,
+            self._ctx_epoch += 1
+            ctx = {"ct": ct_dev, "e0": e0, "epoch": self._ctx_epoch,
                    "fill_dev": self._stage_fill(fill),
                    "fill_bound": fill, "meta": fork_meta(meta),
                    "nodes": nodes, "cs": cs, "seq": seq0,
@@ -1307,7 +1337,8 @@ class Scheduler:
                     weights=tuple(sorted(profile.weights().items())),
                     enabled_filters=tuple(
                         sorted(profile.enabled_filters or ())),
-                    max_rounds=self.cfg.max_gang_rounds)
+                    max_rounds=self.cfg.max_gang_rounds,
+                    capture=self.capture)
             except Exception as e:
                 if is_fatal(e):
                     # never degraded around (see _schedule_group); the
@@ -1565,21 +1596,32 @@ class Scheduler:
         return n_bound
 
     def warm_drain(self, sample_pods: list, slot_headroom: int) -> bool:
-        """Run the drain once at the shapes a representative workload will
-        use (the first call also builds the card's kernels) and stage the
-        device-resident cluster context; benchmarks call it so the measured
-        window is steady-state. The warm-up drains run on a context that is
-        thrown away: drain_step updates its context in place, so the kept
-        one is built afterwards from the host encoding. Returns True when
-        the context is armed."""
+        """The warm ladder: run the drain at the shapes a representative
+        workload will use and stage the device-resident cluster context;
+        benchmarks call it so the measured window is steady-state. The
+        first call builds the card's kernels (or loads them from the
+        durable cache, sched/aotcache.py), and the first drain_step
+        captures the CUDA graphs of the rounds at the drain's bucketed
+        shape, one per batch slot (models/graphs.py), where the
+        reference's ladder compiles drain_step; the fused-patch drain that
+        follows replays them. The warm-up drains run on a context whose
+        content is thrown away: drain_step updates it in place, so the
+        kept context is built afterwards from the host encoding and
+        written into the same storage, where the graphs read it.
+        ``self.warm_stats`` reports the ladder's captures, builds and
+        seconds. Returns True when the context is armed."""
         from kubernetes_tpu_torch.encode.patch import (fork_meta,
                                                        sync_resident_widths)
         from kubernetes_tpu_torch.models.gang import (
-            apply_ctx_patch, batch_shapes, build_drain_context, drain_step,
-            stack_batches, unify_batches)
+            adopt_storage, apply_ctx_patch, batch_shapes, build_drain_context,
+            drain_step, stack_batches, unify_batches)
+        from kubernetes_tpu_torch.models import graphs
+        from kubernetes_tpu_torch.ops import kernels
         from kubernetes_tpu_torch.sched.staging import ResidentShadow
         if not sample_pods:
             return False
+        t_ladder = time.perf_counter()
+        builds0, captures0 = kernels.BUILDS, graphs.CAPTURES
         profile = self.cfg.profile_for(sample_pods[0].spec.scheduler_name)
         if profile is None:
             return False
@@ -1605,7 +1647,7 @@ class Scheduler:
                   topo_keys=meta.topo_keys,
                   weights=tuple(sorted(profile.weights().items())),
                   enabled_filters=tuple(sorted(profile.enabled_filters or ())),
-                  max_rounds=self.cfg.max_gang_rounds)
+                  max_rounds=self.cfg.max_gang_rounds, capture=self.capture)
         # the SAME staging path (and spans) the live dispatch uses — warms
         # the stager thread and the pinned buffers
         pb_staged = self._stage_batch(
@@ -1635,19 +1677,25 @@ class Scheduler:
             if is_fatal(e):
                 raise
             _LOG.exception("patch-program warmup failed (non-fatal)")
-        del ct_warm
         built = build_drain_context(ct, pbs, nom_bucket=DRAIN_NOM_BUCKET,
                                     device=self.device)
         cs = self.cache.patch_state_fork()
         if built is None or cs is None:
             return False
         ct_dev, e0, fill = built
+        ct_dev = adopt_storage(ct_warm, ct_dev)
+        del ct_warm
         sync_resident_widths(cs, ct_dev)
         if self.device.type == "cuda":
             # the context upload is queued on the stream: wait for it, so
             # the first real drain does not pay it inside the window
             torch.cuda.synchronize(self.device)
-        self._drain_ctx = {"ct": ct_dev, "e0": e0,
+        self.warm_stats = {
+            "seconds": time.perf_counter() - t_ladder,
+            "builds": kernels.BUILDS - builds0,
+            "captures": graphs.CAPTURES - captures0}
+        self._ctx_epoch += 1
+        self._drain_ctx = {"ct": ct_dev, "e0": e0, "epoch": self._ctx_epoch,
                            "fill_dev": self._stage_fill(fill),
                            "fill_bound": fill,
                            "meta": fork_meta(meta), "nodes": nodes,
@@ -1985,7 +2033,8 @@ class Scheduler:
             rows.append(ni)
         return {"ct": ctx["ct"], "meta": meta, "cs": cs,
                 "nodes": nodes, "rows": np.asarray(rows, np.int32),
-                "shadow": ctx.get("shadow"), "seq": ctx["seq"]}, "ok"
+                "shadow": ctx.get("shadow"), "seq": ctx["seq"],
+                "epoch": ctx["epoch"]}, "ok"
 
     def _resident_wave_view(self) -> Optional[dict]:
         """The preemption wave's view of the resident drain context (see
@@ -2249,11 +2298,17 @@ class Scheduler:
                 fault = e  # raised once the rest of the pool is down
             else:
                 _LOG.exception("resolving in-flight drains at close")
+        resolver = None
         with self._resolver_swap_lock:  # vs a racing watchdog restart
             if self._resolver_q is not None:
-                self._resolver_q.put(None)  # poison pill; thread is daemon
+                self._resolver_q.put(None)  # poison pill
+                resolver = self._resolver_thread
                 self._resolver_thread = None
                 self._resolver_q = None
+        if resolver is not None:
+            # joined, as every thread close() stops: a daemon thread still
+            # inside a torch call when the interpreter exits aborts it
+            resolver.join(timeout=timeout)
         self.cache.close_staging()  # poison the batch-stager (daemon too)
         if self.sentinel is not None:
             self.sentinel.close()

@@ -81,6 +81,8 @@ class ResidentDrain:
         self.stats = {"rebuilds": 0, "folds": 0, "unfit": 0, "reasons": {}}
         # the padded batch stack of the last drain_step
         self.last_stack = None
+        # False: the rounds run eagerly on the card (comparisons only)
+        self.capture = True
 
     def _reason(self, why: str) -> None:
         r = self.stats["reasons"]
@@ -216,7 +218,7 @@ class ResidentDrain:
         t1 = time.perf_counter()
         assignments, rounds, ctx["ct"], ctx["fill_dev"] = drain_step(
             ctx["ct"], pb_stack, ctx["fill_dev"], fused,
-            e0=ctx["e0"], topo_keys=meta.topo_keys)
+            e0=ctx["e0"], topo_keys=meta.topo_keys, capture=self.capture)
         assignments = assignments.cpu().numpy()
         out.drain_ms = (time.perf_counter() - t1) * 1e3
         ctx["fill_bound"] += len(pods)

@@ -80,7 +80,9 @@ _SCHED_MODULES = (
     "autoscaler.simulator", "autoscaler.autoscaler", "descheduler.planner",
     "descheduler.strategies", "descheduler.descheduler", "sched.bgplanner",
     # the shared fatal-failure predicate and fleet mode
-    "sched.faults", "sched.fleet")
+    "sched.faults", "sched.fleet",
+    # warm start and the round loop as one captured device program
+    "models.graphs", "parallel.aot", "sched.aotcache")
 
 _NO_YAML = r"""
 import importlib, sys

@@ -233,6 +233,33 @@ def test_a_context_moved_during_a_dispatch_declines_raced():
         sched.close()
 
 
+def test_a_same_shape_rebuild_during_a_dispatch_declines_raced():
+    """A rebuild at the old shapes writes the new snapshot into the old
+    context's tensors (gang.adopt_storage), with no new delta and no fold:
+    the tensors, ``seq`` and the patch cursors read as before, and only
+    the context's build epoch tells the planner that its view moved."""
+    nodes, bound = planner_fuzz_cluster(0)
+    sched, cache = _sched(nodes, bound)
+    try:
+        rp = ResidentPlanner(sched.resident_plan_view, cache)
+        pods = [make_pod("q0").req({"cpu": "1"}).obj()]
+        ctx = rp.plan_view(nodes, bound, planner="t")
+        old = sched._drain_ctx
+        # an unplaceable pod: the rebuilt context folds nothing
+        sched.taint_ctx()
+        sched.queue.add(make_pod("huge").req({"cpu": "100000"}).obj())
+        sched.run_once(wait=0.01)
+        sched._resolve_pending()
+        new = sched._drain_ctx
+        assert new is not old and new["ct"] is old["ct"]
+        assert (new["seq"], new["cs"].fill_host, new["cs"].top) == (
+            old["seq"], old["cs"].fill_host, old["cs"].top)
+        assert rp.mask_scores(ctx, pods) is None
+        assert rp.stats()["declines"]["t"] == {"raced": 1}
+    finally:
+        sched.close()
+
+
 # ------------------------------------------------- tenant drain quotas
 
 def _quota_store(client_mod, store_mod, wrappers, tenant_label):

@@ -483,14 +483,21 @@ def test_tensor_static_masks_equal_reference():
 
 
 def test_static_mask_refuses_a_mesh():
+    """A mesh is no longer refused (ROADMAP item 8): the port runs on one
+    device, and the masks and the wave with a mesh equal those without."""
     nodes, bound = build_saturated(2)
     pod = port_wrappers.make_pod("p").req({"cpu": "1"}).obj()
-    with pytest.raises(NotImplementedError, match="item 8"):
-        port_pre.tensor_static_masks(nodes, [pod], bound_pods=bound,
-                                     mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        port_pre.preempt_wave(nodes, bound, [pod], mesh=object(),
-                              device="cpu")
+    masks = [port_pre.tensor_static_masks(nodes, [pod], bound_pods=bound,
+                                          mesh=mesh, device="cpu")
+             for mesh in (None, object())]
+    assert np.array_equal(masks[0], masks[1])
+    waves = [port_pre.preempt_wave(nodes, bound, [pod], mesh=mesh,
+                                   device="cpu")
+             for mesh in (None, object())]
+    assert [None if r is None else (r.node_name, sorted(
+        v.key for v in r.victims)) for r in waves[0]] == [
+        None if r is None else (r.node_name, sorted(v.key for v in r.victims))
+        for r in waves[1]]
 
 
 # ---- the Scheduler with PreemptionSimulation on -------------------------------

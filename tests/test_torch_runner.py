@@ -423,6 +423,13 @@ def test_cuda_error_stops_the_runner(monkeypatch, max_drain_batches):
             runner.stop()
 
 
+def _graph_error():
+    from kubernetes_tpu_torch.models.graphs import GraphError
+    return GraphError("CUDA graph capture of the rounds failed: "
+                      "RuntimeError: CUDA error: operation not permitted "
+                      "when stream is capturing")
+
+
 @pytest.mark.parametrize("exc, fatal", [
     (_cuda_error("an illegal memory access was encountered"), True),
     (RuntimeError("CUDA error: device-side assert triggered"), True),
@@ -430,11 +437,14 @@ def test_cuda_error_stops_the_runner(monkeypatch, max_drain_batches):
                                  "2.00 GiB"), False),
     (RuntimeError("device lost"), False),
     (ValueError("CUDA error: not from the runtime"), False),
+    (_graph_error(), True),
 ], ids=["accelerator", "runtime_cuda", "out_of_memory", "other_runtime",
-        "value_error"])
+        "value_error", "graph_capture"])
 def test_is_fatal_classes_cuda_errors(exc, fatal):
     """The one predicate every device site shares: a CUDA error is fatal,
-    a CUDA out-of-memory error keeps the retry path."""
+    a CUDA out-of-memory error keeps the retry path, and so is a CUDA
+    graph of the rounds that fails to capture (it is never run eagerly
+    instead)."""
     from kubernetes_tpu_torch.sched.faults import is_fatal
     assert is_fatal(exc) is fatal
 

@@ -445,9 +445,11 @@ def _port_sched(cfg_kw=None, gates=None, nodes=2, **kw):
                                     feature_gate=gate, device="cpu", **kw)
 
 
-# config options of features that wait, each with its ROADMAP item; None =
-# ported since (the explainer, item 5, and extenders, item 3c, were refused
-# until then: their cases now check that the option is taken and built)
+# config options an earlier slice refused, each with the ROADMAP item it
+# waited for; a mesh (item 8) is now taken and run single-device, as the
+# reference's scheduler runs a mesh it has too few devices for (the
+# explainer, item 5, and extenders, item 3c, were refused until their
+# slices: their cases check that the option is taken and built)
 _WAITING_OPTIONS = [
     ({"mesh_shape": (1, 2)}, "item 8"),
 ]
@@ -470,9 +472,21 @@ def _ported_cfg_kw(cfg_kw):
 
 
 @pytest.mark.parametrize("cfg_kw,item", _WAITING_OPTIONS, ids=["mesh"])
-def test_construction_refuses_what_waits(cfg_kw, item):
-    with pytest.raises(NotImplementedError, match=item):
-        _port_sched(cfg_kw)
+def test_construction_refuses_what_waits(cfg_kw, item, caplog):
+    """The mesh is no longer refused: the Scheduler is built, warns that
+    it runs single-device, and schedules there."""
+    from kubernetes_tpu_torch.metrics.registry import MESH_DEVICES
+    with caplog.at_level("WARNING"):
+        sched = _port_sched(cfg_kw)
+    try:
+        assert "running single-device" in caplog.text
+        assert MESH_DEVICES.get() == 1
+        sched.queue.add(port_types.Pod.from_dict(
+            make_pod("p0").req({"cpu": "100m"}).obj().to_dict()))
+        bound = sched.run_once(wait=0.01) + sched._resolve_pending()
+        assert bound == 1
+    finally:
+        sched.close()
 
 
 @pytest.mark.parametrize("cfg_kw", _PORTED_OPTIONS,
@@ -547,11 +561,13 @@ def test_refuses_fleet_mode_and_tensor_plugins():
 
 @pytest.mark.parametrize("cfg_kw,item", _WAITING_OPTIONS, ids=["mesh"])
 def test_validate_refuses_what_waits(cfg_kw, item):
-    """The refusal comes at config time, not only when a Scheduler is
-    built."""
-    cfg = port_config.SchedulerConfiguration(**cfg_kw)
-    with pytest.raises(NotImplementedError, match=item):
-        port_config.validate(cfg)
+    """A mesh validates as the reference validates it (power-of-two axes,
+    a pods axis dividing batchSize) and is no longer refused."""
+    port_config.validate(port_config.SchedulerConfiguration(**cfg_kw))
+    for bad in ((1, 3), (4, 1)):
+        with pytest.raises(port_config.ValidationError):
+            port_config.validate(port_config.SchedulerConfiguration(
+                mesh_shape=bad, batch_size=2))
 
 
 @pytest.mark.parametrize("cfg_kw", _PORTED_OPTIONS,
