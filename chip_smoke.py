@@ -268,6 +268,33 @@ Phases, one JSON line each:
            on every tenant. Each tenant's bind p99 is reported against the
            reference's 10 s SLO (fleet_slo), not gated on
 
+  parity.dra  DRA device claims (sched/dra.py: device classes as dra:<class>
+           columns of the resource axis) on the card, on the CPU and
+           through the oracle, on testing/workloads.dra_mix (48 nodes, one
+           DeviceClass, slices on every other node, template and named
+           claims, an unready claim, an allocated claim, three pods
+           contending for two devices): gang_drain's assignments, rounds
+           and requested bit-equal; the Scheduler's drain path with a
+           late node's slice patched in and a new slice's full encode
+           (binder logs, ctx_stats, the folded context with its dra:
+           column) equal across the devices, no node over its devices;
+           serial rounds on each device equal to the oracle's placements
+  dra      SchedulingWithResourceClaimTemplate/5000pods_500nodes (upstream
+           scheduler_perf's DRA config, structured parameters): 500
+           nodes, one ResourceSlice of 10 devices each, one claim
+           template a namespace; the APIServer in a spawned process, the
+           SchedulerRunner over HTTP (reference defaults, the sentinel
+           every 4th drain, a fail-fast auditor every 2 s) and the
+           ResourceClaimController in a spawned process; 2500 init pods,
+           then 2500 measured pods (pods/s, attempt p50/p99, claim
+           events, rebuilds, full encodes and captures of the window),
+           then 500 measured pods deleted and 500 new ones bound under
+           torch.profiler (the busy share). Gates (dra_phase): every pod
+           bound with its claim allocated on its node to it, no node over
+           10 allocated devices, no pod bound while its claim was
+           missing, the deleted pods' claims released, 0 violations, 0
+           divergences, 0 loop errors, breaker "single", 0 oracle pods
+
   The gang rounds run as captured CUDA graphs on the card
   (kubernetes_tpu_torch/models/graphs.py: K rounds a replay, one host
   read of the progress flag a chunk). The drain, resident, scheduler,
@@ -291,9 +318,9 @@ Phases, one JSON line each:
            the card, under torch.profiler (the device's busy share of the
            call, the host's launch calls and the kernels a round), bit-equal
            (assignments, rounds, requested, new fill, the folded context);
-           and captured, eager and on the CPU with the rounds cut at
-           GRAPH_CPU_ROUNDS (the CPU takes seconds a round at these
-           widths), bit-equal
+           and captured and eager with the rounds cut at GRAPH_CPU_ROUNDS,
+           and on the CPU so cut at the resident shape only (the CPU takes
+           seconds a round at these widths), bit-equal
   warm     three boots of a SchedulerRunner (a 64-node MixedHeterogeneous
            cluster over a DirectClient), each in a child process
            (``--warm-boot DIR``), on one empty temporary aotCacheDir: cold
@@ -313,11 +340,12 @@ judge, whose pods then got no verdict).
 
 Each path (path, drain, resident, scheduler, connected, preemption,
 connected_preemption, explain, extender, slice, autoscaler, defrag,
-planner, fleet.drain, fleet) is driven with the launch counts set to 0
-just before it and read just after; the preemption and planner paths
-launch no hand kernel (their device work is torch ops), nor does the
-fleet path (the FleetChurn pods carry no topology term; fleet.drain
-launches count_pn), and every path's count is printed, 0 included. Then
+planner, fleet.drain, fleet, parity.dra, dra) is driven with the launch
+counts set to 0 just before it and read just after; the preemption and
+planner paths launch no hand kernel (their device work is torch ops),
+nor do the fleet and DRA paths (the FleetChurn and claim pods carry no
+topology term; fleet.drain launches count_pn), and every path's count is
+printed, 0 included. Then
 the kernel table line
 ({"kernels": [...]}, one row per kernel at the shape of its most launches,
 launches summed over the paths, the shapes checked), the card's name and
@@ -1585,15 +1613,19 @@ def connected_workload(pods=CONNECTED_PODS, nodes=N_NODES, seed=SEED):
 def _wire(objs):
     """Wire dicts without the wrappers' process-local uids (the store
     stamps its own)."""
-    dicts = [o.to_dict() for o in objs]
+    return _wire_dicts([o.to_dict() for o in objs])
+
+
+def _wire_dicts(dicts):
     for d in dicts:
         d["metadata"].pop("uid", None)
     return dicts
 
 
-def watch_bound(url, ns, rv0, n_pods, count, done, dead, ready):
+def watch_bound(url, ns, rv0, n_pods, count, done, dead, ready, prefix=""):
     """Watcher process: count the pods whose nodeName got set (one event
-    per binding). Its JSON decode burns its own interpreter, not the
+    per binding), of those whose name starts with ``prefix``; a deletion
+    is not a binding. Its JSON decode burns its own interpreter, not the
     scheduler's."""
     from kubernetes_tpu_torch.client.clientset import HTTPClient
     client = HTTPClient(url, timeout=30.0, wire="json")
@@ -1602,6 +1634,9 @@ def watch_bound(url, ns, rv0, n_pods, count, done, dead, ready):
         w = client.pods(ns).watch(since_rv=rv0)
         ready.set()
         for ev in w:
+            if ev.type == "DELETED" or not (ev.object or {}).get(
+                    "metadata", {}).get("name", "").startswith(prefix):
+                continue
             if (ev.object or {}).get("spec", {}).get("nodeName"):
                 seen.add(ev.object["metadata"]["name"])
                 count.value = len(seen)
@@ -5261,6 +5296,576 @@ def fleet_phase(device=None, smi="", tenants=FLEET_TENANTS,
     return summary
 
 
+# --------------------------------------------------------------------- DRA
+
+DRA_PARITY_NODES = 48      # dra_mix: the claim parity cluster
+DRA_PARITY_PODS = 160
+DRA_NODES = 500            # SchedulingWithResourceClaimTemplate/5000pods_500nodes
+DRA_DEVICES = 10           # one ResourceSlice of 10 devices a node
+DRA_INIT_PODS = 2500       # namespace init
+DRA_MEASURED_PODS = 2500   # namespace test: the measured pods
+DRA_RELEASE = 500          # measured pods deleted, then as many new ones
+DRA_TIMEOUT_S = 120.0      # each leg's wall
+
+
+def _dra_scheduler(w, device, serial=False, **cfg):
+    """A port Scheduler (make_scheduler) over ``dra_mix`` dicts ``w``: its
+    nodes and bound pods, and its DeviceClasses, ResourceSlices and
+    ResourceClaims fed to the cache as the runner's informers feed them.
+    ``serial``: TPUBatchScheduling off (one acceptance a round: the
+    oracle's serial semantics). -> (scheduler, binder log)."""
+    import copy
+    from kubernetes_tpu_torch.api.types import Node, Pod
+    gate = no_preemption_gate()
+    if serial:
+        gate.set("TPUBatchScheduling", False)
+    sched, log = make_scheduler(
+        sched_config(**cfg), [Node.from_dict(copy.deepcopy(d))
+                              for d in w["nodes"]],
+        [Pod.from_dict(copy.deepcopy(d)) for d in w["bound"]],
+        device=device, confirm=False, gate=gate)
+    for kind, key in (("DeviceClass", "classes"), ("ResourceSlice", "slices"),
+                      ("ResourceClaim", "claims")):
+        for obj in w[key]:
+            sched.cache.update_dra_object(kind, copy.deepcopy(obj))
+    sched._drain_ready = lambda pend: False
+    return sched, log
+
+
+def _dra_drive(sched, w, churn=True, pops=8):
+    """Queue every pending pod, then ``pops`` run_once, the churn of
+    tests/test_torch_dra.py landing first (before the second pop the late
+    node joins, its slice published before it: a folded node patch;
+    before the third a new ResourceSlice: a full encode)."""
+    import copy
+    from kubernetes_tpu_torch.api.types import Node, Pod
+    from kubernetes_tpu_torch.testing import workloads
+    for d in w["pending"]:
+        sched.queue.add(Pod.from_dict(copy.deepcopy(d)))
+    for i in range(pops):
+        if churn and i == 1:
+            sched.cache.add_node(Node.from_dict(copy.deepcopy(
+                w["late_nodes"][0])))
+        if churn and i == 2:
+            sched.cache.update_dra_object(
+                "ResourceSlice", workloads.resource_slice("node-1", 3))
+        sched.run_once(wait=0.01)
+    sched._resolve_pending()
+    sched.wait_for_bindings()
+
+
+def _dra_devices_held(w, log, extra_slices=()):
+    """node -> (devices the bound and placed claim pods hold, devices the
+    node's slices publish)."""
+    demand = {}
+    for c in w["claims"]:
+        md = c["metadata"]
+        demand[(md["namespace"], md["name"])] = sum(
+            r.get("count", 1) for r in c["spec"]["devices"]["requests"])
+    held: dict = {}
+    pods = [(p, log.get(f"{p['metadata']['namespace']}/"
+                       f"{p['metadata']['name']}", ""))
+            for p in w["pending"]]
+    pods += [(p, p["spec"]["nodeName"]) for p in w["bound"]]
+    for p, node in pods:
+        if not node:
+            continue
+        ns, name = p["metadata"]["namespace"], p["metadata"]["name"]
+        for ref in p["spec"].get("resourceClaims") or []:
+            cname = ref.get("resourceClaimName") or f"{name}-{ref['name']}"
+            held[node] = held.get(node, 0) + demand.get((ns, cname), 0)
+    cap: dict = {}
+    for sl in list(w["slices"]) + list(extra_slices):
+        node = sl["spec"]["nodeName"]
+        cap[node] = cap.get(node, 0) + sum(
+            d.get("count", 1) for d in sl["spec"]["devices"])
+    return {n: (held.get(n, 0), cap.get(n, 0)) for n in set(held) | set(cap)}
+
+
+def dra_parity_phase(devices=("cuda", "cpu"), seed=SEED,
+                     n_nodes=DRA_PARITY_NODES, n_pods=DRA_PARITY_PODS):
+    """DRA device claims on the card, on the CPU and through the oracle, on
+    one seeded claim workload (``testing/workloads.dra_mix``: one
+    DeviceClass, ResourceSlices on every other node, template and named
+    claims, a pod whose claim is not made yet, a pod whose claim is
+    already allocated, three pods contending for one node's two devices,
+    bound pods holding claims):
+
+    - ``gang_drain`` of the pending pods (batches of 32) over the host
+      encoding with its ``dra:`` column: assignments, rounds and the final
+      requested bit-equal across the devices;
+    - the port's Scheduler, drain path with fold (batches of 16, 4 a pop,
+      depth 2), the churn of tests/test_torch_dra.py between pops: binder
+      logs, ctx_stats and the folded context (resources, requested and
+      allocatable with the ``dra:`` column, epod slots) equal across the
+      devices; no node over the devices its slices publish; the unready
+      pod unplaced, the pinned pod on its claim's node, two of the three
+      contenders placed;
+    - the Scheduler with TPUBatchScheduling off (serial rounds, pops of
+      one batch of 16) on each device, and the same Scheduler at the
+      breaker's oracle level (the numpy oracle): every placement equal to
+      the oracle's.
+    -> summary."""
+    import copy
+    from kubernetes_tpu_torch.api.types import Node, Pod
+    from kubernetes_tpu_torch.encode.snapshot import SnapshotEncoder
+    from kubernetes_tpu_torch.models.gang import gang_drain
+    from kubernetes_tpu_torch.sched.dra import DRA_PREFIX, DraCatalog
+    from kubernetes_tpu_torch.testing import workloads
+    w = workloads.dra_mix(nodes=n_nodes, pods=n_pods, seed=seed)
+    out = {"nodes": n_nodes, "pending": len(w["pending"]),
+           "claims": len(w["claims"]), "slices": len(w["slices"])}
+    # gang_drain over the host encoding
+    enc = SnapshotEncoder()
+    enc.set_dra(DraCatalog.from_lists(copy.deepcopy(w["claims"]),
+                                      copy.deepcopy(w["classes"]),
+                                      copy.deepcopy(w["slices"])))
+    pending = [Pod.from_dict(copy.deepcopy(d)) for d in w["pending"]]
+    ct, meta = enc.encode_cluster(
+        [Node.from_dict(copy.deepcopy(d)) for d in w["nodes"]],
+        [Pod.from_dict(copy.deepcopy(d)) for d in w["bound"]],
+        pending_pods=pending, pending_slots=False)
+    P = 32
+    pbs = [enc.encode_pods(pending[i:i + P], meta, min_p=P)
+           for i in range(0, len(pending), P)]
+    drains = {d: gang_drain(ct, pbs, topo_keys=meta.topo_keys, seed=seed,
+                            device=d) for d in devices}
+    for d in devices[1:]:
+        check(_same(drains[devices[0]], drains[d]),
+              f"parity.dra: gang_drain on {d} differs from {devices[0]}")
+    a, rounds, requested = drains[devices[0]]
+    col = meta.resources.index(DRA_PREFIX + workloads.DRA_CLASS)
+    out["gang_drain"] = {"placed": int((a >= 0).sum()),
+                         "rounds": rounds.tolist(),
+                         "devices_requested": int(requested[:, col].sum()),
+                         "resources": list(meta.resources)}
+    # the Scheduler's drain path with fold
+    runs = {}
+    for d in devices:
+        sched, log = _dra_scheduler(w, d, batch_size=16, max_drain_batches=4,
+                                    pipeline_depth=2)
+        try:
+            _dra_drive(sched, w)
+            ctx = sched._drain_ctx
+            cs, cct = ctx["cs"], ctx["ct"]
+            runs[d] = {"log": {k: n for k, n, _t in log},
+                       "ctx_stats": json.loads(json.dumps(sched.ctx_stats)),
+                       "fill_host": cs.fill_host, "top": cs.top,
+                       "resources": list(ctx["meta"].resources),
+                       "requested": cct.requested.cpu().tolist(),
+                       "allocatable": cct.allocatable.cpu().tolist(),
+                       "epod_valid": cct.epod_valid.cpu().tolist(),
+                       "epod_node": cct.epod_node.cpu().tolist()}
+        finally:
+            sched.close()
+    first = runs[devices[0]]
+    for d in devices[1:]:
+        for key, value in first.items():
+            check(runs[d][key] == value,
+                  f"parity.dra: the scheduler's {key} on {d} differs from "
+                  f"{devices[0]}")
+    log = first["log"]
+    held = _dra_devices_held(w, log, [workloads.resource_slice("node-1", 3)])
+    over = {n: hc for n, hc in held.items() if hc[0] > hc[1]}
+    check(not over, f"parity.dra: nodes over their devices: {over}")
+    pin = next(c for c in w["claims"] if c["metadata"]["name"]
+               == "c-pinned")["status"]["allocation"]["nodeName"]
+    check("default/unready" not in log,
+          "parity.dra: the pod whose claim is missing was placed")
+    check(log.get("default/pinned") == pin,
+          f"parity.dra: the pinned pod went to {log.get('default/pinned')!r}"
+          f", its claim is allocated on {pin}")
+    contenders = sorted(k for k in log if k.startswith("default/contend-"))
+    check(len(contenders) == 2,
+          f"parity.dra: {len(contenders)} of 3 contenders placed on 2 "
+          "devices")
+    check(first["ctx_stats"]["folds"] >= 1
+          and first["ctx_stats"]["rebuilds"] >= 2,
+          f"parity.dra: the churn did not fold and rebuild "
+          f"({first['ctx_stats']})")
+    out["scheduler"] = {
+        "placed": len(log), "ctx_stats": first["ctx_stats"],
+        "resources": first["resources"],
+        "devices_held": sum(h for h, _c in held.values()),
+        "devices_published": sum(c for _h, c in held.values())}
+    # serial rounds against the oracle
+    logs = {}
+    for leg, d in [(f"serial_{d}", d) for d in devices] + [("oracle",
+                                                             devices[-1])]:
+        # one batch a pop: the oracle's tie-break salt is the pod's index
+        # in the pop, the serial rounds' its index in the batch
+        sched, log = _dra_scheduler(w, d, serial=True, batch_size=16,
+                                    max_drain_batches=1)
+        if leg == "oracle":
+            sched.breaker.attempt_level = lambda: "oracle"
+        try:
+            _dra_drive(sched, w, churn=False, pops=14)
+            logs[leg] = {k: n for k, n, _t in log}
+        finally:
+            sched.close()
+    for leg, got in logs.items():
+        check(got == logs["oracle"],
+              f"parity.dra: {leg}'s placements differ from the oracle's")
+    out["serial"] = {"placed": len(logs["oracle"]),
+                     "legs": sorted(logs)}
+    return out
+
+
+def serve_claim_controller(url, stop, ready, failed):
+    """Child process: the port's ResourceClaimController over its own HTTP
+    client and informers, as a controller manager beside the scheduler
+    runs it; ``ready`` once its informers synced, until ``stop``."""
+    from kubernetes_tpu_torch.client.clientset import HTTPClient
+    from kubernetes_tpu_torch.client.informer import InformerFactory
+    from kubernetes_tpu_torch.controllers import ResourceClaimController
+    ctrl = ResourceClaimController(HTTPClient(url, wire="json"))
+    factory = InformerFactory(HTTPClient(url, wire="json"))
+    try:
+        ctrl.register(factory)
+        factory.start_all()
+        if not factory.wait_for_cache_sync(120.0):
+            failed.set()
+            return
+        ctrl.start()
+        ready.set()
+        stop.wait()
+    except Exception:
+        import traceback
+        traceback.print_exc()
+        failed.set()
+    finally:
+        ctrl.stop()
+        factory.stop_all()
+
+
+def _claims_by_pod(client, namespaces):
+    """(namespace, pod name) -> the pod's template claim ``<pod>-dev``."""
+    out = {}
+    for ns in namespaces:
+        for c in client.resource("resourceclaims", ns).list():
+            name = c["metadata"]["name"]
+            if name.endswith("-dev"):
+                out[(ns, name[:-len("-dev")])] = c
+    return out
+
+
+def dra_phase(device=None, smi="", n_nodes=DRA_NODES, devices=DRA_DEVICES,
+              n_init=DRA_INIT_PODS, n_measured=DRA_MEASURED_PODS,
+              n_release=DRA_RELEASE):
+    """SchedulingWithResourceClaimTemplate/5000pods_500nodes (upstream
+    test/integration/scheduler_perf's DRA config, structured parameters),
+    through the port: the APIServer in a spawned process; 500 nodes, each
+    with one ResourceSlice of 10 devices of one DeviceClass; one
+    ResourceClaimTemplate (1 device) in each of the namespaces init and
+    test; the SchedulerRunner over HTTP (reference defaults: pops of 8 x
+    256, depth 2; the parity sentinel every 4th drain and a fail-fast
+    auditor every 2 s, as in the connected phase; the explainer off) and
+    the port's ResourceClaimController in a spawned process of its own
+    (serve_claim_controller), as a controller manager runs beside the
+    scheduler. Informers synced, ``warm_drain``, the loop started; then
+    2500 init pods, all bound; then the 2500 measured pods (the window:
+    first create to the last bound event, a watcher process counting);
+    then the release leg: 500 measured pods deleted, 500 new ones created
+    under torch.profiler (the device's busy share), all bound on the freed
+    devices, and the controller's release of the deleted pods' claims.
+    Gates: every pod bound; every pod's claim allocated on its node with
+    the pod (its uid) in reservedFor; no node over its 10 allocated
+    devices; no pod bound while its claim was missing (a count at the
+    binder); 0 audit violations; 0 sentinel divergences; 0 loop errors,
+    breaker "single", 0 pods through the oracle; the release leg's pods
+    bound. Reported: the measured pods/s (upstream's
+    SchedulingThroughput), attempt p50/p99, the claim events the
+    scheduler's informer saw, rebuilds, full encodes and captures in the
+    window, the busy share. -> summary."""
+    import multiprocessing as mp
+    import torch
+    from concurrent.futures import ThreadPoolExecutor
+    from kubernetes_tpu_torch.audit.auditor import (InvariantAuditor,
+                                                    InvariantViolationError)
+    from kubernetes_tpu_torch.client.clientset import HTTPClient
+    from kubernetes_tpu_torch.metrics.registry import (ATTEMPT_DURATION,
+                                                       LOOP_ERRORS)
+    from kubernetes_tpu_torch.ops import kernels
+    from kubernetes_tpu_torch.sched.runner import SchedulerRunner
+    from kubernetes_tpu_torch.testing import workloads
+    from kubernetes_tpu_torch.api.types import Pod
+    from kubernetes_tpu_torch.utils.tracing import TRACER
+    node_dicts, classes, slices, templates = \
+        workloads.claim_template_cluster(n_nodes, devices)
+    init_pods = _wire_dicts(workloads.claim_template_pods(
+        "init", n_init, "init"))
+    measured = _wire_dicts(workloads.claim_template_pods(
+        "test", n_measured, "test"))
+    fresh = _wire_dicts(workloads.claim_template_pods(
+        "rel", n_release, "test"))
+    ctx = mp.get_context("spawn")
+    server, server_pipe, url = start_apiserver(ctx)
+    runner = ctrl = None
+    ctrl_stop = ctx.Event()
+    watchers = []
+    summary = {"nodes": n_nodes, "devices_per_node": devices,
+               "init_pods": n_init, "measured_pods": n_measured,
+               "release": n_release, "card": smi}
+
+    def wait_leg(ns, rv0, n, what, prefix=""):
+        count = ctx.Value("i", 0)
+        done, dead, ready = ctx.Event(), ctx.Event(), ctx.Event()
+        proc = ctx.Process(target=watch_bound,
+                           args=(url, ns, rv0, n, count, done, dead, ready,
+                                 prefix), daemon=True)
+        proc.start()
+        watchers.append(proc)
+        check(ready.wait(120.0), f"dra: the {what} watcher did not start")
+        return count, done, dead
+
+    def until(done, dead, count, n, t0, what):
+        while not done.wait(timeout=0.02):
+            check(runner.loop_error is None,
+                  f"dra: the scheduling loop died: {runner.loop_error!r}")
+            check(ctrl.is_alive(), "dra: the claim controller died")
+            check(not dead.is_set(), f"dra: the {what} watcher died")
+            check(time.perf_counter() - t0 < DRA_TIMEOUT_S,
+                  f"dra: {count.value} of {n} {what} pods bound in "
+                  f"{DRA_TIMEOUT_S} s")
+        return time.perf_counter() - t0
+
+    try:
+        seed_client = HTTPClient(url, timeout=120.0, wire="json")
+        t0 = time.perf_counter()
+        seed_client.resource("deviceclasses", None).create_many(classes)
+        seed_client.nodes().create_many(node_dicts)
+        seed_client.resource("resourceslices", None).create_many(slices)
+        for tpl in templates:
+            seed_client.resource("resourceclaimtemplates",
+                                 tpl["metadata"]["namespace"]).create(tpl)
+        summary["seed_s"] = time.perf_counter() - t0
+        # the claim controller in its own process, as a controller manager
+        # beside the scheduler runs it
+        ctrl_ready, ctrl_failed = ctx.Event(), ctx.Event()
+        ctrl = ctx.Process(target=serve_claim_controller,
+                           args=(url, ctrl_stop, ctrl_ready, ctrl_failed),
+                           daemon=True)
+        ctrl.start()
+        check(ctrl_ready.wait(120.0) and not ctrl_failed.is_set(),
+              "dra: the claim controller did not start")
+        cfg = sched_config(parity_sample_every=CONNECTED_PARITY_EVERY,
+                           audit_interval_s=CONNECTED_AUDIT_S,
+                           audit_fail_fast=True)
+        runner = SchedulerRunner(HTTPClient(url, wire="json"), cfg,
+                                 feature_gate=no_preemption_gate(),
+                                 device=device)
+        runner.auditor = InvariantAuditor(
+            client=HTTPClient(url, timeout=60.0, wire="json"),
+            cache=runner.cache, scheduler=runner.scheduler,
+            interval_s=CONNECTED_AUDIT_S, fail_fast=True,
+            pre_sweep=runner.sweep_stale_nominations,
+            post_sweep=runner.publish_status,
+            relists=runner._total_relists)
+        t0 = time.perf_counter()
+        runner.start(wait_sync=120.0, start_loop=False)
+        check(runner.has_synced(), "dra: the informers did not sync")
+        check(runner.cache.dra_catalog is not None
+              and len(runner.cache.dra_catalog.slices) == n_nodes,
+              "dra: the scheduler's catalog lacks the slices")
+        summary["informer_sync_s"] = time.perf_counter() - t0
+        sched = runner.scheduler
+        pop = cfg.batch_size * cfg.max_drain_batches
+        t0 = time.perf_counter()
+        check(sched.warm_drain([Pod.from_dict(d) for d in init_pods[:pop]],
+                               slot_headroom=n_init + n_measured + n_release
+                               + pop),
+              "dra: warm_drain did not arm the context")
+        summary["warm_drain_s"] = time.perf_counter() - t0
+        # instrumentation, read-only: a binding whose claims the
+        # scheduler's catalog cannot resolve, and the DRA events its
+        # informers deliver
+        missing, events = [], {}
+        binder = sched.binder
+
+        def counting_binder(pod, node):
+            if not runner.cache.dra_catalog.pod_claims_ready(pod):
+                missing.append(pod.key)
+            return binder(pod, node)
+        sched.binder = counting_binder
+        on_dra = runner.cache.update_dra_object
+
+        def counting_update(kind, obj, deleted=False):
+            key = (kind, "deleted" if deleted else
+                   "allocated" if (obj.get("status") or {}).get("allocation")
+                   else "unallocated")
+            events[key] = events.get(key, 0) + 1
+            return on_dra(kind, obj, deleted=deleted)
+        runner.cache.update_dra_object = counting_update
+
+        errors0 = sum(LOOP_ERRORS.items().values())
+        kernels.reset_launches()
+        runner.start_loop()
+        # init pods
+        _, rv0 = seed_client.pods("init").list_rv()
+        count, done, dead = wait_leg("init", rv0, n_init, "init")
+        t0 = time.perf_counter()
+        seed_client.pods("init").create_many(init_pods)
+        summary["init_s"] = until(done, dead, count, n_init, t0, "init")
+        # the measured pods
+        _, rv0 = seed_client.pods("test").list_rv()
+        count, done, dead = wait_leg("test", rv0, n_measured, "measured",
+                                     prefix="test-")
+        ATTEMPT_DURATION.reset()
+        TRACER.max_spans = max(TRACER.max_spans, 8 * n_measured)
+        TRACER.reset()
+        ctx0 = json.loads(json.dumps(sched.ctx_stats))
+        full0 = runner.cache.stats()["full_encodes"]
+        ev0 = dict(events)
+        g0 = graph_counters()
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(max_workers=4) as pool:
+            chunk = -(-n_measured // 4)
+            list(pool.map(lambda objs: seed_client.pods("test")
+                          .create_many(objs),
+                          [measured[i:i + chunk]
+                           for i in range(0, n_measured, chunk)]))
+        create_s = time.perf_counter() - t0
+        window_s = until(done, dead, count, n_measured, t0, "measured")
+        q = {"result": "scheduled"}
+        ctx1 = json.loads(json.dumps(sched.ctx_stats))
+        pops = sum(1 for _ in TRACER.spans("scheduler/gang_dispatch"))
+        summary.update({
+            "window_s": window_s, "create_s": create_s,
+            "pods_per_s": n_measured / window_s,
+            "attempt_p50_s": ATTEMPT_DURATION.percentile(0.5, q),
+            "attempt_p99_s": ATTEMPT_DURATION.percentile(0.99, q),
+            "attempts_observed": ATTEMPT_DURATION.count(q),
+            "window_ctx": {k: ctx1[k] - ctx0[k] for k in
+                           ("folds", "patches", "rebuilds", "unfit")},
+            "window_full_encodes":
+                runner.cache.stats()["full_encodes"] - full0,
+            "window_claim_events": {
+                f"{k[0]}/{k[1]}": events.get(k, 0) - ev0.get(k, 0)
+                for k in events},
+            "window_graphs": graph_report(g0, pops * cfg.max_drain_batches),
+            "window_spans": {k: v for k, v in _span_totals().items()
+                             if k.startswith(("scheduler/", "runner/"))}})
+        # the release leg: measured pods deleted, as many new ones bound
+        # on the devices they freed, under torch.profiler
+        with ThreadPoolExecutor(max_workers=4) as pool:
+            list(pool.map(lambda d: seed_client.pods("test").delete(
+                d["metadata"]["name"]), measured[:n_release]))
+        _, rv0 = seed_client.pods("test").list_rv()
+        count, done, dead = wait_leg("test", rv0, n_release, "release",
+                                     prefix="rel-")
+        trace_path = os.path.join(os.path.dirname(os.path.abspath(
+            __file__)), "build", "profile", "dra_release.json")
+        os.makedirs(os.path.dirname(trace_path), exist_ok=True)
+        torch.cuda.synchronize()
+        with profiled() as prof:
+            t0 = time.perf_counter()
+            seed_client.pods("test").create_many(fresh)
+            release_s = until(done, dead, count, n_release, t0, "release")
+            torch.cuda.synchronize()
+            prof_wall_ms = (time.perf_counter() - t0) * 1e3
+        summary["release_s"] = release_s
+        summary["release_bound"] = count.value
+        # the controller releases the deleted pods' claims (its sweep)
+        gone = {("test", d["metadata"]["name"]) for d in measured[:n_release]}
+        t0 = time.perf_counter()
+        while True:
+            claims = _claims_by_pod(seed_client, ("init", "test"))
+            stale = [k for k in gone if (claims.get(k, {}).get("status")
+                                         or {}).get("allocation")]
+            if not stale or time.perf_counter() - t0 > 30.0:
+                break
+            time.sleep(0.25)
+        summary["release_sweep_s"] = time.perf_counter() - t0
+        check(not stale, f"dra: {len(stale)} deleted pods' claims still "
+                         "allocated after 30 s")
+        summary["launches"] = dict(kernels.LAUNCHES)
+        prof.export_chrome_trace(trace_path)
+        with open(trace_path) as f:
+            tsum = trace_summary(json.load(f)["traceEvents"], top=6)
+        summary["profile"] = {
+            "wall_ms": prof_wall_ms, "device_busy_ms": tsum["device_busy_ms"],
+            "device_busy_share": tsum["device_busy_ms"] / prof_wall_ms,
+            "top_device_ops": tsum["top_device_ops"],
+            "trace": os.path.relpath(trace_path)}
+        summary["claim_events"] = {f"{k[0]}/{k[1]}": n
+                                   for k, n in events.items()}
+        summary["ctx_stats"] = json.loads(json.dumps(sched.ctx_stats))
+        summary["full_encodes"] = runner.cache.stats()["full_encodes"]
+        summary["loop_errors"] = sum(LOOP_ERRORS.items().values()) - errors0
+        summary["oracle_pods"] = sum(
+            sp.attributes["pods"] for sp in TRACER.spans("scheduler/oracle"))
+        summary["breaker"] = sched.breaker.mode
+        summary["bound_while_claim_missing"] = len(missing)
+        sentinel = sched.sentinel
+        sentinel.drain(120.0)
+        runner.auditor.stop()
+        for _ in range(2):
+            try:
+                runner.auditor.run_once()
+            except InvariantViolationError:
+                pass  # counted below
+        audit = runner.auditor.status()
+        summary["audit"] = {k: audit[k] for k in ("sweeps", "violations",
+                                                  "byInvariant")}
+        summary["sentinel"] = sentinel.stats()
+        pods = {(ns, p["metadata"]["name"]): p
+                for ns in ("init", "test")
+                for p in seed_client.pods(ns).list()}
+        claims = _claims_by_pod(seed_client, ("init", "test"))
+    finally:
+        if runner is not None:
+            runner.stop()  # re-raises a fatal failure that ended the loop
+        if ctrl is not None:
+            ctrl_stop.set()
+            stop_process(ctrl)
+        for proc in watchers:
+            stop_process(proc)
+        stop_process(server, server_pipe)
+    unbound = [k for k, p in pods.items() if not p["spec"].get("nodeName")]
+    wrong, per_node = [], {}
+    for k, p in pods.items():
+        node = p["spec"].get("nodeName", "")
+        c = claims.get(k)
+        st = (c or {}).get("status") or {}
+        alloc = (st.get("allocation") or {}).get("nodeName")
+        held = [(r.get("name"), r.get("uid")) for r in
+                st.get("reservedFor") or []]
+        if not node or alloc != node or held != [
+                (k[1], p["metadata"].get("uid"))]:
+            wrong.append(k)
+    for c in claims.values():
+        node = ((c.get("status") or {}).get("allocation") or {}).get(
+            "nodeName")
+        if node:
+            per_node[node] = per_node.get(node, 0) + 1
+    over = {n: k for n, k in per_node.items() if k > devices}
+    summary.update({"pods_total": len(pods), "unbound": len(unbound),
+                    "claims_wrong": len(wrong),
+                    "max_devices_allocated_on_a_node":
+                        max(per_node.values(), default=0),
+                    "nodes_with_devices_allocated": len(per_node)})
+    check(len(pods) == n_init + n_measured and not unbound,
+          f"dra: {len(unbound)} of {len(pods)} pods unbound")
+    check(not wrong, f"dra: {len(wrong)} pods whose claim is not allocated "
+                     f"on their node to them (first {sorted(wrong)[:3]})")
+    check(not over, f"dra: nodes over {devices} allocated devices: {over}")
+    check(summary["bound_while_claim_missing"] == 0,
+          f"dra: {len(missing)} pods bound while their claim was missing")
+    check(summary["release_bound"] == n_release,
+          f"dra: {summary['release_bound']} of {n_release} release pods bound")
+    check(summary["audit"]["violations"] == 0,
+          f"dra: invariant violations {summary['audit']['byInvariant']}")
+    check(summary["sentinel"]["divergences"] == 0,
+          f"dra: parity divergence {summary['sentinel']}")
+    check(summary["loop_errors"] == 0,
+          f"dra: {summary['loop_errors']} loop errors")
+    check(summary["breaker"] == "single",
+          f"dra: the breaker degraded to {summary['breaker']!r}")
+    check(summary["oracle_pods"] == 0,
+          f"dra: {summary['oracle_pods']} pods went through the oracle")
+    return summary
+
+
 # ------------------------------------------------------------------ graphs
 
 # parity.graph's round cut: the CPU leg converges a full-width batch in
@@ -5304,7 +5909,7 @@ def _same(a, b) -> bool:
 
 
 def drain_step_legs(ct, e0, fill, stack, cut_stack, topo_keys, name,
-                    card="cuda", cut=True):
+                    card="cuda", cut=True, cpu=True):
     """One ``drain_step`` at a resident context's shape (``ct``, never
     written: every leg runs on its own copy). Of ``stack`` at the full
     round limit, captured and eager on the card, each warmed by one call
@@ -5313,9 +5918,9 @@ def drain_step_legs(ct, e0, fill, stack, cut_stack, topo_keys, name,
     kernels a round): assignments, rounds, new fill and the folded context
     bit-equal. With ``cut``: the first batch of ``cut_stack`` through the
     drain's batch loop (``gang._drain_batches``, its slots at ``e0``) at
-    GRAPH_CPU_ROUNDS, captured, eager and on the CPU: assignments, rounds,
-    requested and the context's slots bit-equal. -> the report (graph
-    counters of the profiled captured call)."""
+    GRAPH_CPU_ROUNDS, captured, eager and (with ``cpu``) on the CPU:
+    assignments, rounds, requested and the context's slots bit-equal.
+    -> the report (graph counters of the profiled captured call)."""
     from kubernetes_tpu_torch.models.gang import (_batch, _drain_batches,
                                                   _drain_kw, _tree_map,
                                                   adopt_storage, drain_step,
@@ -5347,9 +5952,10 @@ def drain_step_legs(ct, e0, fill, stack, cut_stack, topo_keys, name,
           "captured one")
     if cut:
         first = stack_batches([_batch(cut_stack, 0)])
-        for leg, capture, device in (("captured_cut", True, card),
-                                     ("eager_cut", False, card),
-                                     ("cpu_cut", True, "cpu")):
+        legs = [("captured_cut", True, card), ("eager_cut", False, card)]
+        if cpu:
+            legs.append(("cpu_cut", True, "cpu"))
+        for leg, capture, device in legs:
             ctx = _tree_map(lambda x: x.to(device, copy=True), ct)
             kw = _drain_kw(0, "LeastAllocated", topo_keys, (), (),
                            GRAPH_CPU_ROUNDS, capture)
@@ -5359,25 +5965,28 @@ def drain_step_legs(ct, e0, fill, stack, cut_stack, topo_keys, name,
             results[leg] = [x.cpu().numpy() for x in (
                 a, r, req, ctx.epod_node, ctx.epod_valid)]
             del ctx
-        for leg in ("eager_cut", "cpu_cut"):
+        for leg in [leg for leg, _c, _d in legs[1:]]:
             check(_same(results["captured_cut"], results[leg]),
                   f"parity.graph ({name}): {leg} differs from captured_cut")
     out["bit_equal"] = True
     return out
 
 
-def gang_drain_legs(ct, pbs, topo_keys, name, seed=0, card="cuda"):
+def gang_drain_legs(ct, pbs, topo_keys, name, seed=0, card="cuda",
+                    cpu=True):
     """``gang_drain`` of a drain's first batch (the host encoding ``ct``,
     ``pbs``), three ways: at GRAPH_CPU_ROUNDS captured, eager on the card
-    and on the CPU (assignments, rounds, requested bit-equal); at the
+    and (with ``cpu``) on the CPU (assignments, rounds, requested
+    bit-equal); at the
     full round limit captured and eager, each warmed by one call, under
     torch.profiler: the device's busy share and the host's launch calls a
     round, and bit-equal. -> the report."""
     from kubernetes_tpu_torch.models.gang import gang_drain, prepare_drain
     out, res = {}, {}
-    for leg, capture, device in (("captured_cut", True, card),
-                                 ("eager_cut", False, card),
-                                 ("cpu_cut", True, "cpu")):
+    cut_legs = [("captured_cut", True, card), ("eager_cut", False, card)]
+    if cpu:
+        cut_legs.append(("cpu_cut", True, "cpu"))
+    for leg, capture, device in cut_legs:
         t0 = time.perf_counter()
         res[leg] = gang_drain(ct, pbs[:1], topo_keys=topo_keys, seed=seed,
                               max_rounds=GRAPH_CPU_ROUNDS, device=device,
@@ -5400,8 +6009,8 @@ def gang_drain_legs(ct, pbs, topo_keys, name, seed=0, card="cuda"):
         if capture:
             out[leg]["graphs"] = graph_report(g0, 1)
         res[leg] = got[0]
-    for want, leg in (("captured_cut", "eager_cut"),
-                      ("captured_cut", "cpu_cut"), ("captured", "eager")):
+    for want, leg in [("captured_cut", leg) for leg, _c, _d in cut_legs[1:]
+                      ] + [("captured", "eager")]:
         check(_same(res[want], res[leg]),
               f"parity.graph ({name}): gang_drain {leg} differs from {want}")
     out["bit_equal"] = True
@@ -5749,6 +6358,13 @@ def main() -> int:
     emit({"phase": "parity.slice", **slice_parity_phase()})
     emit({"phase": "parity.planner", **planner_parity_phase()})
     emit({"phase": "parity.fleet", **fleet_parity_phase()})
+    # DRA claims at the parity size: the card's counts of this comparison
+    # are read (0 expected: the claim pods carry no topology term)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    dra_parity = {**dra_parity_phase(), "launches": dict(kernels.LAUNCHES)}
+    emit({"phase": "parity.dra", **dra_parity,
+          "seconds": time.perf_counter() - t0})
 
     launches = {}   # kernel -> {path: launches}
 
@@ -5878,6 +6494,11 @@ def main() -> int:
     emit({"phase": "fleet", **fleet_sum})
     check(not fleet_sum["failures"],
           f"fleet: {fleet_sum['failures']}")
+    # DRA: SchedulingWithResourceClaimTemplate/5000pods_500nodes (its pods
+    # carry no topology term: count_pn's 0 is recorded)
+    t0 = time.perf_counter()
+    dra_sum = dra_phase(smi=smi)
+    emit({"phase": "dra", **dra_sum, "seconds": time.perf_counter() - t0})
     # ---- captured against eager, parity.graph, warm start --------------
     # (parity.graph profiles drain_step captured and eager at the
     # resident, scheduler and connected shapes)
@@ -5900,19 +6521,24 @@ def main() -> int:
                                          smi=smi, capture=False)
     emit({"phase": "connected.eager", **conn_eager})
     del runner
+    # the CPU leg at one shape (the resident cycle's); the card's captured
+    # and eager legs at every shape
     graph_legs = {}   # shape -> its legs and their seconds
     for shape, legs in (
-            ("drain", lambda: gang_drain_legs(*drain_host, "drain")),
+            ("drain", lambda: gang_drain_legs(*drain_host, "drain",
+                                              cpu=False)),
             ("resident", lambda: drain_step_legs(*resident_in, "resident")),
-            ("scheduler", lambda: drain_step_legs(*sched_in, "scheduler")),
+            ("scheduler", lambda: drain_step_legs(*sched_in, "scheduler",
+                                                  cpu=False)),
             ("connected", lambda: drain_step_legs(*conn_in, "connected",
                                                   cut=False)),
             ("fleet.drain", lambda: gang_drain_legs(
-                f_ct, f_pbs, f_meta.topo_keys, "fleet.drain", seed=SEED))):
+                f_ct, f_pbs, f_meta.topo_keys, "fleet.drain", seed=SEED,
+                cpu=False))):
         t0 = time.perf_counter()
         graph_legs[shape] = {**legs(), "seconds": time.perf_counter() - t0}
     emit({"phase": "parity.graph", "cpu_round_cut": GRAPH_CPU_ROUNDS,
-          **graph_legs})
+          "cpu_leg_at": ["resident"], **graph_legs})
     del resident_in, sched_in, conn_in, f_ct, f_pbs
     # warm start: three scheduler boots on one kernel cache
     emit({"phase": "warm", **warm_phase()})
@@ -5922,7 +6548,8 @@ def main() -> int:
                           ("explain", expl_sum), ("extender", ext_sum),
                           ("slice", slice_sum), ("autoscaler", auto_sum),
                           ("defrag", defrag_sum), ("planner", loop_sum),
-                          ("fleet.drain", fdrain_sum), ("fleet", fleet_sum)):
+                          ("fleet.drain", fdrain_sum), ("fleet", fleet_sum),
+                          ("parity.dra", dra_parity), ("dra", dra_sum)):
         for name, n in summary["launches"].items():
             launches.setdefault(name, {})[path] = n
 
@@ -5950,6 +6577,9 @@ def main() -> int:
                                    + ext_rows + slice_rows + fleet_rows
                                    if r["name"].startswith(name + "[")])
         table.append(row)
+    # the whole script's seconds, the kernels' build included
+    emit({"phase": "script", "seconds": time.perf_counter() - _T0,
+          "deadline_s": DEADLINE_S})
     emit({"kernels": table})
     print(smi, flush=True)
     emit({"ok": True, "device": device})

@@ -171,8 +171,8 @@ def verify_drain_winners(nodes, bound, winners, prior_winners,
     return problems
 
 
-def verify_carve_assignments(nodes, bound, assignments,
-                             members) -> list[str]:
+def verify_carve_assignments(nodes, bound, assignments, members,
+                             dra=None) -> list[str]:
     """Re-run the numpy oracle carver (sched/oracle.py plan_slices over
     topology/carve.numpy_grids) on the captured host views and demand
     BIT-EQUAL member -> node assignments for every gang the device carved.
@@ -180,7 +180,7 @@ def verify_carve_assignments(nodes, bound, assignments,
     scatter, same first-fit flat order — so ANY difference is a
     divergence, never a tie-break."""
     from kubernetes_tpu_torch.sched.oracle import OracleScheduler
-    orc = OracleScheduler(nodes, bound)
+    orc = OracleScheduler(nodes, bound, dra=dra)
     plans = orc.plan_slices(members, validate=False)
     problems: list[str] = []
     for gang, got in sorted(assignments.items()):
@@ -374,7 +374,7 @@ class ParitySentinel:
                      "ns_labels": namespace_labels})
 
     def maybe_submit_carve(self, nodes, bound, assignments, members,
-                           level: str = "single") -> None:
+                           dra=None, level: str = "single") -> None:
         """Every Kth carved group batch: the scheduler hands over the
         typed host views its snapshot encoded (capture by reference — the
         product treats pod subtrees as immutable) plus the device carver's
@@ -394,7 +394,7 @@ class ParitySentinel:
         self._q.put({"site": "carve", "level": level, "ts": time.time(),
                      "nodes": list(nodes), "bound": list(bound),
                      "assignments": dict(assignments),
-                     "members": list(members)})
+                     "members": list(members), "dra": dra})
 
     # ---- checker thread --------------------------------------------------
 
@@ -436,7 +436,7 @@ class ParitySentinel:
         elif item["site"] == "carve":
             problems = verify_carve_assignments(
                 item["nodes"], item["bound"], item["assignments"],
-                item["members"])
+                item["members"], dra=item.get("dra"))
         else:
             problems = verify_wave_results(
                 item["nodes"], item["bound"], item["views"],

@@ -13,8 +13,7 @@ Reference: ``cluster-autoscaler/cloudprovider/cloud_provider.go``
 
 The PyTorch port of ``kubernetes_tpu/autoscaler/nodegroup.py``. kubemark
 is not ported (ROADMAP Queue A item 15): ``HollowNodeGroupProvider``
-raises at construction; so does a group with DRA ``deviceCapacity``
-(item 11).
+raises at construction.
 """
 
 from __future__ import annotations
@@ -48,13 +47,10 @@ class NodeGroup:
     # and cold-side identically)
     tenant: Optional[str] = None
     # DRA device classes this group's nodes expose: class -> device count.
-    # DRA is ROADMAP Queue A item 11: a group that names any refuses.
+    # Stamped as dra:<class> allocatable, so scale-up simulation answers
+    # claim-carrying pending pods — a group without the device never looks
+    # like relief for a pod that needs it.
     device_capacity: dict = field(default_factory=dict)
-
-    def __post_init__(self):
-        if self.device_capacity:
-            from kubernetes_tpu_torch.config.types import not_ported
-            raise not_ported("node-group deviceCapacity (DRA)", "11")
 
     def template_node(self, node_name: str) -> Node:
         """A concrete Node stamped from the template (labels copied so the
@@ -68,7 +64,15 @@ class NodeGroup:
             labels[TENANT_LABEL] = self.tenant
         meta = dataclasses.replace(
             self.template.metadata, name=node_name, labels=labels)
-        return dataclasses.replace(self.template, metadata=meta)
+        node = dataclasses.replace(self.template, metadata=meta)
+        if self.device_capacity:
+            alloc = dict(node.status.allocatable)
+            for cls, count in self.device_capacity.items():
+                alloc[f"dra:{cls}"] = str(count)
+            node = dataclasses.replace(
+                node, status=dataclasses.replace(node.status,
+                                                 allocatable=alloc))
+        return node
 
 
 def load_node_group(d: dict) -> NodeGroup:

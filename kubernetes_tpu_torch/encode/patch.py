@@ -375,6 +375,8 @@ def _compile(encoder, meta, cs, entries, nom_target, nom_bucket,
     def _upsert_node(n: Node):
         name = n.metadata.name
         alloc = dict(n.allocatable_canonical())
+        if encoder._dra is not None:
+            alloc.update(encoder._dra.node_capacity(name))
         if any(r not in cs.res_index for r in alloc):
             raise _Unfit  # new resource kind widens R
         label_ids = encoder._label_ids(n.metadata.labels,

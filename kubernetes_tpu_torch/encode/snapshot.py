@@ -26,8 +26,9 @@ Design notes:
   bookkeeping (``_PatchState``) with ``apply_pod_deltas``,
   ``with_nominated``, and the planners' overlays ``with_hypothetical``
   and ``without_pods`` (on an encoding held in torch tensors they run
-  through encode/overlay.py on the tensors' device). DRA (``set_dra``) is
-  not ported yet (ROADMAP Queue A item 11).
+  through encode/overlay.py on the tensors' device), and DRA
+  (``set_dra``): device classes ride the resource axis as ``dra:<class>``
+  columns (sched/dra.py).
 """
 
 from __future__ import annotations
@@ -401,6 +402,7 @@ class SnapshotEncoder:
         self._image_sizes: list[float] = []
         self._cluster_topo_keys: set[int] = set()
         self._volumes = None  # VolumeCatalog | None
+        self._dra = None  # sched/dra.DraCatalog | None
         self._namespace_labels: dict[str, dict] = {}
         # does any encoded existing-pod anti term carry a namespaceSelector?
         # (only then does the cluster encoding depend on namespace labels)
@@ -492,9 +494,23 @@ class SnapshotEncoder:
         # happen to be numerically equal
         return (self._pod_epoch, t, self._tenant_epochs.get(t, 0))
 
+    def set_dra(self, catalog) -> None:
+        """Attach the DRA catalog (sched/dra.DraCatalog): device classes
+        become synthetic ``dra:<class>`` resources on the shared axis —
+        slices extend node allocatable, claim demands extend pod requests."""
+        self._dra = catalog
+        self._pod_epoch += 1  # precompiled pod records may embed stale state
+
+    @property
+    def dra(self):
+        """The attached DRA catalog (or None). Background planners sync
+        their cold-fallback encoders to the cache encoder's catalogs so a
+        resident overlay and its cold baseline gate claims identically."""
+        return self._dra
+
     @property
     def volumes(self):
-        """The attached volume catalog (or None)."""
+        """The attached volume catalog (or None); see ``dra``."""
         return self._volumes
 
     @property
@@ -540,6 +556,11 @@ class SnapshotEncoder:
         reserving would widen every relational contraction for nothing)."""
         self.generation += 1
         resources = _resource_union(nodes, bound_pods + list(pending_pods or []))
+        if self._dra is not None:
+            from kubernetes_tpu_torch.sched.dra import DRA_PREFIX
+            for cname in sorted(self._dra.class_names()):
+                if DRA_PREFIX + cname not in resources:
+                    resources.append(DRA_PREFIX + cname)
         R = len(resources)
         N = next_bucket(len(nodes) + self.node_headroom, minimum=1)
 
@@ -621,6 +642,8 @@ class SnapshotEncoder:
             node_valid[i] = True
             unschedulable[i] = n.spec.unschedulable
             alloc = dict(n.allocatable_canonical())
+            if self._dra is not None:
+                alloc.update(self._dra.node_capacity(n.metadata.name))
             for r_idx, r in enumerate(resources):
                 if r in alloc:
                     allocatable[i, r_idx] = min(scale_allocatable(r, alloc[r]), UNLIMITED)
@@ -957,8 +980,11 @@ class SnapshotEncoder:
     # -- incremental pod deltas --------------------------------------------
 
     def _effective_requests(self, p: Pod) -> dict:
-        """resource -> canonical amount."""
-        return dict(p.resource_requests())
+        """resource -> canonical amount, including DRA device demands."""
+        reqs = dict(p.resource_requests())
+        if self._dra is not None:
+            reqs.update(self._dra.pod_demands(p))
+        return reqs
 
     def _request_vector(self, p: Pod, resources: list[str]) -> np.ndarray:
         reqs = self._effective_requests(p)
@@ -1390,6 +1416,17 @@ class SnapshotEncoder:
             fn = -1
             if p.spec.node_name:
                 fn = meta.node_index.get(p.spec.node_name, -2)
+            if self._dra is not None and p.spec.resource_claims:
+                if not self._dra.pod_claims_ready(p):
+                    # referenced claim doesn't exist yet (template race):
+                    # hold unschedulable, never drop the device demand
+                    fn = -2
+                else:
+                    # an already-allocated claim pins the pod to its node
+                    # (dynamicresources.go Filter on claim.status.allocation)
+                    alloc_node = self._dra.pod_allocated_node(p)
+                    if alloc_node and not p.spec.node_name:
+                        fn = meta.node_index.get(alloc_node, -2)
             forced.append(fn)
             image_bytes_v.append(
                 float(sum(self._image_sizes[im] for im in c["images"]))

@@ -261,7 +261,11 @@ def _gang_round_impl(ct_ext: ClusterTensors, pb: PodBatch, state: GangState,
         tprio = torch.where(untried, -pb.priority, _I32_MAX)
         torder = lexsort((idx, tprio))
         target = torder[0]
-        is_target = (idx == target) & untried[target]
+        # the reference's `(idx == target) & untried[target]`: only the
+        # target's own entry can survive the first term, so `& untried`
+        # is the same mask, and reading untried[target] (a host index
+        # of a device scalar) would synchronise inside a graph capture
+        is_target = (idx == target) & untried
         want = want & is_target
         tried = tried | is_target
         n_attempted = torch.sum(is_target)

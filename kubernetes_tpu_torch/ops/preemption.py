@@ -101,15 +101,23 @@ def _dry_run(allocatable, requested, static_mask, vic_req, vic_valid,
 
 def _static_mask(nodes: list[Node], pod: Pod, dra=None) -> np.ndarray:
     """Victim-independent filters: unschedulable, nodeName, taints, node
-    affinity (DRA claim state waits for ROADMAP item 11: the oracle refuses
-    a catalog). Relational/ports/volume feasibility is settled by the exact
-    host verification of the winning candidate (removing victims can only
-    HELP those, so this mask never wrongly excludes a candidate — except
-    taint/affinity, which victims cannot change)."""
+    affinity, DRA claim state. Relational/ports/volume feasibility is
+    settled by the exact host verification of the winning candidate
+    (removing victims can only HELP those, so this mask never wrongly
+    excludes a candidate — except taint/affinity/claims, which victims
+    cannot change)."""
     from kubernetes_tpu_torch.sched.oracle import (
         UNSCHED_TAINT, OracleScheduler, tolerates_all)
-    orc = OracleScheduler(nodes, [], dra=dra)
+    orc = OracleScheduler(nodes, [])
     out = np.zeros(len(nodes), bool)
+    # claim state is victim-independent: an unready claim holds the pod
+    # everywhere (dynamicresources PreFilter), and a claim already
+    # allocated to node X pins the pod to X exactly like spec.nodeName
+    claim_pin = None
+    if dra is not None and pod.spec.resource_claims:
+        if not dra.pod_claims_ready(pod):
+            return out
+        claim_pin = dra.pod_allocated_node(pod)
     for i, node in enumerate(nodes):
         # fleet visibility: preemption must never target (and therefore
         # never evict victims from) a sibling tenant's node
@@ -120,6 +128,8 @@ def _static_mask(nodes: list[Node], pod: Pod, dra=None) -> np.ndarray:
                 t.tolerates(UNSCHED_TAINT) for t in pod.spec.tolerations):
             continue
         if pod.spec.node_name and pod.spec.node_name != node.metadata.name:
+            continue
+        if claim_pin and claim_pin != node.metadata.name:
             continue
         if not tolerates_all(pod.spec.tolerations, node.spec.taints, EFFECTS):
             continue

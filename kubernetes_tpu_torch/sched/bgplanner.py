@@ -12,11 +12,10 @@ What this loop owns beyond calling the planners:
 
 catalog sync
     The planners' cold-fallback encoders are pointed at the cache
-    encoder's live volume catalog each cycle (identity-compared:
-    ``set_volumes`` bumps the encoder's pod epoch, so rewiring only
-    happens on an actual catalog swap). A resident overlay and its cold
-    baseline then gate claims identically. The port has no DRA catalog
-    (ROADMAP Queue A item 11).
+    encoder's live DRA/volume catalogs each cycle (identity-compared:
+    ``set_dra``/``set_volumes`` bump the encoder's pod epoch, so rewiring
+    only happens on an actual catalog swap). A resident overlay and its
+    cold baseline then gate claims identically.
 
 compile accounting
     A ``CompileCounter`` window brackets every cycle past warmup: ``nvcc``
@@ -101,11 +100,15 @@ class BackgroundPlanner:
     # ---- catalog sync ----------------------------------------------------
 
     def _sync_catalogs(self) -> None:
-        vols = self.scheduler.cache.volume_catalog
+        cache = self.scheduler.cache
+        dra = cache.dra_catalog
+        vols = cache.volume_catalog
         for planner in (self.autoscaler, self.descheduler):
             enc = getattr(planner, "encoder", None)
             if enc is None:
                 continue
+            if dra is not None and enc.dra is not dra:
+                enc.set_dra(dra)
             if vols is not None and enc.volumes is not vols:
                 enc.set_volumes(vols)
 

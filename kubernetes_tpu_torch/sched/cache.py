@@ -15,9 +15,9 @@ The staging arena (sched/staging.py) stages drain batches for the
 scheduler's ``device``: pinned host buffers and a side CUDA stream on the
 card, the plain conversion on the CPU. Of the reference cache this module
 leaves out the device mesh (``set_mesh`` takes one and runs on one
-device) and DRA:
-a DRA object, or a pod with resource claims, raises NotImplementedError
-(ROADMAP Queue A item 11).
+device). DRA objects (``update_dra_object``) feed a ``DraCatalog``
+(sched/dra.py) that the encoder turns into ``dra:<class>`` columns of the
+resource axis, as in the reference.
 """
 
 from __future__ import annotations
@@ -48,14 +48,6 @@ VALUE_HEADROOM = 256
 NS_HEADROOM = 16
 
 
-def _refuse_claims(pods) -> None:
-    for p in pods:
-        if p.spec.resource_claims:
-            raise NotImplementedError(
-                f"pod {p.key} has resource claims: DRA is not ported yet "
-                "(ROADMAP Queue A item 11)")
-
-
 class SchedulerCache:
     def __init__(self, assume_ttl: float = 30.0):
         self._lock = threading.Lock()
@@ -73,6 +65,7 @@ class SchedulerCache:
         self._cached: Optional[tuple[int, ClusterTensors, SnapshotMeta]] = None  # guarded by: self._lock
         self.assume_ttl = assume_ttl
         self._volumes = None  # guarded by: self._lock (VolumeCatalog once any PVC/PV/SC appears)
+        self._dra = None      # guarded by: self._lock (DraCatalog once any resource.k8s.io object appears)
         self._namespace_labels: dict[str, dict] = {}  # guarded by: self._lock
         # incremental-snapshot delta tracking (Cache.UpdateSnapshot analog):
         # pod churn accumulates here and patches the cached encoding in place;
@@ -227,11 +220,58 @@ class SchedulerCache:
         with self._lock:
             return self._volumes
 
-    # ---- DRA objects -----------------------------------------------------
+    # ---- DRA objects (resource.k8s.io informers feed this) ---------------
 
     def update_dra_object(self, kind: str, obj: dict, deleted: bool = False):
-        raise NotImplementedError(
-            "DRA objects are not ported yet: ROADMAP Queue A item 11")
+        """Track ResourceClaim/DeviceClass/ResourceSlice state; device
+        classes become dra:<class> resources in the next encoding.
+
+        Claim STATUS churn (allocation/reservedFor — which the scheduler
+        itself writes on every bind of a claimed pod) must not invalidate
+        the cluster encoding: pod batches read the live catalog at encode
+        time, and the cluster tensors only depend on claim SPECS (bound
+        pods' demands), slices, and the class set."""
+        from kubernetes_tpu_torch.sched.dra import DraCatalog
+        with self._lock:
+            if self._dra is None:
+                self._dra = DraCatalog()
+            md = obj.get("metadata") or {}
+            if kind == "ResourceClaim":
+                key = (md.get("namespace", "default"), md.get("name", ""))
+                space = self._dra.claims
+            elif kind == "DeviceClass":
+                key = md.get("name", "")
+                space = self._dra.classes
+            elif kind == "ResourceSlice":
+                key = md.get("name", "")
+                space = self._dra.slices
+            else:
+                return
+            old = space.get(key)
+            if deleted:
+                if space.pop(key, None) is None:
+                    return
+            else:
+                space[key] = obj
+            if (kind == "ResourceClaim" and old is not None and not deleted
+                    and DraCatalog.claim_demands(old)
+                    == DraCatalog.claim_demands(obj)):
+                # status-only change: encoding-neutral. Checked BEFORE
+                # set_dra — the scheduler writes claim status on every bind
+                # of a claimed pod, and letting that bump the encoder's pod
+                # epoch would invalidate the whole precompile cache per
+                # bind (the catalog object is shared and already mutated
+                # in place above, so skipping set_dra loses nothing).
+                return
+            self._encoder.set_dra(self._dra)
+            self._generation += 1
+            self._needs_full = True
+            self._log_locked("full", None)
+
+    @property
+    def dra_catalog(self):
+        with self._lock:
+            return self._dra
 
     # ---- namespace labels (Namespace informer feeds this) ----------------
 
@@ -321,7 +361,6 @@ class SchedulerCache:
         ``status`` on every sync; the encoder reads labels + spec only, so
         equality there keeps the encoding valid; the stored object still
         refreshes."""
-        _refuse_claims((pod,))
         with self._lock:
             if not pod.spec.node_name:
                 return
@@ -403,7 +442,6 @@ class SchedulerCache:
         confirms via add_pod or expires after assume_ttl. Stores a two-level
         copy (new Pod + new spec): the caller's pod object stays unbound so
         a failed binding can requeue it cleanly."""
-        _refuse_claims((pod,))
         with self._lock:
             p = dataclasses.replace(
                 pod, spec=dataclasses.replace(pod.spec, node_name=node_name))
@@ -418,7 +456,6 @@ class SchedulerCache:
         """assume() for a whole drain's winners in ONE lock pass.
         ``pairs``: [(Pod, node_name)]. Advances the generation by exactly
         len(pairs)."""
-        _refuse_claims(p for p, _ in pairs)
         with self._lock:
             deadline = time.time() + self.assume_ttl
             for pod, node_name in pairs:
@@ -566,7 +603,6 @@ class SchedulerCache:
 
     def encode_pods(self, pods: list[Pod], meta: SnapshotMeta,
                     min_p: int = 1, cache_rows: bool = True):
-        _refuse_claims(pods)
         with self._encode_lock:
             return self._encoder.encode_pods(pods, meta, min_p=min_p,
                                              cache_rows=cache_rows)

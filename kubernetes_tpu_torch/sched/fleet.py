@@ -42,7 +42,11 @@ start-up otherwise (the boot nomination sweep runs through the
 ``FleetClient``); ``stop`` stops every tenant's informers even when it
 re-raises the loop's fatal failure. No ``except`` here moves work off the
 card: a fatal failure (``sched/faults.is_fatal``) reaches the runner's
-loop.
+loop. The boundary also rewrites the node a ResourceSlice publishes for
+(``spec.nodeName``) and the node a claim is allocated on
+(``status.allocation.nodeName``); the reference leaves both raw, so its
+catalog finds no slice for a tenant's ``t<id>.`` node and a claim pod in
+fleet mode never schedules.
 """
 
 from __future__ import annotations
@@ -259,6 +263,16 @@ def rekey_for_tenant(tid: int, plural: str, obj: Optional[dict]
         out["metadata"] = _map_zone_labels(md, lambda v: pref + v)
     elif plural == "nodes":
         out["metadata"] = _map_zone_labels(md, lambda v: pref + v)
+    elif plural == "resourceslices":
+        spec = out.get("spec")
+        if (spec or {}).get("nodeName"):
+            out["spec"] = dict(spec, nodeName=pref + spec["nodeName"])
+    elif plural == "resourceclaims":
+        st = out.get("status")
+        alloc = (st or {}).get("allocation")
+        if alloc and alloc.get("nodeName"):
+            out["status"] = dict(st, allocation=dict(
+                alloc, nodeName=pref + alloc["nodeName"]))
     return out
 
 
@@ -315,6 +329,10 @@ def unrekey_for_tenant(tid: int, plural: str, obj: Optional[dict]
         out["metadata"] = _map_zone_labels(md, lambda v: _strip(v, tid))
     elif plural == "nodes":
         out["metadata"] = _map_zone_labels(md, lambda v: _strip(v, tid))
+    elif plural == "resourceslices":
+        spec = out.get("spec")
+        if (spec or {}).get("nodeName"):
+            out["spec"] = dict(spec, nodeName=_strip(spec["nodeName"], tid))
     elif plural == "resourceclaims":
         # the scheduler's PreBind allocation embeds the node name
         st = out.get("status")

@@ -16,9 +16,8 @@ approximate. Plugin weights default to the reference's
 (pkg/scheduler/apis/config/v1/default_plugins.go).
 
 The PyTorch port's copy of ``kubernetes_tpu/sched/oracle.py``. DRA device
-claims wait for a later slice and raise ``NotImplementedError`` (ROADMAP
-Queue A item 11); the slice-gang branches run the numpy twin of
-``topology/carve.py``.
+claims fold in through a ``DraCatalog`` (sched/dra.py) as in the reference;
+the slice-gang branches run the numpy twin of ``topology/carve.py``.
 """
 
 from __future__ import annotations
@@ -54,11 +53,6 @@ from kubernetes_tpu_torch.encode.termprep import (
     resolve_term_namespaces,
     spread_selector,
 )
-
-def _refuse_dra() -> None:
-    raise NotImplementedError(
-        "DRA device claims are not ported yet: ROADMAP Queue A item 11")
-
 
 UNSCHED_TAINT = Taint(key="node.kubernetes.io/unschedulable", effect=EFFECT_NO_SCHEDULE)
 
@@ -165,9 +159,7 @@ class OracleScheduler:
         self.weights = dict(weights or DEFAULT_WEIGHTS)
         self.seed = seed
         self.volumes = volumes  # VolumeCatalog | None
-        if dra is not None:
-            _refuse_dra()
-        self.dra = dra          # always None: DRA waits for item 11
+        self.dra = dra          # sched/dra.DraCatalog | None
         # namespace name -> labels, for namespaceSelector resolution
         # (GetNamespaceLabelsSnapshot analog)
         self.namespace_labels = dict(namespace_labels or {})

@@ -26,8 +26,9 @@ the port such an error propagates to the caller, and only the scheduler
 degrade, counting it as a loop error and feeding the breaker. The
 semantic fallbacks to ``find_candidate`` (a zero-eviction fit, ranked
 candidates that fail exact verification) are part of the algorithm and
-stay. DRA claims are a later slice (ROADMAP Queue A item 11): the oracle
-refuses a DRA catalog. A device mesh is taken and run single-device.
+stay. A DRA catalog (sched/dra.py) reaches the oracle, the static masks and
+the victims' requests as in the reference. A device mesh is taken and run
+single-device.
 """
 
 from __future__ import annotations

@@ -20,8 +20,16 @@ The port of ``kubernetes_tpu/sched/runner.py``. Where it differs:
   CUDA graphs of the rounds are captured again by every process (its warm
   ladder). A cache that cannot be activated is counted and the runner
   builds afresh, on the card as always.
-- Left out: DRA — its informers, claim allocation at bind and its
-  release (item 11) — and the ``KTPU_SWITCH_INTERVAL`` knob.
+- Left out: the ``KTPU_SWITCH_INTERVAL`` knob.
+- DRA is wired as in the reference: the ``resourceclaims``,
+  ``deviceclasses`` and ``resourceslices`` informers feed the cache's
+  catalog, ``_bind`` allocates a pod's claims before its binding and
+  unreserves them on a later failure; releasing a finished pod's claims
+  is the ResourceClaim controller's (controllers/resourceclaim.py). One
+  difference: the unreserve writes against the claim object that the
+  allocation returned. The reference keeps the object it sent, whose
+  resourceVersion the allocation has moved, so its unreserve is refused
+  (409) and the claim stays allocated to a node its pod never bound to.
 - ``device`` and ``feature_gate`` go to the ``Scheduler``: the card unless
   the caller asks for the CPU.
 - The binding calls are traced (``runner/bind``, one span per request), and
@@ -348,6 +356,13 @@ class SchedulerRunner:
             self.queue.move_all_to_active_or_backoff(EVENT_NODE_UPDATE)
         return handler
 
+    def _on_dra(self, kind: str):
+        def handler(type_, obj, old):
+            self.cache.update_dra_object(kind, obj, deleted=type_ == DELETED)
+            # a new slice/claim (or a released allocation) can unblock pods
+            self.queue.move_all_to_active_or_backoff(EVENT_NODE_UPDATE)
+        return handler
+
     # ---- binding via API (DefaultBinder analog) --------------------------
 
     def _retry(self, fn):
@@ -362,9 +377,46 @@ class SchedulerRunner:
             on_retry=lambda e: BIND_RETRIES.inc())
 
     def _bind(self, pod: Pod, node_name: str) -> bool:
-        # PreBind: volumes (volumebinding.go BindPodVolumes), then the
-        # binding itself. (The reference allocates DRA claims first; a pod
-        # with claims never gets here in the port — the cache refuses it.)
+        # PreBind: claim allocations (dynamicresources.go bindClaim), then
+        # volumes (volumebinding.go BindPodVolumes), then the binding itself.
+        # Any later failure must UNRESERVE the claims we just allocated
+        # (the plugin's Unreserve hook) or the pod stays pinned to a node it
+        # never bound to.
+        allocated: list[dict] = []
+        dra = self.cache.dra_catalog
+        if dra is not None and pod.spec.resource_claims:
+            from kubernetes_tpu_torch.sched.dra import allocation_patch
+            from kubernetes_tpu_torch.topology.slicing import (
+                coords_of_labels, shape_of_labels)
+            # carved-slice provenance: the allocation records the torus
+            # coordinate the member landed on (node labels first, the
+            # slice inventory's attributes as fallback) + requested shape
+            node = self.cache.get_node(node_name)
+            coords = (coords_of_labels(node.metadata.labels)
+                      if node is not None else None)
+            if coords is None:
+                coords = dra.node_topology(node_name)
+            shape = (shape_of_labels(pod.metadata.labels)
+                     or dra.pod_slice_shape(pod))
+            for claim in dra.pod_claims(pod):
+                if ((claim.get("status") or {}).get("allocation")):
+                    continue  # already allocated (shared or re-bind)
+                ns = (claim.get("metadata") or {}).get("namespace", "default")
+                patched = allocation_patch(
+                    claim, node_name, pod,
+                    coords=coords if shape is not None else None,
+                    shape=shape)
+                try:
+                    # the object the write returns carries the claim's new
+                    # resourceVersion, which an unreserve must present
+                    allocated.append(self._retry(lambda: self.client.resource(
+                        "resourceclaims", ns).update_status(patched)))
+                except ApiError as e:
+                    if e.code != 409:
+                        _LOG.warning("claim allocation for %s failed: %s",
+                                     pod.key, e)
+                        self._unreserve(allocated)
+                        return False
         catalog = self.cache.volume_catalog
         if catalog is not None and pod.pvc_names():
             from kubernetes_tpu_torch.sched.volumebinding import VolumeBinder
@@ -372,6 +424,7 @@ class SchedulerRunner:
             labels = node.metadata.labels if node is not None else {}
             if not VolumeBinder(self.client).bind_pod_volumes(
                     pod, node, catalog, labels, node_name):
+                self._unreserve(allocated)
                 return False
         try:
             with TRACER.span("runner/bind", pods=1):
@@ -379,6 +432,7 @@ class SchedulerRunner:
                             .bind(pod.metadata.name, node_name))
             return True
         except ApiError as e:
+            self._unreserve(allocated)
             if e.code == 404:
                 # pod deleted while the binding was in flight (churn): not a
                 # failure — tell the scheduler there is nothing to requeue,
@@ -394,13 +448,14 @@ class SchedulerRunner:
                 _LOG.warning("bind %s -> %s failed: %s", pod.key, node_name, e)
             return False
         except Exception as e:
+            self._unreserve(allocated)
             BIND_RESULTS.inc({"result": "connection"})
             _LOG.warning("bind %s -> %s: API unreachable: %s", pod.key, node_name, e)
             return False
 
     def _bind_many(self, pairs) -> list:
         """Bulk DefaultBinder: one POST pods/-/binding for a whole gang
-        batch. Only plain pods reach this (the scheduler routes volume/
+        batch. Only plain pods reach this (the scheduler routes DRA/volume/
         lifecycle pods through _bind); per-item 409s are expected races.
         Per-item result: True (bound), False (failed — requeue), None (pod
         vanished mid-flight — nothing to requeue, e.g. a churn delete)."""
@@ -436,6 +491,18 @@ class SchedulerRunner:
                                  pod.key, node, err)
                 out.append(False)
         return out
+
+    def _unreserve(self, allocated: list[dict]) -> None:
+        """Roll back claim allocations written by a failed bind attempt."""
+        from kubernetes_tpu_torch.sched.dra import release_patch
+        for claim in allocated:
+            ns = (claim.get("metadata") or {}).get("namespace", "default")
+            try:
+                self.client.resource("resourceclaims", ns).update_status(
+                    release_patch(claim))
+            except Exception as e:
+                # the claim controller's release sweep is the backstop
+                _LOG.warning("claim unreserve failed (sweep will catch): %s", e)
 
     def _total_relists(self) -> int:
         return sum(getattr(inf, "relists", 0)
@@ -540,6 +607,11 @@ class SchedulerRunner:
                              ("storageclasses", "StorageClass")):
             factory.informer(plural, None).add_event_handler(
                 w(self._on_volume(kind), plural))
+        for plural, kind in (("resourceclaims", "ResourceClaim"),
+                             ("deviceclasses", "DeviceClass"),
+                             ("resourceslices", "ResourceSlice")):
+            factory.informer(plural, None).add_event_handler(
+                w(self._on_dra(kind), plural))
         factory.informer("namespaces", None).add_event_handler(
             w(lambda type_, obj, old: self.cache.update_namespace(
                 obj, deleted=(type_ == "DELETED")), "namespaces"))

@@ -59,8 +59,9 @@ Where the port differs from the reference:
   device once and the carve and ``gang_schedule`` share it.
 
 Features that wait for later slices raise ``NotImplementedError`` naming
-their ROADMAP Queue A item: DRA (11; a slice-shaped ResourceClaim
-included) and out-of-tree tensor plugins (12). A ``meshShape`` runs
+their ROADMAP Queue A item: out-of-tree tensor plugins (12). DRA device
+claims (sched/dra.py) ride the resource axis as in the reference, and a
+slice-shaped ResourceClaim routes its pod into the carver. A ``meshShape`` runs
 single-device with a warning, as the reference does with too few
 devices. Fleet mode (7b) is ported: ``sched/fleet.FleetRunner`` sets
 ``fleet_mode``. The parity sentinel (``audit/sentinel.py``) samples drains, preemption waves
@@ -630,12 +631,14 @@ class Scheduler:
     # ---- topology slice carving (topology/) ------------------------------
 
     def _slice_shape_of(self, pod: Pod) -> Optional[tuple]:
-        """The pod's requested slice shape from its slice-shape label. None
-        = not a slice pod (malformed shapes schedule as normal pods). A
-        slice-shaped ResourceClaim is DRA, ROADMAP item 11: the encode
-        refuses any pod with resource claims."""
+        """The pod's requested slice shape: the slice-shape label, else a
+        slice-shaped ResourceClaim (sched/dra.py). None = not a slice pod
+        (malformed shapes schedule as normal pods by design)."""
         from kubernetes_tpu_torch.topology.slicing import shape_of_labels
-        return shape_of_labels(pod.metadata.labels)
+        s = shape_of_labels(pod.metadata.labels)
+        if s is None and self.cache.dra_catalog is not None:
+            s = self.cache.dra_catalog.pod_slice_shape(pod)
+        return s
 
     def _slice_chunks(self, items: list) -> list[list]:
         """Group slice pods into device chunks: members of one gang stay
@@ -825,7 +828,8 @@ class Scheduler:
                     found = preemption_mod.find_candidate(
                         [nodes[ni]], bound_left,
                         self._preempt_view(cell_members[m]),
-                        pdbs=self.pdb_lister())
+                        pdbs=self.pdb_lister(),
+                        dra=self.cache.dra_catalog)
                     if found is None:
                         ok = False
                         break
@@ -971,6 +975,7 @@ class Scheduler:
                          for i, ni in picks.items()}
                      for g, picks in gang_nodes.items()},
                     [pods[i] for i in sorted(gang_of)],
+                    dra=self.cache.dra_catalog,
                     level=self._attempt_level)
         serial = not self.features.enabled("TPUBatchScheduling")
         with BATCH_DURATION.time(), TRACER.span(
@@ -1744,7 +1749,8 @@ class Scheduler:
                 nodes, bound_pods=self.cache.bound_pods(include_assumed=True),
                 weights=profile.weights(), seed=self.cfg.seed,
                 volumes=self.cache.volume_catalog,
-                namespace_labels=self.cache.namespace_labels())
+                namespace_labels=self.cache.namespace_labels(),
+                dra=self.cache.dra_catalog)
             pods = profile.apply_added_affinity([p for p, _ in items])
             # the oracle's assume() writes node_name onto what it schedules:
             # give it detached views so a failed bind can requeue the ORIGINAL
@@ -1935,7 +1941,7 @@ class Scheduler:
             try:
                 res = preemption_mod.find_candidate_tensor(
                     nodes, bound, view, pdbs=self.pdb_lister(),
-                    device=self.device)
+                    dra=self.cache.dra_catalog, device=self.device)
             except Exception as e:
                 if is_fatal(e):
                     raise
@@ -1944,7 +1950,8 @@ class Scheduler:
         if not device_ok:
             # device known-broken (or broke just now): the exact host scan
             res = preemption_mod.find_candidate(
-                nodes, bound, view, pdbs=self.pdb_lister())
+                nodes, bound, view, pdbs=self.pdb_lister(),
+                dra=self.cache.dra_catalog)
         if res is None:
             return None
         if not self._evict_victims(pod, res.victims):
@@ -1983,7 +1990,8 @@ class Scheduler:
         bound_left = list(bound)
         for v in views:
             res = preemption_mod.find_candidate(
-                nodes, bound_left, v, pdbs=self.pdb_lister())
+                nodes, bound_left, v, pdbs=self.pdb_lister(),
+                dra=self.cache.dra_catalog)
             results.append(res)
             if res is not None:
                 gone = {x.key for x in res.victims}
@@ -2165,7 +2173,8 @@ class Scheduler:
                              nodes=len(nodes)):
                 results = preemption_mod.preempt_wave(
                     nodes, bound, views, pdbs=self.pdb_lister(),
-                    static_masks=masks, min_q=preemption_mod.WAVE_BUCKET,
+                    dra=self.cache.dra_catalog, static_masks=masks,
+                    min_q=preemption_mod.WAVE_BUCKET,
                     resident_arrays=(
                         self._resident_cluster_arrays(resident)
                         if resident is not None else None),

@@ -9,7 +9,9 @@
 (``benchmarks/config/performance-config.yaml``'s ClusterAutoscalerScaleUp
 and DeschedulerDefrag cases, their templates copied as data, materialized
 as ``benchmarks/scheduler_perf.py`` does) and ``planner_loop``
-(``benchmarks/plannerloop.py``'s cluster).
+(``benchmarks/plannerloop.py``'s cluster), and the DRA workloads:
+``dra_mix``, the claim parity cluster, and ``claim_template_cluster``,
+scheduler_perf's SchedulingWithResourceClaimTemplate cluster.
 
 Deterministic via seed: all randomness comes from its own
 ``random.Random(seed)``, so the same (params, seed) yields the same objects
@@ -394,3 +396,181 @@ def planner_loop(n_nodes: int = 8, pods_per_node: int = 3):
     groups = [group("pool-a", n_nodes + 4, "2", "4Gi", "16"),
               group("pool-big", 0, "96", "256Gi", "32")]
     return nodes, bound, pending, groups
+
+
+# ---- DRA (resource.k8s.io) -----------------------------------------------
+
+DRA_CLASS = "gpu.example.com"
+DRA_TEMPLATE = "gpu-tpl"
+
+
+def device_class(name: str = DRA_CLASS) -> dict:
+    return {"apiVersion": "resource.k8s.io/v1", "kind": "DeviceClass",
+            "metadata": {"name": name}, "spec": {}}
+
+
+def resource_slice(node: str, count: int, cls: str = DRA_CLASS,
+                   name: str = "") -> dict:
+    """One node's inventory: ``count`` devices of class ``cls``."""
+    return {"apiVersion": "resource.k8s.io/v1", "kind": "ResourceSlice",
+            "metadata": {"name": name or f"{node}-{cls}"},
+            "spec": {"nodeName": node,
+                     "devices": [{"name": "dev", "deviceClassName": cls,
+                                  "count": count}]}}
+
+
+def claim_spec(count: int = 1, cls: str = DRA_CLASS) -> dict:
+    return {"devices": {"requests": [
+        {"name": "r0", "deviceClassName": cls, "count": count}]}}
+
+
+def resource_claim(name: str, count: int = 1, ns: str = "default",
+                   cls: str = DRA_CLASS, alloc_node: str = "",
+                   owner: dict = None) -> dict:
+    c = {"apiVersion": "resource.k8s.io/v1", "kind": "ResourceClaim",
+         "metadata": {"name": name, "namespace": ns},
+         "spec": claim_spec(count, cls)}
+    if owner is not None:
+        md = owner["metadata"]
+        c["metadata"]["ownerReferences"] = [{
+            "apiVersion": "v1", "kind": "Pod", "name": md["name"],
+            "uid": md.get("uid", ""), "controller": True,
+            "blockOwnerDeletion": True}]
+    if alloc_node:
+        c["status"] = {"allocation": {"nodeName": alloc_node},
+                       "reservedFor": []}
+    return c
+
+
+def claim_template(name: str = DRA_TEMPLATE, count: int = 1,
+                   ns: str = "default", cls: str = DRA_CLASS) -> dict:
+    return {"apiVersion": "resource.k8s.io/v1",
+            "kind": "ResourceClaimTemplate",
+            "metadata": {"name": name, "namespace": ns},
+            "spec": {"spec": claim_spec(count, cls)}}
+
+
+def with_claim(pod: dict, claim_name: str = "", template: str = "",
+               ref: str = "dev") -> dict:
+    """``pod`` (a dict) referencing a named claim or a claim template."""
+    entry = {"name": ref}
+    if template:
+        entry["resourceClaimTemplateName"] = template
+    else:
+        entry["resourceClaimName"] = claim_name
+    pod.setdefault("spec", {}).setdefault("resourceClaims", []).append(entry)
+    return pod
+
+
+def dra_mix(nodes: int = 24, pods: int = 64, bound: int = 6, seed: int = 0,
+            late: int = 1):
+    """A claim workload over one DeviceClass: ResourceSlices on every other
+    node (1 to 4 devices), plus ``late`` slices published for nodes that
+    join later (``late-<i>``, returned apart); pending pods without claims,
+    with a named claim of 1 or 2 devices, and with a template claim (its
+    claim made as the ResourceClaim controller makes it: ``<pod>-dev``,
+    owned by the pod); first in the queue, one pod whose template claim
+    does not exist yet (held unschedulable), one whose claim is already
+    allocated to a node (pinned there), and a group of pods held by a node
+    selector to one node with 2 devices, one more pod than it has devices
+    (they contend); ``bound`` pods on slice nodes holding claims of their
+    own.
+
+    -> dict of wire dicts: nodes, late_nodes, classes, slices, claims,
+    bound, pending."""
+    rng = random.Random(seed)
+    zones = ZONES[:3]
+    node_objs, slices = [], []
+    dev_nodes = []
+    for i in range(nodes):
+        name = f"node-{i}"
+        node_objs.append(make_node(name)
+                         .capacity({"cpu": rng.choice(["4", "8"]),
+                                    "memory": "16Gi", "pods": "16"})
+                         .label("topology.kubernetes.io/zone",
+                                zones[i % len(zones)]).obj().to_dict())
+        if i % 2 == 0:
+            # node-0 is the contended node: exactly 2 devices
+            count = 2 if i == 0 else rng.randint(1, 4)
+            slices.append(resource_slice(name, count))
+            dev_nodes.append(name)
+    late_nodes = []
+    for i in range(late):
+        name = f"late-{i}"
+        late_nodes.append(make_node(name).capacity(
+            {"cpu": "8", "memory": "16Gi", "pods": "16"})
+            .label("topology.kubernetes.io/zone", zones[0]).obj().to_dict())
+        slices.append(resource_slice(name, 4))
+    claims, bound_pods, pending = [], [], []
+    for i in range(bound):
+        node = dev_nodes[1 + i % (len(dev_nodes) - 1)]
+        p = with_claim(make_pod(f"held-{i}").req({"cpu": "100m"})
+                       .node(node).obj().to_dict(), f"held-{i}")
+        claims.append(resource_claim(f"held-{i}", alloc_node=node))
+        bound_pods.append(p)
+
+    def base(name, i):
+        return (make_pod(name).label("app", "ml" if i % 2 else "web")
+                .req({"cpu": rng.choice(["100m", "250m", "500m"]),
+                      "memory": rng.choice(["128Mi", "512Mi"])}))
+
+    # first in the queue: a template claim the controller has not made
+    # yet (held unschedulable), a claim already allocated to a device node
+    # (the pod is pinned there), and three pods for node-0's two devices
+    pending.append(with_claim(base("unready", 0).obj().to_dict(),
+                              template=DRA_TEMPLATE))
+    pin = dev_nodes[-1]
+    pending.append(with_claim(base("pinned", 1).obj().to_dict(), "c-pinned"))
+    claims.append(resource_claim("c-pinned", alloc_node=pin))
+    for j in range(3):
+        p = (base(f"contend-{j}", j).label("group", "contend")
+             .node_selector({"kubernetes.io/hostname": "node-0"})
+             .obj().to_dict())
+        with_claim(p, f"contend-{j}")
+        claims.append(resource_claim(f"contend-{j}"))
+        pending.append(p)
+    for i in range(pods):
+        kind = i % 4
+        p = base(f"p-{i}", i).obj().to_dict()
+        if kind == 1:
+            with_claim(p, f"c-{i}")
+            claims.append(resource_claim(f"c-{i}", count=rng.choice([1, 2])))
+        elif kind == 2:
+            with_claim(p, template=DRA_TEMPLATE)
+            claims.append(resource_claim(f"p-{i}-dev", owner=p))
+        pending.append(p)
+    return {"nodes": node_objs, "late_nodes": late_nodes,
+            "classes": [device_class()], "slices": slices, "claims": claims,
+            "bound": bound_pods, "pending": pending}
+
+
+# The claim-template cell's node capacity and pod requests are this
+# module's own choices, not upstream's node and pod templates: no copy of
+# that config is in the repo. They never limit placement there, because a
+# node's 10 devices fill long before its CPU, memory or pod count.
+CLAIM_NODE_CAPACITY = {"cpu": "32", "memory": "128Gi", "pods": "110"}
+CLAIM_POD_REQUESTS = {"cpu": "100m", "memory": "100Mi"}
+
+
+def claim_template_cluster(n_nodes: int = 500, devices: int = 10):
+    """scheduler_perf's SchedulingWithResourceClaimTemplate cluster
+    (structured parameters): ``n_nodes`` nodes of ``CLAIM_NODE_CAPACITY``,
+    each publishing one ResourceSlice of ``devices`` devices of one
+    DeviceClass (maxClaimsPerNode), and one ResourceClaimTemplate asking
+    for 1 device in each of the namespaces ``init`` and ``test``.
+    -> (node dicts, class dicts, slice dicts, template dicts)."""
+    nodes = [make_node(f"node-{i}").capacity(dict(CLAIM_NODE_CAPACITY))
+             .obj().to_dict() for i in range(n_nodes)]
+    slices = [resource_slice(n["metadata"]["name"], devices) for n in nodes]
+    templates = [claim_template(ns=ns) for ns in ("init", "test")]
+    return nodes, [device_class()], slices, templates
+
+
+def claim_template_pods(prefix: str, n: int, ns: str) -> list[dict]:
+    """``n`` pods of scheduler_perf's claim-template pod: one
+    ``resourceClaims`` entry naming the namespace's template, and
+    ``CLAIM_POD_REQUESTS``."""
+    return [with_claim(make_pod(f"{prefix}-{i}", namespace=ns)
+                       .req(dict(CLAIM_POD_REQUESTS))
+                       .obj().to_dict(), template=DRA_TEMPLATE)
+            for i in range(n)]

@@ -5,8 +5,9 @@ Queue A item 15) nor the ``ktpu`` CLI (item 10), each run through both
 packages on the same objects (every port device call on ``device="cpu"``):
 the reference's assertions hold on the port, and the two packages' results
 are equal (options, masks, plans, blocked reasons, reclaimed nodes, the
-status ConfigMap). Plus the port's own refusals: ``HollowNodeGroupProvider``
-raises item 15, a group with DRA ``deviceCapacity`` item 11.
+status ConfigMap). Plus the port's own refusal: ``HollowNodeGroupProvider``
+raises item 15. A group with DRA ``deviceCapacity`` loads as the
+reference's does.
 """
 
 from __future__ import annotations
@@ -474,9 +475,16 @@ def test_hollow_provider_is_not_ported():
 
 
 def test_dra_device_capacity_is_not_ported():
+    """DRA is ported: a group with ``deviceCapacity`` loads as the
+    reference loads it, and its template node carries the devices as
+    ``dra:<class>`` allocatable (tests/test_torch_dra.py scales one up for
+    a claim pod)."""
     d = {"name": "gpu-pool", "maxSize": 2, "deviceCapacity": {"gpu": 8},
          "template": port_wrappers.make_node("t").capacity(
              {"cpu": "8"}).obj().to_dict()}
-    with pytest.raises(NotImplementedError, match="item 11"):
-        port_autoscaler.load_node_group(d)
-    assert ref_autoscaler.load_node_group(d).device_capacity == {"gpu": 8}
+    port_g = port_autoscaler.load_node_group(d)
+    ref_g = ref_autoscaler.load_node_group(d)
+    assert port_g.device_capacity == ref_g.device_capacity == {"gpu": 8}
+    assert (port_g.template_node("x").to_dict()
+            == ref_g.template_node("x").to_dict())
+    assert port_g.template_node("x").status.allocatable["dra:gpu"] == "8"

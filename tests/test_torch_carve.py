@@ -29,8 +29,9 @@ reference's cluster encoding carried across with
 - no fallback hides the device: an error in the carve leaves ``run_once``
   (no oracle, no breaker count, the pods back in a queue), a
   ``KernelError``, ``ParityError`` or ``NotImplementedError`` there stops
-  the runner, and a slice pod with resource claims still waits for DRA
-  (item 11).
+  the runner;
+- a gang whose members ask for their slice through slice-shaped
+  ResourceClaims (DRA) is carved and bound as the reference does it.
 """
 
 from __future__ import annotations
@@ -990,18 +991,60 @@ def test_carve_fatal_error_stops_the_runner(monkeypatch, exc):
             runner.stop()
 
 
+def _tpu_slice_claim(name, shape="2x1x1"):
+    return {"apiVersion": "resource.k8s.io/v1", "kind": "ResourceClaim",
+            "metadata": {"name": name, "namespace": "default"},
+            "spec": {"devices": {"requests": [
+                {"name": "tpu", "deviceClassName": "tpu.google.com",
+                 "sliceShape": shape}]}}}
+
+
+def _tpu_topo_slice(node, coords):
+    return {"apiVersion": "resource.k8s.io/v1", "kind": "ResourceSlice",
+            "metadata": {"name": f"{node}-tpu"},
+            "spec": {"nodeName": node, "devices": [{
+                "name": "chip0", "deviceClassName": "tpu.google.com",
+                "attributes": {a: {"int": c} for a, c in zip(
+                    ("topology-x", "topology-y", "topology-z"), coords)}}]}}
+
+
 def test_slice_pod_with_resource_claims_waits_for_dra():
-    sched, queue, _log = _port_sched_on(_grid_nodes(2, 1, 1))
+    """DRA is ported: a gang whose members ask for their slice through a
+    slice-shaped ResourceClaim (no slice-shape label) is carved and bound
+    as the reference carves and binds it, one device a member from the
+    nodes' slices, and the sentinel's carve sample (judged with the DRA
+    catalog) agrees; the oracle takes a catalog."""
+    nodes = _grid_nodes(2, 1, 1)
+    gang = []
+    for m in range(2):
+        p = make_pod(f"g-{m}").req({"cpu": "2"}).labels(
+            {GANG_LABEL: "g"}).obj()
+        p.spec.resource_claims = [{"name": "tpu",
+                                   "resourceClaimName": f"c{m}"}]
+        gang.append(p)
+    sides = _sched_both(nodes)
     try:
-        gang = _port_objs(_slice_gang("g", (2, 1, 1)), port_types.Pod)
-        gang[0].spec.resource_claims = [{"name": "tpu",
-                                         "resourceClaimName": "c0"}]
-        for p in gang:
-            queue.add(p)
-        with pytest.raises(NotImplementedError, match="item 11"):
-            sched.run_once(wait=0.01)
+        for sched, cache, _q, _l, _r in sides:
+            sched.sentinel.every = 1
+            for n in nodes:
+                cache.update_dra_object("ResourceSlice", _tpu_topo_slice(
+                    n.metadata.name, coords_of_labels(n.metadata.labels)))
+            for m in range(2):
+                cache.update_dra_object("ResourceClaim",
+                                        _tpu_slice_claim(f"c{m}"))
+        _drive_both(sides, gang)
+        out = []
+        for sched, _c, _q, log, _rec in sides:
+            sched.sentinel.drain()
+            with sched._carve_lock:
+                stats = dict(sched._carve_stats)
+            out.append((sorted(log), sched.sentinel.samples["carve"],
+                        sched.sentinel.divergences, stats))
+        assert out[1] == out[0]
+        log, samples, div, stats = out[1]
+        assert sorted(n for _p, n in log) == ["n000", "n100"]
+        assert samples >= 1 and div == 0 and stats["carved"] == 1
+        assert PortOracle([], [], dra=sides[1][1].dra_catalog).dra \
+            is sides[1][1].dra_catalog
     finally:
-        queue.close()
-        sched.close()
-    with pytest.raises(NotImplementedError, match="item 11"):
-        PortOracle([], [], dra=object())
+        _close(sides)

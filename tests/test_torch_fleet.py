@@ -63,6 +63,7 @@ from kubernetes_tpu_torch.sched import runner as port_runner
 from kubernetes_tpu_torch.sched import scheduler as port_scheduler
 from kubernetes_tpu_torch.store import apiserver as port_apiserver
 from kubernetes_tpu_torch.store import store as port_store
+from kubernetes_tpu_torch.testing import workloads
 
 pytestmark = pytest.mark.fleet
 
@@ -977,6 +978,91 @@ def test_fleet_bind_refuses_cross_tenant_pairs():
     ref, port = _both(run)
     assert port == ref
     assert port == ([True, False], [["n0"], [None]])
+
+
+# ---------------------------------------------------------------------------
+# DRA objects behind the boundary (the port rewrites their node names)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("plural", ["resourceslices", "resourceclaims"])
+def test_rekey_dra_node_names_round_trip(plural):
+    """The port prefixes the node a ResourceSlice publishes for and the
+    node a claim is allocated on, and its inverse strips both. The
+    reference leaves both raw, so its catalog finds no slice for a
+    tenant's ``t<id>.`` node: a deliberate difference."""
+    obj = (workloads.resource_slice("n1", 2, name="s1")
+           if plural == "resourceslices"
+           else workloads.resource_claim("c1", alloc_node="n1"))
+
+    def node_of(o):
+        return (o["spec"]["nodeName"] if plural == "resourceslices"
+                else o["status"]["allocation"]["nodeName"])
+
+    ref, port = _both(lambda _n, P: P["fleet"].rekey_for_tenant(
+        3, plural, obj))
+    assert node_of(ref) == "n1"
+    assert node_of(port) == "t3.n1"
+    assert {k: v for k, v in port.items() if k not in ("spec", "status")} \
+        == {k: v for k, v in ref.items() if k not in ("spec", "status")}
+    back = port_fleet.unrekey_for_tenant(3, plural, port)
+    want = copy.deepcopy(obj)
+    want["metadata"]["labels"] = {}
+    assert back == want
+
+
+def test_fleet_runner_schedules_claim_pods_on_their_tenant():
+    """One FleetRunner over two tenants: tenant 0's pod asks for a device
+    that only its node n1 publishes; tenant 1's pod holds a claim already
+    allocated on its n0. Each binds there, and each tenant's apiserver
+    sees its claim allocated on the RAW node name: tenant 0's newly, with
+    its pod in ``reservedFor``; tenant 1's as it was (the binder leaves an
+    allocated claim alone, as the reference's does)."""
+    clients = [port_clientset.DirectClient(port_store.ObjectStore())
+               for _ in range(2)]
+    for t, c in enumerate(clients):
+        c.nodes().create_many([
+            make_node(f"n{i}").capacity({"cpu": "4", "pods": "10"})
+            .obj().to_dict() for i in range(2)])
+        c.resource("deviceclasses", None).create(workloads.device_class())
+        c.resource("resourceslices", None).create(
+            workloads.resource_slice("n1" if t == 0 else "n0", 1))
+        c.resource("resourceclaims", "default").create(
+            workloads.resource_claim("c"))
+        if t == 1:
+            made = c.resource("resourceclaims", "default").get("c")
+            made["status"] = {"allocation": {"nodeName": "n0"},
+                              "reservedFor": []}
+            c.resource("resourceclaims", "default").update_status(made)
+        c.pods("default").create(workloads.with_claim(
+            make_pod("p").req({"cpu": "100m"}).obj().to_dict(), "c"))
+    runner = port_fleet.FleetRunner(
+        clients, port_config.SchedulerConfiguration(
+            explainer_enabled=False, parity_sample_every=0,
+            backoff_initial_s=LONG, backoff_max_s=LONG,
+            assume_ttl_s=LONG, audit_interval_s=LONG), device="cpu")
+    try:
+        runner.start(wait_sync=30.0, start_loop=False)
+        _wait(lambda: runner.queue.stats()["active"] == 2
+              and len(runner.cache.dra_catalog.claims) == 2,
+              what="2 queued pods and their claims")
+        sched = runner.scheduler
+        sched._drain_ready = lambda pend: False
+        for _ in range(8):
+            sched.run_once(wait=0.01)
+            if runner.queue.stats()["active"] == 0 and not sched._pending:
+                break
+        sched._resolve_pending()
+        sched.wait_for_bindings()
+        got = []
+        for c in clients:
+            pod = c.pods("default").get("p")
+            st = c.resource("resourceclaims", "default").get("c")["status"]
+            got.append((pod["spec"].get("nodeName"),
+                        st["allocation"]["nodeName"],
+                        [r["name"] for r in st.get("reservedFor") or []]))
+    finally:
+        runner.kill()
+    assert got == [("n1", "n1", ["p"]), ("n0", "n0", [])]
 
 
 # ---------------------------------------------------------------------------

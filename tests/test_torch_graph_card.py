@@ -13,7 +13,8 @@ Every test needs the card and skips without one:
 - the host reads the progress flag at most once per chunk of rounds;
 - a warm ladder's graphs serve the scheduler's first drains (no capture
   after ``warm_drain``);
-- a capture that fails raises ``GraphError``, which is fatal.
+- a capture that fails raises ``GraphError``, which is fatal;
+- serial rounds (TPUBatchScheduling off) capture too.
 """
 
 from __future__ import annotations
@@ -95,6 +96,27 @@ def test_gang_schedule_captured_equals_eager_and_cpu(monkeypatch):
     assert graphs.CAPTURES == c0 and graphs.REPLAYS > r0
     assert kernels.LAUNCHES["count_pn"] == out["eager_launches"]
     assert graphs.HOST_READS - h0 <= -(-again[1] // 4)
+
+
+@pytest.mark.gpu
+def test_serial_rounds_capture_on_the_card():
+    """Serial rounds (``serial=True``, TPUBatchScheduling off: one pod
+    attempted a round) capture and replay: the round's target mask reads
+    no device scalar back to the host, which a capture refuses. Captured
+    = eager = CPU."""
+    _card()
+    ct, pbs, meta = _encode()
+    out = {}
+    for mode in DEVICES:
+        dev, capture = _where(mode)
+        out[mode] = gang.gang_schedule(ct.to(dev), pbs[0].to(dev),
+                                       topo_keys=meta.topo_keys, serial=True,
+                                       capture=capture)
+        torch.cuda.synchronize()
+    for mode in ("eager", "cpu"):
+        assert np.array_equal(out["captured"][0], out[mode][0]), mode
+        assert out["captured"][1] == out[mode][1], mode
+    assert (out["captured"][0] >= 0).any()
 
 
 @pytest.mark.gpu

@@ -82,7 +82,10 @@ _SCHED_MODULES = (
     # the shared fatal-failure predicate and fleet mode
     "sched.faults", "sched.fleet",
     # warm start and the round loop as one captured device program
-    "models.graphs", "parallel.aot", "sched.aotcache")
+    "models.graphs", "parallel.aot", "sched.aotcache",
+    # DRA device claims and the ResourceClaim controller
+    "sched.dra", "client.workqueue", "controllers.base",
+    "controllers.resourceclaim")
 
 _NO_YAML = r"""
 import importlib, sys

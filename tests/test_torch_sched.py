@@ -18,7 +18,9 @@ same loop.
 - group and serial paths: placements equal;
 - breaker: a failing device degrades to the oracle on both sides, with
   equal placements;
-- queue, rescue, and the refusals of what waits for later slices.
+- queue, rescue, and the refusals of what waits for later slices; a pod
+  with a resource claim and a slice gang with claims (DRA) schedule as
+  the reference schedules them.
 """
 
 from __future__ import annotations
@@ -504,42 +506,79 @@ def test_ported_options_build(cfg_kw):
         sched.close()
 
 
+def _claim_twins(cfg_kw, nodes, dra_objs):
+    """Both packages' schedulers over ``nodes`` with the same DRA objects
+    fed to each cache, as the runner's informers feed them."""
+    sides = _twins(cfg_kw, nodes=nodes, bound=[])
+    for s in sides:
+        for kind, obj in dra_objs:
+            s.cache.update_dra_object(kind, copy.deepcopy(obj))
+    return sides
+
+
 def test_refuses_slice_gang():
-    """The slice gang that is still refused: one whose pods carry resource
-    claims waits for DRA (item 11). Plain slice gangs are carved
-    (tests/test_torch_carve.py)."""
+    """A slice gang whose pods carry resource claims (DRA, ported) is
+    carved and bound as the reference carves and binds it: the members'
+    devices come from the slices of a 2x1x1 torus."""
+    from kubernetes_tpu_torch.testing import workloads
     from kubernetes_tpu_torch.topology.slicing import (GANG_LABEL,
-                                                      SLICE_SHAPE_LABEL)
-    sched = _port_sched()
+                                                      SLICE_SHAPE_LABEL,
+                                                      topology_labels)
+    nodes = []
+    for x in range(2):
+        w = make_node(f"t{x}").capacity({"cpu": "4", "memory": "8Gi",
+                                         "pods": "8"})
+        for k, v in topology_labels(x, 0, 0).items():
+            w = w.label(k, v)
+        nodes.append(w.obj().to_dict())
+    objs = [("ResourceSlice", workloads.resource_slice(f"t{x}", 1,
+                                                       cls="tpu"))
+            for x in range(2)]
+    objs += [("ResourceClaim", workloads.resource_claim(f"claim-{m}",
+                                                        cls="tpu"))
+             for m in range(2)]
+    pods = [workloads.with_claim(
+        make_pod(f"s{m}").req({"cpu": "100m"})
+        .label(SLICE_SHAPE_LABEL, "2x1x1").label(GANG_LABEL, "g")
+        .obj().to_dict(), f"claim-{m}") for m in range(2)]
+    sides = _claim_twins({"batch_size": 4}, nodes, objs)
     try:
-        d = (make_pod("s0").req({"cpu": "100m"})
-             .label(SLICE_SHAPE_LABEL, "1x1x1").label(GANG_LABEL, "g")
-             .obj().to_dict())
-        d["spec"]["resourceClaims"] = [
-            {"name": "tpu", "resourceClaimName": "claim-0"}]
-        sched.queue.add(port_types.Pod.from_dict(d))
-        with pytest.raises(NotImplementedError, match="item 11"):
-            sched.run_once(wait=0.01)
+        for s in sides:
+            s.drive(pods, [], extra=2)
+        ref, port = sides
+        assert port.log == ref.log
+        assert sorted(port.log.values()) == ["t0", "t1"]
     finally:
-        sched.close()
+        for s in sides:
+            s.close()
 
 
 def test_refuses_dra_claim():
-    sched = _port_sched()
+    """A pod with a resource claim (DRA, ported) schedules as the
+    reference schedules it: onto the node whose ResourceSlice publishes
+    the device, and the cache takes DRA objects."""
+    from kubernetes_tpu_torch.testing import workloads
+    nodes = [make_node(f"n{i}").capacity(
+        {"cpu": "1", "memory": "2Gi", "pods": "8"}).obj().to_dict()
+        for i in range(2)]
+    objs = [("DeviceClass", workloads.device_class("gpu")),
+            ("ResourceSlice", workloads.resource_slice("n1", 1, cls="gpu")),
+            ("ResourceClaim", workloads.resource_claim("claim-0",
+                                                       cls="gpu"))]
+    claimed = workloads.with_claim(
+        make_pod("claimed").req({"cpu": "100m"}).obj().to_dict(), "claim-0")
+    plain = make_pod("plain").req({"cpu": "100m"}).obj().to_dict()
+    sides = _claim_twins({"batch_size": 4}, nodes, objs)
     try:
-        d = make_pod("claimed").req({"cpu": "100m"}).obj().to_dict()
-        d["spec"]["resourceClaims"] = [
-            {"name": "gpu", "resourceClaimName": "claim-0"}]
-        pod = port_types.Pod.from_dict(d)
-        assert pod.spec.resource_claims
-        sched.queue.add(pod)
-        with pytest.raises(NotImplementedError, match="item 11"):
-            sched.run_once(wait=0.01)
-        with pytest.raises(NotImplementedError, match="item 11"):
-            sched.cache.update_dra_object("DeviceClass",
-                                          {"metadata": {"name": "gpu"}})
+        for s in sides:
+            s.drive([claimed, plain], [], extra=2)
+        ref, port = sides
+        assert port.log == ref.log
+        assert port.log["default/claimed"] == "n1"
+        assert set(port.cache.dra_catalog.classes) == {"gpu"}
     finally:
-        sched.close()
+        for s in sides:
+            s.close()
 
 
 def test_refuses_fleet_mode_and_tensor_plugins():
@@ -589,24 +628,23 @@ def test_default_config_builds_a_scheduler():
     sched.close()
 
 
-def test_run_lets_refusals_escape():
+def test_run_lets_refusals_escape(monkeypatch):
     """``run`` retries a failed cycle, but not a refusal: a retry cannot
-    cure it. The popped pod is back in a queue."""
-    from kubernetes_tpu_torch.topology.slicing import (GANG_LABEL,
-                                                      SLICE_SHAPE_LABEL)
+    cure it. The popped pod is back in a queue. The refusal is injected
+    where a cycle chooses its path (no feature of the done slices refuses
+    on this path any more)."""
     sched = _port_sched()
     stop = threading.Event()
     timer = threading.Timer(30.0, stop.set)  # a loop that swallows it ends
     timer.start()
+
+    def refused(pod):
+        raise port_config.not_ported("out-of-tree tensor plugins", "12")
+    monkeypatch.setattr(sched, "_slice_shape_of", refused)
     try:
-        # a slice pod with a resource claim: DRA waits for item 11
-        d = (make_pod("s0").req({"cpu": "100m"})
-             .label(SLICE_SHAPE_LABEL, "1x1x1")
-             .label(GANG_LABEL, "g").obj().to_dict())
-        d["spec"]["resourceClaims"] = [
-            {"name": "tpu", "resourceClaimName": "claim-0"}]
-        sched.queue.add(port_types.Pod.from_dict(d))
-        with pytest.raises(NotImplementedError, match="item 11"):
+        sched.queue.add(port_types.Pod.from_dict(
+            make_pod("p0").req({"cpu": "100m"}).obj().to_dict()))
+        with pytest.raises(NotImplementedError, match="item 12"):
             sched.run(stop)
         assert not stop.is_set()
         assert sched.queue.stats()["backoff"] == 1
