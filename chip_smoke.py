@@ -75,6 +75,15 @@ Phases, one JSON line each:
   profile.scheduler  one more pop of 2048 pods under torch.profiler:
            the device's busy share of the whole cycle, assume and bind
            included
+  plugins  the scheduler cell again with two out-of-tree tensor plugins
+           (testing/plugins.py: a filter vetoing every 10th node row, a
+           cpu-packing score of weight 5) inside the captured rounds: the
+           scheduler's gates, every pod placed or unschedulable, every
+           binding on a row the filter allows (checked on the host), 0
+           captures in the window; pods/s and attempt p50/p99 beside the
+           scheduler phase's (reported, not gated)
+  kernels.plugins, profile.plugins  as kernels.scheduler and
+           profile.scheduler, on the plugins phase's scheduler
   connected  Connected/10000Pods5000Nodes as bench.py runs
            benchmarks/connected.py (explain=True): the port's APIServer in
            a spawned process, 5000 nodes seeded,
@@ -294,6 +303,20 @@ Phases, one JSON line each:
            10 allocated devices, no pod bound while its claim was
            missing, the deleted pods' claims released, 0 violations, 0
            divergences, 0 loop errors, breaker "single", 0 oracle pods
+  parity.plugins  (after parity.dra) the two tensor plugins of the
+           plugins phase on a 48-node relational_mix cluster, three ways
+           (the card captured, the card eager, the CPU): gang_drain and
+           the Scheduler's group path and drain path at depth 1 and 2
+           bit-equal across the three, every placement on a row the
+           filter allows, and other placements without the plugins
+  ktpu     (after dra) the port's ktpu (cli/ktpu.py) against an in-process
+           APIServer and a SchedulerRunner on the card (66 nodes, 257
+           MixedHeterogeneous pods, one pod held by an untolerated taint):
+           get pods -o json lists the store's bound pods, status -o json
+           carries ctx and aotCache, why names TaintToleration with its 2
+           nodes, trace dump is valid Chrome trace JSON, audit status has
+           0 violations, deschedule run --dry-run plans on the card;
+           every command exits 0
 
   The gang rounds run as captured CUDA graphs on the card
   (kubernetes_tpu_torch/models/graphs.py: K rounds a replay, one host
@@ -338,9 +361,10 @@ device preemption failure the scheduler degraded to the host scan) or
 LOOP_ERRORS{site=device_explain} is (a failure of the explainer's device
 judge, whose pods then got no verdict).
 
-Each path (path, drain, resident, scheduler, connected, preemption,
-connected_preemption, explain, extender, slice, autoscaler, defrag,
-planner, fleet.drain, fleet, parity.dra, dra) is driven with the launch
+Each path (path, drain, resident, scheduler, plugins, connected,
+preemption, connected_preemption, explain, extender, slice, autoscaler,
+defrag, planner, fleet.drain, fleet, parity.dra, dra, parity.plugins,
+ktpu) is driven with the launch
 counts set to 0 just before it and read just after; the preemption and
 planner paths launch no hand kernel (their device work is torch ops),
 nor do the fleet and DRA paths (the FleetChurn and claim pods carry no
@@ -1291,12 +1315,13 @@ def no_preemption_gate():
 
 
 def make_scheduler(cfg, node_objs, bound_objs=(), ns_labels=None,
-                   device=None, confirm=True, gate=None):
+                   device=None, confirm=True, gate=None, registry=None):
     """A port Scheduler over a fresh SchedulerCache and SchedulingQueue,
     PreemptionSimulation off unless ``gate`` says otherwise (the cells of
     the main path preempt nothing: every pod fits), and an in-process
     binder that logs (pod key, node, seconds) and, with ``confirm``,
     confirms the binding in the cache as the runner's informer would.
+    ``registry``: out-of-tree plugins (sched/framework.Registry).
     -> (scheduler, binder log)."""
     import dataclasses
     from kubernetes_tpu_torch.sched.cache import SchedulerCache
@@ -1322,7 +1347,7 @@ def make_scheduler(cfg, node_objs, bound_objs=(), ns_labels=None,
 
     sched = Scheduler(cfg, cache, queue, binder,
                       feature_gate=gate or no_preemption_gate(),
-                      device=device)
+                      device=device, registry=registry)
     return sched, log
 
 
@@ -1421,7 +1446,7 @@ def _cycles(cycle_log):
 
 
 def scheduler_phase(node_dicts, pod_dicts, device=None, smi="",
-                    capture=True):
+                    capture=True, registry=None):
     """The north star through the port's Scheduler: warm_drain on the first
     pop's pods, then every pod into the queue and run_once until the queue
     is empty and the pipeline has resolved, with the Recreate churn applied
@@ -1432,16 +1457,20 @@ def scheduler_phase(node_dicts, pod_dicts, device=None, smi="",
     fold). The loop's tracer spans over the window are summed by name
     (count, total and longest ms). ``capture=False``: the rounds run
     eagerly on the card. The warm ladder's captures and seconds and the
-    window's graph counters are reported. -> (summary, scheduler, churn
-    state)."""
+    window's graph counters are reported, and the context rows each churn
+    node held after each pop (``churn_rows``). ``registry``: out-of-tree
+    plugins for the scheduler (the messages then say "plugins"). ->
+    (summary, scheduler, churn state, {pod key: node} of the binder's
+    log)."""
     from kubernetes_tpu_torch.api.types import Node, Pod
     from kubernetes_tpu_torch.metrics.registry import (ATTEMPT_DURATION,
                                                        LOOP_ERRORS)
     from kubernetes_tpu_torch.ops import kernels
     from kubernetes_tpu_torch.utils.tracing import TRACER
+    name = "scheduler" if registry is None else "plugins"
     cfg = sched_config()
     sched, log = make_scheduler(cfg, [Node.from_dict(d) for d in node_dicts],
-                                device=device)
+                                device=device, registry=registry)
     oracle_pods = []
     to_oracle = sched._schedule_oracle
 
@@ -1456,7 +1485,7 @@ def scheduler_phase(node_dicts, pod_dicts, device=None, smi="",
     pop = cfg.batch_size * cfg.max_drain_batches
     t0 = time.perf_counter()
     check(sched.warm_drain(pods[:pop], slot_headroom=len(pods) + 2 * pop),
-          "scheduler: warm_drain did not arm the context")
+          f"{name}: warm_drain did not arm the context")
     warm_s = time.perf_counter() - t0
     errors0 = sum(LOOP_ERRORS.items().values())
     ATTEMPT_DURATION.reset()
@@ -1464,6 +1493,7 @@ def scheduler_phase(node_dicts, pod_dicts, device=None, smi="",
     kernels.reset_launches()
     g0 = graph_counters()
     churn = ([], [])
+    churn_rows = {}
     pops = 0
     t_start = time.perf_counter()
     for p in pods:
@@ -1472,10 +1502,15 @@ def scheduler_phase(node_dicts, pod_dicts, device=None, smi="",
         _churn(sched.cache, pops, *churn)
         sched.run_once(wait=0.05)
         pops += 1
+        if sched._drain_ctx is not None:
+            rows = sched._drain_ctx["cs"].node_index
+            for n in churn[0]:
+                if n in rows:
+                    churn_rows.setdefault(n, set()).add(rows[n])
         if (not sched._pending and not sched._staged
                 and sched.queue.stats()["active"] == 0):
             break
-        check(pops < 100, "scheduler: the queue did not drain in 100 pops")
+        check(pops < 100, f"{name}: the queue did not drain in 100 pops")
     sched._resolve_pending()
     sched.wait_for_bindings(timeout=120.0)
     t_end = max((t for _k, _n, t in log), default=t_start)
@@ -1491,7 +1526,7 @@ def scheduler_phase(node_dicts, pod_dicts, device=None, smi="",
         agg["total_ms"] += sp.duration_ms
         agg["max_ms"] = max(agg["max_ms"], sp.duration_ms)
     placed = {k: n for k, n, _t in log}
-    check(len(placed) == len(log), "scheduler: a pod was bound twice")
+    check(len(placed) == len(log), f"{name}: a pod was bound twice")
     by_key = {d["metadata"].get("namespace", "default") + "/"
               + d["metadata"]["name"]: d for d in pod_dicts}
     placed_dicts = []
@@ -1506,15 +1541,16 @@ def scheduler_phase(node_dicts, pod_dicts, device=None, smi="",
     check_placements(node_dicts + churn_nodes, [], placed_dicts, len(pods))
     stats = sched.ctx_stats
     check(sched.breaker.mode == "single",
-          f"scheduler: the breaker degraded to {sched.breaker.mode!r}")
-    check(errors == 0, f"scheduler: {errors} loop errors")
-    check(not oracle_pods, f"scheduler: {sum(oracle_pods)} pods went "
+          f"{name}: the breaker degraded to {sched.breaker.mode!r}")
+    check(errors == 0, f"{name}: {errors} loop errors")
+    check(not oracle_pods, f"{name}: {sum(oracle_pods)} pods went "
                            "through the numpy oracle")
     check(stats["patches"] == 0,
-          f"scheduler: {stats['patches']} separate patch dispatches in "
+          f"{name}: {stats['patches']} separate patch dispatches in "
           "fused mode (the fusion degraded)")
-    for name, n in launches.items():
-        check(n > 0, f"kernel {name} was never launched by the scheduler")
+    for kernel, n in launches.items():
+        check(n > 0, f"kernel {kernel} was never launched by the {name} "
+                     "phase")
     q = {"result": "scheduled"}
     return ({"pods": len(pods), "nodes": len(node_dicts), "pops": pops,
              "scheduled": len(placed), "warm_drain_s": warm_s,
@@ -1531,7 +1567,9 @@ def scheduler_phase(node_dicts, pod_dicts, device=None, smi="",
              "breaker": sched.breaker.mode, "loop_errors": errors,
              "oracle_pods": sum(oracle_pods), "launches": launches,
              "captured": capture, "warm_ladder": sched.warm_stats,
-             "graphs": graphs, "card": smi}, sched, churn)
+             "graphs": graphs, "churn_rows": {n: sorted(r) for n, r in
+                                              sorted(churn_rows.items())},
+             "card": smi}, sched, churn, placed)
 
 
 def scheduler_count_cases(sched, pod_dicts, prefix="scheduler"):
@@ -5866,6 +5904,379 @@ def dra_phase(device=None, smi="", n_nodes=DRA_NODES, devices=DRA_DEVICES,
     return summary
 
 
+# ------------------------------------------------------------------ plugins
+
+PLUGIN_MODULUS = 10        # the stripe filter vetoes every 10th node row
+PLUGIN_PARITY_NODES = 48
+PLUGIN_PARITY_PODS = 160
+PLUGIN_LEGS = (("captured", "cuda", True), ("eager", "cuda", False),
+               ("cpu", "cpu", True))
+
+
+def plugin_registry():
+    """A Registry holding the two out-of-tree tensor plugins of
+    ``testing/plugins.py``: the stripe filter (every ``PLUGIN_MODULUS``th
+    node row) and the cpu-packing score."""
+    from kubernetes_tpu_torch.sched.framework import Registry
+    from kubernetes_tpu_torch.testing.plugins import smoke_plugins
+    reg = Registry()
+    for p in smoke_plugins(PLUGIN_MODULUS):
+        reg.register(p)
+    return reg
+
+
+def _vetoed_rows(assignments, modulus=PLUGIN_MODULUS) -> int:
+    """Placements (node rows, -1 unplaced) on a row the stripe filter
+    vetoes, by its numpy copy."""
+    import numpy as np
+    from kubernetes_tpu_torch.testing.plugins import stripe_allows
+    a = np.asarray(assignments).reshape(-1)
+    a = a[a >= 0]
+    if not a.size:
+        return 0
+    return int((~stripe_allows(int(a.max()) + 1, modulus)[a]).sum())
+
+
+def plugin_parity_phase(legs=PLUGIN_LEGS, seed=SEED,
+                        n_nodes=PLUGIN_PARITY_NODES,
+                        n_pods=PLUGIN_PARITY_PODS):
+    """Out-of-tree tensor plugins inside the rounds, on a seeded
+    ``relational_mix`` cluster of 48 nodes (spread and affinity terms, so
+    count_pn runs), with the stripe filter (every 10th node row vetoed)
+    and the cpu-packing score (weight 5) registered in the default
+    profile, three ways (``legs``: the card with the rounds captured, the
+    card eager, the CPU):
+
+    - ``gang_drain`` of the pending pods in batches of 32;
+    - the port's Scheduler on its group path (one batch of 16 a pop) and
+      its drain path (4 x 16 a pop) at pipeline depth 1 and 2.
+
+    Assignments and rounds, and the binder logs, must be bit-equal across
+    the legs; every placement passes the filter (its numpy copy, on the
+    host; the cache's rows follow the order the nodes were added); and
+    the first leg without the plugins places otherwise, so the plugins
+    ran. -> summary (count_pn's launches over the plugin legs, the
+    controls without the plugins not counted)."""
+    import copy
+    from kubernetes_tpu_torch.api.types import Node, Pod
+    from kubernetes_tpu_torch.encode.snapshot import SnapshotEncoder
+    from kubernetes_tpu_torch.models.gang import gang_drain
+    from kubernetes_tpu_torch.ops import kernels
+    from kubernetes_tpu_torch.sched.framework import Registry
+    from kubernetes_tpu_torch.testing.plugins import smoke_plugins
+    from kubernetes_tpu_torch.testing.workloads import relational_mix
+    nodes, bound, pending, ns = relational_mix(pods=n_pods, nodes=n_nodes,
+                                               bound=n_nodes // 2, seed=seed)
+    node_dicts = [n.to_dict() for n in nodes]
+    bound_dicts = [p.to_dict() for p in bound]
+    pending_dicts = [p.to_dict() for p in pending]
+    names = [d["metadata"]["name"] for d in node_dicts]
+    plugins = smoke_plugins(PLUGIN_MODULUS)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    out = {"nodes": n_nodes, "pending": len(pending_dicts),
+           "legs": [leg for leg, _d, _c in legs],
+           "plugins": [p.name for p in plugins]}
+    # gang_drain over the host encoding
+    enc = SnapshotEncoder()
+    enc.set_namespaces(ns)
+    pods = [Pod.from_dict(copy.deepcopy(d)) for d in pending_dicts]
+    ct, meta = enc.encode_cluster(
+        [Node.from_dict(copy.deepcopy(d)) for d in node_dicts],
+        [Pod.from_dict(copy.deepcopy(d)) for d in bound_dicts],
+        pending_pods=pods, pending_slots=False)
+    P = 32
+    pbs = [enc.encode_pods(pods[i:i + P], meta, min_p=P)
+           for i in range(0, len(pods), P)]
+    drains = {leg: gang_drain(ct, pbs, topo_keys=meta.topo_keys, seed=seed,
+                              device=dev, plugins=plugins, capture=capture)
+              for leg, dev, capture in legs}
+    first = legs[0][0]
+    for leg in drains:
+        check(_same(drains[first], drains[leg]),
+              f"parity.plugins: gang_drain {leg} differs from {first}")
+    a, rounds, _req = drains[first]
+    check(_vetoed_rows(a) == 0,
+          "parity.plugins: gang_drain placed pods on vetoed node rows")
+    out["gang_drain"] = {"placed": int((a >= 0).sum()),
+                         "rounds": rounds.tolist()}
+    # the Scheduler's group and drain paths
+    vetoed = {n for i, n in enumerate(names) if i % PLUGIN_MODULUS == 0}
+    paths = {"group": dict(batch_size=16, max_drain_batches=1),
+             "drain_depth1": dict(batch_size=16, max_drain_batches=4,
+                                  pipeline_depth=1),
+             "drain_depth2": dict(batch_size=16, max_drain_batches=4,
+                                  pipeline_depth=2)}
+
+    def drive(cfg, dev, capture, registry):
+        sched, log = make_scheduler(
+            sched_config(**cfg),
+            [Node.from_dict(copy.deepcopy(d)) for d in node_dicts],
+            [Pod.from_dict(copy.deepcopy(d)) for d in bound_dicts],
+            ns_labels=ns, device=dev, confirm=False, registry=registry)
+        sched.capture = capture
+        sched._drain_ready = lambda pend: False
+        try:
+            for d in pending_dicts:
+                sched.queue.add(Pod.from_dict(copy.deepcopy(d)))
+            for _ in range(12):
+                sched.run_once(wait=0.01)
+            sched._resolve_pending()
+            sched.wait_for_bindings()
+            return ({k: n for k, n, _t in log},
+                    json.loads(json.dumps(sched.ctx_stats)),
+                    sched._drain_ctx is not None)
+        finally:
+            sched.close()
+
+    out["scheduler"] = {}
+    for path, cfg in paths.items():
+        runs = {leg: drive(cfg, dev, capture, plugin_registry())
+                for leg, dev, capture in legs}
+        for leg in runs:
+            check(runs[leg] == runs[first],
+                  f"parity.plugins: the scheduler's {path} on {leg} differs "
+                  f"from {first}")
+        log, stats, armed = runs[first]
+        check(armed == (path != "group"),
+              f"parity.plugins: {path} took the wrong path")
+        bad = sorted(k for k, n in log.items() if n in vetoed)
+        check(not bad, f"parity.plugins: {path} bound {bad[:3]} on vetoed "
+                       "nodes")
+        check(len(log) >= 0.5 * len(pending_dicts),
+              f"parity.plugins: {path} placed only {len(log)}")
+        out["scheduler"][path] = {"placed": len(log), "ctx_stats": stats}
+    out["launches"] = dict(kernels.LAUNCHES)
+    # the controls, on the first leg without the plugins (their launches
+    # are not counted above)
+    plain = gang_drain(ct, pbs, topo_keys=meta.topo_keys, seed=seed,
+                       device=legs[0][1], capture=legs[0][2])
+    check(not _same(plain[0], a),
+          "parity.plugins: gang_drain places the same without the plugins")
+    out["gang_drain"]["moved_by_plugins"] = int((plain[0] != a).sum())
+    plain_log = drive(paths["drain_depth2"], legs[0][1], legs[0][2],
+                      Registry())[0]
+    check(plain_log != runs[first][0],
+          "parity.plugins: the scheduler places the same without plugins")
+    out["scheduler"]["moved_by_plugins"] = sum(
+        1 for k, n in runs[first][0].items() if plain_log.get(k) != n)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def plugins_phase(node_dicts, pod_dicts, smi="", plain=None, device=None):
+    """Scheduler/10000Pods5000Nodes as the scheduler phase runs it (its
+    workload, warm_drain, pops of 8 x 256 with Recreate churn, rounds
+    captured, K = 2), with the stripe filter and the cpu-packing score
+    registered (``plugin_registry``). Beside the scheduler phase's own
+    gates: every pod placed or reported unschedulable; every binding on a
+    node row the filter allows, checked on the host (a base node's row is
+    its place in ``node_dicts``, which is checked against the context's
+    row map; a churn node's rows are those the scheduler phase read from
+    the context after every pop, and a binding passes where one of them
+    does); 0 captures in the measured window, so the warm ladder captured
+    with the plugins. ``plain``: the scheduler phase's summary of this
+    call, for the comparison. -> (summary, scheduler, churn state)."""
+    from kubernetes_tpu_torch.testing.plugins import stripe_allows
+    summary, sched, churn, placed = scheduler_phase(
+        node_dicts, pod_dicts, device=device, smi=smi,
+        registry=plugin_registry())
+    base = {d["metadata"]["name"]: i for i, d in enumerate(node_dicts)}
+    churn_rows = summary["churn_rows"]
+    rows = sched._drain_ctx["cs"].node_index
+    moved = sorted(n for n, i in base.items() if rows.get(n) != i)
+    check(not moved, f"plugins: base node rows moved: {moved[:3]}")
+    allow = stripe_allows(max([len(base)] + [max(r) + 1 for r in
+                                             churn_rows.values()]),
+                          PLUGIN_MODULUS)
+    bad = sorted(k for k, n in placed.items()
+                 if n in base and not allow[base[n]])
+    check(not bad, f"plugins: {len(bad)} bindings on vetoed node rows "
+                   f"({bad[:3]})")
+    on_churn = [n for n in placed.values() if n not in base]
+    churn_bad = [n for n in on_churn
+                 if not any(allow[r] for r in churn_rows.get(n, ()))]
+    check(not churn_bad, f"plugins: bindings on vetoed churn node rows "
+                         f"{sorted(set(churn_bad))[:3]}")
+    q = sched.queue.stats()
+    unsched = q["backoff"] + q["unschedulable"]
+    check(len(placed) + unsched == len(pod_dicts),
+          f"plugins: {len(placed)} placed + {unsched} unschedulable of "
+          f"{len(pod_dicts)}")
+    check(summary["graphs"]["captures"] == 0,
+          f"plugins: {summary['graphs']['captures']} captures in the "
+          "measured window (the warm ladder missed the plugins' graphs)")
+    summary.update(
+        unschedulable=unsched, bindings_checked=len(placed),
+        bindings_on_churn_nodes=len(on_churn),
+        vetoed_nodes=int((~allow[:len(base)]).sum()),
+        plugins=[p.name for p in sched.registry.tensor_plugins()])
+    if plain is not None:
+        summary["vs_scheduler"] = {
+            "pods_per_s": plain["pods_per_s"],
+            "pods_per_s_ratio": summary["pods_per_s"] / plain["pods_per_s"],
+            "attempt_p50_s": plain["attempt_p50_s"],
+            "attempt_p99_s": plain["attempt_p99_s"]}
+    return summary, sched, churn
+
+
+KTPU_NODES = 64
+KTPU_PODS = 256
+
+
+def ktpu_phase(device=None, n_nodes=KTPU_NODES, n_pods=KTPU_PODS,
+               seed=SEED, timeout_s=60.0):
+    """The port's ``ktpu`` (cli/ktpu.py) against a port APIServer (in
+    process) and a SchedulerRunner on the card: a MixedHeterogeneous
+    cluster of 64 nodes and 256 pods, two more nodes tainted
+    ``dedicated=ml:NoSchedule`` and labelled ``pool=ml``, and one pod that
+    selects ``pool=ml`` without the toleration (it stays pending). The
+    explainer, the flight recorder, the sentinel (every drain) and the
+    auditor (every 0.5 s) are on. ``ktpu.main(argv, out=StringIO())``
+    then runs, and every command must exit 0:
+
+    - ``get pods -o json``: the bound pods it lists hold every pod the
+      store held bound before the command and none it did not after;
+    - ``status -o json``: carries the ``ctx`` and ``aotCache`` blocks;
+    - ``why stuck -o json``: names TaintToleration with its 2 nodes;
+    - ``trace dump`` (after ``publish_trace``): valid Chrome trace JSON;
+    - ``audit status -o json``: at least one sweep, 0 violations;
+    - ``deschedule run --dry-run -o json``: a plan, computed on the card;
+    - ``status``, ``get nodes`` and ``top nodes`` in table form.
+
+    -> summary (per command: exit code, seconds, output bytes)."""
+    import io
+    from kubernetes_tpu_torch.cli import ktpu
+    from kubernetes_tpu_torch.client.clientset import HTTPClient
+    from kubernetes_tpu_torch.ops import kernels
+    from kubernetes_tpu_torch.sched.runner import SchedulerRunner
+    from kubernetes_tpu_torch.store.apiserver import APIServer
+    from kubernetes_tpu_torch.testing.workloads import mixed_heterogeneous
+    from kubernetes_tpu_torch.testing.wrappers import make_node, make_pod
+    from kubernetes_tpu_torch.utils.tracing import validate_chrome_trace
+    t_phase = time.perf_counter()
+    node_objs, pod_objs = mixed_heterogeneous(pods=n_pods, nodes=n_nodes,
+                                              seed=seed)
+    server = APIServer().start()
+    runner = None
+    try:
+        client = HTTPClient(server.url)
+        client.nodes().create_many(
+            [n.to_dict() for n in node_objs]
+            + [make_node(f"tainted-{i}").capacity(
+                {"cpu": "8", "memory": "16Gi", "pods": "32"})
+               .label("pool", "ml").taint("dedicated", "ml", "NoSchedule")
+               .obj().to_dict() for i in range(2)])
+        cfg = sched_config(batch_size=64, max_drain_batches=2,
+                           explainer_enabled=True, parity_sample_every=1,
+                           audit_interval_s=0.5, backoff_initial_s=0.2,
+                           backoff_max_s=1.0)
+        runner = SchedulerRunner(HTTPClient(server.url), cfg,
+                                 feature_gate=no_preemption_gate(),
+                                 device=device)
+        runner.start(wait_sync=60.0, start_loop=False)
+        check(runner.scheduler.warm_drain(pod_objs[:128], slot_headroom=512),
+              "ktpu: warm_drain did not arm the context")
+        kernels.reset_launches()
+        runner.start_loop()
+        client.pods("default").create_many([p.to_dict() for p in pod_objs])
+        stuck = make_pod("stuck").req({"cpu": "100m"}).obj().to_dict()
+        stuck["spec"]["nodeSelector"] = {"pool": "ml"}
+        client.pods("default").create(stuck)
+
+        def bound_in_store():
+            return sorted(p["metadata"]["name"] for p in
+                          client.pods(None).list()
+                          if p["spec"].get("nodeName"))
+
+        flags = ["--server", server.url] + (
+            ["--device", str(device)] if device is not None else [])
+
+        def run(*argv):
+            out = io.StringIO()
+            t0 = time.perf_counter()
+            rc = ktpu.main([*flags, *argv], out=out)
+            return rc, out.getvalue(), time.perf_counter() - t0
+
+        deadline = time.perf_counter() + timeout_s
+        why = None
+        while time.perf_counter() < deadline:
+            rc, text, _s = run("why", "stuck", "-o", "json")
+            if (rc == 0 and len(bound_in_store()) >= 0.9 * n_pods
+                    and runner.auditor.sweeps >= 1):
+                why = json.loads(text)
+                break
+            time.sleep(0.2)
+        check(why is not None, "ktpu: no explanation, binding or audit "
+                               f"sweep within {timeout_s}s")
+        check(runner.loop_error is None,
+              f"ktpu: the runner's loop stopped: {runner.loop_error!r}")
+        runner.publish_status()
+        runner.publish_trace()
+        launches = dict(kernels.LAUNCHES)
+        results, docs = {}, {}
+        for key, argv, parse in (
+                ("get_pods", ("get", "pods", "-o", "json"), True),
+                ("status_json", ("status", "-o", "json"), True),
+                ("why", ("why", "stuck", "-o", "json"), True),
+                ("trace_dump", ("trace", "dump"), True),
+                ("audit", ("audit", "status", "-o", "json"), True),
+                ("deschedule", ("deschedule", "run", "--dry-run", "-o",
+                                "json"), True),
+                ("status", ("status",), False),
+                ("get_nodes", ("get", "nodes"), False),
+                ("top_nodes", ("top", "nodes"), False)):
+            if key == "get_pods":
+                # the runner may still bind (and bindings only grow here):
+                # the listing must hold every pod bound before the command
+                # and no pod unbound after it
+                bound_before = set(bound_in_store())
+            rc, text, secs = run(*argv)
+            if key == "get_pods":
+                bound_after = set(bound_in_store())
+            check(rc == 0, f"ktpu: {' '.join(argv)} exited {rc}: "
+                           f"{text[:300]}")
+            results[key] = {"rc": rc, "seconds": secs, "bytes": len(text)}
+            if parse:
+                docs[key] = json.loads(text)
+        listed = sorted(p["metadata"]["name"] for p in
+                        docs["get_pods"]["items"]
+                        if p["spec"].get("nodeName"))
+        check(bound_before <= set(listed) <= bound_after,
+              "ktpu: get pods lists other bound pods than the store holds "
+              f"({len(bound_before)} before, {len(listed)} listed, "
+              f"{len(bound_after)} after)")
+        st = docs["status_json"]
+        check("ctx" in st and "aotCache" in st,
+              f"ktpu: status lacks ctx/aotCache ({sorted(st)})")
+        check((docs["why"].get("filters") or {}).get("TaintToleration") == 2,
+              f"ktpu: why names {docs['why'].get('filters')}")
+        problems = validate_chrome_trace(docs["trace_dump"])
+        check(not problems, f"ktpu: trace dump: {problems[:2]}")
+        audit = docs["audit"]
+        check(audit.get("sweeps", 0) >= 1 and audit.get("violations") == 0,
+              f"ktpu: audit {audit.get('sweeps')} sweeps, "
+              f"{audit.get('violations')} violations")
+        plan = docs["deschedule"]
+        check("planned" in plan, f"ktpu: deschedule returned {sorted(plan)}")
+        return {"nodes": n_nodes + 2, "pods": n_pods + 1,
+                "bound": len(listed), "commands": results,
+                "why": {"message": docs["why"].get("message"),
+                        "filters": docs["why"].get("filters")},
+                "status_blocks": sorted(st),
+                "trace_events": len(docs["trace_dump"]["traceEvents"]),
+                "audit": {"sweeps": audit.get("sweeps"),
+                          "violations": audit.get("violations")},
+                "deschedule": {"planned": len(plan["planned"]),
+                               "gangs": len(plan.get("gangs", []))},
+                "ctx": st.get("ctx"), "launches": launches,
+                "seconds": time.perf_counter() - t_phase}
+    finally:
+        if runner is not None:
+            runner.stop()
+        server.stop()
+
+
 # ------------------------------------------------------------------ graphs
 
 # parity.graph's round cut: the CPU leg converges a full-width batch in
@@ -6365,6 +6776,10 @@ def main() -> int:
     dra_parity = {**dra_parity_phase(), "launches": dict(kernels.LAUNCHES)}
     emit({"phase": "parity.dra", **dra_parity,
           "seconds": time.perf_counter() - t0})
+    # out-of-tree tensor plugins inside the rounds: card captured, card
+    # eager and CPU (its count_pn launches are counted over the legs)
+    plugin_parity = plugin_parity_phase()
+    emit({"phase": "parity.plugins", **plugin_parity})
 
     launches = {}   # kernel -> {path: launches}
 
@@ -6421,7 +6836,8 @@ def main() -> int:
     del drv
 
     s_nodes, s_pods, s_profiled = sched_workload()
-    sched_sum, sched, s_churn = scheduler_phase(s_nodes, s_pods, smi=smi)
+    sched_sum, sched, s_churn, _placed = scheduler_phase(s_nodes, s_pods,
+                                                         smi=smi)
     for name, n in sched_sum["launches"].items():
         launches.setdefault(name, {})["scheduler"] = n
     emit({"phase": "scheduler", **sched_sum})
@@ -6433,6 +6849,20 @@ def main() -> int:
     sched_in = sched_drain_inputs(sched._drain_ctx, sched.cache.encode_pods,
                                   sched.cfg.max_drain_batches,
                                   sched.cfg.batch_size, s_profiled)
+    sched.close()
+    del sched
+    # the same cell with two out-of-tree tensor plugins in the rounds
+    plug_sum, sched, p_churn = plugins_phase(s_nodes, s_pods, smi=smi,
+                                             plain=sched_sum)
+    for name, n in plug_sum["launches"].items():
+        launches.setdefault(name, {})["plugins"] = n
+    emit({"phase": "plugins", **plug_sum})
+    plug_rows = kernels_phase(scheduler_count_cases(sched, s_pods,
+                                                    prefix="plugins"))
+    emit({"phase": "kernels.plugins", "rows": plug_rows})
+    emit({"phase": "profile.plugins",
+          **profile_scheduler_phase(sched, p_churn, s_profiled,
+                                    plug_sum["pops"])})
     sched.close()
     del sched
 
@@ -6499,6 +6929,9 @@ def main() -> int:
     t0 = time.perf_counter()
     dra_sum = dra_phase(smi=smi)
     emit({"phase": "dra", **dra_sum, "seconds": time.perf_counter() - t0})
+    # the entry point operators drive: ktpu against a runner on the card
+    ktpu_sum = ktpu_phase()
+    emit({"phase": "ktpu", **ktpu_sum})
     # ---- captured against eager, parity.graph, warm start --------------
     # (parity.graph profiles drain_step captured and eager at the
     # resident, scheduler and connected shapes)
@@ -6512,8 +6945,8 @@ def main() -> int:
           **{k: res_eager[k] for k in ("cycles", "arm_s", "placed",
                                        "drain_ms", "launches")}})
     del drv, res_eager, resident_out
-    sched_eager, sched, _churn = scheduler_phase(s_nodes, s_pods, smi=smi,
-                                                 capture=False)
+    sched_eager, sched, _churn, _placed = scheduler_phase(
+        s_nodes, s_pods, smi=smi, capture=False)
     emit({"phase": "scheduler.eager", **sched_eager})
     sched.close()
     del sched
@@ -6549,23 +6982,28 @@ def main() -> int:
                           ("slice", slice_sum), ("autoscaler", auto_sum),
                           ("defrag", defrag_sum), ("planner", loop_sum),
                           ("fleet.drain", fdrain_sum), ("fleet", fleet_sum),
-                          ("parity.dra", dra_parity), ("dra", dra_sum)):
+                          ("parity.dra", dra_parity), ("dra", dra_sum),
+                          ("parity.plugins", plugin_parity),
+                          ("ktpu", ktpu_sum)):
         for name, n in summary["launches"].items():
             launches.setdefault(name, {})[path] = n
 
-    # one entry per kernel, at the shape of the path with its most launches
-    # among those whose rows are taken from the path's own context
-    # (resident, scheduler, connected, explain, extender, slice,
-    # fleet.drain), launches
-    # summed over every path; every row of the kernels phases was held
-    # bit-equal to the plain version
+    # one entry per kernel, at the resident shape where the kernel runs
+    # there (the headline shape, fixed from call to call), else at the
+    # shape of the path with its most launches among those whose rows are
+    # taken from the path's own context (scheduler, plugins, connected,
+    # explain, extender, slice, fleet.drain); launches summed over every
+    # path; every row of the kernels phases was held bit-equal to the
+    # plain version
     rows_by_path = {"resident": resident_rows, "scheduler": sched_rows,
+                    "plugins": plug_rows,
                     "connected": conn_rows, "explain": expl_rows,
                     "extender": ext_rows, "slice": slice_rows,
                     "fleet.drain": fleet_rows}
     table = []
     for name, by_path in launches.items():
-        top = max(rows_by_path, key=lambda path: by_path.get(path, 0))
+        top = ("resident" if by_path.get("resident") else
+               max(rows_by_path, key=lambda path: by_path.get(path, 0)))
         row = dict(next(r for r in rows_by_path[top]
                         if r["name"].startswith(name + "[")))
         row.update(name=name, launches=sum(by_path.values()),
@@ -6573,7 +7011,8 @@ def main() -> int:
                    shape_of=top,
                    shapes_checked=[r["name"] for r in
                                    rows + drain_rows + resident_rows
-                                   + sched_rows + conn_rows + expl_rows
+                                   + sched_rows + plug_rows + conn_rows
+                                   + expl_rows
                                    + ext_rows + slice_rows + fleet_rows
                                    if r["name"].startswith(name + "[")])
         table.append(row)

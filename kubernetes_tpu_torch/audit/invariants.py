@@ -55,7 +55,13 @@ class AuditSnapshot:
     consistent list (the pods list carries the collection resourceVersion);
     nodes are a second list — acceptable because node identity/allocatable
     churn is orders slower than pod churn. Cache and ctx views are
-    dict-copied under the cache lock / GIL respectively."""
+    dict-copied under the cache lock / GIL respectively, and taken BEFORE
+    the API lists: the scheduler assumes a preemptor only after its
+    victims' deletes returned, so an assume in the view never meets, in
+    the lists that follow, a victim it replaced. Taken after them (as the
+    reference does), a sweep can hold a victim listed before its delete
+    beside the assume that followed, and report an overcommit that never
+    existed."""
 
     ts: float
     rv: Optional[int]
@@ -70,12 +76,6 @@ class AuditSnapshot:
 
     @classmethod
     def capture(cls, client, cache=None, scheduler=None) -> "AuditSnapshot":
-        pods_res = client.resource("pods", None)
-        try:
-            api_pods, rv = pods_res.list_rv()
-        except (AttributeError, TypeError):
-            api_pods, rv = pods_res.list(), None
-        api_nodes = client.resource("nodes", None).list()
         cache_view = cache.audit_view() if cache is not None else None
         ctx_view = pending = None
         if scheduler is not None:
@@ -88,6 +88,12 @@ class AuditSnapshot:
                     pending = _delta_keys(entries)
                     if pending is None:
                         ctx_view = None  # a "full" entry: everything dirty
+        pods_res = client.resource("pods", None)
+        try:
+            api_pods, rv = pods_res.list_rv()
+        except (AttributeError, TypeError):
+            api_pods, rv = pods_res.list(), None
+        api_nodes = client.resource("nodes", None).list()
         return cls(ts=time.time(), rv=rv, api_pods=api_pods,
                    api_nodes=api_nodes, cache=cache_view, ctx=ctx_view,
                    ctx_pending_keys=pending)

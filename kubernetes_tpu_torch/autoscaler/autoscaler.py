@@ -9,10 +9,10 @@ is what ``ktpu autoscale status`` reads.
 
 The PyTorch port of ``kubernetes_tpu/autoscaler/autoscaler.py``: both
 simulations run on ``device`` (None = the card) or, through ``resident``,
-on the scheduler's resident context. ``ktpu`` is not ported (ROADMAP
-Queue A item 10): the ConfigMap is the port's status surface. The port has
-no loop of its own: sched/bgplanner.BackgroundPlanner drives ``run_once``
-(the standalone loop is ``ktpu``'s, item 10).
+on the scheduler's resident context. The ConfigMap is the port's status
+surface (``ktpu autoscale status``). The port has no loop of its own:
+sched/bgplanner.BackgroundPlanner drives ``run_once`` (the standalone loop
+is ROADMAP Queue A item 19).
 """
 
 from __future__ import annotations

@@ -24,11 +24,12 @@ evict through the Eviction API). Differences that matter here:
 The PyTorch port of ``kubernetes_tpu/descheduler/descheduler.py``: the
 planner's and the quota plane's device work runs on ``device`` (None = the
 card) or, through ``resident``, on the scheduler's context. PyYAML is
-imported by ``from_yaml`` alone, so the module imports without it. ``ktpu`` is
-not ported (ROADMAP Queue A item 10): the ConfigMap is the status surface.
-The port has no loop of its own: sched/bgplanner.BackgroundPlanner drives
-``run_once`` (the standalone loop is ``ktpu``'s, item 10), so
-``interval_s`` is parsed and published but read by no loop yet.
+imported by ``from_yaml`` alone, so the module imports without it. The
+ConfigMap is the status surface (``ktpu deschedule status``; ``ktpu
+deschedule run`` drives one ``run_once``). The port has no loop of its
+own: sched/bgplanner.BackgroundPlanner drives ``run_once`` (the standalone
+loop is ROADMAP Queue A item 19), so ``interval_s`` is parsed and
+published but read by no loop yet.
 """
 
 from __future__ import annotations

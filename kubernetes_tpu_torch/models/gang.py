@@ -2,8 +2,9 @@
 
 The PyTorch port of ``kubernetes_tpu/models/gang.py``: the single-batch
 ``gang_schedule``, the multi-batch ``gang_drain`` and the device-resident
-``drain_step`` with its fold and churn patch (without ``mesh``,
-``plugins`` and the extender masks).
+``drain_step`` with its fold and churn patch (without ``mesh``). The
+out-of-tree tensor plugins (``plugins``) run inside every round, and so
+inside the rounds' captured graphs on the card.
 Batching P pods against one snapshot introduces intra-batch conflicts the
 serial loop never sees:
 
@@ -225,12 +226,13 @@ def _gang_round_impl(ct_ext: ClusterTensors, pb: PodBatch, state: GangState,
                      topo_keys: tuple[int, ...] = (), serial: bool = False,
                      weights: tuple = (), enabled_filters: tuple = (),
                      cap_scale=1, slot_start=None, ext_mask=None,
-                     ext_scores=None):
+                     ext_scores=None, plugins: tuple = ()):
     """One propose/accept/fold round. Returns (new_state, progress) where
     progress (a 0-d tensor) counts acceptances plus serial-mode attempts.
     ``slot_start``: index of this batch's extension slots in the epod
     tensors; defaults to the trailing P slots. ``ext_mask``/``ext_scores``:
-    the extender veto and score overlay [P,N] (see evaluate)."""
+    the extender veto and score overlay [P,N]; ``plugins``: the profile's
+    out-of-tree TensorPlugins (see evaluate)."""
     P = state.committed.shape[0]
     N = ct_ext.node_valid.shape[0]
     dev = state.committed.device
@@ -248,7 +250,7 @@ def _gang_round_impl(ct_ext: ClusterTensors, pb: PodBatch, state: GangState,
                    fit_strategy=fit_strategy, topo_keys=topo_keys,
                    weights=dict(weights) if weights else None,
                    enabled_filters=frozenset(enabled_filters) if enabled_filters else None,
-                   ext_mask=ext_mask, ext_scores=ext_scores)
+                   ext_mask=ext_mask, ext_scores=ext_scores, plugins=plugins)
     want = res.assigned & ~state.committed & pb.pod_valid
     tried = state.tried
     n_attempted = torch.zeros((), dtype=torch.int64, device=dev)
@@ -338,8 +340,10 @@ def converge_key(ct_ext, pb, state: GangState, *, limit: int, chunk: int,
                  slot_start: int, ext_mask=None, ext_scores=None,
                  **statics) -> tuple:
     """The graph key of a chunk of ``chunk`` rounds (models/graphs.py): the
-    static arguments, the round limit, K, every input tensor's address and
-    layout, and the carried state's layout."""
+    static arguments (the plugin tuple among them: a graph records the
+    plugins' ops, so profiles with other plugins never share it), the round
+    limit, K, every input tensor's address and layout, and the carried
+    state's layout."""
     return graphs.graph_key(
         "gang_rounds",
         (tuple(sorted(statics.items())), int(limit), int(chunk),
@@ -351,7 +355,8 @@ def converge_key(ct_ext, pb, state: GangState, *, limit: int, chunk: int,
 def _converge(ct_ext, pb, state, *, seed, fit_strategy, topo_keys,
               weights, enabled_filters, max_rounds,
               serial=False, slot_start=None, ext_mask=None,
-              ext_scores=None, capture=True) -> GangState:
+              ext_scores=None, plugins: tuple = (),
+              capture=True) -> GangState:
     """The reference's static trip of ``max_rounds`` cond-guarded rounds,
     cut at a chunk edge: rounds run K (``default_chunk``) at a time, each
     masked
@@ -364,12 +369,13 @@ def _converge(ct_ext, pb, state, *, seed, fit_strategy, topo_keys,
     P = int(state.committed.shape[0])
     dev = state.committed.device
     K = max(1, min(default_chunk(dev), limit))
+    plugins = tuple(plugins)
     if slot_start is None:
         slot_start = int(ct_ext.epod_valid.shape[0]) - P
     kw = dict(seed=seed, fit_strategy=fit_strategy, topo_keys=topo_keys,
               serial=serial, weights=weights,
               enabled_filters=enabled_filters, slot_start=slot_start,
-              ext_mask=ext_mask, ext_scores=ext_scores)
+              ext_mask=ext_mask, ext_scores=ext_scores, plugins=plugins)
 
     def rounds(st: GangState, n):
         for _ in range(K):
@@ -388,7 +394,8 @@ def _converge(ct_ext, pb, state, *, seed, fit_strategy, topo_keys,
                            fit_strategy=fit_strategy,
                            topo_keys=tuple(topo_keys), serial=bool(serial),
                            weights=tuple(weights),
-                           enabled_filters=tuple(enabled_filters))
+                           enabled_filters=tuple(enabled_filters),
+                           plugins=plugins)
     n = torch.ones((), dtype=torch.int64, device=dev)
     done = 0
     while True:
@@ -413,16 +420,18 @@ def gang_schedule(ct: ClusterTensors, pb: PodBatch, seed: int = 0,
                   fit_strategy: str = "LeastAllocated",
                   topo_keys: tuple[int, ...] = (), serial: bool = False,
                   max_rounds: int = 64, weights=None, enabled_filters=None,
-                  ext_mask=None, ext_scores=None, capture: bool = True):
+                  ext_mask=None, ext_scores=None, plugins: tuple = (),
+                  capture: bool = True):
     """Drive rounds until convergence. Returns (assignment [P] np.int32 with -1
     for unschedulable, rounds_used). ``weights`` (plugin->weight) and
     ``enabled_filters`` (set of filter names) carry the active profile's
     plugin configuration. ``ct`` and ``pb`` are on one device; the rounds
     run there. ``ext_mask`` [P,N] bool / ``ext_scores`` [P,N] float32
     (numpy, at the bucketed dims): the extender pass's veto and score
-    overlay, copied to that device once for every round. ``capture``: on
-    the card, replay each chunk of rounds as a CUDA graph (False: run it
-    eagerly, for comparisons)."""
+    overlay, copied to that device once for every round. ``plugins``: the
+    profile's out-of-tree TensorPlugins (sched/framework.py), run in every
+    round. ``capture``: on the card, replay each chunk of rounds as a CUDA
+    graph (False: run it eagerly, for comparisons)."""
     P = int(pb.pod_valid.shape[0])
     dev = pb.pod_valid.device
     ct_ext = extend_cluster(ct, pb)
@@ -445,7 +454,8 @@ def gang_schedule(ct: ClusterTensors, pb: PodBatch, seed: int = 0,
                           topo_keys=topo_keys, serial=serial,
                           weights=weights_t, enabled_filters=filters_t,
                           max_rounds=limit, ext_mask=ext_mask,
-                          ext_scores=ext_scores, capture=capture)
+                          ext_scores=ext_scores, plugins=plugins,
+                          capture=capture)
     return (state.assignment.cpu().numpy().astype(np.int32),
             int(state.rounds))
 
@@ -585,11 +595,11 @@ def _drain_batches(ct: ClusterTensors, pb_stack: PodBatch, e0: int,
 
 
 def _drain_kw(seed, fit_strategy, topo_keys, weights, enabled_filters,
-              max_rounds, capture=True) -> dict:
+              max_rounds, capture=True, plugins=()) -> dict:
     return dict(seed=seed, fit_strategy=fit_strategy,
                 topo_keys=tuple(topo_keys), weights=tuple(weights),
                 enabled_filters=tuple(enabled_filters),
-                max_rounds=max_rounds, capture=capture)
+                max_rounds=max_rounds, plugins=plugins, capture=capture)
 
 
 def prepare_drain(ct: ClusterTensors, pbs: list[PodBatch], device=None):
@@ -609,7 +619,7 @@ def gang_drain(ct: ClusterTensors = None, pbs: list[PodBatch] = None,
                seed: int = 0, fit_strategy: str = "LeastAllocated",
                topo_keys: tuple[int, ...] = (), weights=None,
                enabled_filters=None, max_rounds: int = 64, prepared=None,
-               device=None, capture: bool = True):
+               device=None, plugins: tuple = (), capture: bool = True):
     """Schedule a whole queue of batches in one call.
 
     A loop over the batch axis, each step a full gang convergence,
@@ -624,7 +634,7 @@ def gang_drain(ct: ClusterTensors = None, pbs: list[PodBatch] = None,
     ``prepared``: the result of prepare_drain() — pass it to amortize host
     prep and staging across repeated drains of the same queue (it is not
     modified). Otherwise ``ct`` and ``pbs`` are prepared on ``device``.
-    ``capture``: as ``gang_schedule``.
+    ``plugins`` and ``capture``: as ``gang_schedule``.
     """
     if prepared is None:
         prepared = prepare_drain(ct, pbs, device=device)
@@ -638,7 +648,7 @@ def gang_drain(ct: ClusterTensors = None, pbs: list[PodBatch] = None,
     kw = _drain_kw(seed, fit_strategy, topo_keys,
                    sorted(weights.items()) if weights else (),
                    sorted(enabled_filters) if enabled_filters else (),
-                   max_rounds, capture)
+                   max_rounds, capture, plugins)
     with graphs.LOCK:
         assignments, rounds, requested = _drain_batches(ct_run, pb_stack,
                                                         e0, kw)
@@ -771,7 +781,7 @@ def drain_step(ct_all: ClusterTensors, pb_stack: PodBatch, fill,
                fit_strategy: str = "LeastAllocated",
                topo_keys: tuple[int, ...] = (), weights: tuple = (),
                enabled_filters: tuple = (), max_rounds: int = 64,
-               capture: bool = True):
+               plugins: tuple = (), capture: bool = True):
     """One fused drain over a DEVICE-RESIDENT cluster encoding.
 
     ``ct_all``: rows [0,e0) are base existing-pod slots (``fill`` of them
@@ -798,8 +808,9 @@ def drain_step(ct_all: ClusterTensors, pb_stack: PodBatch, fill,
 
     On the card the rounds are captured graphs that read the context at
     its addresses (models/graphs.py): a context rebuilt elsewhere is
-    captured anew. ``capture``: as ``gang_schedule``. The fold's
-    ``nonzero`` and the patch's row filters read the host outside them.
+    captured anew. ``plugins`` and ``capture``: as ``gang_schedule``. The
+    fold's ``nonzero`` and the patch's row filters read the host outside
+    them.
     """
     B, P = pb_stack.pod_valid.shape
     BP = B * P
@@ -829,7 +840,7 @@ def drain_step(ct_all: ClusterTensors, pb_stack: PodBatch, fill,
     _refill(ct_all.ea_ns_mask, e0, _flat(pb_stack.anti_ns_mask), False)
 
     kw = _drain_kw(seed, fit_strategy, topo_keys, weights, enabled_filters,
-                   max_rounds, capture)
+                   max_rounds, capture, plugins)
     assignments, rounds, requested = _drain_batches(ct_all, pb_stack, e0, kw)
     ct_all.requested.copy_(requested)
 

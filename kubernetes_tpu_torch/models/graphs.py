@@ -38,8 +38,10 @@ key and replayed.
   at each replay (``ops/kernels.count_launch``).
 - **No fallback.** A capture or a replay that fails raises ``GraphError``,
   which ``sched/faults.is_fatal`` calls fatal; nothing falls back to the
-  eager loop. The eager loop on the card runs only when a caller passes
-  ``capture=False`` (the smoke's and the card tests' comparisons).
+  eager loop. A failed capture does not fail the process's later
+  captures (``_end_failed_capture``). The eager loop on the card runs
+  only when a caller passes ``capture=False`` (the smoke's and the card
+  tests' comparisons).
 """
 
 from __future__ import annotations
@@ -63,6 +65,9 @@ MAX_STABLE = 16
 LOCK = threading.RLock()
 _GRAPHS: "OrderedDict[tuple, _Graph]" = OrderedDict()
 _STABLE: "OrderedDict[tuple, list]" = OrderedDict()
+# graphs whose capture failed, kept alive for the life of the process
+# (_end_failed_capture)
+_FAILED: list = []
 _POOL = None
 _STREAM = None
 
@@ -163,6 +168,7 @@ def _capture(body, state: list) -> _Graph:
         _STREAM = torch.cuda.Stream()
     side = _STREAM
     before = dict(kernels.CAPTURED)
+    graph = None
     try:
         side.wait_stream(cur)
         with torch.cuda.stream(side):
@@ -182,6 +188,8 @@ def _capture(body, state: list) -> _Graph:
     except GraphError:
         raise
     except Exception as e:
+        if graph is not None:
+            _end_failed_capture(graph)
         raise GraphError(f"CUDA graph capture of the rounds failed: "
                          f"{type(e).__name__}: {e}") from e
     CAPTURES += 1
@@ -190,6 +198,23 @@ def _capture(body, state: list) -> _Graph:
                 for k in kernels.CAPTURED}
     # the warm-up's launches were real: count_launch counted them as such
     return _Graph(graph, static, launches)
+
+
+def _end_failed_capture(graph) -> None:
+    """After a capture the card refused (a host read in the body
+    invalidates it), ``CUDAGraph.capture_end`` raises before it ends the
+    caching allocator's recording into the pool, and the allocator keeps
+    the graph's stream filter: a later capture into that pool fails
+    ("already recording"). End the recording where the allocator lets us,
+    keep the graph object alive (its filter stays valid, and matches no
+    later capture), and give later captures a fresh pool."""
+    global _POOL
+    _FAILED.append(graph)
+    try:
+        torch._C._cuda_endAllocateToPool(torch.cuda.current_device(), _POOL)
+    except RuntimeError:
+        pass  # the capture ended its recording itself
+    _POOL = None
 
 
 def replay(key: tuple, body, state: list) -> list:

@@ -37,7 +37,7 @@ def evaluate(ct: ClusterTensors, pb: PodBatch, seed: int = 0,
              weights=None, fit_strategy: str = "LeastAllocated",
              topo_keys: tuple[int, ...] = (),
              enabled_filters=None, ext_mask=None,
-             ext_scores=None) -> StepResult:
+             ext_scores=None, plugins: tuple = ()) -> StepResult:
     """Filter + score + select for the whole batch, assuming an EMPTY batch
     context (no intra-batch interactions — gang.py supplies those).
 
@@ -47,7 +47,11 @@ def evaluate(ct: ClusterTensors, pb: PodBatch, seed: int = 0,
     ``ext_mask``/``ext_scores`` [P,N] (tensors on the batch's device):
     host-computed scheduler-extender feasibility veto and weighted score
     overlay (sched/extender.py) — the findNodesThatPassExtenders position
-    in the cycle. The reference's out-of-tree plugins are ROADMAP item 12."""
+    in the cycle. ``plugins``: tuple of out-of-tree TensorPlugins
+    (sched/framework.py) run inside this step — their filters AND into
+    feasibility after the extender veto, their scores merge through the
+    shared normalize pipeline ahead of the relational scores, as in the
+    reference, so the float sum runs in the same order."""
     def _on(name):
         return enabled_filters is None or name in enabled_filters
 
@@ -62,7 +66,20 @@ def evaluate(ct: ClusterTensors, pb: PodBatch, seed: int = 0,
         feasible &= topology.interpod_symmetry_mask(ct, pb, topo_keys)
     if ext_mask is not None:
         feasible &= ext_mask
+    for plugin in plugins:
+        if plugin.filter_fn is not None:
+            feasible &= plugin.filter_fn(ct, pb, topo_keys)
     extra = {}
+    score_plugins = [p for p in plugins if p.score_fn is not None]
+    if score_plugins:
+        # weight applies AFTER normalization, exactly like in-tree plugins;
+        # plugin defaults sit UNDER the profile map so a profile's
+        # scoreWeights override — including disable(0) — wins
+        weights = {**{p.name: p.weight for p in score_plugins},
+                   **(weights or {})}
+    for plugin in score_plugins:
+        extra[plugin.name] = (plugin.score_fn(ct, pb, topo_keys),
+                              plugin.normalize, None)
     if pb.sc_valid.shape[1] > 0:
         extra["PodTopologySpread"] = (
             topology.spread_score_raw(ct, pb, topo_keys, cnt_pn=spread_cnt),

@@ -29,8 +29,7 @@ status
     Per-planner overlay hit/decline tallies, cycle spans, and the
     steady-window compile count publish to the
     ``kubernetes-tpu-planner-status`` ConfigMap (``ktpu status`` renders
-    the "Planners:" line from it; ``ktpu`` is not ported yet, ROADMAP
-    Queue A item 10).
+    the "Planners:" line from it).
 
 The PyTorch port of ``kubernetes_tpu/sched/bgplanner.py``. Unlike the
 reference's, the loop of ``start`` stops for good on a failure that

@@ -4,13 +4,14 @@ Reference: ``pkg/scheduler/framework/`` (``Registry`` in runtime/registry.go,
 the ``Plugin`` interfaces in interface.go, ``NewFramework``'s out-of-tree
 registry merge in scheduler.go). Upstream extension points map here as:
 
-  Filter / Score        TensorPlugin — TRACEABLE functions over the encoded
-                        (ClusterTensors, PodBatch) that run INSIDE the jitted
-                        gang program: a filter returns a [P,N] mask ANDed
-                        into feasibility, a score returns raw [P,N] merged
-                        through the shared normalize/weight pipeline. This
-                        is the TPU-native plugin ABI: you extend the device
-                        program, not a Go callback chain.
+  Filter / Score        TensorPlugin — functions of torch ops over the
+                        encoded (ClusterTensors, PodBatch) that run INSIDE
+                        every gang round (models/schedule_step.evaluate),
+                        and so inside the rounds' captured CUDA graphs on
+                        the card: a filter returns a [P,N] mask ANDed into
+                        feasibility, a score returns raw [P,N] merged
+                        through the shared normalize/weight pipeline. You
+                        extend the device program, not a Go callback chain.
   Permit / PreBind /    LifecyclePlugin — host-side hooks on the binding
   PostBind / Unreserve  cycle (waiting-pod gate, pre-bind side effects with
                         rollback, post-bind notification), exactly where
@@ -42,8 +43,19 @@ class TensorPlugin:
     ``filter_fn(ct, pb, topo_keys) -> bool [P,N]`` — False vetoes the node.
     ``score_fn(ct, pb, topo_keys) -> float32 [P,N]`` raw scores, merged via
     ``normalize`` ("minmax" | "default" | "default_reverse") and ``weight``
-    like any in-tree score plugin. Functions MUST be traceable (jax.numpy,
-    no Python control flow on values) — they are jitted with the step.
+    like any in-tree score plugin. ``ct``/``pb`` hold torch tensors on the
+    batch's device (the card, or the CPU when the caller asked for it), and
+    the result must lie on that device.
+
+    The functions must be CAPTURABLE: on the card each chunk of gang rounds
+    is recorded once as a CUDA graph and replayed (models/graphs.py), so a
+    plugin may use torch ops only — no host read (``.item()``, ``.cpu()``,
+    ``.tolist()``, ``int()``/``bool()`` of a tensor, a Python branch on a
+    tensor's value) and no new pinned memory. Such a read fails the capture
+    with a ``GraphError``, which stops the scheduler (sched/faults.is_fatal)
+    and never hands the batch to the oracle. Shapes (``.shape``) are static
+    and may steer Python code. The plugin itself is part of every graph key,
+    so two profiles with different plugin sets never share a graph.
     """
 
     name: str
@@ -106,7 +118,7 @@ class Registry:
         return self
 
     def tensor_plugins(self, enabled: Optional[set] = None) -> tuple:
-        """-> static tuple for the jit (order-stable by name)."""
+        """-> the static tuple the rounds take (order-stable by name)."""
         with self._lock:
             return tuple(p for n, p in sorted(self._tensor.items())
                          if enabled is None or n in enabled)

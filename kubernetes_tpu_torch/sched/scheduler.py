@@ -58,8 +58,10 @@ Where the port differs from the reference:
   breaker's oracle level carves on the host). The snapshot moves to the
   device once and the carve and ``gang_schedule`` share it.
 
-Features that wait for later slices raise ``NotImplementedError`` naming
-their ROADMAP Queue A item: out-of-tree tensor plugins (12). DRA device
+Out-of-tree tensor plugins (sched/framework.py) run inside the gang
+rounds at the group path, the drain and the warm ladder, as in the
+reference; a profile whose plugins filter is requeued rather than
+scheduled by the oracle (``_schedule_oracle``). DRA device
 claims (sched/dra.py) ride the resource axis as in the reference, and a
 slice-shaped ResourceClaim routes its pod into the carver. A ``meshShape`` runs
 single-device with a warning, as the reference does with too few
@@ -86,7 +88,6 @@ import torch
 from kubernetes_tpu_torch.api.types import Pod
 from kubernetes_tpu_torch.config.features import DEFAULT_FEATURE_GATE
 from kubernetes_tpu_torch.config.types import SchedulerConfiguration
-from kubernetes_tpu_torch.config.types import not_ported as _not_ported
 from kubernetes_tpu_torch.device import resolve_device
 from kubernetes_tpu_torch.encode.snapshot import tenant_label_of
 from kubernetes_tpu_torch.metrics.registry import (
@@ -286,15 +287,21 @@ class Scheduler:
         # referencing unregistered names fail fast here.
         from kubernetes_tpu_torch.sched.framework import Registry
         self.registry = registry if registry is not None else Registry()
-        if self.registry.tensor_plugins():
-            raise _not_ported("out-of-tree tensor plugins", "12")
-        known = {p.name for p in self.registry.lifecycle_plugins()}
+        known = {p.name for p in self.registry.tensor_plugins()} \
+            | {p.name for p in self.registry.lifecycle_plugins()}
         for prof in cfg.profiles:
             unknown = set(prof.out_of_tree or ()) - known
             if unknown:
                 raise ValueError(
                     f"profile {prof.scheduler_name!r} references "
                     f"unregistered out-of-tree plugins: {sorted(unknown)}")
+
+    def _tensor_plugins(self, profile) -> tuple:
+        """The profile's out-of-tree TensorPlugins, order-stable by name
+        (every registered one when the profile lists none)."""
+        oot = (None if profile is None or profile.out_of_tree is None
+               else set(profile.out_of_tree))
+        return self.registry.tensor_plugins(oot)
 
     # ---- staging ---------------------------------------------------------
 
@@ -991,6 +998,7 @@ class Scheduler:
                     weights=profile.weights(),
                     enabled_filters=profile.enabled_filters,
                     ext_mask=ext_mask, ext_scores=ext_scores,
+                    plugins=self._tensor_plugins(profile),
                     capture=self.capture)
             except Exception as e:
                 if is_fatal(e):
@@ -1343,6 +1351,7 @@ class Scheduler:
                     enabled_filters=tuple(
                         sorted(profile.enabled_filters or ())),
                     max_rounds=self.cfg.max_gang_rounds,
+                    plugins=self._tensor_plugins(profile),
                     capture=self.capture)
             except Exception as e:
                 if is_fatal(e):
@@ -1652,7 +1661,9 @@ class Scheduler:
                   topo_keys=meta.topo_keys,
                   weights=tuple(sorted(profile.weights().items())),
                   enabled_filters=tuple(sorted(profile.enabled_filters or ())),
-                  max_rounds=self.cfg.max_gang_rounds, capture=self.capture)
+                  max_rounds=self.cfg.max_gang_rounds,
+                  plugins=self._tensor_plugins(profile),
+                  capture=self.capture)
         # the SAME staging path (and spans) the live dispatch uses — warms
         # the stager thread and the pinned buffers
         pb_staged = self._stage_batch(
@@ -1721,16 +1732,19 @@ class Scheduler:
         parity-tested against them — the breaker routes here when the
         device layer is broken so a scheduling cycle is never dropped."""
         from kubernetes_tpu_torch.sched.oracle import OracleScheduler
-        if self._extenders:
+        vetoes = [p.name for p in self._tensor_plugins(profile)
+                  if p.filter_fn is not None]
+        if self._extenders or vetoes:
             # an extender's filter veto is authoritative (it guards state
-            # the scheduler cannot see — storage capacity, license seats);
-            # the oracle cannot consult it mid-outage, and binding past a
-            # veto is worse than waiting one backoff for the device (or
-            # the operator) to come back
-            _LOG.warning("degraded to oracle but %d extender(s) are "
-                         "configured: requeueing %d pods instead of "
-                         "bypassing extender filters", len(self._extenders),
-                         len(items))
+            # the scheduler cannot see — storage capacity, license seats),
+            # and so is an out-of-tree tensor filter's (the reference's
+            # oracle binds past it); the oracle can consult neither, and
+            # binding past a veto is worse than waiting one backoff for
+            # the device (or the operator) to come back
+            _LOG.warning("degraded to oracle but %d extender(s) and tensor "
+                         "filter plugin(s) %s are configured: requeueing %d "
+                         "pods instead of bypassing their filters",
+                         len(self._extenders), vetoes, len(items))
             for pod, attempts in items:
                 self.queue.add_unschedulable(pod, attempts + 1)
                 SCHEDULE_ATTEMPTS.inc({"result": "unschedulable"})

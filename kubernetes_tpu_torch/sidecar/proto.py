@@ -1,7 +1,8 @@
 """Wire protocol for the scheduling sidecar — msgpack frames over gRPC.
 
 The port's copy of ``kubernetes_tpu/sidecar/proto.py``; ``msgpack`` is
-imported where a frame is packed, so the engine runs without it.
+imported where a frame is packed, so the engine and the client's module
+import without it.
 
 The reference negotiates protobuf on the wire; here every RPC payload is one
 msgpack map (the same binary format the apiserver negotiates,
@@ -56,3 +57,6 @@ def unpack(data: bytes) -> dict:
 def stale(server_generation: int) -> dict:
     return {"stale": True, "server_generation": server_generation}
 
+
+def method_path(name: str) -> str:
+    return f"/{SERVICE}/{name}"

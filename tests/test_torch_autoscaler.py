@@ -1,7 +1,8 @@
 """The port's cluster autoscaler against the JAX package's, on the CPU.
 
-``tests/test_autoscaler.py``'s cases that need neither kubemark (ROADMAP
-Queue A item 15) nor the ``ktpu`` CLI (item 10), each run through both
+``tests/test_autoscaler.py``'s cases that need no kubemark (ROADMAP
+Queue A item 15; ``ktpu autoscale status`` is in tests/test_torch_cli.py),
+each run through both
 packages on the same objects (every port device call on ``device="cpu"``):
 the reference's assertions hold on the port, and the two packages' results
 are equal (options, masks, plans, blocked reasons, reclaimed nodes, the
@@ -474,7 +475,7 @@ def test_hollow_provider_is_not_ported():
             PORT.client(), [_group(PORT, "g", 0, 1, {"cpu": "1"})])
 
 
-def test_dra_device_capacity_is_not_ported():
+def test_dra_device_capacity_group_loads_as_reference():
     """DRA is ported: a group with ``deviceCapacity`` loads as the
     reference loads it, and its template node carries the devices as
     ``dra:<class>`` allocatable (tests/test_torch_dra.py scales one up for

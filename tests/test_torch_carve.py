@@ -1008,7 +1008,7 @@ def _tpu_topo_slice(node, coords):
                     ("topology-x", "topology-y", "topology-z"), coords)}}]}}
 
 
-def test_slice_pod_with_resource_claims_waits_for_dra():
+def test_slice_claim_gang_carves_as_reference():
     """DRA is ported: a gang whose members ask for their slice through a
     slice-shaped ResourceClaim (no slice-shape label) is carved and bound
     as the reference carves and binds it, one device a member from the

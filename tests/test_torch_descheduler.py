@@ -1,7 +1,8 @@
 """The port's descheduler against the JAX package's, on the CPU.
 
-``tests/test_descheduler.py``'s cases that need neither kubemark (ROADMAP
-Queue A item 15) nor the ``ktpu`` CLI (item 10), each run through both
+``tests/test_descheduler.py``'s cases that need no kubemark (ROADMAP
+Queue A item 15; ``ktpu deschedule`` is in tests/test_torch_cli.py), each
+run through both
 packages on the same objects (every port device call on ``device="cpu"``):
 the reference's assertions hold on the port, and the two packages' plans
 are equal (accepted sets, moves, blocked reasons, gang moves, evictions,

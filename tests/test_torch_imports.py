@@ -85,7 +85,10 @@ _SCHED_MODULES = (
     "models.graphs", "parallel.aot", "sched.aotcache",
     # DRA device claims and the ResourceClaim controller
     "sched.dra", "client.workqueue", "controllers.base",
-    "controllers.resourceclaim")
+    "controllers.resourceclaim",
+    # tensor plugins and the entry points: ktpu and the sidecar client
+    "testing.plugins", "cli.ktpu", "sidecar.proto", "sidecar.client",
+    "sidecar.server")
 
 _NO_YAML = r"""
 import importlib, sys
@@ -93,6 +96,7 @@ sys.modules["jax"] = None
 sys.modules["flax"] = None
 sys.modules["yaml"] = None
 sys.modules["msgpack"] = None
+sys.modules["grpc"] = None
 for name in sys.argv[1:]:
     importlib.import_module("kubernetes_tpu_torch." + name)
 from kubernetes_tpu_torch.config.types import SchedulerConfiguration, validate
@@ -105,12 +109,14 @@ print(cfg.batch_size, cfg.pipeline_depth, leaked)
 
 
 def test_scheduler_modules_import_without_yaml():
-    """The scheduling loop's, the connected scheduler's and the resident
-    planners' modules import with JAX, flax, PyYAML and msgpack blocked
-    (the card's machine lists neither PyYAML nor msgpack: config/types.py
-    and descheduler/descheduler.py import PyYAML in ``from_yaml`` only,
-    and the store and the clients speak JSON without msgpack), and pull in
-    nothing of the JAX package."""
+    """The scheduling loop's, the connected scheduler's, the resident
+    planners' and the entry points' modules import with JAX, flax, PyYAML,
+    msgpack and grpc blocked (the card's machine lists none of the last
+    three: config/types.py and descheduler/descheduler.py import PyYAML in
+    ``from_yaml`` only, ktpu when it reads YAML, the store and the clients
+    speak JSON without msgpack, and the sidecar imports grpc and msgpack
+    where it serves, dials or packs a frame), and pull in nothing of the
+    JAX package."""
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     res = subprocess.run([sys.executable, "-c", _NO_YAML, *_SCHED_MODULES],
                          cwd=ROOT, env=env, capture_output=True, text=True,

@@ -16,7 +16,8 @@ call on ``device="cpu"``), plus the reference held beside it:
   reference's in one quota dispatch;
 - the ``BackgroundPlanner`` cadence over HTTP: one shared
   ``ResidentPlanner``, the steady window's ``steadyCompiles``, the status
-  ConfigMap (``ktpu status`` is not ported, ROADMAP Queue A item 10);
+  ConfigMap, and the "Planners:" line the port's ``ktpu status`` renders
+  from it, equal to the reference's ``ktpu`` on the same ConfigMap;
 - no fallback hides the card: the cold paths run on the card unless
   ``device="cpu"`` is passed, ``cluster_arrays`` catches no read-back
   failure, and a ``KernelError`` in a planner escapes the cycle (no
@@ -410,6 +411,25 @@ def test_background_planner_cycles_and_status():
         assert published["planners"]["autoscaler"]["hits"] == \
             st["planners"]["autoscaler"]["hits"]
         assert runner.cache.stats()["full_encodes"] >= 1
+        # ktpu status renders the Planners: line, as the reference's does
+        import io
+        from kubernetes_tpu.cli.ktpu import main as ref_main
+        from kubernetes_tpu_torch.cli.ktpu import main as port_main
+        lines = []
+        for entry in (port_main, ref_main):
+            out = io.StringIO()
+            assert entry(["--server", server.url, "status"], out=out) == 0
+            lines.append([ln for ln in out.getvalue().splitlines()
+                          if ln.startswith("Planners:")])
+        assert published.get("intervalSeconds") is None  # no cadence loop
+        assert lines[0] == lines[1] == [
+            "Planners:      3 cycles — hits/declines: "
+            f"autoscaler {st['planners']['autoscaler']['hits']}/0, "
+            f"descheduler {st['planners']['descheduler']['hits']}/"
+            f"{st['planners']['descheduler']['declines']}, "
+            f"gangDefrag {st['planners']['gangDefrag']['hits']}/"
+            f"{st['planners']['gangDefrag']['declines']} — "
+            "steady compiles 0"]
     finally:
         if runner is not None:
             runner.stop()

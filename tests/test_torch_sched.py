@@ -516,7 +516,7 @@ def _claim_twins(cfg_kw, nodes, dra_objs):
     return sides
 
 
-def test_refuses_slice_gang():
+def test_slice_gang_with_claims_schedules_as_reference():
     """A slice gang whose pods carry resource claims (DRA, ported) is
     carved and bound as the reference carves and binds it: the members'
     devices come from the slices of a 2x1x1 torus."""
@@ -553,7 +553,7 @@ def test_refuses_slice_gang():
             s.close()
 
 
-def test_refuses_dra_claim():
+def test_dra_claim_pod_schedules_as_reference():
     """A pod with a resource claim (DRA, ported) schedules as the
     reference schedules it: onto the node whose ResourceSlice publishes
     the device, and the cache takes DRA objects."""
@@ -581,7 +581,7 @@ def test_refuses_dra_claim():
             s.close()
 
 
-def test_refuses_fleet_mode_and_tensor_plugins():
+def test_accepts_fleet_mode_and_tensor_plugins():
     from kubernetes_tpu_torch.sched.framework import Registry, TensorPlugin
     sched = _port_sched()
     try:
@@ -591,11 +591,21 @@ def test_refuses_fleet_mode_and_tensor_plugins():
         assert sched._tenant_chunks([], 4) == []
     finally:
         sched.close()
+    # out-of-tree tensor plugins (item 12) are ported: a registry holding
+    # one is taken (tests/test_torch_plugins.py holds placements against
+    # the reference), and a profile naming an unregistered one is refused
+    # as the reference refuses it
     reg = Registry()
     reg.register(TensorPlugin(name="Extra",
                               score_fn=lambda ct, pb, tk: torch.zeros(1)))
-    with pytest.raises(NotImplementedError, match="item 12"):
-        _port_sched(registry=reg)
+    sched = _port_sched(registry=reg)
+    try:
+        assert [p.name for p in sched._tensor_plugins(None)] == ["Extra"]
+    finally:
+        sched.close()
+    with pytest.raises(ValueError, match="unregistered"):
+        _port_sched(cfg_kw={"profiles": [port_config.Profile(
+            out_of_tree=["Missing"])]}, registry=reg)
 
 
 @pytest.mark.parametrize("cfg_kw,item", _WAITING_OPTIONS, ids=["mesh"])
@@ -639,12 +649,12 @@ def test_run_lets_refusals_escape(monkeypatch):
     timer.start()
 
     def refused(pod):
-        raise port_config.not_ported("out-of-tree tensor plugins", "12")
+        raise port_config.not_ported("API priority and fairness", "13")
     monkeypatch.setattr(sched, "_slice_shape_of", refused)
     try:
         sched.queue.add(port_types.Pod.from_dict(
             make_pod("p0").req({"cpu": "100m"}).obj().to_dict()))
-        with pytest.raises(NotImplementedError, match="item 12"):
+        with pytest.raises(NotImplementedError, match="item 13"):
             sched.run(stop)
         assert not stop.is_set()
         assert sched.queue.stats()["backoff"] == 1
