@@ -240,7 +240,7 @@ Phases, one JSON line each:
            a node: the port's APIServer in a spawned process, the
            SchedulerRunner with its loop stopped and a fail-fast auditor,
            warm_drain, a ClusterAutoscaler and a dry-run Descheduler driven
-           by one BackgroundPlanner; adaptive warm-up, a window of 3
+           by one BackgroundPlanner; adaptive warm-up, a window of 2
            cycles (the reference's 6, cut so that the script keeps to its
            time), the resident-vs-cold parity legs on one observation, one
            more cycle under torch.profiler. cycle_ms, the planner/* spans
@@ -317,6 +317,39 @@ Phases, one JSON line each:
            nodes, trace dump is valid Chrome trace JSON, audit status has
            0 violations, deschedule run --dry-run plans on the card;
            every command exits 0
+  explainab  (after ktpu) ExplainAB as benchmarks/connected.py
+           run_explain_ab runs it: ConnectedChurn (2000 MixedHeterogeneous
+           pods on 1000 nodes, pops of 2 x 512, the reference's churn loop
+           of nodes and pods in namespace churn through the window and on
+           to 500 operations) with the explainer and the flight recorder
+           off, then on, each leg the connected phase's runner (spawned
+           APIServer, sentinel, fail-fast auditor). Gates
+           (explainab_failures): the on leg with both, the off leg with
+           neither, every pod bound, 0 violations, divergences, loop
+           errors, device_explain errors and oracle pods, a measured
+           ratio. The on/off pods/s ratio is reported beside the
+           reference's min_ratio 0.95, not gated (host time)
+  secured  the same ConnectedChurn behind an APIServer with
+           authentication (anonymous off), RBAC's bootstrap policy, the
+           audit log, API Priority and Fairness and the default admission
+           chain (PodSecurity enforce: baseline and a LimitRange default
+           on namespace default); pods and nodes created with an admin
+           token, the runner as system:kube-scheduler. Once: no token ->
+           401, a dry-run create stores nothing, server-side apply by two
+           field managers -> 409 then forced, ktpu apply --server-side
+           exits 0. Gates: the connected run's (the failed lists of the
+           kinds the role may not list reported, not gated), no 401, 403
+           or 429 on the scheduler's pods/binding and pods/status
+           requests, its bindings in the audit log under its own user,
+           its requests dispatched at APF's system level. Reported: its
+           403s by resource, pods/s, attempt p50/p99
+  frontdoor  the same ConnectedChurn behind FrontDoorCluster(n=3) in one
+           spawned process, every client but the auditor (the leader)
+           spreading over the three endpoints. Gates: the connected run's,
+           reads served by each replica, and each replica converged on
+           the leader's pods and nodeNames once its replay lag is under
+           2 s. Reported: pods/s, attempt p50/p99, 421s, the leader's
+           commit wait
 
   The gang rounds run as captured CUDA graphs on the card
   (kubernetes_tpu_torch/models/graphs.py: K rounds a replay, one host
@@ -333,7 +366,7 @@ Phases, one JSON line each:
            their placements and the folded context bit-equal to the
            captured run's at that cycle, drain ms
   scheduler.eager  the scheduler phase eager
-  connected.eager  the connected phase eager, cut to 5000 pods
+  connected.eager  the connected phase eager, cut to 4096 pods
   (fleet.drain runs its eager and replay-only drains itself, bit-equal)
   parity.graph  at the drain, resident, scheduler, connected and
            fleet.drain shapes: one drain_step (gang_drain for the drain and
@@ -1057,7 +1090,7 @@ def resident_count_cases(drv):
 RESIDENT_B = 8       # SchedulerConfiguration.max_drain_batches default
 RESIDENT_P = BATCH   # SchedulerConfiguration.batch_size default
 RESIDENT_CYCLES = 8
-RESIDENT_EAGER_CYCLES = 4   # resident.eager: the first cycles, eager
+RESIDENT_EAGER_CYCLES = 2   # resident.eager: the first cycles, eager
 
 
 def resident_workload(n_nodes=N_NODES, n_bound=N_BOUND,
@@ -1633,9 +1666,19 @@ CONNECTED_CHUNK = 2500   # concurrent bulk creates, as run_connected makes
 CONNECTED_TIMEOUT_S = 300.0
 CONNECTED_PARITY_EVERY = 4   # the reference's chaos runs sample this densely
 CONNECTED_AUDIT_S = 2.0
-CONNECTED_EAGER = 5000   # connected.eager's pods: the eager run, cut to
-                         # five drains of 2 x 512 (the sentinel samples
+CONNECTED_EAGER = 4096   # connected.eager's pods: the eager run, cut to
+                         # four drains of 2 x 512 (the sentinel samples
                          # every 4th)
+# ConnectedChurn (benchmarks/connected.py run_connected(churn=True)): the
+# churn loop's period and the fixed budget of operations it makes
+CHURN_PERIOD_S = 0.1
+CHURN_MIN_OPS = 500
+# LOOP_ERRORS sites where the bootstrap policy's system:kube-scheduler role
+# is refused: it may not list ConfigMaps or the DRA kinds the informers
+# watch, nor write the status ConfigMaps (runner, auditor's post-sweep
+# publish, explainer)
+RBAC_DENIED_SITES = ("informer_listwatch", "publish_status",
+                     "audit_post_sweep", "explainer_publish")
 
 
 def connected_workload(pods=CONNECTED_PODS, nodes=N_NODES, seed=SEED):
@@ -1654,31 +1697,52 @@ def _wire(objs):
     return _wire_dicts([o.to_dict() for o in objs])
 
 
+WATCH_RESUMES = 100  # streams a watcher opens before it counts itself dead
+
+
 def _wire_dicts(dicts):
     for d in dicts:
         d["metadata"].pop("uid", None)
     return dicts
 
 
-def watch_bound(url, ns, rv0, n_pods, count, done, dead, ready, prefix=""):
+def watch_bound(url, ns, rv0, n_pods, count, done, dead, ready, prefix="",
+                token=None):
     """Watcher process: count the pods whose nodeName got set (one event
     per binding), of those whose name starts with ``prefix``; a deletion
     is not a binding. Its JSON decode burns its own interpreter, not the
-    scheduler's."""
+    scheduler's. A stream that ends (a server dropping a slow watcher, a
+    front door's replica) is watched again from the last resourceVersion
+    seen, or relisted when that is compacted, as an informer would.
+    ``url`` may be a front door's endpoints; ``token`` is the bearer token
+    of a server with authentication on."""
     from kubernetes_tpu_torch.client.clientset import HTTPClient
-    client = HTTPClient(url, timeout=30.0, wire="json")
+    from kubernetes_tpu_torch.store.store import TooOld
+    client = HTTPClient(url, timeout=30.0, wire="json", token=token)
     seen = set()
+
+    def saw(obj) -> bool:
+        if (obj.get("metadata", {}).get("name", "").startswith(prefix)
+                and (obj.get("spec") or {}).get("nodeName")):
+            seen.add(obj["metadata"]["name"])
+            count.value = len(seen)
+        return len(seen) >= n_pods
+
+    rv = rv0
     try:
-        w = client.pods(ns).watch(since_rv=rv0)
-        ready.set()
-        for ev in w:
-            if ev.type == "DELETED" or not (ev.object or {}).get(
-                    "metadata", {}).get("name", "").startswith(prefix):
+        for _ in range(WATCH_RESUMES):
+            try:
+                w = client.pods(ns).watch(since_rv=rv)
+            except TooOld:
+                pods, rv = client.pods(ns).list_rv()
+                if any([saw(p) for p in pods]):
+                    done.set()
+                    return
                 continue
-            if (ev.object or {}).get("spec", {}).get("nodeName"):
-                seen.add(ev.object["metadata"]["name"])
-                count.value = len(seen)
-                if len(seen) >= n_pods:
+            ready.set()
+            for ev in w:
+                rv = max(rv, ev.resource_version)
+                if ev.type in ("ADDED", "MODIFIED") and saw(ev.object or {}):
                     done.set()
                     return
     except Exception:
@@ -1687,12 +1751,14 @@ def watch_bound(url, ns, rv0, n_pods, count, done, dead, ready, prefix=""):
     dead.set()
 
 
-def start_apiserver(ctx):
+def start_apiserver(ctx, **planes):
     """The port's APIServer in its own process (spawned: this process holds
-    a CUDA context and must not fork). -> (process, stop pipe, url)."""
+    a CUDA context and must not fork), with the ``planes`` that
+    ``store/apiserver.serve`` takes. -> (process, stop pipe, url)."""
     from kubernetes_tpu_torch.store.apiserver import serve
     parent, child = ctx.Pipe()
-    proc = ctx.Process(target=serve, args=(child,), daemon=True)
+    proc = ctx.Process(target=serve, args=(child,), kwargs=planes,
+                       daemon=True)
     proc.start()
     check(parent.poll(120.0), "connected: the apiserver did not start")
     return proc, parent, f"http://127.0.0.1:{parent.recv()}"
@@ -1751,6 +1817,75 @@ def connected_phase(node_dicts, pod_dicts, device=None, smi="",
     spans; the explainer's ``stats()`` are reported. ``capture=False``:
     the rounds run eagerly on the card. -> (summary, stopped runner)."""
     import multiprocessing as mp
+    ctx = mp.get_context("spawn")
+    server, server_pipe, url = start_apiserver(ctx)
+    try:
+        return connected_run(ctx, url, node_dicts, pod_dicts, device=device,
+                             smi=smi, capture=capture)
+    finally:
+        stop_process(server, server_pipe)
+
+
+def churn_nodes_and_pods(client, stop, stats, period_s=CHURN_PERIOD_S,
+                         hurry=None):
+    """scheduler_perf's ``churn`` op as the reference's ConnectedChurn runs
+    it (``benchmarks/connected.py`` _churn_loop): recycle nodes and
+    short-lived pods (namespace ``churn``, outside the measured set) while
+    the window runs. Node and pod names count up; at most 3 of each live.
+    ``stats``: ops, errors, and the nodes created (their dicts: a measured
+    pod may bind to one). ``hurry``: once set, a 10 ms cadence."""
+    from kubernetes_tpu_torch.testing.wrappers import make_node, make_pod
+    live_nodes, live_pods = [], []
+    i = 0
+    while not stop.is_set():
+        try:
+            node = _wire([make_node(f"churn-n{i}").capacity(
+                {"cpu": "2", "memory": "4Gi", "pods": "8"}).obj()])[0]
+            client.nodes().create(node)
+            stats.setdefault("nodes", []).append(node)
+            live_nodes.append(node["metadata"]["name"])
+            pod = _wire([make_pod(f"churn-p{i}", "churn")
+                         .req({"cpu": "100m"}).obj()])[0]
+            client.pods("churn").create(pod)
+            live_pods.append(pod["metadata"]["name"])
+            if len(live_nodes) > 3:
+                client.nodes().delete(live_nodes.pop(0))
+            if len(live_pods) > 3:
+                client.pods("churn").delete(live_pods.pop(0))
+            stats["ops"] = stats.get("ops", 0) + 4
+        except Exception as e:  # churn is load; the gates own correctness
+            stats["errors"] = stats.get("errors", 0) + 1
+            stats["last_error"] = repr(e)
+        i += 1
+        stop.wait(period_s if hurry is None or not hurry.is_set()
+                  else min(period_s, 0.01))
+
+
+def connected_run(ctx, url, node_dicts, pod_dicts, device=None, smi="",
+                  capture=True, what="connected", explain=True,
+                  churn_ops=None, admin_token=None, sched_token=None,
+                  audit_url=None):
+    """The connected phase's run against a server at ``url`` (or a front
+    door's endpoints, which every client but the auditor spreads over):
+    seed, runner, auditor and watcher as ``connected_phase`` says, gated
+    the same way (messages start with ``what``). ``explain``: the
+    explainer on (its gates with it). ``churn_ops``: the reference's
+    churn loop (``churn_nodes_and_pods``) runs from the first create
+    until every pod is bound, then at a 10 ms cadence until it made this
+    many operations (60 s at most); churn pods and nodes are outside the
+    measured set, a measured pod bound to a churn node is checked against
+    it, and the sentinel samples every drain (CHURN_PARITY_EVERY; else
+    every CONNECTED_PARITY_EVERY). ``admin_token`` authenticates the seed,
+    the auditor, the watcher and the churn; ``audit_url``: the auditor's
+    server (default ``url``). ``sched_token`` authenticates the runner as
+    a user holding only the bootstrap policy's ``system:kube-scheduler``
+    role, which may not list every kind the runner watches: the informers
+    of the kinds the role may list must sync; the failures of what the
+    role does not allow (``RBAC_DENIED_SITES``: the other kinds' lists,
+    the status ConfigMaps' writes) are reported and not gated.
+    -> (summary, stopped runner)."""
+    rbac = sched_token is not None
+    import threading
     from concurrent.futures import ThreadPoolExecutor
     from kubernetes_tpu_torch.audit.auditor import (InvariantAuditor,
                                                     InvariantViolationError)
@@ -1761,35 +1896,50 @@ def connected_phase(node_dicts, pod_dicts, device=None, smi="",
     from kubernetes_tpu_torch.ops import kernels
     from kubernetes_tpu_torch.sched.runner import SchedulerRunner
     from kubernetes_tpu_torch.utils.tracing import FLIGHT, TRACER
-    ctx = mp.get_context("spawn")
-    server, server_pipe, url = start_apiserver(ctx)
-    watcher = runner = None
+    watcher = runner = churn = None
+    churn_stop, churn_hurry, churn_stats = (threading.Event(),
+                                            threading.Event(), {})
     try:
-        seed_client = HTTPClient(url, timeout=120.0, wire="json")
+        seed_client = HTTPClient(url, timeout=120.0, wire="json",
+                                 token=admin_token)
         t0 = time.perf_counter()
         seed_client.nodes().create_many(node_dicts)
         seed_s = time.perf_counter() - t0
         cfg = sched_config(batch_size=CONNECTED_BATCH,
                            max_drain_batches=CONNECTED_DRAIN_BATCHES,
-                           parity_sample_every=CONNECTED_PARITY_EVERY,
+                           parity_sample_every=(
+                               CONNECTED_PARITY_EVERY if churn_ops is None
+                               else CHURN_PARITY_EVERY),
                            audit_interval_s=CONNECTED_AUDIT_S,
-                           audit_fail_fast=True, explainer_enabled=True)
-        runner = SchedulerRunner(HTTPClient(url, wire="json"), cfg,
-                                 feature_gate=no_preemption_gate(),
-                                 device=device)
+                           audit_fail_fast=True, explainer_enabled=explain)
+        runner = SchedulerRunner(
+            HTTPClient(url, wire="json", token=sched_token or admin_token),
+            cfg, feature_gate=no_preemption_gate(), device=device)
         runner.scheduler.capture = capture
         # fail-fast audit over a CLEAN client, as run_connected's
         # _bench_auditor: the scheduler's transport is not the auditor's
         runner.auditor = InvariantAuditor(
-            client=HTTPClient(url, timeout=60.0, wire="json"),
+            client=HTTPClient(audit_url or url, timeout=60.0, wire="json",
+                              token=admin_token),
             cache=runner.cache, scheduler=runner.scheduler,
             interval_s=CONNECTED_AUDIT_S, fail_fast=True,
             pre_sweep=runner.sweep_stale_nominations,
             post_sweep=runner.publish_status,
             relists=runner._total_relists)
         t0 = time.perf_counter()
-        runner.start(wait_sync=120.0, start_loop=False)
-        check(runner.has_synced(), "connected: the informers did not sync")
+        runner.start(wait_sync=0.1 if rbac else 120.0, start_loop=False)
+        informers = runner._all_informers()
+        if rbac:
+            listable = scheduler_listable()
+            informers = [inf for inf in informers
+                         if inf.resource.plural in listable]
+        for inf in informers:
+            inf.wait_for_cache_sync(max(0.0, t0 + 120.0 - time.perf_counter()))
+        check(all(inf.has_synced() for inf in informers),
+              f"{what}: the informers did not sync")
+        unsynced = sorted(inf.resource.plural
+                          for inf in runner._all_informers()
+                          if not inf.has_synced())
         sync_s = time.perf_counter() - t0
         from kubernetes_tpu_torch.api.types import Pod
         pods = [Pod.from_dict(d) for d in pod_dicts]
@@ -1797,7 +1947,7 @@ def connected_phase(node_dicts, pod_dicts, device=None, smi="",
         t0 = time.perf_counter()
         check(runner.scheduler.warm_drain(pods, slot_headroom=len(pods)
                                           + pop),
-              "connected: warm_drain did not arm the context")
+              f"{what}: warm_drain did not arm the context")
         warm_s = time.perf_counter() - t0
         del pods
 
@@ -1807,11 +1957,11 @@ def connected_phase(node_dicts, pod_dicts, device=None, smi="",
         watcher = ctx.Process(target=watch_bound,
                               args=(url, "default", rv0, len(pod_dicts),
                                     count, all_bound, watch_dead, ready),
-                              daemon=True)
+                              kwargs={"token": admin_token}, daemon=True)
         watcher.start()
-        check(ready.wait(120.0), "connected: the watcher did not start")
+        check(ready.wait(120.0), f"{what}: the watcher did not start")
 
-        errors0 = sum(LOOP_ERRORS.items().values())
+        errors0 = dict(LOOP_ERRORS.items())
         ATTEMPT_DURATION.reset()
         E2E_SCHEDULING.reset()
         FLIGHT.reset()
@@ -1819,7 +1969,8 @@ def connected_phase(node_dicts, pod_dicts, device=None, smi="",
         FLIGHT.max_pods = max(FLIGHT.max_pods, 2 * len(pod_dicts))
         # the window's spans all kept: one per pod watch event (two events
         # a pod), the loop's and the binds', the sweeps' and the checks'
-        TRACER.max_spans = max(TRACER.max_spans, 8 * len(pod_dicts))
+        TRACER.max_spans = max(TRACER.max_spans, 8 * len(pod_dicts)
+                               + (0 if churn_ops is None else 40_000))
         TRACER.reset()
         enc0 = runner.cache.encode_cache_stats()
         kernels.reset_launches()
@@ -1827,6 +1978,14 @@ def connected_phase(node_dicts, pod_dicts, device=None, smi="",
         jobs = [pod_dicts[i:i + CONNECTED_CHUNK]
                 for i in range(0, len(pod_dicts), CONNECTED_CHUNK)]
         t_start, t_start_wall = time.perf_counter(), time.time()
+        if churn_ops is not None:
+            churn = threading.Thread(
+                target=churn_nodes_and_pods,
+                args=(HTTPClient(url, timeout=60.0, wire="json",
+                                 token=admin_token), churn_stop,
+                      churn_stats),
+                kwargs={"hurry": churn_hurry}, daemon=True)
+            churn.start()
         with ThreadPoolExecutor(max_workers=min(4, len(jobs))) as pool:
             list(pool.map(lambda objs: seed_client.pods("default")
                           .create_many(objs), jobs))
@@ -1845,11 +2004,11 @@ def connected_phase(node_dicts, pod_dicts, device=None, smi="",
                 completed = True
                 break
             check(runner.loop_error is None,
-                  f"connected: the scheduling loop died: "
+                  f"{what}: the scheduling loop died: "
                   f"{runner.loop_error!r}")
-            check(not watch_dead.is_set(), "connected: the watcher died")
+            check(not watch_dead.is_set(), f"{what}: the watcher died")
         window_s = time.perf_counter() - t_start
-        check(completed, f"connected: {count.value} of {len(pod_dicts)} "
+        check(completed, f"{what}: {count.value} of {len(pod_dicts)} "
                          f"pods bound in {CONNECTED_TIMEOUT_S} s")
         q = {"result": "scheduled"}
         launches = dict(kernels.LAUNCHES)
@@ -1859,8 +2018,22 @@ def connected_phase(node_dicts, pod_dicts, device=None, smi="",
         oracle_pods = sum(sp.attributes["pods"]
                           for sp in TRACER.spans("scheduler/oracle"))
         enc = runner.cache.encode_cache_stats()
-        errors = sum(LOOP_ERRORS.items().values()) - errors0
+        by_site = {dict(k).get("site", "?"): n - errors0.get(k, 0)
+                   for k, n in LOOP_ERRORS.items().items()
+                   if n - errors0.get(k, 0)}
+        errors = sum(n for site, n in by_site.items()
+                     if not (rbac and site in RBAC_DENIED_SITES))
         ctx_stats = json.loads(json.dumps(runner.scheduler.ctx_stats))
+        if churn is not None:
+            # the reference's fixed churn budget, decoupled from the
+            # window: a fast drain must not leave the churn path unrun
+            churn_hurry.set()
+            budget_end = time.perf_counter() + 60.0
+            while (churn_stats.get("ops", 0) < churn_ops
+                   and time.perf_counter() < budget_end):
+                time.sleep(0.05)
+            churn_stop.set()
+            churn.join(30.0)
         summary = {
             "pods": len(pod_dicts), "nodes": len(node_dicts),
             "bound": count.value, "window_s": window_s,
@@ -1890,10 +2063,18 @@ def connected_phase(node_dicts, pod_dicts, device=None, smi="",
             "breaker": runner.scheduler.breaker.mode,
             "breaker_trip_reasons": dict(
                 runner.scheduler.breaker.trip_reasons),
-            "loop_errors": errors, "oracle_pods": oracle_pods,
+            "loop_errors": errors, "loop_errors_by_site": by_site,
+            "unsynced_informers": unsynced, "oracle_pods": oracle_pods,
             "relists": runner._total_relists(),
             "launches": launches, "captured": capture,
             "warm_ladder": runner.scheduler.warm_stats, "graphs": graphs,
+            "explainer_constructed": runner.scheduler.explainer is not None,
+            "flight_enabled": FLIGHT.enabled,
+            "churn": None if churn is None else {
+                "ops": churn_stats.get("ops", 0),
+                "nodes": len(churn_stats.get("nodes", ())),
+                "errors": churn_stats.get("errors", 0),
+                "last_error": churn_stats.get("last_error")},
             "card": smi}
         # the settle: the sentinel's verdicts land (bounded), the auditor
         # stops and sweeps twice more (confirm-2 invariants need two looks)
@@ -1911,50 +2092,60 @@ def connected_phase(node_dicts, pod_dicts, device=None, smi="",
                                                   "byInvariant", "failed")}
         summary["sentinel"] = sentinel.stats()
         explainer = runner.scheduler.explainer
-        explainer.drain(120.0)
-        summary["explainer"] = explainer.stats()
+        summary["explainer"] = None
+        if explainer is not None:
+            explainer.drain(120.0)
+            summary["explainer"] = explainer.stats()
         summary["explain_spans"] = {k: v for k, v in _span_totals().items()
                                     if k.startswith("explain/")}
-        bindings = {p["metadata"]["name"]: p["spec"].get("nodeName", "")
-                    for p in seed_client.pods("default").list()}
+        stored = [p for p in seed_client.pods("default").list()
+                  if p["spec"].get("nodeName")]
     finally:
+        churn_stop.set()
         if runner is not None:
             runner.stop()  # re-raises a KernelError that ended the loop
         if watcher is not None:
             stop_process(watcher)
-        stop_process(server, server_pipe)
-    placed = []
-    for d in pod_dicts:
-        node = bindings.get(d["metadata"]["name"], "")
-        if node:
-            placed.append(dict(d, spec=dict(d["spec"], nodeName=node)))
+    # the stored pods, as admission left them, on the nodes they hold
+    names = {d["metadata"]["name"] for d in pod_dicts}
+    placed = [p for p in stored if p["metadata"]["name"] in names]
     check(len(placed) == len(pod_dicts),
-          f"connected: {len(placed)} of {len(pod_dicts)} pods bound in the "
+          f"{what}: {len(placed)} of {len(pod_dicts)} pods bound in the "
           "store")
-    check_placements(node_dicts, [], placed, len(pod_dicts))
+    check_placements(node_dicts + churn_stats.get("nodes", []), [], placed,
+                     len(pod_dicts))
     check(summary["breaker"] == "single",
-          f"connected: the breaker degraded to {summary['breaker']!r} "
+          f"{what}: the breaker degraded to {summary['breaker']!r} "
           f"({summary['breaker_trip_reasons']})")
     check(summary["spans_dropped"] == 0,
-          f"connected: the tracer dropped {summary['spans_dropped']} spans "
+          f"{what}: the tracer dropped {summary['spans_dropped']} spans "
           "of the window")
     check(summary["oracle_pods"] == 0,
-          f"connected: {summary['oracle_pods']} pods went through the oracle")
+          f"{what}: {summary['oracle_pods']} pods went through the oracle")
     check(summary["loop_errors"] == 0,
-          f"connected: {summary['loop_errors']} loop errors")
-    check(summary["audit"]["sweeps"] >= 1, "connected: the auditor never swept")
+          f"{what}: {summary['loop_errors']} loop errors "
+          f"{summary['loop_errors_by_site']}")
+    check(summary["audit"]["sweeps"] >= 1, f"{what}: the auditor never swept")
     check(summary["audit"]["violations"] == 0,
-          f"connected: invariant violations {summary['audit']['byInvariant']}")
-    check(summary["sentinel"]["samples"]["drain"] >= 1,
-          "connected: the sentinel took no sample")
+          f"{what}: invariant violations {summary['audit']['byInvariant']}")
+    # under churn, a sampled drain that races a churn node's delta cannot
+    # be judged and is skipped (counted): there the sentinel must have
+    # seen a drain, sampled or skipped
+    seen = summary["sentinel"]["samples"]["drain"] + (
+        summary["sentinel"]["skipped"] if churn_ops is not None else 0)
+    check(seen >= 1, f"{what}: the sentinel took no sample")
     check(summary["sentinel"]["divergences"] == 0,
-          f"connected: parity divergence {summary['sentinel']}")
+          f"{what}: parity divergence {summary['sentinel']}")
     check(summary["sentinel_backlog"] == 0,
-          "connected: the sentinel's verdicts did not land in 120 s")
-    check(summary["explainer"]["errors"] == 0,
-          f"connected: explainer errors {summary['explainer']}")
+          f"{what}: the sentinel's verdicts did not land in 120 s")
+    check(summary["explainer_constructed"] == explain,
+          f"{what}: the explainer was constructed: "
+          f"{summary['explainer_constructed']}, asked for {explain}")
+    if explain:
+        check(summary["explainer"]["errors"] == 0,
+              f"{what}: explainer errors {summary['explainer']}")
     for name, n in launches.items():
-        check(n > 0, f"kernel {name} was never launched by the connected "
+        check(n > 0, f"kernel {name} was never launched by the {what} "
                      "scheduler")
     return summary, runner
 
@@ -3930,7 +4121,7 @@ DEFRAG_MAX_DRAIN = 110
 DEFRAG_LIMIT_S = 60.0       # its DefragPlanSeconds threshold
 LOOP_NODES = N_NODES        # PlannerLoop at the north star's width
 LOOP_PODS_PER_NODE = 3      # benchmarks/plannerloop.py's defaults below
-LOOP_WINDOW = 3              # benchmarks/plannerloop.py's 6, cut to fit
+LOOP_WINDOW = 2              # benchmarks/plannerloop.py's 6, cut to fit
 LOOP_MAX_WARMUP = 14
 LOOP_QUIET = 2
 LOOP_CREATE_CHUNK = 5000
@@ -6277,6 +6468,397 @@ def ktpu_phase(device=None, n_nodes=KTPU_NODES, n_pods=KTPU_PODS,
         server.stop()
 
 
+# ---------------------------------- ExplainAB, the secured cluster, front door
+
+EXPLAINAB_PODS = 2000        # run_explain_ab's defaults (benchmarks/
+EXPLAINAB_NODES = 1000       # connected.py:513): ConnectedChurn 2000 x 1000
+EXPLAINAB_MIN_RATIO = 0.95   # the reference's floor: reported, not gated
+CHURN_PARITY_EVERY = 1       # every drain: 2000 pods are two pops, and a
+                             # sample racing a churn node's delta is skipped
+SECURED_ADMIN = "ktpu-admin-smoke"   # system:masters, as LocalCluster mints
+SECURED_SCHED = "ktpu-sched-smoke"   # system:kube-scheduler
+SECURED_AUDIT_KEEP = 500_000         # every request of the phase kept
+FRONTDOOR_NODES = 3          # FrontDoorCluster(n=3)
+FRONTDOOR_CONVERGE_S = 60.0
+
+
+def scheduler_listable() -> set:
+    """The kinds ``system:kube-scheduler`` may list under the bootstrap
+    policy (``store/auth.bootstrap_policy``)."""
+    from kubernetes_tpu_torch.store.auth import bootstrap_policy
+    role = next(o for o in bootstrap_policy()
+                if o["kind"] == "ClusterRole"
+                and o["metadata"]["name"] == "system:kube-scheduler")
+    return {r for rule in role["rules"] if "list" in rule["verbs"]
+            for r in rule["resources"]}
+
+
+def _leg(summary) -> dict:
+    """A leg's summary without its spans, tracer and encode detail."""
+    keep = ("pods", "nodes", "bound", "window_s", "pods_per_s", "create_s",
+            "seed_nodes_s", "informer_sync_s", "warm_drain_s",
+            "attempt_p50_s", "attempt_p99_s", "attempts_observed",
+            "e2e_p50_s", "e2e_p99_s", "breaker", "loop_errors",
+            "loop_errors_by_site", "unsynced_informers", "oracle_pods",
+            "launches", "audit", "sentinel", "explainer", "explain_spans",
+            "explainer_constructed", "flight_enabled", "churn",
+            "device_explain_errors")
+    return {k: summary.get(k) for k in keep}
+
+
+def explainab_failures(result) -> list:
+    """The reference's failures list (``benchmarks/connected.py:552-561``)
+    without its throughput floor: the on leg ran with the explainer
+    constructed and the flight recorder on, the off leg with neither;
+    every measured pod bound in each leg; 0 invariant violations,
+    divergences, loop errors, ``device_explain`` errors and oracle pods;
+    and the ratio was measured (a missing number fails). The ratio itself
+    is a host-time ratio of two windows and is reported only."""
+    failures = []
+    legs = result.get("legs") or {}
+    on, off = legs.get("on"), legs.get("off")
+    if on is None or off is None:
+        return [f"legs missing: {sorted(legs)}"]
+    if not on.get("explainer_constructed"):
+        failures.append("on leg ran without the explainer constructed")
+    if not on.get("flight_enabled"):
+        failures.append("on leg ran with the flight recorder disabled")
+    if off.get("explainer_constructed"):
+        failures.append("off leg ran WITH the explainer (A/B invalid)")
+    if off.get("flight_enabled"):
+        failures.append("off leg ran WITH the flight recorder (A/B invalid)")
+    for name, leg in (("off", off), ("on", on)):
+        if leg.get("bound") != leg.get("pods"):
+            failures.append(f"{name} leg: {leg.get('bound')} of "
+                            f"{leg.get('pods')} pods bound")
+        counts = {"invariant violations": (leg.get("audit") or {})
+                  .get("violations"),
+                  "divergences": (leg.get("sentinel") or {})
+                  .get("divergences"),
+                  "loop errors": leg.get("loop_errors"),
+                  "device_explain errors": leg.get("device_explain_errors"),
+                  "oracle pods": leg.get("oracle_pods")}
+        for what, n in counts.items():
+            if n != 0:
+                failures.append(f"{name} leg: {what} {n!r}")
+    if not isinstance(result.get("throughput_ratio"), float):
+        failures.append(
+            f"throughput ratio unavailable (on={result.get('throughput_on')!r}"
+            f", off={result.get('throughput_off')!r})")
+    return failures
+
+
+def explainab_phase(device=None, smi="", pods=EXPLAINAB_PODS,
+                    nodes=EXPLAINAB_NODES):
+    """ExplainAB as ``benchmarks/connected.py`` run_explain_ab runs it:
+    ConnectedChurn (MixedHeterogeneous, pops of 2 x 512, the churn loop
+    from the first create to the last binding and on to its budget of 500
+    operations; namespace ``churn`` is outside the measured set) with the
+    explainer and the flight recorder off, then on, each leg as the
+    ``connected`` phase runs its runner (a spawned APIServer, the
+    sentinel, the fail-fast auditor on a clean client). ``FLIGHT.enabled``
+    is restored afterwards. Gates: ``explainab_failures``. The on/off
+    pods/s ratio is reported beside the reference's ``min_ratio`` 0.95
+    and does not gate: it is a ratio of two host-time windows, which move
+    up to 2x between calls (the FleetChurn p99 verdict that flipped
+    between calls had a PR refused). The on leg's explainer ``stats()``
+    and ``explain/*`` spans are reported. -> summary."""
+    import copy
+    import multiprocessing as mp
+    from kubernetes_tpu_torch.utils.tracing import FLIGHT
+    ctx = mp.get_context("spawn")
+    node_dicts, pod_dicts = connected_workload(pods=pods, nodes=nodes)
+    legs, launches = {}, {}
+    flight0 = FLIGHT.enabled
+    t0 = time.perf_counter()
+    try:
+        for name, on in (("off", False), ("on", True)):
+            FLIGHT.enabled = on
+            e0 = device_explain_errors()
+            server, pipe, url = start_apiserver(ctx)
+            try:
+                summary, runner = connected_run(
+                    ctx, url, copy.deepcopy(node_dicts),
+                    copy.deepcopy(pod_dicts), device=device, smi=smi,
+                    what=f"explainab.{name}", explain=on,
+                    churn_ops=CHURN_MIN_OPS)
+            finally:
+                stop_process(server, pipe)
+            del runner
+            summary["device_explain_errors"] = device_explain_errors() - e0
+            legs[name] = _leg(summary)
+            for k, n in summary["launches"].items():
+                launches[k] = launches.get(k, 0) + n
+    finally:
+        FLIGHT.enabled = flight0
+    on_t = legs["on"]["pods_per_s"]
+    off_t = legs["off"]["pods_per_s"]
+    result = {"workload": f"{pods}x{nodes}churn",
+              "throughput_on": on_t, "throughput_off": off_t,
+              "throughput_ratio": (on_t / off_t if off_t else None),
+              "min_ratio": EXPLAINAB_MIN_RATIO,
+              "ratio_over_min": (None if not off_t
+                                 else on_t / off_t >= EXPLAINAB_MIN_RATIO),
+              "explain_on": legs["on"]["explainer"],
+              "explain_spans_on": legs["on"]["explain_spans"],
+              "legs": legs, "launches": launches, "card": smi,
+              "seconds": time.perf_counter() - t0}
+    result["failures"] = explainab_failures(result)
+    check(not result["failures"], f"explainab: {result['failures']}")
+    return result
+
+
+def _pod_subresource(uri: str):
+    """``.../pods/<name>/<sub>?...`` -> sub (binding, status), else None."""
+    parts = [p for p in uri.split("?")[0].split("/") if p]
+    if len(parts) >= 3 and parts[-3] == "pods":
+        return parts[-1]
+    return None
+
+
+def _audit_resource(uri: str) -> str:
+    """``/api/v1/namespaces/ns/pods/p/binding?x`` -> ``pods/binding``."""
+    parts = [p for p in uri.split("?")[0].split("/") if p]
+    parts = parts[2:] if parts[:1] == ["api"] else parts[3:]
+    if len(parts) > 2 and parts[0] == "namespaces":
+        parts = parts[2:]
+    return (parts[0] if parts else "") + (f"/{parts[2]}" if len(parts) > 2
+                                          else "")
+
+
+def secured_checks(url) -> dict:
+    """The requests made once against the secured server, each gated: no
+    token -> 401; a ``?dryRun=All`` create stores nothing; server-side
+    apply by two field managers -> 409 on the shared field, then the
+    forced apply wins; ``ktpu apply --server-side`` of a JSON manifest
+    exits 0 and the object carries its field manager."""
+    import io
+    import tempfile
+    from kubernetes_tpu_torch.cli import ktpu
+    from kubernetes_tpu_torch.client.clientset import ApiError, HTTPClient
+    from kubernetes_tpu_torch.testing.wrappers import make_pod
+    admin = HTTPClient(url, timeout=60.0, wire="json", token=SECURED_ADMIN)
+    out = {}
+    try:
+        HTTPClient(url, wire="json").pods("default").list()
+        out["no_token"] = 200
+    except ApiError as e:
+        out["no_token"] = e.code
+    check(out["no_token"] == 401,
+          f"secured: a request without a token got {out['no_token']}")
+    ghost = _wire([make_pod("dry-run-ghost").req({"cpu": "100m"}).obj()])[0]
+    dry = admin.pods("default").create(ghost, dry_run=True)
+    try:
+        admin.pods("default").get("dry-run-ghost")
+        out["dry_run_stored"] = True
+    except ApiError as e:
+        out["dry_run_stored"] = e.code != 404
+    out["dry_run_tolerations"] = len(dry["spec"].get("tolerations") or [])
+    check(not out["dry_run_stored"], "secured: a dry-run create was stored")
+    cms = admin.resource("configmaps", "default")
+    cm = {"apiVersion": "v1", "kind": "ConfigMap",
+          "metadata": {"name": "ssa-smoke"}, "data": {"k": "one"}}
+    cms.apply(dict(cm), field_manager="manager-one")
+    try:
+        cms.apply(dict(cm, data={"k": "two"}), field_manager="manager-two")
+        out["ssa_conflict"] = None
+    except ApiError as e:
+        out["ssa_conflict"] = e.code
+    forced = cms.apply(dict(cm, data={"k": "two"}),
+                       field_manager="manager-two", force=True)
+    out["ssa_forced"] = forced["data"]
+    check(out["ssa_conflict"] == 409 and forced["data"] == {"k": "two"},
+          f"secured: server-side apply {out}")
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "cm.json")
+        with open(path, "w") as f:
+            json.dump({"apiVersion": "v1", "kind": "ConfigMap",
+                       "metadata": {"name": "ktpu-ssa-smoke"},
+                       "data": {"a": "1"}}, f)
+        buf = io.StringIO()
+        out["ktpu_apply_rc"] = ktpu.main(
+            ["--server", url, "--token", SECURED_ADMIN, "apply", "-f", path,
+             "--server-side", "--field-manager", "ktpu-smoke"], out=buf)
+        out["ktpu_apply_out"] = buf.getvalue().strip()
+    got = cms.get("ktpu-ssa-smoke")
+    managers = [m["manager"] for m in got["metadata"]["managedFields"]]
+    check(out["ktpu_apply_rc"] == 0 and managers == ["ktpu-smoke"],
+          f"secured: ktpu apply --server-side {out}, managers {managers}")
+    return out
+
+
+def secured_phase(device=None, smi="", pods=EXPLAINAB_PODS,
+                  nodes=EXPLAINAB_NODES):
+    """ConnectedChurn behind an APIServer with the planes a cluster turns on
+    (``cli/cluster.py:62-73`` LocalCluster): authentication (bearer tokens,
+    anonymous off), the bootstrap RBAC policy and the audit log, API
+    Priority and Fairness, and the default admission chain (priority,
+    toleration seconds, LimitRanger, PodSecurity, webhooks,
+    ResourceQuota). Namespace ``default`` carries PodSecurity ``enforce:
+    baseline`` and a LimitRange default. Pods and nodes are created with an
+    admin token (``system:masters``); the runner authenticates as
+    ``system:kube-scheduler`` under the bootstrap policy; the auditor uses
+    the admin token. ``secured_checks`` runs first. Gates: those of the
+    connected run (every pod bound, 0 violations, divergences, loop errors
+    and oracle pods; the failed lists of the kinds the role may not list
+    are reported, not gated), 0 answers of 401, 403 or 429 to the
+    scheduler's requests on ``pods/binding`` and ``pods/status``, its
+    binding requests in the audit log under its own user, and its requests
+    dispatched at the ``system`` priority level. Reported: every 403 the
+    scheduler's user got, by resource; pods/s and attempt p50/p99.
+    -> summary."""
+    import collections
+    import multiprocessing as mp
+    from kubernetes_tpu_torch.client.clientset import HTTPClient
+    ctx = mp.get_context("spawn")
+    node_dicts, pod_dicts = connected_workload(pods=pods, nodes=nodes)
+    t0 = time.perf_counter()
+    server, pipe, url = start_apiserver(
+        ctx, tokens={SECURED_ADMIN: ("system:admin", ["system:masters"]),
+                     SECURED_SCHED: ("system:kube-scheduler", [])},
+        anonymous=False, audit_keep=SECURED_AUDIT_KEEP, flow_control=True,
+        admission=True)
+    try:
+        admin = HTTPClient(url, timeout=60.0, wire="json",
+                           token=SECURED_ADMIN)
+        nss = admin.resource("namespaces", None)
+        ns = nss.get("default")
+        ns["metadata"].setdefault("labels", {})[
+            "pod-security.kubernetes.io/enforce"] = "baseline"
+        nss.update(ns)
+        admin.resource("limitranges", "default").create({
+            "apiVersion": "v1", "kind": "LimitRange",
+            "metadata": {"name": "defaults", "namespace": "default"},
+            "spec": {"limits": [{"type": "Container", "defaultRequest": {
+                "cpu": "100m", "memory": "128Mi"}}]}})
+        checks = secured_checks(url)
+        summary, runner = connected_run(
+            ctx, url, node_dicts, pod_dicts, device=device, smi=smi,
+            what="secured", churn_ops=CHURN_MIN_OPS, admin_token=SECURED_ADMIN,
+            sched_token=SECURED_SCHED)
+        del runner
+        pipe.send("report")
+        check(pipe.poll(120.0), "secured: the server sent no report")
+        report = pipe.recv()
+    finally:
+        stop_process(server, pipe)
+    sched = [e for e in report["audit"]
+             if e["user"] == "system:kube-scheduler"]
+    refused = collections.Counter(
+        (e["code"], _pod_subresource(e["requestURI"])) for e in sched
+        if e["code"] in (401, 403, 429)
+        and _pod_subresource(e["requestURI"]) in ("binding", "status"))
+    binds = sum(1 for e in sched if e["code"] in (200, 201)
+                and _pod_subresource(e["requestURI"]) == "binding")
+    forbidden = collections.Counter(
+        f"{e['verb']} {_audit_resource(e['requestURI'])}" for e in sched
+        if e["code"] == 403)
+    flows = {level: n.get("system:kube-scheduler", 0)
+             for level, n in report["dispatched"].items()
+             if n.get("system:kube-scheduler")}
+    out = {**_leg(summary), "checks": checks,
+           "scheduler_requests": len(sched),
+           "scheduler_binding_requests": binds,
+           "scheduler_refused_bind_or_status": {
+               f"{c} {sub}": n for (c, sub), n in refused.items()},
+           "scheduler_403_by_resource": dict(forbidden),
+           "scheduler_dispatched_by_level": flows,
+           "apf_rejected": report["rejected"],
+           "audit_events": len(report["audit"]),
+           "audit_codes": dict(collections.Counter(
+               e["code"] for e in report["audit"])),
+           "card": smi, "seconds": time.perf_counter() - t0}
+    check(not refused, f"secured: the scheduler's binding or status "
+                       f"requests were refused: {dict(refused)}")
+    check(binds > 0, "secured: no binding request of the scheduler in the "
+                     "audit log")
+    check(flows.get("system", 0) > 0,
+          f"secured: the scheduler's requests were not dispatched at the "
+          f"system level: {flows}")
+    return out
+
+
+def frontdoor_phase(device=None, smi="", pods=EXPLAINAB_PODS,
+                    nodes=EXPLAINAB_NODES):
+    """ConnectedChurn behind the front door: ``FrontDoorCluster(n=3)``
+    (``store/frontdoor.py``: three raft nodes, an APIServer on each) in one
+    spawned process. The seed, the watcher, the churn and the runner
+    spread over the three endpoints (writes that reach a follower get 421
+    and follow its leader hint); the auditor reads the leader. Gates:
+    those of the connected run (every pod bound, 0 violations, divergences,
+    loop errors and oracle pods); each follower's ``/frontdoor/status``
+    counted reads; at the end, once each replica's replay lag is under the
+    cluster's 2 s, each replica holds the leader's pods on the leader's
+    nodes. Reported: pods/s, attempt p50/p99, the 421s, the leader's commit
+    wait. -> summary."""
+    import multiprocessing as mp
+    from kubernetes_tpu_torch.client.clientset import HTTPClient
+    from kubernetes_tpu_torch.store.frontdoor import fetch_status
+    from kubernetes_tpu_torch.store.frontdoor import serve as serve_frontdoor
+    ctx = mp.get_context("spawn")
+    node_dicts, pod_dicts = connected_workload(pods=pods, nodes=nodes)
+    t0 = time.perf_counter()
+    parent, child = ctx.Pipe()
+    proc = ctx.Process(target=serve_frontdoor, args=(child,),
+                       kwargs={"n": FRONTDOOR_NODES}, daemon=True)
+    proc.start()
+    try:
+        check(parent.poll(120.0), "frontdoor: the cluster did not start")
+        info = parent.recv()
+        endpoints, leader0 = info["endpoints"], info["leader"]
+        summary, runner = connected_run(
+            ctx, endpoints, node_dicts, pod_dicts, device=device, smi=smi,
+            what="frontdoor", churn_ops=CHURN_MIN_OPS, audit_url=leader0)
+        del runner
+
+        def pods_on(url):
+            return {f"{p['metadata']['namespace']}/{p['metadata']['name']}":
+                    p["spec"].get("nodeName", "")
+                    for p in HTTPClient(url, timeout=60.0,
+                                        wire="json").pods(None).list()}
+
+        deadline = time.perf_counter() + FRONTDOOR_CONVERGE_S
+        while True:
+            status = {url: fetch_status(url, timeout=10.0)
+                      for url in endpoints}
+            leaders = [u for u, st in status.items()
+                       if st and st["role"] == "leader"]
+            replicas = [u for u, st in status.items()
+                        if st and st["role"] == "replica"]
+            fresh = (len(leaders) == 1 and len(replicas) == len(endpoints) - 1
+                     and all(status[u]["replayLagMs"] is not None
+                             and status[u]["replayLagMs"] < 2000.0
+                             for u in replicas))
+            if fresh:
+                want = pods_on(leaders[0])
+                differ = [u for u in replicas if pods_on(u) != want]
+                if not differ:
+                    break
+            check(time.perf_counter() < deadline,
+                  f"frontdoor: the replicas did not converge on the "
+                  f"leader in {FRONTDOOR_CONVERGE_S} s: {status}")
+            time.sleep(0.5)
+    finally:
+        try:
+            parent.send("stop")
+        except (OSError, EOFError):
+            pass
+        stop_process(proc)
+    reads = {u: status[u]["reads"] for u in endpoints}
+    out = {**_leg(summary), "endpoints": len(endpoints),
+           "leader_moved": leaders[0] != leader0,
+           "reads": {f"{status[u]['role']}:{u.rsplit(':', 1)[1]}": n
+                     for u, n in reads.items()},
+           "not_leader_421": sum(st["notLeader"] for st in status.values()),
+           "leader_commit_wait": status[leaders[0]]["commitWait"],
+           "replay_lag_ms": {u: status[u]["replayLagMs"] for u in replicas},
+           "pods_converged": len(want),
+           "card": smi, "seconds": time.perf_counter() - t0}
+    check(all(reads[u] > 0 for u in replicas),
+          f"frontdoor: a replica served no read: {out['reads']}")
+    return out
+
+
 # ------------------------------------------------------------------ graphs
 
 # parity.graph's round cut: the CPU leg converges a full-width batch in
@@ -6932,6 +7514,15 @@ def main() -> int:
     # the entry point operators drive: ktpu against a runner on the card
     ktpu_sum = ktpu_phase()
     emit({"phase": "ktpu", **ktpu_sum})
+    # the rest of store/: ExplainAB (explainer and flight recorder off,
+    # then on), then the same ConnectedChurn behind the secured planes and
+    # behind the three-node front door
+    xab_sum = explainab_phase(smi=smi)
+    emit({"phase": "explainab", **xab_sum})
+    sec_sum = secured_phase(smi=smi)
+    emit({"phase": "secured", **sec_sum})
+    fd_sum = frontdoor_phase(smi=smi)
+    emit({"phase": "frontdoor", **fd_sum})
     # ---- captured against eager, parity.graph, warm start --------------
     # (parity.graph profiles drain_step captured and eager at the
     # resident, scheduler and connected shapes)
@@ -6984,7 +7575,8 @@ def main() -> int:
                           ("fleet.drain", fdrain_sum), ("fleet", fleet_sum),
                           ("parity.dra", dra_parity), ("dra", dra_sum),
                           ("parity.plugins", plugin_parity),
-                          ("ktpu", ktpu_sum)):
+                          ("ktpu", ktpu_sum), ("explainab", xab_sum),
+                          ("secured", sec_sum), ("frontdoor", fd_sum)):
         for name, n in summary["launches"].items():
             launches.setdefault(name, {})[path] = n
 

@@ -140,11 +140,13 @@ def node_alloc_map(nodes) -> dict:
 
 def charge_usage(used: dict, node_name: str, requests: dict) -> None:
     """Add one pod (1 toward 'pods' + its scaled requests) to a node's
-    usage accumulator."""
+    usage accumulator. ``Pod.resource_requests`` already holds the 'pods'
+    pseudo-resource; it counts once (the reference adds it twice)."""
     u = used.setdefault(node_name, {})
     u["pods"] = u.get("pods", 0) + 1
     for r, q in requests.items():
-        u[r] = u.get(r, 0) + scale_request(r, q)
+        if r != "pods":
+            u[r] = u.get(r, 0) + scale_request(r, q)
 
 
 def find_overcommit(alloc: dict, used: dict) -> dict:

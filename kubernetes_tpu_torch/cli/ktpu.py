@@ -20,7 +20,7 @@ Usage:
   python -m kubernetes_tpu_torch.cli.ktpu ...
 
 Ported: ``get``, ``apply`` (a JSON manifest needs no PyYAML; YAML imports
-it when read; ``--server-side`` waits for item 13 in the client),
+it when read; ``--server-side`` goes through the client's ``apply``),
 ``delete``,
 ``describe``, ``scale``, ``cordon``/``uncordon``, ``drain``, ``top``,
 ``label``/``annotate``, ``api-resources``, ``wait``, ``rollout``,
@@ -49,11 +49,9 @@ from kubernetes_tpu_torch.store.apiserver import ALL_RESOURCES, KIND_TO_PLURAL
 
 # the status ConfigMaps of components not ported yet, named as the
 # reference's publish them (controllers/nodelifecycle.py,
-# kubelet/kubemark.py, store/frontdoor.py, scenario/driver.py)
+# kubelet/kubemark.py, scenario/driver.py)
 NODELIFECYCLE_CONFIGMAP = "kubernetes-tpu-nodelifecycle-status"
 FLEET_CONFIGMAP = "kubernetes-tpu-fleet-status"
-FRONTDOOR_CONFIGMAP = "kubernetes-tpu-frontdoor-status"
-FRONTDOOR_NAMESPACE = "kube-system"
 SCENARIO_CONFIGMAP = "kubernetes-tpu-scenario-status"
 
 # commands that wait for a later slice: (what, ROADMAP Queue A item)
@@ -736,6 +734,8 @@ def cmd_status(client: HTTPClient, args, out) -> int:
     def _frontdoor_cm():
         # the front-door ConfigMap is flat str->str (scalar summary keys
         # + a JSON "nodes" list), published to kube-system by default
+        from kubernetes_tpu_torch.store.frontdoor import (FRONTDOOR_CONFIGMAP,
+                                                          FRONTDOOR_NAMESPACE)
         for ns_ in dict.fromkeys((FRONTDOOR_NAMESPACE, args.namespace)):
             try:
                 cm_ = client.resource("configmaps",

@@ -12,10 +12,9 @@ clients) and ``rest/request.go``. Two transports share one interface:
 Resource handles: ``client.pods(ns)``, ``client.nodes()``, ... each with
 create/get/list/update/update_status/delete/watch/bind/evict.
 
-The port of ``kubernetes_tpu/client/clientset.py``. Server-side apply
-raises until ``store/apply.py`` is ported (ROADMAP Queue A item 13), and
-the kubelet-proxied pod subresources (``pod_logs``, ``pod_exec``) wait for
-the kubelet. msgpack is optional: without it every client speaks JSON.
+The port of ``kubernetes_tpu/client/clientset.py``. The kubelet-proxied
+pod subresources (``pod_logs``, ``pod_exec``) wait for the kubelet.
+msgpack is optional: without it every client speaks JSON.
 """
 
 from __future__ import annotations
@@ -339,9 +338,28 @@ class DirectClient(_Handles):
         sel = compile_list_selector(label_selector, field_selector)
         return self.store.list(kind, namespace=ns, selector=sel)
 
+    @_api_errors
     def apply(self, plural, kind, ns, obj, field_manager, force):
-        from kubernetes_tpu_torch.config.types import not_ported
-        raise not_ported("server-side apply (store/apply.py)", "13")
+        from kubernetes_tpu_torch.store.apply import (ApplyConflict,
+                                                      server_side_apply)
+        obj = self._react("apply", plural, obj)
+        obj.setdefault("metadata", {})
+        if ns:
+            obj["metadata"].setdefault("namespace", ns)
+        obj.setdefault("kind", kind)
+        name = obj["metadata"].get("name", "")
+        try:
+            live = self.store.get(kind, ns or "", name)
+        except NotFound:
+            live = None
+        try:
+            merged = server_side_apply(live, obj, field_manager, force=force)
+        except ApplyConflict as e:
+            raise ApiError(409, str(e), "Conflict") from None
+        if live is None:
+            return self.store.create(kind, merged)
+        return self.store.update(
+            kind, merged, expect_rv=live["metadata"]["resourceVersion"])
 
     @_api_errors
     def update(self, plural, kind, ns, obj, sub):
@@ -742,8 +760,13 @@ class HTTPClient(_Handles):
                         self._mp = mp = None
                         data = (json.dumps(body).encode()
                                 if body is not None else None)
+                        # PATCH is server-side apply here; its JSON media
+                        # type is apply-patch+json (plain JSON is 415'd)
+                        ctype_dg = ("application/apply-patch+json"
+                                    if method == "PATCH"
+                                    else "application/json")
                         all_headers = {**all_headers,
-                                       "Content-Type": "application/json",
+                                       "Content-Type": ctype_dg,
                                        "Accept": "application/json"}
                         continue
                     raise ApiError(resp.status, msg,
@@ -866,8 +889,18 @@ class HTTPClient(_Handles):
                          {"target": {"kind": "Node", "name": node_name}})
 
     def apply(self, plural, kind, ns, obj, field_manager, force):
-        from kubernetes_tpu_torch.config.types import not_ported
-        raise not_ported("server-side apply (store/apply.py)", "13")
+        import urllib.parse
+        name = (obj.get("metadata") or {}).get("name", "")
+        q = urllib.parse.urlencode(
+            {"fieldManager": field_manager,
+             **({"force": "true"} if force else {})})
+        # msgpack clients ride the negotiated binary type; JSON clients must
+        # declare the apply-patch media type (plain JSON PATCH is rejected,
+        # as upstream rejects non-SSA patches it doesn't support)
+        headers = (None if self._mp is not None
+                   else {"Content-Type": "application/apply-patch+json"})
+        return self._req("PATCH", self._path(plural, ns, name, query=q),
+                         obj, headers=headers)
 
     def bind_many(self, bindings):
         out = self._req("POST", self._path("pods", None, "-", "binding"),

@@ -15,16 +15,19 @@ Paths:
   /api/v1/namespaces/{ns}/pods/-/{binding,status}    POST (bulk)
   /api/v1/nodes/-/status, .../leases/-/renew         POST (bulk)
   /apis/apps/v1/namespaces/{ns}/{plural}[/{name}]    deployments, replicasets
-  /healthz /readyz /metrics
+  /healthz /readyz /metrics /frontdoor/status
 
-The port of ``kubernetes_tpu/store/apiserver.py`` over a plain
-``ObjectStore`` (with or without ``data_dir``). The planes that need a
-module of ``store/`` the port has not copied raise ``NotImplementedError``
-naming ROADMAP Queue A item 13: flow control, authentication and RBAC,
-admission (and with it webhooks and aggregation), the read-replica front
-door, and server-side apply (PATCH answers 501). The kubelet-proxied pod
+Admission: ordered list of ``fn(verb, kind, obj) -> obj`` callables; raising
+AdmissionError rejects the request with 400 (webhook-chain analog).
+
+The port of ``kubernetes_tpu/store/apiserver.py``: the handler chain
+(authentication, audit, impersonation, API Priority and Fairness, RBAC),
+admission with webhooks and PodSecurity, server-side apply on PATCH, and
+the read-replica front door over a ``ReplicatedStore``. A dry-run request
+matched by a webhook with side effects is refused with 400 before the
+webhook is called (``store/webhooks.py``). The kubelet-proxied pod
 subresources (log, exec, portforward) answer 501 until the kubelet is
-ported. ``serve(conn)`` is the entry a spawned server process runs.
+ported. ``serve(conn, ...)`` is the entry a spawned server process runs.
 """
 
 from __future__ import annotations
@@ -46,7 +49,9 @@ MSGPACK_CT = "application/x-msgpack"
 _LOG = logging.getLogger(__name__)
 
 from kubernetes_tpu_torch.api.selectors import compile_list_selector
-from kubernetes_tpu_torch.metrics.registry import READ_REQUESTS, REGISTRY
+from kubernetes_tpu_torch.metrics.registry import READ_REQUESTS, REGISTRY, REPLICA_LAG
+from kubernetes_tpu_torch.store.flowcontrol import RejectedError
+from kubernetes_tpu_torch.store.replication import NotLeader, QuorumLost
 from kubernetes_tpu_torch.store.store import (
     AlreadyExists,
     Conflict,
@@ -143,6 +148,10 @@ for _table, _group in ((CORE_RESOURCES, ""), (APPS_RESOURCES, "apps"),
         KIND_TO_GROUP[_k] = _group
 
 
+class AdmissionError(Exception):
+    pass
+
+
 class _BadRequest(Exception):
     pass
 
@@ -218,11 +227,30 @@ class APIServer:
         # multi-version serving: (kind, served version) -> conversion pair
         # (runtime.Scheme analog, api/scheme.py); storage stays at the hub
         self.scheme = default_scheme()
+        self.admission: list[Callable] = []
+        self.flow = None  # FlowController when APF is enabled
+        self.authenticator = None  # set by enable_auth
+        self.authorizer = None
+        self.audit = None
         # dynamic resources served for stored CustomResourceDefinitions
         # (apiextensions-apiserver analog): plural -> (Kind, namespaced).
         # The lock serializes validate+write: collision checks are
         # check-then-act and handler threads race (ThreadingHTTPServer).
         self.custom_resources: dict[str, tuple[str, bool]] = {}
+        # Read-replica serving plane ("front door"): when the store is a
+        # ReplicatedStore, this server may be fronting a FOLLOWER — reads
+        # and watches serve locally (with an X-KTPU-Replay-Lag header),
+        # writes surface NotLeader as 421 + X-KTPU-Leader so clients
+        # re-route. api_urls maps raft node ids -> apiserver base URLs
+        # (NotLeader.leader_hint carries the raft PEER url, which no API
+        # client can use); max_replay_lag_s bounds staleness for /readyz.
+        self.api_urls: dict[str, str] = {}
+        self.max_replay_lag_s = 2.0
+        # reads served and writes answered 421 by THIS server (the
+        # READ_REQUESTS metric is per role, shared by the servers of one
+        # process): /frontdoor/status reports them
+        self._served = {"reads": 0, "notLeader": 0}
+        self._served_lock = threading.Lock()
         self._crd_lock = threading.RLock()
         self._rebuild_custom()  # durable restore may already hold CRDs
         self._httpd = _HTTPServer((host, port), self._make_handler())
@@ -332,6 +360,10 @@ class APIServer:
                     "status": {"phase": "Active"}})
             except AlreadyExists:
                 pass
+            except NotLeader:
+                # a front-door REPLICA must not seed: bootstrap writes are
+                # the leader's, and replication delivers them here
+                break
         # durable restore may already hold CRDs the empty pre-restore
         # rebuild missed
         self._rebuild_custom()
@@ -386,6 +418,53 @@ class APIServer:
     def url(self) -> str:
         return f"http://127.0.0.1:{self.port}"
 
+    # ---- front door (read-replica serving plane) -------------------------
+
+    @property
+    def raft(self):
+        """The RaftNode when the store is a ReplicatedStore, else None."""
+        return getattr(self.store, "node", None)
+
+    @property
+    def role(self) -> str:
+        node = self.raft
+        return "replica" if node is not None and not node.is_leader() \
+            else "leader"
+
+    def replay_lag_s(self) -> Optional[float]:
+        """Replica staleness in seconds; None when this server is the
+        leader (or unreplicated) — the X-KTPU-Replay-Lag header and the
+        lag-gated /readyz both key on this."""
+        node = self.raft
+        if node is None or node.is_leader():
+            return None
+        lag = node.replica_lag()
+        REPLICA_LAG.set(lag)
+        return lag
+
+    def frontdoor_status(self) -> dict:
+        """One replica's slice of the front-door picture: role, replay
+        lag, and the store's watch fan-out stats (served at GET
+        /frontdoor/status; the leader's publisher aggregates these into
+        the kubernetes-tpu-frontdoor-status ConfigMap)."""
+        node = self.raft
+        lag = self.replay_lag_s()
+        with self._served_lock:
+            served = dict(self._served)
+        out = {"role": self.role,
+               "node": getattr(node, "node_id", None),
+               "replayLagMs": (None if lag is None
+                               else round(lag * 1000.0, 3)),
+               "ready": self.ready,
+               "watch": self.store.watch_stats(), **served}
+        if node is not None:
+            out["commitWait"] = self.store.commit_wait_stats()
+        return out
+
+    def _count_served(self, what: str) -> None:
+        with self._served_lock:
+            self._served[what] += 1
+
     # ---- durability status (data_dir mode) -------------------------------
 
     def durability_status(self) -> dict:
@@ -419,19 +498,83 @@ class APIServer:
             self.publish_durability()
 
     def enable_flow_control(self, controller=None):
-        """API Priority and Fairness (the reference's store/flowcontrol.py)."""
-        raise _not_ported("API priority and fairness (enable_flow_control)")
+        """Turn on API Priority and Fairness (store/flowcontrol.py)."""
+        from kubernetes_tpu_torch.store.flowcontrol import FlowController
+        self.flow = controller or FlowController()
+        return self
 
     def enable_auth(self, authenticator=None, authorizer=None, audit=None,
                     bootstrap: bool = True):
-        """Authentication, RBAC and the audit log (store/auth.py)."""
-        raise _not_ported("authentication and RBAC (enable_auth)")
+        """Install the authn -> audit -> impersonation -> (APF) -> authz
+        filter chain (DefaultBuildHandlerChain order — store/auth.py).
+        ``bootstrap`` seeds the default system: roles/bindings."""
+        from kubernetes_tpu_torch.store.auth import (
+            AuditLog, RBACAuthorizer, TokenAuthenticator, bootstrap_policy)
+        self.authenticator = authenticator or TokenAuthenticator(
+            secret_source=self.store)
+        self.authorizer = authorizer or RBACAuthorizer(self.store)
+        self.audit = audit if audit is not None else AuditLog()
+        if bootstrap:
+            for obj in bootstrap_policy():
+                try:
+                    self.store.create(obj["kind"], obj)
+                except AlreadyExists:
+                    pass
+        return self
 
     def enable_admission(self, chain=None):
-        """The admission plugins, webhooks included (store/admission.py)."""
-        raise _not_ported("admission (enable_admission)")
+        """Install the default admission plugin set (store/admission.py)."""
+        from kubernetes_tpu_torch.store.admission import default_chain
+        (chain or default_chain(self.store)).install(self)
+        return self
 
     # ---- request handling ------------------------------------------------
+
+    def _admit(self, verb: str, kind: str, obj: dict,
+               sub: Optional[str] = None, dry_run: bool = False) -> dict:
+        """Run the admission chain. A plugin may return a mutated object, or a
+        callable commit hook ``hook(ok: bool)`` invoked after the storage
+        operation completes (two-phase: lets e.g. quota release its in-flight
+        reservation exactly when the object becomes visible, instead of
+        guessing by name — generateName objects have none at admission time).
+        Collected hooks are stashed on the returned object under a private
+        key the storage path pops before persisting. ``dry_run`` reaches the
+        plugins that take it (the webhook dispatchers' sideEffects gate)."""
+        from kubernetes_tpu_torch.store.admission import AdmissionChain
+        hooks = []
+        try:
+            for fn in self.admission:
+                # webhook dispatchers match rules against the subresource
+                # (a hook registered for "pods" must NOT fire on every
+                # status heartbeat; "pods/status" opts in) — built-in
+                # plugins keep the 3-arg shape
+                r = AdmissionChain._invoke(fn, verb, kind, obj, sub, dry_run)
+                if callable(r):
+                    hooks.append(r)
+                elif r:
+                    obj = r
+                if isinstance(obj, dict):
+                    hooks.extend(obj.pop("\x00admission_commits", []))
+        except Exception:
+            self._commit(hooks, False)  # release earlier plugins' holds
+            raise
+        if hooks:
+            obj["\x00admission_commits"] = hooks
+        return obj
+
+    @staticmethod
+    def _pop_commits(obj: dict) -> list:
+        return obj.pop("\x00admission_commits", [])
+
+    @staticmethod
+    def _commit(hooks: list, ok: bool):
+        for h in hooks:
+            try:
+                h(ok)
+            except Exception:
+                # commit hooks are best-effort, but a throwing hook is a
+                # plugin bug worth surfacing
+                _LOG.debug("admission commit hook failed", exc_info=True)
 
     def _make_handler(self):
         server = self
@@ -463,6 +606,7 @@ class APIServer:
                 /readyz is how orchestrators (and the chaos harness) know
                 the replay finished."""
                 self._drain_body()
+                self._last_code = 503
                 body = json.dumps({
                     "kind": "Status", "status": "Failure",
                     "message": "apiserver is not ready: WAL replay in "
@@ -475,17 +619,150 @@ class APIServer:
                 self.end_headers()
                 self.wfile.write(body)
 
-            def _shaped(self, fn):
+            def _quorum_routed(self, fn):
+                """Replication-aware error mapping, wrapped around every
+                handler when the store is replicated: a FOLLOWER answers
+                mutations with 421 + an X-KTPU-Leader hint (the spread
+                client re-routes and retries; reads never get here), and
+                a leader that cannot establish quorum answers 503."""
+                def run():
+                    try:
+                        return fn()
+                    except NotLeader:
+                        node = server.raft
+                        hint = server.api_urls.get(
+                            getattr(node, "leader_id", None) or "")
+                        self._drain_body()
+                        self._last_code = 421
+                        server._count_served("notLeader")
+                        body = json.dumps({
+                            "kind": "Status", "status": "Failure",
+                            "message": "not the leader"
+                                       + (f"; try {hint}" if hint else ""),
+                            "reason": "NotLeader", "code": 421}).encode()
+                        self.send_response(421)
+                        self.send_header("Content-Type", "application/json")
+                        if hint:
+                            self.send_header("X-KTPU-Leader", hint)
+                        self.send_header("Content-Length", str(len(body)))
+                        self.end_headers()
+                        self.wfile.write(body)
+                    except QuorumLost as e:
+                        return self._error(503, str(e), "ServiceUnavailable")
+                return run
+
+            def _shaped(self, verb: str, fn):
                 # per-REQUEST state: one handler instance serves every
                 # request on a keep-alive connection
                 self._body_consumed = False
+                self._last_code = 200
+                if server.raft is not None:
+                    fn = self._quorum_routed(fn)
                 if not server._ready.is_set():
                     # only liveness + metrics answer during replay;
                     # /readyz reports the replay itself as 503
                     path = urlparse(self.path).path
                     if path not in ("/healthz", "/livez", "/metrics"):
                         return self._not_ready()
-                return fn()
+                """The filter chain, in DefaultBuildHandlerChain order:
+                authn (401) -> audit -> impersonation (403) -> APF (429) ->
+                authz (403) -> handler. Watches are long-running and exempt
+                from APF seat accounting (upstream excludes them from the
+                queueset after initial admission)."""
+                self._user = None
+                self._impersonated = None
+                if server.authenticator is not None:
+                    from kubernetes_tpu_torch.store.auth import AuthError
+                    try:
+                        self._user = server.authenticator.authenticate(
+                            self.headers.get("Authorization", ""))
+                    except AuthError as e:
+                        return self._audited(401, lambda: self._error(
+                            401, str(e), "Unauthorized"))
+                    imp = self.headers.get("Impersonate-User")
+                    if imp:
+                        groups = tuple(
+                            g for g in self.headers.get(
+                                "Impersonate-Group", "").split(",") if g)
+                        if not server.authorizer.can_impersonate(
+                                self._user, groups):
+                            return self._audited(403, lambda: self._error(
+                                403, f"user {self._user.name!r} cannot "
+                                     "impersonate", "Forbidden"))
+                        from kubernetes_tpu_torch.store.auth import UserInfo
+                        self._impersonated = self._user.name
+                        self._user = UserInfo(imp, groups)
+                if server.flow is None or "watch=true" in self.path:
+                    return self._run_authorized(verb, fn)
+                agent = self.headers.get("User-Agent", "")
+                level = server.flow.classify(
+                    verb, urlparse(self.path).path, agent)
+                try:
+                    # flow distinguisher: the authenticated user, falling
+                    # back to the client agent (upstream: FlowSchema's
+                    # distinguisherMethod over user/namespace)
+                    server.flow.acquire(
+                        level,
+                        flow=(self._user.name if self._user else agent))
+                except RejectedError as e:
+                    self._drain_body()
+                    body = json.dumps({"kind": "Status", "status": "Failure",
+                                       "message": "too many requests",
+                                       "reason": "TooManyRequests",
+                                       "code": 429}).encode()
+                    self.send_response(429)
+                    self.send_header("Content-Type", "application/json")
+                    self.send_header("Retry-After", str(int(e.retry_after)))
+                    self.send_header("Content-Length", str(len(body)))
+                    self.end_headers()
+                    self.wfile.write(body)
+                    self._audit(429)
+                    return None
+                try:
+                    return self._run_authorized(verb, fn)
+                finally:
+                    server.flow.release(level)
+
+            def _run_authorized(self, http_verb: str, fn):
+                """Authorize against the parsed route, then run + audit."""
+                if server.authorizer is None or self._user is None:
+                    return fn()
+                from kubernetes_tpu_torch.store.auth import (
+                    request_verb, resource_for)
+                r = self._route()
+                if r is not None:
+                    plural, _kind, ns, name, sub = r
+                    verb = request_verb(self.command, name,
+                                        sub, urlparse(self.path).query)
+                    resource = resource_for(plural, sub)
+                    if not server.authorizer.authorize(
+                            self._user, verb, resource, ns or "", name or ""):
+                        return self._audited(403, lambda: self._error(
+                            403, f"user {self._user.name!r} cannot {verb} "
+                                 f"{resource}"
+                                 + (f" in namespace {ns!r}" if ns else ""),
+                            "Forbidden"))
+                # non-resource paths (/metrics, /healthz, ...): any
+                # authenticated (or anonymous-allowed) user may read
+                return self._audited(None, fn)
+
+            def _audit(self, code: int):
+                if server.audit is None:
+                    return
+                user = self._user
+                if user is None:  # failed authn is audited too
+                    from kubernetes_tpu_torch.store.auth import ANONYMOUS, UserInfo
+                    user = UserInfo(ANONYMOUS)
+                server.audit.log(user=user, verb=self.command,
+                                 path=self.path, code=code,
+                                 impersonated=self._impersonated)
+
+            def _audited(self, code, fn):
+                try:
+                    return fn()
+                finally:
+                    self._audit(code if code is not None
+                                else getattr(self, "_last_code", 200))
 
             def _drain_body(self):
                 """Consume an unread request body before responding: with
@@ -530,12 +807,20 @@ class APIServer:
                 the serializer-negotiation analog of the reference's
                 JSON/protobuf content types."""
                 self._drain_body()
+                self._last_code = code
                 if self._wants_msgpack():
                     body, ctype = _msgpack.packb(obj), MSGPACK_CT
                 else:
                     body, ctype = json.dumps(obj).encode(), "application/json"
                 self.send_response(code)
                 self.send_header("Content-Type", ctype)
+                lag = server.replay_lag_s()
+                if lag is not None:
+                    # staleness is part of the response contract on a
+                    # replica: every consumer can see how far behind the
+                    # data it just read might be
+                    self.send_header("X-KTPU-Replay-Lag",
+                                     f"{lag * 1000.0:.3f}")
                 self.send_header("Content-Length", str(len(body)))
                 self.end_headers()
                 self.wfile.write(body)
@@ -605,17 +890,31 @@ class APIServer:
             # ---- verbs ---------------------------------------------------
 
             def do_GET(self):
-                return self._shaped(self._do_GET)
+                return self._shaped("get", self._do_GET)
 
             def _do_GET(self):
                 path = urlparse(self.path).path
                 if path in ("/healthz", "/readyz", "/livez"):
+                    if path == "/readyz":
+                        # a replica whose replay lag exceeds the staleness
+                        # budget is NOT ready: load balancers and the
+                        # spread client must stop routing reads to it
+                        # until it catches back up (healthz/livez stay
+                        # 200 — the process is alive, just stale)
+                        lag = server.replay_lag_s()
+                        if lag is not None and lag > server.max_replay_lag_s:
+                            return self._error(
+                                503, f"replica replay lag {lag:.2f}s "
+                                     f"exceeds {server.max_replay_lag_s}s",
+                                "ServiceUnavailable")
                     body = b"ok"
                     self.send_response(200)
                     self.send_header("Content-Length", "2")
                     self.end_headers()
                     self.wfile.write(body)
                     return
+                if path == "/frontdoor/status":
+                    return self._send_json(200, server.frontdoor_status())
                 if path == "/debug/traces":
                     # OTLP/JSON export of the process tracer's spans;
                     # ?format=chrome serves Chrome trace-event JSON instead
@@ -649,7 +948,8 @@ class APIServer:
                 if r is None:
                     return self._error(404, f"unknown path {path}")
                 plural, kind, ns, name, sub = r
-                READ_REQUESTS.inc({"role": "leader"})
+                READ_REQUESTS.inc({"role": server.role})
+                server._count_served("reads")
                 qs = parse_qs(urlparse(self.path).query)
                 if sub == "scale" and name:
                     if kind not in SCALABLE_KINDS:
@@ -728,6 +1028,10 @@ class APIServer:
                              "object": from_hub(e.object)}).encode() + b"\n"
                 self.send_response(200)
                 self.send_header("Content-Type", ctype)
+                lag = server.replay_lag_s()
+                if lag is not None:
+                    self.send_header("X-KTPU-Replay-Lag",
+                                     f"{lag * 1000.0:.3f}")
                 self.send_header("Transfer-Encoding", "chunked")
                 self.end_headers()
                 try:
@@ -778,7 +1082,7 @@ class APIServer:
                     w.stop()
 
             def do_POST(self):
-                return self._shaped(self._do_POST)
+                return self._shaped("post", self._do_POST)
 
             def _do_POST(self):
                 r = self._route()
@@ -952,21 +1256,33 @@ class APIServer:
                     # manifests). Admission runs per item; per-item failures
                     # report in order without aborting siblings.
                     results = []
+                    to_create = []
                     for item in body["items"]:
                         md = item.setdefault("metadata", {})
                         if ns:
                             md["namespace"] = ns
+                        try:
+                            item = server._admit("CREATE", kind, item)
+                        except AdmissionError as e:
+                            results.append({"code": 400, "message": str(e),
+                                            "reason": "AdmissionDenied"})
+                            continue
+                        hooks = server._pop_commits(item)
+                        to_create.append((len(results), item, hooks))
+                        results.append({"code": 201})
+                    for idx, item, hooks in to_create:
                         try:
                             out = server.store.create(kind, item, owned=True)
                             # server-stamped identity back to the client
                             # (full objects would double the response size
                             # of a 10k-item storm for fields callers rarely
                             # read beyond metadata)
-                            results.append({"code": 201,
-                                            "metadata": out["metadata"]})
+                            results[idx]["metadata"] = out["metadata"]
+                            server._commit(hooks, True)
                         except AlreadyExists as e:
-                            results.append({"code": 409, "message": str(e),
-                                            "reason": "AlreadyExists"})
+                            results[idx] = {"code": 409, "message": str(e),
+                                            "reason": "AlreadyExists"}
+                            server._commit(hooks, False)
                     return self._send_json(200, {"kind": "Status",
                                                  "results": results})
                 with server._crd_guard(kind):
@@ -976,11 +1292,28 @@ class APIServer:
                             return self._error(400, err, "Invalid")
                     md = body.setdefault("metadata", {})
                     if ns:
+                        # stamp the request-URL namespace BEFORE admission:
+                        # namespace-scoped policy (PodSecurity, quota)
+                        # reads it off the object
+                        md["namespace"] = ns
+                    try:
+                        body = server._admit("CREATE", kind, body,
+                                             dry_run=self._dry_run())
+                    except AdmissionError as e:
+                        return self._error(400, str(e), "AdmissionDenied")
+                    commits = server._pop_commits(body)
+                    # a mutating webhook's JSON patch deep-copies the
+                    # object: re-resolve metadata and re-stamp the request
+                    # namespace on the post-admission dict
+                    md = body.setdefault("metadata", {})
+                    if ns:
                         md["namespace"] = ns
                     if self._dry_run():
                         # server-side dry run (?dryRun=All, endpoints/
-                        # handlers/create.go): the full path except
-                        # persistence
+                        # handlers/create.go): the FULL path — admission
+                        # mutations included — except persistence; quota
+                        # holds release as failed commits
+                        server._commit(commits, False)
                         name_prev = md.get("name", "")
                         if not name_prev and md.get("generateName"):
                             # name generation runs in real creates; the
@@ -1004,13 +1337,18 @@ class APIServer:
                         # ownership to the store (skips its defensive copy)
                         out = server.store.create(kind, body, owned=True)
                     except AlreadyExists as e:
+                        server._commit(commits, False)
                         return self._error(409, str(e), "AlreadyExists")
+                    except Exception:
+                        server._commit(commits, False)
+                        raise
+                    server._commit(commits, True)
                     if kind == "CustomResourceDefinition":
                         server._on_crd_change(out, deleted=False)
                     return self._send_json(201, self._conv_out(kind, out))
 
             def do_PUT(self):
-                return self._shaped(self._do_PUT)
+                return self._shaped("put", self._do_PUT)
 
             def _do_PUT(self):
                 r = self._route()
@@ -1058,17 +1396,27 @@ class APIServer:
                         except NotFound as e:
                             return self._error(404, str(e), "NotFound")
                         cur.setdefault("spec", {})["replicas"] = want
+                        try:
+                            cur = server._admit("UPDATE", kind, cur,
+                                                "scale")
+                        except AdmissionError as e:
+                            return self._error(400, str(e),
+                                               "AdmissionDenied")
+                        commits = server._pop_commits(cur)
                         expect = caller_rv or (cur.get("metadata") or {})\
                             .get("resourceVersion")
                         try:
                             out = server.store.update(kind, cur,
                                                       expect_rv=expect)
+                            server._commit(commits, True)
                             return self._send_json(200,
                                                    _scale_of(kind, out))
                         except Conflict as e:
+                            server._commit(commits, False)
                             if caller_rv is not None or attempt == 4:
                                 return self._error(409, str(e), "Conflict")
                         except NotFound as e:
+                            server._commit(commits, False)
                             return self._error(404, str(e), "NotFound")
                 if sub in (None, "status"):
                     # status fragments convert too (a v1 controller PUTs
@@ -1079,7 +1427,14 @@ class APIServer:
                         err = server.validate_crd(body)
                         if err:
                             return self._error(400, err, "Invalid")
+                    try:
+                        body = server._admit("UPDATE", kind, body, sub,
+                                             dry_run=self._dry_run())
+                    except AdmissionError as e:
+                        return self._error(400, str(e), "AdmissionDenied")
+                    commits = server._pop_commits(body)
                     if self._dry_run():
+                        server._commit(commits, False)
                         try:
                             cur = server.store.get(kind, ns or "", name)
                         except NotFound as e:
@@ -1104,24 +1459,122 @@ class APIServer:
                         out = server.store.update(kind, body, expect_rv=expect,
                                                   owned=True)
                     except NotFound as e:
+                        server._commit(commits, False)
                         return self._error(404, str(e), "NotFound")
                     except Conflict as e:
+                        server._commit(commits, False)
                         return self._error(409, str(e), "Conflict")
+                    server._commit(commits, True)
                     if kind == "CustomResourceDefinition":
                         server._on_crd_change(out, deleted=False)
                     return self._send_json(200, self._conv_out(kind, out))
 
             def do_PATCH(self):
-                return self._shaped(self._do_PATCH)
+                return self._shaped("patch", self._do_PATCH)
 
             def _do_PATCH(self):
-                """Server-side apply (the reference's store/apply.py)."""
-                return self._error(
-                    501, "server-side apply is not ported yet: ROADMAP "
-                         "Queue A item 13", "NotImplemented")
+                """Server-side apply: PATCH with
+                ``Content-Type: application/apply-patch+yaml`` (or +json /
+                the negotiated binary format) and ``?fieldManager=...``.
+                Reference: ``apiserver/pkg/endpoints/handlers/patch.go``
+                (applyPatcher) + managedfields. Conflicts -> 409 with the
+                owning managers listed; ``force=true`` transfers ownership
+                (kubectl --force-conflicts)."""
+                from kubernetes_tpu_torch.store.apply import (ApplyConflict,
+                                                        server_side_apply)
+                from kubernetes_tpu_torch.store.apply import \
+                    path_str as apply_path_str
+                r = self._route()
+                if r is None:
+                    return self._error(404, "unknown path")
+                plural, kind, ns, name, sub = r
+                ctype = self.headers.get("Content-Type", "")
+                if "apply-patch" not in ctype and MSGPACK_CT not in ctype:
+                    return self._error(
+                        415, "only apply-patch (server-side apply) is "
+                             "supported", "UnsupportedMediaType")
+                if name is None:
+                    return self._error(405, "apply needs a resource name")
+                if self._dry_run():
+                    return self._error(
+                        400, "dryRun is not supported for server-side "
+                             "apply here", "BadRequest")
+                if sub is not None:
+                    # subresource-scoped apply (status) is not implemented;
+                    # silently merging against the whole object would let a
+                    # status request rewrite spec
+                    return self._error(
+                        405, f"apply to subresource {sub!r} unsupported")
+                qs = parse_qs(urlparse(self.path).query)
+                manager = qs.get("fieldManager", ["unknown"])[0]
+                force = qs.get("force", ["false"])[0] in ("true", "1")
+                try:
+                    body = self._read_body()
+                except _BadRequest as e:
+                    return self._error(400, str(e), "BadRequest")
+                body = self._conv_in(kind, body)
+                md = body.setdefault("metadata", {})
+                if md.setdefault("name", name) != name:
+                    return self._error(
+                        400, f"metadata.name {md['name']!r} does not match "
+                             f"the request URL name {name!r}", "BadRequest")
+                if ns:
+                    md["namespace"] = ns
+                with server._crd_guard(kind):
+                    try:
+                        live = server.store.get(kind, ns or "", name)
+                    except NotFound:
+                        live = None
+                    try:
+                        merged = server_side_apply(live, body, manager,
+                                                   force=force)
+                    except ApplyConflict as e:
+                        return self._send_json(409, {
+                            "kind": "Status", "status": "Failure",
+                            "message": str(e), "reason": "Conflict",
+                            "code": 409,
+                            "details": {"causes": [
+                                {"field": apply_path_str(p),
+                                 "message": f"conflict with {m!r}"}
+                                for p, m in e.conflicts]}})
+                    if kind == "CustomResourceDefinition":
+                        err = server.validate_crd(merged)
+                        if err:
+                            return self._error(400, err, "Invalid")
+                    verb = "UPDATE" if live is not None else "CREATE"
+                    try:
+                        merged = server._admit(verb, kind, merged)
+                    except AdmissionError as e:
+                        return self._error(400, str(e), "AdmissionDenied")
+                    commits = server._pop_commits(merged)
+                    try:
+                        if live is None:
+                            out = server.store.create(kind, merged,
+                                                      owned=True)
+                            code = 201
+                        else:
+                            out = server.store.update(
+                                kind, merged, owned=True,
+                                expect_rv=live["metadata"]
+                                ["resourceVersion"])
+                            code = 200
+                    except (AlreadyExists, Conflict) as e:
+                        server._commit(commits, False)
+                        return self._error(409, str(e), "Conflict")
+                    except NotFound as e:
+                        # deleted between the live read and the write
+                        server._commit(commits, False)
+                        return self._error(409, str(e), "Conflict")
+                    except Exception:
+                        server._commit(commits, False)
+                        raise
+                    server._commit(commits, True)
+                    if kind == "CustomResourceDefinition":
+                        server._on_crd_change(out, deleted=False)
+                    return self._send_json(code, self._conv_out(kind, out))
 
             def do_DELETE(self):
-                return self._shaped(self._do_DELETE)
+                return self._shaped("delete", self._do_DELETE)
 
             def _do_DELETE(self):
                 r = self._route()
@@ -1177,14 +1630,11 @@ class APIServer:
         return Handler
 
 
-SCALABLE_KINDS = {"Deployment", "ReplicaSet", "StatefulSet",
-                  "ReplicationController"}
 _KUBELET_SUBRESOURCES = ("log", "exec", "portforward")
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    from kubernetes_tpu_torch.config.types import not_ported
-    return not_ported(what, "13")
+SCALABLE_KINDS = {"Deployment", "ReplicaSet", "StatefulSet",
+                  "ReplicationController"}
 
 
 def _scale_of(kind: str, obj: dict) -> dict:
@@ -1232,16 +1682,53 @@ def _field_label_selector(qs) -> Optional[Callable[[dict], bool]]:
                                  qs.get("fieldSelector", [None])[0])
 
 
-def serve(conn, data_dir: Optional[str] = None) -> None:
+def serve(conn, data_dir: Optional[str] = None, *,
+          tokens: Optional[dict] = None, anonymous: bool = True,
+          audit_keep: int = 4096, flow_control: bool = False,
+          admission: bool = False) -> None:
     """Server-process entry: an ``APIServer`` (in memory, or durable under
-    ``data_dir``) until told to stop. Sends the bound port on ``conn``,
-    then any message received on ``conn`` stops it. Start it with
+    ``data_dir``) until told to stop, with the planes a cluster turns on
+    (``cli/cluster.py`` LocalCluster): ``tokens`` (token -> (user, groups))
+    turns on authentication (``anonymous``: a request without a token is
+    the anonymous user, else 401), the bootstrap RBAC policy and an audit
+    log keeping ``audit_keep`` events; ``flow_control`` API Priority and
+    Fairness; ``admission`` the default admission chain. Sends the bound
+    port on ``conn``; then the message ``"report"`` is answered with
+    ``server_report``, and any other message stops it. Start it with
     ``multiprocessing.get_context("spawn").Process(target=serve,
-    args=(child_conn,))``: a parent holding a CUDA context must not fork."""
-    server = APIServer(data_dir=data_dir).start()
+    args=(child_conn,), kwargs=...)``: a parent holding a CUDA context must
+    not fork."""
+    server = APIServer(data_dir=data_dir)
+    if tokens is not None:
+        from kubernetes_tpu_torch.store.auth import (AuditLog,
+                                                     TokenAuthenticator)
+        server.enable_auth(
+            authenticator=TokenAuthenticator(
+                {t: (user, tuple(groups))
+                 for t, (user, groups) in tokens.items()},
+                allow_anonymous=anonymous, secret_source=server.store),
+            audit=AuditLog(keep=audit_keep))
+    if flow_control:
+        server.enable_flow_control()
+    if admission:
+        server.enable_admission()
+    server.start()
     conn.send(server.port)
     try:
-        conn.recv()
+        while conn.recv() == "report":
+            conn.send(server_report(server))
     except EOFError:
         pass  # the parent went away: stop all the same
     server.stop()
+
+
+def server_report(server: "APIServer") -> dict:
+    """What the planes of ``server`` saw: its audit events, its flow
+    controller's stats and its dispatches by level and flow (each None when
+    that plane is off)."""
+    flow = server.flow
+    return {"audit": (None if server.audit is None
+                      else list(server.audit.events)),
+            "flow": None if flow is None else flow.stats(),
+            "dispatched": None if flow is None else flow.dispatched_by_flow(),
+            "rejected": None if flow is None else flow.rejected_total}

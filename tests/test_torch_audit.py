@@ -176,3 +176,48 @@ def test_preemption_during_a_sweep_is_no_overcommit(kind, tmp_path):
     assert out["port"] == ([], [])
     ref_during = ["node_overcommit"] if kind == "nodes" else []
     assert out["ref"] == (ref_during, [])
+
+
+def _pods_on_a_small_node(P, judge, n_bound, tmp_path):
+    """A node that holds 8 pods, ``n_bound`` small pods bound to it, then
+    one more placed: what the auditor (all bound) or the parity sentinel
+    (the last one a drain's winner) reports."""
+    node = P.w.make_node("churn-n0").capacity(
+        {"cpu": "2", "memory": "4Gi", "pods": "8"}).obj()
+    pods = [P.w.make_pod(f"p{i}").req({"cpu": "10m"}).node("churn-n0").obj()
+            for i in range(n_bound + 1)]
+    if judge == "sentinel":
+        sentinel = __import__(
+            f"{P.auditor.__module__.rsplit('.', 1)[0]}.sentinel",
+            fromlist=["verify_drain_winners"])
+        winner = P.w.make_pod(f"p{n_bound}").req({"cpu": "10m"}).obj()
+        return sentinel.verify_drain_winners(
+            [node], pods[:-1], [(winner, "churn-n0")], [])
+    store = P.store()
+    client = P.client(store)
+    client.nodes().create(node.to_dict())
+    for pod in pods:
+        client.pods().create(pod.to_dict())
+    auditor = P.auditor(client=client, audit_dir=str(tmp_path))
+    return [v.detail for v in auditor.run_once()]
+
+
+@pytest.mark.parametrize("judge", ["auditor", "sentinel"])
+@pytest.mark.parametrize("n_bound", [4, 8])
+def test_pods_pseudo_resource_counts_once(judge, n_bound, tmp_path):
+    """Each pod counts 1 toward a node's 'pods' (ROADMAP C10). The
+    reference's ``charge_usage`` adds the 1 that ``resource_requests``
+    already holds a second time, so its auditor and sentinel report 5 pods
+    on an 8-pod node as 10 and refute a right placement; 9 pods are an
+    overcommit for both."""
+    out = {}
+    for name, P in PKGS.items():
+        d = tmp_path / name
+        d.mkdir()
+        out[name] = _pods_on_a_small_node(P, judge, n_bound, d)
+    n = n_bound + 1
+    ref_over = [f"pods ({2 * n}>8)"] if 2 * n > 8 else []
+    port_over = [f"pods ({n}>8)"] if n > 8 else []
+    for name, want in (("ref", ref_over), ("port", port_over)):
+        assert [s[s.index("pods ("):] for s in out[name]
+                if "pods (" in s] == want

@@ -649,12 +649,12 @@ def test_run_lets_refusals_escape(monkeypatch):
     timer.start()
 
     def refused(pod):
-        raise port_config.not_ported("API priority and fairness", "13")
+        raise port_config.not_ported("the kubelet", "15")
     monkeypatch.setattr(sched, "_slice_shape_of", refused)
     try:
         sched.queue.add(port_types.Pod.from_dict(
             make_pod("p0").req({"cpu": "100m"}).obj().to_dict()))
-        with pytest.raises(NotImplementedError, match="item 13"):
+        with pytest.raises(NotImplementedError, match="item 15"):
             sched.run(stop)
         assert not stop.is_set()
         assert sched.queue.stats()["backoff"] == 1

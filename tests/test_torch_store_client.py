@@ -258,24 +258,68 @@ def test_reference_record_covers_every_step(reference_record):
     assert rec["watch"][-1][1] == rec["rv_end"]
 
 
-# ---- planes the port has not got yet ---------------------------------------
+# ---- the planes a cluster turns on -----------------------------------------
 
-def test_unported_planes_raise():
-    server = port_apiserver.APIServer()
+def _planes_record(apiserver, clientset, store) -> list:
+    """Flow control, authentication and admission on one server: what an
+    admin, a stranger and a scheduler get; then a DirectClient's apply."""
+    server = apiserver.APIServer().enable_flow_control().enable_auth()
+    server.authenticator.add("admin", ("root", ("system:masters",)))
+    server.authenticator.add("sched", ("system:kube-scheduler", ()))
+    server.enable_admission().start()
+    rec = []
     try:
-        for enable in (server.enable_flow_control, server.enable_auth,
-                       server.enable_admission):
-            with pytest.raises(NotImplementedError, match="item 13"):
-                enable()
+        admin = clientset.HTTPClient(server.url, token="admin", wire="json")
+        pod = _fresh(make_pod("a").req({"cpu": "100m"}).obj().to_dict())
+        rec.append(_masked(admin.pods("default").create(pod)))
+        for token in (None, "nope", "sched"):
+            c = clientset.HTTPClient(server.url, token=token, wire="json")
+            rec.append(_error_code(lambda: c.pods("default").create(
+                _fresh(make_pod("b").obj().to_dict()))))
+        rec.append(sorted(server.flow.stats()))
     finally:
         server.stop()
-    client = port_clientset.DirectClient(port_store.ObjectStore())
-    with pytest.raises(NotImplementedError, match="item 13"):
-        client.pods("default").apply(make_pod("a").obj().to_dict())
+    direct = clientset.DirectClient(store.ObjectStore())
+    cms = direct.resource("configmaps", "default")
+    cm = {"kind": "ConfigMap", "metadata": {"name": "c"}, "data": {"k": "1"}}
+    rec.append(_masked(cms.apply(dict(cm), field_manager="one")))
+    rec.append(_error_code(lambda: cms.apply(
+        dict(cm, data={"k": "2"}), field_manager="two")))
+    return rec
+
+
+def test_planes_and_direct_apply_match_reference():
+    """The planes the port refused before item 13 (APF, authentication and
+    RBAC, admission) and ``DirectClient.apply`` answer as the
+    reference's."""
+    port = _planes_record(port_apiserver, port_clientset, port_store)
+    assert port == _planes_record(ref_apiserver, ref_clientset, ref_store)
+    assert port[1:4] == [403, 401, 403]  # anonymous, bad token, scheduler
+    assert port[-1] == 409
+
+
+def test_plain_json_patch_answers_415_as_reference():
+    """PATCH is server-side apply: a plain JSON body is refused with 415
+    on both packages' servers."""
+    import http.client
+    codes = []
+    for apiserver in (port_apiserver, ref_apiserver):
+        server = apiserver.APIServer().start()
+        try:
+            conn = http.client.HTTPConnection("127.0.0.1", server.port,
+                                              timeout=10)
+            conn.request("PATCH", "/api/v1/namespaces/default/pods/a",
+                         body=b"{}",
+                         headers={"Content-Type": "application/json"})
+            resp = conn.getresponse()
+            codes.append((resp.status, resp.read() and None))
+            conn.close()
+        finally:
+            server.stop()
+    assert codes == [(415, None), (415, None)]
 
 
 @pytest.mark.parametrize("method,path,code", [
-    ("PATCH", "/api/v1/namespaces/default/pods/a", 501),
     ("GET", "/api/v1/namespaces/default/pods/a/log", 501),
     ("POST", "/api/v1/namespaces/default/pods/a/exec", 501),
     ("GET", "/api/v1/namespaces/default/pods/a", 200),

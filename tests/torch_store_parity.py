@@ -1,0 +1,386 @@
+"""Run the JAX package's store tests on both packages, and record what each
+run saw.
+
+``load(name, pkg)`` compiles ``tests/<name>.py`` with its
+``kubernetes_tpu.`` imports pointed at ``pkg`` (``"kubernetes_tpu"`` or
+``"kubernetes_tpu_torch"``). The wrappers that build its pods and nodes stay
+the JAX package's, so both runs start from the same dicts. ``run_case`` runs
+one of its test functions, with its fixtures, and returns its record:
+
+- ``raised``: None, or the exception the case ended in (a failed assertion
+  included), by type and message;
+- ``requests``: every request its ``HTTPClient``s made, in order: method,
+  path and query, and the masked answer or the error's code and reason.
+  Consecutive repeats of one request (a poll) collapse to the last;
+- ``servers``: for every APIServer its fixtures built, the masked contents
+  of its store, its audit events (sorted: each is logged after its response
+  went out) and its flow controller's stats;
+- ``raft``: the masked contents of the store of the furthest-ahead
+  ``RaftNode`` the case built, up to the group's commit index (raft and
+  the front door are compared by what they end with, not by their
+  timing).
+
+Masked: uids, wall-clock stamps and the ports of local servers; in the
+raft and front-door modules also resourceVersions and the system
+namespaces (``TIMED``).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import inspect
+import json
+import re
+import sys
+import threading
+import time
+import types
+from pathlib import Path
+
+TESTS = Path(__file__).resolve().parent
+PACKAGES = ("kubernetes_tpu", "kubernetes_tpu_torch")
+# the JAX package's wrappers build every pod and node in both runs
+_IMPORT = re.compile(r"\bkubernetes_tpu\.(?!testing\.wrappers\b)")
+_PORT = re.compile(r"(127\.0\.0\.1|localhost):\d+")
+# chance: the raft node that won the election ("node"), and the watch
+# streams of earlier cases that a replica has not yet torn down
+MASKED = ("uid", "creationTimestamp", "deletionTimestamp", "time", "ts",
+          "replayLagMs", "maxReplayLagMs", "commitWait", "node",
+          "watchers", "watchersTotal")
+
+# raft and the front door start by electing a leader, and an APIServer
+# seeds the system namespaces only if its node leads by then: whether they
+# were committed, and so every resourceVersion after them, is chance in
+# these modules' records
+TIMED = ("test_frontdoor", "test_replication")
+SYSTEM_NAMESPACES = ("default", "kube-system", "kube-public",
+                     "kube-node-lease")
+_TIMED = threading.Event()  # set while a TIMED module's case runs
+
+_MODULES: dict = {}
+_RECORD = threading.local()
+
+
+def load(name: str, pkg: str) -> types.ModuleType:
+    """``tests/<name>.py`` compiled against ``pkg`` (cached)."""
+    key = (name, pkg)
+    if key not in _MODULES:
+        path = TESTS / f"{name}.py"
+        src = path.read_text()
+        if pkg != "kubernetes_tpu":
+            src = _IMPORT.sub(f"{pkg}.", src)
+        mod = types.ModuleType(f"_parity_{name}_{pkg}")
+        mod.__file__ = str(path)
+        sys.modules[mod.__name__] = mod
+        exec(compile(src, str(path), "exec"), mod.__dict__)
+        _MODULES[key] = mod
+    return _MODULES[key]
+
+
+def cases(name: str) -> list:
+    """``(case id, function name, parameters)`` for every test function of
+    ``tests/<name>.py``, one for each parametrized value."""
+    mod = load(name, "kubernetes_tpu")
+    out = []
+    for fname, fn in vars(mod).items():
+        if not fname.startswith("test_") or not inspect.isfunction(fn):
+            continue
+        params = [{}]
+        for mark in getattr(fn, "pytestmark", []):
+            if mark.name != "parametrize":
+                continue
+            argnames, values = mark.args[0], mark.args[1]
+            names = [a.strip() for a in argnames.split(",")] \
+                if isinstance(argnames, str) else list(argnames)
+            params = [dict(p, **dict(zip(names, v if len(names) > 1
+                                         else (v,))))
+                      for p in params for v in values]
+        for p in params:
+            cid = fname + ("" if not p else "[" + "-".join(
+                str(v) for v in p.values()) + "]")
+            out.append((cid, fname, p))
+    return out
+
+
+def mask(obj):
+    """A JSON-shaped value with uids, stamps and local ports masked."""
+    if isinstance(obj, dict):
+        return {k: ("<masked>" if k in MASKED or (
+                    _TIMED.is_set() and k == "resourceVersion")
+                    else mask(v))
+                for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return [mask(v) for v in obj]
+    if isinstance(obj, str):
+        if obj[:1] in "[{":  # JSON inside a ConfigMap value
+            try:
+                inner = mask(json.loads(obj))
+            except ValueError:
+                pass
+            else:
+                if isinstance(inner, list):  # in the order of masked urls
+                    inner.sort(key=lambda v: json.dumps(v, sort_keys=True))
+                return json.dumps(inner, sort_keys=True)
+        return _PORT.sub(r"\1:<port>", obj)
+    return obj
+
+
+def _path(url: str) -> str:
+    return _PORT.sub(r"\1:<port>", url)
+
+
+def _record(entry) -> None:
+    rec = getattr(_RECORD, "requests", None)
+    if rec is None:
+        return
+    if rec and rec[-1][:3] == entry[:3]:
+        rec[-1] = entry  # a poll: keep the last answer
+    else:
+        rec.append(entry)
+
+
+@contextlib.contextmanager
+def recording(pkg: str, before_get=None):
+    """Record the requests of ``pkg``'s HTTPClients (every thread's);
+    ``before_get()`` runs before each GET."""
+    import importlib
+    cs = importlib.import_module(f"{pkg}.client.clientset")
+    store = importlib.import_module(f"{pkg}.store.store")
+    orig = cs.HTTPClient._req
+
+    def _req(self, method, url, body=None, headers=None):
+        key = (method, _path(url), json.dumps(mask(body), sort_keys=True,
+                                              default=str))
+        if method == "GET" and before_get is not None:
+            before_get()
+        try:
+            out = orig(self, method, url, body, headers)
+        except cs.ApiError as e:
+            _record(key + ("error", e.code, e.reason))
+            raise
+        except store.TooOld:
+            _record(key + ("TooOld",))
+            raise
+        _record(key + ("ok", json.dumps(mask(out), sort_keys=True,
+                                        default=str)))
+        return out
+
+    cs.HTTPClient._req = _req
+    _RECORD.requests = []
+    try:
+        yield _RECORD.requests
+    finally:
+        cs.HTTPClient._req = orig
+        _RECORD.requests = None
+
+
+def _settle(count, quiet_s: float = 0.3, limit_s: float = 5.0) -> None:
+    """Wait until ``count()`` has not moved for ``quiet_s`` (at most
+    ``limit_s``): an audit event is logged after its response went out."""
+    end = time.monotonic() + limit_s
+    last, since = count(), time.monotonic()
+    while time.monotonic() < end:
+        time.sleep(0.05)
+        now = count()
+        if now != last:
+            last, since = now, time.monotonic()
+        elif time.monotonic() - since >= quiet_s:
+            return
+
+
+def _server_state(server) -> dict:
+    """The masked store contents, audit events and flow stats of an
+    APIServer (or of the core of an aggregator)."""
+    server = getattr(server, "core", server)
+    audit = getattr(server, "audit", None)
+    if audit is not None:
+        _settle(lambda: len(audit.events))
+    blob = server.store.snapshot_blob()
+    data = {kind: sorted((mask(o) for o in objs if _kept(o)),
+                         key=lambda o: json.dumps(o, sort_keys=True))
+            for kind, objs in blob["data"].items() if objs}
+    flow = getattr(server, "flow", None)
+    return {"rv": "<masked>" if _TIMED.is_set() else blob["rv"],
+            "data": {k: v for k, v in data.items() if v},
+            "audit": None if audit is None else sorted(
+                json.dumps(mask(e), sort_keys=True) for e in audit.events),
+            "flow": None if flow is None else {
+                "stats": flow.stats(), "rejected": flow.rejected_total}}
+
+
+def _raft_state(nodes) -> "dict | None":
+    """The furthest-ahead node's store, cut at the group's commit index: a
+    write a leader applied but no quorum took (a minority leader's, whose
+    step-down may come first or second) is chance, not an outcome."""
+    live = [nd for nd in nodes if nd is not None]
+    if not live:
+        return None
+    best = max(live, key=lambda nd: nd.store.snapshot_rv())
+    committed = max(int(nd.commit_rv) for nd in live)
+    blob = best.store.snapshot_blob()
+    data = {kind: sorted(json.dumps(mask(o), sort_keys=True) for o in objs
+                         if int(o["metadata"]["resourceVersion"])
+                         <= committed and _kept(o))
+            for kind, objs in blob["data"].items()}
+    return {k: v for k, v in data.items() if v}
+
+
+def _kept(obj: dict) -> bool:
+    """False for a system namespace in a TIMED module's record."""
+    return not (_TIMED.is_set() and obj.get("kind") == "Namespace"
+                and obj["metadata"].get("name") in SYSTEM_NAMESPACES)
+
+
+def _tracked(mod) -> list:
+    """Point the module's RaftNode and FrontDoorCluster at subclasses that
+    keep what they build in the returned list (emptied for each case); a
+    cluster keeps its raft nodes when it stops."""
+    built = mod.__dict__.setdefault("_parity_built", [])
+    built.clear()
+    for cls_name in ("RaftNode", "FrontDoorCluster"):
+        base = mod.__dict__.get(cls_name)
+        if base is None or "_parity_built" in vars(base):
+            continue
+
+        def __init__(self, *a, _base=base, **kw):
+            _base.__init__(self, *a, **kw)
+            built.append(self)
+
+        def stop(self, _base=base):
+            self._parity_nodes = list(getattr(self, "nodes", ()))
+            return _base.stop(self)
+
+        mod.__dict__[cls_name] = type(cls_name, (base,), {
+            "__init__": __init__, "stop": stop, "_parity_built": True})
+    return built
+
+
+class Fixtures:
+    """The fixtures of one loaded test module, set up on demand. Module
+    fixtures are kept in ``shared`` (the caller closes them) and
+    function fixtures are closed by ``close``."""
+
+    def __init__(self, mod, tmp_path, shared: dict):
+        self.mod = mod
+        self.tmp_path = tmp_path
+        self.shared = shared
+        self._teardown: list = []
+        self.values: dict = {}
+
+    def get(self, name: str):
+        if name == "tmp_path":
+            return self.tmp_path
+        if name in self.shared:
+            return self.shared[name][0]
+        if name in self.values:
+            return self.values[name]
+        fixture = self.mod.__dict__[name]
+        fn = fixture._get_wrapped_function()
+        args = [self.get(a) for a in inspect.signature(fn).parameters]
+        out = fn(*args)
+        value = next(out) if inspect.isgenerator(out) else out
+        if fixture._fixture_function_marker.scope == "module":
+            self.shared[name] = (value, out)
+        else:
+            self.values[name] = value
+            if inspect.isgenerator(out):
+                self._teardown.append(out)
+        return value
+
+    def close(self) -> None:
+        while self._teardown:
+            gen = self._teardown.pop()
+            with contextlib.suppress(StopIteration):
+                next(gen)
+
+
+def close_shared(shared: dict) -> None:
+    for _value, gen in shared.values():
+        if inspect.isgenerator(gen):
+            with contextlib.suppress(StopIteration):
+                next(gen)
+    shared.clear()
+
+
+def run_case(name: str, fname: str, params: dict, pkg: str, tmp_path,
+             shared: "dict | None" = None) -> dict:
+    """Run one case of ``tests/<name>.py`` on ``pkg`` -> its record."""
+    if name in TIMED:
+        _TIMED.set()
+    else:
+        _TIMED.clear()
+    mod = load(name, pkg)
+    built = _tracked(mod)
+    fn = mod.__dict__[fname]
+    fx = Fixtures(mod, tmp_path, {} if shared is None else shared)
+    raised = None
+    servers = {}
+
+    def replayed() -> None:
+        """Every raft group of the case caught up with its furthest node:
+        a read a replica serves then sees every write made before it, as
+        the reference's single server would (bounded staleness is the
+        plane's contract, and its timing is not what is compared)."""
+        groups = [[b] if not hasattr(b, "nodes") else b.nodes for b in built]
+        groups += [v[0].nodes for v in fx.shared.values()
+                   if hasattr(v[0], "nodes")]
+        groups += [v.nodes for v in fx.values.values() if hasattr(v, "nodes")]
+        end = time.monotonic() + 15.0
+        for group in groups:
+            live = [nd for nd in group if not nd._stop.is_set()]
+            while live and time.monotonic() < end:
+                rvs = {nd.store.snapshot_rv() for nd in live}
+                if len(rvs) == 1:
+                    break
+                time.sleep(0.01)
+
+    with recording(pkg, replayed) as requests:
+        try:
+            kwargs = {a: (params[a] if a in params else fx.get(a))
+                      for a in inspect.signature(fn).parameters}
+            fn(**kwargs)
+        except BaseException as e:  # the record says how the case ended
+            raised = (type(e).__name__, mask(str(e)))
+        finally:
+            values = dict(fx.values)
+            values.update({k: v[0] for k, v in fx.shared.items()})
+            for k, v in values.items():
+                if hasattr(v, "store") or hasattr(v, "core"):
+                    servers[k] = _server_state(v)
+                elif isinstance(v, tuple):
+                    servers[k] = [_server_state(x) for x in v]
+                elif hasattr(v, "leader_api"):
+                    servers[k] = _raft_state(v.nodes)
+            fx.close()
+            nodes = [n for b in built if not hasattr(b, "nodes")
+                     for n in (b,)]
+            raft = _raft_state(nodes + [
+                n for b in built if hasattr(b, "nodes")
+                for n in (b.nodes or getattr(b, "_parity_nodes", []))])
+            for nd in nodes:  # a case's own raft nodes (clusters: theirs)
+                nd.stop()
+    return {"raised": raised, "requests": list(requests),
+            "servers": servers, "raft": raft}
+
+
+def both(name: str, fname: str, params: dict, tmp_path, shared: dict
+         ) -> tuple:
+    """Run one case on the JAX package, then on the port -> (reference
+    record, port record), each asserted to have passed."""
+    out = []
+    for pkg in PACKAGES:
+        d = tmp_path / pkg
+        d.mkdir()
+        rec = run_case(name, fname, params, pkg, d, shared[pkg])
+        assert rec["raised"] is None, (pkg, rec["raised"])
+        out.append(rec)
+    return tuple(out)
+
+
+def shared_fixtures():
+    """A module fixture's body: each package's module-scope fixtures,
+    closed at the end."""
+    shared = {pkg: {} for pkg in PACKAGES}
+    yield shared
+    for d in shared.values():
+        close_shared(d)
