@@ -240,8 +240,8 @@ Phases, one JSON line each:
            a node: the port's APIServer in a spawned process, the
            SchedulerRunner with its loop stopped and a fail-fast auditor,
            warm_drain, a ClusterAutoscaler and a dry-run Descheduler driven
-           by one BackgroundPlanner; adaptive warm-up, a window of 2
-           cycles (the reference's 6, cut so that the script keeps to its
+           by one BackgroundPlanner; adaptive warm-up, a window of 1
+           cycle (the reference's 6, cut so that the script keeps to its
            time), the resident-vs-cold parity legs on one observation, one
            more cycle under torch.profiler. cycle_ms, the planner/* spans
            (observe, encode, dispatch, each planner). Gates: the warm-up
@@ -294,7 +294,8 @@ Phases, one JSON line each:
            template a namespace; the APIServer in a spawned process, the
            SchedulerRunner over HTTP (reference defaults, the sentinel
            every 4th drain, a fail-fast auditor every 2 s) and the
-           ResourceClaimController in a spawned process; 2500 init pods,
+           ControllerManager running the ResourceClaimController alone
+           in a spawned process; 2500 init pods,
            then 2500 measured pods (pods/s, attempt p50/p99, claim
            events, rebuilds, full encodes and captures of the window),
            then 500 measured pods deleted and 500 new ones bound under
@@ -350,6 +351,23 @@ Phases, one JSON line each:
            the leader's pods and nodeNames once its replay lag is under
            2 s. Reported: pods/s, attempt p50/p99, 421s, the leader's
            commit wait
+  controllers  ControllerLoad/100Nodes3000Pods: clusterloader2's load
+           test on 100 nodes (328 Deployments of 250, 30 and 5 replicas,
+           28 Services) through the port's ControllerManager (its default
+           controllers, leader-elected, in a spawned process), a stand-in
+           for the kubelets in another, and the connected runner on the
+           card (the sentinel every 4th drain, a fail-fast auditor).
+           Steps: saturate, scale and roll, 5 nodes NotReady, delete.
+           Gates (controllers_phase): each step's end state within its
+           timeout (Deployments at spec, old ReplicaSets at 0, every pod
+           bound and ready, Endpoints and EndpointSlices exactly the ready
+           pods, the failed nodes tainted and emptied, the clean-up: no
+           Endpoints, EndpointSlices, ReplicaSets or pods left once the
+           Services and Deployments are deleted), the manager alive until
+           stopped and its
+           exit code 0, 0 violations, divergences, loop errors and oracle
+           pods. Reported: each step's seconds, pods/s, attempt p50/p99,
+           the manager's evictions
 
   The gang rounds run as captured CUDA graphs on the card
   (kubernetes_tpu_torch/models/graphs.py: K rounds a replay, one host
@@ -397,11 +415,12 @@ judge, whose pods then got no verdict).
 Each path (path, drain, resident, scheduler, plugins, connected,
 preemption, connected_preemption, explain, extender, slice, autoscaler,
 defrag, planner, fleet.drain, fleet, parity.dra, dra, parity.plugins,
-ktpu) is driven with the launch
+ktpu, explainab, secured, frontdoor, controllers) is driven with the launch
 counts set to 0 just before it and read just after; the preemption and
 planner paths launch no hand kernel (their device work is torch ops),
-nor do the fleet and DRA paths (the FleetChurn and claim pods carry no
-topology term; fleet.drain launches count_pn), and every path's count is
+nor do the fleet, DRA and controllers paths (the FleetChurn, claim and
+load-test pods carry no topology term; fleet.drain launches count_pn), and
+every path's count is
 printed, 0 included. Then
 the kernel table line
 ({"kernels": [...]}, one row per kernel at the shape of its most launches,
@@ -574,8 +593,9 @@ def count_pn_bound(ct, sel, pod_ns, ns_explicit, ns_mask):
             nbytes, ops)
 
 
-def _encoded(node_dicts, bound, pending_dicts, ns_labels=None):
-    """(ClusterTensors extended by the batch, PodBatch) on the card."""
+def _encoded(node_dicts, bound, pending_dicts, ns_labels=None,
+             device="cuda"):
+    """(ClusterTensors extended by the batch, PodBatch) on ``device``."""
     from kubernetes_tpu_torch.api.types import Node, Pod
     from kubernetes_tpu_torch.encode.snapshot import SnapshotEncoder
     from kubernetes_tpu_torch.models.gang import extend_cluster
@@ -586,8 +606,8 @@ def _encoded(node_dicts, bound, pending_dicts, ns_labels=None):
     ct, meta = enc.encode_cluster([Node.from_dict(d) for d in node_dicts],
                                   [Pod.from_dict(d) for d in bound],
                                   pending_pods=pending)
-    pb = enc.encode_pods(pending, meta).to("cuda")
-    return extend_cluster(ct.to("cuda"), pb), pb
+    pb = enc.encode_pods(pending, meta).to(device)
+    return extend_cluster(ct.to(device), pb), pb
 
 
 def count_pn_cases(node_dicts, bound, first_batch):
@@ -3196,13 +3216,16 @@ def _post_json(url, payload, timeout=300.0):
 
 
 def extender_count_cases(node_dicts, pod_dicts, placements,
-                         batch=EXTENDER_BATCH):
+                         batch=EXTENDER_BATCH, device="cuda"):
     """count_pn's inputs as the extender scheduler's last pop met them in
     its first gang round: the last pop's pods (the queue pops in arrival
     order: MixedHeterogeneous pods carry no priority) encoded against the
     nodes with every earlier pod bound where it was placed, the cluster
     extended by the batch as ``gang_schedule`` extends it. Every earlier
-    pod must have been placed, or the last pop saw another cluster."""
+    pod must have been placed, or the last pop saw another cluster. What
+    the terms count does not depend on where the earlier pods went (a
+    match counts on its pod's node, and every node is valid), only on
+    there being an earlier pop: with one pop the case counts nothing."""
     last = (len(pod_dicts) - 1) // batch * batch
     earlier = pod_dicts[:last]
     keys = [f"{d['metadata'].get('namespace', 'default')}/"
@@ -3212,7 +3235,7 @@ def extender_count_cases(node_dicts, pod_dicts, placements,
                        "placed, so the last pop's cluster is not known")
     bound = [dict(d, spec=dict(d["spec"], nodeName=placements[k]))
              for d, k in zip(earlier, keys)]
-    ct, pb = _encoded(node_dicts, bound, pod_dicts[last:])
+    ct, pb = _encoded(node_dicts, bound, pod_dicts[last:], device=device)
     return _term_cases("extender", ct, pb)
 
 
@@ -4121,9 +4144,9 @@ DEFRAG_MAX_DRAIN = 110
 DEFRAG_LIMIT_S = 60.0       # its DefragPlanSeconds threshold
 LOOP_NODES = N_NODES        # PlannerLoop at the north star's width
 LOOP_PODS_PER_NODE = 3      # benchmarks/plannerloop.py's defaults below
-LOOP_WINDOW = 2              # benchmarks/plannerloop.py's 6, cut to fit
+LOOP_WINDOW = 1              # benchmarks/plannerloop.py's 6, cut to fit
 LOOP_MAX_WARMUP = 14
-LOOP_QUIET = 2
+LOOP_QUIET = 1               # quiet warm-up cycles (2 until cut to fit)
 LOOP_CREATE_CHUNK = 5000
 
 
@@ -5741,21 +5764,21 @@ def dra_parity_phase(devices=("cuda", "cpu"), seed=SEED,
 
 
 def serve_claim_controller(url, stop, ready, failed):
-    """Child process: the port's ResourceClaimController over its own HTTP
-    client and informers, as a controller manager beside the scheduler
-    runs it; ``ready`` once its informers synced, until ``stop``."""
+    """Child process: the port's ControllerManager running the
+    ResourceClaim controller alone (``controllers=("resourceclaim",)``,
+    no garbage collector), over its own HTTP client and informers, as a
+    controller manager runs beside the scheduler; ``ready`` once its
+    informers synced, until ``stop``."""
     from kubernetes_tpu_torch.client.clientset import HTTPClient
-    from kubernetes_tpu_torch.client.informer import InformerFactory
-    from kubernetes_tpu_torch.controllers import ResourceClaimController
-    ctrl = ResourceClaimController(HTTPClient(url, wire="json"))
-    factory = InformerFactory(HTTPClient(url, wire="json"))
+    from kubernetes_tpu_torch.controllers.manager import ControllerManager
+    mgr = None
     try:
-        ctrl.register(factory)
-        factory.start_all()
-        if not factory.wait_for_cache_sync(120.0):
+        mgr = ControllerManager(HTTPClient(url, wire="json"),
+                                controllers=("resourceclaim",),
+                                gc_enabled=False).start(wait_sync=120.0)
+        if not mgr.factory.wait_for_cache_sync(1.0):
             failed.set()
             return
-        ctrl.start()
         ready.set()
         stop.wait()
     except Exception:
@@ -5763,8 +5786,8 @@ def serve_claim_controller(url, stop, ready, failed):
         traceback.print_exc()
         failed.set()
     finally:
-        ctrl.stop()
-        factory.stop_all()
+        if mgr is not None:
+            mgr.stop()
 
 
 def _claims_by_pod(client, namespaces):
@@ -5789,9 +5812,9 @@ def dra_phase(device=None, smi="", n_nodes=DRA_NODES, devices=DRA_DEVICES,
     test; the SchedulerRunner over HTTP (reference defaults: pops of 8 x
     256, depth 2; the parity sentinel every 4th drain and a fail-fast
     auditor every 2 s, as in the connected phase; the explainer off) and
-    the port's ResourceClaimController in a spawned process of its own
-    (serve_claim_controller), as a controller manager runs beside the
-    scheduler. Informers synced, ``warm_drain``, the loop started; then
+    the port's ControllerManager running the ResourceClaimController in a
+    spawned process of its own (serve_claim_controller), as a controller
+    manager runs beside the scheduler. Informers synced, ``warm_drain``, the loop started; then
     2500 init pods, all bound; then the 2500 measured pods (the window:
     first create to the last bound event, a watcher process counting);
     then the release leg: 500 measured pods deleted, 500 new ones created
@@ -6859,6 +6882,732 @@ def frontdoor_phase(device=None, smi="", pods=EXPLAINAB_PODS,
     return out
 
 
+# ------------------------------------------------------------- controllers
+
+# ControllerLoad/100Nodes3000Pods: clusterloader2's load test
+# (kubernetes/perf-tests clusterloader2/testing/load/config.yaml) as the
+# gce-100 performance jobs run it: PODS_PER_NODE 30 and NODES_PER_NAMESPACE
+# 100 give one namespace of 3000 pods; a quarter of them in big
+# Deployments (250 replicas), a quarter in medium ones (30), half in small
+# ones (5), and a Service in front of each big and medium Deployment
+CTRL_NODES = 100
+CTRL_NS = "load"
+CTRL_DEPLOYMENTS = (("big", 3, 250), ("medium", 25, 30), ("small", 300, 5))
+CTRL_SERVICES = ("big", "medium")
+# uniform nodes; a pod's requests small enough that 30 pods fit a node
+CTRL_NODE_ALLOCATABLE = {"cpu": "2", "memory": "7680Mi", "pods": "110"}
+CTRL_POD_REQUESTS = {"cpu": "10m", "memory": "10Mi"}
+CTRL_IMAGE, CTRL_IMAGE_UPDATED = "registry.k8s.io/pause:3.9", \
+    "registry.k8s.io/pause:3.10"
+CTRL_SCALE = (0.5, 1.5)    # the scale step's seeded factor a Deployment
+CTRL_FAILED_NODES = 5
+CTRL_STEP_TIMEOUT_S = 240.0
+CTRL_POLL_S = 0.5
+CTRL_STATUS_FLUSH_S = 0.05  # the kubelet stand-in's status batch cadence
+
+
+def serve_controller_manager(conn, url):
+    """Child process: the port's ControllerManager, its DEFAULT_CONTROLLERS
+    over ``HTTPClient(url, wire="json")``, leader-elected. Sends the names
+    of the controllers it runs once it leads, then waits for "stop" and
+    answers with its report: the node lifecycle controller's evictions,
+    the warnings and errors its controllers logged (a sync that fails is
+    logged and requeued, as in the reference; the records are counted here
+    instead of printed), each controller's syncs with their CPU seconds,
+    and the seconds and deletions of each garbage-collector sweep that
+    deleted something. An exception anywhere else ends the process with a
+    non-zero exit code."""
+    import logging
+    from kubernetes_tpu_torch.client.clientset import HTTPClient
+    from kubernetes_tpu_torch.controllers.manager import ControllerManager
+    logged = {"warnings": [], "errors": []}
+
+    class _Kept(logging.Handler):
+        def emit(self, record):
+            exc = record.exc_info[1] if record.exc_info else None
+            msg = record.getMessage() + (f": {exc!r}" if exc else "")
+            logged["errors" if record.levelno >= logging.ERROR
+                   else "warnings"].append(msg[:300])
+
+    logging.getLogger("kubernetes_tpu_torch.controllers").addHandler(
+        _Kept(logging.WARNING))
+    mgr = ControllerManager(HTTPClient(url, wire="json"), leader_elect=True)
+    # instrumentation, read-only: each controller's syncs and the CPU time
+    # of their threads in them (time.thread_time: not the interpreter
+    # lock's waits)
+    syncs: dict = {}
+
+    def timed(name, sync):
+        def run(key):
+            t = time.thread_time()
+            try:
+                return sync(key)
+            finally:
+                n, cpu = syncs.get(name, (0, 0.0))
+                syncs[name] = (n + 1, cpu + time.thread_time() - t)
+        return run
+    for c in mgr.controllers:
+        c.sync = timed(c.name, c.sync)
+    sweeps = []   # (wall seconds, deletions) of each garbage-collector sweep
+    if mgr.gc is not None:
+        sweep = mgr.gc.sweep
+
+        def timed_sweep():
+            t = time.perf_counter()
+            n = sweep()
+            sweeps.append((time.perf_counter() - t, n))
+            return n
+        mgr.gc.sweep = timed_sweep
+    mgr.start(wait_sync=120.0)
+    if not mgr.factory.wait_for_cache_sync(1.0):
+        raise RuntimeError("the controller manager's informers did not sync")
+    end = time.monotonic() + 60.0
+    while not mgr._started:
+        if time.monotonic() > end:
+            raise RuntimeError("the controller manager did not lead in 60 s")
+        time.sleep(0.05)
+    conn.send({"controllers": [c.name for c in mgr.controllers]})
+    conn.recv()
+    life = [c for c in mgr.controllers if c.name == "nodelifecycle"]
+    report = {"evictions": life[0].evictions if life else None,
+              "disruption_mode": life[0].mode if life else None,
+              "warnings": len(logged["warnings"]),
+              "errors": len(logged["errors"]),
+              "first_warnings": logged["warnings"][:5],
+              "first_errors": logged["errors"][:5],
+              "syncs": {name: {"count": n, "cpu_s": cpu} for name, (n, cpu)
+                        in sorted(syncs.items(), key=lambda kv: -kv[1][1])
+                        if n},
+              "gc_sweeps": [{"s": t, "deleted": n} for t, n in sweeps
+                            if n]}
+    mgr.stop()
+    conn.send(report)
+
+
+def serve_kubelet_standin(conn, url, ns):
+    """Child process: the controllers phase's stand-in for the kubelets of
+    its nodes. It is a harness of this script, not a module of the port
+    (the port's kubelet is ROADMAP Queue A item 15). It watches the pods
+    of namespace ``ns`` and writes each bound one ``Running`` with a pod
+    IP and ``Ready=True``, in bulk status writes (``update_status_many``)
+    every CTRL_STATUS_FLUSH_S: the ReplicaSet and Deployment controllers
+    count ready pods, and the endpoint controllers publish them. Sends
+    "ready" once it watches; answers "stop" with its counts."""
+    import itertools
+    from kubernetes_tpu_torch.client.clientset import HTTPClient
+    from kubernetes_tpu_torch.store.store import TooOld
+    client = HTTPClient(url, timeout=60.0, wire="json")
+    lock = threading.Lock()
+    pending: dict = {}   # uid -> (name, status)
+    marked: set = set()  # uids written Running
+    ips = itertools.count(1)
+    stats = {"marked": 0, "writes": 0, "refused": 0, "failed_writes": 0,
+             "last_error": None, "watch_restarts": 0}
+    stop = threading.Event()
+    watching = threading.Event()
+
+    def saw(pod) -> None:
+        md = pod.get("metadata") or {}
+        uid = md.get("uid")
+        if (not (pod.get("spec") or {}).get("nodeName")
+                or (pod.get("status") or {}).get("phase") == "Running"):
+            return
+        with lock:
+            if uid in pending or uid in marked:
+                return
+            i = next(ips)
+            pending[uid] = (md["name"], {
+                "phase": "Running",
+                "podIP": f"10.{64 + (i >> 16)}.{(i >> 8) & 255}.{i & 255}",
+                "conditions": [{"type": "PodScheduled", "status": "True"},
+                               {"type": "Ready", "status": "True"}]})
+
+    def watch() -> None:
+        rv = None   # relist first, and after a stream that failed
+        while not stop.is_set():
+            try:
+                if rv is None:
+                    pods, rv = client.pods(ns).list_rv()
+                    for p in pods:
+                        saw(p)
+                w = client.pods(ns).watch(since_rv=rv)
+                watching.set()
+                for ev in w:
+                    rv = max(rv, ev.resource_version)
+                    if ev.type in ("ADDED", "MODIFIED"):
+                        saw(ev.object or {})
+            except TooOld:
+                rv = None
+            except Exception as e:  # counted; the stand-in keeps watching
+                stats["last_error"] = repr(e)[:300]
+                rv = None
+                time.sleep(0.1)
+            stats["watch_restarts"] += 1
+
+    def flush() -> None:
+        while not stop.wait(CTRL_STATUS_FLUSH_S):
+            with lock:
+                batch = list(pending.items())
+                pending.clear()
+            if not batch:
+                continue
+            try:
+                errs = client.pods(ns).update_status_many(
+                    [(ns, name, st) for _uid, (name, st) in batch])
+            except Exception as e:  # the pods come back on their next event
+                stats["failed_writes"] += 1
+                stats["last_error"] = repr(e)[:300]
+                continue
+            stats["writes"] += 1
+            for (uid, _), err in zip(batch, errs):
+                if err is None:
+                    with lock:
+                        marked.add(uid)
+                    stats["marked"] += 1
+                else:  # a pod deleted before its status landed
+                    stats["refused"] += 1
+
+    for fn in (watch, flush):
+        threading.Thread(target=fn, daemon=True).start()
+    if not watching.wait(120.0):
+        raise RuntimeError("the kubelet stand-in could not watch pods")
+    conn.send("ready")
+    conn.recv()
+    stop.set()
+    conn.send(dict(stats))
+
+
+def process_cpu_s(pid) -> float:
+    """User plus system CPU seconds of process ``pid`` so far, from
+    /proc/<pid>/stat (read-only; 0.0 where there is no /proc)."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            fields = f.read().rpartition(")")[2].split()
+    except OSError:
+        return 0.0
+    return (int(fields[11]) + int(fields[12])) / os.sysconf("SC_CLK_TCK")
+
+
+def ctrl_workload(n_nodes=CTRL_NODES, deployments=CTRL_DEPLOYMENTS):
+    """The load test's objects: ``n_nodes`` uniform nodes, the namespace,
+    its Deployments (one pod template each: app=<name>, the pause image,
+    CTRL_POD_REQUESTS; RollingUpdate at the default 25%/25%) and a Service
+    in front of each big and medium one. -> (nodes, namespace,
+    deployments, services)."""
+    from kubernetes_tpu_torch.testing.wrappers import make_node
+    nodes = _wire([make_node(f"load-node-{i:03d}")
+                   .capacity(CTRL_NODE_ALLOCATABLE).obj()
+                   for i in range(n_nodes)])
+    namespace = {"apiVersion": "v1", "kind": "Namespace",
+                 "metadata": {"name": CTRL_NS}}
+    deps, svcs = [], []
+    for size, count, replicas in deployments:
+        for i in range(count):
+            name = f"{size}-{i}"
+            deps.append({
+                "apiVersion": "apps/v1", "kind": "Deployment",
+                "metadata": {"name": name, "namespace": CTRL_NS},
+                "spec": {
+                    "replicas": replicas,
+                    "selector": {"matchLabels": {"app": name}},
+                    "strategy": {"type": "RollingUpdate", "rollingUpdate": {
+                        "maxSurge": "25%", "maxUnavailable": "25%"}},
+                    "template": {
+                        "metadata": {"labels": {"app": name,
+                                                "size": size}},
+                        "spec": {"containers": [{
+                            "name": "pause", "image": CTRL_IMAGE,
+                            "ports": [{"containerPort": 8080}],
+                            "resources": {"requests": dict(
+                                CTRL_POD_REQUESTS)}}]}}},
+                "status": {}})
+            if size in CTRL_SERVICES:
+                svcs.append({
+                    "apiVersion": "v1", "kind": "Service",
+                    "metadata": {"name": name, "namespace": CTRL_NS},
+                    "spec": {"selector": {"app": name},
+                             "ports": [{"port": 80, "targetPort": 8080}]}})
+    return nodes, namespace, deps, svcs
+
+
+def _ready(pod) -> bool:
+    return any(c.get("type") == "Ready" and c.get("status") == "True"
+               for c in (pod.get("status") or {}).get("conditions") or [])
+
+
+def deployments_lagging(deps, updated=False) -> list:
+    """The Deployments whose status is not at their spec: available, ready
+    and (``updated``) updated replicas."""
+    out = []
+    for d in deps:
+        want = int(d["spec"].get("replicas", 1))
+        st = d.get("status") or {}
+        keys = ("availableReplicas", "readyReplicas", "replicas") + (
+            ("updatedReplicas",) if updated else ())
+        got = {k: int(st.get(k, 0)) for k in keys}
+        if any(v != want for v in got.values()):
+            out.append(f"deployment {d['metadata']['name']}: {got} of {want}")
+    return out
+
+
+def ctrl_failures(deps, rses, pods, endpoints, slices, services,
+                  updated=False) -> list:
+    """What keeps the namespace from the state its Deployments and
+    Services ask for (empty when it holds): each Deployment available at
+    its spec (``updated``: every replica of its newest ReplicaSet, every
+    older ReplicaSet at 0), no pod beyond the Deployments' replicas, every
+    pod bound, Running and Ready, and each Service's Endpoints and
+    EndpointSlices holding exactly the pod IPs of its ready pods."""
+    from kubernetes_tpu_torch.controllers.deployment import (HASH_LABEL,
+                                                             template_hash)
+    out = deployments_lagging(deps, updated)
+    if updated:
+        current = {d["metadata"]["name"]: template_hash(d) for d in deps}
+        for rs in rses:
+            owner = (rs["metadata"].get("ownerReferences") or [{}])[0]
+            if (rs["metadata"].get("labels") or {}).get(HASH_LABEL) == \
+                    current.get(owner.get("name")):
+                continue
+            n = (int(rs["spec"].get("replicas", 0)),
+                 int((rs.get("status") or {}).get("replicas", 0)))
+            if n != (0, 0):
+                out.append(f"old replicaset {rs['metadata']['name']}: "
+                           f"spec, status replicas {n}")
+    want = sum(int(d["spec"].get("replicas", 1)) for d in deps)
+    if len(pods) != want:
+        out.append(f"{len(pods)} pods for {want} replicas")
+    lagging = [p["metadata"]["name"] for p in pods
+               if not p["spec"].get("nodeName") or not _ready(p)]
+    if lagging:
+        out.append(f"{len(lagging)} pods not bound and ready "
+                   f"(first {lagging[:3]})")
+    ready = {}
+    for p in pods:
+        if _ready(p) and (p.get("status") or {}).get("podIP"):
+            ready.setdefault(p["metadata"]["labels"]["app"], set()).add(
+                p["status"]["podIP"])
+    eps = {e["metadata"]["name"]: e for e in endpoints}
+    by_svc = {}
+    for s in slices:
+        svc = (s["metadata"].get("labels") or {}).get(
+            "kubernetes.io/service-name")
+        by_svc.setdefault(svc, []).extend(s.get("endpoints") or [])
+    for svc in services:
+        name = svc["metadata"]["name"]
+        want_ips = ready.get(name, set())
+        subsets = (eps.get(name) or {}).get("subsets") or []
+        addrs = {a["ip"] for s in subsets for a in s.get("addresses") or []}
+        not_ready = [a for s in subsets
+                     for a in s.get("notReadyAddresses") or []]
+        if addrs != want_ips or not_ready:
+            out.append(f"endpoints {name}: {len(addrs)} addresses "
+                       f"({len(not_ready)} not ready) for {len(want_ips)} "
+                       "ready pods")
+        ends = by_svc.get(name, [])
+        slice_ips = sorted(e["addresses"][0] for e in ends
+                           if (e.get("conditions") or {}).get("ready"))
+        if sorted(want_ips) != slice_ips or len(ends) != len(slice_ips):
+            out.append(f"endpointslices {name}: {len(slice_ips)} ready of "
+                       f"{len(ends)} endpoints for {len(want_ips)} ready "
+                       "pods")
+    return out
+
+
+def controllers_phase(device=None, smi="", seed=SEED, n_nodes=CTRL_NODES,
+                      deployments=CTRL_DEPLOYMENTS,
+                      n_failed=CTRL_FAILED_NODES,
+                      step_timeout_s=CTRL_STEP_TIMEOUT_S):
+    """ControllerLoad/100Nodes3000Pods: clusterloader2's load test on 100
+    nodes through the port's controllers and the connected scheduler on
+    the card. Processes: the port's APIServer (spawned, no admission: the
+    pods carry no default 300 s not-ready toleration, so an eviction
+    follows its taint); the port's ControllerManager with its
+    DEFAULT_CONTROLLERS, leader-elected, in a spawned process of its own
+    (serve_controller_manager); a stand-in for the kubelets until the
+    port has one (serve_kubelet_standin, a harness); and the
+    SchedulerRunner here, on the card (reference defaults; the sentinel
+    every 4th drain and a fail-fast auditor every 2 s, as in the
+    connected phase), whose binder is wrapped to time the bindings.
+    Steps, each gated within ``step_timeout_s`` and timed:
+
+    1. saturate: the 328 Deployments and 28 Services created; every
+       Deployment available at its spec, every pod bound and ready, each
+       Service's Endpoints and EndpointSlices exactly its ready pods;
+       pods/s from the first Deployment's create to the last binding;
+    2. scale and update: every Deployment scaled to a seeded 0.5-1.5x of
+       its size, the big ones' pod template changed (a rolling update at
+       the default 25%/25%); every Deployment's updated, available and
+       ready replicas at its spec, every old ReplicaSet at 0;
+    3. node failure: Ready=False written into 5 nodes' status. The nodes
+       carry no Ready condition until then, so the node lifecycle
+       controller leaves them alone (no kubelet heartbeats, and none is
+       needed); those 5 must get the node.kubernetes.io/not-ready
+       NoExecute taint, their pods evicted and replaced, the replacements
+       bound off them, every Deployment back at its spec;
+    4. delete: every Service and Deployment deleted, as the load test's
+       clean-up deletes them; the endpoint controllers leave 0 Endpoints
+       and 0 EndpointSlices, the garbage collector 0 ReplicaSets and 0
+       pods in the namespace.
+
+    Gates besides: the manager alive until the phase stops it, then its
+    exit code 0; 0 loop errors, 0 audit violations, 0 sentinel
+    divergences, breaker "single", 0 pods through the oracle. Reported:
+    each step's seconds and each process's CPU seconds in it (apiserver,
+    manager, stand-in, this one), step 1's pods/s, attempt p50/p99, the
+    manager's evictions, logged warnings and errors and garbage-collector
+    sweeps, the stand-in's writes,
+    count_pn's launches (0 expected: the load test's pods carry no
+    topology term). -> summary."""
+    import multiprocessing as mp
+    import random
+    from concurrent.futures import ThreadPoolExecutor
+    from kubernetes_tpu_torch.api.types import Pod
+    from kubernetes_tpu_torch.audit.auditor import (InvariantAuditor,
+                                                    InvariantViolationError)
+    from kubernetes_tpu_torch.client.clientset import ApiError, HTTPClient
+    from kubernetes_tpu_torch.controllers.nodelifecycle import TAINT_NOT_READY
+    from kubernetes_tpu_torch.metrics.registry import (ATTEMPT_DURATION,
+                                                       LOOP_ERRORS)
+    from kubernetes_tpu_torch.ops import kernels
+    from kubernetes_tpu_torch.sched.runner import SchedulerRunner
+    from kubernetes_tpu_torch.utils.tracing import TRACER
+    rng = random.Random(seed)
+    node_dicts, namespace, dep_dicts, svc_dicts = ctrl_workload(
+        n_nodes, deployments)
+    n_pods = sum(d["spec"]["replicas"] for d in dep_dicts)
+    ctx = mp.get_context("spawn")
+    t_phase = time.perf_counter()
+    server, server_pipe, url = start_apiserver(ctx)
+    runner = mgr = kubelet = None
+    mgr_pipe = kubelet_pipe = None
+    mgr_report = kubelet_report = None
+    summary = {"nodes": n_nodes, "deployments": len(dep_dicts),
+               "services": len(svc_dicts), "pods": n_pods,
+               "failed_nodes": n_failed, "card": smi}
+    steps = {}
+    cpu = {}     # step -> {process: CPU seconds in the step}
+    cpu_at = {}  # process -> CPU seconds at the last step's end
+
+    def cpu_split(step) -> None:
+        """Each process's CPU seconds since the last step ended."""
+        now = {"apiserver": process_cpu_s(server.pid),
+               "manager": process_cpu_s(mgr.pid),
+               "kubelet_standin": process_cpu_s(kubelet.pid),
+               "scheduler": process_cpu_s(os.getpid())}
+        if step is not None:
+            cpu[step] = {k: v - cpu_at.get(k, 0.0) for k, v in now.items()}
+        cpu_at.update(now)
+
+    def alive() -> None:
+        check(runner.loop_error is None,
+              f"controllers: the scheduling loop died: {runner.loop_error!r}")
+        check(mgr.is_alive(), "controllers: the controller manager died "
+                              f"(exit code {mgr.exitcode})")
+        check(kubelet.is_alive(), "controllers: the kubelet stand-in died")
+
+    def state():
+        c = seed_client
+        return (c.resource("deployments", CTRL_NS).list(),
+                c.resource("replicasets", CTRL_NS).list(),
+                c.pods(CTRL_NS).list(),
+                c.resource("endpoints", CTRL_NS).list(),
+                c.resource("endpointslices", CTRL_NS).list())
+
+    def lagging(updated=False) -> list:
+        """The Deployments not at spec yet: a poll that reads the pods, the
+        ReplicaSets and the endpoints only once none lags (each list of
+        every pod loads the apiserver and this process, which runs the
+        scheduler)."""
+        return deployments_lagging(
+            seed_client.resource("deployments", CTRL_NS).list(), updated)
+
+    def until(step, t0, ok, what):
+        """Poll ``ok() -> list of failures`` until it is empty."""
+        while True:
+            alive()
+            fails = ok()
+            if not fails:
+                steps[step] = time.perf_counter() - t0
+                cpu_split(step)
+                return
+            check(time.perf_counter() - t0 < step_timeout_s,
+                  f"controllers: {what} not reached in {step_timeout_s} s: "
+                  f"{len(fails)} failures, first {fails[:3]}")
+            time.sleep(CTRL_POLL_S)
+
+    def held(updated=False):
+        def ok():
+            fails = lagging(updated)
+            if fails:
+                return fails
+            deps, rses, pods, eps, slices = state()
+            return ctrl_failures(deps, rses, pods, eps, slices, svc_dicts,
+                                 updated=updated)
+        return ok
+
+    def retried(fn, attempts=20):
+        """A read-modify-write that a controller's status write can race."""
+        for i in range(attempts):
+            try:
+                return fn()
+            except ApiError as e:
+                if e.code != 409 or i == attempts - 1:
+                    raise
+                time.sleep(0.05)
+
+    try:
+        seed_client = HTTPClient(url, timeout=120.0, wire="json")
+        t0 = time.perf_counter()
+        seed_client.nodes().create_many(node_dicts)
+        seed_client.resource("namespaces", None).create(namespace)
+        summary["seed_s"] = time.perf_counter() - t0
+        # the kubelet stand-in and the controller manager, each in its own
+        # process
+        kubelet_pipe, child = ctx.Pipe()
+        kubelet = ctx.Process(target=serve_kubelet_standin,
+                              args=(child, url, CTRL_NS), daemon=True)
+        kubelet.start()
+        check(kubelet_pipe.poll(120.0) and kubelet_pipe.recv() == "ready",
+              "controllers: the kubelet stand-in did not start")
+        t0 = time.perf_counter()
+        mgr_pipe, child = ctx.Pipe()
+        mgr = ctx.Process(target=serve_controller_manager, args=(child, url),
+                          daemon=True)
+        mgr.start()
+        check(mgr_pipe.poll(180.0),
+              "controllers: the controller manager did not lead "
+              f"(exit code {mgr.exitcode})")
+        summary["manager_controllers"] = mgr_pipe.recv()["controllers"]
+        summary["manager_start_s"] = time.perf_counter() - t0
+        cfg = sched_config(parity_sample_every=CONNECTED_PARITY_EVERY,
+                           audit_interval_s=CONNECTED_AUDIT_S,
+                           audit_fail_fast=True)
+        runner = SchedulerRunner(HTTPClient(url, wire="json"), cfg,
+                                 feature_gate=no_preemption_gate(),
+                                 device=device)
+        runner.auditor = InvariantAuditor(
+            client=HTTPClient(url, timeout=60.0, wire="json"),
+            cache=runner.cache, scheduler=runner.scheduler,
+            interval_s=CONNECTED_AUDIT_S, fail_fast=True,
+            pre_sweep=runner.sweep_stale_nominations,
+            post_sweep=runner.publish_status,
+            relists=runner._total_relists)
+        t0 = time.perf_counter()
+        runner.start(wait_sync=120.0, start_loop=False)
+        check(runner.has_synced(), "controllers: the informers did not sync")
+        summary["informer_sync_s"] = time.perf_counter() - t0
+        sched = runner.scheduler
+        pop = cfg.batch_size * cfg.max_drain_batches
+        samples = [Pod.from_dict({**d["spec"]["template"], "metadata": {
+            **d["spec"]["template"]["metadata"], "name": f"warm-{i}",
+            "namespace": CTRL_NS}}) for i, d in enumerate(dep_dicts[:pop])]
+        t0 = time.perf_counter()
+        check(sched.warm_drain(samples, slot_headroom=2 * n_pods + pop),
+              "controllers: warm_drain did not arm the context")
+        summary["warm_drain_s"] = time.perf_counter() - t0
+        # instrumentation, read-only: when each binding succeeded (one at
+        # a time, or many in one request)
+        binds = []
+        binder, bulk_binder = sched.binder, sched._bulk_binder
+
+        def timed_binder(pod, node):
+            ok = binder(pod, node)
+            if ok:
+                binds.append(time.perf_counter())
+            return ok
+
+        def timed_bulk_binder(pairs):
+            oks = bulk_binder(pairs)
+            now = time.perf_counter()
+            binds.extend(now for ok in oks if ok)
+            return oks
+        sched.binder, sched._bulk_binder = timed_binder, timed_bulk_binder
+        errors0 = dict(LOOP_ERRORS.items())
+        ATTEMPT_DURATION.reset()
+        TRACER.reset()
+        kernels.reset_launches()
+        cpu_split(None)
+        runner.start_loop()
+
+        # 1. saturate
+        t0 = time.perf_counter()
+        deps_api = seed_client.resource("deployments", CTRL_NS)
+        with ThreadPoolExecutor(max_workers=4) as pool:
+            list(pool.map(deps_api.create, dep_dicts))
+            list(pool.map(seed_client.services(CTRL_NS).create, svc_dicts))
+        summary["create_s"] = time.perf_counter() - t0
+        until("saturate", t0, held(), "saturation")
+        summary["saturate_binds"] = len(binds)
+        summary["saturate_last_bind_s"] = binds[-1] - t0 if binds else None
+        summary["pods_per_s"] = (n_pods / (binds[-1] - t0)) if binds else 0.0
+
+        # 2. scale each Deployment, roll the big ones' template
+        t0 = time.perf_counter()
+        scaled = {}
+
+        def scale(d):
+            name = d["metadata"]["name"]
+            r = d["spec"]["replicas"]
+            n = max(1, round(r * rng.uniform(*CTRL_SCALE)))
+            scaled[name] = n
+
+            def write():
+                cur = deps_api.get(name)
+                cur["spec"]["replicas"] = n
+                if name.startswith("big-"):
+                    cur["spec"]["template"]["spec"]["containers"][0][
+                        "image"] = CTRL_IMAGE_UPDATED
+                return deps_api.update(cur)
+            retried(write)
+        for d in dep_dicts:   # in order: the draws are seeded
+            scale(d)
+        summary["scaled_pods"] = sum(scaled.values())
+        until("scale_update", t0, held(updated=True),
+              "the scaled, updated Deployments")
+
+        # 3. node failure: Ready=False into n_failed nodes' status
+        failed = sorted(rng.sample([n["metadata"]["name"]
+                                    for n in node_dicts], n_failed))
+        on_failed = [p["metadata"]["name"]
+                     for p in seed_client.pods(CTRL_NS).list()
+                     if p["spec"].get("nodeName") in failed]
+        summary["pods_on_failed_nodes"] = len(on_failed)
+        t0 = time.perf_counter()
+        for name in failed:
+            def write(name=name):
+                node = seed_client.nodes().get(name)
+                node.setdefault("status", {})["conditions"] = [
+                    {"type": "Ready", "status": "False",
+                     "reason": "KubeletNotReady",
+                     "lastHeartbeatTime": time.time()}]
+                return seed_client.nodes().update_status(node)
+            retried(write)
+
+        def failed_out():
+            fails = []
+            for name in failed:
+                taints = seed_client.nodes().get(name)["spec"].get(
+                    "taints") or []
+                if not any(t.get("key") == TAINT_NOT_READY
+                           and t.get("effect") == "NoExecute"
+                           for t in taints):
+                    fails.append(f"node {name} lacks the not-ready taint")
+            fails += lagging(updated=True)
+            if fails:
+                return fails
+            deps, rses, pods, eps, slices = state()
+            left = [p["metadata"]["name"] for p in pods
+                    if p["spec"].get("nodeName") in failed]
+            if left:
+                fails.append(f"{len(left)} pods on the failed nodes")
+            gone = set(on_failed) & {p["metadata"]["name"] for p in pods}
+            if gone:
+                fails.append(f"{len(gone)} of their pods not evicted")
+            return fails + ctrl_failures(deps, rses, pods, eps, slices,
+                                         svc_dicts, updated=True)
+        until("node_failure", t0, failed_out, "recovery from node failure")
+
+        # 4. delete every Service and Deployment, as the load test's
+        # clean-up does: the endpoint controllers delete their objects, the
+        # garbage collector cascades
+        t0 = time.perf_counter()
+        svcs_api = seed_client.services(CTRL_NS)
+        with ThreadPoolExecutor(max_workers=4) as pool:
+            list(pool.map(lambda s: svcs_api.delete(s["metadata"]["name"]),
+                          svc_dicts))
+            list(pool.map(lambda d: deps_api.delete(d["metadata"]["name"]),
+                          dep_dicts))
+
+        pod_store = runner.factory.informer("pods", None).store
+
+        def collected():
+            """The ReplicaSets, Endpoints, EndpointSlices and pods left:
+            the pods counted in the runner's informer until it holds none
+            of the namespace, then listed (a list of every pod while the
+            collector deletes them loads the apiserver that serves its
+            deletes)."""
+            fails = [f"{len(objs)} {kind}" for kind in
+                     ("replicasets", "endpoints", "endpointslices")
+                     for objs in [seed_client.resource(kind, CTRL_NS).list()]
+                     if objs]
+            if fails:
+                return fails
+            left = sum(1 for k in pod_store.keys()
+                       if k.startswith(CTRL_NS + "/"))
+            if left:
+                return [f"{left} pods in the runner's informer"]
+            pods = seed_client.pods(CTRL_NS).list()
+            return [f"{len(pods)} pods"] if pods else []
+        until("delete", t0, collected, "the clean-up")
+
+        summary["launches"] = dict(kernels.LAUNCHES)
+        q = {"result": "scheduled"}
+        summary.update({
+            "steps_s": steps, "steps_cpu_s": cpu, "binds": len(binds),
+            "attempt_p50_s": ATTEMPT_DURATION.percentile(0.5, q),
+            "attempt_p99_s": ATTEMPT_DURATION.percentile(0.99, q),
+            "attempts_observed": ATTEMPT_DURATION.count(q)})
+        by_site = {dict(k).get("site", "?"): n - errors0.get(k, 0)
+                   for k, n in LOOP_ERRORS.items().items()
+                   if n - errors0.get(k, 0)}
+        summary["loop_errors"] = sum(by_site.values())
+        summary["loop_errors_by_site"] = by_site
+        summary["oracle_pods"] = sum(
+            sp.attributes["pods"] for sp in TRACER.spans("scheduler/oracle"))
+        summary["breaker"] = sched.breaker.mode
+        summary["ctx_stats"] = json.loads(json.dumps(sched.ctx_stats))
+        summary["full_encodes"] = runner.cache.stats()["full_encodes"]
+        sentinel = sched.sentinel
+        sentinel.drain(120.0)
+        runner.auditor.stop()
+        for _ in range(2):
+            try:
+                runner.auditor.run_once()
+            except InvariantViolationError:
+                pass  # counted below
+        audit = runner.auditor.status()
+        summary["audit"] = {k: audit[k] for k in ("sweeps", "violations",
+                                                  "byInvariant")}
+        summary["sentinel"] = sentinel.stats()
+        alive()
+        mgr_pipe.send("stop")
+        check(mgr_pipe.poll(60.0), "controllers: the controller manager did "
+                                   "not report")
+        mgr_report = mgr_pipe.recv()
+        mgr.join(30.0)
+        kubelet_pipe.send("stop")
+        if kubelet_pipe.poll(30.0):
+            kubelet_report = kubelet_pipe.recv()
+    finally:
+        if runner is not None:
+            runner.stop()  # re-raises a fatal failure that ended the loop
+        for proc, pipe in ((mgr, mgr_pipe), (kubelet, kubelet_pipe)):
+            if proc is not None:
+                stop_process(proc, pipe)
+        stop_process(server, server_pipe)
+    summary.update({"manager": mgr_report, "manager_exit_code": mgr.exitcode,
+                    "kubelet_standin": kubelet_report,
+                    "seconds": time.perf_counter() - t_phase})
+    check(mgr.exitcode == 0,
+          f"controllers: the controller manager exited {mgr.exitcode}")
+    check(summary["audit"]["violations"] == 0,
+          f"controllers: invariant violations {summary['audit']['byInvariant']}")
+    check(summary["sentinel"]["divergences"] == 0,
+          f"controllers: parity divergence {summary['sentinel']}")
+    check(summary["loop_errors"] == 0,
+          f"controllers: {summary['loop_errors']} loop errors "
+          f"{summary['loop_errors_by_site']}")
+    check(summary["breaker"] == "single",
+          f"controllers: the breaker degraded to {summary['breaker']!r}")
+    check(summary["oracle_pods"] == 0,
+          f"controllers: {summary['oracle_pods']} pods went through the "
+          "oracle")
+    check(mgr_report["evictions"] >= summary["pods_on_failed_nodes"],
+          f"controllers: {mgr_report['evictions']} evictions for "
+          f"{summary['pods_on_failed_nodes']} pods on the failed nodes")
+    return summary
+
+
 # ------------------------------------------------------------------ graphs
 
 # parity.graph's round cut: the CPU leg converges a full-width batch in
@@ -7523,6 +8272,11 @@ def main() -> int:
     emit({"phase": "secured", **sec_sum})
     fd_sum = frontdoor_phase(smi=smi)
     emit({"phase": "frontdoor", **fd_sum})
+    # the controller manager and its controllers: clusterloader2's load
+    # test on 100 nodes, the pods the Deployments create bound on the card
+    # (they carry no topology term: count_pn's 0 is recorded)
+    ctrl_sum = controllers_phase(smi=smi)
+    emit({"phase": "controllers", **ctrl_sum})
     # ---- captured against eager, parity.graph, warm start --------------
     # (parity.graph profiles drain_step captured and eager at the
     # resident, scheduler and connected shapes)
@@ -7576,7 +8330,8 @@ def main() -> int:
                           ("parity.dra", dra_parity), ("dra", dra_sum),
                           ("parity.plugins", plugin_parity),
                           ("ktpu", ktpu_sum), ("explainab", xab_sum),
-                          ("secured", sec_sum), ("frontdoor", fd_sum)):
+                          ("secured", sec_sum), ("frontdoor", fd_sum),
+                          ("controllers", ctrl_sum)):
         for name, n in summary["launches"].items():
             launches.setdefault(name, {})[path] = n
 

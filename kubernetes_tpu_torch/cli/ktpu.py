@@ -29,10 +29,12 @@ status``, ``deschedule run|status``. ``deschedule run`` runs one cycle of
 the port's ``Descheduler`` on the card (``--device cpu`` runs it on the
 CPU).
 
+``certificate approve|deny`` sets a CertificateSigningRequest's condition
+(``controllers/certificates.py``).
+
 Refused before any call to the server, each with ``not_ported`` naming its
 ROADMAP Queue A item: ``logs``, ``exec``, ``attach`` and ``port-forward``
-(15, the kubelet), ``certificate`` (14, the controllers), ``lint`` and
-``scenario`` (17).
+(15, the kubelet), ``lint`` and ``scenario`` (17).
 """
 
 from __future__ import annotations
@@ -48,9 +50,7 @@ from kubernetes_tpu_torch.config.types import not_ported
 from kubernetes_tpu_torch.store.apiserver import ALL_RESOURCES, KIND_TO_PLURAL
 
 # the status ConfigMaps of components not ported yet, named as the
-# reference's publish them (controllers/nodelifecycle.py,
-# kubelet/kubemark.py, scenario/driver.py)
-NODELIFECYCLE_CONFIGMAP = "kubernetes-tpu-nodelifecycle-status"
+# reference's publish them (kubelet/kubemark.py, scenario/driver.py)
 FLEET_CONFIGMAP = "kubernetes-tpu-fleet-status"
 SCENARIO_CONFIGMAP = "kubernetes-tpu-scenario-status"
 
@@ -60,7 +60,6 @@ REFUSED = {
     "exec": ("ktpu exec (the kubelet's exec proxy)", "15"),
     "attach": ("ktpu attach (the kubelet's log stream)", "15"),
     "port-forward": ("ktpu port-forward (the kubelet's portforward)", "15"),
-    "certificate": ("ktpu certificate (controllers/certificates.py)", "14"),
     "lint": ("ktpu lint (analysis/)", "17"),
     "scenario": ("ktpu scenario (scenario/)", "17"),
 }
@@ -715,6 +714,8 @@ def cmd_status(client: HTTPClient, args, out) -> int:
     """ktpu status: the connected scheduler's published deployment shape
     (the ``kubernetes-tpu-scheduler-status`` ConfigMap) — most importantly
     the active device mesh the drain/dispatch path runs under."""
+    from kubernetes_tpu_torch.controllers.nodelifecycle import (
+        NODELIFECYCLE_CONFIGMAP)
     from kubernetes_tpu_torch.sched.runner import STATUS_CONFIGMAP
     from kubernetes_tpu_torch.store.apiserver import APISERVER_CONFIGMAP
 
@@ -1426,6 +1427,16 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
+def cmd_certificate(client, args, out) -> int:
+    from kubernetes_tpu_torch.controllers.certificates import (approve_csr,
+                                                               deny_csr)
+    fn = approve_csr if args.action == "approve" else deny_csr
+    fn(client, args.name)
+    verb = "approved" if args.action == "approve" else "denied"
+    out.write(f"certificatesigningrequest/{args.name} {verb}\n")
+    return 0
+
+
 def main(argv=None, out=None) -> int:
     """Run one ktpu command; -> its exit code. A command that waits for a
     later slice raises ``not_ported`` before any call to the server."""
@@ -1446,7 +1457,8 @@ def main(argv=None, out=None) -> int:
         "api-resources": cmd_api_resources, "wait": cmd_wait,
         "rollout": cmd_rollout, "status": cmd_status,
         "autoscale": cmd_autoscale, "audit": cmd_audit, "why": cmd_why,
-        "trace": cmd_trace, "deschedule": cmd_deschedule}
+        "trace": cmd_trace, "deschedule": cmd_deschedule,
+        "certificate": cmd_certificate}
     if args.cmd == "rollout":
         args.name = args.kind_name.split("/", 1)[-1]
     try:

@@ -14,7 +14,9 @@ create/get/list/update/update_status/delete/watch/bind/evict.
 
 The port of ``kubernetes_tpu/client/clientset.py``. The kubelet-proxied
 pod subresources (``pod_logs``, ``pod_exec``) wait for the kubelet.
-msgpack is optional: without it every client speaks JSON.
+msgpack is optional: without it every client speaks JSON. One difference:
+``HTTPClient`` keeps its URLs as ``urls``; the reference's ``endpoints``
+list hides the ``endpoints(ns)`` handle.
 """
 
 from __future__ import annotations
@@ -529,10 +531,13 @@ class HTTPClient(_Handles):
             eps = [str(u).strip().rstrip("/") for u in base_url]
         else:
             eps = [u.strip().rstrip("/") for u in str(base_url).split(",")]
-        self.endpoints: list[str] = [e for e in eps if e]
-        if not self.endpoints:
+        # ``urls``, not the reference's ``endpoints``: an attribute of that
+        # name hides ``_Handles.endpoints(ns)``, and every Endpoints call
+        # over HTTP (the endpoints controller's) raised TypeError
+        self.urls: list[str] = [e for e in eps if e]
+        if not self.urls:
             raise ValueError("HTTPClient needs at least one endpoint")
-        self.base = self.endpoints[0]
+        self.base = self.urls[0]
         # where writes go: starts at the first endpoint, follows 421
         # X-KTPU-Leader hints thereafter (benign cross-thread race: every
         # thread converges on whatever hint landed last)
@@ -605,19 +610,19 @@ class HTTPClient(_Handles):
         """Sticky per-thread read endpoint, spread uniformly at first use —
         list+watch from one thread land on the same replica, and the fleet
         of client threads spreads across the whole serving plane."""
-        if len(self.endpoints) == 1:
-            return self.endpoints[0]
+        if len(self.urls) == 1:
+            return self.urls[0]
         base = getattr(self._local, "read_base", None)
-        if base is None or base not in self.endpoints:
+        if base is None or base not in self.urls:
             import random
-            base = random.choice(self.endpoints)
+            base = random.choice(self.urls)
             self._local.read_base = base
         return base
 
     def _rotate_read_endpoint(self, dead: str) -> str:
         """Failover: move this thread's stickiness off a dead endpoint."""
-        if len(self.endpoints) > 1:
-            others = [e for e in self.endpoints if e != dead]
+        if len(self.urls) > 1:
+            others = [e for e in self.urls if e != dead]
             import random
             self._local.read_base = random.choice(others)
             return self._local.read_base
@@ -626,11 +631,11 @@ class HTTPClient(_Handles):
     def _rotate_leader(self, dead: str) -> str:
         """The tracked leader is unreachable: try the next endpoint — any
         follower answers the retried write with 421 + the real leader."""
-        if dead in self.endpoints and len(self.endpoints) > 1:
-            i = self.endpoints.index(dead)
-            self._leader = self.endpoints[(i + 1) % len(self.endpoints)]
-        elif dead not in self.endpoints:
-            self._leader = self.endpoints[0]
+        if dead in self.urls and len(self.urls) > 1:
+            i = self.urls.index(dead)
+            self._leader = self.urls[(i + 1) % len(self.urls)]
+        elif dead not in self.urls:
+            self._leader = self.urls[0]
         return self._leader
 
     def _auth_headers(self) -> dict:
@@ -963,7 +968,7 @@ class _HTTPWatch:
         # 410 anywhere is authoritative (rv compaction is replicated state,
         # identical on every node) so it is NOT retried elsewhere.
         bases = [client._read_endpoint()]
-        bases += [b for b in client.endpoints if b not in bases]
+        bases += [b for b in client.urls if b not in bases]
         # read timeout doubles as the liveness window: the server heartbeats
         # every ~1s, so a blocking read that times out means a dead peer.
         last_err: Exception = OSError("no endpoints")

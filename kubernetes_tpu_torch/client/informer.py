@@ -5,6 +5,11 @@ with relist on 410/expiry), ``shared_informer.go`` (``sharedIndexInformer``
 with event handlers), ``store.go`` (``ThreadSafeStore`` + indexers). This is
 the state-replication backbone every component sits on: the scheduler's cache
 and every controller feed from these.
+
+The port's copy of ``kubernetes_tpu/client/informer.py``, with
+``add_indexers`` (indexers added to a shared informer by the controller
+that needs them) and ``by_index`` answering for several values at once, in
+the store's order.
 """
 
 from __future__ import annotations
@@ -36,6 +41,33 @@ class ThreadSafeStore:
         self._items: dict[str, dict] = {}
         self._indexers = dict(indexers or {})
         self._indices: dict[str, dict[str, set[str]]] = {n: {} for n in self._indexers}
+        # key -> when it entered (the order ``list`` walks), kept only while
+        # the store has an indexer: an index answers in the same order as a
+        # walk of the whole store
+        self._order: dict[str, int] = {}
+        self._added = 0
+        self._reorder_locked()
+
+    def _reorder_locked(self):
+        # ``_items`` keeps its keys in the order they entered
+        self._order = {k: i for i, k in enumerate(self._items)} \
+            if self._indexers else {}
+        self._added = len(self._order)
+
+    def add_indexers(self, indexers: dict[str, Callable[[dict], list[str]]]):
+        """Add named indexers (cache.Indexer AddIndexers), indexing what
+        the store holds already; a name it has keeps its function."""
+        with self._lock:
+            for name, fn in indexers.items():
+                if name in self._indexers:
+                    continue
+                first = not self._indexers
+                self._indexers[name] = fn
+                if first:
+                    self._reorder_locked()
+                self._indices[name] = {}
+                for key, obj in self._items.items():
+                    self._update_index_locked(key, None, obj)
 
     def _update_index_locked(self, key: str, old: Optional[dict], new: Optional[dict]):
         for name, fn in self._indexers.items():
@@ -50,6 +82,9 @@ class ThreadSafeStore:
     def add(self, key: str, obj: dict):
         with self._lock:
             old = self._items.get(key)
+            if old is None and self._indexers:
+                self._order[key] = self._added
+                self._added += 1
             self._items[key] = obj
             self._update_index_locked(key, old, obj)
 
@@ -57,6 +92,7 @@ class ThreadSafeStore:
         with self._lock:
             old = self._items.pop(key, None)
             if old is not None:
+                self._order.pop(key, None)
                 self._update_index_locked(key, old, None)
 
     def get(self, key: str) -> Optional[dict]:
@@ -75,10 +111,17 @@ class ThreadSafeStore:
         with self._lock:
             return list(self._items.keys())
 
-    def by_index(self, index_name: str, value: str) -> list[dict]:
+    def by_index(self, index_name: str, *values: str) -> list[dict]:
+        """The items whose ``index_name`` values hold every one of
+        ``values``, in the order ``list`` gives them."""
         with self._lock:
-            keys = self._indices.get(index_name, {}).get(value, set())
-            return [self._items[k] for k in keys if k in self._items]
+            index = self._indices.get(index_name, {})
+            sets = sorted((index.get(v, set()) for v in values), key=len)
+            if not sets:
+                return []
+            keys = sets[0].intersection(*sets[1:])
+            return [self._items[k] for k in sorted(keys, key=self._order.get)
+                    if k in self._items]
 
     def replace(self, objs: dict[str, dict]):
         with self._lock:
@@ -131,6 +174,9 @@ class SharedInformer:
 
     def add_event_handler(self, fn: Callable):
         self._handlers.append(fn)
+
+    def add_indexers(self, indexers: dict):
+        self.store.add_indexers(indexers)
 
     def has_synced(self) -> bool:
         return self._synced.is_set()

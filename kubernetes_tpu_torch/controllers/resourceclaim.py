@@ -8,9 +8,8 @@ pod is gone (drop ``status.allocation``/``reservedFor`` so the devices
 return to the pool — the deallocate half of dynamicresources.go).
 
 The PyTorch port's copy of ``kubernetes_tpu/controllers/resourceclaim.py``.
-The port has no controller manager yet (ROADMAP Queue A item 14): whoever
-runs the scheduler starts this controller itself — ``register`` on an
-``InformerFactory``, start the factory, then ``start()``.
+The controller manager starts it (``"resourceclaim"`` in
+``manager.DEFAULT_CONTROLLERS``).
 """
 
 from __future__ import annotations

@@ -70,6 +70,7 @@ from kubernetes_tpu_torch.sched.queue import (
     SchedulingQueue,
 )
 from kubernetes_tpu_torch.sched.scheduler import Scheduler
+from kubernetes_tpu_torch.sched.volumebinding import VolumeBinder
 from kubernetes_tpu_torch.store.store import ADDED, DELETED, MODIFIED
 from kubernetes_tpu_torch.utils.tracing import TRACER
 
@@ -419,7 +420,6 @@ class SchedulerRunner:
                         return False
         catalog = self.cache.volume_catalog
         if catalog is not None and pod.pvc_names():
-            from kubernetes_tpu_torch.sched.volumebinding import VolumeBinder
             node = self.cache.get_node(node_name)
             labels = node.metadata.labels if node is not None else {}
             if not VolumeBinder(self.client).bind_pod_volumes(

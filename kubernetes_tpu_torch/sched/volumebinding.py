@@ -1,8 +1,8 @@
 """Volume scheduling — PVC/PV topology compiled to node-selector constraints.
 
-The port's copy of the part of ``kubernetes_tpu/sched/volumebinding.py``
-that the encoder calls; the binder (Reserve/PreBind) waits for the
-connected scheduler.
+The port's copy of ``kubernetes_tpu/sched/volumebinding.py``: the
+compiler that the encoder calls, and the binder (Reserve/PreBind) that the
+connected runner calls before a pod's binding.
 
 Reference semantics, plugin by plugin:
   VolumeBinding      framework/plugins/volumebinding/volume_binding.go
@@ -31,6 +31,10 @@ from dataclasses import dataclass, field
 from typing import Any, Optional
 
 from kubernetes_tpu_torch.api.resource import canonical
+from kubernetes_tpu_torch.api.selectors import (
+    node_fields,
+    node_selector_matches,
+)
 from kubernetes_tpu_torch.api.types import (
     OP_EXISTS,
     OP_IN,
@@ -42,6 +46,8 @@ from kubernetes_tpu_torch.api.types import (
 ZONE_LABELS = ("topology.kubernetes.io/zone", "topology.kubernetes.io/region",
                "failure-domain.beta.kubernetes.io/zone",
                "failure-domain.beta.kubernetes.io/region")
+SELECTED_NODE_ANNOTATION = "volume.kubernetes.io/selected-node"
+WAIT_FOR_FIRST_CONSUMER = "WaitForFirstConsumer"
 
 # a term that matches every node: metadata.name always exists
 MATCH_ALL_TERM = NodeSelectorTerm(match_fields=[
@@ -265,3 +271,75 @@ def node_attach_limit(node_allocatable: dict[str, Any]) -> int:
             total += int(canonical("pods", v))
             found = True
     return total if found else -1  # -1 = unlimited
+
+
+class VolumeBinder:
+    """Reserve/PreBind: bind unbound PVCs once a node is chosen.
+
+    Reference: volume_binding.go Reserve (AssumePodVolumes) + PreBind
+    (BindPodVolumes). Static PVs get claimRef/volumeName set; provisionable
+    claims get the selected-node annotation for an external provisioner
+    (pkg/controller/volume/persistentvolume/pv_controller.go analog lives in
+    controllers/pvprovisioner.py).
+    """
+
+    def __init__(self, client):
+        self.client = client
+
+    def bind_pod_volumes(self, pod: Pod, node: "Any", catalog: VolumeCatalog,
+                         node_labels: dict[str, str], node_name: str) -> bool:
+        ns = pod.metadata.namespace
+        ok = True
+        for claim in pod.pvc_names():
+            pvc = catalog.pvcs.get((ns, claim))
+            if pvc is None or _pvc_bound_pv(pvc):
+                continue
+            chosen = None
+            for pv in find_matching_pvs(pvc, catalog):
+                if self._pv_matches_node(pv, node_labels, node_name):
+                    chosen = pv
+                    break
+            try:
+                if chosen is not None:
+                    self._bind_static(pvc, chosen)
+                elif _is_provisionable(pvc, catalog):
+                    self._annotate_selected_node(pvc, node_name)
+                else:
+                    ok = False
+            except Exception:  # ktpu-lint: disable=KTL002 -- provision-plugin failure = bind verdict False; the scheduler requeues the pod with backoff
+                ok = False
+        return ok
+
+    @staticmethod
+    def _pv_matches_node(pv: dict, node_labels: dict[str, str],
+                         node_name: str) -> bool:
+        terms = _pv_terms(pv)
+        return node_selector_matches(terms, node_labels, node_fields(node_name))
+
+    def _bind_static(self, pvc: dict, pv: dict) -> None:
+        md = pvc["metadata"]
+        pv = dict(pv)
+        pv["spec"] = {**(pv.get("spec") or {}),
+                      "claimRef": {"kind": "PersistentVolumeClaim",
+                                   "namespace": md.get("namespace", "default"),
+                                   "name": md["name"], "uid": md.get("uid", "")}}
+        pv["status"] = {**(pv.get("status") or {}), "phase": "Bound"}
+        self.client.resource("persistentvolumes", None).update(pv)
+        pvc = dict(pvc)
+        pvc["spec"] = {**(pvc.get("spec") or {}),
+                       "volumeName": pv["metadata"]["name"]}
+        pvc["status"] = {**(pvc.get("status") or {}), "phase": "Bound"}
+        self.client.resource("persistentvolumeclaims",
+                             md.get("namespace", "default")).update(pvc)
+
+    def _annotate_selected_node(self, pvc: dict, node_name: str) -> None:
+        pvc = dict(pvc)
+        md = dict(pvc.get("metadata") or {})
+        ann = dict(md.get("annotations") or {})
+        if ann.get(SELECTED_NODE_ANNOTATION) == node_name:
+            return
+        ann[SELECTED_NODE_ANNOTATION] = node_name
+        md["annotations"] = ann
+        pvc["metadata"] = md
+        self.client.resource("persistentvolumeclaims",
+                             md.get("namespace", "default")).update(pvc)

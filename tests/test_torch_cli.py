@@ -10,6 +10,8 @@
   port's against the port's, on the same objects; the outputs are equal
   once ages, uids, timestamps and resourceVersions are normalized.
 - ``deschedule run --dry-run -o json`` plans the same on both.
+- ``certificate approve|deny`` gives the same output and conditions as
+  the reference's.
 - Every refused command raises ``not_ported`` naming its ROADMAP item,
   before any call to the server.
 """
@@ -320,7 +322,6 @@ def test_scale_subresource(cluster):
 
 REFUSED = [(["logs", "app"], "15"), (["exec", "app", "--", "ls"], "15"),
            (["attach", "app"], "15"), (["port-forward", "app", "8080"], "15"),
-           (["certificate", "approve", "csr-1"], "14"),
            (["lint", "--json"], "17"),
            (["scenario", "describe", "builtin:smoke"], "17")]
 
@@ -333,6 +334,44 @@ def test_refused_command_names_its_item(argv, item):
     with pytest.raises(NotImplementedError, match=f"item {item}$"):
         main(["--server", "http://127.0.0.1:9", *argv], out=io.StringIO())
     assert set(ktpu.REFUSED) == {a[0] for a, _ in REFUSED}
+
+
+def test_certificate_approve_and_deny_as_reference():
+    """``ktpu certificate approve|deny`` on both packages, each against its
+    own APIServer: the same output, and the same conditions on the CSRs
+    (their stamps aside); approving twice adds no second condition."""
+    got = []
+    for server_cls, cli in ((RefAPIServer, ref_ktpu), (APIServer, ktpu)):
+        server = server_cls().start()
+        try:
+            res = HTTPClient(server.url).resource(
+                "certificatesigningrequests", None)
+            for name in ("csr-1", "csr-2"):
+                res.create({"apiVersion": "certificates.k8s.io/v1",
+                            "kind": "CertificateSigningRequest",
+                            "metadata": {"name": name},
+                            "spec": {"request": "cmVxdWVzdA==",
+                                     "signerName": "example.com/signer"}})
+            outs = []
+            for argv in (["approve", "csr-1"], ["approve", "csr-1"],
+                         ["deny", "csr-2"]):
+                out = io.StringIO()
+                rc = cli.main(["--server", server.url, "certificate", *argv],
+                              out=out)
+                outs.append((rc, out.getvalue()))
+            conds = {name: [{k: v for k, v in c.items()
+                             if k != "lastUpdateTime"}
+                            for c in res.get(name)["status"]["conditions"]]
+                     for name in ("csr-1", "csr-2")}
+            got.append((outs, conds))
+        finally:
+            server.stop()
+    assert got[1] == got[0]
+    outs, conds = got[1]
+    assert outs[0] == (0, "certificatesigningrequest/csr-1 approved\n")
+    assert outs[2] == (0, "certificatesigningrequest/csr-2 denied\n")
+    assert [c["type"] for c in conds["csr-1"]] == ["Approved"]
+    assert [c["type"] for c in conds["csr-2"]] == ["Denied"]
 
 
 # ---- tests/test_explain_e2e.py on the port's runner -------------------------

@@ -597,3 +597,32 @@ def test_extender_span_and_attempt_metrics():
         assert len(TRACER.spans("scheduler/extenders")) == n_spans + 1
     finally:
         fake.stop()
+
+
+def test_chip_smoke_extender_count_cases_count_wherever_pods_went():
+    """The extender's count_pn cases in ``chip_smoke.py`` (the last pop of
+    EXTENDER_PODS pods in pops of EXTENDER_BATCH, the earlier ones bound)
+    count something, and the same whatever nodes the earlier pods were
+    placed on: the card's gate that they count is not left to where the
+    extender run placed them."""
+    import random
+    import chip_smoke as cs
+    from kubernetes_tpu_torch.ops import topology
+    from kubernetes_tpu_torch.testing.workloads import mixed_heterogeneous
+    assert cs.EXTENDER_PODS > cs.EXTENDER_BATCH  # an earlier pop is bound
+    node_objs, pod_objs = mixed_heterogeneous(pods=cs.EXTENDER_PODS,
+                                              nodes=300, seed=cs.SEED)
+    nodes, pods = cs._wire(node_objs), cs._wire(pod_objs)
+    names = [n["metadata"]["name"] for n in nodes]
+    sums = []
+    for seed in range(3):
+        rng = random.Random(seed)
+        placements = {f"{d['metadata'].get('namespace', 'default')}/"
+                      f"{d['metadata']['name']}": rng.choice(names)
+                      for d in pods}
+        cases = cs.extender_count_cases(nodes, pods, placements,
+                                        device="cpu")
+        sums.append({k: float(topology._count_pn_plain(ct, *args).sum())
+                     for k, (ct, args) in cases.items()})
+    assert sums[0] == sums[1] == sums[2]
+    assert all(v > 0 for v in sums[0].values()), sums[0]

@@ -92,7 +92,21 @@ _SCHED_MODULES = (
     # the rest of store/: the apiserver's planes, replication, front door
     "store.flowcontrol", "store.auth", "store.apply", "store.podsecurity",
     "store.webhooks", "store.admission", "store.aggregator",
-    "store.replication", "store.frontdoor")
+    "store.replication", "store.frontdoor",
+    # the controller manager and the controllers it starts
+    "controllers.attachdetach", "controllers.certificates",
+    "controllers.clusterroleaggregation", "controllers.cronjob",
+    "controllers.csrlifecycle", "controllers.daemonset",
+    "controllers.deployment", "controllers.disruption",
+    "controllers.endpoints", "controllers.endpointslice",
+    "controllers.endpointslicemirroring", "controllers.ephemeral",
+    "controllers.garbagecollector", "controllers.hpa", "controllers.job",
+    "controllers.manager", "controllers.namespace", "controllers.nodeipam",
+    "controllers.nodelifecycle", "controllers.podgc", "controllers.pvbinder",
+    "controllers.replicaset", "controllers.resourcequota",
+    "controllers.rootca", "controllers.route", "controllers.serviceaccount",
+    "controllers.servicelb", "controllers.statefulset", "controllers.ttl",
+    "controllers.ttlafterfinished", "controllers.volumeprotection")
 
 _NO_YAML = r"""
 import importlib, sys
@@ -114,7 +128,8 @@ print(cfg.batch_size, cfg.pipeline_depth, leaked)
 
 def test_scheduler_modules_import_without_yaml():
     """The scheduling loop's, the connected scheduler's, the resident
-    planners' and the entry points' modules import with JAX, flax, PyYAML,
+    planners', the entry points' and the controllers' modules import with
+    JAX, flax, PyYAML,
     msgpack and grpc blocked (the card's machine lists none of the last
     three: config/types.py and descheduler/descheduler.py import PyYAML in
     ``from_yaml`` only, ktpu when it reads YAML, the store and the clients
@@ -134,6 +149,20 @@ def test_scheduler_module_is_walked(name):
     # the blocked-import walk above reaches every module of the slice
     assert (PORT / (name.replace(".", "/") + ".py")).is_file()
     assert (PORT / name.split(".")[0] / "__init__.py").is_file()
+
+
+def test_no_item_14_refusal_left():
+    """``controllers/`` is whole: nothing in the port refuses a controller
+    or a command as waiting for ROADMAP Queue A item 14, and the port holds
+    every module of the reference's ``controllers/``."""
+    hits = [f"{p.relative_to(ROOT)}:{i}"
+            for p in sorted(PORT.rglob("*.py"))
+            for i, line in enumerate(p.read_text().splitlines(), 1)
+            if '"14")' in line or "item 14" in line]
+    assert hits == []
+    ref = ROOT / "kubernetes_tpu" / "controllers"
+    assert ({p.name for p in (PORT / "controllers").glob("*.py")}
+            == {p.name for p in ref.glob("*.py")})
 
 
 def test_no_item_13_refusal_left():

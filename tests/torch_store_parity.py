@@ -4,8 +4,13 @@ run saw.
 ``load(name, pkg)`` compiles ``tests/<name>.py`` with its
 ``kubernetes_tpu.`` imports pointed at ``pkg`` (``"kubernetes_tpu"`` or
 ``"kubernetes_tpu_torch"``). The wrappers that build its pods and nodes stay
-the JAX package's, so both runs start from the same dicts. ``run_case`` runs
-one of its test functions, with its fixtures, and returns its record:
+the JAX package's, so both runs start from the same dicts. The port's entry
+points that run on the card unless told otherwise (``ON_CPU``) are bound to
+the CPU in the compiled module's namespace, and the file's own imports of
+them resolve there: a class gets ``device="cpu"``, a function its tensor
+containers moved onto the CPU (the encoder hands out numpy arrays, which
+the reference's functions take as they are). ``run_case`` runs one of its
+test functions, with its fixtures, and returns its record:
 
 - ``raised``: None, or the exception the case ended in (a failed assertion
   included), by type and message;
@@ -18,11 +23,23 @@ one of its test functions, with its fixtures, and returns its record:
 - ``raft``: the masked contents of the store of the furthest-ahead
   ``RaftNode`` the case built, up to the group's commit index (raft and
   the front door are compared by what they end with, not by their
-  timing).
+  timing);
+- ``stores``: in the controller modules (``RECONCILED``), the masked
+  contents of every ``ObjectStore`` the case built for itself, in the
+  order it built them. There a controller's ``stop`` first waits for its
+  store to be quiet (``converged``), so a record holds the state the
+  controllers converge to, not the moment the case's last assertion
+  passed.
 
 Masked: uids, wall-clock stamps and the ports of local servers; in the
 raft and front-door modules also resourceVersions and the system
-namespaces (``TIMED``).
+namespaces (``TIMED``); in the controller modules (``RECONCILED``) also
+resourceVersions, generated names, the minute a CronJob's job is named
+after, event names' millisecond, every ``...Time`` and ``...Timestamp``
+field and key material drawn at random; there metadata's ``uid``,
+``creationTimestamp`` and ``deletionTimestamp`` are dropped (whether a
+controller's last write was a create or an update is chance), and every
+other masked key is kept as ``<masked>``, so its presence is compared.
 """
 
 from __future__ import annotations
@@ -57,8 +74,75 @@ SYSTEM_NAMESPACES = ("default", "kube-system", "kube-public",
                      "kube-node-lease")
 _TIMED = threading.Event()  # set while a TIMED module's case runs
 
+# the controller modules run reconcile loops on threads of their own, whose
+# interleaving decides the resourceVersions, the names the store generates
+# from them (generateName + the next resourceVersion in hex) and the float
+# epoch stamps of conditions, heartbeats and leases: their records mask
+# those, and keep the stores that a case builds for itself
+RECONCILED = ("test_controllers", "test_controllers_breadth",
+              "test_controllers_quota_ttl_agg", "test_attachdetach_nodeipam",
+              "test_protection_csr", "test_certificates", "test_volumes")
+_RECONCILED = threading.Event()  # set while a RECONCILED module's case runs
+# what a SchedulerRunner publishes about itself (status, explanations,
+# trace): timings, and fields that differ by design (the port's device,
+# the reference's incident traces), not what a controller case compares
+PUBLISHED = ("kubernetes-tpu-scheduler-status", "scheduler-explanations",
+             "kubernetes-tpu-scheduler-trace")
+_GENERATED = re.compile(r"-[0-9a-f]{5}\b")
+# a CronJob's job is named after its scheduled minute since the epoch
+_MINUTE = re.compile(r"-\d{8}\b")
+_STAMP = re.compile(r".(Time|Timestamp)$")
+# the keys of an object's metadata whose presence is chance in a
+# controller module: whether a controller's last write was a create (the
+# store stamps them) or an update with a fresh object (whose metadata it
+# rebuilt) depends on the threads' interleaving; they are dropped from
+# metadata, and every other masked key is kept as "<masked>", so that both
+# packages must still write it
+_CHANCE = ("uid", "creationTimestamp", "deletionTimestamp")
+# key material a case or a controller draws at random: CSRs and
+# certificates (PEM, or PEM in base64) and service-account tokens
+_DRAWN = re.compile(r"LS0tLS1CRUdJT[A-Za-z0-9+/=]*|-----BEGIN [A-Z ]+-----"
+                    r"[^-]*-----END [A-Z ]+-----\n?|ktpu-sa-[0-9a-f]+")
+# a controller's stop first waits for its store to be quiet this long, so
+# that the record holds the state the controllers converge to; a
+# controller that also works on a timer (``tick_interval``) of at most
+# TICK_WAIT_S is waited out for one more tick: a sync that read an
+# informer behind another's event writes its last change on the next tick
+QUIET_S = 0.25
+TICK_WAIT_S = 2.0
+
+# (module, name) of the port's entry points that a reference test calls
+# with no device: a class whose ``device`` None means the card, a function
+# that takes tensor containers where the reference's takes numpy arrays
+ON_CPU = (("sched.runner", "SchedulerRunner"), ("ops.filters", "run_filters"))
+
 _MODULES: dict = {}
 _RECORD = threading.local()
+
+
+def _on_cpu(pkg: str, src: str, namespace: dict) -> str:
+    """``src`` with its imports of ``ON_CPU`` names taken out, and each
+    name put into ``namespace`` bound to the CPU."""
+    import importlib
+    for module, name in ON_CPU:
+        line = re.compile(rf"^(\s*)from {pkg}\.{re.escape(module)} import "
+                          rf"{name}\s*$", re.M)
+        if not line.search(src):
+            continue
+        src = line.sub(r"\1pass", src)
+        base = getattr(importlib.import_module(f"{pkg}.{module}"), name)
+        if isinstance(base, type):
+            def __init__(self, *a, _base=base, device="cpu", **kw):
+                _base.__init__(self, *a, device=device, **kw)
+
+            namespace[name] = type(name, (base,), {"__init__": __init__})
+        else:
+            def on_cpu(*a, _fn=base, **kw):
+                return _fn(*(x.to("cpu") if hasattr(x, "to") else x
+                             for x in a), **kw)
+
+            namespace[name] = on_cpu
+    return src
 
 
 def load(name: str, pkg: str) -> types.ModuleType:
@@ -67,10 +151,10 @@ def load(name: str, pkg: str) -> types.ModuleType:
     if key not in _MODULES:
         path = TESTS / f"{name}.py"
         src = path.read_text()
-        if pkg != "kubernetes_tpu":
-            src = _IMPORT.sub(f"{pkg}.", src)
         mod = types.ModuleType(f"_parity_{name}_{pkg}")
         mod.__file__ = str(path)
+        if pkg != "kubernetes_tpu":
+            src = _on_cpu(pkg, _IMPORT.sub(f"{pkg}.", src), mod.__dict__)
         sys.modules[mod.__name__] = mod
         exec(compile(src, str(path), "exec"), mod.__dict__)
         _MODULES[key] = mod
@@ -105,9 +189,18 @@ def cases(name: str) -> list:
 def mask(obj):
     """A JSON-shaped value with uids, stamps and local ports masked."""
     if isinstance(obj, dict):
-        return {k: ("<masked>" if k in MASKED or (
-                    _TIMED.is_set() and k == "resourceVersion")
-                    else mask(v))
+        if _RECONCILED.is_set() and obj.get("kind") == "Event":
+            # an event's name ends in the millisecond it was recorded
+            md = obj.get("metadata") or {}
+            obj = {**obj, "metadata": {**md, "name": md.get(
+                "name", "").rpartition(".")[0] + ".<ms>"}}
+        masked = {k for k in obj if k in MASKED or (
+            _unordered() and k == "resourceVersion") or (
+            _RECONCILED.is_set() and _STAMP.search(k))}
+        if _RECONCILED.is_set() and isinstance(obj.get("metadata"), dict):
+            obj = {**obj, "metadata": {k: v for k, v in obj["metadata"].items()
+                                       if k not in _CHANCE}}
+        return {k: "<masked>" if k in masked else mask(v)
                 for k, v in obj.items()}
     if isinstance(obj, (list, tuple)):
         return [mask(v) for v in obj]
@@ -121,8 +214,69 @@ def mask(obj):
                 if isinstance(inner, list):  # in the order of masked urls
                     inner.sort(key=lambda v: json.dumps(v, sort_keys=True))
                 return json.dumps(inner, sort_keys=True)
+        if _RECONCILED.is_set():
+            obj = _MINUTE.sub("-<minute>", _GENERATED.sub(
+                "-<gen>", _DRAWN.sub("<drawn>", obj)))
         return _PORT.sub(r"\1:<port>", obj)
     return obj
+
+
+@contextlib.contextmanager
+def converged(pkg: str):
+    """While it is open, ``Controller.stop`` first waits until its client's
+    store has not moved, and its queue held nothing (queued, in a sync or
+    waiting out a retry's backoff), for ``QUIET_S`` and a tick (at most 5 s
+    more); ``ControllerManager.stop`` waits so once for all its
+    controllers."""
+    import importlib
+    ctrl = importlib.import_module(f"{pkg}.controllers.base").Controller
+    mgr = importlib.import_module(f"{pkg}.controllers.manager"
+                                  ).ControllerManager
+    origs = (ctrl.stop, mgr.stop)
+
+    def busy(q) -> int:
+        return len(q) + len(q._processing) + len(getattr(q, "_delayed", ()))
+
+    def quiet(client, ctrls) -> None:
+        store = getattr(client, "store", None)
+        if store is None:
+            return
+        hold = QUIET_S + max([c.tick_interval for c in ctrls
+                              if 0 < (c.tick_interval or 0) <= TICK_WAIT_S]
+                             or [0.0])
+        end = time.monotonic() + 5.0 + hold
+        last, since = None, time.monotonic()
+        while time.monotonic() < end:
+            now = (store.snapshot_rv(), sum(busy(c.queue) for c in ctrls))
+            if now != last or now[1]:
+                last, since = now, time.monotonic()
+            elif time.monotonic() - since >= hold:
+                return
+            time.sleep(0.05)
+
+    def stop_controller(self):
+        if not self._stop.is_set() and not getattr(self, "_parity_quiet",
+                                                   False):
+            quiet(self.client, [self])
+        return origs[0](self)
+
+    def stop_manager(self):
+        if not self._stop.is_set():
+            quiet(self.client, self.controllers)
+        for c in self.controllers:
+            c._parity_quiet = True
+        return origs[1](self)
+
+    ctrl.stop, mgr.stop = stop_controller, stop_manager
+    try:
+        yield
+    finally:
+        ctrl.stop, mgr.stop = origs
+
+
+def _unordered() -> bool:
+    """True while a case runs whose resourceVersions are chance."""
+    return _TIMED.is_set() or _RECONCILED.is_set()
 
 
 def _path(url: str) -> str:
@@ -200,7 +354,7 @@ def _server_state(server) -> dict:
                          key=lambda o: json.dumps(o, sort_keys=True))
             for kind, objs in blob["data"].items() if objs}
     flow = getattr(server, "flow", None)
-    return {"rv": "<masked>" if _TIMED.is_set() else blob["rv"],
+    return {"rv": "<masked>" if _unordered() else blob["rv"],
             "data": {k: v for k, v in data.items() if v},
             "audit": None if audit is None else sorted(
                 json.dumps(mask(e), sort_keys=True) for e in audit.events),
@@ -226,9 +380,13 @@ def _raft_state(nodes) -> "dict | None":
 
 
 def _kept(obj: dict) -> bool:
-    """False for a system namespace in a TIMED module's record."""
+    """False for a system namespace in a TIMED module's record, and for a
+    scheduler's published ConfigMaps in a RECONCILED one."""
+    name = obj.get("metadata", {}).get("name")
+    if _RECONCILED.is_set() and obj.get("kind") == "ConfigMap":
+        return name not in PUBLISHED
     return not (_TIMED.is_set() and obj.get("kind") == "Namespace"
-                and obj["metadata"].get("name") in SYSTEM_NAMESPACES)
+                and name in SYSTEM_NAMESPACES)
 
 
 def _tracked(mod) -> list:
@@ -253,6 +411,22 @@ def _tracked(mod) -> list:
         mod.__dict__[cls_name] = type(cls_name, (base,), {
             "__init__": __init__, "stop": stop, "_parity_built": True})
     return built
+
+
+def _built_stores(mod) -> list:
+    """Point the module's ObjectStore at a subclass that keeps the stores
+    it builds in the returned list (emptied for each case)."""
+    stores = mod.__dict__.setdefault("_parity_stores", [])
+    stores.clear()
+    base = mod.__dict__.get("ObjectStore")
+    if base is not None and "_parity_built" not in vars(base):
+        def __init__(self, *a, _base=base, **kw):
+            _base.__init__(self, *a, **kw)
+            stores.append(self)
+
+        mod.__dict__["ObjectStore"] = type("ObjectStore", (base,), {
+            "__init__": __init__, "_parity_built": True})
+    return stores
 
 
 class Fixtures:
@@ -305,12 +479,14 @@ def close_shared(shared: dict) -> None:
 def run_case(name: str, fname: str, params: dict, pkg: str, tmp_path,
              shared: "dict | None" = None) -> dict:
     """Run one case of ``tests/<name>.py`` on ``pkg`` -> its record."""
-    if name in TIMED:
-        _TIMED.set()
-    else:
-        _TIMED.clear()
+    for flag, names in ((_TIMED, TIMED), (_RECONCILED, RECONCILED)):
+        if name in names:
+            flag.set()
+        else:
+            flag.clear()
     mod = load(name, pkg)
     built = _tracked(mod)
+    stores = _built_stores(mod) if name in RECONCILED else []
     fn = mod.__dict__[fname]
     fx = Fixtures(mod, tmp_path, {} if shared is None else shared)
     raised = None
@@ -334,7 +510,9 @@ def run_case(name: str, fname: str, params: dict, pkg: str, tmp_path,
                     break
                 time.sleep(0.01)
 
-    with recording(pkg, replayed) as requests:
+    settled = converged(pkg) if name in RECONCILED \
+        else contextlib.nullcontext()
+    with settled, recording(pkg, replayed) as requests:
         try:
             kwargs = {a: (params[a] if a in params else fx.get(a))
                       for a in inspect.signature(fn).parameters}
@@ -351,6 +529,9 @@ def run_case(name: str, fname: str, params: dict, pkg: str, tmp_path,
                     servers[k] = [_server_state(x) for x in v]
                 elif hasattr(v, "leader_api"):
                     servers[k] = _raft_state(v.nodes)
+            served = [getattr(v, "store", None) for v in values.values()]
+            own = [_server_state(types.SimpleNamespace(store=st))
+                   for st in stores if not any(st is x for x in served)]
             fx.close()
             nodes = [n for b in built if not hasattr(b, "nodes")
                      for n in (b,)]
@@ -360,7 +541,7 @@ def run_case(name: str, fname: str, params: dict, pkg: str, tmp_path,
             for nd in nodes:  # a case's own raft nodes (clusters: theirs)
                 nd.stop()
     return {"raised": raised, "requests": list(requests),
-            "servers": servers, "raft": raft}
+            "servers": servers, "raft": raft, "stores": own}
 
 
 def both(name: str, fname: str, params: dict, tmp_path, shared: dict
