@@ -405,7 +405,9 @@ Phases, one JSON line each:
            the first drain's seconds of each, the threads left after the
            runner stopped; each child exits as a process does, its exit
            code held at 0; then a changed build flag invalidates the
-           cache wholesale
+           cache wholesale. The three boots run one after another on a
+           thread beside the parity phases (which time nothing) and end
+           before the path phase; their gates are read here
 
 Every phase fails while LOOP_ERRORS{site=device_preempt} is above 0 (a
 device preemption failure the scheduler degraded to the host scan) or
@@ -442,7 +444,9 @@ each.
 
 from __future__ import annotations
 
+import atexit
 import contextlib
+import gc
 import json
 import os
 import subprocess
@@ -467,15 +471,50 @@ class PhaseFailed(Exception):
 
 
 _T0 = time.perf_counter()
+_TIMES = [0.0]   # this process's CPU seconds at the last phase line
+_GC = {"s": 0.0, "full": 0, "start": 0.0}   # collections since that line
+
+
+def _gc_timer(phase, info) -> None:
+    if phase == "start":
+        _GC["start"] = time.perf_counter()
+    else:
+        _GC["s"] += time.perf_counter() - _GC["start"]
+        _GC["full"] += info["generation"] == 2
+
+
+gc.callbacks.append(_gc_timer)
+
+
+def settle_heap() -> None:
+    """Collect, then move every object alive to the collector's permanent
+    generation: what the script keeps for later phases (workloads, the
+    contexts of parity.graph) is no longer traversed by the collections
+    that the next phases' allocations trigger. Called between phases,
+    once the last phase's runner is dropped (a frozen cycle is never
+    collected)."""
+    gc.collect()
+    gc.freeze()
 
 
 def emit(obj) -> None:
     """Print one phase's line, with the seconds since the script started
-    (``at_s``); a phase in which the scheduler degraded a device
-    preemption failure to the host scan, or the explainer a failure of its
-    device judge to the oracle, fails instead."""
+    (``at_s``) and, under ``proc``, since the last phase line: this
+    process's CPU seconds (all its threads), the seconds and the full
+    collections of its garbage collector, with its live threads and the
+    objects ``settle_heap`` froze; a phase in
+    which the scheduler degraded a device preemption failure to the host
+    scan, or the explainer a failure of its device judge to the oracle,
+    fails instead."""
     if "phase" in obj:
-        obj = {**obj, "at_s": time.perf_counter() - _T0}
+        now = os.times()
+        obj = {**obj, "at_s": time.perf_counter() - _T0,
+               "proc": {"cpu_s": now.user + now.system - _TIMES[0],
+                        "threads": threading.active_count(),
+                        "gc_s": _GC["s"], "gc_full": _GC["full"],
+                        "frozen": gc.get_freeze_count()}}
+        _TIMES[0] = now.user + now.system
+        _GC.update(s=0.0, full=0)
     if "phase" in obj and "kubernetes_tpu_torch" in sys.modules:
         n = device_preempt_errors()
         check(n == 0, f"phase {obj['phase']}: {n} device preemption "
@@ -1110,7 +1149,7 @@ def resident_count_cases(drv):
 RESIDENT_B = 8       # SchedulerConfiguration.max_drain_batches default
 RESIDENT_P = BATCH   # SchedulerConfiguration.batch_size default
 RESIDENT_CYCLES = 8
-RESIDENT_EAGER_CYCLES = 2   # resident.eager: the first cycles, eager
+RESIDENT_EAGER_CYCLES = 1   # resident.eager: the first cycles, eager
 
 
 def resident_workload(n_nodes=N_NODES, n_bound=N_BOUND,
@@ -6336,6 +6375,7 @@ def plugins_phase(node_dicts, pod_dicts, smi="", plain=None, device=None):
 
 KTPU_NODES = 64
 KTPU_PODS = 256
+KTPU_KUBELET = "kubelet-0"   # the served hollow kubelet's node
 
 
 def ktpu_phase(device=None, n_nodes=KTPU_NODES, n_pods=KTPU_PODS,
@@ -6356,12 +6396,20 @@ def ktpu_phase(device=None, n_nodes=KTPU_NODES, n_pods=KTPU_PODS,
     - ``trace dump`` (after ``publish_trace``): valid Chrome trace JSON;
     - ``audit status -o json``: at least one sweep, 0 violations;
     - ``deschedule run --dry-run -o json``: a plan, computed on the card;
-    - ``status``, ``get nodes`` and ``top nodes`` in table form.
+    - ``status``, ``get nodes`` and ``top nodes`` in table form;
+    - the kubelet's commands, on a pod the runner binds to a served hollow
+      kubelet (``HollowNode(...).start(serve=True)``, labelled
+      ``pool=kubelet``, the pod selecting it): ``logs`` and ``attach``
+      print the lines its ``FakeRuntime`` holds for the container,
+      ``exec -- echo`` prints what the runtime answers, and
+      ``port-forward --one-shot`` carries one connection through the
+      apiserver and the kubelet to the container, which answers.
 
     -> summary (per command: exit code, seconds, output bytes)."""
     import io
     from kubernetes_tpu_torch.cli import ktpu
     from kubernetes_tpu_torch.client.clientset import HTTPClient
+    from kubernetes_tpu_torch.kubelet.kubelet import HollowNode
     from kubernetes_tpu_torch.ops import kernels
     from kubernetes_tpu_torch.sched.runner import SchedulerRunner
     from kubernetes_tpu_torch.store.apiserver import APIServer
@@ -6372,7 +6420,7 @@ def ktpu_phase(device=None, n_nodes=KTPU_NODES, n_pods=KTPU_PODS,
     node_objs, pod_objs = mixed_heterogeneous(pods=n_pods, nodes=n_nodes,
                                               seed=seed)
     server = APIServer().start()
-    runner = None
+    runner = hollow = None
     try:
         client = HTTPClient(server.url)
         client.nodes().create_many(
@@ -6381,6 +6429,9 @@ def ktpu_phase(device=None, n_nodes=KTPU_NODES, n_pods=KTPU_PODS,
                 {"cpu": "8", "memory": "16Gi", "pods": "32"})
                .label("pool", "ml").taint("dedicated", "ml", "NoSchedule")
                .obj().to_dict() for i in range(2)])
+        # the served hollow kubelet registers its node itself
+        hollow = HollowNode(HTTPClient(server.url), KTPU_KUBELET,
+                            labels={"pool": "kubelet"}).start(serve=True)
         cfg = sched_config(batch_size=64, max_drain_batches=2,
                            explainer_enabled=True, parity_sample_every=1,
                            audit_interval_s=0.5, backoff_initial_s=0.2,
@@ -6425,6 +6476,21 @@ def ktpu_phase(device=None, n_nodes=KTPU_NODES, n_pods=KTPU_PODS,
                                f"sweep within {timeout_s}s")
         check(runner.loop_error is None,
               f"ktpu: the runner's loop stopped: {runner.loop_error!r}")
+        # a pod for the kubelet's commands, bound by the runner on the card
+        target = make_pod("kubelet-target").req({"cpu": "100m"}).obj() \
+            .to_dict()
+        target["spec"]["nodeSelector"] = {"pool": "kubelet"}
+        client.pods("default").create(target)
+
+        def running():
+            p = client.pods("default").get("kubelet-target")
+            return (p["spec"].get("nodeName") == KTPU_KUBELET
+                    and (p.get("status") or {}).get("phase") == "Running")
+        end = time.perf_counter() + timeout_s
+        while time.perf_counter() < end and not running():
+            time.sleep(0.1)
+        check(running(), f"ktpu: the pod for the kubelet's commands was not "
+                         f"bound to {KTPU_KUBELET} and Running")
         runner.publish_status()
         runner.publish_trace()
         launches = dict(kernels.LAUNCHES)
@@ -6473,6 +6539,7 @@ def ktpu_phase(device=None, n_nodes=KTPU_NODES, n_pods=KTPU_PODS,
               f"{audit.get('violations')} violations")
         plan = docs["deschedule"]
         check("planned" in plan, f"ktpu: deschedule returned {sorted(plan)}")
+        results.update(kubelet_commands(flags, hollow, "kubelet-target"))
         return {"nodes": n_nodes + 2, "pods": n_pods + 1,
                 "bound": len(listed), "commands": results,
                 "why": {"message": docs["why"].get("message"),
@@ -6488,7 +6555,71 @@ def ktpu_phase(device=None, n_nodes=KTPU_NODES, n_pods=KTPU_PODS,
     finally:
         if runner is not None:
             runner.stop()
+        if hollow is not None:
+            hollow.stop()
         server.stop()
+
+
+def kubelet_commands(flags, hollow, pod) -> dict:
+    """``ktpu logs``, ``attach``, ``exec`` and ``port-forward`` (``ktpu
+    <flags> ...``) on ``pod``, which the served HollowNode ``hollow``
+    runs. Each must exit 0; logs and attach print the lines the node's
+    FakeRuntime holds for the pod's container, exec prints the runtime's
+    answer, and one connection through the forwarded port is answered by
+    the container. -> per command: exit code, seconds, output bytes."""
+    import io
+    import socket
+    from kubernetes_tpu_torch.cli import ktpu
+    kubelet = hollow.kubelet
+    uid = kubelet._uid_of("default", pod)
+    check(uid is not None, f"ktpu: {kubelet.node_name} does not run {pod}")
+    container = kubelet._pods[uid]["spec"]["containers"][0]["name"]
+    held = kubelet.runtime.logs(uid, container)
+    check(bool(held), f"ktpu: the runtime holds no log line for {pod}")
+    results = {}
+
+    def run(argv, out):
+        t0 = time.perf_counter()
+        rc = ktpu.main([*flags, *argv], out=out)
+        return rc, time.perf_counter() - t0
+
+    for key, argv, want in (
+            ("logs", ("logs", pod), "\n".join(held) + "\n"),
+            ("attach", ("attach", pod), "\n".join(held) + "\n"),
+            ("exec", ("exec", pod, "--", "echo", "hello", "kubelet"),
+             kubelet.runtime.exec(uid, container,
+                                  ["echo", "hello", "kubelet"])[1])):
+        out = io.StringIO()
+        rc, secs = run(argv, out)
+        text = out.getvalue()
+        check(rc == 0 and text == want,
+              f"ktpu: {' '.join(argv)} exited {rc} with {text[:200]!r}, "
+              f"the runtime holds {want[:200]!r}")
+        results[key] = {"rc": rc, "seconds": secs, "bytes": len(text)}
+    out, done = io.StringIO(), {}
+    forward = threading.Thread(target=lambda: done.setdefault("run", run(
+        ("port-forward", pod, "0", "--one-shot"), out)), daemon=True)
+    forward.start()
+    end = time.perf_counter() + 30.0
+    while ("127.0.0.1:" not in out.getvalue()
+           and time.perf_counter() < end):
+        time.sleep(0.05)
+    check("127.0.0.1:" in out.getvalue(),
+          "ktpu: port-forward did not listen")
+    port = int(out.getvalue().split("127.0.0.1:")[1].split()[0])
+    with socket.create_connection(("127.0.0.1", port), timeout=10.0) as c:
+        banner = c.recv(1024)
+        c.sendall(b"ping")
+        echo = c.recv(1024)
+    forward.join(30.0)
+    rc, secs = done.get("run", (None, 0.0))
+    check(rc == 0 and banner == f"pod {uid[:8]} ready\n".encode()
+          and echo == b"echo: ping",
+          f"ktpu: port-forward exited {rc}, the container answered "
+          f"{banner!r} then {echo!r}")
+    results["port_forward"] = {"rc": rc, "seconds": secs,
+                               "bytes": len(banner) + len(echo)}
+    return results
 
 
 # ---------------------------------- ExplainAB, the secured cluster, front door
@@ -6903,7 +7034,6 @@ CTRL_SCALE = (0.5, 1.5)    # the scale step's seeded factor a Deployment
 CTRL_FAILED_NODES = 5
 CTRL_STEP_TIMEOUT_S = 240.0
 CTRL_POLL_S = 0.5
-CTRL_STATUS_FLUSH_S = 0.05  # the kubelet stand-in's status batch cadence
 
 
 def serve_controller_manager(conn, url):
@@ -6984,97 +7114,54 @@ def serve_controller_manager(conn, url):
     conn.send(report)
 
 
-def serve_kubelet_standin(conn, url, ns):
-    """Child process: the controllers phase's stand-in for the kubelets of
-    its nodes. It is a harness of this script, not a module of the port
-    (the port's kubelet is ROADMAP Queue A item 15). It watches the pods
-    of namespace ``ns`` and writes each bound one ``Running`` with a pod
-    IP and ``Ready=True``, in bulk status writes (``update_status_many``)
-    every CTRL_STATUS_FLUSH_S: the ReplicaSet and Deployment controllers
-    count ready pods, and the endpoint controllers publish them. Sends
-    "ready" once it watches; answers "stop" with its counts."""
-    import itertools
+def serve_hollow_fleet(conn, url, n_nodes):
+    """Child process: the nodes' kubelets, as the load test runs them on
+    kubemark. The port's ``HollowCluster`` over ``HTTPClient(url,
+    wire="json")`` registers ``n_nodes`` hollow kubelets in bulk, each with
+    CTRL_NODE_ALLOCATABLE, heartbeating at the fleet's default period;
+    they take every pod bound to them to Running with a pod IP and
+    Ready=True through the fleet's status batcher, and keep their nodes
+    fresh through the heartbeat and lease batchers. Sends the node names
+    once the fleet watches pods, then answers:
+
+    - ("out", names): take those kubelets out of service as
+      ``HollowCluster.remove_node`` does (marked dead, out of the watch
+      fan-out and the heartbeat and lease batchers, their pod workers
+      stopped) but leave their Node objects: a node failure, not a
+      scale-down. -> "ok";
+    - "stats": -> the fleet's running pods and ``fleet_stats()``;
+    - "stop": stops the fleet, -> its last stats."""
     from kubernetes_tpu_torch.client.clientset import HTTPClient
-    from kubernetes_tpu_torch.store.store import TooOld
-    client = HTTPClient(url, timeout=60.0, wire="json")
-    lock = threading.Lock()
-    pending: dict = {}   # uid -> (name, status)
-    marked: set = set()  # uids written Running
-    ips = itertools.count(1)
-    stats = {"marked": 0, "writes": 0, "refused": 0, "failed_writes": 0,
-             "last_error": None, "watch_restarts": 0}
-    stop = threading.Event()
-    watching = threading.Event()
+    from kubernetes_tpu_torch.kubelet.kubemark import HollowCluster
+    fleet = HollowCluster(HTTPClient(url, timeout=60.0, wire="json"),
+                          n_nodes, prefix="load-node",
+                          allocatable=dict(CTRL_NODE_ALLOCATABLE))
+    fleet.start(wait_sync=120.0)
 
-    def saw(pod) -> None:
-        md = pod.get("metadata") or {}
-        uid = md.get("uid")
-        if (not (pod.get("spec") or {}).get("nodeName")
-                or (pod.get("status") or {}).get("phase") == "Running"):
-            return
-        with lock:
-            if uid in pending or uid in marked:
-                return
-            i = next(ips)
-            pending[uid] = (md["name"], {
-                "phase": "Running",
-                "podIP": f"10.{64 + (i >> 16)}.{(i >> 8) & 255}.{i & 255}",
-                "conditions": [{"type": "PodScheduled", "status": "True"},
-                               {"type": "Ready", "status": "True"}]})
+    def stats() -> dict:
+        return {"running_pods": fleet.running_pods(),
+                "fleet": fleet.fleet_stats()}
 
-    def watch() -> None:
-        rv = None   # relist first, and after a stream that failed
-        while not stop.is_set():
-            try:
-                if rv is None:
-                    pods, rv = client.pods(ns).list_rv()
-                    for p in pods:
-                        saw(p)
-                w = client.pods(ns).watch(since_rv=rv)
-                watching.set()
-                for ev in w:
-                    rv = max(rv, ev.resource_version)
-                    if ev.type in ("ADDED", "MODIFIED"):
-                        saw(ev.object or {})
-            except TooOld:
-                rv = None
-            except Exception as e:  # counted; the stand-in keeps watching
-                stats["last_error"] = repr(e)[:300]
-                rv = None
-                time.sleep(0.1)
-            stats["watch_restarts"] += 1
-
-    def flush() -> None:
-        while not stop.wait(CTRL_STATUS_FLUSH_S):
-            with lock:
-                batch = list(pending.items())
-                pending.clear()
-            if not batch:
-                continue
-            try:
-                errs = client.pods(ns).update_status_many(
-                    [(ns, name, st) for _uid, (name, st) in batch])
-            except Exception as e:  # the pods come back on their next event
-                stats["failed_writes"] += 1
-                stats["last_error"] = repr(e)[:300]
-                continue
-            stats["writes"] += 1
-            for (uid, _), err in zip(batch, errs):
-                if err is None:
-                    with lock:
-                        marked.add(uid)
-                    stats["marked"] += 1
-                else:  # a pod deleted before its status landed
-                    stats["refused"] += 1
-
-    for fn in (watch, flush):
-        threading.Thread(target=fn, daemon=True).start()
-    if not watching.wait(120.0):
-        raise RuntimeError("the kubelet stand-in could not watch pods")
-    conn.send("ready")
-    conn.recv()
-    stop.set()
-    conn.send(dict(stats))
+    conn.send([hn.kubelet.node_name for hn in fleet.nodes])
+    while True:
+        msg = conn.recv()
+        if msg == "stop":
+            break
+        if msg == "stats":
+            conn.send(stats())
+            continue
+        _, names = msg
+        for name in names:
+            kubelet = fleet._by_name.pop(name)
+            kubelet.dead = True
+            fleet.nodes = [hn for hn in fleet.nodes
+                           if hn.kubelet.node_name != name]
+            fleet._heartbeats.remove(name)
+            fleet._leases.remove(name)
+            kubelet.workers.stop()
+        conn.send("ok")
+    fleet.stop()
+    conn.send(stats())
 
 
 def process_cpu_s(pid) -> float:
@@ -7088,16 +7175,12 @@ def process_cpu_s(pid) -> float:
     return (int(fields[11]) + int(fields[12])) / os.sysconf("SC_CLK_TCK")
 
 
-def ctrl_workload(n_nodes=CTRL_NODES, deployments=CTRL_DEPLOYMENTS):
-    """The load test's objects: ``n_nodes`` uniform nodes, the namespace,
-    its Deployments (one pod template each: app=<name>, the pause image,
-    CTRL_POD_REQUESTS; RollingUpdate at the default 25%/25%) and a Service
-    in front of each big and medium one. -> (nodes, namespace,
-    deployments, services)."""
-    from kubernetes_tpu_torch.testing.wrappers import make_node
-    nodes = _wire([make_node(f"load-node-{i:03d}")
-                   .capacity(CTRL_NODE_ALLOCATABLE).obj()
-                   for i in range(n_nodes)])
+def ctrl_workload(deployments=CTRL_DEPLOYMENTS):
+    """The load test's objects (its nodes are the hollow fleet's): the
+    namespace, its Deployments (one pod template each: app=<name>, the
+    pause image, CTRL_POD_REQUESTS; RollingUpdate at the default
+    25%/25%) and a Service in front of each big and medium one. ->
+    (namespace, deployments, services)."""
     namespace = {"apiVersion": "v1", "kind": "Namespace",
                  "metadata": {"name": CTRL_NS}}
     deps, svcs = [], []
@@ -7127,7 +7210,7 @@ def ctrl_workload(n_nodes=CTRL_NODES, deployments=CTRL_DEPLOYMENTS):
                     "metadata": {"name": name, "namespace": CTRL_NS},
                     "spec": {"selector": {"app": name},
                              "ports": [{"port": 80, "targetPort": 8080}]}})
-    return nodes, namespace, deps, svcs
+    return namespace, deps, svcs
 
 
 def _ready(pod) -> bool:
@@ -7223,8 +7306,10 @@ def controllers_phase(device=None, smi="", seed=SEED, n_nodes=CTRL_NODES,
     pods carry no default 300 s not-ready toleration, so an eviction
     follows its taint); the port's ControllerManager with its
     DEFAULT_CONTROLLERS, leader-elected, in a spawned process of its own
-    (serve_controller_manager); a stand-in for the kubelets until the
-    port has one (serve_kubelet_standin, a harness); and the
+    (serve_controller_manager); the nodes' kubelets, 100 hollow kubelets
+    of the port's ``HollowCluster`` in a spawned process of their own
+    (serve_hollow_fleet), which register the nodes, heartbeat, renew
+    their leases and run the bound pods; and the
     SchedulerRunner here, on the card (reference defaults; the sentinel
     every 4th drain and a fail-fast auditor every 2 s, as in the
     connected phase), whose binder is wrapped to time the bindings.
@@ -7238,25 +7323,29 @@ def controllers_phase(device=None, smi="", seed=SEED, n_nodes=CTRL_NODES,
        its size, the big ones' pod template changed (a rolling update at
        the default 25%/25%); every Deployment's updated, available and
        ready replicas at its spec, every old ReplicaSet at 0;
-    3. node failure: Ready=False written into 5 nodes' status. The nodes
-       carry no Ready condition until then, so the node lifecycle
-       controller leaves them alone (no kubelet heartbeats, and none is
-       needed); those 5 must get the node.kubernetes.io/not-ready
-       NoExecute taint, their pods evicted and replaced, the replacements
-       bound off them, every Deployment back at its spec;
+    3. node failure: 5 nodes' kubelets taken out of service (no more
+       heartbeats or lease renewals; their Node objects stay), then
+       Ready=False written into those nodes' status; those 5 must get the
+       node.kubernetes.io/not-ready NoExecute taint, their pods evicted
+       and replaced, the replacements bound off them, every Deployment
+       back at its spec;
     4. delete: every Service and Deployment deleted, as the load test's
        clean-up deletes them; the endpoint controllers leave 0 Endpoints
        and 0 EndpointSlices, the garbage collector 0 ReplicaSets and 0
-       pods in the namespace.
+       pods in the namespace, and the fleet runs 0 pods.
 
-    Gates besides: the manager alive until the phase stops it, then its
-    exit code 0; 0 loop errors, 0 audit violations, 0 sentinel
+    Gates besides: the manager and the fleet alive until the phase stops
+    them, then the manager's exit code 0; no node but the 5 failed ever
+    tainted not-ready or unreachable (every node event the runner's
+    informer sees is read: the other kubelets' heartbeats and leases keep
+    their nodes fresh against the node lifecycle controller's 40 s grace);
+    0 loop errors, 0 audit violations, 0 sentinel
     divergences, breaker "single", 0 pods through the oracle. Reported:
     each step's seconds and each process's CPU seconds in it (apiserver,
-    manager, stand-in, this one), step 1's pods/s, attempt p50/p99, the
+    manager, fleet, this one), step 1's pods/s, attempt p50/p99, the
     manager's evictions, logged warnings and errors and garbage-collector
-    sweeps, the stand-in's writes,
-    count_pn's launches (0 expected: the load test's pods carry no
+    sweeps, the fleet's heartbeat, lease and status flushes and their
+    errors, count_pn's launches (0 expected: the load test's pods carry no
     topology term). -> summary."""
     import multiprocessing as mp
     import random
@@ -7265,26 +7354,28 @@ def controllers_phase(device=None, smi="", seed=SEED, n_nodes=CTRL_NODES,
     from kubernetes_tpu_torch.audit.auditor import (InvariantAuditor,
                                                     InvariantViolationError)
     from kubernetes_tpu_torch.client.clientset import ApiError, HTTPClient
-    from kubernetes_tpu_torch.controllers.nodelifecycle import TAINT_NOT_READY
+    from kubernetes_tpu_torch.controllers.nodelifecycle import (
+        TAINT_NOT_READY, TAINT_UNREACHABLE)
     from kubernetes_tpu_torch.metrics.registry import (ATTEMPT_DURATION,
                                                        LOOP_ERRORS)
     from kubernetes_tpu_torch.ops import kernels
     from kubernetes_tpu_torch.sched.runner import SchedulerRunner
     from kubernetes_tpu_torch.utils.tracing import TRACER
+    LIFECYCLE_TAINTS = (TAINT_NOT_READY, TAINT_UNREACHABLE)
     rng = random.Random(seed)
-    node_dicts, namespace, dep_dicts, svc_dicts = ctrl_workload(
-        n_nodes, deployments)
+    namespace, dep_dicts, svc_dicts = ctrl_workload(deployments)
     n_pods = sum(d["spec"]["replicas"] for d in dep_dicts)
     ctx = mp.get_context("spawn")
     t_phase = time.perf_counter()
     server, server_pipe, url = start_apiserver(ctx)
-    runner = mgr = kubelet = None
-    mgr_pipe = kubelet_pipe = None
-    mgr_report = kubelet_report = None
+    runner = mgr = fleet = None
+    mgr_pipe = fleet_pipe = None
+    mgr_report = fleet_report = None
     summary = {"nodes": n_nodes, "deployments": len(dep_dicts),
                "services": len(svc_dicts), "pods": n_pods,
                "failed_nodes": n_failed, "card": smi}
     steps = {}
+    tainted = {}  # node -> the lifecycle taints it was ever seen with
     cpu = {}     # step -> {process: CPU seconds in the step}
     cpu_at = {}  # process -> CPU seconds at the last step's end
 
@@ -7292,7 +7383,7 @@ def controllers_phase(device=None, smi="", seed=SEED, n_nodes=CTRL_NODES,
         """Each process's CPU seconds since the last step ended."""
         now = {"apiserver": process_cpu_s(server.pid),
                "manager": process_cpu_s(mgr.pid),
-               "kubelet_standin": process_cpu_s(kubelet.pid),
+               "fleet": process_cpu_s(fleet.pid),
                "scheduler": process_cpu_s(os.getpid())}
         if step is not None:
             cpu[step] = {k: v - cpu_at.get(k, 0.0) for k, v in now.items()}
@@ -7303,7 +7394,8 @@ def controllers_phase(device=None, smi="", seed=SEED, n_nodes=CTRL_NODES,
               f"controllers: the scheduling loop died: {runner.loop_error!r}")
         check(mgr.is_alive(), "controllers: the controller manager died "
                               f"(exit code {mgr.exitcode})")
-        check(kubelet.is_alive(), "controllers: the kubelet stand-in died")
+        check(fleet.is_alive(), "controllers: the hollow fleet died "
+                                f"(exit code {fleet.exitcode})")
 
     def state():
         c = seed_client
@@ -7357,18 +7449,22 @@ def controllers_phase(device=None, smi="", seed=SEED, n_nodes=CTRL_NODES,
 
     try:
         seed_client = HTTPClient(url, timeout=120.0, wire="json")
-        t0 = time.perf_counter()
-        seed_client.nodes().create_many(node_dicts)
         seed_client.resource("namespaces", None).create(namespace)
-        summary["seed_s"] = time.perf_counter() - t0
-        # the kubelet stand-in and the controller manager, each in its own
-        # process
-        kubelet_pipe, child = ctx.Pipe()
-        kubelet = ctx.Process(target=serve_kubelet_standin,
-                              args=(child, url, CTRL_NS), daemon=True)
-        kubelet.start()
-        check(kubelet_pipe.poll(120.0) and kubelet_pipe.recv() == "ready",
-              "controllers: the kubelet stand-in did not start")
+        # the hollow fleet (it registers the nodes) and the controller
+        # manager, each in its own process
+        t0 = time.perf_counter()
+        fleet_pipe, child = ctx.Pipe()
+        fleet = ctx.Process(target=serve_hollow_fleet,
+                            args=(child, url, n_nodes), daemon=True)
+        fleet.start()
+        check(fleet_pipe.poll(180.0), "controllers: the hollow fleet did "
+                                      f"not start (exit code {fleet.exitcode})")
+        node_names = fleet_pipe.recv()
+        check(len(node_names) == n_nodes
+              and len(seed_client.nodes().list()) == n_nodes,
+              f"controllers: the fleet registered {len(node_names)} of "
+              f"{n_nodes} nodes")
+        summary["fleet_start_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         mgr_pipe, child = ctx.Pipe()
         mgr = ctx.Process(target=serve_controller_manager, args=(child, url),
@@ -7396,6 +7492,15 @@ def controllers_phase(device=None, smi="", seed=SEED, n_nodes=CTRL_NODES,
         runner.start(wait_sync=120.0, start_loop=False)
         check(runner.has_synced(), "controllers: the informers did not sync")
         summary["informer_sync_s"] = time.perf_counter() - t0
+
+        def saw_node(_type, obj, _old) -> None:
+            """Instrumentation, read-only: every lifecycle taint a node
+            event carries."""
+            for t in (obj.get("spec") or {}).get("taints") or []:
+                if t.get("key") in LIFECYCLE_TAINTS:
+                    tainted.setdefault(obj["metadata"]["name"], set()).add(
+                        t["key"])
+        runner.factory.informer("nodes", None).add_event_handler(saw_node)
         sched = runner.scheduler
         pop = cfg.batch_size * cfg.max_drain_batches
         samples = [Pod.from_dict({**d["spec"]["template"], "metadata": {
@@ -7465,27 +7570,45 @@ def controllers_phase(device=None, smi="", seed=SEED, n_nodes=CTRL_NODES,
         until("scale_update", t0, held(updated=True),
               "the scaled, updated Deployments")
 
-        # 3. node failure: Ready=False into n_failed nodes' status
-        failed = sorted(rng.sample([n["metadata"]["name"]
-                                    for n in node_dicts], n_failed))
+        # 3. node failure: n_failed kubelets out of service, then
+        # Ready=False into their nodes' status
+        failed = sorted(rng.sample(node_names, n_failed))
         on_failed = [p["metadata"]["name"]
                      for p in seed_client.pods(CTRL_NS).list()
                      if p["spec"].get("nodeName") in failed]
         summary["pods_on_failed_nodes"] = len(on_failed)
+        check(not tainted, f"controllers: nodes tainted before any failed: "
+                           f"{sorted(tainted)[:5]}")
         t0 = time.perf_counter()
-        for name in failed:
-            def write(name=name):
+        fleet_pipe.send(("out", failed))
+        check(fleet_pipe.poll(60.0) and fleet_pipe.recv() == "ok",
+              "controllers: the fleet did not take the failed kubelets out")
+        rewrites = []
+
+        def not_ready(name) -> None:
+            """Ready=False into the node's status, unless it holds it (a
+            heartbeat that was in flight when its kubelet went out of
+            service may land after the first write: counted)."""
+            def write():
                 node = seed_client.nodes().get(name)
+                conds = (node.get("status") or {}).get("conditions") or []
+                if any(c.get("type") == "Ready" and c.get("status")
+                       == "False" for c in conds):
+                    return None
                 node.setdefault("status", {})["conditions"] = [
                     {"type": "Ready", "status": "False",
                      "reason": "KubeletNotReady",
                      "lastHeartbeatTime": time.time()}]
+                rewrites.append(name)
                 return seed_client.nodes().update_status(node)
             retried(write)
+        for name in failed:
+            not_ready(name)
 
         def failed_out():
             fails = []
             for name in failed:
+                not_ready(name)
                 taints = seed_client.nodes().get(name)["spec"].get(
                     "taints") or []
                 if not any(t.get("key") == TAINT_NOT_READY
@@ -7506,6 +7629,7 @@ def controllers_phase(device=None, smi="", seed=SEED, n_nodes=CTRL_NODES,
             return fails + ctrl_failures(deps, rses, pods, eps, slices,
                                          svc_dicts, updated=True)
         until("node_failure", t0, failed_out, "recovery from node failure")
+        summary["ready_rewrites"] = len(rewrites) - n_failed
 
         # 4. delete every Service and Deployment, as the load test's
         # clean-up does: the endpoint controllers delete their objects, the
@@ -7537,7 +7661,11 @@ def controllers_phase(device=None, smi="", seed=SEED, n_nodes=CTRL_NODES,
             if left:
                 return [f"{left} pods in the runner's informer"]
             pods = seed_client.pods(CTRL_NS).list()
-            return [f"{len(pods)} pods"] if pods else []
+            if pods:
+                return [f"{len(pods)} pods"]
+            fleet_pipe.send("stats")
+            running = fleet_pipe.recv()["running_pods"]
+            return [f"the fleet runs {running} pods"] if running else []
         until("delete", t0, collected, "the clean-up")
 
         summary["launches"] = dict(kernels.LAUNCHES)
@@ -7575,21 +7703,34 @@ def controllers_phase(device=None, smi="", seed=SEED, n_nodes=CTRL_NODES,
                                    "not report")
         mgr_report = mgr_pipe.recv()
         mgr.join(30.0)
-        kubelet_pipe.send("stop")
-        if kubelet_pipe.poll(30.0):
-            kubelet_report = kubelet_pipe.recv()
+        fleet_pipe.send("stop")
+        check(fleet_pipe.poll(60.0), "controllers: the fleet did not report")
+        fleet_report = fleet_pipe.recv()
     finally:
         if runner is not None:
             runner.stop()  # re-raises a fatal failure that ended the loop
-        for proc, pipe in ((mgr, mgr_pipe), (kubelet, kubelet_pipe)):
+        for proc, pipe in ((mgr, mgr_pipe), (fleet, fleet_pipe)):
             if proc is not None:
                 stop_process(proc, pipe)
         stop_process(server, server_pipe)
     summary.update({"manager": mgr_report, "manager_exit_code": mgr.exitcode,
-                    "kubelet_standin": kubelet_report,
+                    "fleet": fleet_report,
+                    "tainted_nodes": {n: sorted(k)
+                                      for n, k in sorted(tainted.items())},
                     "seconds": time.perf_counter() - t_phase})
     check(mgr.exitcode == 0,
           f"controllers: the controller manager exited {mgr.exitcode}")
+    others = sorted(set(tainted) - set(failed))
+    check(not others, f"controllers: {len(others)} nodes that did not fail "
+                      f"were tainted: {summary['tainted_nodes']}")
+    check(all(TAINT_NOT_READY in tainted.get(n, ()) for n in failed),
+          f"controllers: a failed node was never seen tainted not-ready: "
+          f"{summary['tainted_nodes']}")
+    fl = fleet_report["fleet"]
+    summary["fleet_flushes"] = {
+        k: {"flushes": fl[k]["flushes"], "items": fl[k]["items"],
+            "errors": fl[k]["errors"]} for k in ("heartbeat", "lease",
+                                                 "status")}
     check(summary["audit"]["violations"] == 0,
           f"controllers: invariant violations {summary['audit']['byInvariant']}")
     check(summary["sentinel"]["divergences"] == 0,
@@ -7942,43 +8083,106 @@ def warm_boot(cache_dir: str, device=None) -> dict:
     return report
 
 
-def warm_phase(seconds_limit=300.0) -> dict:
-    """Warm start: three boots of a scheduler, each in a child process
-    (``python3 chip_smoke.py --warm-boot DIR``), on one empty temporary
-    ``aotCacheDir``: cold (count_pn is built, the ladder captures), warm
-    (nothing built, the same fingerprint, the canary sample judged with 0
-    divergences), and after one byte of the cached library is flipped
-    (swept and counted at boot, built again: the damaged library is never
-    loaded). Then the fingerprint's wholesale invalidation on a changed
-    build flag, in this process (the flags are restored and the cache
-    disarmed after it). -> the report."""
-    import shutil
-    import tempfile
+class WarmBoots:
+    """The warm phase's three boots of a scheduler, each in a child process
+    (``python3 chip_smoke.py --warm-boot DIR``), one after another on one
+    empty temporary ``aotCacheDir``: cold (count_pn is built, the ladder
+    captures), warm (nothing built, the same fingerprint, the canary
+    sample judged with 0 divergences), and after one byte of the cached
+    library is flipped (swept and counted at boot, built again: the
+    damaged library is never loaded). They run on a thread of this process
+    while it runs the parity checks, which time nothing; ``join`` waits
+    for them before the timed paths, ``stop`` kills a boot still running
+    and removes the directory."""
+
+    LEGS = ("cold", "warm", "flipped")
+
+    def __init__(self, seconds_limit=300.0):
+        import tempfile
+        self.seconds_limit = seconds_limit
+        self.root = tempfile.mkdtemp(prefix="warm-", dir=os.path.join(
+            os.path.dirname(os.path.abspath(__file__)), "build"))
+        self.cache_dir = os.path.join(self.root, "aot")
+        self.boots = {}
+        self.error = None
+        self.wall_s = None
+        self._proc = None
+        self._stopped = threading.Event()
+        self._thread = threading.Thread(target=self._run, name="warm-boots",
+                                        daemon=True)
+
+    def start(self) -> "WarmBoots":
+        self._thread.start()
+        return self
+
+    def _run(self) -> None:
+        t_all = time.perf_counter()
+        try:
+            for leg in self.LEGS:
+                if leg == "flipped":
+                    lib = os.path.join(self.cache_dir, "entries",
+                                       self.boots["warm"]["entries"][0])
+                    blob = bytearray(open(lib, "rb").read())
+                    blob[len(blob) // 2] ^= 0xFF
+                    with open(lib, "wb") as f:
+                        f.write(bytes(blob))
+                if self._stopped.is_set():
+                    return
+                t0 = time.perf_counter()
+                self._proc = subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__),
+                     "--warm-boot", self.cache_dir],
+                    stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                    text=True)
+                try:
+                    out, err = self._proc.communicate(
+                        timeout=self.seconds_limit)
+                except subprocess.TimeoutExpired:
+                    self._proc.kill()
+                    self._proc.communicate()
+                    raise PhaseFailed(f"warm: the {leg} boot took more "
+                                      f"than {self.seconds_limit} s")
+                check(self._proc.returncode == 0,
+                      f"warm: the {leg} boot failed: {err[-2000:]}")
+                self.boots[leg] = json.loads(out.strip().splitlines()[-1])
+                self.boots[leg]["process_s"] = time.perf_counter() - t0
+        except Exception as e:  # raised by join, in the main thread
+            self.error = e
+        finally:
+            self.wall_s = time.perf_counter() - t_all
+
+    def join(self, timeout=None) -> dict:
+        """Wait for the three boots. -> their reports (raises a boot's
+        failure)."""
+        self._thread.join(self.seconds_limit * len(self.LEGS)
+                          if timeout is None else timeout)
+        check(not self._thread.is_alive(), "warm: the boots did not end")
+        if self.error is not None:
+            raise self.error
+        return self.boots
+
+    def stop(self) -> None:
+        import shutil
+        self._stopped.set()
+        proc = self._proc
+        if proc is not None and proc.poll() is None:
+            proc.kill()
+        if self._thread.is_alive():
+            self._thread.join(30.0)
+        shutil.rmtree(self.root, ignore_errors=True)
+
+
+def warm_phase(warm_boots: WarmBoots) -> dict:
+    """Warm start: the gates on the three boots of ``warm_boots`` (see
+    ``WarmBoots``), then the fingerprint's wholesale invalidation on a
+    changed build flag, in this process (the flags are restored and the
+    cache disarmed after it). -> the report."""
     from kubernetes_tpu_torch.ops import kernels
     from kubernetes_tpu_torch.sched.aotcache import (AotExecutableCache,
                                                      cache_knobs)
-    root = tempfile.mkdtemp(prefix="warm-", dir=os.path.join(
-        os.path.dirname(os.path.abspath(__file__)), "build"))
-    cache_dir = os.path.join(root, "aot")
-    boots = {}
+    boots = warm_boots.join()
+    cache_dir = warm_boots.cache_dir
     try:
-        for leg in ("cold", "warm", "flipped"):
-            if leg == "flipped":
-                lib = os.path.join(cache_dir, "entries",
-                                   boots["warm"]["entries"][0])
-                blob = bytearray(open(lib, "rb").read())
-                blob[len(blob) // 2] ^= 0xFF
-                with open(lib, "wb") as f:
-                    f.write(bytes(blob))
-            t0 = time.perf_counter()
-            proc = subprocess.run(
-                [sys.executable, os.path.abspath(__file__), "--warm-boot",
-                 cache_dir], capture_output=True, text=True,
-                timeout=seconds_limit)
-            check(proc.returncode == 0,
-                  f"warm: the {leg} boot failed: {proc.stderr[-2000:]}")
-            boots[leg] = json.loads(proc.stdout.strip().splitlines()[-1])
-            boots[leg]["process_s"] = time.perf_counter() - t0
         cold, warm, flipped = boots["cold"], boots["warm"], boots["flipped"]
         for leg, b in boots.items():
             check(b["bound"] >= 0.9 * b["pods"],
@@ -8025,22 +8229,34 @@ def warm_phase(seconds_limit=300.0) -> dict:
                 "first_drain_captures", "bound", "sentinel", "stats",
                 "process_s", "boot_to_bound_s", "threads_after_stop")
         return {**{leg: {k: b[k] for k in keep} for leg, b in boots.items()},
+                "boots_wall_s": warm_boots.wall_s,
+                "boots_beside": "the parity checks",
                 "fingerprint_equal": True,
                 "flags_changed": {"boot": boot,
                                   "invalidations": stale.invalidations}}
     finally:
-        shutil.rmtree(root, ignore_errors=True)
+        warm_boots.stop()
 
 
 # past this many seconds the script prints every thread's stack and exits
 # 1, inside the 1200 s the card's check allows: a hang names its place
-DEADLINE_S = 1100.0
+DEADLINE_S = 1170.0
+
+
+# this process's collector: a young collection every 50000 net
+# allocations (Python's default is 700) and an older one every 20 of the
+# younger. At the defaults the collector held this process for 14% of
+# the script's seconds (PERF.md §6), re-traversing each phase's informer
+# caches and encodings; every other process of the script keeps Python's
+# defaults
+GC_THRESHOLDS = (50_000, 20, 20)
 
 
 def main() -> int:
     import faulthandler
     import signal
     import torch
+    gc.set_threshold(*GC_THRESHOLDS)
     faulthandler.dump_traceback_later(DEADLINE_S, exit=True)
     faulthandler.register(signal.SIGTERM, all_threads=True, chain=True)
     if not torch.cuda.is_available():
@@ -8091,6 +8307,11 @@ def main() -> int:
     emit({"phase": "kernels", "rows": rows,
           "launches_while_comparing": dict(kernels.LAUNCHES)})
 
+    # the warm phase's three boots run in child processes beside the
+    # parity checks, which time nothing; they end before the timed paths
+    warm_boots = WarmBoots().start()
+    atexit.register(warm_boots.stop)
+
     emit({"phase": "parity", **parity_phase(),
           "drain": drain_parity_phase(), "scheduler": sched_parity_phase(),
           "connected": connected_parity_phase()})
@@ -8114,6 +8335,8 @@ def main() -> int:
 
     launches = {}   # kernel -> {path: launches}
 
+    warm_boots.join()
+    settle_heap()
     path = path_phase(node_dicts, bound, batches)
     rounds = sum(r["rounds"] for r in path["requests"])
     emit({"phase": "path", "nodes": len(node_dicts), "bound": len(bound),
@@ -8165,6 +8388,7 @@ def main() -> int:
     resident_in = sched_drain_inputs(drv.ctx, drv.cache.encode_pods,
                                      RESIDENT_B, RESIDENT_P, r_pending[-1])
     del drv
+    settle_heap()
 
     s_nodes, s_pods, s_profiled = sched_workload()
     sched_sum, sched, s_churn, _placed = scheduler_phase(s_nodes, s_pods,
@@ -8196,6 +8420,7 @@ def main() -> int:
                                     plug_sum["pops"])})
     sched.close()
     del sched
+    settle_heap()
 
     c_nodes, c_pods = connected_workload()
     conn_sum, runner = connected_phase(c_nodes, c_pods, smi=smi)
@@ -8210,6 +8435,7 @@ def main() -> int:
                                  CONNECTED_DRAIN_BATCHES, CONNECTED_BATCH,
                                  c_pods)
     del runner
+    settle_heap()
 
     # default preemption: no hand kernel on its path (its device work is
     # torch ops, ROADMAP B7); count_pn's launches there are recorded
@@ -8251,6 +8477,7 @@ def main() -> int:
     fleet_rows = kernels_phase(fleet_cases)
     del fleet_cases, _plan
     emit({"phase": "kernels.fleet", "rows": fleet_rows})
+    settle_heap()
     fleet_sum = fleet_phase(smi=smi)
     emit({"phase": "fleet", **fleet_sum})
     check(not fleet_sum["failures"],
@@ -8318,8 +8545,9 @@ def main() -> int:
     emit({"phase": "parity.graph", "cpu_round_cut": GRAPH_CPU_ROUNDS,
           "cpu_leg_at": ["resident"], **graph_legs})
     del resident_in, sched_in, conn_in, f_ct, f_pbs
-    # warm start: three scheduler boots on one kernel cache
-    emit({"phase": "warm", **warm_phase()})
+    # warm start: the gates on the three boots made beside the parity
+    # checks, and a changed build flag
+    emit({"phase": "warm", **warm_phase(warm_boots)})
 
     for path, summary in (("preemption", pre_sum),
                           ("connected_preemption", cpre_sum),

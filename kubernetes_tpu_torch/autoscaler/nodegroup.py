@@ -11,9 +11,7 @@ Reference: ``cluster-autoscaler/cloudprovider/cloud_provider.go``
                            scaled-up capacity heartbeats, admits, and runs
                            pods like the rest of the fleet.
 
-The PyTorch port of ``kubernetes_tpu/autoscaler/nodegroup.py``. kubemark
-is not ported (ROADMAP Queue A item 15): ``HollowNodeGroupProvider``
-raises at construction.
+The PyTorch port of ``kubernetes_tpu/autoscaler/nodegroup.py``.
 """
 
 from __future__ import annotations
@@ -191,11 +189,28 @@ class StaticNodeGroupProvider(NodeGroupProvider):
 
 
 class HollowNodeGroupProvider(NodeGroupProvider):
-    """Each scale-up would add hollow kubelets (kubemark) to a dynamic
-    HollowCluster. kubemark is ROADMAP Queue A item 15: construction
-    raises until it is ported."""
+    """Default provider: each scale-up adds hollow kubelets (kubemark) to a
+    dynamic HollowCluster, so new capacity registers, heartbeats, admits and
+    drives pods Running through the real kubelet sync machinery."""
 
     def __init__(self, client, groups: list[NodeGroup],
                  heartbeat_period: float = 5.0):
-        from kubernetes_tpu_torch.config.types import not_ported
-        raise not_ported("HollowNodeGroupProvider (kubemark)", "15")
+        super().__init__(groups)
+        from kubernetes_tpu_torch.kubelet.kubemark import HollowCluster
+        self.cluster = HollowCluster(client, 0,
+                                     heartbeat_period=heartbeat_period)
+        self.cluster.start()
+
+    def _provision(self, group: NodeGroup, names: list[str]) -> None:
+        self.cluster.add_nodes(
+            names, allocatable=dict(group.template.status.allocatable),
+            labels={**group.template.metadata.labels,
+                    NODE_GROUP_LABEL: group.name},
+            taints=[t.to_dict() for t in group.template.spec.taints])
+
+    def _deprovision(self, group: NodeGroup, names: list[str]) -> None:
+        for name in names:
+            self.cluster.remove_node(name)
+
+    def stop(self) -> None:
+        self.cluster.stop()

@@ -17,6 +17,8 @@ Usage:
   ktpu drain NODE
   ktpu status [-o json] / why POD / trace dump / audit status
   ktpu deschedule run [--dry-run] | status
+  ktpu logs POD / exec POD -- CMD... / attach POD
+  ktpu port-forward POD LOCAL[:REMOTE] [--one-shot]
   python -m kubernetes_tpu_torch.cli.ktpu ...
 
 Ported: ``get``, ``apply`` (a JSON manifest needs no PyYAML; YAML imports
@@ -32,9 +34,12 @@ CPU).
 ``certificate approve|deny`` sets a CertificateSigningRequest's condition
 (``controllers/certificates.py``).
 
+``logs``, ``exec``, ``attach`` and ``port-forward`` go through the
+apiserver's pod ``log``, ``exec`` and ``portforward`` subresources to the
+pod's kubelet (``kubelet/server.py``).
+
 Refused before any call to the server, each with ``not_ported`` naming its
-ROADMAP Queue A item: ``logs``, ``exec``, ``attach`` and ``port-forward``
-(15, the kubelet), ``lint`` and ``scenario`` (17).
+ROADMAP Queue A item: ``lint`` and ``scenario`` (17).
 """
 
 from __future__ import annotations
@@ -47,19 +52,15 @@ from typing import Optional
 
 from kubernetes_tpu_torch.client.clientset import ApiError, HTTPClient
 from kubernetes_tpu_torch.config.types import not_ported
+from kubernetes_tpu_torch.kubelet.kubemark import FLEET_CONFIGMAP
 from kubernetes_tpu_torch.store.apiserver import ALL_RESOURCES, KIND_TO_PLURAL
 
-# the status ConfigMaps of components not ported yet, named as the
-# reference's publish them (kubelet/kubemark.py, scenario/driver.py)
-FLEET_CONFIGMAP = "kubernetes-tpu-fleet-status"
+# the status ConfigMap of a component not ported yet, named as the
+# reference's publishes it (scenario/driver.py)
 SCENARIO_CONFIGMAP = "kubernetes-tpu-scenario-status"
 
 # commands that wait for a later slice: (what, ROADMAP Queue A item)
 REFUSED = {
-    "logs": ("ktpu logs (the kubelet's containerLogs proxy)", "15"),
-    "exec": ("ktpu exec (the kubelet's exec proxy)", "15"),
-    "attach": ("ktpu attach (the kubelet's log stream)", "15"),
-    "port-forward": ("ktpu port-forward (the kubelet's portforward)", "15"),
     "lint": ("ktpu lint (analysis/)", "17"),
     "scenario": ("ktpu scenario (scenario/)", "17"),
 }
@@ -402,6 +403,63 @@ def cmd_drain(client: HTTPClient, args, out) -> int:
         client.pods(md.get("namespace", "default")).evict(md["name"])
         out.write(f"pod/{md['name']} evicted\n")
     return 0
+
+
+def cmd_logs(client: HTTPClient, args, out) -> int:
+    """kubectl logs analog: apiserver -> kubelet containerLogs proxy."""
+    out.write(client.pod_logs(args.namespace, args.name,
+                              container=args.container or ""))
+    return 0
+
+
+def cmd_exec(client: HTTPClient, args, out) -> int:
+    """kubectl exec analog (ExecSync shape: command in, output + code)."""
+    res = client.pod_exec(args.namespace, args.name, args.command,
+                          container=args.container or "")
+    out.write(res.get("output", ""))
+    return int(res.get("exit_code", 1))
+
+
+def cmd_port_forward(client: HTTPClient, args, out) -> int:
+    """kubectl port-forward analog: local listener -> apiserver
+    portforward subresource -> kubelet -> container app, raw TCP spliced
+    end to end. Serves until interrupted (or ``--one-shot`` for one
+    connection, which tests use)."""
+    import socket as _socket
+    import threading
+    from urllib.parse import urlsplit
+    local = int(args.ports.split(":")[0])
+    parts = urlsplit(args.server)
+    api = (parts.hostname, parts.port or 80)
+    path = (f"/api/v1/namespaces/{args.namespace}/pods/"
+            f"{args.name}/portforward")
+
+    auth = (f"Authorization: Bearer {args.token}\r\n"
+            if getattr(args, "token", None) else "")
+
+    def handle(conn):
+        from kubernetes_tpu_torch.kubelet.server import upgrade_and_splice
+        with conn:
+            upgrade_and_splice(conn, api, path, extra_headers=auth)
+
+    srv = _socket.socket(_socket.AF_INET, _socket.SOCK_STREAM)
+    srv.setsockopt(_socket.SOL_SOCKET, _socket.SO_REUSEADDR, 1)
+    srv.bind(("127.0.0.1", local))
+    srv.listen(4)
+    bound = srv.getsockname()[1]
+    out.write(f"Forwarding from 127.0.0.1:{bound} -> pod {args.name}\n")
+    try:
+        while True:
+            conn, _ = srv.accept()
+            if args.one_shot:
+                handle(conn)
+                return 0
+            threading.Thread(target=handle, args=(conn,),
+                             daemon=True).start()
+    except KeyboardInterrupt:
+        return 0
+    finally:
+        srv.close()
 
 
 def cmd_top(client: HTTPClient, args, out) -> int:
@@ -1458,9 +1516,17 @@ def main(argv=None, out=None) -> int:
         "rollout": cmd_rollout, "status": cmd_status,
         "autoscale": cmd_autoscale, "audit": cmd_audit, "why": cmd_why,
         "trace": cmd_trace, "deschedule": cmd_deschedule,
-        "certificate": cmd_certificate}
+        "certificate": cmd_certificate, "logs": cmd_logs,
+        # the hollow runtime has no live stdout stream: attach shows the
+        # container's logs, its closest observable analog
+        "attach": cmd_logs, "exec": cmd_exec,
+        "port-forward": cmd_port_forward}
     if args.cmd == "rollout":
         args.name = args.kind_name.split("/", 1)[-1]
+    elif args.cmd == "exec":
+        args.command = [c for c in args.command if c != "--"]
+    elif args.cmd == "port-forward":
+        args.server = client.base
     try:
         return commands[args.cmd](client, args, out)
     except ApiError as e:

@@ -12,8 +12,7 @@ clients) and ``rest/request.go``. Two transports share one interface:
 Resource handles: ``client.pods(ns)``, ``client.nodes()``, ... each with
 create/get/list/update/update_status/delete/watch/bind/evict.
 
-The port of ``kubernetes_tpu/client/clientset.py``. The kubelet-proxied
-pod subresources (``pod_logs``, ``pod_exec``) wait for the kubelet.
+The port of ``kubernetes_tpu/client/clientset.py``.
 msgpack is optional: without it every client speaks JSON. One difference:
 ``HTTPClient`` keeps its URLs as ``urls``; the reference's ``endpoints``
 list hides the ``endpoints(ns)`` handle.
@@ -947,6 +946,28 @@ class HTTPClient(_Handles):
 
     def watch(self, plural, kind, ns, since_rv):
         return _HTTPWatch(self, plural, ns, since_rv)
+
+    # ---- kubelet-proxied pod subresources (kubectl logs / exec) ----------
+
+    def pod_logs(self, ns: str, name: str, container: str = "") -> str:
+        """GET pods/<p>/log — the apiserver proxies to the pod's kubelet."""
+        q = f"container={container}" if container else ""
+        url = self._path("pods", ns, name, "log", query=q)
+        req = urllib.request.Request(url, headers=self._auth_headers())
+        with urllib.request.urlopen(req, timeout=self.timeout) as resp:
+            return resp.read().decode()
+
+    def pod_exec(self, ns: str, name: str, command: list,
+                 container: str = "") -> dict:
+        """POST pods/<p>/exec -> {exit_code, output} via the kubelet."""
+        q = f"container={container}" if container else ""
+        url = self._path("pods", ns, name, "exec", query=q)
+        req = urllib.request.Request(
+            url, data=json.dumps({"command": command}).encode(),
+            headers={"Content-Type": "application/json",
+                     **self._auth_headers()}, method="POST")
+        with urllib.request.urlopen(req, timeout=self.timeout) as resp:
+            return json.loads(resp.read())
 
 
 class _HTTPWatch:

@@ -162,8 +162,23 @@ def pods_violating_node_affinity(nodes: list[Node], bound_pods: list[Pod],
     placement. Each violator is its own candidate set: one stuck pod must
     not block the rest."""
     from kubernetes_tpu_torch.device import resolve_device
-    from kubernetes_tpu_torch.encode.snapshot import SnapshotEncoder
-    live = [p for p in bound_pods if not _terminal(p) and evictable(p)]
+    from kubernetes_tpu_torch.encode.snapshot import (TENANT_LABEL,
+                                                      SnapshotEncoder)
+    # only a pod with a nodeSelector, required node affinity or a tenant
+    # (its own or its node's) can have a False row at its own node; the
+    # rest are never encoded (the reference encodes every bound pod: the
+    # same sets, at 15000 pods most of a cycle's seconds)
+    node_tenant = {n.metadata.name: n.metadata.labels.get(TENANT_LABEL)
+                   for n in nodes}
+
+    def constrained(p: Pod) -> bool:
+        na = p.spec.affinity.node_affinity if p.spec.affinity else None
+        return bool(p.spec.node_selector or (na and na.required)
+                    or TENANT_LABEL in p.metadata.labels
+                    or node_tenant[p.spec.node_name] is not None)
+
+    live = [p for p in bound_pods if not _terminal(p) and evictable(p)
+            and p.spec.node_name in node_tenant and constrained(p)]
     if not live:
         return []
     device = resolve_device(device)

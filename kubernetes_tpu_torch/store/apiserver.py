@@ -25,9 +25,10 @@ The port of ``kubernetes_tpu/store/apiserver.py``: the handler chain
 admission with webhooks and PodSecurity, server-side apply on PATCH, and
 the read-replica front door over a ``ReplicatedStore``. A dry-run request
 matched by a webhook with side effects is refused with 400 before the
-webhook is called (``store/webhooks.py``). The kubelet-proxied pod
-subresources (log, exec, portforward) answer 501 until the kubelet is
-ported. ``serve(conn, ...)`` is the entry a spawned server process runs.
+webhook is called (``store/webhooks.py``). The pod ``log``, ``exec`` and
+``portforward`` subresources proxy to the pod's kubelet through
+``node.status.daemonEndpoints``. ``serve(conn, ...)`` is the entry a
+spawned server process runs.
 """
 
 from __future__ import annotations
@@ -963,8 +964,14 @@ class APIServer:
                     except NotFound as e:
                         return self._error(404, str(e), "NotFound")
                     return self._send_json(200, _scale_of(kind, obj))
-                if sub in _KUBELET_SUBRESOURCES and kind == "Pod":
-                    return self._kubelet_not_ported(sub)
+                if sub == "log" and kind == "Pod" and name:
+                    # kubectl logs: proxy to the pod's kubelet
+                    # (kubelet server /containerLogs, reached via
+                    # node.status.daemonEndpoints — upstream's pod log
+                    # subresource does exactly this hop)
+                    return self._proxy_kubelet_get(
+                        ns or "default", name,
+                        qs.get("container", [""])[0])
                 if name:
                     try:
                         obj = server.store.get(kind, ns or "", name)
@@ -981,14 +988,93 @@ class APIServer:
                     "kind": f"{kind}List", "apiVersion": "v1",
                     "metadata": {"resourceVersion": str(rv)}, "items": items})
 
-            def _kubelet_not_ported(self, sub: str):
-                return self._error(
-                    501, f"pods/{sub} proxies to the kubelet, which is not "
-                         "ported yet", "NotImplemented")
+            def _proxy_portforward(self, ns: str, pod_name: str):
+                """Upgrade the client connection and splice it through to
+                the pod's kubelet /portForward stream — the apiserver leg of
+                kubectl port-forward (upstream: SPDY through the same two
+                hops)."""
+                ep = self._kubelet_endpoint(ns, pod_name)
+                if ep is None:
+                    return None
+                base, _pod = ep
+                from urllib.parse import urlsplit
+                from kubernetes_tpu_torch.kubelet.server import (
+                    connect_upgrade, splice_upgraded)
+                parts = urlsplit(base)
+                try:
+                    # dial the kubelet FIRST: an unreachable/stale endpoint
+                    # must surface as 502, not a silent post-101 close
+                    upstream, leftover = connect_upgrade(
+                        (parts.hostname, parts.port),
+                        f"/portForward/{ns}/{pod_name}")
+                except OSError as e:
+                    return self._error(502, f"kubelet proxy: {e}",
+                                       "BadGateway")
+                self.send_response(101)
+                self.send_header("Upgrade", "tcp")
+                self.send_header("Connection", "Upgrade")
+                self.end_headers()
+                self.wfile.flush()
+                splice_upgraded(self.connection, upstream, leftover)
+                self.close_connection = True
+                return None
 
             def _dry_run(self) -> bool:
                 qs = parse_qs(urlparse(self.path).query)
                 return bool(qs.get("dryRun"))
+
+            def _kubelet_endpoint(self, ns: str, pod_name: str):
+                """-> (base_url, pod) or an error response already sent."""
+                try:
+                    pod = server.store.get("Pod", ns, pod_name)
+                except NotFound as e:
+                    self._error(404, str(e), "NotFound")
+                    return None
+                node_name = (pod.get("spec") or {}).get("nodeName", "")
+                if not node_name:
+                    self._error(400, "pod is not scheduled", "BadRequest")
+                    return None
+                try:
+                    node = server.store.get("Node", "", node_name)
+                except NotFound:
+                    self._error(502, f"node {node_name!r} not found",
+                                "BadGateway")
+                    return None
+                st = node.get("status") or {}
+                ep = ((st.get("daemonEndpoints") or {})
+                      .get("kubeletEndpoint") or {})
+                port = ep.get("Port")
+                addr = next((a.get("address") for a in
+                             st.get("addresses") or []
+                             if a.get("type") == "InternalIP"), "127.0.0.1")
+                if not port:
+                    self._error(502, "kubelet endpoint not registered",
+                                "BadGateway")
+                    return None
+                return f"http://{addr}:{port}", pod
+
+            def _proxy_kubelet_get(self, ns, pod_name, container):
+                ep = self._kubelet_endpoint(ns, pod_name)
+                if ep is None:
+                    return None
+                base, pod = ep
+                if not container:
+                    ctrs = (pod.get("spec") or {}).get("containers") or []
+                    container = (ctrs[0].get("name", "") if ctrs else "")
+                import urllib.request as _rq
+                try:
+                    with _rq.urlopen(
+                            f"{base}/containerLogs/{ns}/{pod_name}/"
+                            f"{container}", timeout=10.0) as resp:
+                        body = resp.read()
+                except Exception as e:
+                    return self._error(502, f"kubelet proxy: {e}",
+                                       "BadGateway")
+                self.send_response(200)
+                self.send_header("Content-Type", "text/plain")
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
 
             def _watch(self, kind: str, ns, qs):
                 # Namespace filtering happens here (matching DirectClient's
@@ -1095,8 +1181,37 @@ class APIServer:
                     return self._error(400, str(e), "BadRequest")
                 if sub is None:
                     body = self._conv_in(kind, body)
-                if sub in _KUBELET_SUBRESOURCES and kind == "Pod":
-                    return self._kubelet_not_ported(sub)
+                if sub == "exec" and kind == "Pod" and name:
+                    ep = self._kubelet_endpoint(ns or "default", name)
+                    if ep is None:
+                        return None
+                    base, _pod = ep
+                    qs2 = parse_qs(urlparse(self.path).query)
+                    container = qs2.get("container", [""])[0]
+                    if not container:
+                        ctrs = (_pod.get("spec") or {}).get("containers") or []
+                        container = (ctrs[0].get("name", "") if ctrs else "")
+                    import urllib.request as _rq
+                    try:
+                        req2 = _rq.Request(
+                            f"{base}/exec/{ns or 'default'}/{name}/"
+                            f"{container}",
+                            data=json.dumps(body).encode(),
+                            headers={"Content-Type": "application/json"},
+                            method="POST")
+                        with _rq.urlopen(req2, timeout=15.0) as resp:
+                            out_body = resp.read()
+                    except Exception as e:
+                        return self._error(502, f"kubelet proxy: {e}",
+                                           "BadGateway")
+                    self.send_response(200)
+                    self.send_header("Content-Type", "application/json")
+                    self.send_header("Content-Length", str(len(out_body)))
+                    self.end_headers()
+                    self.wfile.write(out_body)
+                    return None
+                if sub == "portforward" and kind == "Pod" and name:
+                    return self._proxy_portforward(ns or "default", name)
                 if sub == "binding" and kind == "Pod" and name == "-":
                     # Bulk binding: one POST applies many bindings in a single
                     # store lock pass (the scheduler's gang step binds a whole
@@ -1628,9 +1743,6 @@ class APIServer:
                     return self._send_json(200, self._conv_out(kind, out))
 
         return Handler
-
-
-_KUBELET_SUBRESOURCES = ("log", "exec", "portforward")
 
 
 SCALABLE_KINDS = {"Deployment", "ReplicaSet", "StatefulSet",

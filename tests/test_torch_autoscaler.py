@@ -470,9 +470,44 @@ def test_load_node_group(name):
 
 
 def test_hollow_provider_is_not_ported():
-    with pytest.raises(NotImplementedError, match="item 15"):
-        port_autoscaler.HollowNodeGroupProvider(
-            PORT.client(), [_group(PORT, "g", 0, 1, {"cpu": "1"})])
+    """kubemark is ported: ``HollowNodeGroupProvider`` scales a group up
+    from zero with hollow kubelets that register the template's labels,
+    taints and allocatable and heartbeat Ready, then scales one away; the
+    nodes equal the reference's (their stamps aside)."""
+    import time
+
+    def scenario(P):
+        client = P.client()
+        provider = P.pkg.HollowNodeGroupProvider(
+            client, [_group(P, "g", 0, 3, {"cpu": "2", "pods": "10"},
+                            taints=[("dedicated", "infra", "NoSchedule")],
+                            labels={"pool": "g"})],
+            heartbeat_period=0.2)
+        try:
+            names = provider.scale_up("g", 2)
+            deadline = time.time() + 10
+            ready = []
+            while time.time() < deadline:
+                ready = [n for n in client.nodes().list() if any(
+                    c.get("type") == "Ready" and c.get("status") == "True"
+                    for c in n["status"].get("conditions") or [])]
+                if len(ready) == 2:
+                    break
+                time.sleep(0.05)
+            provider.scale_down("g", names[:1])
+            left = client.nodes().list()
+            return (names, len(ready), provider.target_size("g"),
+                    [(n["metadata"]["name"], n["metadata"]["labels"],
+                      n["spec"].get("taints"), n["status"]["allocatable"])
+                     for n in left])
+        finally:
+            provider.stop()
+
+    ref, port = both(scenario)
+    assert port == ref
+    assert port[:3] == (["g-0", "g-1"], 2, 1)
+    assert port[3][0][0] == "g-1"
+    assert port[3][0][1][port_autoscaler.NODE_GROUP_LABEL] == "g"
 
 
 def test_dra_device_capacity_group_loads_as_reference():

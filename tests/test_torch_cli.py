@@ -12,8 +12,10 @@
 - ``deschedule run --dry-run -o json`` plans the same on both.
 - ``certificate approve|deny`` gives the same output and conditions as
   the reference's.
-- Every refused command raises ``not_ported`` naming its ROADMAP item,
-  before any call to the server.
+- ``logs``, ``exec``, ``attach`` and ``port-forward`` run against a hollow
+  kubelet on both packages, with the same exit code and output; every
+  refused command raises ``not_ported`` naming its ROADMAP item, before
+  any call to the server.
 """
 
 from __future__ import annotations
@@ -318,22 +320,95 @@ def test_scale_subresource(cluster):
     assert deps.get("web")["spec"]["replicas"] == 3
 
 
-# ---- the refused commands ----------------------------------------------------
+# ---- the kubelet's commands and the refused ones -----------------------------
 
-REFUSED = [(["logs", "app"], "15"), (["exec", "app", "--", "ls"], "15"),
-           (["attach", "app"], "15"), (["port-forward", "app", "8080"], "15"),
+REFUSED = [(["logs", "app"], "15"), (["exec", "app", "--", "echo", "hi"], "15"),
+           (["attach", "app"], "15"), (["port-forward", "app", "0"], "15"),
            (["lint", "--json"], "17"),
            (["scenario", "describe", "builtin:smoke"], "17")]
+
+
+def _stamps(text: str) -> str:
+    """``text`` with log stamps and the pod's uid (a counter of each
+    store) masked."""
+    text = re.sub(r"\d{4}-\d\d-\d\dT\d\d:\d\d:\d\dZ", "<stamp>", text)
+    return re.sub(r"\buid-\d+", "uid-<n>", text)
+
+
+def _kubelet_command(argv: list) -> list:
+    """``ktpu <argv>`` on each package against its own APIServer and a
+    served HollowNode running the pod ``app`` -> [(exit code, output)]:
+    the reference's first. ``port-forward`` forwards one connection and
+    its output ends with what that connection read."""
+    import socket
+
+    from kubernetes_tpu.client.clientset import HTTPClient as RefHTTPClient
+    from kubernetes_tpu.kubelet.kubelet import HollowNode as RefHollowNode
+    from kubernetes_tpu_torch.kubelet.kubelet import HollowNode
+    got = []
+    for server_cls, client_cls, node_cls, cli in (
+            (RefAPIServer, RefHTTPClient, RefHollowNode, ref_ktpu),
+            (APIServer, HTTPClient, HollowNode, ktpu)):
+        server = server_cls().start()
+        node = None
+        try:
+            client = client_cls(server.url)
+            node = node_cls(client, "kn-1").start()
+            pod = make_pod("app").req({"cpu": "100m"}).obj().to_dict()
+            pod["spec"]["nodeName"] = "kn-1"
+            client.pods("default").create(pod)
+            assert wait_for(lambda: (client.pods("default").get("app").get(
+                "status") or {}).get("phase") == "Running", 10.0)
+            out = io.StringIO()
+            if argv[0] != "port-forward":
+                rc = cli.main(["--server", server.url, *argv], out=out)
+                got.append((rc, _stamps(out.getvalue())))
+                continue
+            res = {}
+            t = threading.Thread(target=lambda: res.setdefault(
+                "rc", cli.main(["--server", server.url, *argv,
+                                "--one-shot"], out=out)), daemon=True)
+            t.start()
+            line = wait_for(lambda: "Forwarding from 127.0.0.1:"
+                            in out.getvalue() and out.getvalue(), 10.0)
+            local = int(line.split("127.0.0.1:")[1].split(" ")[0])
+            with socket.create_connection(("127.0.0.1", local),
+                                          timeout=10.0) as c:
+                banner = c.recv(1024)
+                c.sendall(b"ping")
+                echo = c.recv(1024)
+            t.join(10.0)
+            text = re.sub(r"127\.0\.0\.1:\d+", "127.0.0.1:<port>",
+                          out.getvalue())
+            got.append((res.get("rc"),
+                        _stamps(text + repr((banner, echo)))))
+        finally:
+            if node is not None:
+                node.stop()
+            server.stop()
+    return got
 
 
 @pytest.mark.parametrize("argv,item", REFUSED,
                          ids=[a[0] for a, _ in REFUSED])
 def test_refused_command_names_its_item(argv, item):
-    """Refused before any call to the server: the address listens to
-    nothing."""
+    """A command of a later slice is refused before any call to the
+    server (the address listens to nothing). The kubelet's (item 15) are
+    ported: each runs against a hollow kubelet through the apiserver, and
+    its exit code and output are the reference's (the pod's logs, the
+    command's output, one round trip through the forwarded port)."""
+    if item == "15":
+        ref, port = _kubelet_command(argv)
+        assert port == ref
+        assert port[0] == 0 and port[1]
+        if argv[0] in ("logs", "attach"):
+            assert "started" in port[1]
+        if argv[0] == "port-forward":
+            assert port[1].endswith("b'echo: ping')")
+        return
     with pytest.raises(NotImplementedError, match=f"item {item}$"):
         main(["--server", "http://127.0.0.1:9", *argv], out=io.StringIO())
-    assert set(ktpu.REFUSED) == {a[0] for a, _ in REFUSED}
+    assert set(ktpu.REFUSED) == {a[0] for a, i in REFUSED if i != "15"}
 
 
 def test_certificate_approve_and_deny_as_reference():

@@ -356,6 +356,47 @@ def test_node_affinity_violation_detected_in_one_pass():
     assert got[1][0][0][3] == [("default/wants-ssd", "ssd")]
 
 
+def test_node_affinity_sets_over_tenants_and_plain_pods():
+    """The port encodes only the pods whose row can fail at their own node
+    (a nodeSelector, required node affinity, a tenant of their own or of
+    their node): the same sets as the reference's encode of every pod."""
+    from kubernetes_tpu_torch.encode.snapshot import TENANT_LABEL
+
+    def scenario(P):
+        nodes = [P.make_node("ssd").capacity({"cpu": "8", "pods": "20"})
+                 .label("disk", "ssd").obj(),
+                 P.make_node("hdd").capacity({"cpu": "8", "pods": "20"})
+                 .obj(),
+                 P.make_node("t1").capacity({"cpu": "8", "pods": "20"})
+                 .label(TENANT_LABEL, "a").obj(),
+                 P.make_node("t2").capacity({"cpu": "8", "pods": "20"})
+                 .label(TENANT_LABEL, "b").obj()]
+        pods = [P.make_pod(f"plain-{n}").req({"cpu": "100m"}).node(n).obj()
+                for n in ("ssd", "hdd")]
+        pods += [
+            P.make_pod("aff-stale").req({"cpu": "100m"})
+            .node_affinity_in("disk", ["ssd"]).node("hdd").obj(),
+            P.make_pod("aff-fine").req({"cpu": "100m"})
+            .node_affinity_in("disk", ["ssd"]).node("ssd").obj(),
+            P.make_pod("tenant-right").req({"cpu": "100m"})
+            .label(TENANT_LABEL, "a").node("t1").obj(),
+            P.make_pod("tenant-wrong").req({"cpu": "100m"})
+            .label(TENANT_LABEL, "a").node("t2").obj(),
+            P.make_pod("untenanted-on-tenant").req({"cpu": "100m"})
+            .node("t1").obj(),
+            P.make_pod("tenant-on-plain").req({"cpu": "100m"})
+            .label(TENANT_LABEL, "b").node("hdd").obj(),
+            P.make_pod("gone-node").req({"cpu": "100m"})
+            .node_selector({"disk": "ssd"}).node("elsewhere").obj()]
+        return sorted(cs.victims[0].key for cs in P.node_affinity(nodes,
+                                                                  pods))
+
+    want, got = both(scenario)
+    assert got == want
+    assert "default/aff-stale" in got and "default/aff-fine" not in got
+    assert not any(k.startswith("default/plain") for k in got)
+
+
 def test_topology_spread_violation_sheds_excess():
     def scenario(P):
         nodes = [P.make_node(f"n{i}")

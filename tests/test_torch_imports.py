@@ -106,7 +106,12 @@ _SCHED_MODULES = (
     "controllers.replicaset", "controllers.resourcequota",
     "controllers.rootca", "controllers.route", "controllers.serviceaccount",
     "controllers.servicelb", "controllers.statefulset", "controllers.ttl",
-    "controllers.ttlafterfinished", "controllers.volumeprotection")
+    "controllers.ttlafterfinished", "controllers.volumeprotection",
+    # the kubelet, kubemark and the runtime, CNI and CSI seams
+    "kubelet.runtime", "kubelet.pleg", "kubelet.pod_workers",
+    "kubelet.resources", "kubelet.managers", "kubelet.prober",
+    "kubelet.volumemanager", "kubelet.server", "kubelet.kubelet",
+    "kubelet.kubemark", "kubelet.cri", "kubelet.csi", "kubelet.cni")
 
 _NO_YAML = r"""
 import importlib, sys
@@ -128,14 +133,15 @@ print(cfg.batch_size, cfg.pipeline_depth, leaked)
 
 def test_scheduler_modules_import_without_yaml():
     """The scheduling loop's, the connected scheduler's, the resident
-    planners', the entry points' and the controllers' modules import with
-    JAX, flax, PyYAML,
+    planners', the entry points', the controllers' and the kubelet's
+    modules import with JAX, flax, PyYAML,
     msgpack and grpc blocked (the card's machine lists none of the last
     three: config/types.py and descheduler/descheduler.py import PyYAML in
-    ``from_yaml`` only, ktpu when it reads YAML, the store and the clients
-    speak JSON without msgpack, and the sidecar imports grpc and msgpack
-    where it serves, dials or packs a frame), and pull in nothing of the
-    JAX package."""
+    ``from_yaml`` only, ktpu when it reads YAML, the kubelet when it reads
+    a YAML static-pod manifest, the store and the clients speak JSON
+    without msgpack, and the sidecar and the kubelet's CRI and CSI seams
+    import grpc and msgpack where they serve, dial or pack a message),
+    and pull in nothing of the JAX package."""
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     res = subprocess.run([sys.executable, "-c", _NO_YAML, *_SCHED_MODULES],
                          cwd=ROOT, env=env, capture_output=True, text=True,
@@ -162,6 +168,20 @@ def test_no_item_14_refusal_left():
     assert hits == []
     ref = ROOT / "kubernetes_tpu" / "controllers"
     assert ({p.name for p in (PORT / "controllers").glob("*.py")}
+            == {p.name for p in ref.glob("*.py")})
+
+
+def test_no_item_15_refusal_left():
+    """``kubelet/`` is whole: nothing in the port refuses a command, a
+    subresource or a provider as waiting for ROADMAP Queue A item 15, and
+    the port holds every module of the reference's ``kubelet/``."""
+    hits = [f"{p.relative_to(ROOT)}:{i}"
+            for p in sorted(PORT.rglob("*.py"))
+            for i, line in enumerate(p.read_text().splitlines(), 1)
+            if '"15")' in line or "item 15" in line]
+    assert hits == []
+    ref = ROOT / "kubernetes_tpu" / "kubelet"
+    assert ({p.name for p in (PORT / "kubelet").glob("*.py")}
             == {p.name for p in ref.glob("*.py")})
 
 

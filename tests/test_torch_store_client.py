@@ -322,30 +322,41 @@ def test_plain_json_patch_answers_415_as_reference():
 
 
 @pytest.mark.parametrize("method,path,code", [
-    ("GET", "/api/v1/namespaces/default/pods/a/log", 501),
-    ("POST", "/api/v1/namespaces/default/pods/a/exec", 501),
+    ("GET", "/api/v1/namespaces/default/pods/a/log", 400),
+    ("POST", "/api/v1/namespaces/default/pods/a/exec", 400),
     ("GET", "/api/v1/namespaces/default/pods/a", 200),
 ])
 def test_http_answers_for_unported_subresources(method, path, code):
+    """The kubelet's pod subresources are ported: on both packages'
+    servers a pod that is not bound answers ``log`` and ``exec`` with the
+    reference's 400 (no kubelet to proxy to), and the pod itself with
+    200."""
     import http.client
     import json
-    server = port_apiserver.APIServer().start()
-    try:
-        port_clientset.HTTPClient(server.url, wire="json").pods(
-            "default").create(make_pod("a").obj().to_dict())
-        conn = http.client.HTTPConnection("127.0.0.1", server.port,
-                                          timeout=10)
-        body = b"{}" if method != "GET" else None
-        conn.request(method, path, body=body,
-                     headers={"Content-Type": "application/json"})
-        resp = conn.getresponse()
-        payload = json.loads(resp.read())
-        conn.close()
-        assert resp.status == code
-        if code == 200:
-            assert payload["metadata"]["name"] == "a"
-    finally:
-        server.stop()
+    got = []
+    for apiserver, clientset in ((ref_apiserver, ref_clientset),
+                                 (port_apiserver, port_clientset)):
+        server = apiserver.APIServer().start()
+        try:
+            clientset.HTTPClient(server.url, wire="json").pods(
+                "default").create(make_pod("a").obj().to_dict())
+            conn = http.client.HTTPConnection("127.0.0.1", server.port,
+                                              timeout=10)
+            body = b"{}" if method != "GET" else None
+            conn.request(method, path, body=body,
+                         headers={"Content-Type": "application/json"})
+            resp = conn.getresponse()
+            payload = json.loads(resp.read())
+            conn.close()
+            got.append((resp.status, payload.get("reason"),
+                        payload.get("message")
+                        if code != 200 else payload["metadata"]["name"]))
+        finally:
+            server.stop()
+    assert got[1] == got[0]
+    assert got[1][0] == code
+    if code == 200:
+        assert got[1][2] == "a"
 
 
 # ---- durable mode ------------------------------------------------------------

@@ -14,9 +14,10 @@ test functions, with its fixtures, and returns its record:
 
 - ``raised``: None, or the exception the case ended in (a failed assertion
   included), by type and message;
-- ``requests``: every request its ``HTTPClient``s made, in order: method,
-  path and query, and the masked answer or the error's code and reason.
-  Consecutive repeats of one request (a poll) collapse to the last;
+- ``requests``: every request its ``HTTPClient``s made on the case's own
+  thread, in order: method, path and query, and the masked answer or the
+  error's code and reason. Consecutive repeats of one request (a poll)
+  collapse to the last;
 - ``servers``: for every APIServer its fixtures built, the masked contents
   of its store, its audit events (sorted: each is logged after its response
   went out) and its flow controller's stats;
@@ -46,6 +47,7 @@ from __future__ import annotations
 
 import contextlib
 import inspect
+import itertools
 import json
 import re
 import sys
@@ -63,7 +65,7 @@ _PORT = re.compile(r"(127\.0\.0\.1|localhost):\d+")
 # streams of earlier cases that a replica has not yet torn down
 MASKED = ("uid", "creationTimestamp", "deletionTimestamp", "time", "ts",
           "replayLagMs", "maxReplayLagMs", "commitWait", "node",
-          "watchers", "watchersTotal")
+          "watchers", "watchersTotal", "Port")
 
 # raft and the front door start by electing a leader, and an APIServer
 # seeds the system namespaces only if its node leads by then: whether they
@@ -78,11 +80,27 @@ _TIMED = threading.Event()  # set while a TIMED module's case runs
 # interleaving decides the resourceVersions, the names the store generates
 # from them (generateName + the next resourceVersion in hex) and the float
 # epoch stamps of conditions, heartbeats and leases: their records mask
-# those, and keep the stores that a case builds for itself
+# those, and keep the stores that a case builds for itself. So do the
+# kubelet modules: kubelets heartbeat, renew leases and write pod status
+# on threads of their own, and a fleet's batchers flush in an order that
+# is chance
 RECONCILED = ("test_controllers", "test_controllers_breadth",
               "test_controllers_quota_ttl_agg", "test_attachdetach_nodeipam",
-              "test_protection_csr", "test_certificates", "test_volumes")
+              "test_protection_csr", "test_certificates", "test_volumes",
+              "test_kubelet", "test_kubelet_managers", "test_cri_managers",
+              "test_cni_csi", "test_kubemark", "test_bulk_fanin",
+              "test_kubectl_breadth", "test_connected_pipeline",
+              "test_autoscaler")
 _RECONCILED = threading.Event()  # set while a RECONCILED module's case runs
+# cases that poll until another thread has done its part: a planner
+# (``ClusterAutoscaler.run_once``) until the runner has bound the pods, a
+# read of a static pod's mirror until the kubelet recreated it (whether
+# its status is written yet is chance). What each poll reads and writes
+# depends on how far the other thread got, so the record keeps the case's
+# writes only (not the planner's status ConfigMap, which each poll
+# rewrites), and of a poll's writes to one path the last
+POLLED = ("test_autoscaler", "test_connected_pipeline")
+_POLLED = threading.Event()
 # what a SchedulerRunner publishes about itself (status, explanations,
 # trace): timings, and fields that differ by design (the port's device,
 # the reference's incident traces), not what a controller case compares
@@ -91,7 +109,9 @@ PUBLISHED = ("kubernetes-tpu-scheduler-status", "scheduler-explanations",
 _GENERATED = re.compile(r"-[0-9a-f]{5}\b")
 # a CronJob's job is named after its scheduled minute since the epoch
 _MINUTE = re.compile(r"-\d{8}\b")
-_STAMP = re.compile(r".(Time|Timestamp)$")
+# (so are a taint's ``timeAdded``, ``ktpu rollout restart``'s
+# ``restartedAt`` annotation and the autoscaler's last scale-up ``at``)
+_STAMP = re.compile(r".(Time|Timestamp|restartedAt)$|^(timeAdded|at)$")
 # the keys of an object's metadata whose presence is chance in a
 # controller module: whether a controller's last write was a create (the
 # store stamps them) or an update with a fresh object (whose metadata it
@@ -103,6 +123,29 @@ _CHANCE = ("uid", "creationTimestamp", "deletionTimestamp")
 # certificates (PEM, or PEM in base64) and service-account tokens
 _DRAWN = re.compile(r"LS0tLS1CRUdJT[A-Za-z0-9+/=]*|-----BEGIN [A-Z ]+-----"
                     r"[^-]*-----END [A-Z ]+-----\n?|ktpu-sa-[0-9a-f]+")
+# cases whose live scheduler spreads a Deployment's replicas over
+# identical nodes: which node takes which replica, and so the addresses
+# the kubelets give them, follows how the loop's pops fell, which is the
+# threads' timing on either package. Their records mask the node names
+# and addresses in the stores and every event's name, and sort each
+# kind's objects; what each object holds is still compared
+PLACED_BY_CHANCE = {("test_kubelet", "test_full_cluster_deployment_to_running")}
+_PLACEMENT = re.compile(r"\bw\d+\b|\b(10|192)\.\d+\.\d+\.\d+\b")
+
+
+def _placement_free(data: dict) -> dict:
+    """A store's masked contents with ``_PLACEMENT`` and event names
+    masked, each kind's objects sorted."""
+    out = {}
+    for kind, objs in data.items():
+        objs = json.loads(_PLACEMENT.sub("<placed>", json.dumps(objs)))
+        if kind == "Event":
+            for ev in objs:
+                ev["metadata"]["name"] = "<event>"
+        out[kind] = sorted(objs, key=lambda o: json.dumps(o, sort_keys=True))
+    return out
+
+
 # a controller's stop first waits for its store to be quiet this long, so
 # that the record holds the state the controllers converge to; a
 # controller that also works on a timer (``tick_interval``) of at most
@@ -114,7 +157,8 @@ TICK_WAIT_S = 2.0
 # (module, name) of the port's entry points that a reference test calls
 # with no device: a class whose ``device`` None means the card, a function
 # that takes tensor containers where the reference's takes numpy arrays
-ON_CPU = (("sched.runner", "SchedulerRunner"), ("ops.filters", "run_filters"))
+ON_CPU = (("sched.runner", "SchedulerRunner"), ("ops.filters", "run_filters"),
+          ("autoscaler", "ClusterAutoscaler"))
 
 _MODULES: dict = {}
 _RECORD = threading.local()
@@ -125,11 +169,23 @@ def _on_cpu(pkg: str, src: str, namespace: dict) -> str:
     name put into ``namespace`` bound to the CPU."""
     import importlib
     for module, name in ON_CPU:
+        # one name, or a parenthesized list of them
         line = re.compile(rf"^(\s*)from {pkg}\.{re.escape(module)} import "
-                          rf"{name}\s*$", re.M)
-        if not line.search(src):
+                          rf"(\([^)]*\)|[^\n(]*)$", re.M)
+
+        def drop(m, name=name):
+            names = m.group(2)
+            rest = re.sub(rf"\b{name}\b\s*,?", "", names)
+            if rest == names:
+                return m.group(0)
+            if not re.search(r"\w", rest):  # keep the line count
+                return m.group(1) + "pass" + "\n" * names.count("\n")
+            return m.group(0).replace(names, rest)
+
+        changed = line.sub(drop, src)
+        if changed == src:
             continue
-        src = line.sub(r"\1pass", src)
+        src = changed
         base = getattr(importlib.import_module(f"{pkg}.{module}"), name)
         if isinstance(base, type):
             def __init__(self, *a, _base=base, device="cpu", **kw):
@@ -285,18 +341,33 @@ def _path(url: str) -> str:
 
 def _record(entry) -> None:
     rec = getattr(_RECORD, "requests", None)
-    if rec is None:
+    if rec is None or not _compared(entry):
         return
-    if rec and rec[-1][:3] == entry[:3]:
-        rec[-1] = entry  # a poll: keep the last answer
+    # a poll: keep the last answer (in a POLLED module the last write of a
+    # poll to one path, whatever each poll wrote)
+    n = 2 if _POLLED.is_set() else 3
+    if rec and rec[-1][:n] == entry[:n]:
+        rec[-1] = entry
     else:
         rec.append(entry)
 
 
+def _compared(entry) -> bool:
+    """False for a request that a RECONCILED module's record leaves out:
+    one about a scheduler's published ConfigMaps, and in a POLLED module a
+    read or a write of a ConfigMap (the planner's status)."""
+    if not _RECONCILED.is_set():
+        return True
+    if any(n in entry[1] or f'"name": "{n}"' in entry[2] for n in PUBLISHED):
+        return False
+    return not (_POLLED.is_set() and (entry[0] == "GET"
+                                      or "/configmaps" in entry[1]))
+
+
 @contextlib.contextmanager
 def recording(pkg: str, before_get=None):
-    """Record the requests of ``pkg``'s HTTPClients (every thread's);
-    ``before_get()`` runs before each GET."""
+    """Record the requests of ``pkg``'s HTTPClients made on the case's own
+    thread; ``before_get()`` runs before each GET."""
     import importlib
     cs = importlib.import_module(f"{pkg}.client.clientset")
     store = importlib.import_module(f"{pkg}.store.store")
@@ -479,12 +550,19 @@ def close_shared(shared: dict) -> None:
 def run_case(name: str, fname: str, params: dict, pkg: str, tmp_path,
              shared: "dict | None" = None) -> dict:
     """Run one case of ``tests/<name>.py`` on ``pkg`` -> its record."""
-    for flag, names in ((_TIMED, TIMED), (_RECONCILED, RECONCILED)):
+    for flag, names in ((_TIMED, TIMED), (_RECONCILED, RECONCILED),
+                        (_POLLED, POLLED)):
         if name in names:
             flag.set()
         else:
             flag.clear()
     mod = load(name, pkg)
+    # a kubelet's host and pod IPs count from a process-global node index:
+    # every case starts it at 1 on both packages, whatever kubelets earlier
+    # tests of the process made
+    kubelet = sys.modules.get(f"{pkg}.kubelet.kubelet")
+    if kubelet is not None:
+        kubelet._node_ip_counter = itertools.count(1)
     built = _tracked(mod)
     stores = _built_stores(mod) if name in RECONCILED else []
     fn = mod.__dict__[fname]
@@ -525,8 +603,9 @@ def run_case(name: str, fname: str, params: dict, pkg: str, tmp_path,
             for k, v in values.items():
                 if hasattr(v, "store") or hasattr(v, "core"):
                     servers[k] = _server_state(v)
-                elif isinstance(v, tuple):
-                    servers[k] = [_server_state(x) for x in v]
+                elif isinstance(v, tuple):  # servers, or a client and more
+                    servers[k] = [_server_state(x) for x in v
+                                  if hasattr(x, "store") or hasattr(x, "core")]
                 elif hasattr(v, "leader_api"):
                     servers[k] = _raft_state(v.nodes)
             served = [getattr(v, "store", None) for v in values.values()]
@@ -540,6 +619,10 @@ def run_case(name: str, fname: str, params: dict, pkg: str, tmp_path,
                 for n in (b.nodes or getattr(b, "_parity_nodes", []))])
             for nd in nodes:  # a case's own raft nodes (clusters: theirs)
                 nd.stop()
+    if (name, fname) in PLACED_BY_CHANCE:
+        servers = {k: {**v, "data": _placement_free(v["data"])}
+                   if isinstance(v, dict) and "data" in v else v
+                   for k, v in servers.items()}
     return {"raised": raised, "requests": list(requests),
             "servers": servers, "raft": raft, "stores": own}
 
