@@ -317,7 +317,8 @@ Phases, one JSON line each:
            carries ctx and aotCache, why names TaintToleration with its 2
            nodes, trace dump is valid Chrome trace JSON, audit status has
            0 violations, deschedule run --dry-run plans on the card;
-           every command exits 0
+           scenario generate builtin:smoke and scenario describe on the
+           written file; every command exits 0
   explainab  (after ktpu) ExplainAB as benchmarks/connected.py
            run_explain_ab runs it: ConnectedChurn (2000 MixedHeterogeneous
            pods on 1000 nodes, pops of 2 x 512, the reference's churn loop
@@ -330,7 +331,8 @@ Phases, one JSON line each:
            errors, device_explain errors and oracle pods, a measured
            ratio. The on/off pods/s ratio is reported beside the
            reference's min_ratio 0.95, not gated (host time)
-  secured  the same ConnectedChurn behind an APIServer with
+  secured  the same ConnectedChurn, at 1000 pods (cut for time), behind
+           an APIServer with
            authentication (anonymous off), RBAC's bootstrap policy, the
            audit log, API Priority and Fairness and the default admission
            chain (PodSecurity enforce: baseline and a LimitRange default
@@ -344,7 +346,8 @@ Phases, one JSON line each:
            requests, its bindings in the audit log under its own user,
            its requests dispatched at APF's system level. Reported: its
            403s by resource, pods/s, attempt p50/p99
-  frontdoor  the same ConnectedChurn behind FrontDoorCluster(n=3) in one
+  frontdoor  the same ConnectedChurn, at 1000 pods (cut for time),
+           behind FrontDoorCluster(n=3) in one
            spawned process, every client but the auditor (the leader)
            spreading over the three endpoints. Gates: the connected run's,
            reads served by each replica, and each replica converged on
@@ -368,6 +371,40 @@ Phases, one JSON line each:
            exit code 0, 0 violations, divergences, loop errors and oracle
            pods. Reported: each step's seconds, pods/s, attempt p50/p99,
            the manager's evictions
+  chaos    (a) ChaosChurnQueued: benchmarks/connected.py
+           run_chaos_churn at its defaults, the explainab cell (2000 x
+           1000, churn) under FaultSchedule.generate(0, profile="churn")
+           on the runner's transport (ChaosClient), DeviceChaos on
+           gang_schedule, drain_step and preempt_wave and ThreadChaos at
+           the loop's chaos points, installed after the warm drain; the
+           breaker's cooldown 5 s, the sentinel every 4th drain; but the
+           loop starts once the informer has queued the measured pods
+           (the reference starts it right after the creates), so the
+           device faults land on the churn's pops and the oracle places
+           no measured pod: its pods/s are not the reference's
+           ChaosChurn's. The churn runs on until the breaker has
+           restored, then recovery waves of 513 pods (the loop stopped
+           while they queue: one deep pop) until a drain ran past the
+           drain_step burst, then until no site is left unrecovered
+           (chaos_settle). Gates (chaos_failures): no pod lost, every
+           class whose op the run reached fired (the others reported),
+           no site unrecovered, the breaker at single after a restore and
+           a drain on the card after it with count_pn launched, 0
+           violations and divergences, no fatal error.
+           (b) chaos.kill, beside the parity phases (cut for time):
+           SchedulerKill as benchmarks/disaster.py run_scheduler_kill
+           runs it: 16 nodes, 48 pods, an InProcessApiServer on a
+           durable dir, a SchedulerProcess child on the card with an
+           aotCacheDir,
+           SIGKILLed mid-churn and restarted. Gates: the cold child built
+           the kernel library, the restarted one built nothing and loaded
+           the cached entry, no pod lost or unbound, 0 violations and
+           divergences; the first bind after the restart is reported
+  scenario  ScenarioReplay as bench.py runs benchmarks/scenario.py:
+           builtin:smoke at speed 4, seed 0, pops of 2 x 64, the runner on
+           the card. Gates: every trace-resident pod bound, two
+           resolutions plan alike and the live dispatch order is the plan,
+           a p99 for every phase, 0 violations, divergences, loop errors
 
   The gang rounds run as captured CUDA graphs on the card
   (kubernetes_tpu_torch/models/graphs.py: K rounds a replay, one host
@@ -383,7 +420,7 @@ Phases, one JSON line each:
   resident.eager  the first RESIDENT_EAGER_CYCLES resident cycles eager:
            their placements and the folded context bit-equal to the
            captured run's at that cycle, drain ms
-  scheduler.eager  the scheduler phase eager
+  scheduler.eager  the scheduler phase eager, cut to 2048 pods (one pop)
   connected.eager  the connected phase eager, cut to 4096 pods
   (fleet.drain runs its eager and replay-only drains itself, bit-equal)
   parity.graph  at the drain, resident, scheduler, connected and
@@ -1380,6 +1417,7 @@ def profile_drain_phase(drv, churn, pods, i):
 
 SCHED_PODS = 10000   # the north star: MixedHeterogeneous/10000Pods5000Nodes
 SCHED_PROFILED = 2048  # one more pop's worth of pods for profile.scheduler
+SCHED_EAGER = 2048     # scheduler.eager's pods: one pop, cut for time
 
 
 def sched_config(**overrides):
@@ -1923,7 +1961,7 @@ def churn_nodes_and_pods(client, stop, stats, period_s=CHURN_PERIOD_S,
 def connected_run(ctx, url, node_dicts, pod_dicts, device=None, smi="",
                   capture=True, what="connected", explain=True,
                   churn_ops=None, admin_token=None, sched_token=None,
-                  audit_url=None):
+                  audit_url=None, chaos=None):
     """The connected phase's run against a server at ``url`` (or a front
     door's endpoints, which every client but the auditor spreads over):
     seed, runner, auditor and watcher as ``connected_phase`` says, gated
@@ -1942,6 +1980,18 @@ def connected_run(ctx, url, node_dicts, pod_dicts, device=None, smi="",
     of the kinds the role may list must sync; the failures of what the
     role does not allow (``RBAC_DENIED_SITES``: the other kinds' lists,
     the status ConfigMaps' writes) are reported and not gated.
+    ``chaos``: a ``FaultSchedule`` (ChaosChurnQueued, ``chaos_churn``): the
+    runner's transport is wrapped in ``ChaosClient``, the breaker's
+    cooldown is CHAOS_COOLDOWN_S, the sentinel samples every
+    CHAOS_PARITY_EVERY-th drain, ``DeviceChaos`` and ``ThreadChaos`` are
+    installed after the warm drain, the loop starts once the informer has
+    queued the measured pods, ``chaos_settle`` runs after the churn
+    budget (the churn on beside it; the tracer's dropped spans are read
+    before it, whose pops may fill the ring) and the faults are taken out
+    before
+    the settle of the sentinel and the auditor; the "0 loop errors, 0
+    oracle pods" gates give way to ``chaos_failures``, which the caller
+    checks.
     -> (summary, stopped runner)."""
     rbac = sched_token is not None
     import threading
@@ -1955,7 +2005,7 @@ def connected_run(ctx, url, node_dicts, pod_dicts, device=None, smi="",
     from kubernetes_tpu_torch.ops import kernels
     from kubernetes_tpu_torch.sched.runner import SchedulerRunner
     from kubernetes_tpu_torch.utils.tracing import FLIGHT, TRACER
-    watcher = runner = churn = None
+    watcher = runner = churn = injected = chaos_block = None
     churn_stop, churn_hurry, churn_stats = (threading.Event(),
                                             threading.Event(), {})
     try:
@@ -1964,16 +2014,28 @@ def connected_run(ctx, url, node_dicts, pod_dicts, device=None, smi="",
         t0 = time.perf_counter()
         seed_client.nodes().create_many(node_dicts)
         seed_s = time.perf_counter() - t0
+        chaos_cfg = {} if chaos is None else {
+            "breaker_cooldown_s": CHAOS_COOLDOWN_S}
         cfg = sched_config(batch_size=CONNECTED_BATCH,
                            max_drain_batches=CONNECTED_DRAIN_BATCHES,
                            parity_sample_every=(
-                               CONNECTED_PARITY_EVERY if churn_ops is None
+                               CHAOS_PARITY_EVERY if chaos is not None
+                               else CONNECTED_PARITY_EVERY
+                               if churn_ops is None
                                else CHURN_PARITY_EVERY),
                            audit_interval_s=CONNECTED_AUDIT_S,
-                           audit_fail_fast=True, explainer_enabled=explain)
+                           audit_fail_fast=True, explainer_enabled=explain,
+                           **chaos_cfg)
+        sched_client = HTTPClient(url, wire="json",
+                                  token=sched_token or admin_token)
+        if chaos is not None:
+            # the SCHEDULER's transport only: the seed, the auditor, the
+            # watcher and the churn keep clean clients (ground truth)
+            from kubernetes_tpu_torch.chaos import ChaosClient
+            sched_client = ChaosClient(sched_client, chaos)
         runner = SchedulerRunner(
-            HTTPClient(url, wire="json", token=sched_token or admin_token),
-            cfg, feature_gate=no_preemption_gate(), device=device)
+            sched_client, cfg, feature_gate=no_preemption_gate(),
+            device=device)
         runner.scheduler.capture = capture
         # fail-fast audit over a CLEAN client, as run_connected's
         # _bench_auditor: the scheduler's transport is not the auditor's
@@ -2009,6 +2071,14 @@ def connected_run(ctx, url, node_dicts, pod_dicts, device=None, smi="",
               f"{what}: warm_drain did not arm the context")
         warm_s = time.perf_counter() - t0
         del pods
+        if chaos is not None:
+            # after the warm drain, as the reference's ChaosChurn
+            from kubernetes_tpu_torch.chaos import (DeviceChaos, ThreadChaos,
+                                                    hooks)
+            from kubernetes_tpu_torch.metrics.registry import BIND_RETRIES
+            injected = DeviceChaos(chaos).install()
+            hooks.install(ThreadChaos(chaos))
+            retries0 = BIND_RETRIES.get()
 
         _, rv0 = seed_client.pods("default").list_rv()
         count = ctx.Value("i", 0)
@@ -2050,6 +2120,15 @@ def connected_run(ctx, url, node_dicts, pod_dicts, device=None, smi="",
                           .create_many(objs), jobs))
         t_created = time.perf_counter()
         enc_created = runner.cache.encode_cache_stats()
+        if chaos is not None:
+            # the loop starts once the informer has queued every measured
+            # pod: the first two pops take them whole on any host, and the
+            # drain and gang bursts land on the churn's pops (after an
+            # informer lag they landed on measured pops, and the oracle
+            # placed 0, 257 or 672 of them in three calls)
+            while (runner.queue.stats()["active"] < len(pod_dicts)
+                   and time.perf_counter() < t_start + 60.0):
+                time.sleep(0.01)
         runner.start_loop()
         deadline = t_start + CONNECTED_TIMEOUT_S
         milestones = {}
@@ -2091,8 +2170,28 @@ def connected_run(ctx, url, node_dicts, pod_dicts, device=None, smi="",
             while (churn_stats.get("ops", 0) < churn_ops
                    and time.perf_counter() < budget_end):
                 time.sleep(0.05)
+            if chaos is not None:
+                # the spans of the window and the churn budget: the chaos
+                # settle's pops may fill the ring after them
+                spans_dropped = TRACER.dropped
+                chaos_block = chaos_settle(runner, chaos, seed_client, what)
             churn_stop.set()
             churn.join(30.0)
+        if chaos is None:
+            spans_dropped = TRACER.dropped
+        if chaos is not None:
+            injected.uninstall()
+            hooks.uninstall()
+            injected = None
+            chaos_block.update(
+                recovery=chaos.report(),
+                resilience=runner._resilience_status(),
+                bind_retries=BIND_RETRIES.get() - retries0,
+                breaker={"mode": runner.scheduler.breaker.mode,
+                         "trips": runner.scheduler.breaker.trips,
+                         "restores": runner.scheduler.breaker.restores},
+                loop_error=(None if runner.loop_error is None
+                            else repr(runner.loop_error)))
         summary = {
             "pods": len(pod_dicts), "nodes": len(node_dicts),
             "bound": count.value, "window_s": window_s,
@@ -2110,7 +2209,7 @@ def connected_run(ctx, url, node_dicts, pod_dicts, device=None, smi="",
                 ATTEMPT_DURATION.percentile(0.99, q) < 1.0,
             # runner/pod_*, audit/sweep and sentinel/check are the other
             # consumers of the one interpreter, each on its own thread
-            "spans": spans, "spans_dropped": TRACER.dropped,
+            "spans": spans, "spans_dropped": spans_dropped,
             # pops' encode against the informer-time compile cache: hits
             # are rows compiled on the watch thread; the window's misses
             # were compiled on the scheduling thread
@@ -2134,6 +2233,7 @@ def connected_run(ctx, url, node_dicts, pod_dicts, device=None, smi="",
                 "nodes": len(churn_stats.get("nodes", ())),
                 "errors": churn_stats.get("errors", 0),
                 "last_error": churn_stats.get("last_error")},
+            "chaos": chaos_block,
             "card": smi}
         # the settle: the sentinel's verdicts land (bounded), the auditor
         # stops and sweeps twice more (confirm-2 invariants need two looks)
@@ -2161,6 +2261,10 @@ def connected_run(ctx, url, node_dicts, pod_dicts, device=None, smi="",
                   if p["spec"].get("nodeName")]
     finally:
         churn_stop.set()
+        if injected is not None:  # a failed run never leaks installed chaos
+            from kubernetes_tpu_torch.chaos import hooks
+            injected.uninstall()
+            hooks.uninstall()
         if runner is not None:
             runner.stop()  # re-raises a KernelError that ended the loop
         if watcher is not None:
@@ -2179,11 +2283,13 @@ def connected_run(ctx, url, node_dicts, pod_dicts, device=None, smi="",
     check(summary["spans_dropped"] == 0,
           f"{what}: the tracer dropped {summary['spans_dropped']} spans "
           "of the window")
-    check(summary["oracle_pods"] == 0,
-          f"{what}: {summary['oracle_pods']} pods went through the oracle")
-    check(summary["loop_errors"] == 0,
-          f"{what}: {summary['loop_errors']} loop errors "
-          f"{summary['loop_errors_by_site']}")
+    if chaos is None:
+        check(summary["oracle_pods"] == 0,
+              f"{what}: {summary['oracle_pods']} pods went through the "
+              "oracle")
+        check(summary["loop_errors"] == 0,
+              f"{what}: {summary['loop_errors']} loop errors "
+              f"{summary['loop_errors_by_site']}")
     check(summary["audit"]["sweeps"] >= 1, f"{what}: the auditor never swept")
     check(summary["audit"]["violations"] == 0,
           f"{what}: invariant violations {summary['audit']['byInvariant']}")
@@ -6403,10 +6509,13 @@ def ktpu_phase(device=None, n_nodes=KTPU_NODES, n_pods=KTPU_PODS,
       print the lines its ``FakeRuntime`` holds for the container,
       ``exec -- echo`` prints what the runtime answers, and
       ``port-forward --one-shot`` carries one connection through the
-      apiserver and the kubelet to the container, which answers.
+      apiserver and the kubelet to the container, which answers;
+    - ``scenario generate builtin:smoke`` into a temporary file, and
+      ``scenario describe`` on that file (its 32 events).
 
     -> summary (per command: exit code, seconds, output bytes)."""
     import io
+    import tempfile
     from kubernetes_tpu_torch.cli import ktpu
     from kubernetes_tpu_torch.client.clientset import HTTPClient
     from kubernetes_tpu_torch.kubelet.kubelet import HollowNode
@@ -6540,6 +6649,21 @@ def ktpu_phase(device=None, n_nodes=KTPU_NODES, n_pods=KTPU_PODS,
         plan = docs["deschedule"]
         check("planned" in plan, f"ktpu: deschedule returned {sorted(plan)}")
         results.update(kubelet_commands(flags, hollow, "kubelet-target"))
+        with tempfile.TemporaryDirectory() as tmp:
+            trace = os.path.join(tmp, "smoke.trace.jsonl")
+            for key, argv in (
+                    ("scenario_generate", ("scenario", "generate",
+                                           "builtin:smoke", "--out", trace)),
+                    ("scenario_describe", ("scenario", "describe", trace))):
+                rc, text, secs = run(*argv)
+                check(rc == 0, f"ktpu: {' '.join(argv)} exited {rc}: "
+                               f"{text[:300]}")
+                results[key] = {"rc": rc, "seconds": secs,
+                                "bytes": len(text)}
+            described = json.loads(text)
+        check(described.get("events") == 32
+              and described.get("name") == "smoke",
+              f"ktpu: scenario describe gave {described}")
         return {"nodes": n_nodes + 2, "pods": n_pods + 1,
                 "bound": len(listed), "commands": results,
                 "why": {"message": docs["why"].get("message"),
@@ -6632,7 +6756,9 @@ CHURN_PARITY_EVERY = 1       # every drain: 2000 pods are two pops, and a
 SECURED_ADMIN = "ktpu-admin-smoke"   # system:masters, as LocalCluster mints
 SECURED_SCHED = "ktpu-sched-smoke"   # system:kube-scheduler
 SECURED_AUDIT_KEEP = 500_000         # every request of the phase kept
+SECURED_PODS = 1000          # of ExplainAB's 2000: cut for time
 FRONTDOOR_NODES = 3          # FrontDoorCluster(n=3)
+FRONTDOOR_PODS = 1000        # of ExplainAB's 2000: cut for time
 FRONTDOOR_CONVERGE_S = 60.0
 
 
@@ -7749,6 +7875,670 @@ def controllers_phase(device=None, smi="", seed=SEED, n_nodes=CTRL_NODES,
     return summary
 
 
+# ----------------------------- the chaos harness, the scenario time machine
+
+CHAOS_SEED = 0               # FaultSchedule.generate(0, profile="churn")
+CHAOS_COOLDOWN_S = 5.0       # run_connected's breaker_cooldown_s under chaos
+CHAOS_PARITY_EVERY = 4       # its parity_sample_every under chaos
+CHAOS_SETTLE_S = 60.0        # the restore and the recovery waves, at most
+CHAOS_WAVE_PODS = CONNECTED_BATCH + 1   # one deep pop: a drain on the card
+CHAOS_WAVE_TIMEOUT_S = 120.0
+KILL_NODES = 16              # benchmarks/disaster.py run_scheduler_kill's
+KILL_PODS = 48               # defaults, from here down
+KILL_CHURN_S = 4.0
+KILL_BIND_SLO_S = 3.0        # reported, not gated: a host time
+KILL_SETTLE_S = 120.0
+KILL_TIMEOUT_S = 240.0
+KILL_READY_S = 300.0
+SCENARIO_SPEC = "builtin:smoke"   # bench.py's ScenarioReplay defaults
+SCENARIO_SPEED = 4.0
+SCENARIO_BATCH = 64
+SCENARIO_TIMEOUT_S = 180.0
+
+
+def chaos_unreached(schedule) -> list:
+    """The fault classes whose op the run did not reach at their site:
+    reported, not gated. Which they are depends on the run (the port
+    writes pod status only to clear a stale nomination or a claim, each
+    informer opens its watch once, the bind and resolver op indexes are
+    reached only if enough pops come)."""
+    return sorted(f.klass for f in schedule.faults
+                  if schedule.peek(f.site) <= f.at)
+
+
+def chaos_unfired(schedule) -> list:
+    """The fault classes whose op the run reached and that did not fire:
+    each is a fault of the harness or of the seam it wraps."""
+    fired = schedule.report()["classes"]
+    return [f.klass for f in schedule.faults
+            if f.klass not in fired and schedule.peek(f.site) > f.at]
+
+
+def chaos_settle(runner, schedule, seed_client, what):
+    """The churn runs on (10 ms cadence) while the faults settle, at most
+    CHAOS_SETTLE_S: until the breaker is back at ``single`` after a
+    restore; then recovery waves (``chaos_recovery_wave``, at most 4)
+    until a drain has run on the card past the ``device.drain`` burst (a
+    failed drain drops the resident context, and only a deep pop builds
+    it again, so each wave spends one op of the burst); then until no
+    site that a fault hit is left without a healthy op after it (the
+    churn's ops close them). -> what it saw: seconds, each stage's end,
+    the waves, the op count of every site."""
+    breaker = runner.scheduler.breaker
+    t0 = time.perf_counter()
+    end = t0 + CHAOS_SETTLE_S
+    stages = {}
+
+    def wait(pred):
+        while not pred() and time.perf_counter() < end:
+            check(runner.loop_error is None,
+                  f"{what}: the scheduling loop died: {runner.loop_error!r}")
+            time.sleep(0.05)
+        return pred()
+
+    drained = lambda: ("device.drain" not in  # noqa: E731
+                       schedule.report()["unrecovered_sites"]
+                       and schedule.peek("device.drain") > max(
+                           f.at + f.count - 1 for f in schedule.faults
+                           if f.site == "device.drain"))
+    stages["restored"] = wait(lambda: breaker.mode == "single"
+                              and breaker.restores >= 1)
+    stages["restored_s"] = time.perf_counter() - t0
+    waves = []
+    while (stages["restored"] and not drained() and len(waves) < 4
+           and time.perf_counter() < end):
+        waves.append(chaos_recovery_wave(runner, schedule, seed_client,
+                                         what, tag=len(waves)))
+    stages["drained"] = drained()
+    stages["drained_s"] = time.perf_counter() - t0
+    stages["recovered"] = wait(
+        lambda: not schedule.report()["unrecovered_sites"])
+    return {"settle_s": time.perf_counter() - t0, "stages": stages,
+            "waves": waves,
+            "peeks": {site: schedule.peek(site)
+                      for site in sorted({f.site for f in schedule.faults})}}
+
+
+def chaos_recovery_wave(runner, schedule, seed_client, what, tag=0,
+                        n_pods=CHAOS_WAVE_PODS):
+    """After the restore: CHAOS_WAVE_PODS MixedHeterogeneous pods (named
+    ``rw<tag>-*``, namespace ``default``) queued with the loop stopped,
+    then the loop started, so that one deep pop takes them: a drain on the
+    card with its count_pn launches, unless the drain's fault burst is not
+    spent. -> the wave's numbers: pods bound, seconds, the drains
+    dispatched (``drain_step`` calls at the ``device.drain`` seam) and
+    those that failed, launches."""
+    from kubernetes_tpu_torch.metrics.registry import LOOP_ERRORS
+    from kubernetes_tpu_torch.ops import kernels
+    restores = runner.scheduler.breaker.restores
+    drain_failures0 = LOOP_ERRORS.get({"site": "device_drain"})
+    _nodes, pod_dicts = connected_workload(pods=n_pods, nodes=EXPLAINAB_NODES,
+                                           seed=SEED + 1 + tag)
+    for d in pod_dicts:
+        d["metadata"]["name"] = f"rw{tag}-" + d["metadata"]["name"]
+    names = {d["metadata"]["name"] for d in pod_dicts}
+    runner._stop_loop()
+    seed_client.pods("default").create_many(pod_dicts)
+    end = time.perf_counter() + 60.0
+    while (runner.queue.stats()["active"] < n_pods
+           and time.perf_counter() < end):
+        time.sleep(0.02)
+    queued = runner.queue.stats()["active"]
+    launches0 = dict(kernels.LAUNCHES)
+    drains0 = schedule.peek("device.drain")
+    t0 = time.perf_counter()
+    runner.start_loop()
+    bound = 0
+    end = t0 + CHAOS_WAVE_TIMEOUT_S
+    while time.perf_counter() < end:
+        check(runner.loop_error is None,
+              f"{what}: the scheduling loop died in the recovery wave: "
+              f"{runner.loop_error!r}")
+        bound = sum(1 for p in seed_client.pods("default").list()
+                    if p["metadata"]["name"] in names
+                    and p["spec"].get("nodeName"))
+        if bound == n_pods:
+            break
+        time.sleep(0.1)
+    return {"pods": n_pods, "queued_at_start": queued, "bound": bound,
+            "seconds": time.perf_counter() - t0,
+            "restores_before": restores,
+            "drain_failures": LOOP_ERRORS.get({"site": "device_drain"})
+            - drain_failures0,
+            "drains": schedule.peek("device.drain") - drains0,
+            "launches": {k: n - launches0.get(k, 0)
+                         for k, n in kernels.LAUNCHES.items()}}
+
+
+def chaos_failures(summary, schedule) -> list:
+    """ChaosChurnQueued's gates: no measured or recovery-wave pod lost;
+    every fault class whose op the run reached fired (``chaos_unfired``;
+    the others are reported, ``chaos_unreached``) and no site left
+    unrecovered; the breaker
+    back at ``single`` with at least one restore, and a drain on the card
+    after it (the last recovery wave's: no drain failure, count_pn
+    launched); 0 invariant violations and 0 sentinel divergences; no fatal
+    error ended the loop. (``emit`` fails the phase on any
+    ``device_preempt`` error.)"""
+    failures = []
+    ch = summary.get("chaos") or {}
+    waves = ch.get("waves") or []
+    lost = summary["pods"] - summary["bound"]
+    wave_lost = sum(w["pods"] - w["bound"] for w in waves)
+    if lost or wave_lost:
+        failures.append(f"lost pods: {lost} measured, {wave_lost} of the "
+                        "recovery waves")
+    unfired = chaos_unfired(schedule)
+    if unfired:
+        failures.append(f"fault classes that never fired: {unfired}")
+    rep = ch.get("recovery") or {}
+    if rep.get("unrecovered_sites"):
+        failures.append(f"unrecovered sites: {rep['unrecovered_sites']}")
+    br = ch.get("breaker") or {}
+    if br.get("mode") != "single" or br.get("restores", 0) < 1:
+        failures.append(f"breaker {br} (want single after a restore)")
+    last = waves[-1] if waves else {}
+    if (not (ch.get("stages") or {}).get("drained")
+            or last.get("restores_before", 0) < 1
+            or last.get("drains", 0) < 1 or last.get("drain_failures")
+            or not all(n >= 1 for n in (last.get("launches")
+                                        or {"none": 0}).values())):
+        failures.append(f"no drain on the card after the restore: "
+                        f"stages {ch.get('stages')}, last wave {last}")
+    if summary["audit"]["violations"]:
+        failures.append(f"invariant violations "
+                        f"{summary['audit']['byInvariant']}")
+    if summary["sentinel"]["divergences"]:
+        failures.append(f"sentinel divergences {summary['sentinel']}")
+    if ch.get("loop_error") is not None:
+        failures.append(f"the loop died: {ch['loop_error']}")
+    return failures
+
+
+CHAOS_CELL = "ChaosChurnQueued/2000x1000churn"
+
+
+def chaos_churn(device=None, smi="", pods=EXPLAINAB_PODS,
+                nodes=EXPLAINAB_NODES, seed=CHAOS_SEED):
+    """ChaosChurnQueued: ``benchmarks/connected.py`` run_chaos_churn at its
+    defaults (ConnectedChurn: 2000 MixedHeterogeneous pods on 1000 nodes,
+    pops of 2 x 512, the churn loop to its 500 operations, under
+    ``FaultSchedule.generate(seed, profile="churn")`` on the runner's
+    transport, with ``DeviceChaos`` and ``ThreadChaos`` installed after
+    the warm drain, the breaker's cooldown at 5 s, the sentinel on every
+    4th drain and the fail-fast auditor on a clean client), through
+    ``connected_run(chaos=...)``, but for one thing: the loop starts once
+    the informer has queued the measured pods, where the reference starts
+    it right after the creates. So the device faults land on the churn's
+    pops, and the oracle never places measured pods: its pods/s and oracle
+    count are not the reference's ChaosChurn's. Then ``chaos_settle``.
+    Gates: ``chaos_failures``. -> summary."""
+    import multiprocessing as mp
+    from kubernetes_tpu_torch.chaos import FaultSchedule
+    ctx = mp.get_context("spawn")
+    schedule = FaultSchedule.generate(seed, profile="churn")
+    node_dicts, pod_dicts = connected_workload(pods=pods, nodes=nodes)
+    e0 = device_explain_errors()
+    t0 = time.perf_counter()
+    server, pipe, url = start_apiserver(ctx)
+    try:
+        summary, runner = connected_run(
+            ctx, url, node_dicts, pod_dicts, device=device, smi=smi,
+            what="chaos.churn", churn_ops=CHURN_MIN_OPS, chaos=schedule)
+    finally:
+        stop_process(server, pipe)
+    del runner
+    summary["device_explain_errors"] = device_explain_errors() - e0
+    ch = summary["chaos"]
+    out = {**_leg(summary), "cell": CHAOS_CELL, "seed": seed,
+           "faults": [vars(f) for f in schedule.faults],
+           "recovery": ch["recovery"], "peeks": ch["peeks"],
+           "unreached": chaos_unreached(schedule),
+           "settle_s": ch["settle_s"],
+           "stages": ch["stages"], "waves": ch["waves"],
+           "breaker_state": ch["breaker"],
+           "resilience": ch["resilience"], "bind_retries": ch["bind_retries"],
+           "loop_error": ch["loop_error"], "graphs": summary["graphs"],
+           "seconds": time.perf_counter() - t0}
+    out["failures"] = chaos_failures(summary, schedule)
+    check(not out["failures"], f"chaos.churn: {out['failures']}")
+    return out
+
+
+def pod_churn(client, stop, stats, period_s=0.25):
+    """``benchmarks/disaster.py`` _pod_churn_loop: a rolling window of
+    short-lived pods in namespace ``churn`` (at most 4 live); errors are
+    counted (the scheduler may be dead, the apiserver is not)."""
+    from kubernetes_tpu_torch.testing.wrappers import make_pod
+    live, i = [], 0
+    while not stop.is_set():
+        try:
+            pod = _wire([make_pod(f"churn-p{i}", "churn")
+                         .req({"cpu": "100m"}).obj()])[0]
+            client.pods("churn").create(pod)
+            live.append(pod["metadata"]["name"])
+            if len(live) > 4:
+                client.pods("churn").delete(live.pop(0))
+            stats["ops"] = stats.get("ops", 0) + 2
+        except Exception as e:  # churn is load; the gates own correctness
+            stats["errors"] = stats.get("errors", 0) + 1
+            stats["last_error"] = repr(e)
+        i += 1
+        stop.wait(period_s)
+
+
+def _unbound(client, namespaces=("default", "churn")) -> list:
+    return [f"{ns}/{p['metadata']['name']}" for ns in namespaces
+            for p in client.pods(ns).list()
+            if not (p.get("spec") or {}).get("nodeName")]
+
+
+class KillBoot:
+    """SchedulerKill's cold boot (``SchedulerKill`` starts it beside the
+    parity phases): an
+    ``InProcessApiServer`` on a durable temporary directory with its 16
+    nodes, and a ``SchedulerProcess`` on the card (``aotCacheDir`` on the
+    same directory, the fail-fast auditor every 1 s, batches of 16, a
+    warm ladder of 16 pods) started on a thread. ``join`` waits for the
+    child's ready dict; ``stop`` ends the child and the server."""
+
+    def __init__(self, device=None, n_nodes=KILL_NODES):
+        self.device, self.n_nodes = device, n_nodes
+        self.server = self.sched = self.ready = self.error = None
+        self.boot_s = None
+        self._thread = None
+
+    def start(self) -> "KillBoot":
+        import tempfile
+        import threading
+        from kubernetes_tpu_torch.chaos.apiserver import InProcessApiServer
+        from kubernetes_tpu_torch.chaos.scheduler import SchedulerProcess
+        from kubernetes_tpu_torch.client.clientset import HTTPClient
+        from kubernetes_tpu_torch.testing.wrappers import make_node
+        self.data_dir = tempfile.mkdtemp(prefix="ktpu-schedkill-")
+        self.server = InProcessApiServer(
+            data_dir=os.path.join(self.data_dir, "api"))
+        self.server.start()
+        HTTPClient(self.server.url, timeout=60.0).nodes().create_many(_wire([
+            make_node(f"sk-n{i}").capacity(
+                {"cpu": "8", "memory": "16Gi", "pods": "64"}).obj()
+            for i in range(self.n_nodes)]))
+        self.sched = SchedulerProcess(
+            self.server.url,
+            cfg={"aotCacheDir": os.path.join(self.data_dir, "aot-cache"),
+                 "auditFailFast": True, "auditIntervalSeconds": 1.0,
+                 "batchSize": 16,
+                 "backoffInitialSeconds": 0.05, "backoffMaxSeconds": 0.5},
+            warm={"pods": 16, "requests": {"cpu": "100m",
+                                           "memory": "64Mi"}},
+            device=self.device)
+
+        def boot():
+            t0 = time.perf_counter()
+            try:
+                self.ready = self.sched.start(ready_timeout=KILL_READY_S)
+            except Exception as e:  # join() raises it
+                self.error = e
+            self.boot_s = time.perf_counter() - t0
+
+        self._thread = threading.Thread(target=boot, daemon=True,
+                                        name="kill-boot")
+        self._thread.start()
+        return self
+
+    def join(self) -> dict:
+        self._thread.join(KILL_READY_S)
+        check(self.error is None and self.ready is not None,
+              f"chaos.kill: the cold child did not boot: {self.error!r}")
+        return self.ready
+
+    def stop(self) -> list:
+        """-> what failed in the teardown (reported; the gates decide)."""
+        import shutil
+        failures = []
+        for closer in (self.sched, self.server):
+            if closer is not None:
+                try:
+                    closer.stop()
+                except Exception as e:
+                    failures.append(f"teardown: {e!r}")
+        shutil.rmtree(self.data_dir, ignore_errors=True)
+        return failures
+
+
+def scheduler_kill(boot, smi="", n_pods=KILL_PODS, churn_s=KILL_CHURN_S):
+    """SchedulerKill as ``benchmarks/disaster.py`` run_scheduler_kill runs
+    it at its defaults, from ``boot`` (a started ``KillBoot``: the
+    apiserver, 16 nodes, the cold child): the child binds 48 pods, cold:
+    it built the kernel library into the cache. Pod churn runs; at half
+    its 4 s (the child's cache quiet) the child is SIGKILLed, and
+    restarted at the end of it: warm, it loads the library and builds
+    nothing. A probe pod's first bind after the restart is reported beside
+    the reference's 3 s SLO and does not gate (a host time). Gates: the
+    cold child built at least 1 library; the restarted child built 0 and
+    loaded at least 1 cached entry; no pod lost or left unbound; 0
+    violations and a fail-fast auditor that did not trip in the child; 0
+    divergences; the restarted child's stats answered over the pipe.
+    -> summary."""
+    import threading
+    from kubernetes_tpu_torch.client.clientset import HTTPClient
+    from kubernetes_tpu_torch.testing.wrappers import make_pod
+    t_phase = time.perf_counter()
+    result = {"workload": f"{boot.n_nodes}nodes_{n_pods}pods", "card": smi}
+    failures = []
+    churn_stop = threading.Event()
+    churn_stats = {}
+    sched, url = boot.sched, boot.server.url
+    try:
+        result["cold_ready"] = boot.join()
+        result["cold_boot_s"] = boot.boot_s
+        result["cold_boot_beside"] = "parity"
+        seed_client = HTTPClient(url, timeout=60.0)
+        t0 = time.perf_counter()
+        seed_client.pods("default").create_many(_wire([
+            make_pod(f"sk-{i}", "default")
+            .req({"cpu": "100m", "memory": "64Mi"}).obj()
+            for i in range(n_pods)]))
+        while (_unbound(seed_client, ("default",))
+               and time.perf_counter() - t0 < KILL_TIMEOUT_S):
+            time.sleep(0.2)
+        result["initial_bind_s"] = time.perf_counter() - t0
+        threading.Thread(target=pod_churn,
+                         args=(HTTPClient(url, timeout=30.0), churn_stop,
+                               churn_stats),
+                         daemon=True).start()
+        time.sleep(churn_s / 2)
+        # the cold child's cache quiet before the kill: builds and entries
+        # no longer moving (the reference waits for compile quiescence)
+        prev, cold = None, None
+        end = time.perf_counter() + 30.0
+        while time.perf_counter() < end:
+            cold = sched.stats()
+            cur = (cold["aotCache"].get("entries"),
+                   cold["aotCache"].get("realBuilds"))
+            if cur == prev:
+                break
+            prev = cur
+            time.sleep(0.7)
+        result["cold_stats"] = cold
+        sched.kill()
+        time.sleep(churn_s / 2)   # churn piles up against no scheduler
+        result["restart_total_s"] = sched.restart(ready_timeout=KILL_READY_S)
+        result["warm_ready"] = sched.ready
+        probe = _wire([make_pod("probe-schedkill", "default")
+                       .req({"cpu": "100m"}).obj()])[0]
+        t0 = time.perf_counter()
+        seed_client.pods("default").create(probe)
+        bound_at = None
+        while time.perf_counter() - t0 < 30.0:
+            p = seed_client.pods("default").get("probe-schedkill")
+            if (p.get("spec") or {}).get("nodeName"):
+                bound_at = time.perf_counter() - t0
+                break
+            time.sleep(0.05)
+        result["first_bind_after_restart_s"] = bound_at
+        result["first_bind_slo_s"] = KILL_BIND_SLO_S
+        result["first_bind_within_slo"] = (bound_at is not None
+                                           and bound_at <= KILL_BIND_SLO_S)
+        result["recovery_stats"] = sched.stats()
+        churn_stop.set()
+        time.sleep(1.0)
+        end = time.perf_counter() + KILL_SETTLE_S
+        while _unbound(seed_client) and time.perf_counter() < end:
+            time.sleep(0.25)
+        unbound = _unbound(seed_client)
+        result["unbound"] = unbound[:20]
+        result["churn"] = dict(churn_stats)
+        try:
+            stats = sched.stats()
+        except Exception as e:  # the gate below names it
+            stats = None
+            failures.append(f"the restarted child's stats did not answer: "
+                            f"{e!r}")
+        result["child_stats"] = stats
+    finally:
+        churn_stop.set()
+        failures.extend(boot.stop())
+    cold_cache = (result.get("cold_stats") or {}).get("aotCache") or {}
+    warm_cache = (result.get("recovery_stats") or {}).get("aotCache") or {}
+    warm_boot = result["warm_ready"].get("aotCacheBoot") or {}
+    if not cold_cache.get("realBuilds", 0) >= 1:
+        failures.append(f"the cold child built no kernel library: "
+                        f"{cold_cache}")
+    if (warm_cache.get("realBuilds") != 0
+            or not warm_cache.get("hits", 0) >= 1
+            or not warm_boot.get("entries", 0) >= 1):
+        failures.append(f"the restarted child did not load instead of "
+                        f"building: boot {warm_boot}, stats {warm_cache}")
+    if result["unbound"]:
+        failures.append(f"{len(unbound)} pods never bound after the restart "
+                        f"(first: {unbound[:5]})")
+    if stats is not None:
+        if stats["violations"] != 0 or stats["auditFailed"]:
+            failures.append(f"the child's auditor: {stats['violations']} "
+                            f"violations, failed {stats['auditFailed']}")
+        if (stats.get("parity") or {}).get("divergences"):
+            failures.append(f"parity divergence {stats['parity']}")
+        if stats.get("loopError") is not None:
+            failures.append(f"the child's loop died: {stats['loopError']}")
+    result["failures"] = failures
+    result["seconds"] = time.perf_counter() - t_phase
+    check(not failures, f"chaos.kill: {failures}")
+    return result
+
+
+class SchedulerKill:
+    """SchedulerKill (``scheduler_kill`` from a ``KillBoot``) on a thread,
+    beside the parity phases (cut for time): its scheduler runs in child
+    processes and its apiserver in this one, which records no span, launch
+    or loop error; the parity phases time nothing. ``join`` waits for it
+    (before the first timed path) and re-raises what failed it."""
+
+    def __init__(self, device=None, smi=""):
+        self.device, self.smi = device, smi
+        self.out = {}
+        self._thread = None
+
+    def start(self) -> "SchedulerKill":
+        import threading
+        boot = KillBoot(device=self.device).start()
+
+        def run():
+            try:
+                self.out["summary"] = scheduler_kill(boot, smi=self.smi)
+            except BaseException as e:  # join() raises it
+                self.out["error"] = e
+
+        # a failed script ends the daemon thread and the child (a daemon
+        # process) with it
+        self._thread = threading.Thread(target=run, daemon=True,
+                                        name="kill")
+        self._thread.start()
+        return self
+
+    def join(self) -> dict:
+        self._thread.join(2 * KILL_READY_S + KILL_SETTLE_S)
+        if "error" in self.out:
+            raise self.out["error"]
+        check("summary" in self.out, "chaos.kill: SchedulerKill did not "
+                                     "finish")
+        return self.out["summary"]
+
+
+def chaos_phase(device=None, smi=""):
+    """The chaos harness's ChaosChurnQueued on the card (``chaos_churn``;
+    SchedulerKill runs earlier, ``SchedulerKill``). -> summary; its
+    ``launches`` are this process's count_pn launches."""
+    from kubernetes_tpu_torch.ops import kernels
+    kernels.reset_launches()
+    churn = chaos_churn(device=device, smi=smi)
+    return {"churn": churn, "launches": dict(kernels.LAUNCHES), "card": smi}
+
+
+def scenario_phase(device=None, smi="", spec=SCENARIO_SPEC,
+                   speed=SCENARIO_SPEED, seed=SEED, batch=SCENARIO_BATCH):
+    """ScenarioReplay as ``bench.py`` runs ``benchmarks/scenario.py``
+    run_scenario_replay (``builtin:smoke``, speed 4, seed 0, batch 64):
+    the trace's fleet seeded into the port's APIServer in a spawned
+    process, ``SchedulerRunner(HTTPClient(url))`` on the card (pops of
+    2 x 64, the explainer on, the sentinel every 16th drain) with the
+    fail-fast auditor on a clean client, the trace's
+    resident pods as the warm drain, the loop started, the driver
+    replaying the trace through its own client. Gates: every
+    trace-resident pod bound; ``plan()`` of two independent resolutions
+    equal, and the live dispatch order equal to it; a p99 attempt
+    latency for every phase with resident pods; the manifest's own SLO
+    gates; 0 invariant violations, 0 divergences, 0 loop errors.
+    -> summary."""
+    import multiprocessing as mp
+    from kubernetes_tpu_torch.api.types import Pod
+    from kubernetes_tpu_torch.audit.auditor import (InvariantAuditor,
+                                                    InvariantViolationError)
+    from kubernetes_tpu_torch.client.clientset import HTTPClient
+    from kubernetes_tpu_torch.metrics.registry import (ATTEMPT_DURATION,
+                                                       LOOP_ERRORS)
+    from kubernetes_tpu_torch.ops import kernels
+    from kubernetes_tpu_torch.scenario import (ScenarioDriver, Trace,
+                                               builtin_trace)
+    from kubernetes_tpu_torch.sched.runner import SchedulerRunner
+
+    def resolve():
+        if spec.startswith("builtin:"):
+            return builtin_trace(spec[len("builtin:"):], seed=seed)
+        return Trace.load(spec)
+
+    t_phase = time.perf_counter()
+    trace = resolve()
+    plan = ScenarioDriver(None, trace, publish=False).plan()
+    plan2 = ScenarioDriver(None, resolve(), publish=False).plan()
+    resident = trace.resident_pods()
+    ctx = mp.get_context("spawn")
+    server, pipe, url = start_apiserver(ctx)
+    runner = None
+    try:
+        seed_client = HTTPClient(url, timeout=120.0, wire="json")
+        fleet = trace.fleet_nodes()
+        seed_client.nodes().create_many(fleet)
+        # the reference's defaults beside its two settings: the explainer
+        # on, the sentinel every 16th drain, the default feature gate
+        cfg = sched_config(batch_size=batch, max_drain_batches=2,
+                           explainer_enabled=True, parity_sample_every=16,
+                           audit_interval_s=CONNECTED_AUDIT_S,
+                           audit_fail_fast=True)
+        runner = SchedulerRunner(HTTPClient(url, wire="json"), cfg,
+                                 device=device)
+        runner.auditor = InvariantAuditor(
+            client=HTTPClient(url, timeout=60.0, wire="json"),
+            cache=runner.cache, scheduler=runner.scheduler,
+            interval_s=CONNECTED_AUDIT_S, fail_fast=True,
+            pre_sweep=runner.sweep_stale_nominations,
+            post_sweep=runner.publish_status,
+            relists=runner._total_relists)
+        runner.start(wait_sync=120.0, start_loop=False)
+        warm_pods = [Pod.from_dict(trace.materialize(ev))
+                     for ev in resident.values()]
+        t0 = time.perf_counter()
+        check(runner.scheduler.warm_drain(
+            warm_pods, slot_headroom=len(warm_pods)
+            + batch * runner.cfg.max_drain_batches),
+            "scenario: warm_drain did not arm the context")
+        warm_s = time.perf_counter() - t0
+        errors0 = dict(LOOP_ERRORS.items())
+        kernels.reset_launches()
+        runner.start_loop()
+        ATTEMPT_DURATION.reset()
+        driver = ScenarioDriver(HTTPClient(url, wire="json"), trace,
+                                speed=speed, bind_timeout_s=SCENARIO_TIMEOUT_S)
+        replay = driver.run()
+        q = {"result": "scheduled"}
+        p99 = ATTEMPT_DURATION.percentile(0.99, q)
+        p50 = ATTEMPT_DURATION.percentile(0.50, q)
+        launches = dict(kernels.LAUNCHES)
+        loop_error = runner.loop_error
+        runner.auditor.stop()
+        for _ in range(2):
+            try:
+                runner.auditor.run_once()
+            except InvariantViolationError:
+                pass  # counted below
+        audit = runner.auditor.status()
+        sentinel = runner.scheduler.sentinel
+        sentinel.drain(120.0)
+        by_site = {dict(k).get("site", "?"): n - errors0.get(k, 0)
+                   for k, n in LOOP_ERRORS.items().items()
+                   if n - errors0.get(k, 0)}
+    finally:
+        if runner is not None:
+            runner.stop()
+        stop_process(server, pipe)
+    deterministic = plan == plan2 and replay["dispatch_order"] == plan
+    wall = replay["wall_s"] or 1e-9
+    out = {"spec": spec, "trace": replay["trace"], "seed": replay["seed"],
+           "speed": speed, "events_total": replay["events_total"],
+           "dispatched": replay["dispatched"],
+           "dispatch_error_count": replay["error_count"],
+           "dispatch_errors": replay["errors"][:10],
+           "resident": replay["resident"], "bound": replay["bound"],
+           "lost": replay["resident"] - replay["bound"],
+           "completed": replay["completed"],
+           "dispatch_s": replay["dispatch_s"], "wall_s": replay["wall_s"],
+           "pods_per_s": replay["bound"] / wall, "skew": replay["skew"],
+           "phases": replay["phases"], "attempt_p99_s": p99,
+           "attempt_p50_s": p50, "deterministic": deterministic,
+           "warm_drain_s": warm_s,
+           "audit": {k: audit[k] for k in ("sweeps", "violations",
+                                           "byInvariant", "failed")},
+           "sentinel": sentinel.stats(), "loop_errors_by_site": by_site,
+           "loop_error": None if loop_error is None else repr(loop_error),
+           "launches": launches, "card": smi,
+           "seconds": time.perf_counter() - t_phase}
+    failures = []
+    if out["lost"]:
+        failures.append(f"{out['lost']} of {out['resident']} trace-resident "
+                        "pods never bound")
+    for ph, st in sorted(replay["phases"].items()):
+        if st["pods"] and not isinstance(st.get("p99_attempt_latency_s"),
+                                         (int, float)):
+            failures.append(f"phase {ph!r}: p99 attempt latency missing "
+                            f"({st['pods']} pods)")
+    if not deterministic:
+        failures.append("the dispatch order diverged from the plan, or two "
+                        "resolutions of the spec planned differently")
+    failures.extend(check_slo_gates(out, trace.manifest.slo_gates))
+    if audit["violations"]:
+        failures.append(f"invariant violations {audit['byInvariant']}")
+    if out["sentinel"]["divergences"]:
+        failures.append(f"sentinel divergences {out['sentinel']}")
+    if by_site or loop_error is not None:
+        failures.append(f"loop errors {by_site}, loop error {loop_error!r}")
+    out["failures"] = failures
+    check(not failures, f"scenario: {failures}")
+    return out
+
+
+def check_slo_gates(result, gates) -> list:
+    """``benchmarks/connected.py`` check_slo_gates on this script's keys:
+    ``SchedulingThroughput`` (pods/s, a floor) and
+    ``p99AttemptLatencySeconds`` (the attempt p99, a ceiling); a missing
+    number fails, and so does an unknown gate."""
+    failures = []
+    for key, bound in (gates or {}).items():
+        if key == "SchedulingThroughput":
+            val, ok = result.get("pods_per_s"), "floor"
+        elif key == "p99AttemptLatencySeconds":
+            val, ok = result.get("attempt_p99_s"), "ceiling"
+        else:
+            failures.append(f"unknown SLO gate {key!r}")
+            continue
+        if not isinstance(val, (int, float)):
+            failures.append(f"{key}: value missing ({val!r})")
+        elif ok == "floor" and val < bound:
+            failures.append(f"{key}: {val} below the {bound} floor")
+        elif ok == "ceiling" and val > bound:
+            failures.append(f"{key}: {val} above the {bound}s ceiling")
+    return failures
+
+
 # ------------------------------------------------------------------ graphs
 
 # parity.graph's round cut: the CPU leg converges a full-width batch in
@@ -8307,10 +9097,13 @@ def main() -> int:
     emit({"phase": "kernels", "rows": rows,
           "launches_while_comparing": dict(kernels.LAUNCHES)})
 
-    # the warm phase's three boots run in child processes beside the
-    # parity checks, which time nothing; they end before the timed paths
+    # the warm phase's three boots and SchedulerKill (a scheduler child on
+    # the card SIGKILLed mid-churn, restarted warm from the kernel cache)
+    # run in child processes beside the parity checks, which time nothing;
+    # they end before the timed paths
     warm_boots = WarmBoots().start()
     atexit.register(warm_boots.stop)
+    kill = SchedulerKill(smi=smi).start()
 
     emit({"phase": "parity", **parity_phase(),
           "drain": drain_parity_phase(), "scheduler": sched_parity_phase(),
@@ -8336,6 +9129,8 @@ def main() -> int:
     launches = {}   # kernel -> {path: launches}
 
     warm_boots.join()
+    emit({"phase": "chaos.kill", **kill.join()})
+    del kill
     settle_heap()
     path = path_phase(node_dicts, bound, batches)
     rounds = sum(r["rounds"] for r in path["requests"])
@@ -8495,15 +9290,24 @@ def main() -> int:
     # behind the three-node front door
     xab_sum = explainab_phase(smi=smi)
     emit({"phase": "explainab", **xab_sum})
-    sec_sum = secured_phase(smi=smi)
+    sec_sum = secured_phase(smi=smi, pods=SECURED_PODS)
     emit({"phase": "secured", **sec_sum})
-    fd_sum = frontdoor_phase(smi=smi)
+    fd_sum = frontdoor_phase(smi=smi, pods=FRONTDOOR_PODS)
     emit({"phase": "frontdoor", **fd_sum})
     # the controller manager and its controllers: clusterloader2's load
     # test on 100 nodes, the pods the Deployments create bound on the card
     # (they carry no topology term: count_pn's 0 is recorded)
     ctrl_sum = controllers_phase(smi=smi)
     emit({"phase": "controllers", **ctrl_sum})
+    settle_heap()
+    # the chaos harness: ChaosChurnQueued (faults on the runner's
+    # transport, the device seams and the loop's threads; the breaker's
+    # walk to the oracle and its restore onto the captured rounds)
+    chaos_sum = chaos_phase(smi=smi)
+    emit({"phase": "chaos", **chaos_sum})
+    # the scenario time machine: builtin:smoke replayed through the runner
+    scen_sum = scenario_phase(smi=smi)
+    emit({"phase": "scenario", **scen_sum})
     # ---- captured against eager, parity.graph, warm start --------------
     # (parity.graph profiles drain_step captured and eager at the
     # resident, scheduler and connected shapes)
@@ -8518,7 +9322,7 @@ def main() -> int:
                                        "drain_ms", "launches")}})
     del drv, res_eager, resident_out
     sched_eager, sched, _churn, _placed = scheduler_phase(
-        s_nodes, s_pods, smi=smi, capture=False)
+        s_nodes, s_pods[:SCHED_EAGER], smi=smi, capture=False)
     emit({"phase": "scheduler.eager", **sched_eager})
     sched.close()
     del sched
@@ -8559,7 +9363,8 @@ def main() -> int:
                           ("parity.plugins", plugin_parity),
                           ("ktpu", ktpu_sum), ("explainab", xab_sum),
                           ("secured", sec_sum), ("frontdoor", fd_sum),
-                          ("controllers", ctrl_sum)):
+                          ("controllers", ctrl_sum), ("chaos", chaos_sum),
+                          ("scenario", scen_sum)):
         for name, n in summary["launches"].items():
             launches.setdefault(name, {})[path] = n
 

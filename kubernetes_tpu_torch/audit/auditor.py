@@ -13,10 +13,10 @@ live state is legitimately in flux). A confirmed violation:
   BENCH_r05 ``parsed: null`` lesson applied to the scheduler itself:
   correctness regressions fail the run, they do not sit latent.
 
-The port of ``kubernetes_tpu/audit/auditor.py``. Left out: the incident
-trace written beside each bundle (``scenario/`` is not ported yet) and the
-installed chaos schedule's seed (the chaos harness is not ported yet; the
-env seed is read). Each sweep is traced as ``audit/sweep``.
+The port of ``kubernetes_tpu/audit/auditor.py``: beside each bundle it
+writes the incident's replayable trace (``scenario/record.py``), and the
+bundle's seed is the installed chaos schedule's (``chaos/hooks.py``), else
+``KTPU_CHAOS_SEED``. Each sweep is traced as ``audit/sweep``.
 """
 
 from __future__ import annotations
@@ -57,9 +57,15 @@ class InvariantViolationError(AssertionError):
 
 
 def active_chaos_seed() -> Optional[int]:
-    """The env replay seed of a chaos run (``KTPU_CHAOS_SEED``) — the one
-    number that makes a repro bundle replayable. The reference also reads
-    the installed chaos schedule; the chaos harness is not ported yet."""
+    """Seed of the chaos schedule currently installed (or the env replay
+    seed) — the one number that makes a repro bundle replayable."""
+    try:
+        from kubernetes_tpu_torch.chaos import hooks
+        c = getattr(hooks, "_ACTIVE", None)
+        if c is not None:
+            return c.schedule.seed
+    except Exception:  # ktpu-lint: disable=KTL002 -- the chaos module may legitimately be absent/uninstalled; the env fallback below is the answer either way
+        pass
     env = os.environ.get("KTPU_CHAOS_SEED")
     try:
         return int(env) if env else None
@@ -138,6 +144,7 @@ class InvariantAuditor:
         self.violations: list[Violation] = []  # guarded by: self._lock
         self.by_invariant: dict[str, int] = {}  # guarded by: self._lock
         self.bundles: list[str] = []  # guarded by: self._lock
+        self.traces: list[str] = []  # guarded by: self._lock
         self.failed = False  # guarded by: self._lock
 
     # ---- one sweep -------------------------------------------------------
@@ -203,17 +210,62 @@ class InvariantAuditor:
                     self.by_invariant.get(v.invariant, 0) + 1
             path = write_bundle(self.audit_dir, v.invariant,
                                 self._bundle_payload(v, snap))
+            trace_path = None
             if path:
                 with self._lock:
                     self.bundles.append(path)
                     del self.bundles[:-MAX_BUNDLES]
-            _LOG.error("INVARIANT VIOLATION [%s]: %s (repro bundle: %s)",
-                       v.invariant, v.detail, path or "<write failed>")
+                trace_path = self._emit_trace(path)
+                if trace_path:
+                    with self._lock:
+                        self.traces.append(trace_path)
+                        del self.traces[:-MAX_BUNDLES]
+            _LOG.error("INVARIANT VIOLATION [%s]: %s (repro bundle: %s, "
+                       "incident trace: %s)",
+                       v.invariant, v.detail, path or "<write failed>",
+                       trace_path or "<none>")
         if fresh and self.fail_fast:
             with self._lock:  # embedding benches poll .failed cross-thread
                 self.failed = True
             raise InvariantViolationError(fresh)
         return fresh
+
+    def _emit_trace(self, bundle_path: str) -> Optional[str]:
+        """Auto-emit the replayable incident trace next to the repro
+        bundle — the same conversion ``ktpu scenario record --from-bundle``
+        runs, so every tripped invariant ships with a scenario replay of
+        its pending batch under the violation-time chaos seed. Best
+        effort: the bundle is the evidence, the trace is a convenience."""
+        try:
+            from kubernetes_tpu_torch.scenario.record import (
+                TraceFormatError,
+                trace_from_bundle,
+            )
+            try:
+                trace = trace_from_bundle(bundle_path)
+            except TraceFormatError:
+                return None  # no pending batch: nothing to replay
+            fname = os.path.basename(bundle_path)
+            path = os.path.join(
+                os.path.dirname(bundle_path),
+                "incident-" + fname[len("audit-"):-len(".json")]
+                + ".trace.jsonl")
+            trace.save(path)
+            # rotate incident traces alongside their bundles
+            traces = sorted(
+                f for f in os.listdir(os.path.dirname(bundle_path))
+                if f.startswith("incident-") and f.endswith(".trace.jsonl"))
+            for old in traces[:-MAX_BUNDLES]:
+                try:
+                    os.remove(os.path.join(os.path.dirname(bundle_path),
+                                           old))
+                except OSError:
+                    pass
+            return path
+        except Exception:
+            LOOP_ERRORS.inc({"site": "audit_trace"})
+            _LOG.exception("incident trace emit failed (%s)", bundle_path)
+            return None
 
     def _bundle_payload(self, v: Violation, snap: AuditSnapshot) -> dict:
         pending_batch = [p for p in snap.api_pods
@@ -304,4 +356,5 @@ class InvariantAuditor:
                 "byInvariant": dict(self.by_invariant),
                 "bundleDir": self.audit_dir,
                 "bundles": list(self.bundles[-5:]),
+                "incidentTraces": list(self.traces[-5:]),
             }

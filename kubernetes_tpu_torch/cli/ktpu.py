@@ -38,8 +38,12 @@ CPU).
 apiserver's pod ``log``, ``exec`` and ``portforward`` subresources to the
 pod's kubelet (``kubelet/server.py``).
 
-Refused before any call to the server, each with ``not_ported`` naming its
-ROADMAP Queue A item: ``lint`` and ``scenario`` (17).
+``scenario generate|record|describe`` are file operations and need no
+server; ``scenario replay`` drives a trace through the apiserver at
+``--server`` (``scenario/driver.py``).
+
+Refused before any call to the server, with ``not_ported`` naming its
+ROADMAP Queue A item: ``lint`` (17).
 """
 
 from __future__ import annotations
@@ -53,16 +57,12 @@ from typing import Optional
 from kubernetes_tpu_torch.client.clientset import ApiError, HTTPClient
 from kubernetes_tpu_torch.config.types import not_ported
 from kubernetes_tpu_torch.kubelet.kubemark import FLEET_CONFIGMAP
+from kubernetes_tpu_torch.scenario.driver import SCENARIO_CONFIGMAP
 from kubernetes_tpu_torch.store.apiserver import ALL_RESOURCES, KIND_TO_PLURAL
-
-# the status ConfigMap of a component not ported yet, named as the
-# reference's publishes it (scenario/driver.py)
-SCENARIO_CONFIGMAP = "kubernetes-tpu-scenario-status"
 
 # commands that wait for a later slice: (what, ROADMAP Queue A item)
 REFUSED = {
     "lint": ("ktpu lint (analysis/)", "17"),
-    "scenario": ("ktpu scenario (scenario/)", "17"),
 }
 
 # singular/short aliases -> plural (kubectl's RESTMapper shortcuts)
@@ -1042,6 +1042,77 @@ def cmd_why(client: HTTPClient, args, out) -> int:
     return 0
 
 
+def cmd_scenario(client, args, out) -> int:
+    """ktpu scenario generate|record|replay|describe: the cluster time
+    machine. generate/record/describe are local file operations (no
+    apiserver — main() dispatches them before building a client); replay
+    drives the trace against the connected apiserver/scheduler stack."""
+    from kubernetes_tpu_torch.scenario import (BUILTINS, ScenarioDriver,
+                                               Trace, TraceFormatError,
+                                               builtin_trace,
+                                               trace_from_bundle,
+                                               trace_from_wal)
+
+    def _resolve(spec: str) -> Trace:
+        if spec.startswith("builtin:"):
+            return builtin_trace(spec[len("builtin:"):], seed=args.seed)
+        if spec in BUILTINS:  # bare builtin name is unambiguous enough
+            return builtin_trace(spec, seed=args.seed)
+        return Trace.load(spec)
+
+    try:
+        if args.action == "generate":
+            if not args.target:
+                out.write("error: generate needs a builtin name "
+                          f"(catalog: {', '.join(sorted(BUILTINS))})\n")
+                return 1
+            trace = _resolve(args.target)
+            path = args.out_path or f"{trace.manifest.name}.trace.jsonl"
+            trace.save(path)
+            out.write(f"wrote {len(trace)} events to {path}\n")
+            out.write(json.dumps(trace.describe(), indent=1) + "\n")
+            return 0
+        if args.action == "record":
+            if bool(args.from_wal) == bool(args.from_bundle):
+                out.write("error: record needs exactly one of "
+                          "--from-wal WAL.jsonl / "
+                          "--from-bundle BUNDLE.json\n")
+                return 1
+            if args.from_wal:
+                trace = trace_from_wal(args.from_wal,
+                                       chaos_seed=args.chaos_seed)
+            else:
+                trace = trace_from_bundle(args.from_bundle)
+            path = args.out_path or f"{trace.manifest.name}.trace.jsonl"
+            trace.save(path)
+            out.write(f"captured {len(trace)} events to {path}\n")
+            out.write(json.dumps(trace.describe(), indent=1) + "\n")
+            return 0
+        if args.action == "describe":
+            if not args.target:
+                out.write("error: describe needs a trace path or "
+                          "builtin:<name>\n")
+                return 1
+            out.write(json.dumps(_resolve(args.target).describe(),
+                                 indent=1) + "\n")
+            return 0
+        # replay: the live path — client is a real HTTPClient here
+        if not args.target:
+            out.write("error: replay needs a trace path or "
+                      "builtin:<name>\n")
+            return 1
+        trace = _resolve(args.target)
+        driver = ScenarioDriver(client, trace, speed=args.speed,
+                                status_namespace=args.namespace,
+                                bind_timeout_s=args.bind_timeout)
+        result = driver.run()
+        out.write(json.dumps(result, indent=1) + "\n")
+        return 0 if result["completed"] else 1
+    except (TraceFormatError, KeyError, OSError) as e:
+        out.write(f"error: {e}\n")
+        return 1
+
+
 def cmd_trace(client: HTTPClient, args, out) -> int:
     """ktpu trace dump: the scheduler's flight-recorder export (batch
     spans + per-pod lifecycle tracks) as Chrome trace-event JSON — load
@@ -1502,6 +1573,10 @@ def main(argv=None, out=None) -> int:
     args = build_parser().parse_args(argv)
     if args.cmd in REFUSED:
         raise not_ported(*REFUSED[args.cmd])
+    if args.cmd == "scenario" and args.action != "replay":
+        # generate/record/describe are pure file operations: dispatch
+        # before the client so they work with no apiserver running
+        return cmd_scenario(None, args, out)
     client = HTTPClient(args.server, token=args.token,
                         user_agent="ktpu")
     commands = {
@@ -1515,7 +1590,8 @@ def main(argv=None, out=None) -> int:
         "api-resources": cmd_api_resources, "wait": cmd_wait,
         "rollout": cmd_rollout, "status": cmd_status,
         "autoscale": cmd_autoscale, "audit": cmd_audit, "why": cmd_why,
-        "trace": cmd_trace, "deschedule": cmd_deschedule,
+        "trace": cmd_trace, "scenario": cmd_scenario,
+        "deschedule": cmd_deschedule,
         "certificate": cmd_certificate, "logs": cmd_logs,
         # the hollow runtime has no live stdout stream: attach shows the
         # container's logs, its closest observable analog

@@ -47,6 +47,9 @@ KERNELS = ("count_pn",)
 LAUNCHES = {name: 0 for name in KERNELS}
 CAPTURED = {name: 0 for name in KERNELS}
 BUILDS = 0
+# libraries loaded without a build: found on disk at first use (an armed
+# cache's entry, or an earlier build's)
+HITS = 0
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -162,9 +165,12 @@ def library(name: str) -> ctypes.CDLL:
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:
+            global HITS
             path = _lib_path(name)
             if not _present(path):
                 build((name,))
+            else:
+                HITS += 1
             try:
                 lib = _load(path)
             except OSError as e:

@@ -65,6 +65,9 @@ FINGERPRINT_FILE = "FINGERPRINT.json"
 MANIFEST_FILE = "MANIFEST.json"
 ENTRY_SUFFIX = ".so"             # ops/kernels' libraries
 DEFAULT_MAX_BYTES = 512 * 1024 * 1024
+# the device types whose scheduler launches the kernels: a runner with a
+# cache readies every library at boot there (``ready_kernels``)
+KERNEL_DEVICES = ("cuda",)
 
 
 def _sha256_file(path: str) -> str:
@@ -96,7 +99,7 @@ class AotExecutableCache:
         self.invalidations = 0   # fingerprint wholesale + rotation GC
         self.boot: dict = {}     # last activate() report
         self._manifest: dict = {}
-        # (kernels.BUILDS, graphs.CAPTURES) at activation
+        # (kernels.BUILDS, graphs.CAPTURES, kernels.HITS) at activation
         self._meter_base: Optional[tuple] = None
         self._sealed_sig: Optional[tuple] = None
 
@@ -120,7 +123,7 @@ class AotExecutableCache:
             kept.pop(name, None)
         self._commit_meta(kept)
         kernels.arm(self.entries_dir, verify=self._verify)
-        self._meter_base = (kernels.BUILDS, graphs.CAPTURES)
+        self._meter_base = (kernels.BUILDS, graphs.CAPTURES, kernels.HITS)
         n_bytes = sum(e["bytes"] for e in kept.values())
         self.boot = {
             "entries": len(kept),
@@ -140,6 +143,20 @@ class AotExecutableCache:
             f", {swept} corrupt swept" if swept else "",
             " after WHOLESALE fingerprint invalidation" if stale else "")
         return self.boot
+
+    def ready_kernels(self, device) -> int:
+        """Build or load every kernel library now, where ``device`` (a
+        ``torch.device``) is of a type in ``KERNEL_DEVICES`` (the
+        reference's warm ladder compiles every program whatever the
+        workload): a cold boot fills the cache and a restart loads from
+        it, whether or not its first pops reach a kernel. A library that
+        does not build raises ``KernelError`` (fatal, as at a launch).
+        -> the libraries readied."""
+        if device.type not in KERNEL_DEVICES:
+            return 0
+        for name in kernels.KERNELS:
+            kernels.library(name)
+        return len(kernels.KERNELS)
 
     def _fingerprint_stale(self) -> bool:
         path = os.path.join(self.root, FINGERPRINT_FILE)
@@ -345,8 +362,11 @@ class AotExecutableCache:
     def stats(self) -> dict:
         """Status-surface block. ``realBuilds`` is ``nvcc`` work since
         activation — 0 after a warm boot is the warm-start property
-        itself; ``captures`` counts the CUDA graphs captured since, which
-        every process pays (its warm ladder)."""
+        itself; ``realCompiles`` is the same count under the reference's
+        name (its compile meter's genuine compiles); ``hits`` counts the
+        libraries loaded since without a build; ``captures`` counts the
+        CUDA graphs captured since, which every process pays (its warm
+        ladder)."""
         entries = self._listdir(ENTRY_SUFFIX)
         stats = {"enabled": True, "dir": self.root,
                  "entries": len(entries),
@@ -356,8 +376,10 @@ class AotExecutableCache:
                  "bootEntries": self.boot.get("entries"),
                  "bootLoadMs": self.boot.get("loadMs")}
         if self._meter_base is not None:
-            builds0, captures0 = self._meter_base
+            builds0, captures0, hits0 = self._meter_base
             stats["realBuilds"] = kernels.BUILDS - builds0
+            stats["realCompiles"] = stats["realBuilds"]
+            stats["hits"] = kernels.HITS - hits0
             stats["captures"] = graphs.CAPTURES - captures0
         return stats
 

@@ -152,6 +152,14 @@ class SchedulerRunner:
                                    registry=registry,
                                    bulk_binder=self._bind_many,
                                    device=device)
+        if self.aot_cache is not None:
+            # on the card every kernel library is built (cold) or loaded
+            # (warm) now, before the loop judges a pod
+            try:
+                self.aot_cache.ready_kernels(self.scheduler.device)
+            except BaseException:
+                self.scheduler.close()
+                raise
         if (self.aot_cache is not None and self.aot_cache.boot.get("entries")
                 and self.scheduler.sentinel is not None):
             # warm-from-cache canary: the FIRST drain answered with kernels

@@ -86,6 +86,7 @@ import numpy as np
 import torch
 
 from kubernetes_tpu_torch.api.types import Pod
+from kubernetes_tpu_torch.chaos.hooks import chaos_point
 from kubernetes_tpu_torch.config.features import DEFAULT_FEATURE_GATE
 from kubernetes_tpu_torch.config.types import SchedulerConfiguration
 from kubernetes_tpu_torch.device import resolve_device
@@ -455,6 +456,7 @@ class Scheduler:
                 return
             try:
                 self.resolver_heartbeat()
+                chaos_point("resolver")
                 pend["resolved"] = self._fetch(pend)
             except Exception as e:
                 if is_fatal(e):
@@ -1466,6 +1468,7 @@ class Scheduler:
                     raise pend["fault"]
             if res is None:  # resolver off/stalled or its fetch failed
                 try:
+                    chaos_point("resolve")
                     res = self._fetch(pend)
                 except Exception as e:
                     if is_fatal(e):
@@ -2449,6 +2452,7 @@ class Scheduler:
         while not stop.is_set() and not self.queue.closed:
             self.heartbeat()
             try:
+                chaos_point("loop")
                 self.run_once()
                 consecutive = 0
             except Exception as e:

@@ -26,15 +26,13 @@ Three pieces live here:
                       data out; ``nodes`` is a JSON-encoded list).
 
 ``serve(conn, n)`` runs a FrontDoorCluster in a process of its own (the
-raft group off the caller's interpreter); ``free_port`` is this module's
-own copy of the chaos harness's helper.
+raft group off the caller's interpreter).
 """
 
 from __future__ import annotations
 
 import json
 import logging
-import socket
 import threading
 import urllib.request
 from typing import Optional
@@ -47,15 +45,6 @@ _LOG = logging.getLogger(__name__)
 
 FRONTDOOR_CONFIGMAP = "kubernetes-tpu-frontdoor-status"
 FRONTDOOR_NAMESPACE = "kube-system"
-
-
-def free_port(host: str = "127.0.0.1") -> int:
-    """A currently-free TCP port. Small bind race window — acceptable for
-    local orchestration (the server binds with SO_REUSEADDR moments
-    later, and a collision surfaces loudly at start())."""
-    with socket.socket() as s:
-        s.bind((host, 0))
-        return s.getsockname()[1]
 
 
 def fetch_status(api_url: str, timeout: float = 2.0) -> Optional[dict]:
@@ -185,6 +174,7 @@ class FrontDoorCluster:
     # ---- lifecycle -------------------------------------------------------
 
     def start(self, leader_timeout: float = 30.0) -> "FrontDoorCluster":
+        from kubernetes_tpu_torch.chaos.apiserver import free_port
         from kubernetes_tpu_torch.store.apiserver import APIServer
         raft_ports = [free_port(self.host) for _ in range(self.n)]
         for i in range(self.n):

@@ -325,7 +325,9 @@ def test_scale_subresource(cluster):
 REFUSED = [(["logs", "app"], "15"), (["exec", "app", "--", "echo", "hi"], "15"),
            (["attach", "app"], "15"), (["port-forward", "app", "0"], "15"),
            (["lint", "--json"], "17"),
-           (["scenario", "describe", "builtin:smoke"], "17")]
+           (["scenario", "describe", "builtin:smoke"], "16")]
+# the items whose commands are ported since: each runs as the reference's
+PORTED = ("15", "16")
 
 
 def _stamps(text: str) -> str:
@@ -396,7 +398,19 @@ def test_refused_command_names_its_item(argv, item):
     server (the address listens to nothing). The kubelet's (item 15) are
     ported: each runs against a hollow kubelet through the apiserver, and
     its exit code and output are the reference's (the pod's logs, the
-    command's output, one round trip through the forwarded port)."""
+    command's output, one round trip through the forwarded port). So is
+    ``scenario`` (ported with the chaos harness, item 16): ``describe`` is
+    a file operation, which calls no server, and its exit code and output
+    are the reference's."""
+    if item == "16":
+        got = []
+        for cli in (ref_ktpu, ktpu):
+            out = io.StringIO()
+            got.append((cli.main(["--server", "http://127.0.0.1:9", *argv],
+                                 out=out), out.getvalue()))
+        assert got[1] == got[0]
+        assert got[1][0] == 0 and '"name": "smoke"' in got[1][1]
+        return
     if item == "15":
         ref, port = _kubelet_command(argv)
         assert port == ref
@@ -408,7 +422,8 @@ def test_refused_command_names_its_item(argv, item):
         return
     with pytest.raises(NotImplementedError, match=f"item {item}$"):
         main(["--server", "http://127.0.0.1:9", *argv], out=io.StringIO())
-    assert set(ktpu.REFUSED) == {a[0] for a, i in REFUSED if i != "15"}
+    assert set(ktpu.REFUSED) == {a[0] for a, i in REFUSED
+                                 if i not in PORTED}
 
 
 def test_certificate_approve_and_deny_as_reference():

@@ -6,6 +6,7 @@ from __future__ import annotations
 
 import ast
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -111,7 +112,12 @@ _SCHED_MODULES = (
     "kubelet.runtime", "kubelet.pleg", "kubelet.pod_workers",
     "kubelet.resources", "kubelet.managers", "kubelet.prober",
     "kubelet.volumemanager", "kubelet.server", "kubelet.kubelet",
-    "kubelet.kubemark", "kubelet.cri", "kubelet.csi", "kubelet.cni")
+    "kubelet.kubemark", "kubelet.cri", "kubelet.csi", "kubelet.cni",
+    # the chaos harness and the scenario time machine
+    "chaos.schedule", "chaos.hooks", "chaos.api", "chaos.device",
+    "chaos.apiserver", "chaos.scheduler", "chaos.replica",
+    "scenario.trace", "scenario.generate", "scenario.record",
+    "scenario.driver")
 
 _NO_YAML = r"""
 import importlib, sys
@@ -133,8 +139,9 @@ print(cfg.batch_size, cfg.pipeline_depth, leaked)
 
 def test_scheduler_modules_import_without_yaml():
     """The scheduling loop's, the connected scheduler's, the resident
-    planners', the entry points', the controllers' and the kubelet's
-    modules import with JAX, flax, PyYAML,
+    planners', the entry points', the controllers', the kubelet's, the
+    chaos harness's and the scenario driver's modules import with JAX,
+    flax, PyYAML,
     msgpack and grpc blocked (the card's machine lists none of the last
     three: config/types.py and descheduler/descheduler.py import PyYAML in
     ``from_yaml`` only, ktpu when it reads YAML, the kubelet when it reads
@@ -193,3 +200,31 @@ def test_no_item_13_refusal_left():
             for i, line in enumerate(p.read_text().splitlines(), 1)
             if '"13")' in line or "item 13" in line]
     assert hits == []
+
+
+def test_no_item_16_refusal_left():
+    """``chaos/`` and ``scenario/`` are whole: the port holds every module
+    of the reference's two packages, nothing refuses as waiting for ROADMAP
+    Queue A item 16, and ``ktpu scenario`` runs (``describe`` is a file
+    operation: the address below listens to nothing) while ``ktpu lint``
+    is still refused, naming item 17."""
+    import io
+
+    from kubernetes_tpu_torch.cli import ktpu
+    hits = [f"{p.relative_to(ROOT)}:{i}"
+            for p in sorted(PORT.rglob("*.py"))
+            for i, line in enumerate(p.read_text().splitlines(), 1)
+            if re.search(r'\(\s*"[^"]*",\s*"16"\)', line)
+            or "item 16" in line]
+    assert hits == []
+    for pkg in ("chaos", "scenario"):
+        ref = ROOT / "kubernetes_tpu" / pkg
+        assert ({p.name for p in (PORT / pkg).glob("*.py")}
+                == {p.name for p in ref.glob("*.py")})
+    out = io.StringIO()
+    assert ktpu.main(["--server", "http://127.0.0.1:9", "scenario",
+                      "describe", "builtin:smoke"], out=out) == 0
+    assert '"resident_pods": 32' in out.getvalue()
+    with pytest.raises(NotImplementedError, match="item 17$"):
+        ktpu.main(["--server", "http://127.0.0.1:9", "lint"],
+                  out=io.StringIO())

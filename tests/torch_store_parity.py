@@ -10,7 +10,8 @@ the CPU in the compiled module's namespace, and the file's own imports of
 them resolve there: a class gets ``device="cpu"``, a function its tensor
 containers moved onto the CPU (the encoder hands out numpy arrays, which
 the reference's functions take as they are). ``run_case`` runs one of its
-test functions, with its fixtures, and returns its record:
+test functions, with its fixtures (``tmp_path`` and ``monkeypatch`` are
+pytest's), and returns its record:
 
 - ``raised``: None, or the exception the case ended in (a failed assertion
   included), by type and message;
@@ -32,9 +33,13 @@ test functions, with its fixtures, and returns its record:
   controllers converge to, not the moment the case's last assertion
   passed.
 
-Masked: uids, wall-clock stamps and the ports of local servers; in the
-raft and front-door modules also resourceVersions and the system
-namespaces (``TIMED``); in the controller modules (``RECONCILED``) also
+Masked: uids, wall-clock stamps, the ports of local servers and how long
+a WAL replay took; in the raft and front-door modules also
+resourceVersions and the system namespaces (``TIMED``), as in the cases
+whose runner writes beside the case (``RV_BY_CHANCE``); in the modules
+whose cases run a SchedulerRunner (``SCHEDULED``) the ConfigMaps it
+publishes about itself are left out; in the controller modules
+(``RECONCILED``) also
 resourceVersions, generated names, the minute a CronJob's job is named
 after, event names' millisecond, every ``...Time`` and ``...Timestamp``
 field and key material drawn at random; there metadata's ``uid``,
@@ -61,11 +66,12 @@ PACKAGES = ("kubernetes_tpu", "kubernetes_tpu_torch")
 # the JAX package's wrappers build every pod and node in both runs
 _IMPORT = re.compile(r"\bkubernetes_tpu\.(?!testing\.wrappers\b)")
 _PORT = re.compile(r"(127\.0\.0\.1|localhost):\d+")
-# chance: the raft node that won the election ("node"), and the watch
-# streams of earlier cases that a replica has not yet torn down
+# chance: the raft node that won the election ("node"), the watch
+# streams of earlier cases that a replica has not yet torn down, and how
+# long a restarted store's WAL replay took ("replayMs")
 MASKED = ("uid", "creationTimestamp", "deletionTimestamp", "time", "ts",
           "replayLagMs", "maxReplayLagMs", "commitWait", "node",
-          "watchers", "watchersTotal", "Port")
+          "watchers", "watchersTotal", "Port", "replayMs")
 
 # raft and the front door start by electing a leader, and an APIServer
 # seeds the system namespaces only if its node leads by then: whether they
@@ -95,17 +101,29 @@ _RECONCILED = threading.Event()  # set while a RECONCILED module's case runs
 # cases that poll until another thread has done its part: a planner
 # (``ClusterAutoscaler.run_once``) until the runner has bound the pods, a
 # read of a static pod's mirror until the kubelet recreated it (whether
-# its status is written yet is chance). What each poll reads and writes
-# depends on how far the other thread got, so the record keeps the case's
-# writes only (not the planner's status ConfigMap, which each poll
-# rewrites), and of a poll's writes to one path the last
-POLLED = ("test_autoscaler", "test_connected_pipeline")
+# its status is written yet is chance), a scenario replay's pod lists
+# until the runner has bound the trace's pods (its status ConfigMap
+# carries the dispatch skew and the pods bound at each publish). What
+# each poll reads and writes depends on how far the other thread got, so
+# the record keeps the case's writes only (not a ConfigMap, which each
+# poll rewrites), of a poll's writes to one path the last, and masks
+# resourceVersions (the other thread's binds interleave with the writes)
+POLLED = ("test_autoscaler", "test_connected_pipeline", "test_scenario")
 _POLLED = threading.Event()
 # what a SchedulerRunner publishes about itself (status, explanations,
 # trace): timings, and fields that differ by design (the port's device,
 # the reference's incident traces), not what a controller case compares
 PUBLISHED = ("kubernetes-tpu-scheduler-status", "scheduler-explanations",
              "kubernetes-tpu-scheduler-trace")
+# modules whose cases run a SchedulerRunner beside the case's own clients
+# (its stop() publishes on the case's thread): their records leave out
+# the PUBLISHED ConfigMaps too
+SCHEDULED = ("test_chaos", "test_disaster", "test_scenario")
+_SCHEDULED = threading.Event()
+# cases whose runner writes (its events, its binds) while the case writes
+# over HTTP: every resourceVersion after the first interleaving is chance
+RV_BY_CHANCE = {("test_disaster", "test_scheduler_survives_apiserver_restart")}
+_RV_CHANCE = threading.Event()
 _GENERATED = re.compile(r"-[0-9a-f]{5}\b")
 # a CronJob's job is named after its scheduled minute since the epoch
 _MINUTE = re.compile(r"-\d{8}\b")
@@ -158,7 +176,8 @@ TICK_WAIT_S = 2.0
 # with no device: a class whose ``device`` None means the card, a function
 # that takes tensor containers where the reference's takes numpy arrays
 ON_CPU = (("sched.runner", "SchedulerRunner"), ("ops.filters", "run_filters"),
-          ("autoscaler", "ClusterAutoscaler"))
+          ("autoscaler", "ClusterAutoscaler"), ("sched.scheduler", "Scheduler"),
+          ("chaos.scheduler", "SchedulerProcess"))
 
 _MODULES: dict = {}
 _RECORD = threading.local()
@@ -332,7 +351,8 @@ def converged(pkg: str):
 
 def _unordered() -> bool:
     """True while a case runs whose resourceVersions are chance."""
-    return _TIMED.is_set() or _RECONCILED.is_set()
+    return (_TIMED.is_set() or _RECONCILED.is_set() or _POLLED.is_set()
+            or _RV_CHANCE.is_set())
 
 
 def _path(url: str) -> str:
@@ -353,10 +373,11 @@ def _record(entry) -> None:
 
 
 def _compared(entry) -> bool:
-    """False for a request that a RECONCILED module's record leaves out:
-    one about a scheduler's published ConfigMaps, and in a POLLED module a
-    read or a write of a ConfigMap (the planner's status)."""
-    if not _RECONCILED.is_set():
+    """False for a request that a RECONCILED or SCHEDULED module's record
+    leaves out: one about a scheduler's published ConfigMaps, and in a
+    POLLED module a read or a write of a ConfigMap (the planner's
+    status)."""
+    if not (_RECONCILED.is_set() or _SCHEDULED.is_set()):
         return True
     if any(n in entry[1] or f'"name": "{n}"' in entry[2] for n in PUBLISHED):
         return False
@@ -452,9 +473,10 @@ def _raft_state(nodes) -> "dict | None":
 
 def _kept(obj: dict) -> bool:
     """False for a system namespace in a TIMED module's record, and for a
-    scheduler's published ConfigMaps in a RECONCILED one."""
+    scheduler's published ConfigMaps in a RECONCILED or SCHEDULED one."""
     name = obj.get("metadata", {}).get("name")
-    if _RECONCILED.is_set() and obj.get("kind") == "ConfigMap":
+    if ((_RECONCILED.is_set() or _SCHEDULED.is_set())
+            and obj.get("kind") == "ConfigMap"):
         return name not in PUBLISHED
     return not (_TIMED.is_set() and obj.get("kind") == "Namespace"
                 and name in SYSTEM_NAMESPACES)
@@ -515,6 +537,8 @@ class Fixtures:
     def get(self, name: str):
         if name == "tmp_path":
             return self.tmp_path
+        if name == "monkeypatch" and name not in self.values:
+            self.values[name] = _monkeypatch(self._teardown)
         if name in self.shared:
             return self.shared[name][0]
         if name in self.values:
@@ -539,6 +563,22 @@ class Fixtures:
                 next(gen)
 
 
+def _monkeypatch(teardown: list):
+    """pytest's ``monkeypatch`` for one case: undone at ``close``."""
+    import pytest
+
+    mp = pytest.MonkeyPatch()
+
+    def undo():
+        yield
+        mp.undo()
+
+    gen = undo()
+    next(gen)
+    teardown.append(gen)
+    return mp
+
+
 def close_shared(shared: dict) -> None:
     for _value, gen in shared.values():
         if inspect.isgenerator(gen):
@@ -551,11 +591,15 @@ def run_case(name: str, fname: str, params: dict, pkg: str, tmp_path,
              shared: "dict | None" = None) -> dict:
     """Run one case of ``tests/<name>.py`` on ``pkg`` -> its record."""
     for flag, names in ((_TIMED, TIMED), (_RECONCILED, RECONCILED),
-                        (_POLLED, POLLED)):
+                        (_POLLED, POLLED), (_SCHEDULED, SCHEDULED)):
         if name in names:
             flag.set()
         else:
             flag.clear()
+    if (name, fname) in RV_BY_CHANCE:
+        _RV_CHANCE.set()
+    else:
+        _RV_CHANCE.clear()
     mod = load(name, pkg)
     # a kubelet's host and pod IPs count from a process-global node index:
     # every case starts it at 1 on both packages, whatever kubelets earlier
