@@ -10,6 +10,8 @@ Phases, one JSON line each:
 
   device   the card, and its name and power limit from nvidia-smi
   build    nvcc builds every kernel of ``kubernetes_tpu_torch/ops/csrc``
+           (the build counter, ops/kernels.BUILDS, reads the libraries
+           built)
   kernels  each kernel against its plain PyTorch version on the card, at the
            shapes of the path's first Schedule (seeded inputs) and, for the
            required (anti-)affinity terms the path does not reach, of a
@@ -18,6 +20,11 @@ Phases, one JSON line each:
            calls), device_ms (20 calls captured once in a CUDA graph and
            replayed: the kernel without its Python wrapper), plain_ms,
            library_ms and the bound
+  domain_counts  ROADMAP B2: ops/topology._domain_counts' [N,N]
+           same-domain matmuls and its factored scatter/gather at N = 4096,
+           8192 and 16384 on seeded synthetic encodings (3 topology keys, P x T
+           = 256), each timed with CUDA events, bit-equal to each other and
+           to the CPU's factored branch
   parity   a small cluster through the engine on the card and on the CPU
            (the plain versions): the assignments must be equal; and the
            resident drain with Recreate churn over a small relational_mix
@@ -44,7 +51,9 @@ Phases, one JSON line each:
            run_workload runs it: encode, batches of 1024, prepare_drain,
            a warm-up gang_drain, the measured gang_drain (scheduled, rounds
            per batch, encode/warm-up/measured seconds, pods/s, launches);
-           the placements are checked and 90% must be placed
+           the placements are checked and 90% must be placed, and the
+           round graphs' counters read no capture and a replay and a host
+           read for each chunk of K rounds (graph_counts_hold)
   kernels.drain  count_pn at the drain's shape (PT = 1024·T, E = 10240,
            N = 8192: the last batch's spread and preferred affinity terms)
            against its plain version, with the same times as the kernels
@@ -318,7 +327,9 @@ Phases, one JSON line each:
            nodes, trace dump is valid Chrome trace JSON, audit status has
            0 violations, deschedule run --dry-run plans on the card;
            scenario generate builtin:smoke and scenario describe on the
-           written file; every command exits 0
+           written file; lint --json over kubernetes_tpu_torch/proxy
+           against the port's baseline (no new finding); every command
+           exits 0
   explainab  (after ktpu) ExplainAB as benchmarks/connected.py
            run_explain_ab runs it: ConnectedChurn (2000 MixedHeterogeneous
            pods on 1000 nodes, pops of 2 x 512, the reference's churn loop
@@ -400,6 +411,24 @@ Phases, one JSON line each:
            the kernel library, the restarted one built nothing and loaded
            the cached entry, no pod lost or unbound, 0 violations and
            divergences; the first bind after the restart is reported
+  cluster  (beside the parity phases, cut for time) ClusterUp/20Nodes100Pods:
+           ktpu-up (cli/cluster.py), the kubeadm analog, as its users boot
+           a dev or CI cluster. A child runs ``python -m
+           kubernetes_tpu_torch.cli.cluster init --nodes 16 --auth`` (the
+           apiserver with auth and admission, the scheduler on the card,
+           the controller manager with the cloud controllers, 16 hollow
+           kubelets), a second ``ktpu-up join --nodes 4`` with the admin
+           token; the 20 nodes get their hostname label and a podCIDR
+           (nodeipam); a Deployment of 100 replicas (10m, 10Mi, port 8080,
+           a hard hostname spread) and a ClusterIP Service (80 -> 8080).
+           Gates (cluster_failures): the child's scheduler on the card,
+           every replica bound and Running with its own IP in its node's
+           podCIDR, pods a node within 1 of each other, the port's
+           iptables, nftables and ipvs renders and its Proxier (in this
+           process, on the child's URL) sending the VIP only to the
+           Running pods' ip:8080 and holding all of them, both children
+           exiting 0 within 10 s of SIGTERM, count_pn launched in the
+           child (its count, printed at its exit, is the path's)
   scenario  ScenarioReplay as bench.py runs benchmarks/scenario.py:
            builtin:smoke at speed 4, seed 0, pops of 2 x 64, the runner on
            the card. Gates: every trace-resident pod bound, two
@@ -454,7 +483,9 @@ judge, whose pods then got no verdict).
 Each path (path, drain, resident, scheduler, plugins, connected,
 preemption, connected_preemption, explain, extender, slice, autoscaler,
 defrag, planner, fleet.drain, fleet, parity.dra, dra, parity.plugins,
-ktpu, explainab, secured, frontdoor, controllers) is driven with the launch
+ktpu, explainab, secured, frontdoor, controllers, chaos, scenario, and
+cluster, whose scheduler is a child process that counts its own) is
+driven with the launch
 counts set to 0 just before it and read just after; the preemption and
 planner paths launch no hand kernel (their device work is torch ops),
 nor do the fleet, DRA and controllers paths (the FleetChurn, claim and
@@ -816,6 +847,96 @@ def sweep_phase(cases):
 
 # ------------------------------------------------------------------ parity
 
+B2_NODES = (4096, 8192, 16384)   # the buckets around the threshold
+B2_PODS = 128              # P x T = 256, the resident spread's PT
+B2_TERMS = 2
+B2_ITERS = 5
+
+
+def domain_counts_inputs(n_nodes, seed=SEED):
+    """A synthetic encoding for ``ops/topology._domain_counts`` at
+    ``n_nodes``: three topology keys (a hostname, 3 zones, racks of 32 with
+    a tenth of the nodes unlabelled), per-term counts 0-3 and eligibility
+    drawn from the seed. -> (ct, cnt_pn, term_topo, elig, topo_keys), on
+    the CPU."""
+    from types import SimpleNamespace
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    n = n_nodes
+    racks = n // 32
+    labels = np.stack([np.arange(n), n + rng.integers(0, 3, n),
+                       np.where(rng.random(n) < 0.1, -1,
+                                n + 3 + rng.integers(0, racks, n))], axis=1)
+    ct = SimpleNamespace(
+        node_valid=torch.ones(n, dtype=torch.bool),
+        node_labels=torch.from_numpy(labels.astype(np.int32)),
+        label_value_num=torch.zeros(n + 3 + racks, dtype=torch.float32))
+    cnt_pn = torch.from_numpy(rng.integers(
+        0, 4, (B2_PODS, B2_TERMS, n)).astype(np.float32))
+    term_topo = torch.from_numpy(rng.integers(
+        0, 3, (B2_PODS, B2_TERMS)).astype(np.int32))
+    elig = torch.from_numpy(rng.random((B2_PODS, B2_TERMS, n)) < 0.9)
+    return ct, cnt_pn, term_topo, elig, (0, 1, 2)
+
+
+def _domain_counts_with(factored: bool, *args):
+    """``_domain_counts`` with its branch forced by KTPU_DOMAIN_FACTORED
+    (restored after the call); every output, ``want_domains`` on."""
+    from kubernetes_tpu_torch.ops import topology
+    prev = os.environ.get("KTPU_DOMAIN_FACTORED")
+    os.environ["KTPU_DOMAIN_FACTORED"] = "1" if factored else "0"
+    try:
+        ct, cnt_pn, term_topo, elig, keys = args
+        return topology._domain_counts(ct, cnt_pn, term_topo, keys,
+                                       elig=elig, want_domains=True)
+    finally:
+        if prev is None:
+            os.environ.pop("KTPU_DOMAIN_FACTORED")
+        else:
+            os.environ["KTPU_DOMAIN_FACTORED"] = prev
+
+
+def domain_counts_phase(sizes=B2_NODES, card="cuda"):
+    """ROADMAP B2 on the card: ``_domain_counts``' [N,N] same-domain
+    matmuls and its factored scatter/gather at N = 4096, 8192 and 16384, on
+    seeded synthetic encodings (``domain_counts_inputs``). Each branch
+    timed with CUDA events (B2_ITERS calls after one warm-up); the two
+    branches' outputs (cnt_dom, has_key, num_domains) bit-equal to each
+    other and to the CPU's factored branch on the same inputs (the CPU's
+    [N,N] branch, ~100 GFLOP a call here, is held equal to it by the CPU
+    tests). -> {N: {dense_ms, factored_ms, bit_equal}, threshold}."""
+    import torch
+    from kubernetes_tpu_torch.ops import topology
+
+    def on(dev, args):
+        ct, cnt_pn, term_topo, elig, keys = args
+        return (type(ct)(**{k: v.to(dev) for k, v in vars(ct).items()}),
+                cnt_pn.to(dev), term_topo.to(dev), elig.to(dev), keys)
+
+    def same(a, b):
+        return all(torch.equal(x.cpu(), y.cpu()) for x, y in zip(a, b))
+
+    out = {"threshold": topology._FACTORED_THRESHOLD, "iters": B2_ITERS}
+    t0 = time.perf_counter()
+    for n in sizes:
+        host = domain_counts_inputs(n)
+        args = on(card, host)
+        got = {f: _domain_counts_with(f, *args) for f in (False, True)}
+        cpu = _domain_counts_with(True, *host)
+        check(same(got[False], got[True]) and same(got[True], cpu),
+              f"domain_counts: the branches differ at N={n}")
+        ms = {f: cuda_ms(lambda f=f: _domain_counts_with(f, *args),
+                         iters=B2_ITERS, warmup=1) for f in (False, True)}
+        out[str(n)] = {"dense_ms": ms[False], "factored_ms": ms[True],
+                       "bit_equal": True,
+                       "domains": int(got[True][2].sum().item())}
+        del args, got, cpu
+        torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def parity_phase():
     """A small cluster through the engine on the card and on the CPU: the
     assignments and rounds must be equal."""
@@ -1093,6 +1214,9 @@ def drain_phase(nodes, pods, batch=DRAIN_BATCH, device=None):
     measured_s = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
     graphs = graph_report(g0, len(chunks))
+    check(graph_counts_hold(graphs, rounds),
+          f"drain: the round graphs' counters moved by {graphs} over "
+          f"rounds {[int(r) for r in rounds]}")
     check(np.isfinite(requested).all() and requested.shape == (
         ct.allocatable.shape[0], len(meta.resources)),
         "drain: requested is not [N,R]")
@@ -6512,6 +6636,8 @@ def ktpu_phase(device=None, n_nodes=KTPU_NODES, n_pods=KTPU_PODS,
       apiserver and the kubelet to the container, which answers;
     - ``scenario generate builtin:smoke`` into a temporary file, and
       ``scenario describe`` on that file (its 32 events).
+    - ``lint --json`` over ``kubernetes_tpu_torch/proxy``: exit 0 and no
+      new finding against the port's committed baseline.
 
     -> summary (per command: exit code, seconds, output bytes)."""
     import io
@@ -6664,6 +6790,17 @@ def ktpu_phase(device=None, n_nodes=KTPU_NODES, n_pods=KTPU_PODS,
         check(described.get("events") == 32
               and described.get("name") == "smoke",
               f"ktpu: scenario describe gave {described}")
+        # ktpu lint over one subtree of the port, against its baseline
+        rc, text, secs = run("lint", "--json", os.path.join(
+            os.path.dirname(os.path.abspath(__file__)),
+            "kubernetes_tpu_torch", "proxy"))
+        lint = json.loads(text.strip().splitlines()[-1].split(" ", 1)[1])
+        check(rc == 0 and lint["findings_new"] == 0
+              and lint["files_scanned"] > 0,
+              f"ktpu: lint exited {rc}: {text[-300:]}")
+        results["lint"] = {"rc": rc, "seconds": secs, "bytes": len(text),
+                           "files": lint["files_scanned"],
+                           "findings_new": lint["findings_new"]}
         return {"nodes": n_nodes + 2, "pods": n_pods + 1,
                 "bound": len(listed), "commands": results,
                 "why": {"message": docs["why"].get("message"),
@@ -8516,6 +8653,413 @@ def scenario_phase(device=None, smi="", spec=SCENARIO_SPEC,
     return out
 
 
+CLUSTER_CELL = "ClusterUp/20Nodes100Pods"
+CLUSTER_INIT_NODES = 16      # ktpu-up init --nodes 16 --auth
+CLUSTER_JOIN_NODES = 4       # ktpu-up join --nodes 4
+CLUSTER_REPLICAS = 100
+CLUSTER_APP = "web"
+CLUSTER_TARGET_PORT = 8080
+CLUSTER_SERVICE_PORT = 80
+CLUSTER_REQUESTS = {"cpu": "10m", "memory": "10Mi"}
+CLUSTER_BOOT_S = 300.0       # the init child's import, CUDA and boot
+CLUSTER_TIMEOUT_S = 180.0    # each wait after the boot
+CLUSTER_EXIT_S = 10.0        # a child's exit after SIGTERM
+HOSTNAME_KEY = "kubernetes.io/hostname"
+# ``python -m kubernetes_tpu_torch.cli.cluster`` run as -m runs it (runpy),
+# which at its exit prints its count_pn launches as its last line
+_CLUSTER_CHILD = r"""
+import atexit, json, runpy, sys
+
+
+def _report():
+    mod = sys.modules.get("kubernetes_tpu_torch.ops.kernels")
+    print(json.dumps({"launches": dict(mod.LAUNCHES) if mod else {}}),
+          flush=True)
+
+
+atexit.register(_report)
+runpy.run_module("kubernetes_tpu_torch.cli.cluster", run_name="__main__",
+                 alter_sys=True)
+"""
+
+
+class _Child:
+    """A ``ktpu-up`` child process whose stdout lines a thread collects;
+    its stderr goes to a temporary file (its tail is reported on a
+    failure)."""
+
+    def __init__(self, argv):
+        import tempfile
+        import threading
+        root = os.path.dirname(os.path.abspath(__file__))
+        self.err = tempfile.TemporaryFile(mode="w+")
+        self.proc = subprocess.Popen(
+            argv, cwd=root, stdout=subprocess.PIPE, stderr=self.err,
+            text=True, env=dict(os.environ, PYTHONPATH=root,
+                                PYTHONUNBUFFERED="1"))
+        self.lines = []
+        self._reader = threading.Thread(target=self._read, daemon=True,
+                                        name="ktpu-up-stdout")
+        self._reader.start()
+        # a script that fails before the phase's SIGTERM leaves no child
+        atexit.register(self._kill)
+
+    def _kill(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+    def _read(self) -> None:
+        for line in self.proc.stdout:
+            self.lines.append(line.rstrip("\n"))
+
+    def wait_line(self, prefix: str, timeout_s: float) -> str:
+        end = time.perf_counter() + timeout_s
+        while time.perf_counter() < end:
+            for line in list(self.lines):
+                if line.startswith(prefix):
+                    return line[len(prefix):].strip()
+            check(self.proc.poll() is None,
+                  f"cluster: ktpu-up exited {self.proc.returncode} before "
+                  f"{prefix!r}: {self.stderr_tail()}")
+            time.sleep(0.05)
+        raise PhaseFailed(f"cluster: no {prefix!r} line from ktpu-up in "
+                          f"{timeout_s}s: {self.stderr_tail()}")
+
+    def stderr_tail(self, n: int = 1500) -> str:
+        self.err.seek(0)
+        return self.err.read()[-n:]
+
+    def terminate(self, timeout_s: float = CLUSTER_EXIT_S):
+        """SIGTERM -> (exit code or None, seconds to exit); killed if it
+        did not exit in ``timeout_s``."""
+        import signal
+        t0 = time.perf_counter()
+        if self.proc.poll() is None:
+            self.proc.send_signal(signal.SIGTERM)
+        try:
+            rc = self.proc.wait(timeout_s)
+        except subprocess.TimeoutExpired:
+            rc = None
+            self.proc.kill()
+            self.proc.wait()
+        seconds = time.perf_counter() - t0
+        self._reader.join(5.0)
+        return rc, seconds
+
+
+def cluster_manifests(replicas=CLUSTER_REPLICAS):
+    """The Deployment (``replicas`` pods of 10m and 10Mi serving 8080, a
+    hard hostname spread: maxSkew 1, DoNotSchedule) and its ClusterIP
+    Service (80 -> 8080)."""
+    labels = {"app": CLUSTER_APP}
+    deployment = {
+        "apiVersion": "apps/v1", "kind": "Deployment",
+        "metadata": {"name": CLUSTER_APP, "namespace": "default"},
+        "spec": {"replicas": replicas, "selector": {"matchLabels": labels},
+                 "template": {"metadata": {"labels": labels}, "spec": {
+                     "containers": [{
+                         "name": "c", "image": "web:v1",
+                         "ports": [{"containerPort": CLUSTER_TARGET_PORT}],
+                         "resources": {"requests": dict(CLUSTER_REQUESTS)}}],
+                     "topologySpreadConstraints": [{
+                         "maxSkew": 1, "topologyKey": HOSTNAME_KEY,
+                         "whenUnsatisfiable": "DoNotSchedule",
+                         "labelSelector": {"matchLabels": labels}}]}}}}
+    service = {
+        "apiVersion": "v1", "kind": "Service",
+        "metadata": {"name": CLUSTER_APP, "namespace": "default"},
+        "spec": {"selector": labels, "ports": [{
+            "port": CLUSTER_SERVICE_PORT,
+            "targetPort": CLUSTER_TARGET_PORT, "protocol": "TCP"}]}}
+    return deployment, service
+
+
+def _label_hostname(client, name: str) -> None:
+    """Give node ``name`` its ``kubernetes.io/hostname`` label (a hollow
+    kubelet registers none), retrying a write its heartbeat raced."""
+    from kubernetes_tpu_torch.client.clientset import ApiError
+    for _ in range(50):
+        node = client.nodes().get(name)
+        labels = node["metadata"].setdefault("labels", {})
+        if labels.get(HOSTNAME_KEY) == name:
+            return
+        labels[HOSTNAME_KEY] = name
+        try:
+            client.nodes().update(node)
+            return
+        except ApiError as e:
+            if e.code != 409:
+                raise
+        time.sleep(0.05)
+    raise PhaseFailed(f"cluster: could not label node {name}")
+
+
+def _node_ready(node) -> bool:
+    return any(c.get("type") == "Ready" and c.get("status") == "True"
+               for c in (node.get("status") or {}).get("conditions") or [])
+
+
+def cluster_failures(pods, nodes, backends, want_device, device_line,
+                     exits, launches, replicas=CLUSTER_REPLICAS) -> list:
+    """The cluster phase's gates on what it read -> what failed: the child
+    runs its scheduler on ``want_device``; every replica bound and Running
+    on a registered node, each with its own IP inside its node's podCIDR;
+    pods a node within 1 of each other over every node (the hard spread);
+    the proxy's backends for the Service's VIP
+    (the iptables, nftables and ipvs renders and the Proxier's service
+    table) each equal to the Running pods' ``ip:8080``, and every packet
+    the Proxier resolves sent to one of them;
+    each child exits 0 within CLUSTER_EXIT_S of its SIGTERM; count_pn
+    launched on the card."""
+    import ipaddress
+    failures = []
+    if not device_line.startswith(want_device):
+        failures.append(f"the scheduler runs on {device_line!r}, not "
+                        f"{want_device}")
+    names = {n["metadata"]["name"] for n in nodes}
+    running = [p for p in pods if p["spec"].get("nodeName") in names
+               and (p.get("status") or {}).get("phase") == "Running"]
+    if len(running) != replicas or len(pods) != replicas:
+        failures.append(f"{len(running)} of {len(pods)} pods bound and "
+                        f"Running (want {replicas})")
+    per_node = {n: 0 for n in names}
+    for p in running:
+        per_node[p["spec"]["nodeName"]] += 1
+    if per_node and max(per_node.values()) - min(per_node.values()) > 1:
+        failures.append(f"pods a node from {min(per_node.values())} to "
+                        f"{max(per_node.values())}: skew over 1")
+    cidrs = {n["metadata"]["name"]: (n.get("spec") or {}).get("podCIDR")
+             for n in nodes}
+    ips = [p["status"].get("podIP") for p in running]
+    outside = [p["metadata"]["name"] for p in running
+               if not cidrs.get(p["spec"]["nodeName"])
+               or ipaddress.ip_address(p["status"].get("podIP") or "0.0.0.0")
+               not in ipaddress.ip_network(cidrs[p["spec"]["nodeName"]])]
+    if len(set(ips)) != len(ips) or outside:
+        failures.append(f"{len(ips) - len(set(ips))} pod IPs shared, "
+                        f"{len(outside)} outside their node's podCIDR")
+    want = sorted(f"{ip}:{CLUSTER_TARGET_PORT}" for ip in ips)
+    for what in ("iptables", "nftables", "ipvs", "table"):
+        got = backends.get(what, [])
+        if sorted(got) != want:
+            failures.append(f"{what}: {len(got)} backends, not the "
+                            f"{len(want)} Running pods' ip:port")
+    resolved = backends.get("resolved", [])
+    if not resolved or not set(resolved) <= set(want):
+        failures.append(f"the Proxier resolved the VIP to "
+                        f"{sorted(set(resolved) - set(want))[:3]} outside "
+                        f"the Running pods' ip:port")
+    for who, (rc, seconds) in exits.items():
+        if rc != 0 or seconds > CLUSTER_EXIT_S:
+            failures.append(f"ktpu-up {who} exited {rc} after "
+                            f"{seconds:.1f}s of its SIGTERM")
+    if want_device == "cuda" and not launches.get("count_pn"):
+        failures.append("kernel count_pn was never launched in the "
+                        "ktpu-up child")
+    return failures
+
+
+def _proxy_backends(client, vip: str) -> dict:
+    """The backends of ``vip``:80 as the port's three proxy renders and the
+    Proxier's service table hold them, and where the Proxier resolves 400
+    packets (``resolved``; ``"None"`` for a packet it rejects)."""
+    import random
+    from kubernetes_tpu_torch.proxy.ipvs import IpvsProxier, RestoredIpvsRules
+    from kubernetes_tpu_torch.proxy.nftables import (NftablesProxier,
+                                                     RestoredNftRules)
+    from kubernetes_tpu_torch.proxy.proxier import Proxier, RestoredRules
+    out = {}
+    rng = random.Random(SEED)
+    for what, cls, render, parse in (
+            ("iptables", Proxier, "sync_proxy_rules_text", RestoredRules),
+            ("nftables", NftablesProxier, "sync_nft_text", RestoredNftRules),
+            ("ipvs", IpvsProxier, "sync_ipvs_text", RestoredIpvsRules)):
+        proxier = cls(client).start()
+        try:
+            out[what] = parse(getattr(proxier, render)()).backends(
+                vip, CLUSTER_SERVICE_PORT)
+            if what == "iptables":
+                out["table"] = [ep for spi in proxier.service_table().values()
+                                if spi.cluster_ip == vip
+                                and spi.port == CLUSTER_SERVICE_PORT
+                                for ep in spi.endpoints]
+                out["resolved"] = sorted({str(proxier.resolve(
+                    vip, CLUSTER_SERVICE_PORT, rng=rng)) for _ in range(400)})
+        finally:
+            proxier.stop()
+    return out
+
+
+def cluster_phase(device=None, smi="", n_init=CLUSTER_INIT_NODES,
+                  n_join=CLUSTER_JOIN_NODES, replicas=CLUSTER_REPLICAS):
+    """ClusterUp/20Nodes100Pods: ``ktpu-up`` (cli/cluster.py), the kubeadm
+    analog, as its users boot a dev or CI cluster. A child runs
+    ``python -m kubernetes_tpu_torch.cli.cluster init --nodes 16 --auth``
+    (its scheduler on the card unless ``device`` says otherwise: the
+    apiserver with auth and admission, the scheduler, the controller
+    manager with the cloud controllers, 16 hollow kubelets), and this
+    process reads its device, URL and admin token from its stdout; a
+    second child runs ``ktpu-up join --server URL --nodes 4 --token T``.
+    Once the 20 nodes are registered each gets its hostname label, and
+    once all are Ready with a podCIDR (nodeipam), a Deployment of 100
+    replicas with a hard hostname spread and a ClusterIP Service go in.
+    The port's three proxy backends then run in this process on the
+    child's URL. Gates: ``cluster_failures``. Then SIGTERM to both
+    children. -> summary: the seconds of the phase and of each step, the
+    pods a node, the backends, the exits, the child's count_pn launches
+    (``launches``)."""
+    from kubernetes_tpu_torch.client.clientset import HTTPClient
+    t_phase = time.perf_counter()
+    children = {}
+    out = {"cell": CLUSTER_CELL, "card": smi}
+    try:
+        argv = ["init", "--nodes", str(n_init), "--auth"] + (
+            ["--device", str(device)] if device is not None else [])
+        children["init"] = _Child([sys.executable, "-c", _CLUSTER_CHILD,
+                                   *argv])
+        device_line = children["init"].wait_line("device:", CLUSTER_BOOT_S)
+        url = children["init"].wait_line("control plane up:", CLUSTER_BOOT_S)
+        token = children["init"].wait_line("admin token:", CLUSTER_BOOT_S)
+        children["init"].wait_line("nodes:", CLUSTER_BOOT_S)
+        out["boot_s"] = time.perf_counter() - t_phase
+        t0 = time.perf_counter()
+        children["join"] = _Child([
+            sys.executable, "-m", "kubernetes_tpu_torch.cli.cluster", "join",
+            "--server", url, "--nodes", str(n_join), "--token", token])
+        children["join"].wait_line("joined:", CLUSTER_BOOT_S)
+        out["join_s"] = time.perf_counter() - t0
+        client = HTTPClient(url, token=token)
+        want_nodes = n_init + n_join
+
+        def wait(what, fn, timeout_s=CLUSTER_TIMEOUT_S):
+            t0 = time.perf_counter()
+            end = t0 + timeout_s
+            while time.perf_counter() < end:
+                got = fn()
+                if got:
+                    out[f"{what}_s"] = time.perf_counter() - t0
+                    return got
+                time.sleep(CTRL_POLL_S)
+            raise PhaseFailed(f"cluster: {what} not within {timeout_s}s "
+                              f"({fn()!r})")
+
+        wait("registered", lambda: len(client.nodes().list()) == want_nodes)
+        for node in client.nodes().list():
+            _label_hostname(client, node["metadata"]["name"])
+        wait("nodes_ready", lambda: all(
+            _node_ready(n) and (n.get("spec") or {}).get("podCIDR")
+            and n["metadata"].get("labels", {}).get(HOSTNAME_KEY)
+            for n in client.nodes().list()))
+        # each kubelet reads its podCIDR at a heartbeat (its GET comes just
+        # before the stamp): pods go in once every node has stamped one a
+        # second after the last CIDR was seen
+        t_cidr = time.time() + 1.0
+        wait("kubelets_cidr", lambda: all(
+            c.get("type") != "Ready" or c.get("lastHeartbeatTime", 0) > t_cidr
+            for n in client.nodes().list()
+            for c in (n.get("status") or {}).get("conditions") or []))
+        deployment, service = cluster_manifests(replicas)
+        t0 = time.perf_counter()
+        client.resource("deployments", "default").create(deployment)
+        svc = client.resource("services", "default").create(service)
+        vip = svc["spec"]["clusterIP"]
+
+        def running():
+            pods = [p for p in client.pods("default").list()
+                    if (p["metadata"].get("labels") or {}).get("app")
+                    == CLUSTER_APP]
+            return pods if sum(
+                1 for p in pods if p["spec"].get("nodeName")
+                and (p.get("status") or {}).get("phase") == "Running"
+            ) == replicas else None
+
+        pods = wait("running", running)
+        out["pods_per_s"] = replicas / (time.perf_counter() - t0)
+        want = sorted(f"{p['status'].get('podIP')}:{CLUSTER_TARGET_PORT}"
+                      for p in pods)
+        # the endpoints controller publishes the ready pods; the renders
+        # are read once they hold them (or the wait's limit passes)
+        backends = {}
+
+        def served():
+            backends.update(_proxy_backends(client, vip))
+            return all(sorted(backends[k]) == want for k in
+                       ("iptables", "nftables", "ipvs", "table"))
+
+        try:
+            wait("endpoints", served)
+        except PhaseFailed:
+            pass  # cluster_failures names what the renders held
+        nodes = client.nodes().list()
+        per_node = {}
+        for p in pods:
+            per_node[p["spec"].get("nodeName")] = per_node.get(
+                p["spec"].get("nodeName"), 0) + 1
+        exits = {who: children[who].terminate()
+                 for who in ("join", "init")}
+        launches = {}
+        for line in reversed(children["init"].lines):
+            if line.startswith('{"launches"'):
+                launches = json.loads(line)["launches"]
+                break
+        failures = cluster_failures(pods, nodes, backends,
+                                    "cpu" if device == "cpu" else "cuda",
+                                    device_line, exits, launches, replicas)
+        out.update(device=device_line, url_scheme=url.split(":")[0],
+                   nodes=len(nodes), pods=len(pods), vip=vip,
+                   pods_per_node={"min": min(per_node.values() or [0]),
+                                  "max": max(per_node.values() or [0]),
+                                  "nodes": len(per_node)},
+                   backends={k: len(v) for k, v in backends.items()},
+                   exits={k: {"rc": rc, "seconds": s}
+                          for k, (rc, s) in exits.items()},
+                   launches=launches, failures=failures,
+                   seconds=time.perf_counter() - t_phase)
+        return out
+    finally:
+        for child in children.values():
+            if child.proc.poll() is None:
+                child.terminate()
+
+
+class ClusterUp:
+    """The cluster phase (``cluster_phase``) on a thread, beside the parity
+    phases (cut for time): its control plane and kubelets run in child
+    processes; this process only reads them over HTTP and runs the proxy
+    renders, and records no span, launch or loop error. ``join`` waits for
+    it (before the first timed path) and re-raises what failed it."""
+
+    def __init__(self, device=None, smi=""):
+        self.device, self.smi = device, smi
+        self.out = {}
+        self._thread = None
+
+    def start(self) -> "ClusterUp":
+        import threading
+
+        def run():
+            try:
+                self.out["summary"] = cluster_phase(device=self.device,
+                                                    smi=self.smi)
+            except BaseException as e:  # join() raises it
+                self.out["error"] = e
+
+        self._thread = threading.Thread(target=run, daemon=True,
+                                        name="cluster-up")
+        self._thread.start()
+        return self
+
+    def join(self) -> dict:
+        self._thread.join(CLUSTER_BOOT_S + 4 * CLUSTER_TIMEOUT_S)
+        if "error" in self.out:
+            raise self.out["error"]
+        check("summary" in self.out, "cluster: ClusterUp did not finish")
+        summary = self.out["summary"]
+        check(not summary["failures"], f"cluster: {summary['failures']}")
+        return summary
+
+
 def check_slo_gates(result, gates) -> list:
     """``benchmarks/connected.py`` check_slo_gates on this script's keys:
     ``SchedulingThroughput`` (pods/s, a floor) and
@@ -8565,6 +9109,17 @@ def graph_report(before: dict, batches: int) -> dict:
                keys=graphs.counters()["keys"],
                pool_bytes=graphs.pool_bytes(), K=gang.GRAPH_CHUNK)
     return out
+
+
+def graph_counts_hold(graphs: dict, rounds) -> bool:
+    """The round graphs' locked counters over one captured drain after its
+    warm-up read what the loop did: no capture, and a replay and a read of
+    the progress flag for each chunk of K rounds, ceil(rounds / K) a batch
+    (no batch hits the round limit here)."""
+    k = graphs["K"]
+    want = sum(-(-int(r) // k) for r in rounds)
+    return (graphs["captures"] == 0
+            and graphs["replays"] == graphs["host_reads"] == want)
 
 
 def _host_tree(tree) -> list:
@@ -9076,6 +9631,10 @@ def main() -> int:
                              "ptxas": [ln for ln in b["ptxas"].splitlines()
                                        if "registers" in ln or "spill" in ln]}
                       for name, b in built.items()}})
+    # the build counter moves under its lock: one a library built
+    check(kernels.BUILDS == sum(b["built"] for b in built.values()),
+          f"build: BUILDS reads {kernels.BUILDS} for "
+          f"{sum(b['built'] for b in built.values())} libraries built")
 
     # one batch past the path's requests, for the profiled request (the
     # generator draws pod by pod, so the first batches do not change)
@@ -9096,6 +9655,8 @@ def main() -> int:
     del cases
     emit({"phase": "kernels", "rows": rows,
           "launches_while_comparing": dict(kernels.LAUNCHES)})
+    # ROADMAP B2: _domain_counts' two branches at 8192 and 16384 nodes
+    emit({"phase": "domain_counts", **domain_counts_phase()})
 
     # the warm phase's three boots and SchedulerKill (a scheduler child on
     # the card SIGKILLed mid-churn, restarted warm from the kernel cache)
@@ -9104,6 +9665,8 @@ def main() -> int:
     warm_boots = WarmBoots().start()
     atexit.register(warm_boots.stop)
     kill = SchedulerKill(smi=smi).start()
+    # ClusterUp (ktpu-up init and join, children on the card) beside them
+    cluster_up = ClusterUp(smi=smi).start()
 
     emit({"phase": "parity", **parity_phase(),
           "drain": drain_parity_phase(), "scheduler": sched_parity_phase(),
@@ -9131,6 +9694,9 @@ def main() -> int:
     warm_boots.join()
     emit({"phase": "chaos.kill", **kill.join()})
     del kill
+    cluster_sum = cluster_up.join()
+    emit({"phase": "cluster", **cluster_sum})
+    del cluster_up
     settle_heap()
     path = path_phase(node_dicts, bound, batches)
     rounds = sum(r["rounds"] for r in path["requests"])
@@ -9364,7 +9930,7 @@ def main() -> int:
                           ("ktpu", ktpu_sum), ("explainab", xab_sum),
                           ("secured", sec_sum), ("frontdoor", fd_sum),
                           ("controllers", ctrl_sum), ("chaos", chaos_sum),
-                          ("scenario", scen_sum)):
+                          ("scenario", scen_sum), ("cluster", cluster_sum)):
         for name, n in summary["launches"].items():
             launches.setdefault(name, {})[path] = n
 

@@ -10,15 +10,19 @@ is what ``ktpu autoscale status`` reads.
 The PyTorch port of ``kubernetes_tpu/autoscaler/autoscaler.py``: both
 simulations run on ``device`` (None = the card) or, through ``resident``,
 on the scheduler's resident context. The ConfigMap is the port's status
-surface (``ktpu autoscale status``). The port has no loop of its own:
-sched/bgplanner.BackgroundPlanner drives ``run_once`` (the standalone loop
-is ROADMAP Queue A item 19).
+surface (``ktpu autoscale status``). ``run_once`` is driven by
+``start``'s own loop, or by sched/bgplanner.BackgroundPlanner. Unlike the
+reference's, the loop of ``start`` stops for good on a failure that
+``sched/faults.is_fatal`` calls fatal (``loop_error`` keeps it), and logs
+only other failures.
 """
 
 from __future__ import annotations
 
 import json
 import logging
+import threading
+from typing import Optional
 
 from kubernetes_tpu_torch.api.types import Node, Pod
 from kubernetes_tpu_torch.autoscaler.expander import EXPANDERS
@@ -92,6 +96,10 @@ class ClusterAutoscaler:
         self._backoff_until: dict[str, float] = {}
         self._unneeded_since: dict[str, float] = {}
         self._last: dict = {"scaleUp": None, "scaleDown": None}
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+        # the fatal failure that stopped start()'s loop, else None
+        self.loop_error: Optional[BaseException] = None
 
     # ---- observation ----------------------------------------------------
 
@@ -314,3 +322,19 @@ class ClusterAutoscaler:
                                    "lastLoop": summary}, indent=1),
              "lastProbeTime": rfc3339_from_epoch(self.clock.now())},
             site="autoscaler_publish")
+
+    # ---- loop ------------------------------------------------------------
+
+    def start(self, interval: float = 2.0) -> "ClusterAutoscaler":
+        from kubernetes_tpu_torch.sched.faults import loop_until_fatal
+        self._thread = threading.Thread(
+            target=loop_until_fatal,
+            args=(self, interval, "autoscaler loop iteration", _LOG),
+            daemon=True, name="cluster-autoscaler")
+        self._thread.start()
+        return self
+
+    def stop(self) -> None:
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=5.0)

@@ -42,8 +42,8 @@ pod's kubelet (``kubelet/server.py``).
 server; ``scenario replay`` drives a trace through the apiserver at
 ``--server`` (``scenario/driver.py``).
 
-Refused before any call to the server, with ``not_ported`` naming its
-ROADMAP Queue A item: ``lint`` (17).
+``lint`` runs the port's static analyzer (``analysis/``) over this
+package against its committed baseline, and needs no server.
 """
 
 from __future__ import annotations
@@ -55,15 +55,9 @@ import time
 from typing import Optional
 
 from kubernetes_tpu_torch.client.clientset import ApiError, HTTPClient
-from kubernetes_tpu_torch.config.types import not_ported
 from kubernetes_tpu_torch.kubelet.kubemark import FLEET_CONFIGMAP
 from kubernetes_tpu_torch.scenario.driver import SCENARIO_CONFIGMAP
 from kubernetes_tpu_torch.store.apiserver import ALL_RESOURCES, KIND_TO_PLURAL
-
-# commands that wait for a later slice: (what, ROADMAP Queue A item)
-REFUSED = {
-    "lint": ("ktpu lint (analysis/)", "17"),
-}
 
 # singular/short aliases -> plural (kubectl's RESTMapper shortcuts)
 ALIASES = {
@@ -1506,8 +1500,6 @@ def build_parser() -> argparse.ArgumentParser:
 
     lt = sub.add_parser(
         "lint", help="project-native static analysis (ktpu-lint)")
-    # the reference's lint flags, so its command lines parse before the
-    # refusal (item 17)
     lt.add_argument("lint_paths", nargs="*")
     lt.add_argument("--baseline", default=None)
     lt.add_argument("--write-baseline", action="store_true")
@@ -1567,12 +1559,23 @@ def cmd_certificate(client, args, out) -> int:
 
 
 def main(argv=None, out=None) -> int:
-    """Run one ktpu command; -> its exit code. A command that waits for a
-    later slice raises ``not_ported`` before any call to the server."""
+    """Run one ktpu command; -> its exit code."""
     out = out or sys.stdout
     args = build_parser().parse_args(argv)
-    if args.cmd in REFUSED:
-        raise not_ported(*REFUSED[args.cmd])
+    if args.cmd == "lint":  # no apiserver involved: dispatch before client
+        from kubernetes_tpu_torch.analysis.cli import main as lint_main
+        lint_argv = list(args.lint_paths)
+        if args.baseline:
+            lint_argv += ["--baseline", args.baseline]
+        if args.write_baseline:
+            lint_argv.append("--write-baseline")
+        if args.no_baseline:
+            lint_argv.append("--no-baseline")
+        if args.lint_json:
+            lint_argv.append("--json")
+        for r in args.rule or ():
+            lint_argv += ["--rule", r]
+        return lint_main(lint_argv, out=out)
     if args.cmd == "scenario" and args.action != "replay":
         # generate/record/describe are pure file operations: dispatch
         # before the client so they work with no apiserver running

@@ -75,8 +75,7 @@ DEFAULT_CONTROLLERS = ("deployment", "replicaset", "job", "daemonset",
                        "csrcleaner")
 # Cloud-provider loops (upstream: cloud-controller-manager / kcm flags):
 # opt-in by name — "nodeipam" needs --cluster-cidr semantics, "route" and
-# "service-lb" a cloud. The reference's cli/cluster.py enables them for
-# cluster-up (ROADMAP Queue A item 19 in the port).
+# "service-lb" a cloud. cli/cluster.py enables them for cluster-up.
 CLOUD_CONTROLLERS = ("nodeipam", "route", "service-lb")
 
 

@@ -26,16 +26,18 @@ planner's and the quota plane's device work runs on ``device`` (None = the
 card) or, through ``resident``, on the scheduler's context. PyYAML is
 imported by ``from_yaml`` alone, so the module imports without it. The
 ConfigMap is the status surface (``ktpu deschedule status``; ``ktpu
-deschedule run`` drives one ``run_once``). The port has no loop of its
-own: sched/bgplanner.BackgroundPlanner drives ``run_once`` (the standalone
-loop is ROADMAP Queue A item 19), so ``interval_s`` is parsed and
-published but read by no loop yet.
+deschedule run`` drives one ``run_once``). ``run_once`` is driven by
+``start``'s own loop, every ``interval_s`` unless told another period, or
+by sched/bgplanner.BackgroundPlanner. Unlike the reference's, the loop of
+``start`` stops for good on a failure that ``sched/faults.is_fatal`` calls
+fatal (``loop_error`` keeps it), and logs only other failures.
 """
 
 from __future__ import annotations
 
 import json
 import logging
+import threading
 from dataclasses import dataclass, field
 from typing import Optional
 
@@ -147,6 +149,10 @@ class Descheduler:
         self.device = device
         self.encoder = SnapshotEncoder()   # persistent: stable intern ids
         self._last: dict = {"cycle": None}
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+        # the fatal failure that stopped start()'s loop, else None
+        self.loop_error: Optional[BaseException] = None
 
     # ---- observation ----------------------------------------------------
 
@@ -491,3 +497,20 @@ class Descheduler:
                                    "lastLoop": summary}, indent=1),
              "lastProbeTime": rfc3339_from_epoch(self.clock.now())},
             site="descheduler_publish")
+
+    # ---- loop ------------------------------------------------------------
+
+    def start(self, interval: Optional[float] = None) -> "Descheduler":
+        from kubernetes_tpu_torch.sched.faults import loop_until_fatal
+        period = self.config.interval_s if interval is None else interval
+        self._thread = threading.Thread(
+            target=loop_until_fatal,
+            args=(self, period, "descheduler cycle", _LOG),
+            daemon=True, name="descheduler")
+        self._thread.start()
+        return self
+
+    def stop(self) -> None:
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=5.0)

@@ -9,10 +9,16 @@ condition), status manager in ``pkg/kubelet/status/status_manager.go``
 
 ``HollowNode`` (bottom) is the kubemark analog: a full kubelet over
 ``FakeRuntime``, cheap enough to run hundreds per process.
+
+The PyTorch port of ``kubernetes_tpu/kubelet/kubelet.py``. Unlike the
+reference's, a kubelet whose Node carries a ``spec.podCIDR`` (nodeipam,
+read at each heartbeat) hands out pod IPs from it, so the kubelets of two
+processes (``ktpu-up init`` and ``join``) never share an address.
 """
 
 from __future__ import annotations
 
+import ipaddress
 import itertools
 import logging
 import threading
@@ -51,6 +57,9 @@ class Kubelet:
         self.node_name = node_name
         self.node_idx = next(_node_ip_counter)
         self._pod_ip_seq = itertools.count(2)
+        # the node's spec.podCIDR once nodeipam assigned it (read at each
+        # heartbeat): pod IPs come from it then, as host-local IPAM's do
+        self.pod_cidr: Optional[str] = None
         self.runtime = runtime if runtime is not None else FakeRuntime(
             ip_alloc=self._next_pod_ip)
         self.allocatable = allocatable or {"cpu": "8", "memory": "16Gi",
@@ -112,7 +121,16 @@ class Kubelet:
         self.lease_sink = None
 
     def _next_pod_ip(self) -> str:
+        """The next pod IP: from the node's podCIDR where nodeipam assigned
+        one (the reference always counts from a process-global node index,
+        so the kubelets of two processes hand out the same addresses), else
+        from that index."""
         n = next(self._pod_ip_seq)
+        cidr = self.pod_cidr
+        if cidr:
+            net = ipaddress.ip_network(cidr, strict=False)
+            if n < net.num_addresses - 1:
+                return str(net.network_address + n)
         return f"10.{self.node_idx % 200 + 10}.{n // 250}.{n % 250}"
 
     # ---- node registration + heartbeat ----------------------------------
@@ -198,6 +216,8 @@ class Kubelet:
     def _heartbeat_inner(self):
         try:
             node = self.client.nodes().get(self.node_name)
+            self.pod_cidr = ((node.get("spec") or {}).get("podCIDR")
+                             or self.pod_cidr)
             st = node.setdefault("status", {})
             conds = [c for c in st.get("conditions") or []
                      if c.get("type") != "Ready"]

@@ -63,6 +63,9 @@ MAX_GRAPHS = 64
 MAX_STABLE = 16
 
 LOCK = threading.RLock()
+# the three counters move under this one (a host read does not wait for a
+# replay under LOCK)
+_COUNT_LOCK = threading.Lock()
 _GRAPHS: "OrderedDict[tuple, _Graph]" = OrderedDict()
 _STABLE: "OrderedDict[tuple, list]" = OrderedDict()
 # graphs whose capture failed, kept alive for the life of the process
@@ -101,7 +104,8 @@ def counters() -> dict:
 
 def count_host_read() -> None:
     global HOST_READS
-    HOST_READS += 1
+    with _COUNT_LOCK:
+        HOST_READS += 1
 
 
 def _layout(t, address: bool = True):
@@ -192,7 +196,8 @@ def _capture(body, state: list) -> _Graph:
             _end_failed_capture(graph)
         raise GraphError(f"CUDA graph capture of the rounds failed: "
                          f"{type(e).__name__}: {e}") from e
-    CAPTURES += 1
+    with _COUNT_LOCK:
+        CAPTURES += 1
     GRAPH_CAPTURES.inc()
     launches = {k: kernels.CAPTURED[k] - before.get(k, 0)
                 for k in kernels.CAPTURED}
@@ -238,7 +243,8 @@ def replay(key: tuple, body, state: list) -> list:
     except Exception as e:
         raise GraphError(f"CUDA graph replay of the rounds failed: "
                          f"{type(e).__name__}: {e}") from e
-    REPLAYS += 1
+    with _COUNT_LOCK:
+        REPLAYS += 1
     for name, n in entry.launches.items():
         kernels.LAUNCHES[name] += n
     return entry.state

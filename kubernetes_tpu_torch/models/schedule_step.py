@@ -15,6 +15,7 @@ in models/gang.py and calls back into this step between rounds.
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 
 import torch
@@ -31,6 +32,10 @@ class StepResult:
     assigned: torch.Tensor   # [P] bool
     feasible: torch.Tensor   # [P,N] bool
     scores: torch.Tensor     # [P,N] float32 (-inf infeasible)
+
+    def replace(self, **changes) -> "StepResult":
+        """A copy with ``changes`` (the reference's struct ``replace``)."""
+        return dataclasses.replace(self, **changes)
 
 
 def evaluate(ct: ClusterTensors, pb: PodBatch, seed: int = 0,

@@ -38,6 +38,8 @@ import subprocess
 import threading
 from pathlib import Path
 
+from kubernetes_tpu_torch.utils.atomicio import atomic_publish
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -53,6 +55,8 @@ HITS = 0
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
+# BUILDS moves under this one: build() also runs under _LOCK (library())
+_COUNT_LOCK = threading.Lock()
 # the armed cache: (entries directory, verify(path) -> bool) or None
 _ARMED = None
 
@@ -146,14 +150,15 @@ def build(names=KERNELS) -> dict[str, dict]:
                                        stderr=subprocess.STDOUT, text=True),
                       tmp, path)
     global BUILDS
-    BUILDS += len(jobs)
+    with _COUNT_LOCK:
+        BUILDS += len(jobs)
     failed = []
     for name, (proc, tmp, path) in jobs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
             failed.append(f"{name}:\n{log}")
             continue
-        os.replace(tmp, path)
+        atomic_publish(str(tmp), str(path))
         out[name].update(built=True, ptxas=log.strip())
     if failed:
         raise KernelError("nvcc failed for " + "\n".join(failed))

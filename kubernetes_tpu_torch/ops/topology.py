@@ -45,8 +45,12 @@ from kubernetes_tpu_torch.ops.exprs import eval_selector_set
 # FACTORED formulation — scatter-add per interned domain VALUE then gather
 # back per node: O(P*T*(N+V)) memory instead of O(N^2).
 # KTPU_DOMAIN_FACTORED=1/0 forces; unset = auto by threshold, a pure
-# function of the node-bucket shape.
-_FACTORED_THRESHOLD = 8192
+# function of the node-bucket shape. The reference switches above 8192;
+# on an H100 the factored branch is the faster one at an 8192-node bucket
+# too, bit-equal (chip_smoke.py's domain_counts phase: 1.03-1.76 against
+# 7.91-7.92 ms at P x T = 256; tests/torch_b2_ab.py: the drain cell at
+# 2.4x the pods/s), so the port's 8192 bucket takes it.
+_FACTORED_THRESHOLD = 4096
 
 
 def _use_factored(n_nodes: int) -> bool:

@@ -49,7 +49,7 @@ from kubernetes_tpu_torch.metrics.registry import (
     SCHEDULER_PLANNER_COMPILES,
     SCHEDULER_PLANNER_CYCLE_DURATION,
 )
-from kubernetes_tpu_torch.sched.faults import is_fatal
+from kubernetes_tpu_torch.sched.faults import loop_until_fatal
 from kubernetes_tpu_torch.utils.clock import REAL_CLOCK, rfc3339_from_epoch
 from kubernetes_tpu_torch.utils.tracing import TRACER
 
@@ -189,25 +189,10 @@ class BackgroundPlanner:
 
     def start(self, interval: float = 2.0) -> "BackgroundPlanner":
         self.interval = interval
-
-        def loop():
-            while not self._stop.is_set():
-                try:
-                    self.run_once()
-                except Exception as e:
-                    if not is_fatal(e):
-                        _LOG.exception("background planner cycle failed")
-                    else:
-                        # a kernel that fails, a parity refutation, a
-                        # feature not ported yet or a CUDA error
-                        self.loop_error = e
-                        _LOG.critical("background planner stopped for "
-                                      "good: %r", e)
-                        raise
-                self._stop.wait(interval)
-
-        self._thread = threading.Thread(target=loop, daemon=True,
-                                        name="background-planner")
+        self._thread = threading.Thread(
+            target=loop_until_fatal,
+            args=(self, interval, "background planner cycle", _LOG),
+            daemon=True, name="background-planner")
         self._thread.start()
         return self
 

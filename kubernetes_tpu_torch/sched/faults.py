@@ -3,7 +3,8 @@
 One predicate, ``is_fatal``, shared by every place in ``sched/`` that
 catches a failure of device work: the scheduler's gang, drain, resolve,
 preemption and loop sites, the explainer, the runner's loop and the
-background planner. A fatal failure is re-raised there and ends the
+planners' own loops (``loop_until_fatal``: the background planner, the
+autoscaler's and the descheduler's ``start``). A fatal failure is re-raised there and ends the
 runner's loop (``SchedulerRunner.loop_error``); it is never degraded to
 the numpy oracle or the host scan, and never retried.
 
@@ -46,3 +47,24 @@ def is_fatal(e: BaseException) -> bool:
     if accel is not None and isinstance(e, accel):
         return True
     return isinstance(e, RuntimeError) and str(e).startswith("CUDA error")
+
+
+def loop_until_fatal(owner, interval: float, what: str, log) -> None:
+    """The body of a planner's own loop thread (``BackgroundPlanner``,
+    ``ClusterAutoscaler``, ``Descheduler``): ``owner.run_once()`` every
+    ``interval`` seconds until ``owner._stop`` is set. A failure that
+    ``is_fatal`` calls fatal stops the loop for good and is kept as
+    ``owner.loop_error``; any other is logged and the loop goes on."""
+    while not owner._stop.is_set():
+        try:
+            owner.run_once()
+        except Exception as e:
+            if not is_fatal(e):
+                log.exception("%s failed", what)
+            else:
+                # a kernel that fails, a parity refutation, a feature not
+                # ported yet or a CUDA error
+                owner.loop_error = e
+                log.critical("%s stopped for good: %r", what, e)
+                return
+        owner._stop.wait(interval)

@@ -50,6 +50,18 @@ def atomic_write(path: str, data: Union[bytes, str], *,
         raise
 
 
+def atomic_publish(tmp: str, path: str) -> None:
+    """Commit a file that another process wrote to ``tmp`` (a compiler's
+    output, named in ``path``'s directory) over ``path``: fsync, then
+    rename. A reader sees the old library or the whole new one."""
+    fd = os.open(os.fspath(tmp), os.O_RDONLY)
+    try:
+        os.fsync(fd)
+    finally:
+        os.close(fd)
+    os.replace(tmp, path)
+
+
 def atomic_write_json(path: str, payload, *, fsync: bool = True,
                       **json_kwargs) -> None:
     """``atomic_write`` of a JSON document (the shape every current

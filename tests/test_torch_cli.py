@@ -13,9 +13,9 @@
 - ``certificate approve|deny`` gives the same output and conditions as
   the reference's.
 - ``logs``, ``exec``, ``attach`` and ``port-forward`` run against a hollow
-  kubelet on both packages, with the same exit code and output; every
-  refused command raises ``not_ported`` naming its ROADMAP item, before
-  any call to the server.
+  kubelet on both packages, with the same exit code and output, and so
+  do ``scenario describe`` and ``lint`` (over one subtree of each
+  package): no command of the port is refused.
 """
 
 from __future__ import annotations
@@ -26,6 +26,7 @@ import re
 import tempfile
 import threading
 import time
+from pathlib import Path
 
 import pytest
 
@@ -327,7 +328,7 @@ REFUSED = [(["logs", "app"], "15"), (["exec", "app", "--", "echo", "hi"], "15"),
            (["lint", "--json"], "17"),
            (["scenario", "describe", "builtin:smoke"], "16")]
 # the items whose commands are ported since: each runs as the reference's
-PORTED = ("15", "16")
+PORTED = ("15", "16", "17")
 
 
 def _stamps(text: str) -> str:
@@ -401,7 +402,28 @@ def test_refused_command_names_its_item(argv, item):
     command's output, one round trip through the forwarded port). So is
     ``scenario`` (ported with the chaos harness, item 16): ``describe`` is
     a file operation, which calls no server, and its exit code and output
-    are the reference's."""
+    are the reference's. So is ``lint`` (item 17): over one subtree of
+    each package, its exit code and summary are the reference's, and no
+    command of the port is refused any more."""
+    if item == "17":
+        got = []
+        for pkg, cli in (("kubernetes_tpu", ref_ktpu),
+                         ("kubernetes_tpu_torch", ktpu)):
+            out = io.StringIO()
+            rc = cli.main(["--server", "http://127.0.0.1:9", *argv,
+                           str(Path(__file__).resolve().parents[1] / pkg
+                               / "proxy")], out=out)
+            summary = json.loads(out.getvalue().splitlines()[-1].split(
+                " ", 1)[1])
+            # the run's seconds, and the entries of the package's own
+            # baseline outside the subtree
+            summary.pop("elapsed_s")
+            summary.pop("baseline_fixed")
+            got.append((rc, summary))
+        assert got[1] == got[0]
+        assert got[1][0] == 0 and got[1][1]["files_scanned"] == 4
+        assert not hasattr(ktpu, "REFUSED")
+        return
     if item == "16":
         got = []
         for cli in (ref_ktpu, ktpu):
@@ -420,10 +442,7 @@ def test_refused_command_names_its_item(argv, item):
         if argv[0] == "port-forward":
             assert port[1].endswith("b'echo: ping')")
         return
-    with pytest.raises(NotImplementedError, match=f"item {item}$"):
-        main(["--server", "http://127.0.0.1:9", *argv], out=io.StringIO())
-    assert set(ktpu.REFUSED) == {a[0] for a, i in REFUSED
-                                 if i not in PORTED}
+    assert item in PORTED
 
 
 def test_certificate_approve_and_deny_as_reference():

@@ -117,7 +117,14 @@ _SCHED_MODULES = (
     "chaos.schedule", "chaos.hooks", "chaos.api", "chaos.device",
     "chaos.apiserver", "chaos.scheduler", "chaos.replica",
     "scenario.trace", "scenario.generate", "scenario.record",
-    "scenario.driver")
+    "scenario.driver",
+    # the static analyzer, kube-proxy and cluster bootstrap
+    "analysis.engine", "analysis.baseline", "analysis.cli",
+    "analysis.rules.base", "analysis.rules.ktl001_guarded_by",
+    "analysis.rules.ktl002_silent_swallow", "analysis.rules.ktl003_clock",
+    "analysis.rules.ktl004_threads", "analysis.rules.ktl006_configmap",
+    "analysis.rules.ktl007_metrics", "analysis.rules.ktl008_atomicio",
+    "proxy.proxier", "proxy.nftables", "proxy.ipvs", "cli.cluster")
 
 _NO_YAML = r"""
 import importlib, sys
@@ -140,8 +147,8 @@ print(cfg.batch_size, cfg.pipeline_depth, leaked)
 def test_scheduler_modules_import_without_yaml():
     """The scheduling loop's, the connected scheduler's, the resident
     planners', the entry points', the controllers', the kubelet's, the
-    chaos harness's and the scenario driver's modules import with JAX,
-    flax, PyYAML,
+    chaos harness's, the scenario driver's, the analyzer's, kube-proxy's
+    and ``ktpu-up``'s modules import with JAX, flax, PyYAML,
     msgpack and grpc blocked (the card's machine lists none of the last
     three: config/types.py and descheduler/descheduler.py import PyYAML in
     ``from_yaml`` only, ktpu when it reads YAML, the kubelet when it reads
@@ -206,8 +213,9 @@ def test_no_item_16_refusal_left():
     """``chaos/`` and ``scenario/`` are whole: the port holds every module
     of the reference's two packages, nothing refuses as waiting for ROADMAP
     Queue A item 16, and ``ktpu scenario`` runs (``describe`` is a file
-    operation: the address below listens to nothing) while ``ktpu lint``
-    is still refused, naming item 17."""
+    operation: the address below listens to nothing), as ``ktpu lint``
+    does since item 17 (over one subtree of the port, against its
+    baseline)."""
     import io
 
     from kubernetes_tpu_torch.cli import ktpu
@@ -225,6 +233,30 @@ def test_no_item_16_refusal_left():
     assert ktpu.main(["--server", "http://127.0.0.1:9", "scenario",
                       "describe", "builtin:smoke"], out=out) == 0
     assert '"resident_pods": 32' in out.getvalue()
-    with pytest.raises(NotImplementedError, match="item 17$"):
-        ktpu.main(["--server", "http://127.0.0.1:9", "lint"],
-                  out=io.StringIO())
+    out = io.StringIO()
+    assert ktpu.main(["--server", "http://127.0.0.1:9", "lint", "--json",
+                      str(PORT / "proxy")], out=out) == 0
+    assert '"findings_new": 0' in out.getvalue()
+
+
+def test_no_item_17_18_19_refusal_left():
+    """The port is whole but the multi-device mesh: nothing refuses a
+    feature as waiting for ROADMAP Queue A items 17-19, ``not_ported`` is
+    raised nowhere, and the port holds every module of the reference's
+    ``analysis/`` (but KTL005's rule), ``proxy/`` and ``cli/``, and the
+    analyzer's baseline."""
+    hits = [f"{p.relative_to(ROOT)}:{i}"
+            for p in sorted(PORT.rglob("*.py"))
+            for i, line in enumerate(p.read_text().splitlines(), 1)
+            if re.search(r'\(\s*"[^"]*",\s*"1[789]"\)', line)
+            or re.search(r"item 1[789]\b", line) or "not_ported(" in line
+            and not line.startswith("def not_ported(")]
+    assert hits == []
+    for pkg, left_out in (("analysis", {"ktl005_donation.py"}),
+                          ("proxy", set()), ("cli", set())):
+        ref = ROOT / "kubernetes_tpu" / pkg
+        assert ({str(p.relative_to(PORT / pkg))
+                 for p in (PORT / pkg).rglob("*.py")}
+                == {str(p.relative_to(ref)) for p in ref.rglob("*.py")
+                    if p.name not in left_out})
+    assert (PORT / "analysis" / "ktpu_lint_baseline.json").is_file()

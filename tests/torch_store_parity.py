@@ -46,6 +46,11 @@ field and key material drawn at random; there metadata's ``uid``,
 ``creationTimestamp`` and ``deletionTimestamp`` are dropped (whether a
 controller's last write was a create or an update is chance), and every
 other masked key is kept as ``<masked>``, so its presence is compared.
+In ``STAMPED`` modules (the descheduler's) the ``...Time`` stamps of the
+status ConfigMaps are masked too. In the case that polls a static pod's
+mirror while its kubelet recreates
+it (``MIRROR_STATUS_BY_CHANCE``) every Pod an answer holds is recorded
+without its ``status``.
 """
 
 from __future__ import annotations
@@ -89,26 +94,30 @@ _TIMED = threading.Event()  # set while a TIMED module's case runs
 # those, and keep the stores that a case builds for itself. So do the
 # kubelet modules: kubelets heartbeat, renew leases and write pod status
 # on threads of their own, and a fleet's batchers flush in an order that
-# is chance
+# is chance; and cluster-up, whose LocalCluster runs the manager and the
+# kubelets beside its scheduler
 RECONCILED = ("test_controllers", "test_controllers_breadth",
               "test_controllers_quota_ttl_agg", "test_attachdetach_nodeipam",
               "test_protection_csr", "test_certificates", "test_volumes",
               "test_kubelet", "test_kubelet_managers", "test_cri_managers",
               "test_cni_csi", "test_kubemark", "test_bulk_fanin",
               "test_kubectl_breadth", "test_connected_pipeline",
-              "test_autoscaler")
+              "test_autoscaler", "test_cluster_up")
 _RECONCILED = threading.Event()  # set while a RECONCILED module's case runs
 # cases that poll until another thread has done its part: a planner
 # (``ClusterAutoscaler.run_once``) until the runner has bound the pods, a
 # read of a static pod's mirror until the kubelet recreated it (whether
 # its status is written yet is chance), a scenario replay's pod lists
 # until the runner has bound the trace's pods (its status ConfigMap
-# carries the dispatch skew and the pods bound at each publish). What
+# carries the dispatch skew and the pods bound at each publish), a
+# cluster-up case's node and pod lists until its kubelets registered and
+# ran what its scheduler bound. What
 # each poll reads and writes depends on how far the other thread got, so
 # the record keeps the case's writes only (not a ConfigMap, which each
 # poll rewrites), of a poll's writes to one path the last, and masks
 # resourceVersions (the other thread's binds interleave with the writes)
-POLLED = ("test_autoscaler", "test_connected_pipeline", "test_scenario")
+POLLED = ("test_autoscaler", "test_connected_pipeline", "test_scenario",
+          "test_cluster_up")
 _POLLED = threading.Event()
 # what a SchedulerRunner publishes about itself (status, explanations,
 # trace): timings, and fields that differ by design (the port's device,
@@ -124,6 +133,11 @@ _SCHEDULED = threading.Event()
 # over HTTP: every resourceVersion after the first interleaving is chance
 RV_BY_CHANCE = {("test_disaster", "test_scheduler_survives_apiserver_restart")}
 _RV_CHANCE = threading.Event()
+# modules whose records carry wall-clock stamps in published status (the
+# descheduler's ConfigMap): their ``_STAMP`` keys are masked, as in a
+# RECONCILED module, and nothing else is
+STAMPED = ("test_descheduler",)
+_STAMPED = threading.Event()
 _GENERATED = re.compile(r"-[0-9a-f]{5}\b")
 # a CronJob's job is named after its scheduled minute since the epoch
 _MINUTE = re.compile(r"-\d{8}\b")
@@ -149,6 +163,25 @@ _DRAWN = re.compile(r"LS0tLS1CRUdJT[A-Za-z0-9+/=]*|-----BEGIN [A-Z ]+-----"
 # kind's objects; what each object holds is still compared
 PLACED_BY_CHANCE = {("test_kubelet", "test_full_cluster_deployment_to_running")}
 _PLACEMENT = re.compile(r"\bw\d+\b|\b(10|192)\.\d+\.\d+\.\d+\b")
+# cases that poll a static pod's mirror while the kubelet deletes and
+# recreates it: the kubelet writes a recreated mirror's status on a
+# thread of its own after the create, so whether a poll's last answer
+# carries that status yet is chance on either package. Their records
+# drop ``status`` from every Pod an answer holds; the requests, their
+# order and codes, and each Pod's metadata and spec are still compared
+MIRROR_STATUS_BY_CHANCE = {
+    ("test_kubectl_breadth",
+     "test_static_pod_survives_mirror_deletion_and_manifest_edit")}
+
+
+def _status_free(entry: tuple) -> tuple:
+    """A recorded request whose answer, if a Pod, has no ``status``."""
+    if entry[3] != "ok":
+        return entry
+    out = json.loads(entry[4])
+    if isinstance(out, dict) and out.get("kind") == "Pod":
+        out.pop("status", None)
+    return entry[:4] + (json.dumps(out, sort_keys=True),)
 
 
 def _placement_free(data: dict) -> dict:
@@ -175,9 +208,17 @@ TICK_WAIT_S = 2.0
 # (module, name) of the port's entry points that a reference test calls
 # with no device: a class whose ``device`` None means the card, a function
 # that takes tensor containers where the reference's takes numpy arrays
+# (given ``device="cpu"`` where it takes a device)
 ON_CPU = (("sched.runner", "SchedulerRunner"), ("ops.filters", "run_filters"),
           ("autoscaler", "ClusterAutoscaler"), ("sched.scheduler", "Scheduler"),
-          ("chaos.scheduler", "SchedulerProcess"))
+          ("chaos.scheduler", "SchedulerProcess"),
+          ("cli.cluster", "LocalCluster"), ("models.schedule_step", "evaluate"),
+          ("utils.sanity", "checked_evaluate"),
+          ("descheduler", "Descheduler"), ("descheduler", "plan_evictions"),
+          ("descheduler", "plan_evictions_naive"),
+          ("descheduler", "plan_gang_defrag"),
+          ("autoscaler.simulator", "simulate_scale_up"),
+          ("autoscaler.simulator", "simulate_scale_down"))
 
 _MODULES: dict = {}
 _RECORD = threading.local()
@@ -212,7 +253,11 @@ def _on_cpu(pkg: str, src: str, namespace: dict) -> str:
 
             namespace[name] = type(name, (base,), {"__init__": __init__})
         else:
-            def on_cpu(*a, _fn=base, **kw):
+            takes_device = "device" in inspect.signature(base).parameters
+
+            def on_cpu(*a, _fn=base, _dev=takes_device, **kw):
+                if _dev:
+                    kw.setdefault("device", "cpu")
                 return _fn(*(x.to("cpu") if hasattr(x, "to") else x
                              for x in a), **kw)
 
@@ -271,7 +316,8 @@ def mask(obj):
                 "name", "").rpartition(".")[0] + ".<ms>"}}
         masked = {k for k in obj if k in MASKED or (
             _unordered() and k == "resourceVersion") or (
-            _RECONCILED.is_set() and _STAMP.search(k))}
+            (_RECONCILED.is_set() or _STAMPED.is_set())
+            and _STAMP.search(k))}
         if _RECONCILED.is_set() and isinstance(obj.get("metadata"), dict):
             obj = {**obj, "metadata": {k: v for k, v in obj["metadata"].items()
                                        if k not in _CHANCE}}
@@ -591,7 +637,8 @@ def run_case(name: str, fname: str, params: dict, pkg: str, tmp_path,
              shared: "dict | None" = None) -> dict:
     """Run one case of ``tests/<name>.py`` on ``pkg`` -> its record."""
     for flag, names in ((_TIMED, TIMED), (_RECONCILED, RECONCILED),
-                        (_POLLED, POLLED), (_SCHEDULED, SCHEDULED)):
+                        (_POLLED, POLLED), (_SCHEDULED, SCHEDULED),
+                        (_STAMPED, STAMPED)):
         if name in names:
             flag.set()
         else:
@@ -667,7 +714,10 @@ def run_case(name: str, fname: str, params: dict, pkg: str, tmp_path,
         servers = {k: {**v, "data": _placement_free(v["data"])}
                    if isinstance(v, dict) and "data" in v else v
                    for k, v in servers.items()}
-    return {"raised": raised, "requests": list(requests),
+    requests = list(requests)
+    if (name, fname) in MIRROR_STATUS_BY_CHANCE:
+        requests = [_status_free(r) for r in requests]
+    return {"raised": raised, "requests": requests,
             "servers": servers, "raft": raft, "stores": own}
 
 
