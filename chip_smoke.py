@@ -429,6 +429,30 @@ Phases, one JSON line each:
            Running pods' ip:8080 and holding all of them, both children
            exiting 0 within 10 s of SIGTERM, count_pn launched in the
            child (its count, printed at its exit, is the path's)
+  parity.mesh  (after parity.plugins) drain_parity_check
+           (benchmarks/connected.py) at the main path's width:
+           MixedHeterogeneous at 5000 nodes (the 8192 bucket), P=512, B=2,
+           one drain_step on the card single-device (captured), on the CPU
+           (beside the card's legs, cut for time) and split over meshes
+           (1,2), (2,2) and (1,4) of logical shards of the card
+           (parallel/mesh.py, built from an explicit device list). Gates:
+           each mesh's assignments, rounds, fill and folded state equal
+           the single-device drain's and the CPU's, and count_pn launched on
+           every shard; reported: each drain's ms, its launches a shard and
+           the bytes its collectives moved
+  kernels.mesh  count_pn at a shard's shape (the (1,2) mesh's shard 0
+           over the folded context: N = 4096, the existing pods' node ids
+           remapped to the shard's rows) against its plain version
+  mesh     (after connected) Connected/10000Pods5000Nodes's first 2048
+           pods through the connected runner with its scheduler on a (1,2)
+           mesh of logical shards (Scheduler.set_mesh), the loop started
+           once every pod is queued, the sentinel judging the second drain;
+           beside it the same pods through a single-device Scheduler with
+           the same pops (cut for time). Gates: the mesh active (2 devices,
+           the breaker at "mesh"), every pod bound, the same placements,
+           connected_run's gates; pods/s reported (logical shards share the
+           card). The kernels line lists count_pn at the shard's shape too
+           (count_pn.mesh_shard, the mesh phase's launches)
   scenario  ScenarioReplay as bench.py runs benchmarks/scenario.py:
            builtin:smoke at speed 4, seed 0, pops of 2 x 64, the runner on
            the card. Gates: every trace-resident pod bound, two
@@ -2017,7 +2041,8 @@ def _span_totals(t0=None):
 
 
 def connected_phase(node_dicts, pod_dicts, device=None, smi="",
-                    capture=True):
+                    capture=True, mesh=None, queued_first=False,
+                    parity_every=None):
     """Connected/10000Pods5000Nodes as ``bench.py`` runs
     ``benchmarks/connected.py`` run_connected (``explain=True``, its
     default), through the port: an APIServer in a spawned process, the
@@ -2036,13 +2061,17 @@ def connected_phase(node_dicts, pod_dicts, device=None, smi="",
     the seconds of the other threads (pod handler, audit sweeps, sentinel
     checks, the explainer's ``explain/*``) are read from the tracer's
     spans; the explainer's ``stats()`` are reported. ``capture=False``:
-    the rounds run eagerly on the card. -> (summary, stopped runner)."""
+    the rounds run eagerly on the card. ``mesh``, ``queued_first`` and
+    ``parity_every``: as ``connected_run``. -> (summary, stopped
+    runner)."""
     import multiprocessing as mp
     ctx = mp.get_context("spawn")
     server, server_pipe, url = start_apiserver(ctx)
     try:
         return connected_run(ctx, url, node_dicts, pod_dicts, device=device,
-                             smi=smi, capture=capture)
+                             smi=smi, capture=capture, mesh=mesh,
+                             queued_first=queued_first,
+                             parity_every=parity_every)
     finally:
         stop_process(server, server_pipe)
 
@@ -2085,7 +2114,8 @@ def churn_nodes_and_pods(client, stop, stats, period_s=CHURN_PERIOD_S,
 def connected_run(ctx, url, node_dicts, pod_dicts, device=None, smi="",
                   capture=True, what="connected", explain=True,
                   churn_ops=None, admin_token=None, sched_token=None,
-                  audit_url=None, chaos=None):
+                  audit_url=None, chaos=None, mesh=None, queued_first=False,
+                  parity_every=None):
     """The connected phase's run against a server at ``url`` (or a front
     door's endpoints, which every client but the auditor spreads over):
     seed, runner, auditor and watcher as ``connected_phase`` says, gated
@@ -2115,7 +2145,16 @@ def connected_run(ctx, url, node_dicts, pod_dicts, device=None, smi="",
     before
     the settle of the sentinel and the auditor; the "0 loop errors, 0
     oracle pods" gates give way to ``chaos_failures``, which the caller
-    checks.
+    checks. ``mesh``: the runner's scheduler is given this device mesh
+    (``Scheduler.set_mesh``) before its informers start; the breaker then
+    must end at "mesh", and the summary carries the mesh, its device
+    count and every measured pod's node (``placements``).
+    ``queued_first``: the pods are created chunk after chunk and the loop
+    starts once the informer has queued every one, so the pops take the
+    same pods on every run (as under ``chaos``, whose creates stay
+    concurrent). ``parity_every``: the sentinel's sampling period, for a
+    run too short for the default's (a run of two pops samples its
+    second with 2).
     -> (summary, stopped runner)."""
     rbac = sched_token is not None
     import threading
@@ -2143,7 +2182,8 @@ def connected_run(ctx, url, node_dicts, pod_dicts, device=None, smi="",
         cfg = sched_config(batch_size=CONNECTED_BATCH,
                            max_drain_batches=CONNECTED_DRAIN_BATCHES,
                            parity_sample_every=(
-                               CHAOS_PARITY_EVERY if chaos is not None
+                               parity_every if parity_every is not None
+                               else CHAOS_PARITY_EVERY if chaos is not None
                                else CONNECTED_PARITY_EVERY
                                if churn_ops is None
                                else CHURN_PARITY_EVERY),
@@ -2161,6 +2201,8 @@ def connected_run(ctx, url, node_dicts, pod_dicts, device=None, smi="",
             sched_client, cfg, feature_gate=no_preemption_gate(),
             device=device)
         runner.scheduler.capture = capture
+        if mesh is not None:
+            runner.scheduler.set_mesh(mesh)
         # fail-fast audit over a CLEAN client, as run_connected's
         # _bench_auditor: the scheduler's transport is not the auditor's
         runner.auditor = InvariantAuditor(
@@ -2239,12 +2281,16 @@ def connected_run(ctx, url, node_dicts, pod_dicts, device=None, smi="",
                       churn_stats),
                 kwargs={"hurry": churn_hurry}, daemon=True)
             churn.start()
-        with ThreadPoolExecutor(max_workers=min(4, len(jobs))) as pool:
+        # queued_first compares runs pod for pod: its chunks are created
+        # one after another, so the informer queues the pods in the same
+        # order on every run (concurrent chunks interleave by chance)
+        workers = 1 if queued_first else min(4, len(jobs))
+        with ThreadPoolExecutor(max_workers=workers) as pool:
             list(pool.map(lambda objs: seed_client.pods("default")
                           .create_many(objs), jobs))
         t_created = time.perf_counter()
         enc_created = runner.cache.encode_cache_stats()
-        if chaos is not None:
+        if chaos is not None or queued_first:
             # the loop starts once the informer has queued every measured
             # pod: the first two pops take them whole on any host, and the
             # drain and gang bursts land on the churn's pops (after an
@@ -2359,6 +2405,11 @@ def connected_run(ctx, url, node_dicts, pod_dicts, device=None, smi="",
                 "last_error": churn_stats.get("last_error")},
             "chaos": chaos_block,
             "card": smi}
+        if mesh is not None:
+            from kubernetes_tpu_torch.metrics.registry import MESH_DEVICES
+            summary.update(mesh=mesh.describe(),
+                           mesh_active=runner.scheduler.mesh is mesh,
+                           mesh_devices=MESH_DEVICES.get())
         # the settle: the sentinel's verdicts land (bounded), the auditor
         # stops and sweeps twice more (confirm-2 invariants need two looks)
         sentinel = runner.scheduler.sentinel
@@ -2401,7 +2452,11 @@ def connected_run(ctx, url, node_dicts, pod_dicts, device=None, smi="",
           "store")
     check_placements(node_dicts + churn_stats.get("nodes", []), [], placed,
                      len(pod_dicts))
-    check(summary["breaker"] == "single",
+    if mesh is not None or queued_first:
+        # the caller compares them (and drops them before emitting)
+        summary["placements"] = {p["metadata"]["name"]:
+                                 p["spec"]["nodeName"] for p in placed}
+    check(summary["breaker"] == ("mesh" if mesh is not None else "single"),
           f"{what}: the breaker degraded to {summary['breaker']!r} "
           f"({summary['breaker_trip_reasons']})")
     check(summary["spans_dropped"] == 0,
@@ -9083,6 +9138,226 @@ def check_slo_gates(result, gates) -> list:
     return failures
 
 
+# ------------------------------------------------------------------ mesh
+
+MESH_NODES = N_NODES           # MixedHeterogeneous at 5000 nodes: the 8192 bucket
+MESH_P = CONNECTED_BATCH       # drain_parity_check's P, at the main path's 512
+MESH_B = CONNECTED_DRAIN_BATCHES
+MESH_SHAPES = ((1, 2), (2, 2), (1, 4))
+MESH_CONNECTED = (1, 2)        # the mesh phase's scheduler
+MESH_PODS = SCHED_EAGER        # 2048 of Connected's 10000 pods
+# two pops of 2 x 512: the sentinel judges the second drain of each leg
+MESH_PARITY_EVERY = 2
+
+
+def logical_mesh(shape, card="cuda:0"):
+    """A (pods, nodes) mesh of logical shards on one card, built from an
+    explicit device list (``make_mesh``), as an operator hands one to
+    ``Scheduler.set_mesh``."""
+    from kubernetes_tpu_torch.parallel.mesh import make_mesh
+    return make_mesh([card] * (shape[0] * shape[1]), pods_axis=shape[0])
+
+
+def mesh_drain(ct, pbs, topo_keys, device=None, mesh=None, count=True):
+    """One fused ``drain_step`` over a fresh resident context (split over
+    ``mesh`` when given) -> its winners, fill, folded state (host copies),
+    milliseconds, and with ``count`` its launches per shard and the bytes
+    its collectives moved (a leg run beside another passes False: the
+    counters are the process's)."""
+    import torch
+    from kubernetes_tpu_torch.models import gang
+    from kubernetes_tpu_torch.ops import kernels
+    from kubernetes_tpu_torch.parallel import mesh as mesh_mod
+    ct_all, e0, fill = gang.build_drain_context(ct, pbs, device=device,
+                                                mesh=mesh)
+    stack = gang.stack_batches(gang.unify_batches(pbs))
+    kw = dict(e0=e0, seed=SEED, fit_strategy="LeastAllocated",
+              topo_keys=topo_keys, weights=(), enabled_filters=(),
+              max_rounds=64)
+    card = device != "cpu"
+    if card:
+        torch.cuda.synchronize()
+    if count:
+        kernels.reset_launches()
+    ex0, peer0 = mesh_mod.EXCHANGED_BYTES, mesh_mod.PEER_BYTES
+    t0 = time.perf_counter()
+    a, r, ct_all, new_fill = gang.drain_step(ct_all, stack, fill, **kw)
+    if card:
+        torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    return {"assignments": a.cpu().numpy(), "rounds": r.cpu().numpy(),
+            "fill": int(new_fill), "ms": ms,
+            "folded": _host_tree(mesh_mod.full_view(ct_all)),
+            "launches": dict(kernels.LAUNCHES),
+            "shard_launches": {f"{n}@{i},{j}": c for (n, i, j), c
+                               in kernels.SHARD_LAUNCHES.items()},
+            "exchanged_bytes": mesh_mod.EXCHANGED_BYTES - ex0,
+            "peer_bytes": mesh_mod.PEER_BYTES - peer0, "ct": ct_all}
+
+
+def mesh_parity_phase(seed=SEED, shapes=MESH_SHAPES):
+    """parity.mesh: ``drain_parity_check`` (benchmarks/connected.py) at the
+    main path's width -- MixedHeterogeneous at 5000 nodes (the 8192
+    bucket), P=512, B=2 -- drained on the card single-device (the
+    captured rounds), on the CPU, and split over meshes of logical shards
+    of this card (``logical_mesh``: (1,2), (2,2), (1,4)). Gates: each
+    mesh's assignments, rounds, fill and folded state equal the card's
+    single-device drain's and the CPU's, bit for bit, and count_pn
+    launched on every shard. -> (summary, count_pn's cases at a shard's
+    shape: the (1,2) mesh's second shard over the folded context)."""
+    from kubernetes_tpu_torch.encode.snapshot import SnapshotEncoder
+    from kubernetes_tpu_torch.models.gang import _batch, stack_batches
+    from kubernetes_tpu_torch.models.gang import unify_batches
+    from kubernetes_tpu_torch.parallel import mesh as mesh_mod
+    from kubernetes_tpu_torch.testing.workloads import mixed_heterogeneous
+    t_phase = time.perf_counter()
+    nodes, pods = mixed_heterogeneous(pods=MESH_P * MESH_B,
+                                      nodes=MESH_NODES, seed=seed)
+    enc = SnapshotEncoder()
+    ct, meta = enc.encode_cluster(nodes, [], pending_pods=pods)
+    pbs = [enc.encode_pods(pods[i:i + MESH_P], meta, min_p=MESH_P)
+           for i in range(0, MESH_P * MESH_B, MESH_P)]
+    keys = tuple(meta.topo_keys)
+    # the CPU leg runs beside the card's legs, which it does not count
+    import threading
+    cpu_out = {}
+    cpu_thread = threading.Thread(
+        target=lambda: cpu_out.update(leg=mesh_drain(ct, pbs, keys,
+                                                     device="cpu",
+                                                     count=False)),
+        daemon=True, name="mesh-cpu-leg")
+    cpu_thread.start()
+    single = mesh_drain(ct, pbs, keys, device="cuda")
+
+    def same(a, b):
+        return (_same(a["assignments"], b["assignments"])
+                and _same(a["rounds"], b["rounds"]) and a["fill"] == b["fill"]
+                and _same(a["folded"], b["folded"]))
+
+    check(single["fill"] > 0, "parity.mesh: the single-device drain placed "
+                              "nothing")
+    legs, cases = {}, None
+    for shape in shapes:
+        m = logical_mesh(shape)
+        leg = mesh_drain(ct, pbs, keys, mesh=m)
+        name = f"{shape[0]}x{shape[1]}"
+        check(same(leg, single), f"parity.mesh: the {name} mesh's drain "
+                                 "differs from the single-device drain")
+        for i in range(shape[0]):
+            for j in range(shape[1]):
+                check(leg["shard_launches"].get(f"count_pn@{i},{j}", 0) > 0,
+                      f"parity.mesh: count_pn never launched on shard "
+                      f"({i},{j}) of the {name} mesh")
+        legs[name] = {"devices": [str(d) for d in m.device_list()],
+                      "logical_shards": True,
+                      **{k: leg[k] for k in ("ms", "launches",
+                                             "shard_launches",
+                                             "exchanged_bytes",
+                                             "peer_bytes")}}
+        if shape == MESH_CONNECTED:
+            ct_s = leg["ct"]
+            # shard 0 of the (1,2) mesh: the folded pods on shard 1's
+            # nodes are in its copy and count nowhere there
+            piece = ct_s.pieces[0]
+            n0 = ct_s.layout.node_bounds()[0][0]
+            local = piece.epod_node - n0
+            local = local.where((local >= 0)
+                                & (local < piece.node_valid.shape[0]),
+                                local.new_full((), -1))
+            pb = _batch(stack_batches(unify_batches(pbs)).to("cuda"), 0)
+            cases = _term_cases("mesh_shard", piece.replace(
+                epod_node=local.contiguous()), pb)
+        del leg
+    cpu_thread.join(600.0)
+    check("leg" in cpu_out, "parity.mesh: the CPU leg did not finish")
+    cpu = cpu_out["leg"]
+    check(same(single, cpu), "parity.mesh: the card's single-device drain "
+                             "differs from the CPU's")
+    return {"nodes": len(nodes), "pods": len(pods), "P": MESH_P,
+            "B": MESH_B, "N": int(ct.node_valid.shape[0]),
+            "placed": single["fill"],
+            "rounds": [int(r) for r in single["rounds"]],
+            "single_ms": single["ms"], "cpu_ms": cpu["ms"],
+            "meshes": legs, "bit_equal": True,
+            "seconds": time.perf_counter() - t_phase}, cases
+
+
+def mesh_single_leg(node_dicts, pod_dicts, device=None):
+    """The mesh phase's pods through a single-device Scheduler on the card
+    (``make_scheduler``: no API server), with the connected runner's
+    configuration, warm drain and pops (the whole queue first, pops of
+    2 x 512), its nodes in the runner's order -> ({pod name: node},
+    seconds)."""
+    from kubernetes_tpu_torch.api.types import Node, Pod
+    t0 = time.perf_counter()
+    cfg = sched_config(batch_size=CONNECTED_BATCH,
+                       max_drain_batches=CONNECTED_DRAIN_BATCHES)
+    pods = [Pod.from_dict(d) for d in pod_dicts]
+    # the nodes in the order the runner's informer lists them (the
+    # store's, by name): a node's row, and so its tie-break identity, is
+    # its place in that order
+    nodes = sorted(node_dicts, key=lambda d: d["metadata"]["name"])
+    sched, log = make_scheduler(cfg, [Node.from_dict(d) for d in nodes],
+                                device=device)
+    try:
+        pop = CONNECTED_BATCH * CONNECTED_DRAIN_BATCHES
+        check(sched.warm_drain(pods, slot_headroom=len(pods) + pop),
+              "mesh: the single-device leg's warm_drain did not arm")
+        for p in pods:
+            sched.queue.add(p)
+        for _ in range(4 * len(pods) // pop + 8):
+            sched.run_once(wait=0.01)
+            if not sched._pending and not sched.queue.stats()["active"]:
+                break
+        sched._resolve_pending()
+        sched.wait_for_bindings()
+    finally:
+        sched.close()
+    placed = {key.split("/", 1)[1]: node for key, node, _t in log}
+    check(len(placed) == len(pods), f"mesh: the single-device leg bound "
+                                    f"{len(placed)} of {len(pods)} pods")
+    return placed, time.perf_counter() - t0
+
+
+def mesh_phase(node_dicts, pod_dicts, smi="", device=None, card="cuda:0"):
+    """mesh: Connected/10000Pods5000Nodes's workload at its first
+    MESH_PODS pods (the cut scheduler.eager takes), through the connected
+    runner with its scheduler given a (1,2) mesh of logical shards of this
+    card (``Scheduler.set_mesh``), its loop started once the informer has
+    queued every pod; beside it the same pods through a single-device
+    Scheduler with the same pops (``mesh_single_leg``, cut for time: no
+    second API server). Gates: the mesh active (its device count 2, the
+    breaker at "mesh"), every pod bound, the same placements as the
+    single-device leg, and connected_run's gates (0 violations,
+    divergences, loop errors; the sentinel judges the second drain).
+    Pods/s is reported, not gated: logical shards share one card.
+    -> summary."""
+    t0 = time.perf_counter()
+    pods = pod_dicts[:MESH_PODS]
+    placed0, single_s = mesh_single_leg(node_dicts, pods, device=device)
+    m = logical_mesh(MESH_CONNECTED, card=card)
+    meshed, runner = connected_phase(node_dicts, pods, smi=smi, mesh=m,
+                                     device=device,
+                                     queued_first=True,
+                                     parity_every=MESH_PARITY_EVERY)
+    del runner
+    check(meshed["mesh_active"] and meshed["mesh_devices"] == 2,
+          f"mesh: the mesh was not active ({meshed['mesh']}, "
+          f"{meshed['mesh_devices']} devices)")
+    placed = meshed.pop("placements")
+    differ = sorted(k for k in placed0 if placed.get(k) != placed0[k])
+    check(len(placed) == len(placed0) == len(pods) and not differ,
+          f"mesh: {len(differ)} pods placed elsewhere than single-device "
+          f"({differ[:5]})")
+    keep = ("pods", "bound", "window_s", "pods_per_s", "attempt_p50_s",
+            "attempt_p99_s", "ctx_stats", "breaker", "loop_errors",
+            "oracle_pods", "launches", "audit", "sentinel", "warm_drain_s")
+    return {"shape": list(MESH_CONNECTED), **{k: meshed[k] for k in keep},
+            "mesh": meshed["mesh"], "mesh_devices": meshed["mesh_devices"],
+            "logical_shards": True, "same_placements": True,
+            "single_leg_s": single_s, "seconds": time.perf_counter() - t0}
+
+
 # ------------------------------------------------------------------ graphs
 
 # parity.graph's round cut: the CPU leg converges a full-width batch in
@@ -9688,6 +9963,12 @@ def main() -> int:
     # eager and CPU (its count_pn launches are counted over the legs)
     plugin_parity = plugin_parity_phase()
     emit({"phase": "parity.plugins", **plugin_parity})
+    # the resident drain split over meshes of logical shards of the card
+    mesh_parity, mesh_cases = mesh_parity_phase()
+    emit({"phase": "parity.mesh", **mesh_parity})
+    mesh_rows = kernels_phase(mesh_cases)
+    del mesh_cases
+    emit({"phase": "kernels.mesh", "rows": mesh_rows})
 
     launches = {}   # kernel -> {path: launches}
 
@@ -9796,6 +10077,10 @@ def main() -> int:
                                  CONNECTED_DRAIN_BATCHES, CONNECTED_BATCH,
                                  c_pods)
     del runner
+    settle_heap()
+    # the connected runner with its scheduler on a (1,2) mesh
+    mesh_sum = mesh_phase(c_nodes, c_pods, smi=smi)
+    emit({"phase": "mesh", **mesh_sum})
     settle_heap()
 
     # default preemption: no hand kernel on its path (its device work is
@@ -9930,7 +10215,8 @@ def main() -> int:
                           ("ktpu", ktpu_sum), ("explainab", xab_sum),
                           ("secured", sec_sum), ("frontdoor", fd_sum),
                           ("controllers", ctrl_sum), ("chaos", chaos_sum),
-                          ("scenario", scen_sum), ("cluster", cluster_sum)):
+                          ("scenario", scen_sum), ("cluster", cluster_sum),
+                          ("mesh", mesh_sum)):
         for name, n in summary["launches"].items():
             launches.setdefault(name, {})[path] = n
 
@@ -9962,6 +10248,18 @@ def main() -> int:
                                    + ext_rows + slice_rows + fleet_rows
                                    if r["name"].startswith(name + "[")])
         table.append(row)
+    # count_pn on the mesh path: a shard's shape (its node slice, the
+    # existing pods remapped to it), the launches of the mesh phase's
+    # scheduler (every shard's)
+    row = dict(mesh_rows[0])
+    row.update(name="count_pn.mesh_shard",
+               launches=mesh_sum["launches"].get("count_pn", 0),
+               launches_by_path={"mesh": mesh_sum["launches"].get(
+                   "count_pn", 0)},
+               ms=row.pop("kernel_ms"), shape_of="mesh",
+               shapes_checked=[r["name"] for r in mesh_rows])
+    check(row["launches"] > 0, "mesh: count_pn was never launched")
+    table.append(row)
     # the whole script's seconds, the kernels' build included
     emit({"phase": "script", "seconds": time.perf_counter() - _T0,
           "deadline_s": DEADLINE_S})

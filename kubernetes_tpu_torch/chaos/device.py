@@ -7,7 +7,7 @@ compile/runtime errors the way a miscompiled program or a lost device
 does. On the card the first two are the entry points of the captured
 CUDA-graph rounds (models/graphs.py). The scheduler's circuit breaker is
 the consumer: enough consecutive device failures must degrade
-single -> the numpy oracle instead of killing the loop, and a half-open
+(mesh ->) single -> the numpy oracle instead of killing the loop, and a half-open
 probe after the cooldown must restore the rounds.
 
 An injected failure is a ``ChaosDeviceError``: a ``RuntimeError`` whose
@@ -29,8 +29,11 @@ time and needs no seam: it is a test double of the resident cycle, not
 a path of the connected loop. The fleet runs the scheduler's drain, and
 the explainer and the planners call none of the three.
 
-The reference's breaker walks mesh -> single -> oracle; the port has one
-device and no mesh level (``parallel/mesh.py`` is not ported).
+Under a device mesh (parallel/mesh.py) the breaker walks mesh -> single
+-> oracle, as the reference's does: the seams wrap the entry points, which
+run every shard, so an injected failure fails the whole sharded dispatch
+once, and a burst drops the active mesh to single-device until the
+half-open probe reinstalls the configured one.
 """
 
 from __future__ import annotations

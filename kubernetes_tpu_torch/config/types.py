@@ -13,10 +13,10 @@ compat fields; the TPU path always scores all nodes).
 The PyTorch port of ``kubernetes_tpu/config/types.py``. PyYAML is imported
 by ``from_yaml`` only: the port's other entry points run without it.
 
-The port runs on one device: a ``meshShape`` is validated as the
-reference validates it and then run single-device with a warning, as the
-reference's scheduler does when the backend has fewer devices than the
-mesh asks for. The explainer is on by default and the parity sentinel
+A ``meshShape`` is validated as the reference validates it; the scheduler
+installs that device mesh (parallel/mesh.py) when the devices can meet it,
+and otherwise runs single-device with a warning, as the reference does.
+The explainer is on by default and the parity sentinel
 samples every 16th drain, as in the reference. ``aotCacheDir`` arms the
 durable cache of the port's one persistent artifact, the ``nvcc``-built
 kernel libraries (``sched/aotcache.py``; ``KTPU_AOT_CACHE`` overrides it).
@@ -29,6 +29,8 @@ from typing import Any, Optional
 
 from kubernetes_tpu_torch.ops.filters import FILTERS
 from kubernetes_tpu_torch.ops.scores import DEFAULT_WEIGHTS
+# the one parser of the mesh-shape wire forms lives with the mesh
+from kubernetes_tpu_torch.parallel.mesh import parse_mesh_shape  # noqa: F401
 
 DEFAULT_SCHEDULER_NAME = "default-scheduler"
 
@@ -149,7 +151,7 @@ class SchedulerConfiguration:
     staging_arena: bool = True
     # Device-mesh shape (pods_axis, nodes_axis) for the live scheduling
     # path: cluster tensors shard over "nodes", pod batches over "pods",
-    # and the drain/preemption programs run under GSPMD with ICI
+    # and the drain/preemption programs run on every shard with explicit
     # collectives (parallel/mesh.py). None = single-device (default; tier-1
     # CPU runs are unchanged). YAML ``meshShape: [1, 2]`` or ``"1x2"``; the
     # KTPU_MESH env var overrides at scheduler construction.
@@ -279,32 +281,6 @@ class ValidationError(ValueError):
 def not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported yet: ROADMAP Queue A item {item}")
-
-
-def parse_mesh_shape(value) -> "tuple[int, int] | None":
-    """Mesh-shape wire forms -> (pods_axis, nodes_axis) | None (the
-    reference's ``parallel/mesh.parse_mesh_shape``).
-
-    Accepted: None/""/"off" (disabled), "PxN" / "P,N" strings, a bare
-    int/"N" (1 x N: node-axis only), or a 2-sequence (YAML
-    ``meshShape: [1, 2]``)."""
-    if value is None:
-        return None
-    if isinstance(value, str):
-        s = value.strip().lower()
-        if s in ("", "0", "off", "none"):
-            return None
-        for sep in ("x", ","):
-            if sep in s:
-                p, n = s.split(sep, 1)
-                return (int(p), int(n))
-        return (1, int(s))
-    if isinstance(value, int):
-        return None if value <= 1 else (1, value)
-    if len(value) != 2:
-        raise ValueError(f"mesh shape must be (pods, nodes), got {value!r}")
-    p, n = value
-    return (int(p), int(n))
 
 
 def validate(cfg: SchedulerConfiguration):

@@ -50,9 +50,14 @@ resident image allowed to go stale (interning appends host-side between
 full encodes), so every program takes FRESHLY built tables as inputs —
 tiny vectors, rebuilt per dispatch under the encode lock.
 
-The port runs on one device (a ``meshShape`` runs single-device): no view
-carries a mesh epoch, and every dispatch runs on the device the resident
-tensors live on.
+Under a device mesh (parallel/mesh.py) the resident image is split over
+the mesh's shards. ``mask_scores`` then dispatches on every shard (its
+node slice, its pod rows; the score normalize reduces across shards) and
+gathers the [P,N] answer; the scale-up overlay, whose template rows extend
+the node axis, and the totals' read-back run on the gathered image (a
+read-only copy on the lead device). A view built under an older mesh is
+declined by the scheduler (``mesh_epoch``), and a reshape during a
+dispatch declines it as ``raced``.
 """
 
 from __future__ import annotations
@@ -74,6 +79,7 @@ from kubernetes_tpu_torch.encode.snapshot import EFFECTC, NODE_NAME_LABEL
 from kubernetes_tpu_torch.metrics.registry import SCHEDULER_PLANNER_OVERLAY
 from kubernetes_tpu_torch.ops.filters import run_filters
 from kubernetes_tpu_torch.ops.scores import combined_score
+from kubernetes_tpu_torch.parallel import mesh as mesh_mod
 from kubernetes_tpu_torch.utils.tracing import TRACER
 
 _LOG = logging.getLogger(__name__)
@@ -157,6 +163,31 @@ def _plan_mask_program(ct, pb, label_value_num, image_sizes, enabled,
     if not want_scores:
         return mask
     return mask, combined_score(ct, pb, mask)
+
+
+def _sharded_plan_mask(ct_s, pb, label_value_num, image_sizes, enabled,
+                       want_scores):
+    """``_plan_mask_program`` on every shard of a split resident image ->
+    the gathered mask (and scores) on the lead device."""
+    m = ct_s.mesh
+    pbs = mesh_mod.shard_batch(m, pb)
+    layout = mesh_mod.Layout(m, ct_s.layout.N,
+                             int(np.shape(pb.pod_valid)[0]))
+
+    def body(piece, pb_dev):
+        d = pb_dev.pod_valid.device
+        res = _plan_mask_program(piece, mesh_mod.pod_rows(pb_dev),
+                                 _tensor(label_value_num, d),
+                                 _tensor(image_sizes, d), enabled,
+                                 want_scores)
+        parts = res if want_scores else (res,)
+        out = [mesh_mod.gather_pods(mesh_mod.gather_nodes(x, 1))
+               for x in parts]
+        return tuple(out) if want_scores else out[0]
+
+    return mesh_mod.run(layout, body, [
+        (piece, pbs[d]) for piece, d in zip(ct_s.pieces,
+                                            m.device_list())])[0]
 
 
 def _overlay_ct(ct, planes):
@@ -542,8 +573,8 @@ class ResidentPlanner:
                 lambda p: self.cache.request_vector(p, cs.resources))
             got = shadow.arrays()
         if got is None:
-            got = (ctx["ct"].allocatable.cpu().numpy(),
-                   ctx["ct"].requested.cpu().numpy())
+            ct = mesh_mod.full_view(ctx["ct"])
+            got = (ct.allocatable.cpu().numpy(), ct.requested.cpu().numpy())
         alloc_res, req_res = got
         rows = ctx["rows"]
         return (np.asarray(alloc_res, np.int64)[rows],
@@ -604,13 +635,17 @@ class ResidentPlanner:
         pb, (lvn, isz) = out
         P = len(pods)
         reqs = np.asarray(pb.requests[:P], np.int64)
-        device = ctx["ct"].node_valid.device
         rows = ctx["rows"]
         with TRACER.span("planner/dispatch", pods=P):
-            res = _plan_mask_program(ctx["ct"], pb.to(device),
-                                     _tensor(lvn, device),
-                                     _tensor(isz, device), enabled,
-                                     want_scores)
+            if isinstance(ctx["ct"], mesh_mod.ShardedCluster):
+                res = _sharded_plan_mask(ctx["ct"], pb, lvn, isz, enabled,
+                                         want_scores)
+            else:
+                device = ctx["ct"].node_valid.device
+                res = _plan_mask_program(ctx["ct"], pb.to(device),
+                                         _tensor(lvn, device),
+                                         _tensor(isz, device), enabled,
+                                         want_scores)
             if want_scores:
                 mask, scores = (r.cpu().numpy() for r in res)
                 got = (mask[:P][:, rows], scores[:P][:, rows], reqs)
@@ -629,7 +664,7 @@ class ResidentPlanner:
         if not pods or not templates:
             return None
         meta = ctx["meta"]
-        ct = ctx["ct"]
+        ct = mesh_mod.full_view(ctx["ct"])
 
         def fn(enc):
             if not self._covered(enc, pods, meta.resources):

@@ -285,9 +285,9 @@ MESH_DEVICES = REGISTRY.gauge(
     "Devices in the active scheduling mesh (1 = single-device, mesh off)")
 DRAIN_SHARD_MS = REGISTRY.gauge(
     "scheduler_drain_shard_ms",
-    "Wall ms of the last resolved drain across the mesh (one SPMD "
-    "program: every shard runs it lock-step, so one number covers all "
-    "shards; straggler collectives are included in it)")
+    "Wall ms of the last resolved drain across the mesh (every shard's "
+    "thread runs it lock-step, meeting at the collectives, so one number "
+    "covers all shards; a straggler's wait is included in it)")
 RESOLVE_BYTES = REGISTRY.gauge(
     "scheduler_resolve_bytes",
     "Bytes device_get moved host-side for the last drain's compact "

@@ -2,9 +2,19 @@
 
 The PyTorch port of ``kubernetes_tpu/models/gang.py``: the single-batch
 ``gang_schedule``, the multi-batch ``gang_drain`` and the device-resident
-``drain_step`` with its fold and churn patch (without ``mesh``). The
-out-of-tree tensor plugins (``plugins``) run inside every round, and so
-inside the rounds' captured graphs on the card.
+``drain_step`` with its fold and churn patch. The out-of-tree tensor
+plugins (``plugins``) run inside every round, and so inside the rounds'
+captured graphs on the card.
+
+On a device mesh (``mesh=``, parallel/mesh.py) every shard runs the same
+rounds at once: it evaluates its pod rows against its node slice, reads
+the capacity at a proposed node from the shard that owns it, and folds
+an accepted pod's requests on that shard only. The capacity accept and
+the [P,P] relational veto are O(P) and O(P^2): every shard runs them over
+the whole batch, on the gathered proposals, and gets the same answer. The
+winners (assignments, rounds, the fill scalar) end up on the lead shard,
+O(P) bytes; the folded state stays on its owner shards. A mesh's rounds
+run eagerly (no CUDA graph: see parallel/mesh.py).
 Batching P pods against one snapshot introduces intra-batch conflicts the
 serial loop never sees:
 
@@ -48,6 +58,7 @@ from kubernetes_tpu_torch.models.schedule_step import evaluate
 from kubernetes_tpu_torch.ops.exprs import eval_selector_set
 from kubernetes_tpu_torch.ops.sorting import lexsort
 from kubernetes_tpu_torch.ops.topology import _gather_ns
+from kubernetes_tpu_torch.parallel import mesh as mesh_mod
 
 _I32_MIN = -(1 << 31)
 _I32_MAX = (1 << 31) - 1
@@ -191,7 +202,9 @@ def _relational_veto(ct: ClusterTensors, pb: PodBatch, choice, accept, rank,
     for k in topo_keys:
         if k < 0 or k >= K:
             continue
-        dv = ct.node_labels[:, k]                                   # [N]
+        # choices are global node ids: their domains come from the whole
+        # node axis' column (gathered on a mesh shard)
+        dv = mesh_mod.gather_nodes(ct.node_labels[:, k])            # [N]
         dvc = dv[choice.clamp(0, dv.shape[0] - 1).long()]           # [P] chosen domain
         same = (dvc[:, None] == dvc[None, :]) & (dvc[:, None] >= 0)  # [q,p]
         if pb.anti_valid.shape[1] > 0:
@@ -245,13 +258,18 @@ def _gang_round_impl(ct_ext: ClusterTensors, pb: PodBatch, state: GangState,
     epod_valid[slot_start:slot_start + P] = state.committed
     ct_round = ct_ext.replace(requested=state.requested, epod_node=epod_node,
                               epod_valid=epod_valid)
-    pb_round = pb.replace(pod_valid=pb.pod_valid & ~state.committed)
+    # a mesh shard evaluates its own pod rows (the whole batch elsewhere)
+    pb_rows = mesh_mod.pod_rows(pb)
+    committed_rows = mesh_mod.pod_rows(state.committed)
+    pb_round = pb_rows.replace(pod_valid=pb_rows.pod_valid & ~committed_rows)
     res = evaluate(ct_round, pb_round, seed=seed,
                    fit_strategy=fit_strategy, topo_keys=topo_keys,
                    weights=dict(weights) if weights else None,
                    enabled_filters=frozenset(enabled_filters) if enabled_filters else None,
                    ext_mask=ext_mask, ext_scores=ext_scores, plugins=plugins)
-    want = res.assigned & ~state.committed & pb.pod_valid
+    want_rows = res.assigned & ~committed_rows & pb_rows.pod_valid
+    want = mesh_mod.gather_pods(want_rows)
+    choice = mesh_mod.gather_pods(res.choice)
     tried = state.tried
     n_attempted = torch.zeros((), dtype=torch.int64, device=dev)
     idx = torch.arange(P, dtype=torch.int32, device=dev)
@@ -277,26 +295,36 @@ def _gang_round_impl(ct_ext: ClusterTensors, pb: PodBatch, state: GangState,
     rank = torch.zeros(P, dtype=torch.int32, device=dev)
     rank[order0] = idx
     free = ct_round.allocatable - state.requested                   # [N,R]
-    choice_safe = res.choice.clamp(0, N - 1).long()
+    # a choice is a global node id; on a mesh shard only its owner reads
+    # the node's free capacity, and the owners' rows are summed
+    choice_safe, own = mesh_mod.own_nodes(choice, N)
     free_at_choice = free[choice_safe]
+    if own is not None:
+        free_at_choice = mesh_mod.reduce_nodes(
+            torch.where(own[:, None], free_at_choice, 0), "sum")
     # Balance guard: spread this round's acceptances across the nodes feasible
     # for someone, approximating the serial loop's load feedback. cap_scale
     # doubles every round (_converge), so strict-preference workloads where the
     # cap would serialize still converge in O(log P) rounds.
-    distinct = torch.sum(torch.any(res.feasible & want[:, None], dim=0))
+    hit = mesh_mod.reduce_pods(torch.any(res.feasible & want_rows[:, None],
+                                         dim=0), "any")
+    distinct = mesh_mod.reduce_nodes(torch.sum(hit), "sum")
     n_want = torch.sum(want)
     cap = torch.clamp(-(-n_want // torch.clamp(distinct, min=1)), min=1) * cap_scale
-    accept = _segmented_capacity_accept(res.choice, want, rank, pb.requests,
+    accept = _segmented_capacity_accept(choice, want, rank, pb.requests,
                                         free_at_choice, per_node_cap=cap)
-    accept = _relational_veto(ct_round, pb, res.choice, accept, rank, topo_keys)
+    accept = _relational_veto(ct_round, pb, choice, accept, rank, topo_keys)
     # fold: integer add of the accepted pods' requests at their nodes (exact;
-    # an index_add_ in place of the reference's one-hot integer matmul)
+    # an index_add_ in place of the reference's one-hot integer matmul),
+    # on a mesh shard only at the nodes it owns
     add = torch.where(accept[:, None], pb.requests, 0)
+    if own is not None:
+        add = torch.where(own[:, None], add, 0)
     requested = state.requested.clone().index_add_(0, choice_safe, add)
     new_state = GangState(
         requested=requested,
         committed=state.committed | accept,
-        assignment=torch.where(accept, res.choice, state.assignment),
+        assignment=torch.where(accept, choice, state.assignment),
         tried=tried,
         rounds=state.rounds + 1,
     )
@@ -386,7 +414,8 @@ def _converge(ct_ext, pb, state, *, seed, fit_strategy, topo_keys,
         st, n = rounds(GangState(*flat[:5]), flat[5])
         return st.fields() + [n]
 
-    captured = capture and dev.type == "cuda"
+    captured = (capture and dev.type == "cuda"
+                and mesh_mod.current() is None)
     if captured:
         key = converge_key(ct_ext, pb, state, limit=limit, chunk=K,
                            slot_start=slot_start, ext_mask=ext_mask,
@@ -407,7 +436,8 @@ def _converge(ct_ext, pb, state, *, seed, fit_strategy, topo_keys,
         done += K
         if done >= limit:
             break
-        graphs.count_host_read()
+        if mesh_mod.is_lead():
+            graphs.count_host_read()
         if int(n) == 0:
             break
     if captured:
@@ -416,12 +446,46 @@ def _converge(ct_ext, pb, state, *, seed, fit_strategy, topo_keys,
     return state
 
 
+def gang_round(ct_ext: ClusterTensors, pb: PodBatch, state: GangState,
+               seed: int = 0, fit_strategy: str = "LeastAllocated",
+               topo_keys: tuple[int, ...] = (), serial: bool = False,
+               mesh=None):
+    """One propose/accept/fold round over an extended cluster (the
+    reference's ``gang_round``) -> (new state, progress). ``mesh``: run it
+    on every shard of a parallel/mesh.Mesh (``ct_ext`` a ClusterTensors,
+    split here, or a ShardedCluster); the state comes back whole on the
+    mesh's lead device."""
+    kw = dict(seed=seed, fit_strategy=fit_strategy,
+              topo_keys=tuple(topo_keys), serial=serial)
+    if mesh is None:
+        return _gang_round_impl(ct_ext, pb, state, **kw)
+    ct_s = (ct_ext if isinstance(ct_ext, mesh_mod.ShardedCluster)
+            else mesh_mod.shard_cluster(mesh, ct_ext))
+    pbs = mesh_mod.shard_batch(mesh, pb)
+    layout = mesh_mod.Layout(mesh, ct_s.layout.N,
+                             int(pb.pod_valid.shape[0]))
+
+    def body(piece, pb_dev):
+        dev = pb_dev.pod_valid.device
+        fields = [t.to(dev) for t in state.fields()]
+        fields[0] = mesh_mod.node_slice(fields[0]).clone()
+        new, n = _gang_round_impl(piece, pb_dev, GangState(*fields), **kw)
+        return (GangState(mesh_mod.gather_nodes(new.requested),
+                          *new.fields()[1:]), n)
+
+    out = mesh_mod.run(layout, body, [
+        (piece, pbs[d]) for piece, d in zip(ct_s.pieces, mesh.device_list())])
+    st, n = out[0]
+    lead = mesh.lead
+    return GangState(*(t.to(lead) for t in st.fields())), n.to(lead)
+
+
 def gang_schedule(ct: ClusterTensors, pb: PodBatch, seed: int = 0,
                   fit_strategy: str = "LeastAllocated",
                   topo_keys: tuple[int, ...] = (), serial: bool = False,
                   max_rounds: int = 64, weights=None, enabled_filters=None,
                   ext_mask=None, ext_scores=None, plugins: tuple = (),
-                  capture: bool = True):
+                  capture: bool = True, mesh=None):
     """Drive rounds until convergence. Returns (assignment [P] np.int32 with -1
     for unschedulable, rounds_used). ``weights`` (plugin->weight) and
     ``enabled_filters`` (set of filter names) carry the active profile's
@@ -431,13 +495,25 @@ def gang_schedule(ct: ClusterTensors, pb: PodBatch, seed: int = 0,
     overlay, copied to that device once for every round. ``plugins``: the
     profile's out-of-tree TensorPlugins (sched/framework.py), run in every
     round. ``capture``: on the card, replay each chunk of rounds as a CUDA
-    graph (False: run it eagerly, for comparisons)."""
+    graph (False: run it eagerly, for comparisons). ``mesh``: run the
+    rounds on every shard of a parallel/mesh.Mesh (eagerly); the
+    assignment equals the single-device one."""
     P = int(pb.pod_valid.shape[0])
     dev = pb.pod_valid.device
     ct_ext = extend_cluster(ct, pb)
     weights_t = tuple(sorted(weights.items())) if weights else ()
     filters_t = tuple(sorted(enabled_filters)) if enabled_filters else ()
     limit = max(P if serial else max_rounds, 1)
+    if mesh is not None:
+        kw = dict(seed=seed, fit_strategy=fit_strategy,
+                  topo_keys=topo_keys, serial=serial, weights=weights_t,
+                  enabled_filters=filters_t, max_rounds=limit,
+                  plugins=plugins, capture=False)
+        with graphs.LOCK:
+            st = _gang_schedule_sharded(mesh, ct_ext, pb, ext_mask,
+                                        ext_scores, kw)
+        return (st.assignment.cpu().numpy().astype(np.int32),
+                int(st.rounds))
     if ext_mask is not None:
         ext_mask = torch.as_tensor(ext_mask, dtype=torch.bool, device=dev)
     if ext_scores is not None:
@@ -458,6 +534,35 @@ def gang_schedule(ct: ClusterTensors, pb: PodBatch, seed: int = 0,
                           capture=capture)
     return (state.assignment.cpu().numpy().astype(np.int32),
             int(state.rounds))
+
+
+def _shard_overlay(x, dtype, dev):
+    """A shard's block of an extender [P,N] overlay (numpy or None)."""
+    if x is None:
+        return None
+    t = torch.as_tensor(x, dtype=dtype).to(dev)
+    return mesh_mod.node_slice(mesh_mod.pod_rows(t), 1)
+
+
+def _gang_schedule_sharded(mesh, ct_ext, pb, ext_mask, ext_scores,
+                           kw) -> GangState:
+    """``gang_schedule``'s rounds on every shard of ``mesh``; -> the lead
+    shard's final state (its ``requested`` is its node slice)."""
+    ct_s = mesh_mod.shard_cluster(mesh, ct_ext)
+    pbs = mesh_mod.shard_batch(mesh, pb)
+    P = int(pb.pod_valid.shape[0])
+    layout = mesh_mod.Layout(mesh, ct_s.layout.N, P)
+
+    def body(piece, pb_dev):
+        dev = pb_dev.pod_valid.device
+        return _converge(
+            piece, pb_dev, _new_state(piece.requested, P, dev),
+            ext_mask=_shard_overlay(ext_mask, torch.bool, dev),
+            ext_scores=_shard_overlay(ext_scores, torch.float32, dev), **kw)
+
+    return mesh_mod.run(layout, body, [
+        (piece, pbs[d]) for piece, d in zip(ct_s.pieces,
+                                            mesh.device_list())])[0]
 
 
 # -- multi-batch drain: the whole queue in one call ---------------------------
@@ -578,8 +683,9 @@ def _drain_batches(ct: ClusterTensors, pb_stack: PodBatch, e0: int,
     dev = pb_stack.pod_valid.device
     requested = ct.requested
     assignments, rounds = [], []
-    with graphs.LOCK:
-        if kw.get("capture", True) and dev.type == "cuda":
+    with graphs.lock():
+        if (kw.get("capture", True) and dev.type == "cuda"
+                and mesh_mod.current() is None):
             pb_stack = _stable("drain_pb", pb_stack)
         for b in range(B):
             start = e0 + b * P
@@ -673,6 +779,8 @@ def drain_widths_fit(ct_all: ClusterTensors, pb_stack: PodBatch) -> bool:
     """The batch's bucket widths must fit the resident extension slots
     (they only grow when pods carry new label keys / wider anti-affinity
     terms — the caller rebuilds the context when they do)."""
+    if isinstance(ct_all, mesh_mod.ShardedCluster):
+        ct_all = ct_all.pieces[0]
     return (pb_stack.pod_labels.shape[2] <= ct_all.epod_labels.shape[1]
             and pb_stack.anti_valid.shape[2] <= ct_all.ea_valid.shape[1]
             and pb_stack.anti_sel.key.shape[3] <= ct_all.ea_sel.key.shape[2]
@@ -701,7 +809,7 @@ def pad_batch_to(pb_stack: PodBatch, shapes: list[tuple]):
 
 
 def build_drain_context(ct: ClusterTensors, pbs: list[PodBatch],
-                        nom_bucket: int = 0, device=None):
+                        nom_bucket: int = 0, device=None, mesh=None):
     """One-time prep for the device-resident drain: unify the batch
     buckets, copy the cluster to ``device`` (None: the CUDA card), chain
     the extension slots (content is placeholder — drain_step refills it).
@@ -714,8 +822,12 @@ def build_drain_context(ct: ClusterTensors, pbs: list[PodBatch],
 
     ``nom_bucket``: size of the RESIDENT nominee-reservation tensors. The
     base encode carries zero nominees; giving the context a fixed M lets
-    preemption storms patch reservations in place (apply_ctx_patch)."""
-    dev = resolve_device(device)
+    preemption storms patch reservations in place (apply_ctx_patch).
+
+    ``mesh``: a parallel/mesh.Mesh -- the context is built on its lead
+    device and split over it (``shard_cluster``): a ShardedCluster whose
+    node-major tensors stay on their owner shards from then on."""
+    dev = mesh.lead if mesh is not None else resolve_device(device)
     valid = np.asarray(ct.epod_valid.cpu() if isinstance(ct.epod_valid,
                                                          torch.Tensor)
                        else ct.epod_valid)
@@ -736,6 +848,8 @@ def build_drain_context(ct: ClusterTensors, pbs: list[PodBatch],
             nom_req=torch.zeros((nom_bucket, R), dtype=torch.int32,
                                 device=dev),
             nom_valid=torch.zeros(nom_bucket, dtype=torch.bool, device=dev))
+    if mesh is not None:
+        ct_all = mesh_mod.shard_cluster(mesh, ct_all)
     return ct_all, e0, fill0
 
 
@@ -747,6 +861,13 @@ def adopt_storage(old, new):
     anew at its first drain)."""
     if old is None:
         return new
+    sharded = [isinstance(c, mesh_mod.ShardedCluster) for c in (old, new)]
+    if any(sharded):
+        if (not all(sharded) or old.mesh is not new.mesh
+                or old.layout != new.layout):
+            return new
+        kept = [adopt_storage(o, n) for o, n in zip(old.pieces, new.pieces)]
+        return old if all(k is o for k, o in zip(kept, old.pieces)) else new
     lo, ln = _tree_leaves(old), _tree_leaves(new)
     if len(lo) != len(ln) or any(
             a.shape != b.shape or a.dtype != b.dtype or a.device != b.device
@@ -811,7 +932,29 @@ def drain_step(ct_all: ClusterTensors, pb_stack: PodBatch, fill,
     captured anew. ``plugins`` and ``capture``: as ``gang_schedule``. The
     fold's ``nonzero`` and the patch's row filters read the host outside
     them.
+
+    A ``ct_all`` split over a mesh (a parallel/mesh.ShardedCluster, from
+    ``build_drain_context(..., mesh=)``) drains on every shard at once
+    (eagerly): ``pb_stack`` is a stack or its per-device copies
+    (``presplit_stack``), the patch's node rows go to their owner shards,
+    and the winners and ``new_fill`` come back on the lead device.
     """
+    kw = dict(e0=e0, seed=seed, fit_strategy=fit_strategy,
+              topo_keys=topo_keys, weights=weights,
+              enabled_filters=enabled_filters, max_rounds=max_rounds,
+              plugins=plugins)
+    if isinstance(ct_all, mesh_mod.ShardedCluster):
+        return _drain_step_sharded(ct_all, pb_stack, fill, patch, **kw)
+    return _drain_step_local(ct_all, pb_stack, fill, patch, capture=capture,
+                             **kw)
+
+
+def _drain_step_local(ct_all: ClusterTensors, pb_stack: PodBatch, fill,
+                      patch, *, e0: int, seed: int, fit_strategy: str,
+                      topo_keys: tuple, weights: tuple,
+                      enabled_filters: tuple, max_rounds: int,
+                      plugins: tuple, capture: bool):
+    """``drain_step`` on one device (or one mesh shard's pieces)."""
     B, P = pb_stack.pod_valid.shape
     BP = B * P
     E = int(ct_all.epod_valid.shape[0])
@@ -870,6 +1013,39 @@ def drain_step(ct_all: ClusterTensors, pb_stack: PodBatch, fill,
     return assignments, rounds, ct_all, new_fill
 
 
+def _per_device(mesh, x) -> dict:
+    """``x`` (a tensor, or a Python int) on each distinct device."""
+    return {d: (x.to(d) if isinstance(x, torch.Tensor) else x)
+            for d in mesh.distinct_devices()}
+
+
+def _drain_step_sharded(ct_all, pb_stack, fill, patch, **kw):
+    """``drain_step`` on every shard of ``ct_all.mesh``; the lead shard's
+    winners. The thread that calls it holds ``graphs.LOCK`` for them."""
+    m = ct_all.mesh
+    stacks = (pb_stack if isinstance(pb_stack, dict)
+              else mesh_mod.presplit_stack(m, pb_stack))
+    lead_stack = stacks[m.lead]
+    P = int(lead_stack.pod_valid.shape[1])
+    layout = mesh_mod.Layout(m, ct_all.layout.N, P)
+    patches = ({d: patch_to(patch, d) for d in m.distinct_devices()}
+               if patch is not None else None)
+    fills = _per_device(m, fill)
+
+    def body(piece, d):
+        return _drain_step_local(piece, stacks[d], fills[d],
+                                 None if patches is None else patches[d],
+                                 capture=False, **kw)
+
+    with graphs.LOCK:
+        out = mesh_mod.run(layout, body, [
+            (piece, d) for piece, d in zip(ct_all.pieces, m.device_list())])
+    assignments, rounds, _ct, new_fill = out[0]
+    # the folded state stayed on its owner shards: the output is the input
+    return assignments, rounds, mesh_mod.constrain_cluster(m, ct_all), \
+        new_fill
+
+
 # churn-patch scatters: (container field path, patch key) by row kind
 _POD_ROWS = ((("epod_node",), "pod_node"), (("epod_ns",), "pod_ns"),
              (("epod_labels",), "pod_labels"), (("epod_valid",), "pod_valid"),
@@ -912,10 +1088,14 @@ def _apply_patch(ct_all: ClusterTensors, patch: dict) -> ClusterTensors:
     tensors on the context's device.
 
     Reference shape: the incremental half of ``Cache.UpdateSnapshot``
-    (pkg/scheduler/internal/cache/cache.go) — churn moves only what changed."""
+    (pkg/scheduler/internal/cache/cache.go) — churn moves only what changed.
+
+    On a mesh shard the node rows (and the requested delta's) are its own
+    slice's, renumbered locally; pod and nominee rows go to every shard's
+    copy."""
     N = int(ct_all.node_valid.shape[0])
     psrc, pdst = _patch_rows(patch["pod_slot"], int(ct_all.epod_valid.shape[0]))
-    nsrc, ndst = _patch_rows(patch["node_row"], N)
+    nsrc, ndst = _patch_rows(mesh_mod.local_nodes(patch["node_row"]), N)
     msrc, mdst = _patch_rows(patch["nom_slot"], int(ct_all.nom_valid.shape[0]))
 
     # node rows being reset (fresh assignment of a freed/new row) clear the
@@ -924,7 +1104,8 @@ def _apply_patch(ct_all: ClusterTensors, patch: dict) -> ClusterTensors:
     # reset first, then the delta, as in the reference
     reset = torch.zeros(N, dtype=torch.bool, device=ct_all.node_valid.device)
     reset[ndst] = patch["n_reset"][nsrc]
-    ct_all.requested.masked_fill_(reset[:, None], 0).add_(patch["req_delta"])
+    ct_all.requested.masked_fill_(reset[:, None], 0).add_(
+        mesh_mod.node_slice(patch["req_delta"]))
     ct_all.label_value_num.copy_(patch["label_value_num"])
     _scatter(ct_all, _POD_ROWS, patch, psrc, pdst)
     _scatter(ct_all, _NODE_ROWS, patch, nsrc, ndst)
@@ -939,5 +1120,14 @@ def apply_ctx_patch(ct_all: ClusterTensors, patch: dict) -> ClusterTensors:
     """Standalone churn-patch apply (rebuild-time nominee staging): the
     compiled patch (numpy arrays by key) moves to the context's device
     (``convert.patch_to``) and scatters into ``ct_all`` in place;
-    -> ``ct_all``."""
+    -> ``ct_all``. A context split over a mesh takes the patch on every
+    shard, its node rows routed to their owner shards."""
+    if isinstance(ct_all, mesh_mod.ShardedCluster):
+        m = ct_all.mesh
+        patches = {d: patch_to(patch, d) for d in m.distinct_devices()}
+        layout = mesh_mod.Layout(m, ct_all.layout.N, 0)
+        mesh_mod.run(layout, _apply_patch, [
+            (piece, patches[d])
+            for piece, d in zip(ct_all.pieces, m.device_list())])
+        return ct_all
     return _apply_patch(ct_all, patch_to(patch, ct_all.node_valid.device))

@@ -36,6 +36,12 @@ key and replayed.
   convergence loop's reads of its progress flag. A hand kernel launched
   while a graph is captured is not counted then: its launches are counted
   at each replay (``ops/kernels.count_launch``).
+- **Meshes.** The rounds of a device mesh's shards (parallel/mesh.py)
+  run eagerly: their collectives are host rendezvous between the shards'
+  threads, which a graph cannot hold. The mesh a thread runs on is part
+  of every key all the same, so no shard ever replays a graph captured
+  single-device; the thread that runs the mesh holds ``LOCK`` for all its
+  shards (``lock``).
 - **No fallback.** A capture or a replay that fails raises ``GraphError``,
   which ``sched/faults.is_fatal`` calls fatal; nothing falls back to the
   eager loop. A failed capture does not fail the process's later
@@ -120,8 +126,21 @@ def graph_key(tag: str, statics: tuple, tensors, carried=()) -> tuple:
     address and layout of every input tensor it reads where it lies (None
     for an absent one), and the layout of the state it carries (copied
     into the graph's own buffers, so its address does not matter)."""
-    return (tag, statics, tuple(_layout(t) for t in tensors),
+    from kubernetes_tpu_torch.parallel import mesh as mesh_mod
+    shard = mesh_mod.current()
+    where = None if shard is None else (id(shard.mesh), shard.i, shard.j)
+    return (tag, statics, where, tuple(_layout(t) for t in tensors),
             tuple(_layout(t, address=False) for t in carried))
+
+
+def lock():
+    """``LOCK``, or nothing on a mesh shard's thread: the thread that runs
+    the mesh holds ``LOCK`` for all its shards, which capture nothing, and
+    a shard that took it would wait on that thread for ever."""
+    import contextlib
+    from kubernetes_tpu_torch.parallel import mesh as mesh_mod
+    return contextlib.nullcontext() if mesh_mod.current() is not None \
+        else LOCK
 
 
 def stable(tag: str, leaves: list) -> list:

@@ -11,6 +11,10 @@ the [P, N] batch:
 
 Gang conflict resolution (capacity, anti-affinity among batch members) lives
 in models/gang.py and calls back into this step between rounds.
+
+On a device mesh (parallel/mesh.py) ``evaluate`` runs on every shard over
+its pod rows and node slice; the ops combine what crosses the node axis,
+and ``schedule_step(..., mesh=)`` gathers the shards' results.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ from kubernetes_tpu_torch.encode.snapshot import ClusterTensors, PodBatch
 from kubernetes_tpu_torch.ops import topology
 from kubernetes_tpu_torch.ops.filters import run_filters, tenant_local_rank
 from kubernetes_tpu_torch.ops.scores import combined_score, select_host
+from kubernetes_tpu_torch.parallel import mesh as mesh_mod
 
 
 @dataclass
@@ -102,14 +107,42 @@ def evaluate(ct: ClusterTensors, pb: PodBatch, seed: int = 0,
     # clusters, the per-tenant rank under a fleet
     choice, has = select_host(scores, seed=seed,
                               node_rank=tenant_local_rank(ct))
+    anywhere = mesh_mod.reduce_nodes(torch.any(feasible, dim=-1), "any")
     return StepResult(choice=choice.to(torch.int32),
-                      assigned=has & torch.any(feasible, dim=-1),
+                      assigned=has & anywhere,
                       feasible=feasible, scores=scores)
 
 
 def schedule_step(ct: ClusterTensors, pb: PodBatch, seed: int = 0,
                   fit_strategy: str = "LeastAllocated",
-                  topo_keys: tuple[int, ...] = ()) -> StepResult:
-    """Single-shot evaluate (default weights)."""
-    return evaluate(ct, pb, seed=seed, fit_strategy=fit_strategy,
-                    topo_keys=topo_keys)
+                  topo_keys: tuple[int, ...] = (), mesh=None) -> StepResult:
+    """Single-shot evaluate (default weights). ``mesh``: a
+    parallel/mesh.Mesh -- ``ct`` (ClusterTensors or a ShardedCluster on
+    that mesh) and ``pb`` run sharded, and the result is gathered on the
+    mesh's lead device."""
+    if mesh is None:
+        return evaluate(ct, pb, seed=seed, fit_strategy=fit_strategy,
+                        topo_keys=topo_keys)
+    ct_s = (ct if isinstance(ct, mesh_mod.ShardedCluster)
+            else mesh_mod.shard_cluster(mesh, ct))
+    pbs = mesh_mod.shard_batch(mesh, pb)
+    P = int(pb.pod_valid.shape[0])
+    layout = mesh_mod.Layout(mesh, ct_s.layout.N, P)
+
+    def body(ct_piece, pb_dev):
+        res = evaluate(ct_piece, mesh_mod.pod_rows(pb_dev), seed=seed,
+                       fit_strategy=fit_strategy, topo_keys=topo_keys)
+        # assemble the [P,N] planes: nodes within a row, then pod rows
+        feas = mesh_mod.gather_pods(mesh_mod.gather_nodes(res.feasible, 1))
+        scores = mesh_mod.gather_pods(mesh_mod.gather_nodes(res.scores, 1))
+        return StepResult(choice=mesh_mod.gather_pods(res.choice),
+                          assigned=mesh_mod.gather_pods(res.assigned),
+                          feasible=feas, scores=scores)
+
+    out = mesh_mod.run(layout, body, [
+        (piece, pbs[d]) for piece, d in zip(ct_s.pieces,
+                                            mesh.device_list())])
+    lead = mesh.lead
+    return StepResult(*(t.to(lead) for t in (out[0].choice, out[0].assigned,
+                                             out[0].feasible,
+                                             out[0].scores)))

@@ -12,6 +12,11 @@ plugin by plugin (pkg/scheduler/framework/plugins/):
 Each term is a pure function (ClusterTensors, PodBatch) -> mask [P,N] bool;
 `run_filters` ANDs them. Every (pod, node) pair evaluates in one batch of
 tensor ops.
+
+Every filter is per node, so on a device mesh (parallel/mesh.py) a shard
+runs it on its own node slice. The three that read across nodes say how:
+``node_name_mask`` and the nominee reservations of ``fit_mask`` compare
+GLOBAL node ids, and ``tenant_local_rank`` ranks the whole node axis.
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ from kubernetes_tpu_torch.encode.snapshot import (
 )
 from kubernetes_tpu_torch.ops.exprs import eval_term_set, gather_values
 from kubernetes_tpu_torch.ops.sorting import lexsort
+from kubernetes_tpu_torch.parallel import mesh
 
 
 # ---- fleet tenancy plane ---------------------------------------------------
@@ -64,12 +70,21 @@ def tenant_local_rank(ct: ClusterTensors):
     order). Single-tenant clusters degenerate to ``arange(N)`` exactly, so
     the tie-break in ops/scores.select_host is the node index there, while
     under a fleet a tenant's nodes keep the ranks they would have in a
-    standalone cluster."""
+    standalone cluster. On a mesh shard: the ranks of the shard's nodes
+    among the WHOLE node axis (the tenant column is gathered)."""
     tv = tenant_of_node(ct)
     N = ct.node_valid.shape[0]
-    idx = torch.arange(N, dtype=torch.int32, device=ct.node_valid.device)
+    dev = ct.node_valid.device
     if tv is None:
-        return idx
+        return mesh.node_ids(N, dev).to(torch.int32)
+    tv = mesh.gather_nodes(tv)
+    rank = _tenant_rank(tv)
+    return mesh.node_slice(rank)
+
+
+def _tenant_rank(tv):
+    N = tv.shape[0]
+    idx = torch.arange(N, dtype=torch.int32, device=tv.device)
     order = lexsort((idx, tv))              # stable group-by tenant value
     tvs = tv[order]
     seg_start = torch.cat([torch.ones(1, dtype=torch.bool, device=tv.device),
@@ -116,7 +131,11 @@ def fit_mask(ct: ClusterTensors, pb: PodBatch):
     # count of nominees with priority >= pod p's (sorted-desc prefix len)
     count_p = torch.sum(prio_s[None, :] >= pb.priority[:, None], dim=1)  # [P]
     resv = G[count_p]                                            # [P,M,R]
-    cols = node_s.clamp(0, N - 1).long()
+    # nominee node ids are global: on a mesh shard only the nominees on
+    # its own nodes reserve anything here
+    cols, own = mesh.own_nodes(node_s, N)
+    if own is not None:
+        valid_s = valid_s & own
     free_at = free[cols]                                         # [M,R]
     ok = torch.all(pb.requests[:, None, :] + resv <= free_at[None], dim=-1) \
         | ~valid_s[None, :]                                      # [P,M]
@@ -131,7 +150,7 @@ def node_name_mask(ct: ClusterTensors, pb: PodBatch):
     """NodeName: spec.nodeName equality (forced_node -2 = named node unknown)."""
     N = ct.node_valid.shape[0]
     forced = pb.forced_node
-    idx = torch.arange(N, device=forced.device)
+    idx = mesh.node_ids(N, forced.device)
     return (forced == -1)[:, None] | (forced[:, None] == idx[None, :])
 
 

@@ -21,7 +21,9 @@ kernel and nowhere else, so a caller can set the counts to 0, run a path,
 and see which kernels it went through. A launch made while a CUDA graph
 is captured runs at each replay, not then: it is tallied in ``CAPTURED``
 and the graph adds it to ``LAUNCHES`` at every replay
-(``models/graphs.py``).
+(``models/graphs.py``). A launch by a device mesh's shard
+(parallel/mesh.py) also adds one to ``SHARD_LAUNCHES[(name, i, j)]``,
+so a caller can see that every shard launched.
 
 ``KernelError`` is what a kernel's build, load, launch or input check
 raises. It is never degraded around: the scheduler's circuit breaker lets
@@ -48,6 +50,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 KERNELS = ("count_pn",)
 LAUNCHES = {name: 0 for name in KERNELS}
 CAPTURED = {name: 0 for name in KERNELS}
+SHARD_LAUNCHES: dict = {}
 BUILDS = 0
 # libraries loaded without a build: found on disk at first use (an armed
 # cache's entry, or an earlier build's)
@@ -70,18 +73,28 @@ class KernelInputError(KernelError, ValueError):
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _COUNT_LOCK:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
+        SHARD_LAUNCHES.clear()
 
 
 def count_launch(name: str) -> None:
     """One launch of kernel ``name`` by its wrapper; under a CUDA graph's
     capture it is tallied for the graph's replays instead."""
     import torch
-    if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
-        CAPTURED[name] += 1
-    else:
+    from kubernetes_tpu_torch.parallel import mesh
+    capturing = (torch.cuda.is_available()
+                 and torch.cuda.is_current_stream_capturing())
+    shard = mesh.current()
+    with _COUNT_LOCK:
+        if capturing:
+            CAPTURED[name] += 1
+            return
         LAUNCHES[name] += 1
+        if shard is not None:
+            key = (name, shard.i, shard.j)
+            SHARD_LAUNCHES[key] = SHARD_LAUNCHES.get(key, 0) + 1
 
 
 def arm(directory, verify=None) -> None:

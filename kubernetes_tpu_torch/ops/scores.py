@@ -12,6 +12,11 @@ Each plugin is one broadcasted tensor expression producing raw [P,N];
 normalization is a max/min reduction over the node axis; the weighted sum
 is one combine. All normalize helpers mask infeasible nodes out of the
 reductions the same way the reference only scores feasible nodes.
+
+On a device mesh (parallel/mesh.py) each shard scores its own node slice:
+the reductions over the node axis (the image spread, the normalize max
+and min, ``select_host``) combine the shards' partial results, all
+exactly, and the tie-break identity is the GLOBAL node index.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ from kubernetes_tpu_torch.encode.snapshot import ClusterTensors, PodBatch
 from kubernetes_tpu_torch.ops.exprs import eval_term_set
 from kubernetes_tpu_torch.ops.filters import (tenant_pair_mask,
                                               untolerated_prefer_count)
+from kubernetes_tpu_torch.parallel import mesh
 
 MAX_NODE_SCORE = 100.0
 
@@ -110,10 +116,13 @@ def image_locality(ct: ClusterTensors, pb: PodBatch):
     tmask = tenant_pair_mask(ct, pb)
     visible = (ct.node_valid[None, :] if tmask is None
                else ct.node_valid[None, :] & tmask)        # [P,N] (or [1,N])
-    num_with = torch.sum(present & visible[:, None, :], dim=-1,
-                         keepdim=True).to(torch.float32)                 # [P,CI,1]
-    total = torch.clamp(torch.sum(visible, dim=-1).to(torch.float32),
-                        min=1.0)[:, None, None]                          # [P,1,1]
+    # integer counts over the node axis, summed across shards before the
+    # float cast
+    num_with = mesh.reduce_nodes(torch.sum(present & visible[:, None, :],
+                                           dim=-1, keepdim=True),
+                                 "sum").to(torch.float32)                # [P,CI,1]
+    total = torch.clamp(mesh.reduce_nodes(torch.sum(visible, dim=-1), "sum")
+                        .to(torch.float32), min=1.0)[:, None, None]      # [P,1,1]
     IMG = ct.image_sizes.shape[0]
     sizes = ct.image_sizes[pb.pod_images.clamp(0, max(IMG - 1, 0)).long()]  # [P,CI]
     sizes = torch.where(pb.pod_images >= 0, sizes, 0.0)
@@ -139,7 +148,7 @@ def default_normalize(raw, feasible, reverse: bool):
     """helper.DefaultNormalizeScore over the node axis, feasible nodes only.
     max==0: the reference gives all-100 when reversed, all-0 otherwise."""
     masked = torch.where(feasible, raw, 0.0)
-    mx = torch.amax(masked, dim=-1, keepdim=True)
+    mx = mesh.reduce_nodes(torch.amax(masked, dim=-1, keepdim=True), "max")
     safe = torch.clamp(mx, min=1e-9)
     s = raw * MAX_NODE_SCORE / safe
     s = torch.where(mx > 0, s, 0.0)
@@ -150,8 +159,10 @@ def default_normalize(raw, feasible, reverse: bool):
 def minmax_normalize(raw, feasible):
     """InterPodAffinity-style min-max normalize to 0-100 over feasible nodes."""
     big = 3.4e38
-    mn = torch.amin(torch.where(feasible, raw, big), dim=-1, keepdim=True)
-    mx = torch.amax(torch.where(feasible, raw, -big), dim=-1, keepdim=True)
+    mn = mesh.reduce_nodes(torch.amin(torch.where(feasible, raw, big),
+                                      dim=-1, keepdim=True), "min")
+    mx = mesh.reduce_nodes(torch.amax(torch.where(feasible, raw, -big),
+                                      dim=-1, keepdim=True), "max")
     diff = mx - mn
     out = (raw - mn) * MAX_NODE_SCORE / torch.clamp(diff, min=1e-9)
     return torch.where(diff > 0, out, 0.0)
@@ -219,17 +230,22 @@ def select_host(scores, seed: int = 0, node_rank=None):
     ``node_rank`` [N] int32: the tie-break identity per node — by default
     the node's index, under a fleet its TENANT-LOCAL rank
     (ops/filters.tenant_local_rank).
+
+    On a mesh shard: the identity is the node's GLOBAL index (or its
+    global rank), the salt the pod's batch position, and the (least key,
+    first index) pair is combined across shards, so the choice (a global
+    node id) is the single-device one. Keys are 30-bit and can tie.
     """
     P, N = scores.shape
     dev = scores.device
-    has = torch.any(torch.isfinite(scores), dim=-1)
-    best = torch.amax(scores, dim=-1, keepdim=True)
+    has = mesh.reduce_nodes(torch.any(torch.isfinite(scores), dim=-1), "any")
+    best = mesh.reduce_nodes(torch.amax(scores, dim=-1, keepdim=True), "max")
     is_best = scores == best
-    pos = torch.arange(P, dtype=torch.int64, device=dev)
+    pos = mesh.pod_ids(P, dev)
     salt = _mul_u32(((seed & _U32) + pos) & _U32, 2246822519)
-    ident = (torch.arange(N, dtype=torch.int64, device=dev) if node_rank is None
+    ident = (mesh.node_ids(N, dev) if node_rank is None
              else node_rank.to(torch.int64) & _U32)
     tb = (_mul_u32(ident, 2654435761)[None, :] ^ salt[:, None]) & 0x3FFFFFFF
     key = torch.where(is_best, tb, 0x7FFFFFFF)
-    choice = torch.argmin(key, dim=-1)
+    choice = mesh.argmin_nodes(key)
     return choice, has

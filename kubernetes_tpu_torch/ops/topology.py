@@ -24,6 +24,18 @@ Spread eligibility: nodes failing the incoming pod's nodeSelector/nodeAffinity
 (nodeTaintsPolicy=Honor) are excluded from skew counts and the global
 minimum. ``minDomains``: when fewer eligible domains exist, the global
 minimum is 0 (filtering.go minMatchNum).
+
+On a device mesh (parallel/mesh.py) a shard holds its node slice and a
+copy of the existing pods. ``count_pn`` runs on each shard over its own
+nodes: the wrapper remaps the existing pods' node ids to the shard's
+local rows (a pod on another shard's node gets -1 and counts nowhere
+here), so the kernel's arguments are the single-device ones. The domain
+aggregation sums across shards, since a domain may straddle a shard
+boundary: the factored branch reduces its per-value counts, the [N,N]
+branch contracts the gathered [P,T,N] counts against the shard's columns
+of the same-domain matrix. The spread minimum, ``num_domains`` and the
+affinity bootstrap's "anywhere" reduce across shards too. All of it is
+exact: the counts are integers below 2**24 in float32.
 """
 
 from __future__ import annotations
@@ -40,6 +52,7 @@ import torch
 from kubernetes_tpu_torch.encode.snapshot import ClusterTensors, PodBatch
 from kubernetes_tpu_torch.ops import kernels
 from kubernetes_tpu_torch.ops.exprs import eval_selector_set
+from kubernetes_tpu_torch.parallel import mesh
 
 # Above this node count the [N,N] same-domain matmuls are replaced by a
 # FACTORED formulation — scatter-add per interned domain VALUE then gather
@@ -308,7 +321,10 @@ def count_pn(ct: ClusterTensors, sel, pod_ns, ns_explicit=None, ns_mask=None,
 def _count_pn(ct: ClusterTensors, sel, pod_ns, ns_explicit=None, ns_mask=None):
     """cnt_pn [P,T,N] f32: matching existing pods per (pod, term) per NODE,
     before domain aggregation. On the card this is the ``count_pn`` kernel;
-    on the CPU it is the plain version."""
+    on the CPU it is the plain version. On a mesh shard: over the shard's
+    nodes, the existing pods' node ids remapped to its local rows."""
+    if mesh.current() is not None:
+        ct = ct.replace(epod_node=mesh.local_nodes(ct.epod_node))
     if ct.epod_node.is_cuda:
         return count_pn(ct, sel, pod_ns, ns_explicit, ns_mask)
     return _count_pn_plain(ct, sel, pod_ns, ns_explicit, ns_mask)
@@ -324,7 +340,8 @@ def _domain_counts(ct: ClusterTensors, cnt_pn, term_topo, topo_keys,
     ``_count_pn``). Nodes lacking the key have has_key False and count 0.
     ``elig`` [P,T,N] restricts which nodes' pods participate (spread
     node-inclusion policies); ``want_domains`` additionally counts distinct
-    domains with >=1 eligible node.
+    domains with >=1 eligible node. On a mesh shard N is the shard's node
+    slice and the sums run over the whole node axis (see the module).
     """
     N = ct.node_valid.shape[0]
     dev = cnt_pn.device
@@ -336,8 +353,11 @@ def _domain_counts(ct: ClusterTensors, cnt_pn, term_topo, topo_keys,
                if want_domains else None)
     K = ct.node_labels.shape[1]
     V = ct.label_value_num.shape[0]
-    factored = _use_factored(int(N))
-    idx_n = torch.arange(N, device=dev)
+    factored = _use_factored(mesh.n_global(int(N)))
+    idx_n = mesh.node_ids(N, dev)
+    sharded = mesh.nodes_split()
+    cnt_all = mesh.gather_nodes(cnt_pn, 2) if sharded and not factored \
+        else cnt_pn
     for k in topo_keys:
         if k < 0 or k >= K:
             continue
@@ -345,16 +365,21 @@ def _domain_counts(ct: ClusterTensors, cnt_pn, term_topo, topo_keys,
         present = dv >= 0
         sel = term_topo == k                                  # [P,T]
         dv_safe = dv.clamp(0, max(V - 1, 0)).long()
+        if not factored:
+            # rows: every node of the cluster; columns: this shard's
+            dv_all = mesh.gather_nodes(dv)
+            same = ((dv_all[:, None] == dv[None, :])
+                    & (dv_all >= 0)[:, None] & present[None, :])
         if factored:
             # scatter per-VALUE, gather per node: O(P*T*(N+V)), no [N,N]
             src = cnt_pn * present[None, None, :].to(torch.float32)
             cnt_val = torch.zeros(cnt_pn.shape[:2] + (V,), dtype=torch.float32,
                                   device=dev).index_add_(2, dv_safe, src)
+            cnt_val = mesh.reduce_nodes(cnt_val, "sum")
             agg = cnt_val[:, :, dv_safe] * present[None, None, :]
         else:
-            same = ((dv[:, None] == dv[None, :])
-                    & present[:, None] & present[None, :])
-            agg = _count_einsum("ptn,nm->ptm", cnt_pn, same.to(torch.float32))
+            agg = _count_einsum("ptn,nm->ptm", cnt_all,
+                                same.to(torch.float32))
         cnt_dom = torch.where(sel[..., None], agg, cnt_dom)
         has_key = has_key | (sel[..., None] & present[None, None, :])
         if want_domains:
@@ -365,15 +390,19 @@ def _domain_counts(ct: ClusterTensors, cnt_pn, term_topo, topo_keys,
                 ek_f = ek.to(torch.float32).expand(cnt_pn.shape)
                 hit = torch.zeros(cnt_pn.shape[:2] + (V,), dtype=torch.float32,
                                   device=dev).index_add_(2, dv_safe, ek_f)
+                hit = mesh.reduce_nodes(hit, "sum")
                 nd_k = torch.sum((hit > 0.0).to(torch.float32), dim=-1)
             else:
                 # count nodes that are the FIRST eligible node of their
                 # domain (no eligible same-domain predecessor)
-                lower = (same & (idx_n[:, None] < idx_n[None, :])
+                idx_all = mesh.gather_nodes(idx_n)
+                lower = (same & (idx_all[:, None] < idx_n[None, :])
                          ).to(torch.float32)
                 ek_f = ek.to(torch.float32).expand(cnt_pn.shape)
-                prior = _count_einsum("ptm,mn->ptn", ek_f, lower) > 0.0
-                nd_k = torch.sum((ek & ~prior).to(torch.float32), dim=-1)
+                ek_all = mesh.gather_nodes(ek_f, 2) if sharded else ek_f
+                prior = _count_einsum("ptm,mn->ptn", ek_all, lower) > 0.0
+                nd_k = mesh.reduce_nodes(
+                    torch.sum((ek & ~prior).to(torch.float32), dim=-1), "sum")
             num_dom = torch.where(sel, nd_k, num_dom)
     return cnt_dom, has_key, num_dom
 
@@ -432,8 +461,11 @@ def spread_mask(ct: ClusterTensors, pb: PodBatch, topo_keys: tuple[int, ...] = (
     self_match = _diag_self_match(pb.sc_sel, pb.pod_labels)   # [P,S]
     big = 3.4e38
     eligible = has_key & pol
-    min_cnt = torch.amin(torch.where(eligible, cnt, big), dim=-1, keepdim=True)
-    min_cnt = torch.where(torch.any(eligible, dim=-1, keepdim=True), min_cnt, 0.0)
+    min_cnt = mesh.reduce_nodes(torch.amin(torch.where(eligible, cnt, big),
+                                           dim=-1, keepdim=True), "min")
+    any_elig = mesh.reduce_nodes(torch.any(eligible, dim=-1, keepdim=True),
+                                 "any")
+    min_cnt = torch.where(any_elig, min_cnt, 0.0)
     # minDomains (DoNotSchedule only): fewer eligible domains than required
     # -> global minimum treated as 0
     min_unmet = (pb.sc_min_domains > 0) & \
@@ -485,8 +517,8 @@ def interpod_required_mask(ct: ClusterTensors, pb: PodBatch,
         # namespace sets (the first pod of a self-affine gang).
         self_match = _diag_self_match(pb.aff_sel, pb.pod_labels)  # [P,T]
         self_match &= _self_ns_ok(pb, pb.aff_ns_explicit, pb.aff_ns_mask)
-        none_any_all = torch.all(~torch.any(cnt >= 1.0, dim=-1) | ~pb.aff_valid,
-                                 dim=1)
+        anywhere = mesh.reduce_nodes(torch.any(cnt >= 1.0, dim=-1), "any")
+        none_any_all = torch.all(~anywhere | ~pb.aff_valid, dim=1)
         self_all = torch.all(self_match | ~pb.aff_valid, dim=1)
         bootstrap = none_any_all & self_all                     # [P]
         out &= has_all_keys & (sat | bootstrap[:, None])
@@ -520,12 +552,16 @@ def interpod_symmetry_mask(ct: ClusterTensors, pb: PodBatch,
     veto = torch.zeros((P, N), dtype=torch.bool, device=dev)
     K = ct.node_labels.shape[1]
     V = ct.label_value_num.shape[0]
-    factored = _use_factored(int(N))
+    N_all = mesh.n_global(int(N))
+    factored = _use_factored(N_all)
     for k in topo_keys:
         if k < 0 or k >= K:
             continue
         dv = ct.node_labels[:, k]                             # [N]
-        dv_e = dv[ct.epod_node.clamp(0, max(N - 1, 0)).long()]
+        # the existing pods' node ids are global: their domains are read
+        # from the whole node axis' column
+        dv_all = mesh.gather_nodes(dv)
+        dv_e = dv_all[ct.epod_node.clamp(0, max(N_all - 1, 0)).long()]
         dv_e = torch.where(ct.epod_node >= 0, dv_e, -1)       # [E]
         wm = torch.any(m & (ct.ea_topo == k)[None], dim=-1)   # [P,E]
         if factored:

@@ -13,9 +13,9 @@ delta log feeds the device-resident drain context's churn patches
 
 The staging arena (sched/staging.py) stages drain batches for the
 scheduler's ``device``: pinned host buffers and a side CUDA stream on the
-card, the plain conversion on the CPU. Of the reference cache this module
-leaves out the device mesh (``set_mesh`` takes one and runs on one
-device). DRA objects (``update_dra_object``) feed a ``DraCatalog``
+card, the plain conversion on the CPU; under a device mesh (``set_mesh``,
+parallel/mesh.py) it stages one copy of the stack on each of the mesh's
+devices (``presplit_stack``). DRA objects (``update_dra_object``) feed a ``DraCatalog``
 (sched/dra.py) that the encoder turns into ``dra:<class>`` columns of the
 resource axis, as in the reference.
 """
@@ -96,18 +96,21 @@ class SchedulerCache:
         self._arena = StagingArena()
         self._staging_enabled = True
         self._device = torch.device("cpu")
+        self._mesh = None
 
     # ---- device and staging ----------------------------------------------
 
     def set_mesh(self, mesh) -> None:
-        """The port runs on one device: a mesh is taken and run
-        single-device, as the reference's scheduler runs a mesh it has too
-        few devices for. The staged buffers are dropped, as there."""
+        """Stage drain batches for ``mesh`` (parallel/mesh.py; None: the
+        scheduler's device). Tickets staged for the old layout are
+        invalidated: a redeem after a reshape stages inline, for the new
+        one."""
+        self._mesh = mesh
         self._arena.invalidate()
 
     @property
     def mesh(self):
-        return None
+        return self._mesh
 
     def configure_staging(self, enabled: bool, device=None) -> None:
         """Arena switch, and the device staged batches and patches go to
@@ -125,7 +128,7 @@ class SchedulerCache:
         inline."""
         if not self._staging_enabled:
             return None
-        return self._arena.submit(pb_stack, self._device)
+        return self._arena.submit(pb_stack, self._device, mesh=self._mesh)
 
     def stage_redeem(self, ticket):
         """Redeem a stage_submit ticket: the staged batch, ordered on the
@@ -133,7 +136,7 @@ class SchedulerCache:
         stages inline)."""
         if ticket is None:
             return None
-        return self._arena.redeem(ticket, self._device)
+        return self._arena.redeem(ticket, self._device, mesh=self._mesh)
 
     def close_staging(self) -> None:
         self._arena.close()
@@ -144,7 +147,11 @@ class SchedulerCache:
         ticket instead)."""
         from kubernetes_tpu_torch.metrics.registry import STAGE_BYTES
         from kubernetes_tpu_torch.sched.staging import _tree_nbytes
-        staged = pb_stack.to(self._device)
+        if self._mesh is not None:
+            from kubernetes_tpu_torch.parallel.mesh import presplit_stack
+            staged = presplit_stack(self._mesh, pb_stack)
+        else:
+            staged = pb_stack.to(self._device)
         STAGE_BYTES.inc({"path": "inline"}, by=_tree_nbytes(pb_stack))
         return staged
 

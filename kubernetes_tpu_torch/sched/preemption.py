@@ -27,8 +27,9 @@ degrade, counting it as a loop error and feeding the breaker. The
 semantic fallbacks to ``find_candidate`` (a zero-eviction fit, ranked
 candidates that fail exact verification) are part of the algorithm and
 stay. A DRA catalog (sched/dra.py) reaches the oracle, the static masks and
-the victims' requests as in the reference. A device mesh is taken and run
-single-device.
+the victims' requests as in the reference. Under a device mesh
+(parallel/mesh.py) the static masks run sharded: the cluster split on
+"nodes", the preemptors' rows on "pods", the [Q,N] mask gathered.
 """
 
 from __future__ import annotations
@@ -229,8 +230,17 @@ def tensor_static_masks(nodes, preemptors, ct=None, meta=None,
     ``node_rows``: optional row index per entry of ``nodes`` into ``ct``'s
     node axis — the resident context's row order diverges from the node
     list after node churn patches, so the columns are gathered by row
-    instead of sliced positionally. ``mesh``: the port runs on one
-    device; a mesh is taken and the masks computed single-device."""
+    instead of sliced positionally. ``mesh``: a parallel/mesh.Mesh -- the
+    filter program runs on every shard, over its node slice and its
+    preemptor rows, and the [Q,N] mask is gathered; ``ct`` may then be
+    the drain context split over that mesh (``pre_staged``)."""
+    if mesh is not None:
+        mask = _sharded_static_masks(nodes, preemptors, ct, meta,
+                                     bound_pods, encode_pods, min_p, mesh,
+                                     pre_staged)
+        if node_rows is not None:
+            return mask[:len(preemptors)][:, np.asarray(node_rows)]
+        return mask[:len(preemptors), :len(nodes)]
     device = resolve_device(device)
     if ct is None:
         from kubernetes_tpu_torch.encode.snapshot import SnapshotEncoder
@@ -243,6 +253,33 @@ def tensor_static_masks(nodes, preemptors, ct=None, meta=None,
     if node_rows is not None:
         return mask[:len(preemptors)][:, np.asarray(node_rows)]
     return mask[:len(preemptors), :len(nodes)]
+
+
+def _sharded_static_masks(nodes, preemptors, ct, meta, bound_pods,
+                          encode_pods, min_p, mesh, pre_staged) -> np.ndarray:
+    """``tensor_static_masks`` on every shard of ``mesh`` -> [Q,N] bool."""
+    from kubernetes_tpu_torch.parallel import mesh as mesh_mod
+    if ct is None:
+        from kubernetes_tpu_torch.encode.snapshot import SnapshotEncoder
+        enc = SnapshotEncoder()
+        ct, meta = enc.encode_cluster(nodes, bound_pods or [])
+        encode_pods = enc.encode_pods
+    pb = encode_pods(preemptors, meta, min_p=min_p)
+    ct_s = (ct if pre_staged and isinstance(ct, mesh_mod.ShardedCluster)
+            and ct.mesh is mesh
+            else mesh_mod.shard_cluster(mesh, mesh_mod.full_view(ct)))
+    pbs = mesh_mod.shard_batch(mesh, pb)
+    layout = mesh_mod.Layout(mesh, ct_s.layout.N,
+                             int(np.shape(pb.pod_valid)[0]))
+
+    def body(piece, pb_dev):
+        m = _static_filters_program(piece, mesh_mod.pod_rows(pb_dev))
+        return mesh_mod.gather_pods(mesh_mod.gather_nodes(m, 1))
+
+    out = mesh_mod.run(layout, body, [
+        (piece, pbs[d]) for piece, d in zip(ct_s.pieces,
+                                            mesh.device_list())])
+    return out[0].cpu().numpy()
 
 
 # waves pad to this bucket so a storm's varying wave sizes share one set of
@@ -270,8 +307,9 @@ def preempt_wave(nodes: list[Node], bound_pods: list[Pod],
     cluster and Q oracle rebuilds.
 
     ``resident_arrays``/``req_lookup``: the scheduler's resident-context
-    fast path (ops/preemption.py dry_run_wave). An error of the static
-    masks or of the device wave propagates.
+    fast path (ops/preemption.py dry_run_wave). ``mesh``: the static
+    masks run sharded on it. An error of the static masks or of the device
+    wave propagates.
 
     Returns one ``PreemptionResult | None`` per preemptor, in order."""
     from kubernetes_tpu_torch.ops.preemption import dry_run_wave
@@ -281,7 +319,8 @@ def preempt_wave(nodes: list[Node], bound_pods: list[Pod],
     if static_masks is None and len(preemptors) * len(nodes) > (1 << 14):
         static_masks = tensor_static_masks(nodes, preemptors,
                                            bound_pods=bound_pods,
-                                           min_p=min_q, device=device)
+                                           min_p=min_q, mesh=mesh,
+                                           device=device)
     proposals = dry_run_wave(nodes, bound_pods, preemptors, budgets,
                              dra=dra, static_masks=static_masks,
                              min_q=min_q, resident_arrays=resident_arrays,

@@ -721,12 +721,14 @@ class SchedulerRunner:
     def publish_status(self) -> None:
         """Publish the deployment-shape status ConfigMap (``ktpu status``
         reads it): the batching knobs, the resident context, staging and
-        the resilience state. The port runs on one device, so ``mesh`` is
-        null. Best effort — status must never take the scheduler down."""
+        the resilience state, and the active device mesh (its shape,
+        device count and devices; null single-device). Best effort —
+        status must never take the scheduler down."""
         import json
+        mesh = self.scheduler.mesh
         status = {
             "identity": self.identity,
-            "mesh": None,
+            "mesh": mesh.describe() if mesh is not None else None,
             "batchSize": self.cfg.batch_size,
             "maxDrainBatches": self.cfg.max_drain_batches,
             "pipelineDepth": self.cfg.pipeline_depth,

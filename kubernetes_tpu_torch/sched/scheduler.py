@@ -63,9 +63,12 @@ rounds at the group path, the drain and the warm ladder, as in the
 reference; a profile whose plugins filter is requeued rather than
 scheduled by the oracle (``_schedule_oracle``). DRA device
 claims (sched/dra.py) ride the resource axis as in the reference, and a
-slice-shaped ResourceClaim routes its pod into the carver. A ``meshShape`` runs
-single-device with a warning, as the reference does with too few
-devices. Fleet mode (7b) is ported: ``sched/fleet.FleetRunner`` sets
+slice-shaped ResourceClaim routes its pod into the carver. A ``meshShape``
+(or ``KTPU_MESH``) that the devices can meet installs a ("pods", "nodes")
+device mesh (parallel/mesh.py): the resident drain, the group path's gang
+program, the preemption masks and the planners' dispatches run sharded,
+and the breaker walks mesh -> single -> oracle; with too few devices it
+warns and runs single-device, as the reference does. Fleet mode (7b) is ported: ``sched/fleet.FleetRunner`` sets
 ``fleet_mode``. The parity sentinel (``audit/sentinel.py``) samples drains, preemption waves
 and slice carves as in the reference, but an answer it refutes stops the
 loop with a ``ParityError`` where the reference trips the breaker to the
@@ -76,6 +79,7 @@ from __future__ import annotations
 
 import dataclasses
 import logging
+import os
 import queue as queue_mod
 import threading
 import time
@@ -147,15 +151,17 @@ class Scheduler:
         self.binder = binder
         # the card unless the caller asks for the CPU (tests)
         self.device = resolve_device(device)
-        mesh = cfg.mesh_shape
-        if mesh is not None and mesh[0] * mesh[1] > 1:
-            # the port runs on one device: as the reference does when the
-            # backend has fewer devices than the mesh asks for, it runs
-            # single-device rather than refuse to schedule (the mesh is a
-            # throughput knob, not a correctness requirement)
-            _LOG.warning("mesh shape %s unavailable: the port runs on one "
-                         "device; running single-device", mesh)
-        MESH_DEVICES.set(1)
+        # ---- device mesh (parallel/mesh.py) ------------------------------
+        # cfg.meshShape / KTPU_MESH install a ("pods","nodes") mesh below:
+        # the drain context splits its node axis over it and every shard
+        # runs the rounds. _mesh_epoch bumps on every (re)install; the
+        # drain context records the epoch it was built under, so a
+        # reshape rebuilds it instead of patching a stale layout.
+        self._mesh = None
+        self._mesh_epoch = 0
+        # the operator-configured mesh: what the breaker restores to after
+        # a degrade window (_install_mesh toggles the ACTIVE mesh only)
+        self._configured_mesh = None
         # bulk_binder(pairs: [(Pod, node_name)]) -> [bool]: one API call
         # binding a whole gang batch. Pods needing per-pod ceremony
         # (lifecycle hooks, volume binding) still go through ``binder``.
@@ -229,6 +235,7 @@ class Scheduler:
         # double-buffered batch staging (sched/staging.py); the cache owns
         # the arena and stages for this scheduler's device
         self.cache.configure_staging(cfg.staging_arena, self.device)
+        self._install_configured_mesh(cfg)
         # context lifecycle counters: "folds" are churn deltas fused into a
         # drain dispatch, "patches" separate apply_ctx_patch calls —
         # steady-state fused churn keeps patches at 0
@@ -296,6 +303,64 @@ class Scheduler:
                 raise ValueError(
                     f"profile {prof.scheduler_name!r} references "
                     f"unregistered out-of-tree plugins: {sorted(unknown)}")
+
+    # ---- device mesh -----------------------------------------------------
+
+    def _install_configured_mesh(self, cfg) -> None:
+        """``meshShape`` (``KTPU_MESH`` wins when valid) -> the mesh of
+        the first pods*nodes real devices; with fewer devices, a warning
+        and single-device, as the reference does."""
+        shape = cfg.mesh_shape
+        env = os.environ.get("KTPU_MESH")
+        if env is not None:
+            from kubernetes_tpu_torch.config.types import (ValidationError,
+                                                           parse_mesh_shape,
+                                                           validate)
+            try:
+                env_shape = parse_mesh_shape(env)
+                # the rules the YAML path enforces (pow2 axes, the pods
+                # axis divides batchSize)
+                validate(dataclasses.replace(cfg, mesh_shape=env_shape))
+                shape = env_shape
+            except (ValidationError, ValueError) as e:
+                _LOG.warning("ignoring invalid KTPU_MESH=%r: %s", env, e)
+        if shape is not None and shape[0] * shape[1] > 1:
+            from kubernetes_tpu_torch.parallel.mesh import mesh_from_shape
+            try:
+                self.set_mesh(mesh_from_shape(shape))
+            except ValueError:
+                # fewer devices than configured: run single-device rather
+                # than refuse to schedule (the mesh is a throughput knob)
+                _LOG.warning("mesh shape %s unavailable; running "
+                             "single-device", shape, exc_info=True)
+        MESH_DEVICES.set(self._mesh.size if self._mesh else 1)
+
+    def set_mesh(self, mesh) -> None:
+        """Install (or drop, with ``None``) the scheduling mesh -- the
+        OPERATOR-facing entry, and the only one that takes a mesh naming
+        a device more than once (parallel/mesh.make_mesh). Records it as
+        the configured layout the breaker restores to, and resets the
+        breaker's ladder to ("mesh", "single", "oracle")."""
+        self._configured_mesh = mesh
+        self._install_mesh(mesh)
+        self.breaker.reset_levels(
+            ("mesh", "single", "oracle") if mesh is not None
+            else ("single", "oracle"))
+
+    def _install_mesh(self, mesh) -> None:
+        """Activate a mesh (or drop to single-device). Bumps the mesh
+        epoch, so a drain context built under the old layout rebuilds at
+        its next dispatch; the breaker's degrade and restore use this, so
+        a single-device window never forgets the configured mesh."""
+        self._mesh = mesh
+        self._mesh_epoch += 1
+        self.cache.set_mesh(mesh)
+        MESH_DEVICES.set(mesh.size if mesh is not None else 1)
+
+    @property
+    def mesh(self):
+        """The ACTIVE mesh (None: single-device)."""
+        return self._mesh
 
     def _tensor_plugins(self, profile) -> tuple:
         """The profile's out-of-tree TensorPlugins, order-stable by name
@@ -553,6 +618,15 @@ class Scheduler:
         # the device entirely
         level = self.breaker.attempt_level()
         self._attempt_level = level
+        if level != "oracle":
+            # "mesh" runs under the configured mesh, "single" without one
+            want = self._configured_mesh if level == "mesh" else None
+            if want is not self._mesh:
+                _LOG.warning("degraded-mode transition: running %s "
+                             "(breaker mode %r)",
+                             "under the configured mesh" if want is not None
+                             else "single-device", self.breaker.mode)
+                self._install_mesh(want)
         if level == "oracle" and self._pending:
             # oracle mode dispatches nothing new; in-flight drains from
             # before the degrade must not linger (bounded waits inside)
@@ -1000,7 +1074,7 @@ class Scheduler:
                     weights=profile.weights(),
                     enabled_filters=profile.enabled_filters,
                     ext_mask=ext_mask, ext_scores=ext_scores,
-                    plugins=self._tensor_plugins(profile),
+                    mesh=self._mesh, plugins=self._tensor_plugins(profile),
                     capture=self.capture)
             except Exception as e:
                 if is_fatal(e):
@@ -1129,6 +1203,14 @@ class Scheduler:
         use_ctx = False
         fused_patch = None  # churn deltas riding THIS dispatch (fused fold)
         n_prev = 0
+        if (ctx is not None
+                and ctx.get("mesh_epoch") != self._mesh_epoch):
+            # a mesh (re)install since this context was built: its tensors
+            # carry the old layout, and a patch routed by it would land on
+            # the wrong shards. An epoch mismatch always rebuilds.
+            self._ctx_reason("mesh_reshape")
+            n_prev += self._resolve_pending()
+            self._drain_ctx = ctx = None
         if ctx is not None and ctx["profile"] == profile.scheduler_name:
             cs = ctx["cs"]
             known = set(ctx["meta"].resources)
@@ -1266,7 +1348,7 @@ class Scheduler:
 
         if not use_ctx:
             built = build_drain_context(ct, pbs, nom_bucket=DRAIN_NOM_BUCKET,
-                                        device=self.device)
+                                        device=self.device, mesh=self._mesh)
             cs = self.cache.patch_state_fork()
             if built is None or cs is None:
                 # base slots not packed (host patches left holes): run the
@@ -1289,6 +1371,7 @@ class Scheduler:
                    "nodes": nodes, "cs": cs, "seq": seq0,
                    "pb_shape": batch_shapes(pb_stack),
                    "profile": profile.scheduler_name,
+                   "mesh_epoch": self._mesh_epoch,
                    # host mirror of the resident [N,R] totals, cut from the
                    # SAME host encoding the context staged (its own copies)
                    "shadow": ResidentShadow(ct.allocatable, ct.requested)}
@@ -1655,7 +1738,7 @@ class Scheduler:
                for c in chunks]
         pb_stack = stack_batches(unify_batches(pbs))
         built = build_drain_context(ct, pbs, nom_bucket=DRAIN_NOM_BUCKET,
-                                    device=self.device)
+                                    device=self.device, mesh=self._mesh)
         if built is None:
             return False
         ct_warm, e0, fill = built
@@ -1697,7 +1780,7 @@ class Scheduler:
                 raise
             _LOG.exception("patch-program warmup failed (non-fatal)")
         built = build_drain_context(ct, pbs, nom_bucket=DRAIN_NOM_BUCKET,
-                                    device=self.device)
+                                    device=self.device, mesh=self._mesh)
         cs = self.cache.patch_state_fork()
         if built is None or cs is None:
             return False
@@ -1722,6 +1805,7 @@ class Scheduler:
                            "seq": self.cache.last_snapshot_seq(),
                            "pb_shape": batch_shapes(pb_stack),
                            "profile": profile.scheduler_name,
+                           "mesh_epoch": self._mesh_epoch,
                            "shadow": ResidentShadow(ct.allocatable,
                                                     ct.requested)}
         return True
@@ -2027,15 +2111,18 @@ class Scheduler:
         resolve: the wave then shares the resident cluster image (masks
         run on it in place, per-node totals read from its host shadow or
         the card, victim request vectors served from its fold ledger)
-        instead of re-staging tensors the card already holds. (The
-        reference also declines a context staged under an older mesh; the
-        port has no mesh.) ``seq`` is the delta-log position the context
-        has consumed: the planners compare it after a dispatch to see
-        whether a churn patch moved the context meanwhile."""
+        instead of re-staging tensors the card already holds. A context
+        built under an older mesh declines (``mesh_epoch``). ``seq`` is
+        the delta-log position the context has consumed: the planners
+        compare it after a dispatch to see whether a churn patch moved the
+        context meanwhile. ``mesh``: the mesh the context is split over
+        (None: one device), under which the consumers dispatch."""
         from kubernetes_tpu_torch.encode.patch import entries_all_folded
         ctx = self._drain_ctx
         if ctx is None:
             return None, "no_ctx"
+        if ctx.get("mesh_epoch") != self._mesh_epoch:
+            return None, "mesh_epoch"
         if self._pending:
             # in-flight drains' winners are folded into the resident
             # requested[N,R] but not yet in the cache's bound view — the
@@ -2059,7 +2146,8 @@ class Scheduler:
         return {"ct": ctx["ct"], "meta": meta, "cs": cs,
                 "nodes": nodes, "rows": np.asarray(rows, np.int32),
                 "shadow": ctx.get("shadow"), "seq": ctx["seq"],
-                "epoch": ctx["epoch"]}, "ok"
+                "epoch": ctx["epoch"], "mesh": self._mesh,
+                "mesh_epoch": ctx["mesh_epoch"]}, "ok"
 
     def _resident_wave_view(self) -> Optional[dict]:
         """The preemption wave's view of the resident drain context (see
@@ -2090,8 +2178,10 @@ class Scheduler:
                     lambda p: self.cache.request_vector(p, cs.resources))
                 got = shadow.arrays()
             if got is None:
-                got = (view["ct"].allocatable.cpu().numpy(),
-                       view["ct"].requested.cpu().numpy())
+                from kubernetes_tpu_torch.parallel.mesh import full_view
+                ct = full_view(view["ct"])
+                got = (ct.allocatable.cpu().numpy(),
+                       ct.requested.cpu().numpy())
             alloc_res, req_res = got
             rows = view["rows"]
             res_index = cs.res_index
@@ -2185,7 +2275,7 @@ class Scheduler:
                     pre_staged=resident is not None,
                     node_rows=(resident["rows"] if resident is not None
                                else None),
-                    device=self.device)
+                    mesh=self._mesh, device=self.device)
             with TRACER.span("preempt/wave", pods=len(pods),
                              nodes=len(nodes)):
                 results = preemption_mod.preempt_wave(

@@ -29,8 +29,12 @@ The PyTorch port of ``kubernetes_tpu/sched/staging.py``. Two pieces:
     place, and on the CPU a tensor made with ``torch.from_numpy`` shares
     its memory — a view would follow the device state the shadow mirrors.
 
-The reference's mesh pre-split (``presplit_stack``) is not here: the port
-runs on one device.
+Under a device mesh (parallel/mesh.py) a ticket carries the mesh it was
+staged for, and the upload is the mesh's pre-split staging
+(``presplit_stack``: one copy of the stack on each of its devices); a
+redeem under another mesh, or after ``invalidate`` (a mesh install or
+reshape), declines into the inline path, which stages for the current
+layout.
 """
 
 from __future__ import annotations
@@ -79,10 +83,10 @@ class StageTicket:
     """One submitted upload: done Event + result slot + validity stamps."""
 
     __slots__ = ("done", "staged", "error", "epoch", "device", "nbytes",
-                 "event", "slot")
+                 "event", "slot", "mesh")
 
     def __init__(self, epoch: int, device: torch.device,
-                 slot: Optional[_Slot]):
+                 slot: Optional[_Slot], mesh=None):
         self.done = threading.Event()
         self.staged = None
         self.error: Optional[BaseException] = None
@@ -91,6 +95,7 @@ class StageTicket:
         self.nbytes = 0
         self.event = None    # the copy's CUDA event (None on the CPU)
         self.slot = slot
+        self.mesh = mesh     # the mesh it was staged for (None: device)
 
 
 class StagingArena:
@@ -122,7 +127,11 @@ class StagingArena:
             t.start()
 
     def _upload(self, ticket: StageTicket, pb_stack):
-        """The staged copy of ``pb_stack`` on ``ticket.device``."""
+        """The staged copy of ``pb_stack`` on ``ticket.device`` (under a
+        mesh, its pre-split copies: {device: stack})."""
+        if ticket.mesh is not None:
+            from kubernetes_tpu_torch.parallel.mesh import presplit_stack
+            return presplit_stack(ticket.mesh, pb_stack)
         if ticket.device.type != "cuda":
             return pb_stack.to(ticket.device)
         from kubernetes_tpu_torch.models.gang import _tree_map
@@ -187,7 +196,7 @@ class StagingArena:
 
     # ---- submit / redeem -------------------------------------------------
 
-    def submit(self, pb_stack, device) -> Optional[StageTicket]:
+    def submit(self, pb_stack, device, mesh=None) -> Optional[StageTicket]:
         """Enqueue an upload of ``pb_stack`` (a stacked PodBatch of numpy
         leaves) to ``device``; returns a ticket to redeem at dispatch, or
         None when the double buffer is full (caller stages inline — never
@@ -197,19 +206,19 @@ class StagingArena:
             if self._inflight >= self.depth:
                 return None
             slot = None
-            if device.type == "cuda":
+            if device.type == "cuda" and mesh is None:
                 slot = next((s for s in self._slots if s.free()), None)
                 if slot is None:
                     return None  # both pinned buffers still being copied
                 slot.claimed = True
             self._inflight += 1
             self.submits += 1
-            ticket = StageTicket(self._epoch, device, slot)
+            ticket = StageTicket(self._epoch, device, slot, mesh)
         self._ensure_thread()
         self._q.put((ticket, pb_stack))
         return ticket
 
-    def redeem(self, ticket: Optional[StageTicket], device,
+    def redeem(self, ticket: Optional[StageTicket], device, mesh=None,
                timeout: float = REDEEM_WAIT_S):
         """The staged batch, ready for use on the current stream, or None
         (caller falls back to the inline path). Declines when the arena
@@ -231,7 +240,8 @@ class StagingArena:
                     return None
             with self._lock:
                 stale = (ticket.epoch != self._epoch
-                         or ticket.device != torch.device(device))
+                         or ticket.device != torch.device(device)
+                         or ticket.mesh is not mesh)
                 if stale or ticket.error is not None \
                         or ticket.staged is None:
                     self.fallbacks += 1

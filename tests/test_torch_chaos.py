@@ -1,10 +1,12 @@
 """The port's chaos harness (``kubernetes_tpu_torch/chaos/``) against the
 JAX package's, on the CPU.
 
-Every case of ``tests/test_chaos.py`` but the multichip one (the
-breaker's mesh level: the port has one device and no ``parallel/mesh.py``)
-runs on both packages through ``tests/torch_store_parity.py``: both pass,
-and their records are equal. The cache-on leg of crash recovery runs the
+Every case of ``tests/test_chaos.py`` runs on both packages through
+``tests/torch_store_parity.py``: both pass, and their records are equal.
+The multichip one (the breaker's mesh level: a burst drops the configured
+(1,2) mesh to single-device, the probe reinstalls it) meets its mesh on
+the JAX side with XLA's virtual CPU devices and on the port's with logical
+``cpu`` shards (``mesh_from_shape`` counts CUDA cards). The cache-on leg of crash recovery runs the
 port's kernel cache (``sched/aotcache.py``) with a stand-in ``nvcc``, and
 its runners ready the kernel libraries on the CPU as they do on the card
 (``aotcache.KERNEL_DEVICES``): the restart builds nothing and loads its
@@ -52,10 +54,9 @@ from kubernetes_tpu_torch.testing.wrappers import make_node, make_pod
 from kubernetes_tpu_torch.utils.clock import FakeClock
 
 NAME = "test_chaos"
-# the breaker's mesh level: one device, no parallel/mesh.py in the port
-LEFT_OUT = ("test_breaker_mesh_degrade_and_restore",)
 WARM_CACHE = "test_crash_recovery_warm_from_cache_restart_parity"
-CASES = [c for c in parity.cases(NAME) if c[1] not in LEFT_OUT]
+MESH_CASE = "test_breaker_mesh_degrade_and_restore"
+CASES = parity.cases(NAME)
 
 STAND_IN = """#!{python}
 import sys
@@ -72,6 +73,18 @@ with open(args[-1], "rb") as src, open(out, "wb") as lib:
 @pytest.fixture(scope="module")
 def shared():
     yield from parity.shared_fixtures()
+
+
+@pytest.fixture
+def cpu_devices(monkeypatch):
+    """The port's ``mesh_from_shape`` over 8 logical ``cpu`` shards, as
+    the JAX side's over XLA's 8 virtual CPU devices."""
+    from kubernetes_tpu_torch.parallel import mesh as mesh_mod
+    real = mesh_mod.mesh_from_shape
+    monkeypatch.setattr(
+        mesh_mod, "mesh_from_shape",
+        lambda shape, devices=None: real(shape, devices=devices
+                                         or ["cpu"] * 8))
 
 
 @pytest.fixture
@@ -98,6 +111,8 @@ def test_reference_case_on_both_packages(fname, params, tmp_path, shared,
                                          request):
     loads = (request.getfixturevalue("stand_in_kernels")
              if fname == WARM_CACHE else None)
+    if fname == MESH_CASE:
+        request.getfixturevalue("cpu_devices")
     try:
         ref, port = parity.both(NAME, fname, params, tmp_path, shared)
     finally:
@@ -111,9 +126,8 @@ def test_reference_case_on_both_packages(fname, params, tmp_path, shared,
 
 
 def test_chaos_cases_are_selected():
-    assert len(CASES) == 18
-    assert {c[1] for c in parity.cases(NAME)} - {c[1] for c in CASES} \
-        == set(LEFT_OUT)
+    assert len(CASES) == 19
+    assert MESH_CASE in {c[1] for c in CASES}
 
 
 # ---- the port's own cases -------------------------------------------------

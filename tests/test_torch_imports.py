@@ -84,6 +84,8 @@ _SCHED_MODULES = (
     "sched.faults", "sched.fleet",
     # warm start and the round loop as one captured device program
     "models.graphs", "parallel.aot", "sched.aotcache",
+    # the device mesh
+    "parallel.mesh",
     # DRA device claims and the ResourceClaim controller
     "sched.dra", "client.workqueue", "controllers.base",
     "controllers.resourceclaim",
@@ -169,6 +171,31 @@ def test_scheduler_module_is_walked(name):
     # the blocked-import walk above reaches every module of the slice
     assert (PORT / (name.replace(".", "/") + ".py")).is_file()
     assert (PORT / name.split(".")[0] / "__init__.py").is_file()
+
+
+_MESH_BLOCKED = r"""
+import sys
+sys.modules["jax"] = None
+sys.modules["flax"] = None
+import torch
+from kubernetes_tpu_torch.parallel import mesh
+m = mesh.make_mesh(["cpu"] * 4, pods_axis=2)
+out = mesh.run(mesh.Layout(m, 8, 4), lambda: int(mesh.reduce_nodes(
+    torch.ones((), dtype=torch.int64), "sum")), [()] * m.size)
+leaked = sorted(k for k in sys.modules
+                if k.split(".")[0] in ("kubernetes_tpu", "benchmarks"))
+print(m.shape["pods"], m.shape["nodes"], out, leaked)
+"""
+
+
+def test_mesh_module_imports_and_runs_with_jax_blocked():
+    """``parallel/mesh.py`` imports and runs its shards with JAX blocked
+    (its counterpart in the JAX package is built on ``jax.sharding``)."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    res = subprocess.run([sys.executable, "-c", _MESH_BLOCKED], cwd=ROOT,
+                         env=env, capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "2 2 [2, 2, 2, 2] []"
 
 
 def test_no_item_14_refusal_left():

@@ -483,17 +483,20 @@ def test_tensor_static_masks_equal_reference():
 
 
 def test_static_mask_refuses_a_mesh():
-    """A mesh is no longer refused (ROADMAP item 8): the port runs on one
-    device, and the masks and the wave with a mesh equal those without."""
+    """A mesh is not refused: since ROADMAP item 20 the static masks run
+    sharded on it, and the masks and the wave on a mesh of two logical CPU
+    shards equal those without one."""
+    from kubernetes_tpu_torch.parallel.mesh import make_mesh
     nodes, bound = build_saturated(2)
     pod = port_wrappers.make_pod("p").req({"cpu": "1"}).obj()
+    meshes = (None, make_mesh(["cpu"] * 2))
     masks = [port_pre.tensor_static_masks(nodes, [pod], bound_pods=bound,
                                           mesh=mesh, device="cpu")
-             for mesh in (None, object())]
+             for mesh in meshes]
     assert np.array_equal(masks[0], masks[1])
     waves = [port_pre.preempt_wave(nodes, bound, [pod], mesh=mesh,
                                    device="cpu")
-             for mesh in (None, object())]
+             for mesh in meshes]
     assert [None if r is None else (r.node_name, sorted(
         v.key for v in r.victims)) for r in waves[0]] == [
         None if r is None else (r.node_name, sorted(v.key for v in r.victims))
